@@ -1,0 +1,234 @@
+"""The ``PolyFit`` session facade for static one-key tables.
+
+The twin of ``repro.api.session``:
+
+    from repro_torch.api import ErrorBudget, PolyFit, QueryBatch, QuerySpec, TableSpec
+
+    session = PolyFit.fit(
+        {"lat": keys, "price": (ts, vals)},
+        {"lat":   TableSpec("count", ErrorBudget(abs=100, rel=0.01)),
+         "price": TableSpec("max",   ErrorBudget(abs=50.0))})
+    results = session.query(QueryBatch.of(
+        QuerySpec.range("lat", -10.0, 30.0),
+        QuerySpec.range("price", t0, t1)))
+
+``fit`` builds one index per named table on the host, with the delta its
+``ErrorBudget`` derives (Lemma 5.1/5.3 — see ``budget.py``), and lowers each
+to a plan on the query device: the card unless ``device`` says otherwise.
+``query`` groups a mixed batch by (table, kind, guarantee), pads each group
+to its power-of-two bucket, runs one fused executor per group, and scatters
+the answers back in request order.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from .. import DTYPE, resolve_device
+from ..core import build_index_1d
+from ..core.queries import QueryResult
+from ..engine import IndexPlan, build_plan, execute, resolve_backend
+from .budget import ErrorBudget
+from .spec import DEFAULT_REL, KIND_OF_AGG, QueryBatch, QuerySpec, TableSpec
+
+__all__ = ["PolyFit", "Answer"]
+
+Request = Union[QuerySpec, QueryBatch, Sequence[QuerySpec]]
+
+
+@dataclasses.dataclass(frozen=True)
+class Answer:
+    """One structured query answer.
+
+    ``value`` is the (possibly refined) answer batch; ``approx``/``refined``
+    expose the raw index answers and the Q_rel refinement mask exactly as
+    :class:`~repro_torch.core.queries.QueryResult` does.  ``bound`` is the
+    certified Q_abs bound that travels with the answer.  ``staleness`` is 0
+    for static tables.  ``.answer`` aliases ``value``.
+    """
+
+    value: torch.Tensor
+    approx: torch.Tensor
+    refined: torch.Tensor
+    bound: object = None
+    staleness: int = 0
+
+    @property
+    def answer(self):
+        return self.value
+
+    def __iter__(self):   # (value, approx, refined) unpacking
+        return iter((self.value, self.approx, self.refined))
+
+
+class _Table:
+    """One fitted static table: the spec and its device plan."""
+
+    def __init__(self, name: str, spec: TableSpec, data, *,
+                 device: torch.device):
+        self.name = name
+        self.spec = spec
+        keys, meas = data
+        keys = np.asarray(keys, np.float64)
+        meas = None if meas is None else np.asarray(meas, np.float64)
+        t0 = time.perf_counter()
+        idx = build_index_1d(keys, meas, spec.agg, deg=spec.degree,
+                             delta=spec.budget.delta(spec.agg), device=device)
+        self.plan: IndexPlan = build_plan(idx)
+        self.build_seconds = time.perf_counter() - t0
+
+    def resolve_rel(self, rel) -> Optional[float]:
+        return self.spec.budget.rel if rel is DEFAULT_REL else rel
+
+    @property
+    def kind(self) -> str:
+        """The range-query kind this table's aggregate answers."""
+        return KIND_OF_AGG[self.spec.agg]
+
+
+class PolyFit:
+    """A fitted PolyFit session — construct with :meth:`fit`."""
+
+    def __init__(self, tables: Dict[str, _Table], *, backend: str,
+                 device: torch.device, min_bucket: int):
+        self._tables = tables
+        self.backend = backend
+        self.device = device
+        self.min_bucket = min_bucket
+
+    # -- construction ----------------------------------------------------
+
+    @classmethod
+    def fit(cls, datasets: Mapping, specs: Mapping[str, TableSpec], *,
+            backend: Optional[str] = None, device=None,
+            min_bucket: int = 64) -> "PolyFit":
+        """Build one index per named table and return the query session.
+
+        ``datasets`` maps table name -> data: a bare key array (COUNT) or
+        ``(keys, measures)`` for SUM/MAX/MIN.  ``specs`` maps the same names
+        to ``TableSpec``s; the spec's ``ErrorBudget`` is the only source of
+        build deltas.  ``device`` defaults to the card and raises
+        ``RuntimeError`` when there is none; ``backend`` defaults to
+        ``'cuda'`` on a CUDA device and ``'torch'`` on the CPU.
+        """
+        device = resolve_device(device)
+        backend = resolve_backend(backend, device)
+        missing = set(datasets) ^ set(specs)
+        if missing:
+            raise ValueError(f"datasets and specs disagree on tables: "
+                             f"{sorted(missing)}")
+        tables = {}
+        for name, spec in specs.items():
+            data = datasets[name]
+            if spec.agg == "count":
+                if not isinstance(data, tuple):
+                    data = (data, None)
+                elif len(data) == 1:
+                    data = (data[0], None)
+            elif not (isinstance(data, tuple) and len(data) == 2):
+                raise ValueError(f"table {name!r}: {spec.agg} data must be "
+                                 "(keys, measures)")
+            tables[name] = _Table(name, spec, data, device=device)
+        return cls(tables, backend=backend, device=device,
+                   min_bucket=min_bucket)
+
+    # -- introspection ---------------------------------------------------
+
+    @property
+    def tables(self) -> Tuple[str, ...]:
+        return tuple(self._tables)
+
+    def spec(self, table: str) -> TableSpec:
+        return self._table(table).spec
+
+    def budget(self, table: str) -> ErrorBudget:
+        return self._table(table).spec.budget
+
+    def plan(self, table: str) -> IndexPlan:
+        """The table's device plan."""
+        return self._table(table).plan
+
+    def size_bytes(self) -> Dict[str, int]:
+        return {k: t.plan.size_bytes() for k, t in self._tables.items()}
+
+    def build_seconds(self) -> Dict[str, float]:
+        """Host seconds each table's index build and plan lowering took."""
+        return {k: t.build_seconds for k, t in self._tables.items()}
+
+    def _table(self, name: str) -> _Table:
+        t = self._tables.get(name)
+        if t is None:
+            raise KeyError(f"unknown table {name!r}; fitted tables: "
+                           f"{sorted(self._tables)}")
+        return t
+
+    # -- queries ---------------------------------------------------------
+
+    def query(self, request: Request):
+        """Answer a request batch, preserving request order.
+
+        A single ``QuerySpec`` returns its :class:`Answer`; a ``QueryBatch``
+        (or a sequence of specs) returns a list of ``Answer``s aligned with
+        the specs.  Specs are grouped by (table, kind, guarantee); each
+        group enters one fused executor.
+        """
+        if isinstance(request, QuerySpec):
+            _, rel = self._resolve(request)
+            res = self._exec_group(request.table, request.ranges, rel)
+            return self._wrap(request.table, res)
+        specs = list(request.specs if isinstance(request, QueryBatch)
+                     else request)
+        if not specs:
+            return []
+        groups: Dict[Tuple, List[int]] = {}
+        for i, spec in enumerate(specs):
+            if not isinstance(spec, QuerySpec):
+                raise TypeError(f"expected QuerySpec, got {type(spec)}")
+            kind, rel = self._resolve(spec)
+            groups.setdefault((spec.table, kind, rel), []).append(i)
+        out: List[Optional[Answer]] = [None] * len(specs)
+        for (table, _, rel), idxs in groups.items():
+            ranges = tuple(self._concat([specs[i].ranges[j] for i in idxs])
+                           for j in range(2))
+            res = self._exec_group(table, ranges, rel)
+            off = 0
+            for i in idxs:
+                m = len(specs[i])
+                part = QueryResult(*(f[off:off + m] for f in res))
+                out[i] = self._wrap(table, part)
+                off += m
+        return out
+
+    def _concat(self, parts):
+        """One range coordinate of a group: a host concat for numpy parts,
+        a device concat once any part is a tensor."""
+        if len(parts) == 1:
+            return parts[0]
+        if all(isinstance(p, np.ndarray) for p in parts):
+            return np.concatenate(parts)
+        return torch.cat([torch.as_tensor(p, dtype=DTYPE, device=self.device)
+                          for p in parts])
+
+    def _resolve(self, spec: QuerySpec):
+        """Validate a spec against its table and return the concrete
+        ``(kind, eps_rel)`` grouping coordinates."""
+        t = self._table(spec.table)
+        kind = t.kind if spec.kind is None else spec.kind
+        if kind != t.kind:
+            raise ValueError(
+                f"table {spec.table!r} ({t.spec.agg}) answers "
+                f"{t.kind!r} queries, spec asks for {kind!r}")
+        return kind, t.resolve_rel(spec.rel)
+
+    def _exec_group(self, table: str, ranges, eps_rel) -> QueryResult:
+        return execute(self._table(table).plan, ranges, backend=self.backend,
+                       eps_rel=eps_rel, min_bucket=self.min_bucket)
+
+    def _wrap(self, table: str, res: QueryResult) -> Answer:
+        spec = self._table(table).spec
+        return Answer(res.answer, res.approx, res.refined,
+                      bound=spec.budget.bound(spec.agg))

@@ -1,0 +1,171 @@
+"""Declarative request/fit descriptions for the ``PolyFit`` session facade.
+
+The twin of ``repro.api.spec`` for static one-key tables.  ``QuerySpec``
+names a fitted table and carries the query ranges (scalars or equal-length
+batches); ``QueryBatch`` is an ordered tuple of specs that may mix
+aggregates freely — the session groups them by (table, kind, guarantee),
+dispatches each group through one fused executor, and scatters answers back
+in request order.
+
+``TableSpec`` is the fit-time counterpart: aggregate family, ``ErrorBudget``
+(the only source of build deltas — see ``budget.py``) and degree.  The
+2-key aggregates and the dynamic, LSM, sharded and windowed tables come
+with their slices and raise ``NotImplementedError`` naming them.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from .budget import DELTA_FRACTION, ErrorBudget
+
+__all__ = ["QuerySpec", "QueryBatch", "TableSpec", "DEFAULT_REL", "KINDS",
+           "KIND_OF_AGG"]
+
+# sentinel: "use the table budget's rel" (None means "Q_abs only, no
+# refinement", so a third state is needed for per-spec overrides)
+DEFAULT_REL = ...
+
+_NRANGES = {"sum": 2, "count": 2, "max": 2, "min": 2, "count2d": 4,
+            "sum2d": 4, "max2d": 2, "min2d": 2}
+
+# query kinds a spec can name explicitly
+KINDS = ("count", "sum", "max", "min", "quantile", "window")
+
+# kind a kind-less spec resolves to from its table's aggregate
+KIND_OF_AGG = {"count": "count", "sum": "sum", "max": "max", "min": "min",
+               "count2d": "count", "sum2d": "sum", "max2d": "max",
+               "min2d": "min"}
+
+# ROADMAP Queue 1 items of what this slice does not serve yet
+_LATER = {"2-D tables": 13, "quantiles": 11, "windowed tables": 12,
+          "dynamic tables": 10, "LSM tables": 12, "sharded tables": 14}
+
+
+def not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} are not ported yet: ROADMAP Queue 1 "
+                               f"item {_LATER[what]}")
+
+
+def _norm_range(r):
+    """Normalize one range coordinate to a rank-1 array: tensors stay on
+    their device, everything else becomes a host float64 array."""
+    if isinstance(r, torch.Tensor):
+        return torch.atleast_1d(r)
+    return np.atleast_1d(np.asarray(r, np.float64))
+
+
+@dataclasses.dataclass(frozen=True)
+class QuerySpec:
+    """One declarative request: ``QuerySpec.range("sales", lo, hi)``.
+
+    ``ranges`` is ``(lq, uq)``; entries may be python scalars or
+    equal-length 1-D arrays or tensors (a whole sub-batch in one spec).
+    ``rel`` overrides the table's default Q_rel target for this spec only:
+    ``DEFAULT_REL`` (the default) inherits the table budget, ``None`` forces
+    Q_abs-only, a float is an explicit eps_rel.
+    """
+
+    table: str
+    ranges: Tuple
+    rel: object = DEFAULT_REL
+    kind: Optional[str] = None
+
+    def __post_init__(self):
+        if self.kind is not None and self.kind not in KINDS:
+            raise ValueError(f"unknown query kind {self.kind!r}; expected "
+                             f"one of {KINDS}")
+        if self.kind == "quantile":
+            raise not_ported("quantiles")
+        if self.kind == "window":
+            raise not_ported("windowed tables")
+        if len(self.ranges) == 4:
+            raise not_ported("2-D tables")
+        if len(self.ranges) != 2:
+            raise ValueError("QuerySpec.ranges must have 2 entries (1-D); "
+                             f"got {len(self.ranges)}")
+        object.__setattr__(self, "ranges",
+                           tuple(_norm_range(r) for r in self.ranges))
+        n = {r.shape[0] for r in self.ranges}
+        if len(n) != 1:
+            raise ValueError(f"QuerySpec.ranges lengths differ: {sorted(n)}")
+
+    def __len__(self) -> int:
+        return int(self.ranges[0].shape[0])
+
+    @classmethod
+    def range(cls, table: str, lq, uq, rel=DEFAULT_REL) -> "QuerySpec":
+        """1-D range (SUM/COUNT over (lq, uq], MAX/MIN over [lq, uq])."""
+        return cls(table, (lq, uq), rel)
+
+
+@dataclasses.dataclass(frozen=True)
+class QueryBatch:
+    """An ordered, possibly mixed-aggregate batch of ``QuerySpec``s."""
+
+    specs: Tuple[QuerySpec, ...]
+
+    def __post_init__(self):
+        object.__setattr__(self, "specs", tuple(self.specs))
+
+    @classmethod
+    def of(cls, *specs: QuerySpec) -> "QueryBatch":
+        return cls(specs)
+
+    def __len__(self) -> int:
+        return len(self.specs)
+
+    def __iter__(self):
+        return iter(self.specs)
+
+    def __getitem__(self, i):
+        return self.specs[i]
+
+    @property
+    def n_queries(self) -> int:
+        return sum(len(s) for s in self.specs)
+
+
+@dataclasses.dataclass(frozen=True)
+class TableSpec:
+    """Fit-time description of one table (dataset x aggregate).
+
+    ``agg``: 'sum' | 'count' | 'max' | 'min'.  ``budget``: the table's
+    ``ErrorBudget`` — the *only* place the build delta comes from.  ``deg``
+    defaults to 2 for SUM/COUNT and 3 for MAX/MIN (the paper's
+    recommendations).  ``dynamic``, ``lsm``, ``shards`` and ``window`` name
+    the execution stacks of later slices and raise ``NotImplementedError``
+    when set.
+    """
+
+    agg: str
+    budget: ErrorBudget
+    deg: Optional[int] = None
+    dynamic: bool = False
+    lsm: bool = False
+    shards: Optional[int] = None
+    window: int = 0
+
+    def __post_init__(self):
+        if self.agg not in _NRANGES:
+            raise ValueError(f"unknown aggregate {self.agg!r}; expected one "
+                             f"of {sorted(_NRANGES)}")
+        assert self.agg in DELTA_FRACTION
+        if self.agg.endswith("2d"):
+            raise not_ported("2-D tables")
+        if self.window:
+            raise not_ported("windowed tables")
+        if self.lsm:
+            raise not_ported("LSM tables")
+        if self.dynamic:
+            raise not_ported("dynamic tables")
+        if self.shards is not None:
+            raise not_ported("sharded tables")
+
+    @property
+    def degree(self) -> int:
+        return self.deg if self.deg is not None else (
+            2 if self.agg in ("sum", "count") else 3)

@@ -1,0 +1,25 @@
+"""PolyFit core — the paper's contribution as torch modules.
+
+Index construction (fitting + segmentation) runs on the host in float64;
+the built index lives on the query device as float64 tensors.
+"""
+from .exact import ExactMax, ExactSum, build_sparse_table, sparse_table_range_max
+from .fitting import (PolyModel, continuum_error, eval_poly, fit_lstsq,
+                      fit_minimax_lp, max_error, rescale)
+from .index import (PolyFitIndex1D, assemble_index_1d, build_index_1d,
+                    index_from_numpy)
+from .poly import clipped_poly_max, eval_segments, horner, locate, scale_unit
+from .queries import (QueryResult, max_eval_segments, poly_max_on_interval,
+                      query_max, query_sum)
+from .segmentation import FastAcceptFitter, greedy_segmentation
+
+__all__ = [
+    "PolyModel", "continuum_error", "eval_poly", "fit_lstsq",
+    "fit_minimax_lp", "max_error", "rescale", "FastAcceptFitter",
+    "greedy_segmentation", "PolyFitIndex1D", "build_index_1d",
+    "assemble_index_1d", "index_from_numpy",
+    "ExactMax", "ExactSum", "build_sparse_table", "sparse_table_range_max",
+    "QueryResult", "max_eval_segments", "poly_max_on_interval", "query_max",
+    "query_sum", "clipped_poly_max", "eval_segments", "horner", "locate",
+    "scale_unit",
+]

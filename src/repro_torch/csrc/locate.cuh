@@ -1,0 +1,121 @@
+// Device functions shared by the PolyFit query kernels (polyfit_kernels.cu).
+//
+// Twins of the plain torch functions in repro_torch/kernels/locate.py and
+// repro_torch/core/poly.py, written to the same order of operations so
+// that a kernel and its plain version agree bit for bit when the file is
+// compiled with -fmad=false (no multiply-add contraction):
+//
+//   bsearch_count_right  #(keys <= q) in ceil(log2 n) + 1 probe rounds
+//   locate_segment       max(#(seg_lo <= q) - 1, 0)
+//   floor_log2           floor(log2(len)) for len >= 1
+//   rmq_gather           max over [i0, i1) of a (levels, n) sparse table
+//   scale_unit, horner, clipped_poly_max   (core/poly.py)
+//
+// jmax / jmin / jclip follow torch.maximum / torch.minimum / torch.clamp:
+// a NaN operand gives NaN.  CUDA's fmax / fmin would drop it instead.
+#pragma once
+
+#include <math.h>
+
+namespace polyfit {
+
+__device__ __forceinline__ double jmax(double a, double b) {
+  return (isnan(a) || isnan(b)) ? a + b : (a > b ? a : b);
+}
+
+__device__ __forceinline__ double jmin(double a, double b) {
+  return (isnan(a) || isnan(b)) ? a + b : (a < b ? a : b);
+}
+
+// min(max(x, lo), hi), NaN-propagating in x (torch.clamp)
+__device__ __forceinline__ double jclip(double x, double lo, double hi) {
+  return isnan(x) ? x : jmin(jmax(x, lo), hi);
+}
+
+// smallest power of two >= n (1 for n <= 1): the first probe step, equal
+// to 1 << (n - 1).bit_length() in the plain version
+__device__ __forceinline__ int bit_ceil(int n) {
+  return n <= 1 ? 1 : 1 << (32 - __clz(n - 1));
+}
+
+// Number of keys[0:n] that are <= q; keys sorted ascending.  Each round
+// probes index c + step - 1 (clamped) and advances the count when the probe
+// is in range and satisfies the predicate: one load and one select.
+__device__ __forceinline__ int bsearch_count_right(const double* __restrict__ keys,
+                                                   int n, double q) {
+  int c = 0;
+  for (int step = bit_ceil(n); step >= 1; step >>= 1) {
+    const int probe = c + step - 1;
+    const double pv = keys[probe < n - 1 ? probe : n - 1];
+    c = (probe <= n - 1 && pv <= q) ? c + step : c;
+  }
+  return c;
+}
+
+__device__ __forceinline__ int locate_segment(const double* __restrict__ seg_lo,
+                                              int n, double q) {
+  const int c = bsearch_count_right(seg_lo, n, q) - 1;
+  return c > 0 ? c : 0;
+}
+
+__device__ __forceinline__ int floor_log2(int len) { return 31 - __clz(len); }
+
+// max over [i0, i1) against st (levels, n), row-major; empty -> -inf
+__device__ __forceinline__ double rmq_gather(const double* __restrict__ st,
+                                             int n, int i0, int i1) {
+  const int length = i1 - i0 > 0 ? i1 - i0 : 0;
+  const int lvl = floor_log2(length > 1 ? length : 1);
+  const int pow2 = 1 << lvl;
+  const size_t row = (size_t)lvl * (size_t)n;
+  const int a = i0 < n - 1 ? i0 : n - 1;
+  int b = i1 - pow2;
+  b = b > 0 ? b : 0;
+  b = b < n - 1 ? b : n - 1;
+  return length > 0 ? jmax(st[row + a], st[row + b]) : -INFINITY;
+}
+
+__device__ __forceinline__ double scale_unit(double q, double lo, double hi) {
+  const double span = hi > lo ? hi - lo : 1.0;
+  return jclip((2.0 * q - lo - hi) / span, -1.0, 1.0);
+}
+
+// P(u) for ascending coefficients c[0..deg]
+__device__ __forceinline__ double horner(const double* __restrict__ c, int deg,
+                                         double u) {
+  double acc = c[deg];
+  for (int j = deg - 1; j >= 0; --j) acc = acc * u + c[j];
+  return acc;
+}
+
+// max over k in [a, b] of P(u(k)): both clamped endpoints plus the real
+// zero-derivative points of P (deg 2: one linear root, deg 3: the two
+// quadratic roots), each clamped into [u(a), u(b)].  a > b gives -inf.
+__device__ __forceinline__ double clipped_poly_max(const double* __restrict__ c,
+                                                   int deg, double slo,
+                                                   double shi, double a,
+                                                   double b) {
+  const double ua = scale_unit(a, slo, shi);
+  const double ub = scale_unit(b, slo, shi);
+  double best = jmax(horner(c, deg, ua), horner(c, deg, ub));
+  if (deg >= 2) {
+    const double c1 = c[1];
+    const double c2 = 2.0 * c[2];
+    const double lin = fabs(c2) > 0 ? -c1 / (c2 == 0 ? 1.0 : c2) : ua;
+    if (deg == 2) {
+      best = jmax(best, horner(c, deg, jclip(lin, ua, ub)));
+    } else {  // deg == 3: P' = c1 + 2 c2 u + 3 c3 u^2
+      const double c3 = 3.0 * c[3];
+      const double disc = c2 * c2 - 4.0 * c3 * c1;
+      const double sq = sqrt(jmax(disc, 0.0));
+      const double den = fabs(c3) > 0 ? 2.0 * c3 : 1.0;
+      const bool quad_ok = fabs(c3) > 0 && disc >= 0;
+      const double r1 = quad_ok ? (-c2 - sq) / den : lin;
+      const double r2 = quad_ok ? (-c2 + sq) / den : lin;
+      best = jmax(best, horner(c, deg, jclip(r1, ua, ub)));
+      best = jmax(best, horner(c, deg, jclip(r2, ua, ub)));
+    }
+  }
+  return a <= b ? best : -INFINITY;
+}
+
+}  // namespace polyfit

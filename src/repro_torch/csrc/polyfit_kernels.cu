@@ -1,0 +1,133 @@
+// PolyFit query kernels for Hopper (sm_90a), float64, one thread per query.
+//
+// K1 locate_kernel            replaces repro/kernels/locate.py:locate_pallas
+// K2 range_sum_gather_kernel  replaces repro/kernels/range_sum.py:range_sum_gather_pallas
+// K3 range_max_gather_kernel  replaces repro/kernels/range_max.py:range_max_gather_pallas
+//
+// What bounds them on an H100: each is a gather plus a few dozen f64
+// flops a query.  Per query K2 reads two f64 endpoints and writes one f64,
+// so at Q = 65,536 it must move 2 x 8 B in and 8 B out a query plus the
+// segment table once: about 1.6 MB, about 0.5 us at 3.35 TB/s.  The binary
+// search adds ceil(log2 Hp) + 1 dependent loads a query, which hit L1/L2
+// (the table is tens of KB).  So the bound is bytes, and at these sizes the
+// launch latency (a few us) sets the time.
+//
+// What the design does about it: nothing yet.  One thread per query, the
+// table read through L1/L2; staging the table in shared memory, or several
+// queries a thread, is later work.  Compiled with -fmad=false so that
+// Horner's acc * u + c rounds twice, as the plain torch version does.
+//
+// Each launcher takes raw device pointers and the CUDA stream, launches on
+// that stream, and returns cudaGetLastError() (0 when the launch was taken).
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "locate.cuh"
+
+namespace polyfit {
+
+constexpr int kThreads = 256;
+
+// K1: segment id per query key, clip(#(seg_lo <= q) - 1, 0)
+__global__ void locate_kernel(const double* __restrict__ q,
+                              const double* __restrict__ seg_lo,
+                              int32_t* __restrict__ out, int Q, int H) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= Q) return;
+  out[i] = locate_segment(seg_lo, H, q[i]);
+}
+
+// K2: A = P_{I(u)}(u) - P_{I(l)}(l) (paper Eq. 14)
+__global__ void range_sum_gather_kernel(const double* __restrict__ lq,
+                                        const double* __restrict__ uq,
+                                        const double* __restrict__ seg_lo,
+                                        const double* __restrict__ seg_hi,
+                                        const double* __restrict__ coeffs,
+                                        double* __restrict__ out, int Q, int H,
+                                        int deg) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= Q) return;
+  double v[2];
+  const double qs[2] = {lq[i], uq[i]};
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int idx = locate_segment(seg_lo, H, qs[e]);
+    const double u = scale_unit(qs[e], seg_lo[idx], seg_hi[idx]);
+    v[e] = horner(coeffs + (size_t)idx * (deg + 1), deg, u);
+  }
+  out[i] = v[1] - v[0];
+}
+
+// K3: MAX over [lq, uq] (paper Eq. 17): closed-form clipped maxima on the
+// two boundary segments, sparse-table max over the interior (il, iu)
+__global__ void range_max_gather_kernel(const double* __restrict__ lq,
+                                        const double* __restrict__ uq,
+                                        const double* __restrict__ seg_lo,
+                                        const double* __restrict__ seg_hi,
+                                        const double* __restrict__ coeffs,
+                                        const double* __restrict__ st,
+                                        double* __restrict__ out, int Q, int H,
+                                        int deg, int h) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= Q) return;
+  const double l = lq[i], u = uq[i];
+  const int il = locate_segment(seg_lo, H, l);
+  const int iu = locate_segment(seg_lo, H, u);
+  const double lo_l = seg_lo[il], hi_l = seg_hi[il];
+  const double lo_u = seg_lo[iu], hi_u = seg_hi[iu];
+  const double* cl = coeffs + (size_t)il * (deg + 1);
+  const double* cu = coeffs + (size_t)iu * (deg + 1);
+  // left boundary: [lq, min(hi_l, uq)], suppressed when lq is past hi_l
+  double m_left = clipped_poly_max(cl, deg, lo_l, hi_l, l, jmin(hi_l, u));
+  m_left = l <= hi_l ? m_left : -INFINITY;
+  // right boundary: [max(lo_u, lq), uq], suppressed when the same segment
+  double m_right = clipped_poly_max(cu, deg, lo_u, hi_u, jmax(lo_u, l), u);
+  m_right = il == iu ? -INFINITY : m_right;
+  // interior segments are exactly (il, iu): an O(1) sparse-table range max
+  const double m_int = rmq_gather(st, h, il + 1, iu);
+  out[i] = jmax(jmax(m_left, m_right), m_int);
+}
+
+inline int blocks_for(int Q) { return (Q + kThreads - 1) / kThreads; }
+
+}  // namespace polyfit
+
+extern "C" {
+
+int polyfit_locate(const void* q, const void* seg_lo, void* out, int Q, int H,
+                   void* stream) {
+  if (Q > 0)
+    polyfit::locate_kernel<<<polyfit::blocks_for(Q), polyfit::kThreads, 0,
+                             (cudaStream_t)stream>>>(
+        (const double*)q, (const double*)seg_lo, (int32_t*)out, Q, H);
+  return (int)cudaGetLastError();
+}
+
+int polyfit_range_sum_gather(const void* lq, const void* uq, const void* seg_lo,
+                             const void* seg_hi, const void* coeffs, void* out,
+                             int Q, int H, int deg, void* stream) {
+  if (Q > 0)
+    polyfit::range_sum_gather_kernel<<<polyfit::blocks_for(Q),
+                                       polyfit::kThreads, 0,
+                                       (cudaStream_t)stream>>>(
+        (const double*)lq, (const double*)uq, (const double*)seg_lo,
+        (const double*)seg_hi, (const double*)coeffs, (double*)out, Q, H, deg);
+  return (int)cudaGetLastError();
+}
+
+int polyfit_range_max_gather(const void* lq, const void* uq, const void* seg_lo,
+                             const void* seg_hi, const void* coeffs,
+                             const void* st, void* out, int Q, int H, int deg,
+                             int h, void* stream) {
+  if (Q > 0)
+    polyfit::range_max_gather_kernel<<<polyfit::blocks_for(Q),
+                                       polyfit::kThreads, 0,
+                                       (cudaStream_t)stream>>>(
+        (const double*)lq, (const double*)uq, (const double*)seg_lo,
+        (const double*)seg_hi, (const double*)coeffs, (const double*)st,
+        (double*)out, Q, H, deg, h);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

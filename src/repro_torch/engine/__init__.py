@@ -1,0 +1,22 @@
+"""repro_torch.engine — backend-dispatched query execution (1-D).
+
+Lower a constructed index into a canonical device-resident ``IndexPlan``
+once, then execute queries through the module-level ``execute_*`` dispatch
+path (or the ``Engine`` shim) with ``backend='torch' | 'cuda' | 'ref'``:
+
+    from repro_torch.core import build_index_1d
+    from repro_torch.engine import Engine, build_plan
+
+    plan = build_plan(build_index_1d(keys, meas, "sum", delta=eps / 2))
+    res = Engine().query(plan, lq, uq, eps_rel=0.01)   # fused approx + refine
+"""
+from .engine import (BACKENDS, Engine, check_pow2, execute, execute_extremum,
+                     execute_sum, pad_fills, raw_extremum, raw_sum,
+                     resolve_backend, truth_extremum, truth_sum)
+from .plan import (IndexPlan, big_sentinel, build_plan, pad_to_multiple,
+                   plan_from_numpy)
+
+__all__ = ["BACKENDS", "Engine", "check_pow2", "execute", "execute_extremum",
+           "execute_sum", "pad_fills", "raw_extremum", "raw_sum",
+           "resolve_backend", "truth_extremum", "truth_sum", "IndexPlan",
+           "big_sentinel", "build_plan", "pad_to_multiple", "plan_from_numpy"]
