@@ -3,7 +3,6 @@
 NVIDIA card, and hold its kernels to their plain PyTorch versions.
 
     python3 chip_smoke.py             # the paper's sizes, about 10 minutes
-    python3 chip_smoke.py --quick     # 50k-row tables: build, launch, parity
 
 Phases, each of which fails the run with a non-zero exit:
 
@@ -47,7 +46,6 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 N_TWEET = 1_000_000
 N_HKI = 900_000
 N_HKI_MIN = 100_000
-N_QUICK = 50_000            # every table's rows under --quick
 NQ = 65_536                 # ranges per table in the main-path batch
 SEED = 7
 EPS_REL = 0.01
@@ -202,7 +200,7 @@ def max_abs_err(a, b) -> float:
 # the run
 # ---------------------------------------------------------------------------
 
-def main(quick: bool = False) -> None:
+def main() -> None:
     import torch
 
     # -- 1. device --------------------------------------------------------
@@ -239,12 +237,9 @@ def main(quick: bool = False) -> None:
 
     # -- 3. fit -----------------------------------------------------------
     sizes = {"lat": N_TWEET, "hki": N_HKI, "hki_min": N_HKI_MIN}
-    if quick:
-        sizes = {name: min(n, N_QUICK) for name, n in sizes.items()}
     for name, paper in (("lat", 1_000_000), ("hki", 900_000)):
         if sizes[name] < paper:
-            print(f"CUT: {name} n {paper} -> {sizes[name]}"
-                  f"{' (--quick)' if quick else ''}")
+            print(f"CUT: {name} n {paper} -> {sizes[name]}")
     lat = tweet_latitudes(sizes["lat"])
     t_h, v_h = hki_series(sizes["hki"])
     t_m, v_m = hki_series(sizes["hki_min"])
@@ -405,12 +400,17 @@ def main(quick: bool = False) -> None:
         rows.append({"name": name, "route": "cuda", "source": SOURCE,
                      "replaces": REPLACES[name], "shape": shape,
                      "launches": launches[name], "max_abs_err": errs[name],
-                     "ms": ms, "kernel_ms": ms, "call_ms": eager_ms,
+                     "ms": ms, "call_ms": eager_ms,
                      "plain_ms": plain_ms, "library_ms": lib_ms,
                      "bound_ms": b_ms, "bound_by": b_by})
         print(f"timing {name}: kernel {ms!r} ms on the device, {eager_ms!r} "
               f"ms per eager call; plain {plain_ms!r} ms; library {lib_ms!r}"
               f" ms; bound {b_ms!r} ms ({b_by})", flush=True)
+    # the main path's other K3 launch: the MIN table's, a smaller plan
+    min_ms = device_ms(torch, lambda: kmax.range_max_gather(*k3n_args))
+    print(f"timing range_max_gather on hki_min (Hp "
+          f"{min_plan.seg_lo.shape[0]}): kernel {min_ms!r} ms on the device",
+          flush=True)
 
     for label, rel in (("Q_abs", None), ("Q_rel", EPS_REL)):
         req = batch(rel)
@@ -431,9 +431,4 @@ def main(quick: bool = False) -> None:
 
 
 if __name__ == "__main__":
-    import argparse
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--quick", action="store_true",
-                    help="cut every table to 50k rows: a check of build, "
-                         "launch, main path and parity in about a minute")
-    main(**vars(ap.parse_args()))
+    main()

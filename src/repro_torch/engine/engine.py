@@ -17,9 +17,10 @@ yet.
 Each path computes the raw approximation, applies the Lemma 5.2/5.4 Q_rel
 acceptance test and merges the exact refinement with ``torch.where`` — the
 refinement arrays live in the plan, so there is no host round trip.  The
-refinement's binary searches over the sorted keys go through ``locate``
-(kernel K1 on the card).  Batches are padded to power-of-two buckets, as the
-reference pads them, so answers match it lane for lane.
+refinement's binary searches over the sorted keys run kernel K1 (``locate``)
+on the ``'cuda'`` backend and the plain ``locate_segments`` on the others.
+Batches are padded to power-of-two buckets, as the reference pads them, so
+answers match it lane for lane.
 
 Q_abs guarantees need no test: build the index with delta = eps_abs/2 (SUM,
 Lemma 5.1) or eps_abs (MAX, Lemma 5.3) and the raw answer already satisfies
@@ -36,7 +37,7 @@ from ..core.exact import sparse_table_range_max
 from ..core.poly import eval_segments
 from ..core.queries import QueryResult, max_eval_segments
 from ..kernels import ref as _ref
-from ..kernels.locate import locate
+from ..kernels.locate import locate, locate_segments
 from ..kernels.range_max import range_max_gather
 from ..kernels.range_sum import range_sum_gather
 from .plan import IndexPlan
@@ -96,10 +97,18 @@ def pad_fills(plan: IndexPlan):
     return (plan.domain_lo, plan.domain_lo)
 
 
-def _count_le(keys: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-    """#(keys <= q) per lane: locate gives max(count - 1, 0), and the count
-    is 0 exactly when q lies below the first key (or is NaN)."""
-    return torch.where(q >= keys[0], locate(q, keys) + 1, 0)
+def _locate_keys(keys: torch.Tensor, q: torch.Tensor, backend: str):
+    """max(#(keys <= q) - 1, 0) per lane: K1 on the 'cuda' backend, the
+    plain binary search on the others."""
+    if backend == "cuda":
+        return locate(q, keys)
+    return locate_segments(keys, q)
+
+
+def _count_le(keys: torch.Tensor, q: torch.Tensor, backend: str):
+    """#(keys <= q) per lane: the count is 0 exactly when q lies below the
+    first key (or is NaN)."""
+    return torch.where(q >= keys[0], _locate_keys(keys, q, backend) + 1, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -131,21 +140,23 @@ def raw_extremum(plan: IndexPlan, lqc, uqc, *, backend: str):
                              plan.st, lqc, uqc)
 
 
-def truth_sum(plan: IndexPlan, lq, uq):
+def truth_sum(plan: IndexPlan, lq, uq, *, backend: str):
     """Exact static SUM/COUNT over (lq, uq] from the plan's refinement CF."""
     keys, cf = plan.ref_keys, plan.ref_cf
-    cf_at = lambda q: torch.where(q >= keys[0], cf[locate(q, keys)], 0.0)
+    cf_at = lambda q: torch.where(
+        q >= keys[0], cf[_locate_keys(keys, q, backend)], 0.0)
     return cf_at(uq) - cf_at(lq)
 
 
-def truth_extremum(plan: IndexPlan, lq, uq):
+def truth_extremum(plan: IndexPlan, lq, uq, *, backend: str):
     """Exact static MAX over [lq, uq] (MAX space) from the refinement table.
 
     #(keys < lq) is #(keys <= the next double below lq): the same binary
     search serves both ends."""
     keys = plan.ref_keys
-    i = _count_le(keys, torch.nextafter(lq, lq.new_full((), -torch.inf)))
-    j = _count_le(keys, uq)
+    i = _count_le(keys, torch.nextafter(lq, lq.new_full((), -torch.inf)),
+                  backend)
+    j = _count_le(keys, uq, backend)
     return sparse_table_range_max(plan.ref_st, i, j)
 
 
@@ -165,7 +176,7 @@ def _exec_sum(plan: IndexPlan, lq, uq, *, backend: str,
     two_d = 2.0 * plan.delta
     ok = ((approx - two_d > 0) &
           (two_d / torch.clamp(approx - two_d, min=1e-300) <= eps_rel))
-    truth = truth_sum(plan, lq, uq)
+    truth = truth_sum(plan, lq, uq, backend=backend)
     return torch.where(ok, approx, truth), approx, ~ok
 
 
@@ -182,7 +193,7 @@ def _exec_extremum(plan: IndexPlan, lq, uq, *, backend: str,
     # Lemma 5.4 test: A >= delta * (1 + 1/eps_rel), in MAX space (MIN runs
     # on negated measures end to end, exactly like core.queries.query_max)
     ok = approx >= plan.delta * (1.0 + 1.0 / eps_rel)
-    truth = truth_extremum(plan, lq, uq)
+    truth = truth_extremum(plan, lq, uq, backend=backend)
     ans = torch.where(ok, approx, truth)
     if neg:
         ans, approx = -ans, -approx

@@ -115,17 +115,22 @@ def test_kernels_reject_cpu_tensors_mixed_in(plans, queries):
 @pytest.mark.parametrize("agg", ["sum", "max", "min"])
 @pytest.mark.parametrize("eps_rel", [None, 0.05])
 def test_cuda_backend_matches_torch_backend(plans, queries, agg, eps_rel):
-    """The engine's default backend on the card runs the kernels and agrees
-    with the plain 'torch' backend, refined flags included."""
+    """The engine's default backend on the card runs the kernels (K1 in the
+    Q_rel refinement) and agrees with the plain 'torch' backend, which runs
+    none of them, refined flags included."""
     p = plans[1][agg, 3 if agg != "sum" else 2]
     lq, uq = queries
     kernel = ksum.range_sum_gather if agg == "sum" else kmax.range_max_gather
-    before = (kernel.launches, execute_extremum.torch_routes)
+    counts = lambda: (kernel.launches, kloc.locate.launches,
+                      execute_extremum.torch_routes)
+    before = counts()
     got = Engine().query(p, lq, uq, eps_rel=eps_rel)
     torch.cuda.synchronize()
-    assert (kernel.launches, execute_extremum.torch_routes) == (
-        before[0] + 1, before[1])
+    assert counts() == (before[0] + 1,
+                        before[1] + (0 if eps_rel is None else 2), before[2])
+    before = counts()
     want = Engine(backend="torch").query(p, lq, uq, eps_rel=eps_rel)
+    assert counts() == before
     torch.testing.assert_close(got.answer, want.answer, **TOL)
     torch.testing.assert_close(got.refined, want.refined, rtol=0, atol=0)
 
