@@ -2,15 +2,16 @@
 """Drive the PyTorch + CUDA port of PolyFit (src/repro_torch) once on one
 NVIDIA card, and hold its kernels to their plain PyTorch versions.
 
-    python3 chip_smoke.py             # the paper's sizes, about 10 minutes
+    python3 chip_smoke.py             # about 8-12 minutes on an H100 host
 
 Phases, each of which fails the run with a non-zero exit:
 
 1. device  - a CUDA card must be present; print its name and power limit;
 2. build   - compile the CUDA kernels from src/repro_torch/csrc with nvcc;
 3. fit     - PolyFit.fit on the card: TWEET latitudes (COUNT), HKI minute
-             bars (MAX, deg 3) and a smaller HKI table for MIN, at the
-             paper's sizes or at the cut printed on a CUT line;
+             bars (MAX, deg 3) and a smaller HKI table for MIN, cut to the
+             sizes printed on the CUT lines (the dynamic phase keeps the
+             paper's sizes);
 4. main    - one mixed batch of COUNT, MAX and MIN ranges through
              session.query under Q_abs, then under Q_rel, checked against
              exact answers computed on the host with numpy alone; the
@@ -22,7 +23,21 @@ Phases, each of which fails the run with a non-zero exit:
              one-call library yardstick where there is one (CUDA-event
              timed replays of a CUDA graph of the calls, so host dispatch
              drops out), the kernel's eager per-call time (host dispatch
-             included), and the session's end-to-end query latency.
+             included), and the session's end-to-end query latency, with
+             one batch traced by torch.profiler (device busy time, idle
+             share, heaviest kernels);
+7. dynamic - PolyFit.fit of three dynamic tables (TableSpec(dynamic=True),
+             capacity 4,096) at the paper's sizes: TWEET 1M (COUNT), HKI
+             0.9M (MAX, deg 3), HKI 100k (MIN).  A hot-band step (inserts
+             and deletes in one dense band, appended bars and extremal
+             deletes in one window) is queried while buffered, then
+             flushed (the merge must refit few segments) and queried
+             again; a buffer-full step (4,096 pending ops a table, no
+             merge) is queried last.  Every batch is checked against numpy
+             truth over the updated multiset, the launch counters must show
+             K1-K3, K5 and K6, K5/K6 are held to their plain versions on
+             each state's buffers, and K5/K6, the full-buffer query
+             latency, one 4,096-record insert and the merges are timed.
 
 The line before last is the card's nvidia-smi name and power limit, the
 line before that the kernels' JSON record; the last line is the result.
@@ -41,11 +56,18 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# the paper's instance sizes (TWEET 1M latitudes, HKI 0.9M minute bars);
-# the MIN table only exercises the negation path and is built smaller
-N_TWEET = 1_000_000
-N_HKI = 900_000
+# the static phase, cut from the paper's instance sizes (TWEET 1M
+# latitudes, HKI 0.9M minute bars) so that the dynamic phase's paper-size
+# builds fit in the run; the MIN table only exercises the negation path
+N_TWEET = 200_000
+N_HKI = 200_000
 N_HKI_MIN = 100_000
+# the dynamic phase: the paper's sizes; its MIN table exercises the
+# negation and victim paths
+N_TWEET_DYN = 1_000_000
+N_HKI_DYN = 900_000
+N_HKI_MIN_DYN = 100_000
+CAPACITY = 4096             # delta-buffer slots per dynamic table
 NQ = 65_536                 # ranges per table in the main-path batch
 SEED = 7
 EPS_REL = 0.01
@@ -61,6 +83,8 @@ REPLACES = {
     "locate": "src/repro/kernels/locate.py:179",
     "range_sum_gather": "src/repro/kernels/range_sum.py:49",
     "range_max_gather": "src/repro/kernels/range_max.py:62",
+    "delta_sum_gather": "src/repro/kernels/delta_scan.py:113",
+    "delta_max_gather": "src/repro/kernels/delta_scan.py:188",
 }
 SOURCE = "src/repro_torch/csrc/polyfit_kernels.cu"
 
@@ -196,6 +220,182 @@ def max_abs_err(a, b) -> float:
     return float(d.max()) if d.numel() else 0.0
 
 
+def check_answers(tag, names, answers, truth, bounds):
+    """Hold a Q_abs and a Q_rel batch to the exact answers: every Q_abs
+    answer within its bound, every Q_rel answer within EPS_REL.  Returns
+    the Q_rel refined share of each table."""
+    shares = {}
+    for label in ("Q_abs", "Q_rel"):
+        for name, ans in zip(names, answers[label]):
+            a = ans.value.cpu().numpy()
+            r = truth[name]
+            check(a.shape == r.shape and np.all(np.isfinite(a)),
+                  f"{tag}{label} {name}: bad answers")
+            err = np.abs(a - r)
+            if label == "Q_abs":
+                check(err.max() <= bounds[name] + 1e-6,
+                      f"{tag}{label} {name}: |A-R| {err.max()} > "
+                      f"{bounds[name]}")
+                print(f"{tag}{label} {name}: max |A-R| = {err.max()!r} <= "
+                      f"{bounds[name]}")
+            else:
+                pos = r != 0
+                rel = float((err[pos] / np.abs(r[pos])).max())
+                share = shares[name] = float(ans.refined.float().mean())
+                check(rel <= EPS_REL + 1e-12,
+                      f"{tag}{label} {name}: relative error {rel} > "
+                      f"{EPS_REL}")
+                print(f"{tag}{label} {name}: max rel err = {rel!r} <= "
+                      f"{EPS_REL}; refined share {share!r}")
+    return shares
+
+
+def timing_row(torch, name, fn, plain, args, library, nbytes, flops, shape,
+               launches, err):
+    """Time one kernel, its plain version and its library yardstick on the
+    same arguments; return its row of the kernels' JSON record."""
+    ms = device_ms(torch, lambda: fn(*args))
+    eager_ms = call_ms(torch, lambda: fn(*args))
+    plain_ms = device_ms(torch, lambda: plain(*args))
+    lib_ms = None if library is None else device_ms(
+        torch, lambda: library(*args))
+    b_ms, b_by = bound_ms(nbytes, flops)
+    print(f"timing {name}: kernel {ms!r} ms on the device, {eager_ms!r} "
+          f"ms per eager call; plain {plain_ms!r} ms; library {lib_ms!r}"
+          f" ms; bound {b_ms!r} ms ({b_by})", flush=True)
+    return {"name": name, "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES[name], "shape": shape,
+            "launches": launches, "max_abs_err": err,
+            "ms": ms, "call_ms": eager_ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by}
+
+
+def query_latency(torch, session, req, label, nq):
+    """Median of 5 host wall times of ``session.query(req)``, synchronized."""
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        session.query(req)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    print(f"{label} ({nq} ranges, numpy in): median "
+          f"{statistics.median(times)!r} ms, runs {times!r}", flush=True)
+
+
+def profile_batch(torch, session, req, label):
+    """One batch under torch.profiler: its wall time there, the device's
+    busy time (its kernels and copies) and the heaviest device entries."""
+    from torch.profiler import ProfilerActivity, profile
+    session.query(req)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        session.query(req)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in dev)
+    top = sorted(dev, key=lambda e: e.self_device_time_total, reverse=True)
+    heavy = "; ".join(f"{e.key[:48]} {e.self_device_time_total!r} us "
+                      f"x{e.count}" for e in top[:6])
+    idle = f"{1 - busy / wall_us!r}" if busy else "not measured"
+    print(f"{label} under the profiler: wall {wall_us!r} us, device busy "
+          f"{busy!r} us, idle share {idle}; heaviest: {heavy}", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# the dynamic phase's data: host mirrors of the live multisets
+# ---------------------------------------------------------------------------
+
+DYN = ("lat_dyn", "hki_dyn", "hki_min_dyn")
+DYN_AGG = {"lat_dyn": "count", "hki_dyn": "max", "hki_min_dyn": "min"}
+DYN_BOUND = {"lat_dyn": 100.0, "hki_dyn": 50.0, "hki_min_dyn": 50.0}
+HOT_BAND = (40.70, 40.80)   # 0.1 degree at the core of the densest cluster
+HOT_INSERTS, HOT_DELETES = 1024, 256
+HOT_BARS, EXTREMAL_DELETES, WINDOW = 1440, 64, 512
+
+
+class Live:
+    """One dynamic table's live multiset on the host, for exact truth."""
+
+    def __init__(self, keys, meas):
+        self.keys = np.array(keys, np.float64)
+        self.meas = None if meas is None else np.array(meas, np.float64)
+        self.base = self.keys.copy()          # the fitted rows
+        self.base_meas = None if meas is None else self.meas.copy()
+        self.deleted = np.zeros(len(self.keys), bool)
+        self.hot = []                          # key intervals under update
+
+    def insert(self, keys, meas=None):
+        self.keys = np.concatenate([self.keys, keys])
+        if self.meas is not None:
+            self.meas = np.concatenate([self.meas, meas])
+
+    def delete(self, keys):
+        """Remove one occurrence of each (distinct) key."""
+        order = np.argsort(self.keys, kind="stable")
+        pos = np.minimum(np.searchsorted(self.keys[order], keys),
+                         len(self.keys) - 1)
+        check(np.all(self.keys[order][pos] == keys), "deleting a missing key")
+        keep = np.ones(len(self.keys), bool)
+        keep[order[pos]] = False
+        self.keys = self.keys[keep]
+        if self.meas is not None:
+            self.meas = self.meas[keep]
+
+    def pick_base(self, rng, m, lo=-np.inf, hi=np.inf):
+        """m distinct, not yet deleted base keys in [lo, hi]; marks them."""
+        idx = np.flatnonzero(~self.deleted & (self.base >= lo)
+                             & (self.base <= hi))
+        idx = rng.choice(idx, m, replace=False)
+        self.deleted[idx] = True
+        return self.base[idx]
+
+    def queries(self, make_queries_1d, seed):
+        """NQ ranges with endpoints from the live keys: three quarters over
+        the whole table (``make_queries_1d``), a quarter inside the
+        intervals under update."""
+        k = np.sort(self.keys)
+        lq, uq = make_queries_1d(k, NQ - NQ // 4, seed=seed)
+        hot = np.zeros(len(k), bool)
+        for lo, hi in self.hot:
+            hot |= (k >= lo) & (k <= hi)
+        hk = k[hot]
+        rng = np.random.default_rng(seed + 1)
+        a = hk[rng.integers(0, len(hk), NQ // 4)]
+        b = hk[rng.integers(0, len(hk), NQ // 4)]
+        return (np.concatenate([lq, np.minimum(a, b)]),
+                np.concatenate([uq, np.maximum(a, b)]))
+
+
+def new_bars(rng, t_last, v_last, m):
+    """m minute bars after t_last, continuing the walk from v_last (the
+    HKI generator's steps)."""
+    t = t_last + np.cumsum(rng.uniform(0.5, 1.5, m))
+    steps = rng.normal(0, 12.0, m) + rng.normal(0, 80.0, m) * (
+        rng.uniform(size=m) < 0.002)
+    return t, np.maximum(v_last + np.cumsum(steps), 1000.0)
+
+
+def extremal_victims(rng, live, extreme):
+    """EXTREMAL_DELETES base bars from one WINDOW-bar window, its own
+    extreme (argmax for MAX, argmin for MIN) among them; marks them."""
+    while True:
+        w0 = int(rng.integers(0, len(live.base) - WINDOW))
+        if not live.deleted[w0:w0 + WINDOW].any():
+            break
+    win = np.arange(w0, w0 + WINDOW)
+    top = w0 + int(extreme(live.base_meas[win]))
+    pick = np.concatenate([[top], rng.choice(
+        win[win != top], EXTREMAL_DELETES - 1, replace=False)])
+    live.deleted[pick] = True
+    live.hot.append((live.base[w0], live.base[w0 + WINDOW - 1]))
+    return live.base[pick]
+
+
 # ---------------------------------------------------------------------------
 # the run
 # ---------------------------------------------------------------------------
@@ -203,6 +403,7 @@ def max_abs_err(a, b) -> float:
 def main() -> None:
     import torch
 
+    wall0 = time.perf_counter()
     # -- 1. device --------------------------------------------------------
     check(torch.cuda.is_available(), "no CUDA device: this script needs one "
           "NVIDIA card")
@@ -215,6 +416,7 @@ def main() -> None:
     from repro_torch.data import hki_series, make_queries_1d, tweet_latitudes
     from repro_torch.engine import execute_extremum
     from repro_torch.kernels import _build
+    from repro_torch.kernels import delta_scan as kdel
     from repro_torch.kernels import locate as kloc
     from repro_torch.kernels import range_max as kmax
     from repro_torch.kernels import range_sum as ksum
@@ -247,20 +449,26 @@ def main() -> None:
     specs = {"lat": TableSpec("count", ErrorBudget(abs=100.0)),
              "hki": TableSpec("max", ErrorBudget(abs=50.0, rel=EPS_REL)),
              "hki_min": TableSpec("min", ErrorBudget(abs=50.0, rel=EPS_REL))}
-    t0 = time.perf_counter()
-    session = PolyFit.fit(datasets, specs, device=dev)
-    torch.cuda.synchronize()
-    fit_s = time.perf_counter() - t0
-    check(session.backend == "cuda", f"default backend {session.backend}")
-    secs = session.build_seconds()
-    for name in session.tables:
-        p = session.plan(name)
-        check(p.device.type == "cuda", f"plan {name} on {p.device}")
-        print(f"fit {name}: agg={p.agg} n={p.n} h={p.h} Hp={p.seg_lo.shape[0]}"
-              f" deg={p.deg} delta={p.delta} host_build_s={secs[name]:.3f} "
-              f"device_bytes={p.device_bytes()} index_bytes={p.size_bytes()}",
-              flush=True)
-    print(f"fit total: {fit_s:.3f} s", flush=True)
+
+    def fit(datasets, specs, tag):
+        t0 = time.perf_counter()
+        session = PolyFit.fit(datasets, specs, device=dev)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        check(session.backend == "cuda", f"default backend {session.backend}")
+        secs = session.build_seconds()
+        for name in session.tables:
+            p = session.plan(name)
+            check(p.device.type == "cuda", f"plan {name} on {p.device}")
+            print(f"fit {name}: agg={p.agg} n={p.n} h={p.h} "
+                  f"Hp={p.seg_lo.shape[0]} deg={p.deg} delta={p.delta} "
+                  f"host_build_s={secs[name]:.3f} device_bytes="
+                  f"{p.device_bytes()} index_bytes={p.size_bytes()}",
+                  flush=True)
+        print(f"fit {tag}total: {fit_s:.3f} s", flush=True)
+        return session
+
+    session = fit(datasets, specs, "")
 
     # -- 4. main path -----------------------------------------------------
     qs = {"lat": make_queries_1d(lat, NQ, seed=SEED),
@@ -272,52 +480,44 @@ def main() -> None:
              for name in qs}
     bounds = {"lat": 100.0, "hki": 50.0, "hki_min": 50.0}
 
-    def batch(rel):
-        return QueryBatch.of(*(QuerySpec.range(name, *qs[name], rel=rel)
-                               for name in ("lat", "hki", "hki_min")))
+    def batch(names, queries, rel):
+        return QueryBatch.of(*(QuerySpec.range(name, *queries[name], rel=rel)
+                               for name in names))
 
-    counters = (kloc.locate, ksum.range_sum_gather, kmax.range_max_gather)
-    for c in counters:
-        c.launches = 0
-    execute_extremum.torch_routes = 0
-    main_s = {}
-    answers = {}
-    for label, rel in (("Q_abs", None), ("Q_rel", EPS_REL)):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        answers[label] = session.query(batch(rel))
-        torch.cuda.synchronize()
-        main_s[label] = time.perf_counter() - t0
-    launches = {c.__name__: c.launches for c in counters}
-    routes = execute_extremum.torch_routes
-    print(f"main path: launches {launches}, deg>3 reroutes {routes}, "
-          f"first-call seconds {main_s}", flush=True)
-    check(launches["range_sum_gather"] > 0, "K2 was not launched")
-    check(launches["range_max_gather"] > 0, "K3 was not launched")
-    check(launches["locate"] > 0, "K1 was not launched by the refinement")
-    check(routes == 0, "a MAX/MIN group was rerouted off the kernels")
+    counters = (kloc.locate, ksum.range_sum_gather, kmax.range_max_gather,
+                kdel.delta_sum_gather, kdel.delta_max_gather)
+    total_launches = {c.__name__: 0 for c in counters}
 
-    shares = {}
-    for label in ("Q_abs", "Q_rel"):
-        for name, ans in zip(("lat", "hki", "hki_min"), answers[label]):
-            a = ans.value.cpu().numpy()
-            r = truth[name]
-            check(a.shape == (NQ,) and np.all(np.isfinite(a)),
-                  f"{label} {name}: bad answers")
-            err = np.abs(a - r)
-            if label == "Q_abs":
-                check(err.max() <= bounds[name] + 1e-6,
-                      f"{label} {name}: |A-R| {err.max()} > {bounds[name]}")
-                print(f"{label} {name}: max |A-R| = {err.max()!r} <= "
-                      f"{bounds[name]}")
-            else:
-                pos = r != 0
-                rel = float((err[pos] / np.abs(r[pos])).max())
-                share = shares[name] = float(ans.refined.float().mean())
-                check(rel <= EPS_REL + 1e-12,
-                      f"{label} {name}: relative error {rel} > {EPS_REL}")
-                print(f"{label} {name}: max rel err = {rel!r} <= {EPS_REL}; "
-                      f"refined share {share!r}")
+    def drive(session, names, queries, tag):
+        """The main path of one phase: counters to 0, a Q_abs and a Q_rel
+        batch through session.query, counters read."""
+        for c in counters:
+            c.launches = 0
+        execute_extremum.torch_routes = 0
+        main_s, answers = {}, {}
+        for label, rel in (("Q_abs", None), ("Q_rel", EPS_REL)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            answers[label] = session.query(batch(names, queries, rel))
+            torch.cuda.synchronize()
+            main_s[label] = time.perf_counter() - t0
+        launches = {c.__name__: c.launches for c in counters}
+        routes = execute_extremum.torch_routes
+        for k, v in launches.items():
+            total_launches[k] += v
+        print(f"{tag}main path: launches {launches}, deg>3 reroutes "
+              f"{routes}, first-call seconds {main_s}", flush=True)
+        check(launches["range_sum_gather"] > 0, f"{tag}K2 was not launched")
+        check(launches["range_max_gather"] > 0, f"{tag}K3 was not launched")
+        check(launches["locate"] > 0,
+              f"{tag}K1 was not launched by the refinement")
+        check(routes == 0, f"{tag}a MAX/MIN group was rerouted off the "
+              "kernels")
+        return answers, launches
+
+    answers, _ = drive(session, ("lat", "hki", "hki_min"), qs, "")
+    shares = check_answers("", ("lat", "hki", "hki_min"), answers, truth,
+                           bounds)
     # MIN runs in MAX space on negated measures, where the Lemma 5.4 test
     # cannot pass for positive measures: it refines every query by design
     check(shares["lat"] < 1.0 and shares["hki"] < 1.0,
@@ -347,83 +547,226 @@ def main() -> None:
     torch.cuda.synchronize()
     check(torch.equal(got, want), "K1 ids differ from the plain version")
     errs = {"locate": 0.0}
-    for name, fn, plain, args_list in (
-            ("range_sum_gather", ksum.range_sum_gather,
-             ksum.range_sum_gather_plain, (k2_args,)),
-            ("range_max_gather", kmax.range_max_gather,
-             kmax.range_max_gather_plain, (k3_args, k3n_args))):
-        errs[name] = 0.0
+
+    def hold(name, fn, plain, args_list):
+        """Hold a kernel to its plain version (TOL) on each argument set;
+        keep the largest |kernel - plain| in errs."""
+        errs.setdefault(name, 0.0)
         for args in args_list:
             a, b = fn(*args), plain(*args)
             torch.cuda.synchronize()
             check(torch.allclose(a, b, rtol=TOL, atol=TOL, equal_nan=False),
                   f"{name} differs from its plain version")
             errs[name] = max(errs[name], max_abs_err(a, b))
+
+    hold("range_sum_gather", ksum.range_sum_gather,
+         ksum.range_sum_gather_plain, (k2_args,))
+    hold("range_max_gather", kmax.range_max_gather,
+         kmax.range_max_gather_plain, (k3_args, k3n_args))
     print(f"parity: max |kernel - plain| = {errs}", flush=True)
 
     # -- 6. timing --------------------------------------------------------
     Q = NQ
     rows = []
-    for name, fn, plain, args, library in (
-            ("locate", kloc.locate, lambda q, k: kloc.locate_segments(k, q),
-             k1_args, lambda q, k: torch.searchsorted(k, q, right=True)),
+    n = k1_args[1].shape[0]
+    rows.append(timing_row(
+        torch, "locate", kloc.locate, lambda q, k: kloc.locate_segments(k, q),
+        k1_args, lambda q, k: torch.searchsorted(k, q, right=True),
+        Q * 8 + n * 8 + Q * 4, Q * probe_rounds(n),
+        f"q ({Q},) f64, keys ({n},) f64 -> ({Q},) int32", None, 0.0))
+    for name, fn, plain, args in (
             ("range_sum_gather", ksum.range_sum_gather,
-             ksum.range_sum_gather_plain, k2_args, None),
+             ksum.range_sum_gather_plain, k2_args),
             ("range_max_gather", kmax.range_max_gather,
-             kmax.range_max_gather_plain, k3_args, None)):
-        ms = device_ms(torch, lambda: fn(*args))
-        eager_ms = call_ms(torch, lambda: fn(*args))
-        plain_ms = device_ms(torch, lambda: plain(*args))
-        lib_ms = None if library is None else device_ms(
-            torch, lambda: library(*args))
-        if name == "locate":
-            n = args[1].shape[0]
-            nbytes = Q * 8 + n * 8 + Q * 4
-            flops = Q * probe_rounds(n)
-            shape = f"q ({Q},) f64, keys ({n},) f64 -> ({Q},) int32"
+             kmax.range_max_gather_plain, k3_args)):
+        H, cols = args[2].shape[0], args[4].shape[1]
+        deg = cols - 1
+        nbytes = 2 * Q * 8 + 2 * H * 8 + H * cols * 8 + Q * 8
+        per_end = probe_rounds(H)
+        if name == "range_sum_gather":
+            flops = Q * (2 * (per_end + 5 + 2 * deg) + 1)
+            shape = (f"lq, uq ({Q},); seg_lo, seg_hi ({H},); coeffs "
+                     f"({H}, {cols}) f64 -> ({Q},)")
         else:
-            H, cols = args[2].shape[0], args[4].shape[1]
-            deg = cols - 1
-            nbytes = 2 * Q * 8 + 2 * H * 8 + H * cols * 8 + Q * 8
-            per_end = probe_rounds(H)
-            if name == "range_sum_gather":
-                flops = Q * (2 * (per_end + 5 + 2 * deg) + 1)
-                shape = (f"lq, uq ({Q},); seg_lo, seg_hi ({H},); coeffs "
-                         f"({H}, {cols}) f64 -> ({Q},)")
-            else:
-                st = args[5]
-                nbytes += st.numel() * 8
-                flops = Q * range_max_flops(per_end, deg)
-                shape = (f"lq, uq ({Q},); seg_lo, seg_hi ({H},); coeffs "
-                         f"({H}, {cols}); st {tuple(st.shape)} f64 -> ({Q},)")
-        b_ms, b_by = bound_ms(nbytes, flops)
-        rows.append({"name": name, "route": "cuda", "source": SOURCE,
-                     "replaces": REPLACES[name], "shape": shape,
-                     "launches": launches[name], "max_abs_err": errs[name],
-                     "ms": ms, "call_ms": eager_ms,
-                     "plain_ms": plain_ms, "library_ms": lib_ms,
-                     "bound_ms": b_ms, "bound_by": b_by})
-        print(f"timing {name}: kernel {ms!r} ms on the device, {eager_ms!r} "
-              f"ms per eager call; plain {plain_ms!r} ms; library {lib_ms!r}"
-              f" ms; bound {b_ms!r} ms ({b_by})", flush=True)
+            st = args[5]
+            nbytes += st.numel() * 8
+            flops = Q * range_max_flops(per_end, deg)
+            shape = (f"lq, uq ({Q},); seg_lo, seg_hi ({H},); coeffs "
+                     f"({H}, {cols}); st {tuple(st.shape)} f64 -> ({Q},)")
+        rows.append(timing_row(torch, name, fn, plain, args, None, nbytes,
+                               flops, shape, None, errs[name]))
     # the main path's other K3 launch: the MIN table's, a smaller plan
     min_ms = device_ms(torch, lambda: kmax.range_max_gather(*k3n_args))
     print(f"timing range_max_gather on hki_min (Hp "
           f"{min_plan.seg_lo.shape[0]}): kernel {min_ms!r} ms on the device",
           flush=True)
-
     for label, rel in (("Q_abs", None), ("Q_rel", EPS_REL)):
-        req = batch(rel)
-        times = []
-        for _ in range(5):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            session.query(req)
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        print(f"session.query {label} ({3 * NQ} ranges, numpy in): "
-              f"median {statistics.median(times)!r} ms, runs {times!r}")
+        query_latency(torch, session, batch(("lat", "hki", "hki_min"), qs,
+                                            rel),
+                      f"session.query {label}", 3 * NQ)
+    profile_batch(torch, session, batch(("lat", "hki", "hki_min"), qs, None),
+                  "session.query Q_abs")
 
+    # -- 7. dynamic tables ---------------------------------------------------
+    del session
+    rng = np.random.default_rng(SEED + 100)
+    lat_d = tweet_latitudes(N_TWEET_DYN)
+    t_d, v_d = hki_series(N_HKI_DYN)
+    t_dm, v_dm = hki_series(N_HKI_MIN_DYN)
+    live = {"lat_dyn": Live(lat_d, None), "hki_dyn": Live(t_d, v_d),
+            "hki_min_dyn": Live(t_dm, v_dm)}
+    dyn_spec = dict(dynamic=True, capacity=CAPACITY, auto_refit=False,
+                    background=False)
+    dsession = fit(
+        {"lat_dyn": lat_d, "hki_dyn": (t_d, v_d),
+         "hki_min_dyn": (t_dm, v_dm)},
+        {"lat_dyn": TableSpec("count", ErrorBudget(abs=100.0), **dyn_spec),
+         "hki_dyn": TableSpec("max", ErrorBudget(abs=50.0, rel=EPS_REL),
+                              **dyn_spec),
+         "hki_min_dyn": TableSpec("min", ErrorBudget(abs=50.0, rel=EPS_REL),
+                                  **dyn_spec)}, "dynamic ")
+
+    def dyn_state(tag, seed):
+        """One state of the dynamic tables: the main path, the answers
+        against the updated multisets, K5/K6 against their plain versions
+        on this state's buffers and queries."""
+        dq = {name: live[name].queries(make_queries_1d, seed + i)
+              for i, name in enumerate(DYN)}
+        truth = {name: host_truth(live[name].keys, live[name].meas, *dq[name],
+                                  DYN_AGG[name]) for name in DYN}
+        torch.cuda.reset_peak_memory_stats(dev)
+        answers, launches = drive(dsession, DYN, dq, tag)
+        check(launches["delta_sum_gather"] > 0,
+              f"{tag}K5 was not launched on lat_dyn")
+        check(launches["delta_max_gather"] > 0,
+              f"{tag}K6 was not launched on hki_dyn")
+        shares = check_answers(tag, DYN, answers, truth, DYN_BOUND)
+        check(shares["lat_dyn"] < 1.0, f"{tag}Q_rel refined every query")
+        stale = {name: a.staleness for name, a in zip(DYN, answers["Q_abs"])}
+        print(f"{tag}staleness {stale}; peak device memory "
+              f"{torch.cuda.max_memory_allocated(dev)} B", flush=True)
+        dt = {name: tuple(torch.as_tensor(q, device=dev) for q in dq[name])
+              for name in DYN}
+        _, buf = dsession.snapshot("lat_dyn")
+        k5 = [(*dt["lat_dyn"], buf.ins_keys, buf.ins_cf),
+              (*dt["lat_dyn"], buf.del_keys, buf.del_cf)]
+        k6 = []
+        for name in ("hki_dyn", "hki_min_dyn"):
+            _, b = dsession.snapshot(name)
+            k6.append((*dt[name], b.ins_keys, b.ins_st))
+        hold("delta_sum_gather", kdel.delta_sum_gather,
+             kdel.delta_sum_gather_plain, k5)
+        hold("delta_max_gather", kdel.delta_max_gather,
+             kdel.delta_max_gather_plain, k6)
+        print(f"{tag}parity: max |kernel - plain| = "
+              f"{ {k: errs[k] for k in ('delta_sum_gather', 'delta_max_gather')} }",
+              flush=True)
+        return dq, k5, k6
+
+    def merge(name, tag):
+        """Flush one table; print its merge seconds and refit segments."""
+        before = dsession.plan(name)
+        old = set(zip(before.seg_lo[:before.h].tolist(),
+                      before.seg_hi[:before.h].tolist()))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dsession.flush(name)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        after = dsession.plan(name)
+        refit = sum((lo, hi) not in old for lo, hi in zip(
+            after.seg_lo[:after.h].tolist(), after.seg_hi[:after.h].tolist()))
+        print(f"{tag}merge {name}: {secs!r} s, refit_count "
+              f"{dsession._dyn(name).refit_count}, h {before.h} -> "
+              f"{after.h}, refit segments {refit}", flush=True)
+        return refit, after.h
+
+    # step 1: a hot band, queried while buffered, then merged
+    lv = live["lat_dyn"]
+    lv.hot.append((HOT_BAND[0] - 0.25, HOT_BAND[1] + 0.25))
+    ins = rng.uniform(*HOT_BAND, HOT_INSERTS)
+    gone = lv.pick_base(rng, HOT_DELETES, *HOT_BAND)
+    dsession.insert("lat_dyn", ins)
+    dsession.delete("lat_dyn", gone)
+    lv.insert(ins)
+    lv.delete(gone)
+    for name, extreme in (("hki_dyn", np.argmax), ("hki_min_dyn", np.argmin)):
+        lv = live[name]
+        tb, vb = new_bars(rng, lv.keys.max(), lv.meas[np.argmax(lv.keys)],
+                          HOT_BARS)
+        lv.hot.append((lv.keys.max() - 200.0, np.inf))
+        gone = extremal_victims(rng, lv, extreme)
+        dsession.insert(name, tb, vb)
+        dsession.delete(name, gone)
+        lv.insert(tb, vb)
+        lv.delete(gone)
+    dyn_state("hot band, buffered: ", SEED + 10)
+    for name in DYN:
+        refit, h = merge(name, "hot band: ")
+        check(0 < refit <= max(8, h // 10),
+              f"the hot-band merge of {name} refit {refit} of {h} segments")
+    dyn_state("hot band, merged: ", SEED + 20)
+
+    # step 2: a full buffer (CAPACITY pending ops a table), no merge
+    lv = live["lat_dyn"]
+    ins = tweet_latitudes(CAPACITY - 1024, seed=SEED + 2)
+    gone = lv.pick_base(rng, 1024)
+    dsession.insert("lat_dyn", ins)
+    dsession.delete("lat_dyn", gone)
+    lv.insert(ins)
+    lv.delete(gone)
+    for name, extreme in (("hki_dyn", np.argmax), ("hki_min_dyn", np.argmin)):
+        lv = live[name]
+        tb, vb = new_bars(rng, lv.keys.max(), lv.meas[np.argmax(lv.keys)],
+                          CAPACITY - EXTREMAL_DELETES)
+        gone = extremal_victims(rng, lv, extreme)
+        dsession.insert(name, tb, vb)
+        dsession.delete(name, gone)
+        lv.insert(tb, vb)
+        lv.delete(gone)
+    refits = {name: dsession._dyn(name).refit_count for name in DYN}
+    dq, k5, k6 = dyn_state("buffer full: ", SEED + 30)
+    check({name: dsession._dyn(name).refit_count for name in DYN} == refits
+          and all(dsession._dyn(name).n_pending == CAPACITY for name in DYN),
+          "the buffer-full step merged or lost an op")
+
+    cap = CAPACITY
+    rounds = probe_rounds(cap)
+    st = k6[0][3]
+    rows.append(timing_row(
+        torch, "delta_sum_gather", kdel.delta_sum_gather,
+        kdel.delta_sum_gather_plain, k5[0], None,
+        3 * Q * 8 + cap * 8 + (cap + 1) * 8, Q * (2 * rounds + 1),
+        f"lq, uq ({Q},); keys ({cap},); cf ({cap + 1},) f64 -> ({Q},)",
+        total_launches["delta_sum_gather"], errs["delta_sum_gather"]))
+    rows.append(timing_row(
+        torch, "delta_max_gather", kdel.delta_max_gather,
+        kdel.delta_max_gather_plain, k6[0], None,
+        3 * Q * 8 + cap * 8 + st.numel() * 8, Q * (2 * rounds + 4),
+        f"lq, uq ({Q},); keys ({cap},); st {tuple(st.shape)} f64 -> ({Q},)",
+        total_launches["delta_max_gather"], errs["delta_max_gather"]))
+    for label, rel in (("Q_abs", None), ("Q_rel", EPS_REL)):
+        query_latency(torch, dsession, batch(DYN, dq, rel),
+                      f"buffer full: session.query {label}", 3 * NQ)
+        profile_batch(torch, dsession, batch(DYN, dq, rel),
+                      f"buffer full: session.query {label}")
+    # one CAPACITY-record insert into an emptied buffer
+    merge("hki_min_dyn", "buffer full: ")
+    lv = live["hki_min_dyn"]
+    tb, vb = new_bars(rng, lv.keys.max(), lv.meas[np.argmax(lv.keys)],
+                      CAPACITY)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dsession.insert("hki_min_dyn", tb, vb)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    print(f"insert: {CAPACITY} records into hki_min_dyn in {secs!r} s, "
+          f"{CAPACITY / secs!r} records/s", flush=True)
+
+    for row in rows:
+        if row["launches"] is None:
+            row["launches"] = total_launches[row["name"]]
+    print(f"wall: {time.perf_counter() - wall0:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

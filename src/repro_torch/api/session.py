@@ -1,4 +1,4 @@
-"""The ``PolyFit`` session facade for static one-key tables.
+"""The ``PolyFit`` session facade for static and dynamic one-key tables.
 
 The twin of ``repro.api.session``:
 
@@ -18,6 +18,10 @@ to a plan on the query device: the card unless ``device`` says otherwise.
 ``query`` groups a mixed batch by (table, kind, guarantee), pads each group
 to its power-of-two bucket, runs one fused executor per group, and scatters
 the answers back in request order.
+
+A table fitted with ``TableSpec(..., dynamic=True)`` sits behind a
+``DynamicEngine``: ``insert``/``delete`` buffer updates that every query
+folds in exactly, ``flush`` merges them into a selectively refit plan.
 """
 from __future__ import annotations
 
@@ -31,7 +35,8 @@ import torch
 from .. import DTYPE, resolve_device
 from ..core import build_index_1d
 from ..core.queries import QueryResult
-from ..engine import IndexPlan, build_plan, execute, resolve_backend
+from ..engine import (DynamicEngine, IndexPlan, build_plan, execute,
+                      resolve_backend)
 from .budget import ErrorBudget
 from .spec import DEFAULT_REL, KIND_OF_AGG, QueryBatch, QuerySpec, TableSpec
 
@@ -47,8 +52,10 @@ class Answer:
     ``value`` is the (possibly refined) answer batch; ``approx``/``refined``
     expose the raw index answers and the Q_rel refinement mask exactly as
     :class:`~repro_torch.core.queries.QueryResult` does.  ``bound`` is the
-    certified Q_abs bound that travels with the answer.  ``staleness`` is 0
-    for static tables.  ``.answer`` aliases ``value``.
+    certified Q_abs bound that travels with the answer.  ``staleness``
+    counts the buffered-but-unmerged rows of a dynamic table (0 for static
+    ones); buffered rows are still folded in exactly, so it is an
+    operational signal, not extra error.  ``.answer`` aliases ``value``.
     """
 
     value: torch.Tensor
@@ -66,20 +73,42 @@ class Answer:
 
 
 class _Table:
-    """One fitted static table: the spec and its device plan."""
+    """One fitted table: the spec and its device plan, or the
+    ``DynamicEngine`` that holds it for a dynamic table."""
 
     def __init__(self, name: str, spec: TableSpec, data, *,
-                 device: torch.device):
+                 device: torch.device, backend: str, min_bucket: int):
         self.name = name
         self.spec = spec
+        self.dyn: Optional[DynamicEngine] = None
+        self._static_plan: Optional[IndexPlan] = None
         keys, meas = data
         keys = np.asarray(keys, np.float64)
         meas = None if meas is None else np.asarray(meas, np.float64)
         t0 = time.perf_counter()
         idx = build_index_1d(keys, meas, spec.agg, deg=spec.degree,
                              delta=spec.budget.delta(spec.agg), device=device)
-        self.plan: IndexPlan = build_plan(idx)
+        if spec.dynamic:
+            self.dyn = DynamicEngine(
+                idx, backend=backend, capacity=spec.capacity,
+                background=spec.background, auto_refit=spec.auto_refit,
+                min_bucket=min_bucket)
+        else:
+            self._static_plan = build_plan(idx)
         self.build_seconds = time.perf_counter() - t0
+
+    @property
+    def plan(self) -> IndexPlan:
+        return self.dyn.plan if self.dyn is not None else self._static_plan
+
+    def snapshot(self):
+        """Immutable (plan, delta-buffer) pair; ``()`` buffer when static."""
+        if self.dyn is not None:
+            return self.dyn.snapshot()
+        return self._static_plan, ()
+
+    def staleness(self) -> int:
+        return self.dyn.n_pending if self.dyn is not None else 0
 
     def resolve_rel(self, rel) -> Optional[float]:
         return self.spec.budget.rel if rel is DEFAULT_REL else rel
@@ -132,7 +161,8 @@ class PolyFit:
             elif not (isinstance(data, tuple) and len(data) == 2):
                 raise ValueError(f"table {name!r}: {spec.agg} data must be "
                                  "(keys, measures)")
-            tables[name] = _Table(name, spec, data, device=device)
+            tables[name] = _Table(name, spec, data, device=device,
+                                  backend=backend, min_bucket=min_bucket)
         return cls(tables, backend=backend, device=device,
                    min_bucket=min_bucket)
 
@@ -149,8 +179,14 @@ class PolyFit:
         return self._table(table).spec.budget
 
     def plan(self, table: str) -> IndexPlan:
-        """The table's device plan."""
+        """The table's current device plan (fresh after dynamic merges)."""
         return self._table(table).plan
+
+    def snapshot(self, table: str):
+        """The table's current immutable (plan, delta-buffer) pair; static
+        tables return ``()`` for the buffer.  Merges install a *new* plan
+        object, so the pair is safe to hold across a dispatch."""
+        return self._table(table).snapshot()
 
     def size_bytes(self) -> Dict[str, int]:
         return {k: t.plan.size_bytes() for k, t in self._tables.items()}
@@ -225,10 +261,40 @@ class PolyFit:
         return kind, t.resolve_rel(spec.rel)
 
     def _exec_group(self, table: str, ranges, eps_rel) -> QueryResult:
-        return execute(self._table(table).plan, ranges, backend=self.backend,
+        t = self._table(table)
+        if t.dyn is not None:
+            return t.dyn.query(*ranges, eps_rel=eps_rel)
+        return execute(t.plan, ranges, backend=self.backend,
                        eps_rel=eps_rel, min_bucket=self.min_bucket)
 
     def _wrap(self, table: str, res: QueryResult) -> Answer:
-        spec = self._table(table).spec
+        t = self._table(table)
         return Answer(res.answer, res.approx, res.refined,
-                      bound=spec.budget.bound(spec.agg))
+                      bound=t.spec.budget.bound(t.spec.agg),
+                      staleness=t.staleness())
+
+    # -- updates (dynamic tables) ----------------------------------------
+
+    def _dyn(self, table: str) -> DynamicEngine:
+        t = self._table(table)
+        if t.dyn is None:
+            raise RuntimeError(f"table {table!r} is static; fit it with "
+                               "TableSpec(dynamic=True) to take updates")
+        return t.dyn
+
+    def insert(self, table: str, *args) -> None:
+        """Buffer new records: ``(keys[, measures])``.  Queries fold them
+        in exactly."""
+        self._dyn(table).insert(*args)
+
+    def delete(self, table: str, *args) -> None:
+        """Buffer delete tombstones for existing records."""
+        self._dyn(table).delete(*args)
+
+    def flush(self, table: Optional[str] = None) -> None:
+        """Merge buffered updates into fresh plans (all dynamic tables by
+        default)."""
+        names = [table] if table is not None else [
+            k for k, t in self._tables.items() if t.dyn is not None]
+        for name in names:
+            self._dyn(name).flush()

@@ -1,16 +1,17 @@
 """Declarative request/fit descriptions for the ``PolyFit`` session facade.
 
-The twin of ``repro.api.spec`` for static one-key tables.  ``QuerySpec``
-names a fitted table and carries the query ranges (scalars or equal-length
-batches); ``QueryBatch`` is an ordered tuple of specs that may mix
+The twin of ``repro.api.spec`` for static and dynamic one-key tables.
+``QuerySpec`` names a fitted table and carries the query ranges (scalars or
+equal-length batches); ``QueryBatch`` is an ordered tuple of specs that may mix
 aggregates freely — the session groups them by (table, kind, guarantee),
 dispatches each group through one fused executor, and scatters answers back
 in request order.
 
 ``TableSpec`` is the fit-time counterpart: aggregate family, ``ErrorBudget``
-(the only source of build deltas — see ``budget.py``) and degree.  The
-2-key aggregates and the dynamic, LSM, sharded and windowed tables come
-with their slices and raise ``NotImplementedError`` naming them.
+(the only source of build deltas — see ``budget.py``), degree, and the
+delta buffer of a ``dynamic`` table.  The 2-key aggregates and the LSM,
+sharded and windowed tables come with their slices and raise
+``NotImplementedError`` naming them.
 """
 from __future__ import annotations
 
@@ -42,7 +43,7 @@ KIND_OF_AGG = {"count": "count", "sum": "sum", "max": "max", "min": "min",
 
 # ROADMAP Queue 1 items of what this slice does not serve yet
 _LATER = {"2-D tables": 13, "quantiles": 11, "windowed tables": 12,
-          "dynamic tables": 10, "LSM tables": 12, "sharded tables": 14}
+          "LSM tables": 12, "sharded tables": 14}
 
 
 def not_ported(what: str) -> NotImplementedError:
@@ -136,9 +137,12 @@ class TableSpec:
     ``agg``: 'sum' | 'count' | 'max' | 'min'.  ``budget``: the table's
     ``ErrorBudget`` — the *only* place the build delta comes from.  ``deg``
     defaults to 2 for SUM/COUNT and 3 for MAX/MIN (the paper's
-    recommendations).  ``dynamic``, ``lsm``, ``shards`` and ``window`` name
-    the execution stacks of later slices and raise ``NotImplementedError``
-    when set.
+    recommendations).  ``dynamic`` wraps the plan in a delta-buffered
+    engine (inserts/deletes without rebuild): ``capacity`` is the buffer's
+    size (a power of two), ``background`` runs merges on a worker thread,
+    ``auto_refit`` merges when the buffer fills or a segment's drift passes
+    its headroom.  ``lsm``, ``shards`` and ``window`` name the execution
+    stacks of later slices and raise ``NotImplementedError`` when set.
     """
 
     agg: str
@@ -146,6 +150,9 @@ class TableSpec:
     deg: Optional[int] = None
     dynamic: bool = False
     lsm: bool = False
+    capacity: int = 1024
+    background: bool = True
+    auto_refit: bool = True
     shards: Optional[int] = None
     window: int = 0
 
@@ -160,8 +167,6 @@ class TableSpec:
             raise not_ported("windowed tables")
         if self.lsm:
             raise not_ported("LSM tables")
-        if self.dynamic:
-            raise not_ported("dynamic tables")
         if self.shards is not None:
             raise not_ported("sharded tables")
 

@@ -6,6 +6,7 @@
 // compiled with -fmad=false (no multiply-add contraction):
 //
 //   bsearch_count_right  #(keys <= q) in ceil(log2 n) + 1 probe rounds
+//   bsearch_count_left   #(keys < q), the same probe order
 //   locate_segment       max(#(seg_lo <= q) - 1, 0)
 //   floor_log2           floor(log2(len)) for len >= 1
 //   rmq_gather           max over [i0, i1) of a (levels, n) sparse table
@@ -48,6 +49,19 @@ __device__ __forceinline__ int bsearch_count_right(const double* __restrict__ ke
     const int probe = c + step - 1;
     const double pv = keys[probe < n - 1 ? probe : n - 1];
     c = (probe <= n - 1 && pv <= q) ? c + step : c;
+  }
+  return c;
+}
+
+// Number of keys[0:n] that are < q: the probe order of bsearch_count_right
+// with a strict compare (the plain version's side="left").
+__device__ __forceinline__ int bsearch_count_left(const double* __restrict__ keys,
+                                                  int n, double q) {
+  int c = 0;
+  for (int step = bit_ceil(n); step >= 1; step >>= 1) {
+    const int probe = c + step - 1;
+    const double pv = keys[probe < n - 1 ? probe : n - 1];
+    c = (probe <= n - 1 && pv < q) ? c + step : c;
   }
   return c;
 }

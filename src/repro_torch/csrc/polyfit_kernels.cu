@@ -3,6 +3,8 @@
 // K1 locate_kernel            replaces repro/kernels/locate.py:locate_pallas
 // K2 range_sum_gather_kernel  replaces repro/kernels/range_sum.py:range_sum_gather_pallas
 // K3 range_max_gather_kernel  replaces repro/kernels/range_max.py:range_max_gather_pallas
+// K5 delta_sum_gather_kernel  replaces repro/kernels/delta_scan.py:delta_sum_gather_pallas
+// K6 delta_max_gather_kernel  replaces repro/kernels/delta_scan.py:delta_max_gather_pallas
 //
 // What bounds them on an H100: each is a gather plus a few dozen f64
 // flops a query.  Per query K2 reads two f64 endpoints and writes one f64,
@@ -11,6 +13,14 @@
 // search adds ceil(log2 Hp) + 1 dependent loads a query, which hit L1/L2
 // (the table is tens of KB).  So the bound is bytes, and at these sizes the
 // launch latency (a few us) sets the time.
+//
+// K5 and K6 are the exact corrections over a dynamic table's delta buffer:
+// two binary searches into the sorted, sentinel-padded log (cap entries),
+// then a prefix-sum difference (K5) or an O(1) sparse-table range max (K6).
+// At Q = 65,536 and cap = 4,096 they must move about 1.6 MB (K5: lq, uq,
+// out, the log and its prefix sums) and 2.0 MB (K6: the log's 13 x 4,096
+// sparse table instead), about 0.5 and 0.6 us at 3.35 TB/s; the log is
+// 32 KB and stays in L1/L2 across the 13 dependent probes a search takes.
 //
 // What the design does about it: nothing yet.  One thread per query, the
 // table read through L1/L2; staging the table in shared memory, or several
@@ -89,6 +99,37 @@ __global__ void range_max_gather_kernel(const double* __restrict__ lq,
   out[i] = jmax(jmax(m_left, m_right), m_int);
 }
 
+// K5: sum of buffered measures with key in (lq, uq]: cf[#(keys <= uq)] -
+// cf[#(keys <= lq)] against the log's exclusive prefix sums cf (cap + 1)
+__global__ void delta_sum_gather_kernel(const double* __restrict__ lq,
+                                        const double* __restrict__ uq,
+                                        const double* __restrict__ keys,
+                                        const double* __restrict__ cf,
+                                        double* __restrict__ out, int Q,
+                                        int cap) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= Q) return;
+  const int cu = bsearch_count_right(keys, cap, uq[i]);
+  const int cl = bsearch_count_right(keys, cap, lq[i]);
+  out[i] = cf[cu] - cf[cl];
+}
+
+// K6: max of buffered measures with key in [lq, uq]: the log's covered span
+// [#(keys < lq), #(keys <= uq)) against its (levels, cap) sparse table;
+// an empty span gives -inf
+__global__ void delta_max_gather_kernel(const double* __restrict__ lq,
+                                        const double* __restrict__ uq,
+                                        const double* __restrict__ keys,
+                                        const double* __restrict__ st,
+                                        double* __restrict__ out, int Q,
+                                        int cap) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= Q) return;
+  const int i0 = bsearch_count_left(keys, cap, lq[i]);
+  const int i1 = bsearch_count_right(keys, cap, uq[i]);
+  out[i] = rmq_gather(st, cap, i0, i1);
+}
+
 inline int blocks_for(int Q) { return (Q + kThreads - 1) / kThreads; }
 
 }  // namespace polyfit
@@ -127,6 +168,30 @@ int polyfit_range_max_gather(const void* lq, const void* uq, const void* seg_lo,
         (const double*)lq, (const double*)uq, (const double*)seg_lo,
         (const double*)seg_hi, (const double*)coeffs, (const double*)st,
         (double*)out, Q, H, deg, h);
+  return (int)cudaGetLastError();
+}
+
+int polyfit_delta_sum_gather(const void* lq, const void* uq, const void* keys,
+                             const void* cf, void* out, int Q, int cap,
+                             void* stream) {
+  if (Q > 0)
+    polyfit::delta_sum_gather_kernel<<<polyfit::blocks_for(Q),
+                                       polyfit::kThreads, 0,
+                                       (cudaStream_t)stream>>>(
+        (const double*)lq, (const double*)uq, (const double*)keys,
+        (const double*)cf, (double*)out, Q, cap);
+  return (int)cudaGetLastError();
+}
+
+int polyfit_delta_max_gather(const void* lq, const void* uq, const void* keys,
+                             const void* st, void* out, int Q, int cap,
+                             void* stream) {
+  if (Q > 0)
+    polyfit::delta_max_gather_kernel<<<polyfit::blocks_for(Q),
+                                       polyfit::kThreads, 0,
+                                       (cudaStream_t)stream>>>(
+        (const double*)lq, (const double*)uq, (const double*)keys,
+        (const double*)st, (double*)out, Q, cap);
   return (int)cudaGetLastError();
 }
 

@@ -9,9 +9,14 @@ path (or the ``Engine`` shim) with ``backend='torch' | 'cuda' | 'ref'``:
 
     plan = build_plan(build_index_1d(keys, meas, "sum", delta=eps / 2))
     res = Engine().query(plan, lq, uq, eps_rel=0.01)   # fused approx + refine
+
+``DynamicEngine`` wraps an index in a delta buffer that takes inserts and
+deletes without a rebuild (exact corrections K5/K6 on ``'cuda'``) and
+refits only the segments they touch.
 """
+from .dynamic import DeltaBuffer, DynamicEngine
 from .engine import (BACKENDS, Engine, check_pow2, execute, execute_extremum,
-                     execute_sum, pad_fills, raw_extremum, raw_sum,
+                     execute_sum, key_span, pad_fills, raw_extremum, raw_sum,
                      resolve_backend, truth_extremum, truth_sum)
 from .plan import (IndexPlan, big_sentinel, build_plan, pad_to_multiple,
                    plan_from_numpy)
@@ -19,4 +24,5 @@ from .plan import (IndexPlan, big_sentinel, build_plan, pad_to_multiple,
 __all__ = ["BACKENDS", "Engine", "check_pow2", "execute", "execute_extremum",
            "execute_sum", "pad_fills", "raw_extremum", "raw_sum",
            "resolve_backend", "truth_extremum", "truth_sum", "IndexPlan",
-           "big_sentinel", "build_plan", "pad_to_multiple", "plan_from_numpy"]
+           "big_sentinel", "build_plan", "pad_to_multiple", "plan_from_numpy",
+           "DeltaBuffer", "DynamicEngine", "key_span"]

@@ -43,8 +43,8 @@ from ..kernels.range_sum import range_sum_gather
 from .plan import IndexPlan
 
 __all__ = ["Engine", "BACKENDS", "raw_sum", "raw_extremum", "truth_sum",
-           "truth_extremum", "check_pow2", "execute_sum", "execute_extremum",
-           "execute", "pad_fills", "resolve_backend"]
+           "truth_extremum", "key_span", "check_pow2", "execute_sum",
+           "execute_extremum", "execute", "pad_fills", "resolve_backend"]
 
 BACKENDS = ("torch", "cuda", "ref")
 
@@ -148,16 +148,20 @@ def truth_sum(plan: IndexPlan, lq, uq, *, backend: str):
     return cf_at(uq) - cf_at(lq)
 
 
-def truth_extremum(plan: IndexPlan, lq, uq, *, backend: str):
-    """Exact static MAX over [lq, uq] (MAX space) from the refinement table.
-
-    #(keys < lq) is #(keys <= the next double below lq): the same binary
-    search serves both ends."""
-    keys = plan.ref_keys
+def key_span(keys: torch.Tensor, lq, uq, backend: str):
+    """The span [#(keys < lq), #(keys <= uq)) of the sorted ``keys`` that
+    [lq, uq] covers.  #(keys < lq) is #(keys <= the next double below lq):
+    the same binary search (K1 on the 'cuda' backend) serves both ends."""
     i = _count_le(keys, torch.nextafter(lq, lq.new_full((), -torch.inf)),
                   backend)
-    j = _count_le(keys, uq, backend)
-    return sparse_table_range_max(plan.ref_st, i, j)
+    return i, _count_le(keys, uq, backend)
+
+
+def truth_extremum(plan: IndexPlan, lq, uq, *, backend: str):
+    """Exact static MAX over [lq, uq] (MAX space) from the refinement
+    table."""
+    return sparse_table_range_max(plan.ref_st,
+                                  *key_span(plan.ref_keys, lq, uq, backend))
 
 
 # ---------------------------------------------------------------------------

@@ -44,6 +44,10 @@ _SIGNATURES = {
     # lq, uq, seg_lo, seg_hi, coeffs, st, out, Q, H, deg, h, stream
     "polyfit_range_max_gather": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                  _P),
+    # lq, uq, keys, cf, out, Q, cap, stream
+    "polyfit_delta_sum_gather": (_P, _P, _P, _P, _P, _I, _I, _P),
+    # lq, uq, keys, st, out, Q, cap, stream
+    "polyfit_delta_max_gather": (_P, _P, _P, _P, _P, _I, _I, _P),
 }
 
 

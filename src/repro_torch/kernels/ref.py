@@ -2,9 +2,10 @@
 
 The twin of ``repro.kernels.ref``: the query clamp and the one-hot
 membership rule one_hot[q, j] = (seg_lo[j] <= q) & (q < seg_next[j]) of the
-scan kernels, with a dense interior reduction for MAX.  The engine's
-``ref`` backend runs these.  The 2-D and delta-buffer oracles come with
-their slices (ROADMAP Queue 1 items 10 and 13).
+scan kernels, with a dense interior reduction for MAX, and the dense
+membership oracles of the 1-D delta-buffer corrections.  The engine's
+``ref`` backend runs these.  The 2-D oracles come with their slice
+(ROADMAP Queue 1 item 13).
 """
 from __future__ import annotations
 
@@ -12,7 +13,8 @@ import torch
 
 from ..core.poly import clipped_poly_max, eval_segments, locate
 
-__all__ = ["poly_eval_ref", "range_sum_ref", "range_max_ref"]
+__all__ = ["poly_eval_ref", "range_sum_ref", "range_max_ref",
+           "delta_sum_ref", "delta_max_ref"]
 
 
 def poly_eval_ref(q, seg_lo, seg_next, seg_hi, coeffs):
@@ -43,3 +45,17 @@ def range_max_ref(lq, uq, seg_lo, seg_next, seg_hi, coeffs, seg_agg):
                 (seg_next[None, :] <= uq[:, None]))
     m_mid = torch.where(interior, seg_agg[None, :], -torch.inf).amax(dim=1)
     return torch.maximum(torch.maximum(m_left, m_right), m_mid)
+
+
+def delta_sum_ref(lq, uq, keys, vals):
+    """Exact sum of buffered measures with key in (lq, uq] (delta_scan
+    oracle); sentinel-padded slots never satisfy membership."""
+    member = ((lq[:, None] < keys[None, :]) &
+              (keys[None, :] <= uq[:, None])).to(vals.dtype)
+    return member @ vals
+
+
+def delta_max_ref(lq, uq, keys, vals):
+    """Exact max of buffered measures with key in [lq, uq]; -inf if none."""
+    member = (lq[:, None] <= keys[None, :]) & (keys[None, :] <= uq[:, None])
+    return torch.where(member, vals[None, :], -torch.inf).amax(dim=1)

@@ -1,9 +1,10 @@
 """The CUDA kernels on the card, held to their plain PyTorch versions.
 
-K1 (locate), K2 (range SUM) and K3 (range MAX) and the ``cuda`` engine
-backend must agree with the plain versions on the same inputs: K1's int32
-ids exactly, K2/K3 to rtol = atol = 1e-9 (compiled with -fmad=false, they
-are expected to agree bit for bit).  The plain versions are held to the JAX
+K1 (locate), K2 (range SUM), K3 (range MAX), K5 (buffered SUM), K6
+(buffered MAX) and the ``cuda`` engine backend, static and dynamic, must
+agree with the plain versions on the same inputs: K1's int32 ids exactly,
+the others to rtol = atol = 1e-9 (compiled with -fmad=false, they are
+expected to agree bit for bit).  The plain versions are held to the JAX
 reference by the CPU tests (test_torch_locate.py, test_torch_kernels.py,
 test_torch_engine.py), so this file imports no JAX: it runs on a machine
 with a card and PyTorch alone.
@@ -17,8 +18,11 @@ import torch
 from repro_torch.api import ErrorBudget, PolyFit, QueryBatch, QuerySpec, TableSpec
 from repro_torch.core import build_index_1d
 from repro_torch.data import hki_series, make_queries_1d, tweet_latitudes
-from repro_torch.engine import Engine, build_plan, execute_extremum
+from repro_torch.engine import (DynamicEngine, Engine, build_plan,
+                                execute_extremum)
+from repro_torch.engine.dynamic import _append_1d
 from repro_torch.engine.plan import big_sentinel
+from repro_torch.kernels import delta_scan as kdelta
 from repro_torch.kernels import locate as kloc
 from repro_torch.kernels import range_max as kmax
 from repro_torch.kernels import range_sum as ksum
@@ -153,3 +157,142 @@ def test_session_on_card_matches_cpu_session():
     for g, w in zip(card.query(batch), host.query(batch)):
         torch.testing.assert_close(g.value.cpu(), w.value, **TOL)
         torch.testing.assert_close(g.refined.cpu(), w.refined, rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# K5 / K6 and the dynamic engine
+# ---------------------------------------------------------------------------
+
+CAP = 4096
+
+
+def _log(cuda, fill, with_st):
+    """A sorted, sentinel-padded delta log of ``fill`` entries (ties
+    included) built by the engine's append on the card."""
+    rng = np.random.default_rng(fill)
+    big = big_sentinel(torch.float64)
+    k = np.full(CAP, big)
+    v = np.zeros(CAP)
+    k[:fill] = np.round(rng.uniform(0, 1000, fill), 1)
+    v[:fill] = rng.normal(0, 50, fill)
+    empty = torch.full((CAP,), big, dtype=torch.float64, device=cuda)
+    zero = torch.zeros(CAP, dtype=torch.float64, device=cuda)
+    return _append_1d(empty, zero, torch.as_tensor(k, device=cuda),
+                      torch.as_tensor(v, device=cuda), cap=CAP,
+                      with_st=with_st)
+
+
+def _delta_queries(cuda):
+    """Ranges inside, across and outside the log's keys (below the first,
+    above the last, an empty span on a key, an inverted range)."""
+    rng = np.random.default_rng(17)
+    a, b = rng.uniform(-100, 1100, (2, 70_000))
+    lq = np.concatenate([np.minimum(a, b), [-1e9, 2000.0, 500.0, 600.0]])
+    uq = np.concatenate([np.maximum(a, b), [-5.0, 1e9, 500.0, 599.0]])
+    return tuple(torch.as_tensor(q, device=cuda) for q in (lq, uq))
+
+
+@pytest.mark.parametrize("fill", [0, 37, CAP])
+def test_delta_sum_kernel_matches_plain(cuda, fill):
+    keys, _, cf, _ = _log(cuda, fill, False)
+    lq, uq = _delta_queries(cuda)
+    before = kdelta.delta_sum_gather.launches
+    got = kdelta.delta_sum_gather(lq, uq, keys, cf)
+    torch.cuda.synchronize()
+    assert kdelta.delta_sum_gather.launches == before + 1
+    torch.testing.assert_close(
+        got, kdelta.delta_sum_gather_plain(lq, uq, keys, cf), **TOL)
+    if fill == 0:
+        assert not got.any()
+
+
+@pytest.mark.parametrize("fill", [0, 37, CAP])
+def test_delta_max_kernel_matches_plain(cuda, fill):
+    keys, vals, _, st = _log(cuda, fill, True)
+    lq, uq = _delta_queries(cuda)
+    before = kdelta.delta_max_gather.launches
+    got = kdelta.delta_max_gather(lq, uq, keys, st)
+    torch.cuda.synchronize()
+    assert kdelta.delta_max_gather.launches == before + 1
+    torch.testing.assert_close(
+        got, kdelta.delta_max_gather_plain(lq, uq, keys, st), **TOL)
+    assert torch.isneginf(got[-4:-2]).all()   # no key in either range
+    if fill == 0:
+        assert torch.isneginf(got).all()
+
+
+def test_delta_kernels_reject_bad_arguments(cuda):
+    keys, _, cf, st = _log(cuda, 10, True)
+    lq, uq = _delta_queries(cuda)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        kdelta.delta_sum_gather(lq, uq, keys, cf[:-1])
+    with pytest.raises(ValueError, match="shape mismatch"):
+        kdelta.delta_max_gather(lq, uq, keys, st[:2])
+    with pytest.raises(ValueError, match="CUDA device"):
+        kdelta.delta_sum_gather(lq, uq, keys.cpu(), cf)
+
+
+@pytest.mark.parametrize("agg", ["sum", "count", "max", "min"])
+def test_dynamic_cuda_backend_matches_torch_backend(cuda, agg):
+    """DynamicEngine on the card: the default 'cuda' backend runs K5 (SUM/
+    COUNT) or K6 (MAX/MIN) beside K2/K3, and K1 in the refinement and the
+    victim path, and agrees with the plain 'torch' backend after inserts,
+    deletes, a flush and more updates, refined flags included."""
+    t, v = hki_series(N, seed=3)
+    meas = None if agg == "count" else (v / 100 if agg == "sum" else v)
+    delta = 100.0 if agg in ("sum", "count") else 30.0
+    deg = 2 if agg in ("sum", "count") else 3
+    idx = build_index_1d(t, meas, agg, deg=deg, delta=delta, device=cuda)
+    dev = DynamicEngine(idx, capacity=256, auto_refit=False)
+    host = DynamicEngine(idx, backend="torch", capacity=256, auto_refit=False)
+    assert dev.backend == "cuda"
+    rng = np.random.default_rng(23)
+    extremal = agg in ("max", "min")
+    delta_k = kdelta.delta_max_gather if extremal else kdelta.delta_sum_gather
+    static_k = kmax.range_max_gather if extremal else ksum.range_sum_gather
+    counts = lambda: (delta_k.launches, static_k.launches,
+                      kloc.locate.launches, execute_extremum.torch_routes)
+    a, b = t[rng.integers(0, N, 3000)], t[rng.integers(0, N, 3000)]
+    lq = np.concatenate([np.minimum(a, b), [t[0] - 50.0, t[-1] - 1.0]])
+    uq = np.concatenate([np.maximum(a, b), [t[0] - 10.0, t[-1] + 60.0]])
+
+    def update(step):
+        ins_k = np.concatenate([rng.uniform(t[0], t[-1], 40),
+                                [t[0] - 20.0 - step, t[-1] + 30.0 + step]])
+        ins_v = rng.uniform(25_000, 40_000, len(ins_k))
+        gone = t[rng.choice(N, 12, replace=False)]
+        for dyn in (dev, host):
+            if agg == "count":
+                dyn.insert(ins_k)
+            else:
+                dyn.insert(ins_k, ins_v / 100 if agg == "sum" else ins_v)
+            dyn.delete(gone)
+
+    def compare():
+        victims = extremal and dev.snapshot()[1].vic_keys is not None
+        for eps_rel in (None, 0.05):
+            before = counts()
+            got = dev.query(lq, uq, eps_rel=eps_rel)
+            torch.cuda.synchronize()
+            k1 = 2 if (eps_rel is not None or victims) else 0
+            assert counts() == (before[0] + (1 if extremal else 2),
+                                before[1] + 1, before[2] + k1, before[3])
+            before = counts()
+            want = host.query(lq, uq, eps_rel=eps_rel)
+            assert counts() == before
+            torch.testing.assert_close(got.answer, want.answer, **TOL)
+            torch.testing.assert_close(got.refined, want.refined, rtol=0,
+                                       atol=0)
+
+    update(0)
+    compare()
+    dev.flush()
+    host.flush()
+    assert dev.refit_count == host.refit_count == 1
+    for f in ("seg_lo", "seg_hi", "coeffs"):
+        torch.testing.assert_close(getattr(dev.index, f).cpu(),
+                                   getattr(host.index, f).cpu(), rtol=0,
+                                   atol=0)
+    compare()
+    update(1)   # extremal deletes now shadow victims in a fresh buffer
+    compare()
