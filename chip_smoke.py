@@ -35,12 +35,18 @@ Phases, each of which fails the run with a non-zero exit:
              again; a buffer-full step (4,096 pending ops a table, no
              merge) is queried last.  Every batch is checked against numpy
              truth over the updated multiset, the launch counters must show
-             K1-K3, K5 and K6, K5/K6 are held to their plain versions on
-             each state's buffers, and K5/K6, the full-buffer query
-             latency, one 4,096-record insert and the merges are timed.
+             K1-K3, K5 and K6, and in each state every one of them is held
+             to its plain version at the shapes the path gave it (K1-K3 on
+             that state's paper-size plans, K5/K6 on its buffers).  K1-K3
+             are timed again at the paper-size plans, K5/K6 on the full
+             buffers, with the full-buffer query latency, one 4,096-record
+             insert and the merges.
 
 The line before last is the card's nvidia-smi name and power limit, the
-line before that the kernels' JSON record; the last line is the result.
+line before that the kernels' JSON record: one row a kernel, whose own
+numbers are the dynamic phase's (the paper's sizes) and whose ``launches``
+sums every phase, with ``by_phase`` giving each phase's launches, shape,
+times and bound; the last line is the result.
 Imports nothing of JAX or of the reference package.
 """
 from __future__ import annotations
@@ -250,24 +256,36 @@ def check_answers(tag, names, answers, truth, bounds):
     return shares
 
 
-def timing_row(torch, name, fn, plain, args, library, nbytes, flops, shape,
-               launches, err):
+def measure(torch, tag, name, fn, plain, args, library, nbytes, flops,
+            shape):
     """Time one kernel, its plain version and its library yardstick on the
-    same arguments; return its row of the kernels' JSON record."""
+    same arguments, at one shape of the main path."""
     ms = device_ms(torch, lambda: fn(*args))
     eager_ms = call_ms(torch, lambda: fn(*args))
     plain_ms = device_ms(torch, lambda: plain(*args))
     lib_ms = None if library is None else device_ms(
         torch, lambda: library(*args))
     b_ms, b_by = bound_ms(nbytes, flops)
-    print(f"timing {name}: kernel {ms!r} ms on the device, {eager_ms!r} "
-          f"ms per eager call; plain {plain_ms!r} ms; library {lib_ms!r}"
-          f" ms; bound {b_ms!r} ms ({b_by})", flush=True)
+    print(f"{tag}timing {name} [{shape}]: kernel {ms!r} ms on the device, "
+          f"{eager_ms!r} ms per eager call; plain {plain_ms!r} ms; library "
+          f"{lib_ms!r} ms; bound {b_ms!r} ms ({b_by})", flush=True)
+    return {"shape": shape, "ms": ms, "call_ms": eager_ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+            "bound_by": b_by}
+
+
+def kernel_row(name, phases, err):
+    """One kernel's row of the kernels' JSON record.  ``phases`` maps each
+    phase that launched it to (launches, its measure() at that phase's
+    shapes); the row's own numbers are those of the last phase (the
+    dynamic phase, at the paper's sizes) and ``launches`` sums them all."""
+    last = list(phases.values())[-1][1]
     return {"name": name, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[name], "shape": shape,
-            "launches": launches, "max_abs_err": err,
-            "ms": ms, "call_ms": eager_ms, "plain_ms": plain_ms,
-            "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by}
+            "replaces": REPLACES[name],
+            "launches": sum(n for n, _ in phases.values()),
+            "max_abs_err": err, **last,
+            "by_phase": [{"phase": ph, "launches": n, **m}
+                         for ph, (n, m) in phases.items()]}
 
 
 def query_latency(torch, session, req, label, nq):
@@ -486,9 +504,9 @@ def main() -> None:
 
     counters = (kloc.locate, ksum.range_sum_gather, kmax.range_max_gather,
                 kdel.delta_sum_gather, kdel.delta_max_gather)
-    total_launches = {c.__name__: 0 for c in counters}
+    phase_launches = {}         # phase -> kernel -> launches on its main path
 
-    def drive(session, names, queries, tag):
+    def drive(session, names, queries, tag, phase):
         """The main path of one phase: counters to 0, a Q_abs and a Q_rel
         batch through session.query, counters read."""
         for c in counters:
@@ -503,8 +521,9 @@ def main() -> None:
             main_s[label] = time.perf_counter() - t0
         launches = {c.__name__: c.launches for c in counters}
         routes = execute_extremum.torch_routes
+        acc = phase_launches.setdefault(phase, dict.fromkeys(launches, 0))
         for k, v in launches.items():
-            total_launches[k] += v
+            acc[k] += v
         print(f"{tag}main path: launches {launches}, deg>3 reroutes "
               f"{routes}, first-call seconds {main_s}", flush=True)
         check(launches["range_sum_gather"] > 0, f"{tag}K2 was not launched")
@@ -515,7 +534,7 @@ def main() -> None:
               "kernels")
         return answers, launches
 
-    answers, _ = drive(session, ("lat", "hki", "hki_min"), qs, "")
+    answers, _ = drive(session, ("lat", "hki", "hki_min"), qs, "", "static")
     shares = check_answers("", ("lat", "hki", "hki_min"), answers, truth,
                            bounds)
     # MIN runs in MAX space on negated measures, where the Lemma 5.4 test
@@ -524,82 +543,109 @@ def main() -> None:
           f"Q_rel refined every query: {shares}")
 
     # -- 5. kernel parity on the card ---------------------------------------
-    lat_plan, hki_plan, min_plan = (session.plan(n)
-                                    for n in ("lat", "hki", "hki_min"))
+    def path_args(plans, queries, aggs):
+        """The argument sets the main path gives K1-K3 on these plans: K1
+        the exact refinement's (and the victim path's) binary searches of
+        each table's sorted keys on the raw endpoints (#(keys < lq) as
+        #(keys <= nextafter(lq)) for MAX/MIN), K2 the COUNT table's clamped
+        ranges, K3 each MAX/MIN table's clamped ranges.  The COUNT table
+        comes first, its MAX table before its MIN table."""
+        sets = {"locate": [], "range_sum_gather": [], "range_max_gather": []}
+        for name, p in plans.items():
+            lq, uq = (torch.as_tensor(q, device=dev) for q in queries[name])
+            lqc, uqc = (torch.maximum(q, p.domain_lo) for q in (lq, uq))
+            if aggs[name] == "count":
+                lo = lq
+                sets["range_sum_gather"].append(
+                    (lqc, uqc, p.seg_lo, p.seg_hi, p.coeffs))
+            else:
+                lo = torch.nextafter(lq, lq.new_full((), -torch.inf))
+                sets["range_max_gather"].append(
+                    (lqc, uqc, p.seg_lo, p.seg_hi, p.coeffs, p.st))
+            sets["locate"] += [(uq, p.ref_keys), (lo, p.ref_keys)]
+        return sets
 
-    def clamped(name, plan):
-        return tuple(torch.maximum(torch.as_tensor(q, device=dev),
-                                   plan.domain_lo) for q in qs[name])
+    errs = {}
 
-    lq_c, uq_c = clamped("lat", lat_plan)
-    lq_m, uq_m = clamped("hki", hki_plan)
-    lq_n, uq_n = clamped("hki_min", min_plan)
-    uq_raw = torch.as_tensor(qs["lat"][1], device=dev)
-    k1_args = (uq_raw, lat_plan.ref_keys)       # the refinement's search
-    k2_args = (lq_c, uq_c, lat_plan.seg_lo, lat_plan.seg_hi, lat_plan.coeffs)
-    k3_args = (lq_m, uq_m, hki_plan.seg_lo, hki_plan.seg_hi, hki_plan.coeffs,
-               hki_plan.st)
-    k3n_args = (lq_n, uq_n, min_plan.seg_lo, min_plan.seg_hi,
-                min_plan.coeffs, min_plan.st)
-
-    got = kloc.locate(*k1_args)
-    want = kloc.locate_segments(k1_args[1], k1_args[0])
-    torch.cuda.synchronize()
-    check(torch.equal(got, want), "K1 ids differ from the plain version")
-    errs = {"locate": 0.0}
-
-    def hold(name, fn, plain, args_list):
-        """Hold a kernel to its plain version (TOL) on each argument set;
-        keep the largest |kernel - plain| in errs."""
+    def hold(name, fn, plain, args_list, exact=False):
+        """Hold a kernel to its plain version on each argument set (equal
+        when ``exact``, else to TOL); keep the largest |kernel - plain| in
+        errs."""
         errs.setdefault(name, 0.0)
         for args in args_list:
             a, b = fn(*args), plain(*args)
             torch.cuda.synchronize()
-            check(torch.allclose(a, b, rtol=TOL, atol=TOL, equal_nan=False),
-                  f"{name} differs from its plain version")
+            if exact:
+                check(torch.equal(a, b), f"{name} differs from its plain "
+                      "version")
+            else:
+                check(torch.allclose(a, b, rtol=TOL, atol=TOL,
+                                     equal_nan=False),
+                      f"{name} differs from its plain version")
             errs[name] = max(errs[name], max_abs_err(a, b))
 
-    hold("range_sum_gather", ksum.range_sum_gather,
-         ksum.range_sum_gather_plain, (k2_args,))
-    hold("range_max_gather", kmax.range_max_gather,
-         kmax.range_max_gather_plain, (k3_args, k3n_args))
-    print(f"parity: max |kernel - plain| = {errs}", flush=True)
+    def hold_k123(sets, tag):
+        hold("locate", kloc.locate, lambda q, k: kloc.locate_segments(k, q),
+             sets["locate"], exact=True)
+        hold("range_sum_gather", ksum.range_sum_gather,
+             ksum.range_sum_gather_plain, sets["range_sum_gather"])
+        hold("range_max_gather", kmax.range_max_gather,
+             kmax.range_max_gather_plain, sets["range_max_gather"])
+        print(f"{tag}parity K1-K3 on {len(sets['locate'])}/"
+              f"{len(sets['range_sum_gather'])}/"
+              f"{len(sets['range_max_gather'])} argument sets: max |kernel "
+              f"- plain| = { {k: errs[k] for k in sets} }", flush=True)
+
+    plans = {n: session.plan(n) for n in ("lat", "hki", "hki_min")}
+    sets = path_args(plans, qs, aggs)
+    hold_k123(sets, "")
 
     # -- 6. timing --------------------------------------------------------
     Q = NQ
-    rows = []
-    n = k1_args[1].shape[0]
-    rows.append(timing_row(
-        torch, "locate", kloc.locate, lambda q, k: kloc.locate_segments(k, q),
-        k1_args, lambda q, k: torch.searchsorted(k, q, right=True),
-        Q * 8 + n * 8 + Q * 4, Q * probe_rounds(n),
-        f"q ({Q},) f64, keys ({n},) f64 -> ({Q},) int32", None, 0.0))
-    for name, fn, plain, args in (
-            ("range_sum_gather", ksum.range_sum_gather,
-             ksum.range_sum_gather_plain, k2_args),
-            ("range_max_gather", kmax.range_max_gather,
-             kmax.range_max_gather_plain, k3_args)):
-        H, cols = args[2].shape[0], args[4].shape[1]
-        deg = cols - 1
-        nbytes = 2 * Q * 8 + 2 * H * 8 + H * cols * 8 + Q * 8
-        per_end = probe_rounds(H)
-        if name == "range_sum_gather":
-            flops = Q * (2 * (per_end + 5 + 2 * deg) + 1)
-            shape = (f"lq, uq ({Q},); seg_lo, seg_hi ({H},); coeffs "
-                     f"({H}, {cols}) f64 -> ({Q},)")
-        else:
-            st = args[5]
-            nbytes += st.numel() * 8
-            flops = Q * range_max_flops(per_end, deg)
-            shape = (f"lq, uq ({Q},); seg_lo, seg_hi ({H},); coeffs "
-                     f"({H}, {cols}); st {tuple(st.shape)} f64 -> ({Q},)")
-        rows.append(timing_row(torch, name, fn, plain, args, None, nbytes,
-                               flops, shape, None, errs[name]))
-    # the main path's other K3 launch: the MIN table's, a smaller plan
-    min_ms = device_ms(torch, lambda: kmax.range_max_gather(*k3n_args))
-    print(f"timing range_max_gather on hki_min (Hp "
-          f"{min_plan.seg_lo.shape[0]}): kernel {min_ms!r} ms on the device",
-          flush=True)
+
+    def measure_k123(sets, tag):
+        """Time K1 on the COUNT table's search, K2 on its ranges and K3 on
+        the MAX table's ranges."""
+        out = {}
+        k1 = sets["locate"][0]
+        n = k1[1].shape[0]
+        out["locate"] = measure(
+            torch, tag, "locate", kloc.locate,
+            lambda q, k: kloc.locate_segments(k, q), k1,
+            lambda q, k: torch.searchsorted(k, q, right=True),
+            Q * 8 + n * 8 + Q * 4, Q * probe_rounds(n),
+            f"q ({Q},) f64, keys ({n},) f64 -> ({Q},) int32")
+        for name, fn, plain in (
+                ("range_sum_gather", ksum.range_sum_gather,
+                 ksum.range_sum_gather_plain),
+                ("range_max_gather", kmax.range_max_gather,
+                 kmax.range_max_gather_plain)):
+            args = sets[name][0]
+            H, cols = args[2].shape[0], args[4].shape[1]
+            deg = cols - 1
+            nbytes = 2 * Q * 8 + 2 * H * 8 + H * cols * 8 + Q * 8
+            per_end = probe_rounds(H)
+            if name == "range_sum_gather":
+                flops = Q * (2 * (per_end + 5 + 2 * deg) + 1)
+                shape = (f"lq, uq ({Q},); seg_lo, seg_hi ({H},); coeffs "
+                         f"({H}, {cols}) f64 -> ({Q},)")
+            else:
+                st = args[5]
+                nbytes += st.numel() * 8
+                flops = Q * range_max_flops(per_end, deg)
+                shape = (f"lq, uq ({Q},); seg_lo, seg_hi ({H},); coeffs "
+                         f"({H}, {cols}); st {tuple(st.shape)} f64 -> ({Q},)")
+            out[name] = measure(torch, tag, name, fn, plain, args, None,
+                                nbytes, flops, shape)
+        # the main path's other K3 launch: the MIN table's, a smaller plan
+        mn = sets["range_max_gather"][1]
+        min_ms = device_ms(torch, lambda: kmax.range_max_gather(*mn))
+        print(f"{tag}timing range_max_gather on the MIN table (Hp "
+              f"{mn[2].shape[0]}): kernel {min_ms!r} ms on the device",
+              flush=True)
+        return out
+
+    timed = {"static": measure_k123(sets, "")}
     for label, rel in (("Q_abs", None), ("Q_rel", EPS_REL)):
         query_latency(torch, session, batch(("lat", "hki", "hki_min"), qs,
                                             rel),
@@ -628,14 +674,15 @@ def main() -> None:
 
     def dyn_state(tag, seed):
         """One state of the dynamic tables: the main path, the answers
-        against the updated multisets, K5/K6 against their plain versions
-        on this state's buffers and queries."""
+        against the updated multisets, and every kernel the path launched
+        held to its plain version at the shapes it ran: K1-K3 on this
+        state's plans, K5/K6 on its buffers, all on its queries."""
         dq = {name: live[name].queries(make_queries_1d, seed + i)
               for i, name in enumerate(DYN)}
         truth = {name: host_truth(live[name].keys, live[name].meas, *dq[name],
                                   DYN_AGG[name]) for name in DYN}
         torch.cuda.reset_peak_memory_stats(dev)
-        answers, launches = drive(dsession, DYN, dq, tag)
+        answers, launches = drive(dsession, DYN, dq, tag, "dynamic")
         check(launches["delta_sum_gather"] > 0,
               f"{tag}K5 was not launched on lat_dyn")
         check(launches["delta_max_gather"] > 0,
@@ -647,6 +694,9 @@ def main() -> None:
               f"{torch.cuda.max_memory_allocated(dev)} B", flush=True)
         dt = {name: tuple(torch.as_tensor(q, device=dev) for q in dq[name])
               for name in DYN}
+        k123 = path_args({name: dsession.snapshot(name)[0] for name in DYN},
+                         dq, DYN_AGG)
+        hold_k123(k123, tag)
         _, buf = dsession.snapshot("lat_dyn")
         k5 = [(*dt["lat_dyn"], buf.ins_keys, buf.ins_cf),
               (*dt["lat_dyn"], buf.del_keys, buf.del_cf)]
@@ -658,10 +708,10 @@ def main() -> None:
              kdel.delta_sum_gather_plain, k5)
         hold("delta_max_gather", kdel.delta_max_gather,
              kdel.delta_max_gather_plain, k6)
-        print(f"{tag}parity: max |kernel - plain| = "
+        print(f"{tag}parity K5/K6: max |kernel - plain| = "
               f"{ {k: errs[k] for k in ('delta_sum_gather', 'delta_max_gather')} }",
               flush=True)
-        return dq, k5, k6
+        return dq, k123, k5, k6
 
     def merge(name, tag):
         """Flush one table; print its merge seconds and refit segments."""
@@ -725,26 +775,27 @@ def main() -> None:
         lv.insert(tb, vb)
         lv.delete(gone)
     refits = {name: dsession._dyn(name).refit_count for name in DYN}
-    dq, k5, k6 = dyn_state("buffer full: ", SEED + 30)
+    dq, k123, k5, k6 = dyn_state("buffer full: ", SEED + 30)
     check({name: dsession._dyn(name).refit_count for name in DYN} == refits
           and all(dsession._dyn(name).n_pending == CAPACITY for name in DYN),
           "the buffer-full step merged or lost an op")
 
+    # K1-K3 at the paper-size plans, K5/K6 on the full buffers
+    tag = "buffer full: "
+    dyn = timed["dynamic"] = measure_k123(k123, tag)
     cap = CAPACITY
     rounds = probe_rounds(cap)
     st = k6[0][3]
-    rows.append(timing_row(
-        torch, "delta_sum_gather", kdel.delta_sum_gather,
+    dyn["delta_sum_gather"] = measure(
+        torch, tag, "delta_sum_gather", kdel.delta_sum_gather,
         kdel.delta_sum_gather_plain, k5[0], None,
         3 * Q * 8 + cap * 8 + (cap + 1) * 8, Q * (2 * rounds + 1),
-        f"lq, uq ({Q},); keys ({cap},); cf ({cap + 1},) f64 -> ({Q},)",
-        total_launches["delta_sum_gather"], errs["delta_sum_gather"]))
-    rows.append(timing_row(
-        torch, "delta_max_gather", kdel.delta_max_gather,
+        f"lq, uq ({Q},); keys ({cap},); cf ({cap + 1},) f64 -> ({Q},)")
+    dyn["delta_max_gather"] = measure(
+        torch, tag, "delta_max_gather", kdel.delta_max_gather,
         kdel.delta_max_gather_plain, k6[0], None,
         3 * Q * 8 + cap * 8 + st.numel() * 8, Q * (2 * rounds + 4),
-        f"lq, uq ({Q},); keys ({cap},); st {tuple(st.shape)} f64 -> ({Q},)",
-        total_launches["delta_max_gather"], errs["delta_max_gather"]))
+        f"lq, uq ({Q},); keys ({cap},); st {tuple(st.shape)} f64 -> ({Q},)")
     for label, rel in (("Q_abs", None), ("Q_rel", EPS_REL)):
         query_latency(torch, dsession, batch(DYN, dq, rel),
                       f"buffer full: session.query {label}", 3 * NQ)
@@ -763,9 +814,11 @@ def main() -> None:
     print(f"insert: {CAPACITY} records into hki_min_dyn in {secs!r} s, "
           f"{CAPACITY / secs!r} records/s", flush=True)
 
-    for row in rows:
-        if row["launches"] is None:
-            row["launches"] = total_launches[row["name"]]
+    rows = [kernel_row(c.__name__,
+                       {ph: (phase_launches[ph][c.__name__], m[c.__name__])
+                        for ph, m in timed.items() if c.__name__ in m},
+                       errs[c.__name__])
+            for c in counters]
     print(f"wall: {time.perf_counter() - wall0:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())

@@ -111,7 +111,7 @@ class DeltaBuffer:
 
 
 def _merge_sorted(cap: int, keys, vals, new_k, new_v):
-    """Merge a (sentinel-padded) batch into the sorted log, keeping shape.
+    """Merge a batch into the sentinel-padded sorted log, keeping shape.
 
     Valid entries sort before the sentinels, so slicing back to ``cap``
     drops padding only (the caller guarantees fill + batch <= cap).  The
@@ -149,16 +149,6 @@ def _append_1d(keys, vals, new_k, new_v, *, cap: int, with_st: bool):
     cf = _prefix_sum(v)
     st = _sparse_table(v, cap=cap) if with_st else None
     return k, v, cf, st
-
-
-def _pad_batch(arr: np.ndarray, fill, dtype, device) -> torch.Tensor:
-    """Pad a host batch to the next power of two, as the reference pads it
-    (its compilations are keyed by shape)."""
-    m = len(arr)
-    size = max(1, 1 << (m - 1).bit_length()) if m else 1
-    out = np.full((size,), fill, np.float64)
-    out[:m] = arr
-    return torch.as_tensor(out, dtype=dtype, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -612,8 +602,8 @@ class DynamicEngine(_DeltaBufferedEngine):
                                "bypassed _ensure_room")
         plan, buf = self._state
         dt, dev = plan.dtype, plan.device
-        pk = _pad_batch(keys, big_sentinel(dt), dt, dev)
-        pv = _pad_batch(vals, 0.0, dt, dev)
+        pk = torch.as_tensor(keys, dtype=dt, device=dev)
+        pv = torch.as_tensor(vals, dtype=dt, device=dev)
         if delete:
             dk, dv, dcf, _ = _append_1d(buf.del_keys, buf.del_vals, pk, pv,
                                         cap=buf.cap, with_st=False)
@@ -783,8 +773,8 @@ class DynamicEngine(_DeltaBufferedEngine):
         if len(ik):
             nk, nv_, ncf, nst = _append_1d(
                 fresh.ins_keys, fresh.ins_vals,
-                _pad_batch(ik, big_sentinel(dt), dt, dev),
-                _pad_batch(iv, 0.0, dt, dev), cap=self.capacity,
+                torch.as_tensor(ik, dtype=dt, device=dev),
+                torch.as_tensor(iv, dtype=dt, device=dev), cap=self.capacity,
                 with_st=with_st)
         else:
             nk, nv_, ncf, nst = (fresh.ins_keys, fresh.ins_vals,
