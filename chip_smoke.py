@@ -2,49 +2,73 @@
 """Drive the PyTorch + CUDA port of PolyFit (src/repro_torch) once on one
 NVIDIA card, and hold its kernels to their plain PyTorch versions.
 
-    python3 chip_smoke.py             # about 8-12 minutes on an H100 host
+    python3 chip_smoke.py             # about 9-15 minutes on an H100 host
 
 Phases, each of which fails the run with a non-zero exit:
 
-1. device  - a CUDA card must be present; print its name and power limit;
-2. build   - compile the CUDA kernels from src/repro_torch/csrc with nvcc;
-3. fit     - PolyFit.fit on the card: TWEET latitudes (COUNT), HKI minute
-             bars (MAX, deg 3) and a smaller HKI table for MIN, cut to the
-             sizes printed on the CUT lines (the dynamic phase keeps the
-             paper's sizes);
-4. main    - one mixed batch of COUNT, MAX and MIN ranges through
-             session.query under Q_abs, then under Q_rel, checked against
-             exact answers computed on the host with numpy alone; the
-             kernel launch counters must show that the batch ran the
-             kernels, and no deg > 3 reroute;
-5. parity  - each kernel against its plain version on the card, on the
-             plans and queries of phase 4 (K1 exactly, K2/K3 to 1e-9);
-6. timing  - device time of each kernel, its plain version and the
-             one-call library yardstick where there is one (CUDA-event
-             timed replays of a CUDA graph of the calls, so host dispatch
-             drops out), the kernel's eager per-call time (host dispatch
-             included), and the session's end-to-end query latency, with
-             one batch traced by torch.profiler (device busy time, idle
-             share, heaviest kernels);
-7. dynamic - PolyFit.fit of three dynamic tables (TableSpec(dynamic=True),
-             capacity 4,096) at the paper's sizes: TWEET 1M (COUNT), HKI
-             0.9M (MAX, deg 3), HKI 100k (MIN).  A hot-band step (inserts
-             and deletes in one dense band, appended bars and extremal
-             deletes in one window) is queried while buffered, then
-             flushed (the merge must refit few segments) and queried
-             again; a buffer-full step (4,096 pending ops a table, no
-             merge) is queried last.  Every batch is checked against numpy
-             truth over the updated multiset, the launch counters must show
-             K1-K3, K5 and K6, and in each state every one of them is held
-             to its plain version at the shapes the path gave it (K1-K3 on
-             that state's paper-size plans, K5/K6 on its buffers).  K1-K3
-             are timed again at the paper-size plans, K5/K6 on the full
-             buffers, with the full-buffer query latency, one 4,096-record
-             insert and the merges.
+1. device   - a CUDA card must be present; print its name and power limit;
+2. build    - compile the CUDA kernels from src/repro_torch/csrc with nvcc
+              (one nvcc per translation unit, all started together);
+3. fit      - PolyFit.fit on the card: TWEET latitudes (COUNT), HKI minute
+              bars (MAX, deg 3; and SUM of the prices, deg 3) and a smaller
+              HKI table for MIN, cut to the sizes printed on the CUT lines;
+4. main     - one mixed batch of COUNT, MAX and MIN ranges through
+              session.query under Q_abs, then under Q_rel, checked against
+              exact answers computed on the host with numpy alone; the
+              kernel launch counters must show that the batch ran the
+              kernels, and no deg > 3 reroute;
+5. quantile - 65,536 rank fractions each on the COUNT and SUM tables
+              through session.query(QuerySpec.quantile(...)): every
+              certificate [lo, hi] must bracket numpy's quantiles (every
+              np.quantile method for COUNT, the weighted convention for
+              SUM) and hold its answer; the counters must show K4;
+6. parity   - each kernel against its plain version on the card, on the
+              plans and queries of phases 4 and 5 (K1 exactly, K2-K4 to
+              1e-9);
+7. timing   - device time of each kernel, its plain version and the
+              one-call library yardstick where there is one (CUDA-event
+              timed replays of a CUDA graph of the calls, so host dispatch
+              drops out), the kernel's eager per-call time (host dispatch
+              included), and the session's end-to-end query latency, with
+              one batch traced by torch.profiler (device busy time, idle
+              share, heaviest kernels);
+8. dynamic  - PolyFit.fit of three dynamic tables (TableSpec(dynamic=True),
+              capacity 4,096): TWEET 1M (COUNT, the paper's size), HKI 300k
+              (MAX, deg 3) and HKI 100k (MIN), cut as the CUT lines say.  A hot-band step (inserts
+              and deletes in one dense band, appended bars and extremal
+              deletes in one window) is queried while buffered, then
+              flushed (the merge must refit few segments) and queried
+              again; a buffer-full step (4,096 pending ops a table, no
+              merge) is queried last.  Every batch is checked against numpy
+              truth over the updated multiset, the launch counters must show
+              K1-K3, K5 and K6, and in each state every one of them is held
+              to its plain version at the shapes the path gave it (K1-K3 on
+              that state's plans, K5/K6 on its buffers).  In
+              each state 65,536 quantile fractions on the COUNT table go
+              through the session's dynamic quantile path (plain torch by
+              design) and are checked against numpy over the live
+              multiset; in the merged state K4 runs through
+              execute_quantile on the 1M-key plan, is held to its plain
+              version there and timed.  K1-K3 are timed again at the
+              dynamic plans, K5/K6 on the full buffers, with the
+              full-buffer query latency, one 4,096-record insert and the
+              merges;
+9. window   - an epoch-ring COUNT table (TableSpec(window=4), capacity
+              131,072): epoch 0 is the fit's 131,072 TWEET keys, epochs 1-3
+              are each filled by 32 ingests of 4,096 rows and sealed, the
+              open epoch 4 holds 4,096 rows.  Four windows (all epochs, the
+              last sealed epoch and the open one, one sealed epoch, the open
+              epoch alone) each take 65,536 ranges under Q_abs and Q_rel,
+              checked against numpy over exactly the selected epochs' rows;
+              the counters must show K2 per sealed epoch, K5 when the
+              window reaches the open epoch and K1 under Q_rel, and K1, K2
+              and K5 are held to their plain versions at the window's
+              shapes.  One more seal evicts epoch 0, whose window must then
+              raise.
 
 The line before last is the card's nvidia-smi name and power limit, the
 line before that the kernels' JSON record: one row a kernel, whose own
-numbers are the dynamic phase's (the paper's sizes) and whose ``launches``
+numbers are the dynamic phase's (TWEET at the paper's 1M) and whose ``launches``
 sums every phase, with ``by_phase`` giving each phase's launches, shape,
 times and bound; the last line is the result.
 Imports nothing of JAX or of the reference package.
@@ -63,17 +87,28 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # the static phase, cut from the paper's instance sizes (TWEET 1M
-# latitudes, HKI 0.9M minute bars) so that the dynamic phase's paper-size
-# builds fit in the run; the MIN table only exercises the negation path
+# latitudes, HKI 0.9M minute bars) so that the host builds of every phase
+# fit in half the run's time limit; the MIN table only exercises the
+# negation path
 N_TWEET = 200_000
-N_HKI = 200_000
-N_HKI_MIN = 100_000
-# the dynamic phase: the paper's sizes; its MIN table exercises the
+N_HKI = 100_000
+N_HKI_MIN = 50_000
+# the SUM table over HKI bars: a budget of 100,000 index points is about
+# 3.3 bars' worth of the summed price (bars sit near 30,000)
+N_HKI_SUM = 200_000
+HKI_SUM_ABS = 1e5
+# the dynamic phase: TWEET at the paper's size, HKI cut (its 0.9M-bar MAX
+# build alone takes 190-330 s of host time); its MIN table exercises the
 # negation and victim paths
 N_TWEET_DYN = 1_000_000
-N_HKI_DYN = 900_000
+N_HKI_DYN = 300_000
 N_HKI_MIN_DYN = 100_000
 CAPACITY = 4096             # delta-buffer slots per dynamic table
+# the window phase: four sealed epochs of 131,072 TWEET rows, each filled
+# by 32 ingests of 4,096 rows; the ring retains 4 sealed epochs
+N_EPOCH = 131_072
+INGEST_ROWS = 4096
+WINDOW_RING = 4
 NQ = 65_536                 # ranges per table in the main-path batch
 SEED = 7
 EPS_REL = 0.01
@@ -89,10 +124,13 @@ REPLACES = {
     "locate": "src/repro/kernels/locate.py:179",
     "range_sum_gather": "src/repro/kernels/range_sum.py:49",
     "range_max_gather": "src/repro/kernels/range_max.py:62",
+    "quantile_invert": "src/repro/kernels/quantile_invert.py:52",
     "delta_sum_gather": "src/repro/kernels/delta_scan.py:113",
     "delta_max_gather": "src/repro/kernels/delta_scan.py:188",
 }
-SOURCE = "src/repro_torch/csrc/polyfit_kernels.cu"
+SOURCE = {name: "src/repro_torch/csrc/polyfit_kernels.cu" for name in REPLACES}
+SOURCE["quantile_invert"] = "src/repro_torch/csrc/quantile.cu"
+METHODS = ("linear", "lower", "higher", "nearest", "midpoint")
 
 
 def fail(msg: str) -> None:
@@ -219,6 +257,27 @@ def range_max_flops(rounds: int, deg: int) -> int:
     return 2 * rounds + 2 * (10 + 4 * 2 * deg + 20) + 6
 
 
+def quantile_flops(deg: int, rounds_b: int, rounds_keys: int) -> int:
+    """f64 operations of K4 for one rank target (csrc/quantile.cu): three
+    binary searches over B and one over the key grid, and per inversion
+    (hi, lo, mid) the root solve, the root checks and the unscale.  The
+    solve costs, counting a transcendental (acos, cos, pow) as 20: deg 1
+    about 3, deg 2 about 14, deg 3 about 60 plus six transcendentals, and
+    above deg 3 (mid only: the certified sides keep segment endpoints) 40
+    Newton steps of 4 * deg + 10."""
+    if deg <= 1:
+        solve = 3
+    elif deg == 2:
+        solve = 14
+    elif deg == 3:
+        solve = 60 + 6 * 20
+    else:
+        solve = 40 * (4 * deg + 10)
+    sides = 3 if deg <= 3 else 1
+    return (3 * rounds_b + rounds_keys + sides * (solve + 12)
+            + 2 * deg + 10)
+
+
 def max_abs_err(a, b) -> float:
     """Largest |a - b| (equal infinities count 0)."""
     same = a == b
@@ -256,6 +315,44 @@ def check_answers(tag, names, answers, truth, bounds):
     return shares
 
 
+def fractions(seed: int) -> np.ndarray:
+    """NQ quantile fractions: uniform draws from ``seed`` plus 0 and 1."""
+    rng = np.random.default_rng(seed)
+    return np.concatenate([[0.0, 1.0], rng.uniform(0.0, 1.0, NQ - 2)])
+
+
+def check_quantiles(tag, name, a, lo, hi, keys, weights, fr):
+    """Hold one quantile answer batch to numpy: [lo, hi] brackets every
+    np.quantile method (COUNT, ``weights`` None) or the weighted
+    convention x* = min{k : F(k) >= q * total} (SUM) over the sorted
+    ``keys``, and the answer lies in [lo, hi].  lo is an unsnapped root and
+    hi a snapped key: where both land on one key, lo may sit ulps above hi
+    and the answer is hi; such lanes are counted."""
+    a, lo, hi = (x.cpu().numpy() for x in (a, lo, hi))
+    check(a.shape == fr.shape and np.all(np.isfinite(a))
+          and np.all(np.isfinite(lo)) and np.all(np.isfinite(hi)),
+          f"{tag}quantile {name}: bad answers")
+    if weights is None:
+        truths = {m: np.quantile(keys, fr, method=m) for m in METHODS}
+    else:
+        cf = np.cumsum(weights)
+        i = np.minimum(np.searchsorted(cf, fr * cf[-1], side="left"),
+                       len(keys) - 1)
+        truths = {"weighted": keys[i]}
+    for m, truth in truths.items():
+        check(np.all(lo <= truth + 1e-12) and np.all(truth <= hi + 1e-12),
+              f"{tag}quantile {name}: the certificate misses the {m} "
+              f"quantile in {int(np.sum((lo > truth) | (truth > hi)))} lanes")
+    ulps = int(np.sum(lo > a))
+    check(np.all(a <= hi) and np.all(lo <= a + 1e-9 * (1.0 + np.abs(a))),
+          f"{tag}quantile {name}: an answer lies outside its certificate")
+    width = hi - lo
+    print(f"{tag}quantile {name}: {len(fr)} fractions, every certificate "
+          f"brackets {'/'.join(truths)}; width median {np.median(width)!r} "
+          f"max {width.max()!r}; lanes with lo ulps above the answer "
+          f"{ulps}", flush=True)
+
+
 def measure(torch, tag, name, fn, plain, args, library, nbytes, flops,
             shape):
     """Time one kernel, its plain version and its library yardstick on the
@@ -277,14 +374,15 @@ def measure(torch, tag, name, fn, plain, args, library, nbytes, flops,
 def kernel_row(name, phases, err):
     """One kernel's row of the kernels' JSON record.  ``phases`` maps each
     phase that launched it to (launches, its measure() at that phase's
-    shapes); the row's own numbers are those of the last phase (the
-    dynamic phase, at the paper's sizes) and ``launches`` sums them all."""
-    last = list(phases.values())[-1][1]
-    return {"name": name, "route": "cuda", "source": SOURCE,
+    shapes, or None where it was not timed there); the row's own numbers
+    are the dynamic phase's (TWEET at the paper's 1M) and ``launches``
+    sums them all."""
+    head = phases["dynamic"][1]
+    return {"name": name, "route": "cuda", "source": SOURCE[name],
             "replaces": REPLACES[name],
             "launches": sum(n for n, _ in phases.values()),
-            "max_abs_err": err, **last,
-            "by_phase": [{"phase": ph, "launches": n, **m}
+            "max_abs_err": err, **head,
+            "by_phase": [{"phase": ph, "launches": n, **(m or {})}
                          for ph, (n, m) in phases.items()]}
 
 
@@ -432,10 +530,12 @@ def main() -> None:
     from repro_torch.api import (ErrorBudget, PolyFit, QueryBatch, QuerySpec,
                                  TableSpec)
     from repro_torch.data import hki_series, make_queries_1d, tweet_latitudes
-    from repro_torch.engine import execute_extremum
+    from repro_torch.engine import execute_extremum, execute_quantile
+    from repro_torch.engine.engine import quantile_mass, quantile_tables
     from repro_torch.kernels import _build
     from repro_torch.kernels import delta_scan as kdel
     from repro_torch.kernels import locate as kloc
+    from repro_torch.kernels import quantile_invert as kq
     from repro_torch.kernels import range_max as kmax
     from repro_torch.kernels import range_sum as ksum
 
@@ -449,24 +549,32 @@ def main() -> None:
     t0 = time.perf_counter()
     build = _build.build()
     _build.library()
-    print(f"build: {time.perf_counter() - t0:.3f} s (nvcc {build.seconds:.3f} s)"
-          f" -> {os.path.relpath(build.path, ROOT)}", flush=True)
+    print(f"build: {time.perf_counter() - t0:.3f} s (nvcc {build.seconds:.3f} s,"
+          f" units in parallel) -> "
+          f"{', '.join(os.path.relpath(p, ROOT) for p in build.paths)}",
+          flush=True)
     for line in build.log.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             print(f"  ptxas: {line.strip()}")
 
     # -- 3. fit -----------------------------------------------------------
-    sizes = {"lat": N_TWEET, "hki": N_HKI, "hki_min": N_HKI_MIN}
-    for name, paper in (("lat", 1_000_000), ("hki", 900_000)):
+    sizes = {"lat": N_TWEET, "hki": N_HKI, "hki_min": N_HKI_MIN,
+             "hki_sum": N_HKI_SUM}
+    for name, paper in (("lat", 1_000_000), ("hki", 900_000),
+                        ("hki_min", 900_000), ("hki_sum", 900_000)):
         if sizes[name] < paper:
             print(f"CUT: {name} n {paper} -> {sizes[name]}")
     lat = tweet_latitudes(sizes["lat"])
     t_h, v_h = hki_series(sizes["hki"])
     t_m, v_m = hki_series(sizes["hki_min"])
-    datasets = {"lat": lat, "hki": (t_h, v_h), "hki_min": (t_m, v_m)}
+    t_s, v_s = hki_series(sizes["hki_sum"])
+    datasets = {"lat": lat, "hki": (t_h, v_h), "hki_min": (t_m, v_m),
+                "hki_sum": (t_s, v_s)}
     specs = {"lat": TableSpec("count", ErrorBudget(abs=100.0)),
              "hki": TableSpec("max", ErrorBudget(abs=50.0, rel=EPS_REL)),
-             "hki_min": TableSpec("min", ErrorBudget(abs=50.0, rel=EPS_REL))}
+             "hki_min": TableSpec("min", ErrorBudget(abs=50.0, rel=EPS_REL)),
+             "hki_sum": TableSpec("sum", ErrorBudget(abs=HKI_SUM_ABS),
+                                  deg=3)}
 
     def fit(datasets, specs, tag):
         t0 = time.perf_counter()
@@ -476,13 +584,18 @@ def main() -> None:
         check(session.backend == "cuda", f"default backend {session.backend}")
         secs = session.build_seconds()
         for name in session.tables:
-            p = session.plan(name)
-            check(p.device.type == "cuda", f"plan {name} on {p.device}")
-            print(f"fit {name}: agg={p.agg} n={p.n} h={p.h} "
-                  f"Hp={p.seg_lo.shape[0]} deg={p.deg} delta={p.delta} "
-                  f"host_build_s={secs[name]:.3f} device_bytes="
-                  f"{p.device_bytes()} index_bytes={p.size_bytes()}",
-                  flush=True)
+            if session.is_window(name):
+                lsm, _ = session.window_snapshot(name, 0, 0)
+                plans = [lvl.plan for lvl in lsm.levels]
+            else:
+                plans = [session.plan(name)]
+            for p in plans:
+                check(p.device.type == "cuda", f"plan {name} on {p.device}")
+                print(f"fit {name}: agg={p.agg} n={p.n} h={p.h} "
+                      f"Hp={p.seg_lo.shape[0]} deg={p.deg} delta={p.delta} "
+                      f"budget={session.budget(name)} host_build_s="
+                      f"{secs[name]:.3f} device_bytes={p.device_bytes()} "
+                      f"index_bytes={p.size_bytes()}", flush=True)
         print(f"fit {tag}total: {fit_s:.3f} s", flush=True)
         return session
 
@@ -503,15 +616,29 @@ def main() -> None:
                                for name in names))
 
     counters = (kloc.locate, ksum.range_sum_gather, kmax.range_max_gather,
-                kdel.delta_sum_gather, kdel.delta_max_gather)
+                kq.quantile_invert, kdel.delta_sum_gather,
+                kdel.delta_max_gather)
     phase_launches = {}         # phase -> kernel -> launches on its main path
+
+    def reset():
+        """Every launch counter (and reroute count) to 0."""
+        for c in counters:
+            c.launches = 0
+        execute_extremum.torch_routes = 0
+        execute_quantile.torch_routes = 0
+
+    def read(phase):
+        """The counters since reset(), added to ``phase``'s launches."""
+        launches = {c.__name__: c.launches for c in counters}
+        acc = phase_launches.setdefault(phase, dict.fromkeys(launches, 0))
+        for k, v in launches.items():
+            acc[k] += v
+        return launches
 
     def drive(session, names, queries, tag, phase):
         """The main path of one phase: counters to 0, a Q_abs and a Q_rel
         batch through session.query, counters read."""
-        for c in counters:
-            c.launches = 0
-        execute_extremum.torch_routes = 0
+        reset()
         main_s, answers = {}, {}
         for label, rel in (("Q_abs", None), ("Q_rel", EPS_REL)):
             torch.cuda.synchronize()
@@ -519,11 +646,8 @@ def main() -> None:
             answers[label] = session.query(batch(names, queries, rel))
             torch.cuda.synchronize()
             main_s[label] = time.perf_counter() - t0
-        launches = {c.__name__: c.launches for c in counters}
         routes = execute_extremum.torch_routes
-        acc = phase_launches.setdefault(phase, dict.fromkeys(launches, 0))
-        for k, v in launches.items():
-            acc[k] += v
+        launches = read(phase)
         print(f"{tag}main path: launches {launches}, deg>3 reroutes "
               f"{routes}, first-call seconds {main_s}", flush=True)
         check(launches["range_sum_gather"] > 0, f"{tag}K2 was not launched")
@@ -542,7 +666,40 @@ def main() -> None:
     check(shares["lat"] < 1.0 and shares["hki"] < 1.0,
           f"Q_rel refined every query: {shares}")
 
-    # -- 5. kernel parity on the card ---------------------------------------
+    # -- 5. quantiles -------------------------------------------------------
+    fr = fractions(SEED + 50)
+    fr_t = torch.as_tensor(fr, device=dev)
+    qnames = ("lat", "hki_sum")
+    qkeys = {"lat": (np.sort(lat), None), "hki_sum": (t_s, v_s)}
+
+    def qbatch(names):
+        return QueryBatch.of(*(QuerySpec.quantile(n, fr) for n in names))
+
+    def drive_quantile(session, names, tag, phase):
+        """The quantile path of one phase: counters to 0, one batch of
+        QuerySpec.quantile through session.query, counters read."""
+        reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        answers = session.query(qbatch(names))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        routes = execute_quantile.torch_routes
+        launches = read(phase)
+        print(f"{tag}quantile path {names}: launches {launches}, reroutes "
+              f"off K4 {routes}, first-call seconds {secs!r}", flush=True)
+        return answers, launches, routes
+
+    qans, launches, routes = drive_quantile(session, qnames, "", "static")
+    check(launches["quantile_invert"] > 0, "K4 was not launched by the "
+          "quantile path")
+    check(routes == 0, "a quantile group was rerouted off K4")
+    for name, ans in zip(qnames, qans):
+        check_quantiles("", name, ans.value, *ans.bound, *qkeys[name], fr)
+
+    # -- 6. kernel parity on the card ---------------------------------------
+    Q = NQ
+
     def path_args(plans, queries, aggs):
         """The argument sets the main path gives K1-K3 on these plans: K1
         the exact refinement's (and the victim path's) binary searches of
@@ -600,8 +757,66 @@ def main() -> None:
     sets = path_args(plans, qs, aggs)
     hold_k123(sets, "")
 
-    # -- 6. timing --------------------------------------------------------
-    Q = NQ
+    def k4_args(plan):
+        """The arguments execute_quantile gives K4 for the fractions: the
+        targets and their slack-shifted twins, the boundary array, the
+        tables and the 128-padded key grid (65,536 fractions need no
+        bucket padding)."""
+        M, slack = quantile_mass(plan)
+        err, B, keys, nk = quantile_tables(plan)
+        t = torch.clamp(fr_t, 0.0, 1.0) * M
+        return ((t, t - slack, t + slack, B, plan.seg_lo, plan.seg_hi,
+                 plan.coeffs, err, keys),
+                dict(h=plan.h, n=nk, delta=float(plan.delta)))
+
+    def hold_k4(plans, tag):
+        """Hold K4 to its plain version on each plan (to TOL), print every
+        lane that differs at all."""
+        errs.setdefault("quantile_invert", 0.0)
+        for name, plan in plans.items():
+            args, kw = k4_args(plan)
+            got = kq.quantile_invert(*args, **kw)
+            want = kq.quantile_invert_plain(*args, **kw)
+            torch.cuda.synchronize()
+            for label, g, w in zip(("answer", "lo", "hi"), got, want):
+                check(torch.allclose(g, w, rtol=TOL, atol=TOL),
+                      f"{tag}K4 {label} on {name} differs from its plain "
+                      "version")
+                e = max_abs_err(g, w)
+                errs["quantile_invert"] = max(errs["quantile_invert"], e)
+                if e > 0:
+                    bad = torch.nonzero(g != w).flatten()[:5].tolist()
+                    print(f"{tag}K4 {label} on {name} (deg {plan.deg}): "
+                          f"{int((g != w).sum())} lanes differ from the "
+                          f"plain version, max |diff| {e!r}; first lanes "
+                          f"{bad}: kernel {g[bad].tolist()} plain "
+                          f"{w[bad].tolist()} targets "
+                          f"{args[0][bad].tolist()}", flush=True)
+            print(f"{tag}parity K4 on {name} (deg {plan.deg}, Hp "
+                  f"{plan.seg_lo.shape[0]}, key grid {args[8].shape[0]}): "
+                  f"max |kernel - plain| = {errs['quantile_invert']!r}",
+                  flush=True)
+
+    def measure_k4(plan, tag):
+        """Time K4 at one plan's execute_quantile shapes."""
+        args, kw = k4_args(plan)
+        H, cols, nk = plan.seg_lo.shape[0], plan.coeffs.shape[1], \
+            args[8].shape[0]
+        nbytes = 6 * Q * 8 + 4 * H * 8 + H * cols * 8 + nk * 8
+        flops = Q * quantile_flops(plan.deg, probe_rounds(H),
+                                   probe_rounds(nk))
+        shape = (f"t_mid, t_lo, t_hi ({Q},); B, seg_lo, seg_hi, seg_err "
+                 f"({H},); coeffs ({H}, {cols}); ref_keys ({nk},) f64 -> "
+                 f"3 x ({Q},)")
+        return measure(torch, tag, "quantile_invert",
+                       lambda *a: kq.quantile_invert(*a, **kw),
+                       lambda *a: kq.quantile_invert_plain(*a, **kw), args,
+                       None, nbytes, flops, shape)
+
+    qplans = {n: session.plan(n) for n in qnames}
+    hold_k4(qplans, "")
+
+    # -- 7. timing --------------------------------------------------------
 
     def measure_k123(sets, tag):
         """Time K1 on the COUNT table's search, K2 on its ranges and K3 on
@@ -646,16 +861,26 @@ def main() -> None:
         return out
 
     timed = {"static": measure_k123(sets, "")}
+    timed["static"]["quantile_invert"] = measure_k4(qplans["hki_sum"],
+                                                    "hki_sum: ")
+    measure_k4(qplans["lat"], "lat: ")
     for label, rel in (("Q_abs", None), ("Q_rel", EPS_REL)):
         query_latency(torch, session, batch(("lat", "hki", "hki_min"), qs,
                                             rel),
                       f"session.query {label}", 3 * NQ)
     profile_batch(torch, session, batch(("lat", "hki", "hki_min"), qs, None),
                   "session.query Q_abs")
+    query_latency(torch, session, qbatch(qnames), "session.query quantile",
+                  2 * NQ)
+    profile_batch(torch, session, qbatch(qnames), "session.query quantile")
 
-    # -- 7. dynamic tables ---------------------------------------------------
+    # -- 8. dynamic tables ---------------------------------------------------
     del session
     rng = np.random.default_rng(SEED + 100)
+    for name, n, paper in (("hki_dyn", N_HKI_DYN, 900_000),
+                           ("hki_min_dyn", N_HKI_MIN_DYN, 900_000)):
+        if n < paper:
+            print(f"CUT: {name} n {paper} -> {n}")
     lat_d = tweet_latitudes(N_TWEET_DYN)
     t_d, v_d = hki_series(N_HKI_DYN)
     t_dm, v_dm = hki_series(N_HKI_MIN_DYN)
@@ -672,11 +897,51 @@ def main() -> None:
          "hki_min_dyn": TableSpec("min", ErrorBudget(abs=50.0, rel=EPS_REL),
                                   **dyn_spec)}, "dynamic ")
 
-    def dyn_state(tag, seed):
+    k4_dyn = {}
+
+    def dyn_quantiles(tag, with_k4):
+        """The dynamic quantile path on lat_dyn (plain torch for every
+        backend, by design): counters to 0, one session.query, counters
+        read, certificates against numpy over the live multiset.  With
+        ``with_k4`` (a merged state: empty buffer) K4 also runs through
+        execute_quantile on the merged 1M-key plan, is checked the same
+        way, held to its plain version and timed there."""
+        keys = np.sort(live["lat_dyn"].keys)
+        reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ans = dsession.query(QuerySpec.quantile("lat_dyn", fr))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = read("dynamic")
+        print(f"{tag}dynamic quantile path: launches {launches} (plain torch "
+              f"by design), first-call seconds {secs!r}, staleness "
+              f"{ans.staleness}", flush=True)
+        check_quantiles(tag, "lat_dyn", ans.value, *ans.bound, keys, None, fr)
+        if not with_k4:
+            return
+        check(dsession._dyn("lat_dyn").n_pending == 0,
+              f"{tag}lat_dyn has buffered ops")
+        plan = dsession.plan("lat_dyn")
+        reset()
+        res = execute_quantile(plan, fr_t)
+        torch.cuda.synchronize()
+        launches = read("dynamic")
+        check(launches["quantile_invert"] == 1,
+              f"{tag}execute_quantile did not launch K4 once: {launches}")
+        print(f"{tag}execute_quantile on the merged lat_dyn plan (n "
+              f"{plan.n}): launches {launches}", flush=True)
+        check_quantiles(tag, "lat_dyn (execute_quantile)", res.answer,
+                        res.lo, res.hi, keys, None, fr)
+        hold_k4({"lat_dyn": plan}, tag)
+        k4_dyn["quantile_invert"] = measure_k4(plan, tag)
+
+    def dyn_state(tag, seed, with_k4=False):
         """One state of the dynamic tables: the main path, the answers
         against the updated multisets, and every kernel the path launched
         held to its plain version at the shapes it ran: K1-K3 on this
-        state's plans, K5/K6 on its buffers, all on its queries."""
+        state's plans, K5/K6 on its buffers, all on its queries; then the
+        dynamic quantile path (and K4 on a merged state)."""
         dq = {name: live[name].queries(make_queries_1d, seed + i)
               for i, name in enumerate(DYN)}
         truth = {name: host_truth(live[name].keys, live[name].meas, *dq[name],
@@ -711,6 +976,7 @@ def main() -> None:
         print(f"{tag}parity K5/K6: max |kernel - plain| = "
               f"{ {k: errs[k] for k in ('delta_sum_gather', 'delta_max_gather')} }",
               flush=True)
+        dyn_quantiles(tag, with_k4)
         return dq, k123, k5, k6
 
     def merge(name, tag):
@@ -755,7 +1021,7 @@ def main() -> None:
         refit, h = merge(name, "hot band: ")
         check(0 < refit <= max(8, h // 10),
               f"the hot-band merge of {name} refit {refit} of {h} segments")
-    dyn_state("hot band, merged: ", SEED + 20)
+    dyn_state("hot band, merged: ", SEED + 20, with_k4=True)
 
     # step 2: a full buffer (CAPACITY pending ops a table), no merge
     lv = live["lat_dyn"]
@@ -780,9 +1046,10 @@ def main() -> None:
           and all(dsession._dyn(name).n_pending == CAPACITY for name in DYN),
           "the buffer-full step merged or lost an op")
 
-    # K1-K3 at the paper-size plans, K5/K6 on the full buffers
+    # K1-K3 at the dynamic plans, K5/K6 on the full buffers
     tag = "buffer full: "
     dyn = timed["dynamic"] = measure_k123(k123, tag)
+    dyn.update(k4_dyn)
     cap = CAPACITY
     rounds = probe_rounds(cap)
     st = k6[0][3]
@@ -801,6 +1068,10 @@ def main() -> None:
                       f"buffer full: session.query {label}", 3 * NQ)
         profile_batch(torch, dsession, batch(DYN, dq, rel),
                       f"buffer full: session.query {label}")
+    query_latency(torch, dsession, QuerySpec.quantile("lat_dyn", fr),
+                  "buffer full: session.query quantile (dynamic)", NQ)
+    profile_batch(torch, dsession, QuerySpec.quantile("lat_dyn", fr),
+                  "buffer full: session.query quantile (dynamic)")
     # one CAPACITY-record insert into an emptied buffer
     merge("hki_min_dyn", "buffer full: ")
     lv = live["hki_min_dyn"]
@@ -814,11 +1085,130 @@ def main() -> None:
     print(f"insert: {CAPACITY} records into hki_min_dyn in {secs!r} s, "
           f"{CAPACITY / secs!r} records/s", flush=True)
 
-    rows = [kernel_row(c.__name__,
-                       {ph: (phase_launches[ph][c.__name__], m[c.__name__])
-                        for ph, m in timed.items() if c.__name__ in m},
-                       errs[c.__name__])
-            for c in counters]
+    # -- 9. window table -----------------------------------------------------
+    del dsession
+    torch.cuda.empty_cache()
+    epochs = [tweet_latitudes(N_EPOCH, seed=SEED + 300 + e) for e in range(4)]
+    epochs.append(tweet_latitudes(INGEST_ROWS, seed=SEED + 304))
+    wsession = fit({"lat_win": epochs[0]},
+                   {"lat_win": TableSpec("count", ErrorBudget(abs=100.0),
+                                         window=WINDOW_RING,
+                                         capacity=N_EPOCH)}, "window ")
+    ingest_s, seal_s = [], []
+
+    def ingest(rows):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wsession.ingest("lat_win", rows)
+        torch.cuda.synchronize()
+        ingest_s.append(time.perf_counter() - t0)
+
+    for e in (1, 2, 3):
+        for c in range(N_EPOCH // INGEST_ROWS):
+            ingest(epochs[e][c * INGEST_ROWS:(c + 1) * INGEST_ROWS])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wsession.advance_epoch("lat_win")
+        torch.cuda.synchronize()
+        seal_s.append(time.perf_counter() - t0)
+    ingest(epochs[4])
+    check(wsession.epoch("lat_win") == 4, "the ring is not at epoch 4")
+    print(f"window: {len(ingest_s)} ingests of {INGEST_ROWS} rows: median "
+          f"{statistics.median(ingest_s)!r} s, max {max(ingest_s)!r} s; "
+          f"seals of {N_EPOCH} rows: {seal_s!r} s", flush=True)
+
+    windows = (("all epochs", 0, 4), ("last sealed + open", 3, 4),
+               ("one sealed", 1, 1), ("open only", 4, 4))
+    wq = {}
+    for i, (label, t0_, t1_) in enumerate(windows):
+        tag = f"window {label} [{t0_}, {t1_}]: "
+        rows_w = np.concatenate(epochs[t0_:t1_ + 1])
+        lq, uq = make_queries_1d(rows_w, NQ, seed=SEED + 400 + i)
+        wq[label] = (lq, uq)
+        truth = {"lat_win": host_truth(rows_w, None, lq, uq, "count")}
+        sealed = sum(1 for e in range(t0_, t1_ + 1) if e < 4)
+        has_open = int(t1_ >= 4)
+        reset()
+        answers = {}
+        for qlabel, rel in (("Q_abs", None), ("Q_rel", EPS_REL)):
+            answers[qlabel] = [wsession.query(QuerySpec.window(
+                "lat_win", lq, uq, t0_, t1_, rel=rel))]
+        torch.cuda.synchronize()
+        launches = read("window")
+        want = {"range_sum_gather": 2 * sealed,
+                "delta_sum_gather": 2 * has_open, "locate": 2 * sealed}
+        print(f"{tag}{len(rows_w)} rows, {sealed} sealed epochs, open epoch "
+              f"{bool(has_open)}: launches {launches}; staleness "
+              f"{answers['Q_abs'][0].staleness}", flush=True)
+        check(all(launches[k] == v for k, v in want.items()),
+              f"{tag}launches {launches}, expected {want}")
+        check_answers(tag, ("lat_win",), answers, truth,
+                      {"lat_win": wsession.window_bound("lat_win", t0_, t1_)})
+
+    # K1, K2 and K5 at the window's shapes: every sealed epoch's plan and
+    # the open epoch's 131,072-slot buffer, on the all-epochs ranges
+    lsm, wbuf = wsession.window_snapshot("lat_win", 0, 4)
+    lq, uq = (torch.as_tensor(q, device=dev) for q in wq["all epochs"])
+    wsets = {"locate": [], "range_sum_gather": []}
+    for lvl in lsm.levels:
+        p = lvl.plan
+        wsets["range_sum_gather"].append(
+            (torch.maximum(lq, p.domain_lo), torch.maximum(uq, p.domain_lo),
+             p.seg_lo, p.seg_hi, p.coeffs))
+        wsets["locate"] += [(uq, p.ref_keys), (lq, p.ref_keys)]
+    hold("locate", kloc.locate, lambda q, k: kloc.locate_segments(k, q),
+         wsets["locate"], exact=True)
+    hold("range_sum_gather", ksum.range_sum_gather,
+         ksum.range_sum_gather_plain, wsets["range_sum_gather"])
+    k5w = (lq, uq, wbuf.ins_keys, wbuf.ins_cf)
+    hold("delta_sum_gather", kdel.delta_sum_gather,
+         kdel.delta_sum_gather_plain, [k5w])
+    print(f"window: parity K1/K2/K5 on {len(wsets['locate'])}/"
+          f"{len(wsets['range_sum_gather'])}/1 argument sets: max |kernel - "
+          f"plain| = { {k: errs[k] for k in ('locate', 'range_sum_gather', 'delta_sum_gather')} }",
+          flush=True)
+    cap = wbuf.ins_keys.shape[0]
+    timed["window"] = {"delta_sum_gather": measure(
+        torch, "window: ", "delta_sum_gather", kdel.delta_sum_gather,
+        kdel.delta_sum_gather_plain, k5w, None,
+        3 * Q * 8 + cap * 8 + (cap + 1) * 8,
+        Q * (2 * probe_rounds(cap) + 1),
+        f"lq, uq ({Q},); keys ({cap},); cf ({cap + 1},) f64 -> ({Q},)")}
+    spans = {label: (t0_, t1_) for label, t0_, t1_ in windows}
+    for label in ("all epochs", "open only"):
+        t0_, t1_ = spans[label]
+        for qlabel, rel in (("Q_abs", None), ("Q_rel", EPS_REL)):
+            query_latency(torch, wsession, QuerySpec.window(
+                "lat_win", *wq[label], t0_, t1_, rel=rel),
+                f"window {label}: session.query {qlabel}", NQ)
+    profile_batch(torch, wsession, QuerySpec.window(
+        "lat_win", *wq["all epochs"], 0, 4), "window all epochs: "
+        "session.query Q_abs")
+
+    # one more seal evicts epoch 0: its window must raise
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wsession.advance_epoch("lat_win")
+    torch.cuda.synchronize()
+    print(f"window: sealed the open epoch ({INGEST_ROWS} rows) in "
+          f"{time.perf_counter() - t0!r} s", flush=True)
+    try:
+        wsession.query(QuerySpec.window("lat_win", *wq["all epochs"], 0, 4))
+    except ValueError as e:
+        check("evicted" in str(e), f"window: unexpected error {e}")
+        print(f"window: epoch 0 evicted as it should be: {e}", flush=True)
+    else:
+        fail("window: a window over the evicted epoch 0 answered")
+
+    rows = []
+    for c in counters:
+        name = c.__name__
+        phases = {}
+        for ph, launched in phase_launches.items():
+            m = timed.get(ph, {}).get(name)
+            if launched[name] or m is not None:
+                phases[ph] = (launched[name], m)
+        rows.append(kernel_row(name, phases, errs[name]))
     print(f"wall: {time.perf_counter() - wall0:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())

@@ -22,6 +22,12 @@ the answers back in request order.
 A table fitted with ``TableSpec(..., dynamic=True)`` sits behind a
 ``DynamicEngine``: ``insert``/``delete`` buffer updates that every query
 folds in exactly, ``flush`` merges them into a selectively refit plan.
+``QuerySpec.quantile`` asks a static or dynamic SUM/COUNT table for
+certified quantiles (the answer's ``bound`` is the ``(lo, hi)`` key
+interval).  A table fitted with ``TableSpec(..., window=ring)`` is an epoch
+ring (``WindowEngine``): ``ingest`` appends to the open epoch,
+``advance_epoch`` seals it, and ``QuerySpec.window(table, lq, uq, t0, t1)``
+reads the epochs t0..t1 with the bound composed over them.
 """
 from __future__ import annotations
 
@@ -34,9 +40,8 @@ import torch
 
 from .. import DTYPE, resolve_device
 from ..core import build_index_1d
-from ..core.queries import QueryResult
-from ..engine import (DynamicEngine, IndexPlan, build_plan, execute,
-                      resolve_backend)
+from ..engine import (DynamicEngine, IndexPlan, WindowEngine, build_plan,
+                      execute, execute_quantile, resolve_backend)
 from .budget import ErrorBudget
 from .spec import DEFAULT_REL, KIND_OF_AGG, QueryBatch, QuerySpec, TableSpec
 
@@ -52,10 +57,14 @@ class Answer:
     ``value`` is the (possibly refined) answer batch; ``approx``/``refined``
     expose the raw index answers and the Q_rel refinement mask exactly as
     :class:`~repro_torch.core.queries.QueryResult` does.  ``bound`` is the
-    certified Q_abs bound that travels with the answer.  ``staleness``
-    counts the buffered-but-unmerged rows of a dynamic table (0 for static
-    ones); buffered rows are still folded in exactly, so it is an
-    operational signal, not extra error.  ``.answer`` aliases ``value``.
+    certified guarantee that travels with the answer: the scalar Q_abs
+    bound for range aggregates (composed over the selected epochs for
+    window queries), or the ``(lo, hi)`` certified key interval for
+    quantiles (``value`` is clipped inside it).  ``staleness`` counts the
+    buffered-but-unmerged rows of a dynamic table, the trailing epochs
+    (current minus ``t1``) of a window query, 0 for static tables; buffered
+    rows are still folded in exactly, so it is an operational signal, not
+    extra error.  ``.answer`` aliases ``value``.
     """
 
     value: torch.Tensor
@@ -73,33 +82,51 @@ class Answer:
 
 
 class _Table:
-    """One fitted table: the spec and its device plan, or the
-    ``DynamicEngine`` that holds it for a dynamic table."""
+    """One fitted table: the spec and its device plan, the
+    ``DynamicEngine`` that holds it for a dynamic table, or the
+    ``WindowEngine`` of an epoch-ring table."""
 
     def __init__(self, name: str, spec: TableSpec, data, *,
                  device: torch.device, backend: str, min_bucket: int):
         self.name = name
         self.spec = spec
         self.dyn: Optional[DynamicEngine] = None
+        self.win: Optional[WindowEngine] = None
         self._static_plan: Optional[IndexPlan] = None
         keys, meas = data
         keys = np.asarray(keys, np.float64)
         meas = None if meas is None else np.asarray(meas, np.float64)
+        agg, delta = spec.agg, spec.budget.delta(spec.agg)
         t0 = time.perf_counter()
-        idx = build_index_1d(keys, meas, spec.agg, deg=spec.degree,
-                             delta=spec.budget.delta(spec.agg), device=device)
-        if spec.dynamic:
-            self.dyn = DynamicEngine(
-                idx, backend=backend, capacity=spec.capacity,
-                background=spec.background, auto_refit=spec.auto_refit,
-                min_bucket=min_bucket)
+        if spec.window:
+            self.win = WindowEngine(
+                keys, meas, agg=agg, delta=delta, deg=spec.degree,
+                ring=spec.window, capacity=spec.capacity, backend=backend,
+                device=device, min_bucket=min_bucket)
         else:
-            self._static_plan = build_plan(idx)
+            idx = build_index_1d(keys, meas, agg, deg=spec.degree,
+                                 delta=delta, device=device)
+            if spec.dynamic:
+                self.dyn = DynamicEngine(
+                    idx, backend=backend, capacity=spec.capacity,
+                    background=spec.background, auto_refit=spec.auto_refit,
+                    min_bucket=min_bucket)
+            else:
+                self._static_plan = build_plan(idx)
         self.build_seconds = time.perf_counter() - t0
 
     @property
     def plan(self) -> IndexPlan:
+        if self.win is not None:
+            raise RuntimeError(
+                f"table {self.name!r} is windowed — there is no single "
+                "plan; take window_snapshot(t0, t1) snapshots instead")
         return self.dyn.plan if self.dyn is not None else self._static_plan
+
+    def size_bytes(self) -> int:
+        if self.win is not None:
+            return sum(lvl.plan.size_bytes() for lvl in self.win.levels())
+        return self.plan.size_bytes()
 
     def snapshot(self):
         """Immutable (plan, delta-buffer) pair; ``()`` buffer when static."""
@@ -107,7 +134,9 @@ class _Table:
             return self.dyn.snapshot()
         return self._static_plan, ()
 
-    def staleness(self) -> int:
+    def staleness(self, kind: str, params: Tuple) -> int:
+        if kind == "window":
+            return max(0, self.win.epoch - params[1])
         return self.dyn.n_pending if self.dyn is not None else 0
 
     def resolve_rel(self, rel) -> Optional[float]:
@@ -189,7 +218,7 @@ class PolyFit:
         return self._table(table).snapshot()
 
     def size_bytes(self) -> Dict[str, int]:
-        return {k: t.plan.size_bytes() for k, t in self._tables.items()}
+        return {k: t.size_bytes() for k, t in self._tables.items()}
 
     def build_seconds(self) -> Dict[str, float]:
         """Host seconds each table's index build and plan lowering took."""
@@ -202,6 +231,18 @@ class PolyFit:
                            f"{sorted(self._tables)}")
         return t
 
+    def is_window(self, table: str) -> bool:
+        """True when the table is an epoch ring (``TableSpec.window``)."""
+        return self._table(table).win is not None
+
+    def window_bound(self, table: str, t0: int, t1: int) -> float:
+        """Certified Q_abs bound of a [t0, t1] window answer."""
+        return self._win(table).bound(t0, t1)
+
+    def window_snapshot(self, table: str, t0: int, t1: int):
+        """Atomic (LsmPlan-or-None, buf-or-None) snapshot of a window."""
+        return self._win(table).window_plan(t0, t1)
+
     # -- queries ---------------------------------------------------------
 
     def query(self, request: Request):
@@ -209,13 +250,14 @@ class PolyFit:
 
         A single ``QuerySpec`` returns its :class:`Answer`; a ``QueryBatch``
         (or a sequence of specs) returns a list of ``Answer``s aligned with
-        the specs.  Specs are grouped by (table, kind, guarantee); each
-        group enters one fused executor.
+        the specs.  Specs are grouped by (table, kind, guarantee, params);
+        each group enters one executor.
         """
         if isinstance(request, QuerySpec):
-            _, rel = self._resolve(request)
-            res = self._exec_group(request.table, request.ranges, rel)
-            return self._wrap(request.table, res)
+            kind, rel, params = self._resolve(request)
+            res = self._exec_group(request.table, kind, request.ranges, rel,
+                                   params)
+            return self._wrap(request.table, kind, params, res)
         specs = list(request.specs if isinstance(request, QueryBatch)
                      else request)
         if not specs:
@@ -224,18 +266,18 @@ class PolyFit:
         for i, spec in enumerate(specs):
             if not isinstance(spec, QuerySpec):
                 raise TypeError(f"expected QuerySpec, got {type(spec)}")
-            kind, rel = self._resolve(spec)
-            groups.setdefault((spec.table, kind, rel), []).append(i)
+            kind, rel, params = self._resolve(spec)
+            groups.setdefault((spec.table, kind, rel, params), []).append(i)
         out: List[Optional[Answer]] = [None] * len(specs)
-        for (table, _, rel), idxs in groups.items():
+        for (table, kind, rel, params), idxs in groups.items():
             ranges = tuple(self._concat([specs[i].ranges[j] for i in idxs])
-                           for j in range(2))
-            res = self._exec_group(table, ranges, rel)
+                           for j in range(len(specs[idxs[0]].ranges)))
+            res = self._exec_group(table, kind, ranges, rel, params)
             off = 0
             for i in idxs:
                 m = len(specs[i])
-                part = QueryResult(*(f[off:off + m] for f in res))
-                out[i] = self._wrap(table, part)
+                part = type(res)(*(f[off:off + m] for f in res))
+                out[i] = self._wrap(table, kind, params, part)
                 off += m
         return out
 
@@ -251,27 +293,59 @@ class PolyFit:
 
     def _resolve(self, spec: QuerySpec):
         """Validate a spec against its table and return the concrete
-        ``(kind, eps_rel)`` grouping coordinates."""
+        ``(kind, eps_rel, params)`` grouping coordinates."""
         t = self._table(spec.table)
         kind = t.kind if spec.kind is None else spec.kind
+        if kind == "quantile":
+            if t.spec.agg not in ("sum", "count") or t.spec.window:
+                raise ValueError(
+                    f"table {spec.table!r} ({t.spec.agg}"
+                    f"{', windowed' if t.spec.window else ''}) cannot "
+                    "answer quantiles; they invert 1-D SUM/COUNT tables")
+            return kind, None, ()    # no refinement path
+        if kind == "window":
+            if t.win is None:
+                raise ValueError(
+                    f"table {spec.table!r} is not windowed; fit it with "
+                    "TableSpec(window=<ring>) to take window queries")
+            return kind, t.resolve_rel(spec.rel), spec.params
+        if t.win is not None:
+            raise ValueError(
+                f"table {spec.table!r} is windowed; use "
+                "QuerySpec.window(..., t0, t1) to name the epoch range")
         if kind != t.kind:
             raise ValueError(
                 f"table {spec.table!r} ({t.spec.agg}) answers "
                 f"{t.kind!r} queries, spec asks for {kind!r}")
-        return kind, t.resolve_rel(spec.rel)
+        return kind, t.resolve_rel(spec.rel), ()
 
-    def _exec_group(self, table: str, ranges, eps_rel) -> QueryResult:
+    def _exec_group(self, table: str, kind: str, ranges, eps_rel, params):
         t = self._table(table)
+        if kind == "quantile":
+            (qs,) = ranges
+            if t.dyn is not None:
+                return t.dyn.quantile(qs)
+            return execute_quantile(t.plan, qs, backend=self.backend,
+                                    min_bucket=self.min_bucket)
+        if kind == "window":
+            return t.win.query(*ranges, *params, eps_rel=eps_rel)
         if t.dyn is not None:
             return t.dyn.query(*ranges, eps_rel=eps_rel)
         return execute(t.plan, ranges, backend=self.backend,
                        eps_rel=eps_rel, min_bucket=self.min_bucket)
 
-    def _wrap(self, table: str, res: QueryResult) -> Answer:
+    def _wrap(self, table: str, kind: str, params, res) -> Answer:
         t = self._table(table)
-        return Answer(res.answer, res.approx, res.refined,
-                      bound=t.spec.budget.bound(t.spec.agg),
-                      staleness=t.staleness())
+        stale = t.staleness(kind, params)
+        if kind == "quantile":
+            return Answer(res.answer, res.answer,
+                          torch.zeros(res.answer.shape, dtype=torch.bool,
+                                      device=res.answer.device),
+                          bound=(res.lo, res.hi), staleness=stale)
+        bound = (t.win.bound(*params) if kind == "window"
+                 else t.spec.budget.bound(t.spec.agg))
+        return Answer(res.answer, res.approx, res.refined, bound=bound,
+                      staleness=stale)
 
     # -- updates (dynamic tables) ----------------------------------------
 
@@ -298,3 +372,27 @@ class PolyFit:
             k for k, t in self._tables.items() if t.dyn is not None]
         for name in names:
             self._dyn(name).flush()
+
+    # -- windowed tables --------------------------------------------------
+
+    def _win(self, table: str) -> WindowEngine:
+        t = self._table(table)
+        if t.win is None:
+            raise RuntimeError(f"table {table!r} is not windowed; fit it "
+                               "with TableSpec(window=<ring>) to stream "
+                               "epochs")
+        return t.win
+
+    def ingest(self, table: str, keys, measures=None) -> None:
+        """Append rows to a windowed table's open epoch (exact until sealed
+        by :meth:`advance_epoch`)."""
+        self._win(table).ingest(keys, measures)
+
+    def advance_epoch(self, table: str) -> int:
+        """Seal the open epoch into an immutable fitted plan on the ring;
+        returns the new open epoch id."""
+        return self._win(table).advance()
+
+    def epoch(self, table: str) -> int:
+        """The windowed table's current open epoch id."""
+        return self._win(table).epoch

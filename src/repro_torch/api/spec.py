@@ -1,17 +1,19 @@
 """Declarative request/fit descriptions for the ``PolyFit`` session facade.
 
-The twin of ``repro.api.spec`` for static and dynamic one-key tables.
-``QuerySpec`` names a fitted table and carries the query ranges (scalars or
-equal-length batches); ``QueryBatch`` is an ordered tuple of specs that may mix
-aggregates freely — the session groups them by (table, kind, guarantee),
-dispatches each group through one fused executor, and scatters answers back
-in request order.
+The twin of ``repro.api.spec`` for static, dynamic and windowed one-key
+tables.  ``QuerySpec`` names a fitted table and carries the query ranges
+(scalars or equal-length batches) — or, for ``kind='quantile'``, the rank
+fractions alone, and for ``kind='window'`` an inclusive epoch interval
+``params=(t0, t1)`` beside the range; ``QueryBatch`` is an ordered tuple of
+specs that may mix kinds freely — the session groups them by (table, kind,
+guarantee, params), dispatches each group through one executor, and
+scatters answers back in request order.
 
 ``TableSpec`` is the fit-time counterpart: aggregate family, ``ErrorBudget``
-(the only source of build deltas — see ``budget.py``), degree, and the
-delta buffer of a ``dynamic`` table.  The 2-key aggregates and the LSM,
-sharded and windowed tables come with their slices and raise
-``NotImplementedError`` naming them.
+(the only source of build deltas — see ``budget.py``), degree, the delta
+buffer of a ``dynamic`` table and the epoch ring of a ``window`` table.
+The 2-key aggregates and the LSM and sharded tables come with their slices
+and raise ``NotImplementedError`` naming them.
 """
 from __future__ import annotations
 
@@ -41,9 +43,8 @@ KIND_OF_AGG = {"count": "count", "sum": "sum", "max": "max", "min": "min",
                "count2d": "count", "sum2d": "sum", "max2d": "max",
                "min2d": "min"}
 
-# ROADMAP Queue 1 items of what this slice does not serve yet
-_LATER = {"2-D tables": 13, "quantiles": 11, "windowed tables": 12,
-          "LSM tables": 12, "sharded tables": 14}
+# ROADMAP Queue 1 items of what the port does not serve yet
+_LATER = {"2-D tables": 13, "LSM tables": 12, "sharded tables": 14}
 
 
 def not_ported(what: str) -> NotImplementedError:
@@ -63,33 +64,44 @@ def _norm_range(r):
 class QuerySpec:
     """One declarative request: ``QuerySpec.range("sales", lo, hi)``.
 
-    ``ranges`` is ``(lq, uq)``; entries may be python scalars or
-    equal-length 1-D arrays or tensors (a whole sub-batch in one spec).
-    ``rel`` overrides the table's default Q_rel target for this spec only:
-    ``DEFAULT_REL`` (the default) inherits the table budget, ``None`` forces
-    Q_abs-only, a float is an explicit eps_rel.
+    ``ranges`` is ``(lq, uq)`` (``(q,)`` for quantiles); entries may be
+    python scalars or equal-length 1-D arrays or tensors (a whole
+    sub-batch in one spec).  ``rel`` overrides the table's default Q_rel
+    target for this spec only: ``DEFAULT_REL`` (the default) inherits the
+    table budget, ``None`` forces Q_abs-only, a float is an explicit
+    eps_rel.  ``params`` is ``(t0, t1)`` for window specs, else empty.
     """
 
     table: str
     ranges: Tuple
     rel: object = DEFAULT_REL
     kind: Optional[str] = None
+    params: Tuple = ()
 
     def __post_init__(self):
         if self.kind is not None and self.kind not in KINDS:
             raise ValueError(f"unknown query kind {self.kind!r}; expected "
                              f"one of {KINDS}")
         if self.kind == "quantile":
-            raise not_ported("quantiles")
-        if self.kind == "window":
-            raise not_ported("windowed tables")
-        if len(self.ranges) == 4:
+            if len(self.ranges) != 1:
+                raise ValueError("quantile specs carry exactly the rank "
+                                 f"fractions; got {len(self.ranges)} ranges")
+        elif self.kind == "window":
+            if len(self.ranges) != 2:
+                raise ValueError("window specs carry (lq, uq); got "
+                                 f"{len(self.ranges)} ranges")
+            if len(self.params) != 2:
+                raise ValueError("window specs need params=(t0, t1); got "
+                                 f"{self.params!r}")
+        elif len(self.ranges) == 4:
             raise not_ported("2-D tables")
-        if len(self.ranges) != 2:
+        elif len(self.ranges) != 2:
             raise ValueError("QuerySpec.ranges must have 2 entries (1-D); "
                              f"got {len(self.ranges)}")
         object.__setattr__(self, "ranges",
                            tuple(_norm_range(r) for r in self.ranges))
+        object.__setattr__(self, "params",
+                           tuple(int(p) for p in self.params))
         n = {r.shape[0] for r in self.ranges}
         if len(n) != 1:
             raise ValueError(f"QuerySpec.ranges lengths differ: {sorted(n)}")
@@ -101,6 +113,22 @@ class QuerySpec:
     def range(cls, table: str, lq, uq, rel=DEFAULT_REL) -> "QuerySpec":
         """1-D range (SUM/COUNT over (lq, uq], MAX/MIN over [lq, uq])."""
         return cls(table, (lq, uq), rel)
+
+    @classmethod
+    def quantile(cls, table: str, q, rel=None) -> "QuerySpec":
+        """Certified q-quantile(s): the answer interval brackets the exact
+        order statistic (SUM/COUNT tables only).  ``rel`` is accepted for
+        symmetry but quantiles always answer with their certified key
+        interval — there is no refinement path."""
+        return cls(table, (q,), rel, kind="quantile")
+
+    @classmethod
+    def window(cls, table: str, lq, uq, t0, t1,
+               rel=DEFAULT_REL) -> "QuerySpec":
+        """Range aggregate restricted to epochs ``t0..t1`` inclusive of a
+        windowed table (``TableSpec.window > 0``)."""
+        return cls(table, (lq, uq), rel, kind="window",
+                   params=(int(t0), int(t1)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,8 +169,11 @@ class TableSpec:
     engine (inserts/deletes without rebuild): ``capacity`` is the buffer's
     size (a power of two), ``background`` runs merges on a worker thread,
     ``auto_refit`` merges when the buffer fills or a segment's drift passes
-    its headroom.  ``lsm``, ``shards`` and ``window`` name the execution
-    stacks of later slices and raise ``NotImplementedError`` when set.
+    its headroom.  ``window`` (the number of sealed epochs to retain) makes
+    an epoch-ring table that takes ``ingest``/``advance_epoch`` and answers
+    window queries; ``capacity`` is then the open epoch's buffer.  ``lsm``
+    and ``shards`` name the execution stacks of later slices and raise
+    ``NotImplementedError`` when set.
     """
 
     agg: str
@@ -161,10 +192,18 @@ class TableSpec:
             raise ValueError(f"unknown aggregate {self.agg!r}; expected one "
                              f"of {sorted(_NRANGES)}")
         assert self.agg in DELTA_FRACTION
+        if self.window:
+            if self.window < 1:
+                raise ValueError("window must be >= 1 retained epochs "
+                                 "(or 0 for a non-windowed table)")
+            if self.agg not in ("sum", "count"):
+                raise ValueError("windowed tables support 1-D SUM/COUNT "
+                                 f"only, got {self.agg!r}")
+            if self.dynamic or self.lsm or self.shards:
+                raise ValueError("window tables manage their own epoch "
+                                 "ring; dynamic/lsm/shards do not apply")
         if self.agg.endswith("2d"):
             raise not_ported("2-D tables")
-        if self.window:
-            raise not_ported("windowed tables")
         if self.lsm:
             raise not_ported("LSM tables")
         if self.shards is not None:

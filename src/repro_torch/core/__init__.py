@@ -9,6 +9,8 @@ from .fitting import (PolyModel, continuum_error, eval_poly, fit_lstsq,
 from .index import (PolyFitIndex1D, assemble_index_1d, build_index_1d,
                     index_from_numpy)
 from .poly import clipped_poly_max, eval_segments, horner, locate, scale_unit
+from .quantile import (boundary_array, certified_quantile,
+                       certified_quantile_shifted, invert_cf, rank_slack)
 from .queries import (QueryResult, max_eval_segments, poly_max_on_interval,
                       query_max, query_sum)
 from .segmentation import FastAcceptFitter, greedy_segmentation
@@ -21,5 +23,6 @@ __all__ = [
     "ExactMax", "ExactSum", "build_sparse_table", "sparse_table_range_max",
     "QueryResult", "max_eval_segments", "poly_max_on_interval", "query_max",
     "query_sum", "clipped_poly_max", "eval_segments", "horner", "locate",
-    "scale_unit",
+    "scale_unit", "boundary_array", "certified_quantile",
+    "certified_quantile_shifted", "invert_cf", "rank_slack",
 ]

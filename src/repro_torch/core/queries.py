@@ -76,13 +76,18 @@ def _roots_cubic(d, c, b, a):
     # depressed cubic t^3 + p t + q, u = t - b/(3a)
     shift = b / (3 * safe_a)
     p = (3 * safe_a * c - b * b) / (3 * safe_a * safe_a)
-    q = (2 * b**3 - 9 * safe_a * b * c + 27 * safe_a * safe_a * d) / (27 * safe_a**3)
-    disc = (q * q) / 4 + (p**3) / 27
+    # cubes as explicit products, so a CUDA twin needs no pow; divisions by
+    # a constant as multiplies by its reciprocal, which is how torch divides
+    # by a Python scalar on the card: written out, the CPU, the card and a
+    # CUDA twin round alike
+    q = ((2 * (b * b * b) - 9 * safe_a * b * c + 27 * safe_a * safe_a * d)
+         / (27 * (safe_a * safe_a * safe_a)))
+    disc = (q * q) * 0.25 + (p * p * p) * (1.0 / 27)
     # three-real-root branch (disc <= 0): trigonometric
     pm = torch.clamp(p, max=-1e-300)
-    m = 2 * torch.sqrt(-pm / 3)
+    m = 2 * torch.sqrt(-pm * (1.0 / 3))
     arg = torch.clamp(3 * q / (pm * m), -1.0, 1.0)
-    theta = torch.arccos(arg) / 3
+    theta = torch.arccos(arg) * (1.0 / 3)
     t0 = m * torch.cos(theta)
     t1 = m * torch.cos(theta - 2 * math.pi / 3)
     t2 = m * torch.cos(theta - 4 * math.pi / 3)

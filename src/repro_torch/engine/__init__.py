@@ -12,17 +12,25 @@ path (or the ``Engine`` shim) with ``backend='torch' | 'cuda' | 'ref'``:
 
 ``DynamicEngine`` wraps an index in a delta buffer that takes inserts and
 deletes without a rebuild (exact corrections K5/K6 on ``'cuda'``) and
-refits only the segments they touch.
+refits only the segments they touch.  ``execute_quantile`` (K4 on
+``'cuda'``) and ``DynamicEngine.quantile`` answer certified quantiles of
+SUM/COUNT tables; ``WindowEngine`` keeps an epoch ring of sealed plans and
+answers windowed SUM/COUNT through ``execute_lsm``.
 """
 from .dynamic import DeltaBuffer, DynamicEngine
-from .engine import (BACKENDS, Engine, check_pow2, execute, execute_extremum,
-                     execute_sum, key_span, pad_fills, raw_extremum, raw_sum,
+from .engine import (BACKENDS, Engine, QuantileResult, check_pow2, execute,
+                     execute_extremum, execute_quantile, execute_sum,
+                     key_span, pad_fills, raw_extremum, raw_sum,
                      resolve_backend, truth_extremum, truth_sum)
+from .lsm import LsmLevel, LsmPlan, combine_levels, composed_bound, execute_lsm
 from .plan import (IndexPlan, big_sentinel, build_plan, pad_to_multiple,
                    plan_from_numpy)
+from .window import WindowEngine
 
-__all__ = ["BACKENDS", "Engine", "check_pow2", "execute", "execute_extremum",
-           "execute_sum", "pad_fills", "raw_extremum", "raw_sum",
-           "resolve_backend", "truth_extremum", "truth_sum", "IndexPlan",
-           "big_sentinel", "build_plan", "pad_to_multiple", "plan_from_numpy",
-           "DeltaBuffer", "DynamicEngine", "key_span"]
+__all__ = ["BACKENDS", "Engine", "QuantileResult", "check_pow2", "execute",
+           "execute_extremum", "execute_quantile", "execute_sum",
+           "pad_fills", "raw_extremum", "raw_sum", "resolve_backend",
+           "truth_extremum", "truth_sum", "IndexPlan", "big_sentinel",
+           "build_plan", "pad_to_multiple", "plan_from_numpy", "DeltaBuffer",
+           "DynamicEngine", "key_span", "LsmLevel", "LsmPlan",
+           "combine_levels", "composed_bound", "execute_lsm", "WindowEngine"]

@@ -36,8 +36,12 @@ the exact live answer, and the removal waits for the next merge.  They
 also write the device delete log, which the extremum executor never reads
 (as in the reference).  SUM/COUNT deletes ride the tombstone log.
 
-Quantiles over a dynamic table (``_exec_dyn_quantile``) come with ROADMAP
-Queue 1 item 11; the 2-D engine with item 13.
+Quantiles over a dynamic table (``_exec_dyn_quantile``) invert the fitted
+CF against rank targets corrected by the buffer's exact prefix sums and
+re-certify at each candidate key; the reference runs that loop as plain
+XLA for every backend, and so does the port: plain torch, bit-identical
+between ``'torch'`` and ``'cuda'``.  The 2-D engine comes with ROADMAP
+Queue 1 item 13.
 """
 from __future__ import annotations
 
@@ -52,13 +56,16 @@ from .. import DTYPE
 from ..core.exact import build_sparse_table, sparse_table_range_max
 from ..core.fitting import PolyModel, fit_minimax_lp
 from ..core.index import PolyFitIndex1D, _continuum_post, assemble_index_1d
+from ..core.quantile import invert_cf
 from ..core.queries import QueryResult
 from ..core.segmentation import FastAcceptFitter, greedy_segmentation
 from ..kernels import ref as _ref
 from ..kernels.delta_scan import delta_max_gather, delta_sum_gather
-from .engine import (_prepare, check_pow2, execute_extremum, key_span,
-                     raw_extremum, raw_sum, resolve_backend, truth_extremum,
-                     truth_sum)
+from ..kernels.locate import bsearch_count
+from .engine import (QuantileResult, _prepare, check_pow2, execute_extremum,
+                     key_span, prepare_fractions, quantile_mass,
+                     quantile_tables, raw_extremum, raw_sum, resolve_backend,
+                     truth_extremum, truth_sum)
 from .plan import IndexPlan, big_sentinel, build_plan
 
 __all__ = ["DeltaBuffer", "DynamicEngine"]
@@ -204,6 +211,84 @@ def _exec_dyn_sum(plan: IndexPlan, buf: DeltaBuffer, lq, uq, *, backend: str,
           (two_d / torch.clamp(approx - two_d, min=1e-300) <= eps_rel))
     truth = truth_sum(plan, lq, uq, backend=backend) + corr
     return torch.where(ok, approx, truth), approx, ~ok
+
+
+def _exec_dyn_quantile(plan: IndexPlan, buf: DeltaBuffer, q):
+    """Certified quantile over the *updated* CF G = F + (ins - del).
+
+    G is the CF of the live multiset (deletes remove existing rows), hence
+    monotone; only F is fitted.  The loop inverts F against the
+    delta-corrected rank target and re-certifies with the exact buffer
+    correction evaluated at the candidate key: at convergence the
+    key-certified facts about F plus the exact B(x) give
+    G(x_hi) >= rank + slack and G(x_lo) <= rank - slack.  Plain torch for
+    every backend, as the reference runs it as plain XLA for every backend.
+    """
+    dt = plan.dtype
+    qc = torch.clamp(q, 0.0, 1.0)
+    err, Bnd, keys, nk = quantile_tables(plan)
+    kw = dict(B=Bnd, seg_lo=plan.seg_lo, seg_hi=plan.seg_hi,
+              coeffs=plan.coeffs, h=plan.h)
+    delta = float(plan.delta)
+
+    # total live mass and rank slack over the updated multiset
+    M, slack = quantile_mass(plan, buf.ins_cf[-1] - buf.del_cf[-1])
+    r = qc * M
+    tiny = 1e-9 * (torch.abs(r) + 1.0)
+
+    def corr(x):
+        # exact buffered mass at or below x (exclusive prefix sums; the
+        # sentinel-padded tails contribute zero)
+        return (buf.ins_cf[bsearch_count(buf.ins_keys, x, side="right")]
+                - buf.del_cf[bsearch_count(buf.del_keys, x, side="right")])
+
+    live = buf.ins_keys < big_sentinel(dt) / 2
+    dom_hi = plan.seg_hi[plan.h - 1]
+    dom_lo = plan.seg_lo[0]
+    # unconditional fallbacks: >=/<= every live key of the updated set
+    fb_top = torch.maximum(
+        dom_hi, torch.where(live, buf.ins_keys, -torch.inf).max())
+    fb_lo = torch.minimum(
+        dom_lo, torch.where(live, buf.ins_keys, torch.inf).min())
+
+    # raw fitted estimate: fixed-point on the delta-corrected rank
+    zeros = torch.zeros_like(err)
+    xm, okm = invert_cf(r, "hi", seg_err=zeros, delta=0.0, slack=0.0,
+                        raw=True, **kw)
+    xm = torch.where(okm, xm, dom_hi)
+    for _ in range(2):
+        xm2, okm = invert_cf(r - corr(xm), "hi", seg_err=zeros, delta=0.0,
+                             slack=0.0, raw=True, **kw)
+        xm = torch.where(okm, xm2, dom_hi)
+
+    # upper: find x_hi with F(x_hi) >= tF and tF + B(x_hi) >= r + slack
+    r_hi = r + slack
+    tF = r_hi - corr(xm)
+    x_hi, ok_hi = xm, torch.zeros(r.shape, dtype=torch.bool, device=r.device)
+    for _ in range(4):
+        x_hi, ok_v = invert_cf(tF, "hi", seg_err=err, delta=delta, slack=0.0,
+                               ref_keys=keys, n=nk, **kw)
+        need = r_hi - corr(x_hi)
+        ok_hi = (need <= tF + tiny) & ok_v
+        tF = torch.maximum(tF, need)
+    x_hi = torch.where(ok_hi, x_hi, fb_top)
+
+    # lower: every base key <= x_lo has F <= tL (the invert_cf 'lo'
+    # contract, flagged by ok_v), so G(x_lo) <= max(tL, 0) + B(x_lo) <=
+    # r - slack at convergence; G monotone => x_lo precedes every rank-r
+    # crossing
+    r_lo = r - slack
+    tL = r_lo - corr(xm)
+    x_lo, ok_lo = xm, torch.zeros(r.shape, dtype=torch.bool, device=r.device)
+    for _ in range(4):
+        x_lo, ok_v = invert_cf(tL, "lo", seg_err=err, delta=delta, slack=0.0,
+                               **kw)
+        need = r_lo - corr(x_lo)
+        ok_lo = (need >= torch.clamp(tL, min=0.0) - tiny) & ok_v
+        tL = torch.minimum(tL, need)
+    x_lo = torch.where(ok_lo, x_lo, fb_lo)
+
+    return torch.clamp(xm, x_lo, x_hi), x_lo, x_hi
 
 
 def _exec_dyn_extremum(plan: IndexPlan, buf: DeltaBuffer, lq, uq, *,
@@ -859,9 +944,17 @@ class DynamicEngine(_DeltaBufferedEngine):
 
     count = sum
 
-    def quantile(self, q):
-        raise NotImplementedError("quantiles over dynamic tables are not "
-                                  "ported yet: ROADMAP Queue 1 item 11")
+    def quantile(self, q) -> QuantileResult:
+        """Certified quantile fractions against the live plan-plus-buffer
+        state: the delta buffer enters through its exact prefix-sum
+        correction, so no flush is needed."""
+        self._require_agg("sum", "count")
+        plan, buf = self._state
+        if plan.deg < 1:
+            raise ValueError("quantile inversion needs a plan with deg >= 1")
+        q, n = prepare_fractions(q, plan, self.min_bucket)
+        ans, lo, hi = _exec_dyn_quantile(plan, buf, q)
+        return QuantileResult(ans[:n], lo[:n], hi[:n])
 
     def extremum(self, lq, uq, eps_rel: Optional[float] = None) -> QueryResult:
         """MAX/MIN over [lq, uq].  Plans of degree > 3 take the ``'torch'``

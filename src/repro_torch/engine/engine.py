@@ -7,8 +7,10 @@ the reference's ``BACKENDS``:
 * ``'torch'`` (twin of ``'xla'``) — searchsorted locate + gather + Horner,
   sparse-table interior MAX (the reference semantics of ``core.queries``);
 * ``'cuda'`` (twin of ``'pallas'``) — the hand-written locate->gather
-  kernels K2 (SUM/COUNT) and K3 (MAX/MIN) of ``csrc/``;
-* ``'ref'`` — the plain one-hot oracles of ``kernels/ref.py``.
+  kernels K2 (SUM/COUNT) and K3 (MAX/MIN) of ``csrc/``, and K4 for
+  QUANTILE (certified CF inversion, ``execute_quantile``);
+* ``'ref'`` — the plain one-hot oracles of ``kernels/ref.py`` (the one-hot
+  searchsorted form of ``core.quantile`` for QUANTILE).
 
 The default is ``'cuda'`` for a plan on a CUDA device and ``'torch'`` for a
 plan on the CPU.  ``'cuda_scan'`` (twin of ``'pallas_scan'``) is not ported
@@ -28,25 +30,38 @@ the bound.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from .. import DTYPE
 from ..core.exact import sparse_table_range_max
-from ..core.poly import eval_segments
+from ..core.poly import eval_segments, horner
+from ..core.quantile import (boundary_array, certified_quantile_shifted,
+                             rank_slack)
 from ..core.queries import QueryResult, max_eval_segments
 from ..kernels import ref as _ref
 from ..kernels.locate import locate, locate_segments
+from ..kernels.quantile_invert import quantile_invert
 from ..kernels.range_max import range_max_gather
 from ..kernels.range_sum import range_sum_gather
-from .plan import IndexPlan
+from .plan import IndexPlan, big_sentinel, pad_to_multiple
 
-__all__ = ["Engine", "BACKENDS", "raw_sum", "raw_extremum", "truth_sum",
-           "truth_extremum", "key_span", "check_pow2", "execute_sum",
-           "execute_extremum", "execute", "pad_fills", "resolve_backend"]
+__all__ = ["Engine", "BACKENDS", "QuantileResult", "raw_sum", "raw_extremum",
+           "truth_sum", "truth_extremum", "key_span", "check_pow2",
+           "execute_sum", "execute_extremum", "execute_quantile", "execute",
+           "pad_fills", "resolve_backend", "quantile_mass", "quantile_tables",
+           "prepare_fractions"]
 
 BACKENDS = ("torch", "cuda", "ref")
+
+
+class QuantileResult(NamedTuple):
+    """Certified quantile triple: ``lo <= answer <= hi`` everywhere, and
+    [lo, hi] brackets the exact quantile key."""
+    answer: torch.Tensor
+    lo: torch.Tensor
+    hi: torch.Tensor
 
 
 def check_pow2(name: str, v: int) -> None:
@@ -241,6 +256,95 @@ def execute_sum(plan: IndexPlan, lq, uq, *, backend: Optional[str] = None,
     return QueryResult(ans[:n], approx[:n], refined[:n])
 
 
+def quantile_mass(plan: IndexPlan, dM=0.0):
+    """(M, slack): the total mass rank fractions scale, and the soundness
+    slack, for a SUM/COUNT plan plus a buffered mass change ``dM``.
+
+    ``M`` is exact for COUNT and for a SUM plan with exact arrays; without
+    them it is the fitted top, off by at most the top segment's error, so
+    the slack widens by delta."""
+    dt = plan.dtype
+    if plan.agg == "count":
+        M = torch.tensor(float(plan.n), dtype=dt, device=plan.device) + dM
+        return M, rank_slack("count", M)
+    if plan.ref_cf is not None:
+        M0, extra = plan.ref_cf[-1], 0.0      # exact total mass
+    else:
+        M0 = horner(plan.coeffs[plan.h - 1],
+                    torch.tensor(1.0, dtype=dt, device=plan.device))
+        extra = plan.delta
+    M = M0 + dM
+    return M, rank_slack("sum", M) + extra
+
+
+def quantile_tables(plan: IndexPlan):
+    """(err, B, keys, nk): the per-segment errors (delta where the plan
+    has none), the boundary array, and the exact key grid padded to a
+    multiple of 128 with the sentinel holding ``nk`` keys (None, 0 without
+    exact arrays)."""
+    err = (plan.seg_err if plan.seg_err is not None
+           else torch.full_like(plan.seg_lo, plan.delta))
+    B = boundary_array(plan.coeffs)
+    if plan.ref_keys is None:
+        return err, B, None, 0
+    keys = pad_to_multiple(plan.ref_keys, 128, big_sentinel(plan.dtype))
+    return err, B, keys, plan.n
+
+
+def prepare_fractions(q, plan: IndexPlan, min_bucket: int):
+    """Quantile fractions as a float64 tensor on the plan's device, padded
+    with 0.5 to the power-of-two bucket; returns (padded, count)."""
+    check_pow2("min_bucket", min_bucket)
+    q = torch.as_tensor(q, dtype=DTYPE, device=plan.device).reshape(-1)
+    n = q.shape[0]
+    return _pad_bucket(q, _bucket_size(n, min_bucket),
+                       q.new_full((), 0.5)), n
+
+
+def _exec_quantile(plan: IndexPlan, q, *, backend: str):
+    qc = torch.clamp(q, 0.0, 1.0)
+    M, slack = quantile_mass(plan)
+    err, B, keys, nk = quantile_tables(plan)
+    t = qc * M
+    if backend == "cuda":
+        return quantile_invert(t, t - slack, t + slack, B, plan.seg_lo,
+                               plan.seg_hi, plan.coeffs, err, keys,
+                               h=plan.h, n=nk, delta=float(plan.delta))
+    return certified_quantile_shifted(
+        t, t - slack, t + slack, seg_lo=plan.seg_lo, seg_hi=plan.seg_hi,
+        coeffs=plan.coeffs, seg_err=err, h=plan.h, delta=float(plan.delta),
+        B=B, ref_keys=keys, n=nk, scan=(backend == "ref"))
+
+
+def execute_quantile(plan: IndexPlan, q, *, backend: Optional[str] = None,
+                     min_bucket: int = 64) -> QuantileResult:
+    """Certified 1-D QUANTILE by CF inversion.
+
+    ``q`` holds quantile fractions in [0, 1]; works on SUM/COUNT plans
+    (COUNT inverts ranks, SUM cumulative measure — the weighted quantile).
+    The returned [lo, hi] always brackets the exact quantile key; there is
+    no Q_rel path (the certificate is the guarantee).  K4 runs on the
+    ``'cuda'`` backend; a plan without exact arrays has no key grid to
+    snap to and takes the ``'torch'`` path, as the reference takes XLA,
+    counted in ``execute_quantile.torch_routes``.
+    """
+    if plan.agg not in ("sum", "count"):
+        raise ValueError(f"execute_quantile needs a sum/count plan, got "
+                         f"{plan.agg}")
+    if plan.deg < 1:
+        raise ValueError("quantile inversion needs a plan with deg >= 1")
+    backend = resolve_backend(backend, plan.device)
+    if backend == "cuda" and plan.ref_keys is None:
+        backend = "torch"   # the kernel's key-grid snap needs ref_keys
+        execute_quantile.torch_routes += 1
+    q, n = prepare_fractions(q, plan, min_bucket)
+    ans, lo, hi = _exec_quantile(plan, q, backend=backend)
+    return QuantileResult(ans[:n], lo[:n], hi[:n])
+
+
+execute_quantile.torch_routes = 0
+
+
 def execute_extremum(plan: IndexPlan, lq, uq, *,
                      backend: Optional[str] = None,
                      eps_rel: Optional[float] = None,
@@ -272,12 +376,16 @@ execute_extremum.torch_routes = 0
 def execute(plan: IndexPlan, ranges, *, backend: Optional[str] = None,
             eps_rel: Optional[float] = None,
             min_bucket: int = 64) -> QueryResult:
-    """Dispatch on the plan: (lq, uq) for 1-D SUM/COUNT/MAX/MIN."""
+    """Dispatch on the plan: (lq, uq) for 1-D SUM/COUNT/MAX/MIN, and for a
+    1-D SUM/COUNT level ladder (``LsmPlan``)."""
+    kw = dict(backend=backend, eps_rel=eps_rel, min_bucket=min_bucket)
+    if hasattr(plan, "levels"):   # LsmPlan level ladder
+        from .lsm import execute_lsm
+        return execute_lsm(plan, None, ranges, **kw)
     if not isinstance(plan, IndexPlan):
         raise NotImplementedError(
             f"{type(plan).__name__} plans are not ported yet: ROADMAP "
-            "Queue 1 items 12 (LSM) and 13 (2-D)")
-    kw = dict(backend=backend, eps_rel=eps_rel, min_bucket=min_bucket)
+            "Queue 1 item 13 (2-D)")
     if plan.agg in ("sum", "count"):
         return execute_sum(plan, *ranges, **kw)
     return execute_extremum(plan, *ranges, **kw)
@@ -304,6 +412,10 @@ class Engine:
         return execute_sum(plan, lq, uq, **self._kw(eps_rel))
 
     count = sum   # COUNT is SUM over unit measures
+
+    def quantile(self, plan: IndexPlan, q) -> QuantileResult:
+        return execute_quantile(plan, q, backend=self.backend,
+                                min_bucket=self.min_bucket)
 
     def extremum(self, plan: IndexPlan, lq, uq,
                  eps_rel: Optional[float] = None) -> QueryResult:

@@ -3,12 +3,15 @@
 Each kernel module holds a plain torch version and a wrapper that launches
 the CUDA kernel on CUDA tensors (``csrc/``, built by ``_build``) and runs
 the plain version on CPU tensors; ``ref.py`` holds the one-hot oracles.
-The K1 wrapper is ``kernels.locate.locate``; it is not re-exported here, so
-that ``repro_torch.kernels.locate`` stays the module.
+The K1 wrapper is ``kernels.locate.locate`` and the K4 wrapper
+``kernels.quantile_invert.quantile_invert``; they are not re-exported
+here, so that ``repro_torch.kernels.locate`` and
+``repro_torch.kernels.quantile_invert`` stay the modules.
 """
 from .delta_scan import (delta_max_gather, delta_max_gather_plain,
                          delta_sum_gather, delta_sum_gather_plain)
 from .locate import bsearch_count, locate_segments, rmq_gather
+from .quantile_invert import quantile_invert_plain
 from .range_max import range_max_gather, range_max_gather_plain
 from .range_sum import range_sum_gather, range_sum_gather_plain
 from .ref import delta_max_ref, delta_sum_ref
@@ -17,4 +20,5 @@ __all__ = ["bsearch_count", "locate_segments", "rmq_gather",
            "range_max_gather", "range_max_gather_plain", "range_sum_gather",
            "range_sum_gather_plain", "delta_sum_gather",
            "delta_sum_gather_plain", "delta_max_gather",
-           "delta_max_gather_plain", "delta_sum_ref", "delta_max_ref"]
+           "delta_max_gather_plain", "quantile_invert_plain",
+           "delta_sum_ref", "delta_max_ref"]

@@ -1,16 +1,17 @@
 """Build and bind the CUDA kernels of ``repro_torch/csrc``.
 
-The sources are compiled with plain ``nvcc`` into one shared library with a
-C interface and loaded with ``ctypes`` — seconds, where a build through
+Each translation unit in ``UNITS`` is compiled with plain ``nvcc`` into a
+shared library with a C interface, all units at once in parallel, and
+loaded with ``ctypes`` — seconds, where a build through
 ``torch.utils.cpp_extension`` (PyTorch's headers) takes minutes.  The build
 happens at first use, never at import, so the package imports on hosts
-without ``nvcc``.  The library lands in ``csrc/build/<hash>/``, keyed by a
+without ``nvcc``.  The libraries land in ``csrc/build/<hash>/``, keyed by a
 hash of the sources and flags, so an edited source rebuilds and an
 unchanged one loads at once.
 
-Every launcher takes its pointers and the stream as ``c_void_p`` and its
-sizes as ``c_int``, and returns ``cudaGetLastError()``; :func:`check`
-raises on a non-zero code.
+Every launcher takes its pointers and the stream as ``c_void_p``, its sizes
+as ``c_int`` and its float scalars as ``c_double``, and returns
+``cudaGetLastError()``; :func:`check` raises on a non-zero code.
 """
 from __future__ import annotations
 
@@ -27,15 +28,17 @@ from typing import NamedTuple
 
 import torch
 
-__all__ = ["CSRC", "SOURCES", "NVCC_FLAGS", "Build", "build", "library",
-           "check", "require_cuda", "stream"]
+__all__ = ["CSRC", "SOURCES", "UNITS", "NVCC_FLAGS", "Build", "build",
+           "library", "check", "require_cuda", "stream"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("locate.cuh", "polyfit_kernels.cu")
+SOURCES = ("locate.cuh", "polyfit_kernels.cu", "quantile.cu")
+# translation units: one shared library each, compiled in parallel
+UNITS = ("polyfit_kernels.cu", "quantile.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _SIGNATURES = {
     # q, seg_lo, out, Q, H, stream
     "polyfit_locate": (_P, _P, _P, _I, _I, _P),
@@ -48,11 +51,14 @@ _SIGNATURES = {
     "polyfit_delta_sum_gather": (_P, _P, _P, _P, _P, _I, _I, _P),
     # lq, uq, keys, st, out, Q, cap, stream
     "polyfit_delta_max_gather": (_P, _P, _P, _P, _P, _I, _I, _P),
+    # t_mid, t_lo, t_hi, B, seg_lo, seg_hi, coeffs, seg_err, ref_keys,
+    # out_mid, out_lo, out_hi, Q, H, deg, h, nk, n, delta, stream
+    "polyfit_quantile_invert": (_P,) * 12 + (_I,) * 6 + (_D, _P),
 }
 
 
 class Build(NamedTuple):
-    path: Path          # the shared library
+    paths: tuple        # the shared libraries, one per unit
     seconds: float      # nvcc wall time (0.0 when a cached build was found)
     log: str            # nvcc's output (ptxas register/spill report)
 
@@ -71,41 +77,62 @@ def _nvcc() -> str:
 
 @functools.lru_cache(maxsize=None)
 def build() -> Build:
-    """Compile the kernels (once per source hash) and return the build."""
+    """Compile the kernels (once per source hash) and return the build:
+    one ``nvcc`` per unit, all started together."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in SOURCES:
         digest.update((CSRC / name).read_bytes())
     out_dir = CSRC / "build" / digest.hexdigest()[:16]
-    lib = out_dir / "libpolyfit_kernels.so"
-    if lib.exists():
-        return Build(lib, 0.0, "")
+    libs = tuple(out_dir / f"lib{Path(u).stem}.so" for u in UNITS)
+    if all(lib.exists() for lib in libs):
+        return Build(libs, 0.0, "")
     out_dir.mkdir(parents=True, exist_ok=True)
-    # compile to a private name, then rename: concurrent builders never load
-    # a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / "polyfit_kernels.cu")],
-        capture_output=True, text=True, check=False)
+    jobs = []
+    for unit, lib in zip(UNITS, libs):
+        # compile to a private name, then rename: a concurrent build never
+        # loads a half-written library
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+        os.close(fd)
+        proc = subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / unit)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs.append((unit, lib, tmp, proc))
+    logs, failed = [], []
+    for unit, lib, tmp, proc in jobs:
+        out, _ = proc.communicate()
+        logs.append(f"== {unit}\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"{unit} ({proc.returncode})")
+            os.unlink(tmp)
+        else:
+            os.replace(tmp, lib)
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}"
-                           f"\n{proc.stderr}")
-    os.replace(tmp, lib)
-    return Build(lib, seconds, proc.stdout + proc.stderr)
+    if failed:
+        raise RuntimeError(f"nvcc failed for {', '.join(failed)}:\n"
+                           + "\n".join(logs))
+    return Build(libs, seconds, "\n".join(logs))
+
+
+class _Library:
+    """The launchers of every unit's library, as attributes."""
+
+    def __init__(self, cdlls):
+        for name, argtypes in _SIGNATURES.items():
+            fn = next((getattr(d, name) for d in cdlls
+                       if hasattr(d, name)), None)
+            if fn is None:
+                raise RuntimeError(f"no kernel library exports {name}")
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            setattr(self, name, fn)
 
 
 @functools.lru_cache(maxsize=None)
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, with every launcher's signature set."""
-    lib = ctypes.CDLL(str(build().path))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib
+def library() -> _Library:
+    """The loaded kernel libraries, with every launcher's signature set."""
+    return _Library([ctypes.CDLL(str(p)) for p in build().paths])
 
 
 def check(code: int, name: str) -> None:

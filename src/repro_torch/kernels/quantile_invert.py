@@ -1,0 +1,85 @@
+"""Certified CF inversion for QUANTILE queries: kernel K4.
+
+The twin of ``repro.kernels.quantile_invert``.  Per slack-shifted rank
+target the kernel runs the branch-free locate -> closed-form / Newton
+solve -> key-grid snap pipeline of ``core.quantile`` and emits the
+(answer, lower, upper) triple in one launch (``csrc/quantile.cu``, one
+thread per target).
+
+* ``quantile_invert_plain`` is the plain torch version:
+  ``core.quantile.certified_quantile_shifted`` with the exact key grid.
+* ``quantile_invert`` is the wrapper: the CUDA kernel on CUDA tensors, the
+  plain version on CPU tensors.  ``quantile_invert.launches`` counts the
+  kernel launches.
+
+The boundary array ``B`` (the running max of the segment endpoint values,
+``core.quantile.boundary_array``) and the padded key grid ``ref_keys`` are
+computed outside the kernel and passed in, as the reference passes them;
+``n`` is the live key count inside the grid.  The one-hot scan mode of the
+reference kernel (``scan=True``, the ``pallas_scan`` twin) comes with the
+``cuda_scan`` backend (ROADMAP Queue 2, with K14-K17).
+"""
+from __future__ import annotations
+
+import torch
+
+from ..core.quantile import certified_quantile_shifted
+from . import _build
+
+__all__ = ["quantile_invert", "quantile_invert_plain", "MAX_DEG"]
+
+#: the largest plan degree the kernel takes (``csrc/quantile.cu``
+#: ``kMaxQuantileDeg``: one instantiation per degree)
+MAX_DEG = 8
+
+
+def quantile_invert_plain(t_mid, t_lo, t_hi, B, seg_lo, seg_hi, coeffs,
+                          seg_err, ref_keys, *, h: int, n: int,
+                          delta: float):
+    """Plain torch version of K4: (answer, lower, upper)."""
+    return certified_quantile_shifted(
+        t_mid, t_lo, t_hi, seg_lo=seg_lo, seg_hi=seg_hi, coeffs=coeffs,
+        seg_err=seg_err, h=h, delta=delta, B=B, ref_keys=ref_keys, n=n)
+
+
+def quantile_invert(t_mid, t_lo, t_hi, B, seg_lo, seg_hi, coeffs, seg_err,
+                    ref_keys, *, h: int, n: int, delta: float):
+    """(answer, lower, upper), each (Q,): K4 on CUDA tensors, the plain
+    version on CPU tensors.
+
+    ``t_mid``/``t_lo``/``t_hi`` are rank targets with the slack already
+    folded in; ``B``/``seg_lo``/``seg_hi``/``seg_err`` (H,) and ``coeffs``
+    (H, deg+1) the plan's tile-padded tables with ``h`` true segments;
+    ``ref_keys`` the sorted, sentinel-padded key grid holding ``n`` keys.
+    """
+    if t_mid.device.type == "cpu":
+        return quantile_invert_plain(t_mid, t_lo, t_hi, B, seg_lo, seg_hi,
+                                     coeffs, seg_err, ref_keys, h=h, n=n,
+                                     delta=delta)
+    _build.require_cuda("quantile_invert", t_mid, t_lo, t_hi, B, seg_lo,
+                        seg_hi, coeffs, seg_err, ref_keys)
+    Q, H, nk = t_mid.shape[0], seg_lo.shape[0], ref_keys.shape[0]
+    deg = coeffs.shape[-1] - 1
+    if (t_lo.shape != (Q,) or t_hi.shape != (Q,) or coeffs.shape != (H, deg + 1)
+            or any(a.shape != (H,) for a in (B, seg_hi, seg_err))
+            or not 1 <= h <= H or not 1 <= n <= nk):
+        raise ValueError(
+            f"quantile_invert: shape mismatch {t_mid.shape} {t_lo.shape} "
+            f"{t_hi.shape} {B.shape} {seg_lo.shape} {seg_hi.shape} "
+            f"{coeffs.shape} {seg_err.shape} {ref_keys.shape} (h={h}, n={n})")
+    if not 1 <= deg <= MAX_DEG:
+        raise ValueError(f"quantile_invert: plan degree {deg} outside the "
+                         f"kernel's 1..{MAX_DEG}")
+    out = torch.empty((3, Q), dtype=coeffs.dtype, device=t_mid.device)
+    if Q:
+        _build.check(_build.library().polyfit_quantile_invert(
+            t_mid.data_ptr(), t_lo.data_ptr(), t_hi.data_ptr(), B.data_ptr(),
+            seg_lo.data_ptr(), seg_hi.data_ptr(), coeffs.data_ptr(),
+            seg_err.data_ptr(), ref_keys.data_ptr(), out[0].data_ptr(),
+            out[1].data_ptr(), out[2].data_ptr(), Q, H, deg, h, nk, n,
+            float(delta), _build.stream(t_mid.device)), "quantile_invert")
+        quantile_invert.launches += 1
+    return out[0], out[1], out[2]
+
+
+quantile_invert.launches = 0

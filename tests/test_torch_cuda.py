@@ -1,10 +1,10 @@
 """The CUDA kernels on the card, held to their plain PyTorch versions.
 
-K1 (locate), K2 (range SUM), K3 (range MAX), K5 (buffered SUM), K6
-(buffered MAX) and the ``cuda`` engine backend, static and dynamic, must
-agree with the plain versions on the same inputs: K1's int32 ids exactly,
-the others to rtol = atol = 1e-9 (compiled with -fmad=false, they are
-expected to agree bit for bit).  The plain versions are held to the JAX
+K1 (locate), K2 (range SUM), K3 (range MAX), K4 (quantile inversion), K5
+(buffered SUM), K6 (buffered MAX) and the ``cuda`` engine backend, static,
+dynamic and windowed, must agree with the plain versions on the same
+inputs: K1's int32 ids exactly, the others to rtol = atol = 1e-9
+(compiled with -fmad=false, they are expected to agree bit for bit).  The plain versions are held to the JAX
 reference by the CPU tests (test_torch_locate.py, test_torch_kernels.py,
 test_torch_engine.py), so this file imports no JAX: it runs on a machine
 with a card and PyTorch alone.
@@ -18,12 +18,15 @@ import torch
 from repro_torch.api import ErrorBudget, PolyFit, QueryBatch, QuerySpec, TableSpec
 from repro_torch.core import build_index_1d
 from repro_torch.data import hki_series, make_queries_1d, tweet_latitudes
-from repro_torch.engine import (DynamicEngine, Engine, build_plan,
-                                execute_extremum)
+from repro_torch.engine import (DynamicEngine, Engine, WindowEngine,
+                                build_plan, execute_extremum,
+                                execute_quantile)
 from repro_torch.engine.dynamic import _append_1d
+from repro_torch.engine.engine import quantile_mass, quantile_tables
 from repro_torch.engine.plan import big_sentinel
 from repro_torch.kernels import delta_scan as kdelta
 from repro_torch.kernels import locate as kloc
+from repro_torch.kernels import quantile_invert as kq
 from repro_torch.kernels import range_max as kmax
 from repro_torch.kernels import range_sum as ksum
 
@@ -296,3 +299,165 @@ def test_dynamic_cuda_backend_matches_torch_backend(cuda, agg):
     compare()
     update(1)   # extremal deletes now shadow victims in a fresh buffer
     compare()
+
+
+# ---------------------------------------------------------------------------
+# K4, the dynamic quantile and the window tables
+# ---------------------------------------------------------------------------
+
+NQ4 = 4096
+
+
+@pytest.fixture(scope="module")
+def quantile_plans(cuda):
+    """Port plans built on the card, n = 4,096: COUNT and SUM, deg 1-5."""
+    t, v = hki_series(NQ4, seed=11)
+    out = {}
+    for deg in (1, 2, 3, 4, 5):
+        out["count", deg] = build_plan(build_index_1d(
+            t, None, "count", deg=deg, delta=24.0, device=cuda))
+        out["sum", deg] = build_plan(build_index_1d(
+            t, v / 100, "sum", deg=deg, delta=100.0, device=cuda))
+    return out
+
+
+def _fractions(cuda):
+    """The rank ends, a fine grid and random fractions: a ragged count."""
+    rng = np.random.default_rng(41)
+    q = np.concatenate([[0.0, 1.0], np.linspace(0, 1, 4097),
+                        rng.uniform(0, 1, 60_000)])
+    return torch.as_tensor(q, device=cuda)
+
+
+def _k4_args(plan, q):
+    """The static executor's K4 arguments for fractions ``q``."""
+    M, slack = quantile_mass(plan)
+    err, B, keys, nk = quantile_tables(plan)
+    t = torch.clamp(q, 0.0, 1.0) * M
+    return ((t, t - slack, t + slack, B, plan.seg_lo, plan.seg_hi,
+             plan.coeffs, err, keys),
+            dict(h=plan.h, n=nk, delta=float(plan.delta)))
+
+
+@pytest.mark.parametrize("agg", ["count", "sum"])
+@pytest.mark.parametrize("deg", [1, 2, 3, 4, 5])
+def test_quantile_invert_kernel_matches_plain(cuda, quantile_plans, agg,
+                                              deg):
+    args, kw = _k4_args(quantile_plans[agg, deg], _fractions(cuda))
+    before = kq.quantile_invert.launches
+    got = kq.quantile_invert(*args, **kw)
+    torch.cuda.synchronize()
+    assert kq.quantile_invert.launches == before + 1
+    want = kq.quantile_invert_plain(*args, **kw)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **TOL)
+    lo, hi = got[1], got[2]
+    assert torch.all(got[0] <= hi) and torch.all(lo <= got[0] + 1e-9)
+
+
+def test_quantile_kernel_rejects_bad_arguments(cuda, quantile_plans):
+    args, kw = _k4_args(quantile_plans["count", 2], _fractions(cuda))
+    with pytest.raises(ValueError, match="shape mismatch"):
+        kq.quantile_invert(*args[:3], args[3][:-1], *args[4:], **kw)
+    with pytest.raises(ValueError, match="CUDA device"):
+        kq.quantile_invert(*args[:8], args[8].cpu(), **kw)
+    wide = torch.zeros((args[6].shape[0], kq.MAX_DEG + 2),
+                       dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError, match="degree"):
+        kq.quantile_invert(*args[:6], wide, *args[7:], **kw)
+
+
+@pytest.mark.parametrize("agg", ["count", "sum"])
+def test_quantile_cuda_backend_matches_torch_backend(cuda, quantile_plans,
+                                                     agg):
+    """execute_quantile on the card runs K4 once a batch and agrees with
+    the plain 'torch' backend, which runs no kernel."""
+    plan = quantile_plans[agg, 3]
+    q = _fractions(cuda)
+    before = kq.quantile_invert.launches
+    got = execute_quantile(plan, q)
+    torch.cuda.synchronize()
+    assert kq.quantile_invert.launches == before + 1
+    want = execute_quantile(plan, q, backend="torch")
+    assert kq.quantile_invert.launches == before + 1
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **TOL)
+
+
+@pytest.mark.parametrize("agg", ["count", "sum"])
+def test_dynamic_quantile_same_on_both_backends(cuda, agg):
+    """The dynamic quantile is one plain path for every backend: the
+    'cuda' and 'torch' engines give bit-identical triples after inserts,
+    deletes, a flush and more updates, and launch no K4."""
+    t, v = hki_series(NQ4, seed=13)
+    meas = None if agg == "count" else v / 100
+    idx = build_index_1d(t, meas, agg, deg=2, delta=50.0, device=cuda)
+    dev = DynamicEngine(idx, capacity=256, auto_refit=False)
+    host = DynamicEngine(idx, backend="torch", capacity=256,
+                         auto_refit=False)
+    assert dev.backend == "cuda"
+    rng = np.random.default_rng(43)
+    q = _fractions(cuda)
+
+    def update(step):
+        ins_k = np.concatenate([rng.uniform(t[0], t[-1], 60),
+                                [t[0] - 10.0 - step, t[-1] + 10.0 + step]])
+        ins_v = rng.uniform(250, 400, len(ins_k)) / 100
+        gone = t[rng.choice(NQ4, 20, replace=False)]
+        for dyn in (dev, host):
+            if agg == "count":
+                dyn.insert(ins_k)
+            else:
+                dyn.insert(ins_k, ins_v)
+            dyn.delete(gone)
+
+    def compare():
+        before = kq.quantile_invert.launches
+        got, want = dev.quantile(q), host.quantile(q)
+        torch.cuda.synchronize()
+        assert kq.quantile_invert.launches == before
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+    update(0)
+    compare()
+    dev.flush()
+    host.flush()
+    compare()
+    update(1)
+    compare()
+
+
+def test_window_queries_launch_kernels(cuda):
+    """A window table on the card runs K2 once per sealed epoch in the
+    window, K5 when the window reaches the open epoch, K1 in each epoch's
+    Q_rel truth, and agrees with the 'torch' backend."""
+    lat = tweet_latitudes(5 * 3000, seed=19)
+    epochs = np.split(lat, 5)
+    kw = dict(agg="count", delta=50.0, ring=8, capacity=4096, device=cuda)
+    dev = WindowEngine(epochs[0], **kw)
+    host = WindowEngine(epochs[0], backend="torch", **kw)
+    assert dev.backend == "cuda"
+    for w in (dev, host):
+        for e in epochs[1:4]:
+            w.ingest(e)
+            w.advance()
+        w.ingest(epochs[4])
+    lq, uq = make_queries_1d(lat, 20_000, seed=23)
+    counts = lambda: (ksum.range_sum_gather.launches,
+                      kdelta.delta_sum_gather.launches, kloc.locate.launches)
+    for (t0, t1), sealed, open_ in (((0, 4), 4, 1), ((1, 3), 3, 0),
+                                    ((4, 4), 0, 1), ((2, 2), 1, 0)):
+        for eps_rel in (None, 0.01):
+            before = counts()
+            got = dev.query(lq, uq, t0, t1, eps_rel=eps_rel)
+            torch.cuda.synchronize()
+            k1 = 2 * sealed if eps_rel is not None else 0
+            assert counts() == (before[0] + sealed, before[1] + open_,
+                                before[2] + k1)
+            before = counts()
+            want = host.query(lq, uq, t0, t1, eps_rel=eps_rel)
+            assert counts() == before
+            torch.testing.assert_close(got.answer, want.answer, **TOL)
+            torch.testing.assert_close(got.refined, want.refined, rtol=0,
+                                       atol=0)

@@ -480,8 +480,14 @@ def test_deg4_max_routes_to_torch(data, updates, queries):
 def test_not_ported_and_device_rules(indexes):
     p = DynamicEngine(_carry(indexes["sum"]), capacity=64)
     assert p.backend == "torch"   # the default for an index on the CPU
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11"):
-        p.quantile([0.5])
+    # quantiles over dynamic tables are ported (ROADMAP Queue 1 item 11):
+    # they answer as the reference engine does
+    r = RDynamicEngine(indexes["sum"], capacity=64)
+    got, want = p.quantile([0.5]), r.quantile(np.array([0.5]))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
+    with pytest.raises(ValueError, match="does not answer"):
+        DynamicEngine(_carry(indexes["max"]), capacity=64).quantile([0.5])
     with pytest.raises(ValueError, match="CUDA device"):
         DynamicEngine(_carry(indexes["sum"]), backend="cuda")
     with pytest.raises(ValueError, match="power of two"):

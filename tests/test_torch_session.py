@@ -119,10 +119,20 @@ def test_single_spec_and_not_ported_kinds(sessions):
     a = port.query(tapi.QuerySpec.range("hki", t[10], t[5000]))
     w = ref.query(rapi.QuerySpec.range("hki", t[10], t[5000]))
     np.testing.assert_allclose(a.answer.numpy(), np.asarray(w.answer), **TOL)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11"):
-        tapi.QuerySpec("lat", (0.5,), kind="quantile")
+    # quantiles (ROADMAP Queue 1 item 11) and windowed tables (item 12)
+    # are ported: a quantile spec answers as the reference does, and a
+    # window spec validates
+    qa = port.query(tapi.QuerySpec("lat", (0.5,), kind="quantile"))
+    qw = ref.query(rapi.QuerySpec("lat", (0.5,), kind="quantile"))
+    for g, w in ((qa.value, qw.value), (qa.bound[0], qw.bound[0]),
+                 (qa.bound[1], qw.bound[1])):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
+    assert tapi.QuerySpec.window("lat", 0.0, 1.0, 0, 2).params == (0, 2)
+    assert tapi.TableSpec("count", tapi.ErrorBudget(abs=10), window=4).window
+    with pytest.raises(ValueError, match="not windowed"):
+        port.query(tapi.QuerySpec.window("lat", 0.0, 1.0, 0, 0))
     # dynamic one-key tables are ported (ROADMAP Queue 1 item 10); their
-    # LSM tiering is not
+    # LSM tiering, 2-D tables and sharding are not
     assert tapi.TableSpec("count", tapi.ErrorBudget(abs=10),
                           dynamic=True).dynamic
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 12"):
@@ -130,3 +140,7 @@ def test_single_spec_and_not_ported_kinds(sessions):
                        lsm=True)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 13"):
         tapi.TableSpec("count2d", tapi.ErrorBudget(abs=10))
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 13"):
+        tapi.QuerySpec("lat", (0.0, 1.0, 0.0, 1.0))
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 14"):
+        tapi.TableSpec("count", tapi.ErrorBudget(abs=10), shards=2)
