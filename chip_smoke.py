@@ -550,7 +550,7 @@ def main() -> None:
     build = _build.build()
     _build.library()
     print(f"build: {time.perf_counter() - t0:.3f} s (nvcc {build.seconds:.3f} s,"
-          f" units in parallel) -> "
+          " units in parallel) -> "
           f"{', '.join(os.path.relpath(p, ROOT) for p in build.paths)}",
           flush=True)
     for line in build.log.splitlines():

@@ -329,7 +329,7 @@ def execute_quantile(plan: IndexPlan, q, *, backend: Optional[str] = None,
     counted in ``execute_quantile.torch_routes``.
     """
     if plan.agg not in ("sum", "count"):
-        raise ValueError(f"execute_quantile needs a sum/count plan, got "
+        raise ValueError("execute_quantile needs a sum/count plan, got "
                          f"{plan.agg}")
     if plan.deg < 1:
         raise ValueError("quantile inversion needs a plan with deg >= 1")

@@ -4,9 +4,10 @@ K1 (locate), K2 (range SUM), K3 (range MAX), K4 (quantile inversion), K5
 (buffered SUM), K6 (buffered MAX) and the ``cuda`` engine backend, static,
 dynamic and windowed, must agree with the plain versions on the same
 inputs: K1's int32 ids exactly, the others to rtol = atol = 1e-9
-(compiled with -fmad=false, they are expected to agree bit for bit).  The plain versions are held to the JAX
-reference by the CPU tests (test_torch_locate.py, test_torch_kernels.py,
-test_torch_engine.py), so this file imports no JAX: it runs on a machine
+(compiled with -fmad=false, they are expected to agree bit for bit).  The
+plain versions are held to the JAX reference by the CPU tests
+(test_torch_locate.py, test_torch_kernels.py, test_torch_engine.py,
+test_torch_quantile.py), so this file imports no JAX: it runs on a machine
 with a card and PyTorch alone.
 
     python -m pytest tests/test_torch_cuda.py -q      # skips without a card
