@@ -365,10 +365,12 @@ def measure(torch, tag, name, fn, plain, args, library, nbytes, flops,
     b_ms, b_by = bound_ms(nbytes, flops)
     print(f"{tag}timing {name} [{shape}]: kernel {ms!r} ms on the device, "
           f"{eager_ms!r} ms per eager call; plain {plain_ms!r} ms; library "
-          f"{lib_ms!r} ms; bound {b_ms!r} ms ({b_by})", flush=True)
+          f"{lib_ms!r} ms; bound {b_ms!r} ms ({b_by}: {int(nbytes)} bytes, "
+          f"{int(flops)} f64 operations)", flush=True)
     return {"shape": shape, "ms": ms, "call_ms": eager_ms,
             "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
-            "bound_by": b_by}
+            "bound_by": b_by, "bound_bytes": int(nbytes),
+            "bound_ops": int(flops)}
 
 
 def kernel_row(name, phases, err):
