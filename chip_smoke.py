@@ -2,7 +2,7 @@
 """Drive the PyTorch + CUDA port of PolyFit (src/repro_torch) once on one
 NVIDIA card, and hold its kernels to their plain PyTorch versions.
 
-    python3 chip_smoke.py             # about 9-15 minutes on an H100 host
+    python3 chip_smoke.py             # about 10-14 minutes on an H100 host
 
 Phases, each of which fails the run with a non-zero exit:
 
@@ -64,13 +64,34 @@ Phases, each of which fails the run with a non-zero exit:
               window reaches the open epoch and K1 under Q_rel, and K1, K2
               and K5 are held to their plain versions at the window's
               shapes.  One more seal evicts epoch 0, whose window must then
-              raise.
+              raise;
+10. 2d      - PolyFit.fit of four static two-key tables over OSM-like
+              points (cut as the CUT lines say): ``osm`` COUNT rectangles
+              (200k points, delta 50, deg 3), ``osm_sum`` SUM rectangles
+              (50k, delta 2,500), ``osm_max`` / ``osm_min`` dominance
+              MAX / MIN (20k, delta 10, deg 2).  One mixed batch of 65,536
+              rectangles a rectangle table and 65,536 data-anchored
+              corners a dominance table goes through session.query under
+              Q_abs and under Q_rel; the counters must show K7, K8 and K1.
+              Two plans deeper than 15 levels (COUNT and MIN over 20k
+              points, max_depth 16) run through execute_count2d /
+              execute_extremum2d, whose counters must show K12 and K13 and
+              neither K7 nor K8.  Every answer is checked against dense
+              truth computed on the card (chunked compare-and-count,
+              compare-and-sum, masked max): Q_abs within 4 x the table's
+              certified delta (rectangles) or 1 x (corners), Q_rel within
+              1%.  K7, K8, K12 and K13 are held to their plain versions on
+              ``osm``'s plan (max abs error 0; K12 and K13 on its full
+              flat table), K7 to K12 on corners on the split lines, K8 on
+              the dominance plans and K12/K13 on the deep ones, and each is
+              timed on ``osm``'s plan.
 
 The line before last is the card's nvidia-smi name and power limit, the
 line before that the kernels' JSON record: one row a kernel, whose own
-numbers are the dynamic phase's (TWEET at the paper's 1M) and whose ``launches``
-sums every phase, with ``by_phase`` giving each phase's launches, shape,
-times and bound; the last line is the result.
+numbers are the dynamic phase's (TWEET at the paper's 1M; the 2-D kernels'
+the 2d phase's) and whose ``launches`` sums every phase, with ``by_phase``
+giving each phase's launches, shape, times and bound; the last line is the
+result.
 Imports nothing of JAX or of the reference package.
 """
 from __future__ import annotations
@@ -109,6 +130,14 @@ CAPACITY = 4096             # delta-buffer slots per dynamic table
 N_EPOCH = 131_072
 INGEST_ROWS = 4096
 WINDOW_RING = 4
+# the 2d phase: OSM-like points (the generator's default 1M, the paper's
+# OSM 100M), cut so that the host builds take about 150 s; measures
+# w = 50 + 10 sin(x/10) + 10 cos(y/15) on the SUM, MAX and MIN tables
+N_OSM = 200_000
+N_OSM_SUM = 50_000
+N_OSM_EXT = 20_000
+N_OSM_DEEP = 20_000
+DEEP_DEPTH = 16             # past MAX_MORTON_DEPTH: the scan kernels
 NQ = 65_536                 # ranges per table in the main-path batch
 SEED = 7
 EPS_REL = 0.01
@@ -127,9 +156,17 @@ REPLACES = {
     "quantile_invert": "src/repro/kernels/quantile_invert.py:52",
     "delta_sum_gather": "src/repro/kernels/delta_scan.py:113",
     "delta_max_gather": "src/repro/kernels/delta_scan.py:188",
+    "corner_count2d_gather": "src/repro/kernels/leaf_eval2d.py:85",
+    "corner_eval2d_gather": "src/repro/kernels/leaf_eval2d.py:134",
+    "corner_count2d": "src/repro/kernels/leaf_eval2d.py:278",
+    "corner_eval2d": "src/repro/kernels/leaf_eval2d.py:193",
 }
 SOURCE = {name: "src/repro_torch/csrc/polyfit_kernels.cu" for name in REPLACES}
 SOURCE["quantile_invert"] = "src/repro_torch/csrc/quantile.cu"
+KERNELS_2D = ("corner_count2d_gather", "corner_eval2d_gather",
+              "corner_count2d", "corner_eval2d")
+for _name in KERNELS_2D:
+    SOURCE[_name] = "src/repro_torch/csrc/leaf_eval2d.cu"
 METHODS = ("linear", "lower", "higher", "nearest", "midpoint")
 
 
@@ -377,9 +414,9 @@ def kernel_row(name, phases, err):
     """One kernel's row of the kernels' JSON record.  ``phases`` maps each
     phase that launched it to (launches, its measure() at that phase's
     shapes, or None where it was not timed there); the row's own numbers
-    are the dynamic phase's (TWEET at the paper's 1M) and ``launches``
-    sums them all."""
-    head = phases["dynamic"][1]
+    are the dynamic phase's (TWEET at the paper's 1M), the 2d phase's for
+    the 2-D kernels, and ``launches`` sums them all."""
+    head = phases["2d" if name in KERNELS_2D else "dynamic"][1]
     return {"name": name, "route": "cuda", "source": SOURCE[name],
             "replaces": REPLACES[name],
             "launches": sum(n for n, _ in phases.values()),
@@ -422,6 +459,47 @@ def profile_batch(torch, session, req, label):
     idle = f"{1 - busy / wall_us!r}" if busy else "not measured"
     print(f"{label} under the profiler: wall {wall_us!r} us, device busy "
           f"{busy!r} us, idle share {idle}; heaviest: {heavy}", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# the 2d phase: dense truth on the card, bounds of the leaf kernels
+# ---------------------------------------------------------------------------
+
+def osm_measure(px, py):
+    """The 2-D tables' measure (the reference tests' smooth surface)."""
+    return 50 + 10 * np.sin(px / 10) + 10 * np.cos(py / 15)
+
+
+def dense_rect(torch, px, py, w, lx, ux, ly, uy, chunk=512):
+    """Sum of w (None: count) over points in (lx, ux] x (ly, uy], one
+    chunk of rectangles against every point at a time: an exact
+    compare-and-sum on the card, independent of the merge-sort tree."""
+    out = []
+    for s in range(0, lx.shape[0], chunk):
+        sl = slice(s, s + chunk)
+        m = ((px[None, :] > lx[sl, None]) & (px[None, :] <= ux[sl, None])
+             & (py[None, :] > ly[sl, None]) & (py[None, :] <= uy[sl, None]))
+        out.append(m.sum(dim=1, dtype=torch.float64) if w is None
+                   else (m.to(torch.float64) * w[None, :]).sum(dim=1))
+    return torch.cat(out)
+
+
+def dense_dominance(torch, px, py, w, u, v, extreme, chunk=1024):
+    """max (or min) of w over {x <= u, y <= v}, masked on the card."""
+    fill = -torch.inf if extreme == "max" else torch.inf
+    out = []
+    for s in range(0, u.shape[0], chunk):
+        sl = slice(s, s + chunk)
+        m = (px[None, :] <= u[sl, None]) & (py[None, :] <= v[sl, None])
+        x = torch.where(m, w[None, :], fill)
+        out.append(x.amax(dim=1) if extreme == "max" else x.amin(dim=1))
+    return torch.cat(out)
+
+
+def horner2d_flops(deg: int) -> int:
+    """f64 operations of one leaf evaluation: the two scaled coordinates
+    (5 each) and Horner in v inside Horner in u (2 (deg+1)^2 + 2 (deg+1))."""
+    return 10 + 2 * (deg + 1) ** 2 + 2 * (deg + 1)
 
 
 # ---------------------------------------------------------------------------
@@ -531,11 +609,17 @@ def main() -> None:
     sys.path.insert(0, src)
     from repro_torch.api import (ErrorBudget, PolyFit, QueryBatch, QuerySpec,
                                  TableSpec)
-    from repro_torch.data import hki_series, make_queries_1d, tweet_latitudes
-    from repro_torch.engine import execute_extremum, execute_quantile
+    from repro_torch.core import build_index_2d
+    from repro_torch.data import (hki_series, make_queries_1d,
+                                  make_queries_2d, osm_points,
+                                  tweet_latitudes)
+    from repro_torch.engine import (IndexPlan2D, build_plan_2d,
+                                    execute_count2d, execute_extremum,
+                                    execute_extremum2d, execute_quantile)
     from repro_torch.engine.engine import quantile_mass, quantile_tables
     from repro_torch.kernels import _build
     from repro_torch.kernels import delta_scan as kdel
+    from repro_torch.kernels import leaf_eval2d as k2d
     from repro_torch.kernels import locate as kloc
     from repro_torch.kernels import quantile_invert as kq
     from repro_torch.kernels import range_max as kmax
@@ -593,11 +677,16 @@ def main() -> None:
                 plans = [session.plan(name)]
             for p in plans:
                 check(p.device.type == "cuda", f"plan {name} on {p.device}")
-                print(f"fit {name}: agg={p.agg} n={p.n} h={p.h} "
-                      f"Hp={p.seg_lo.shape[0]} deg={p.deg} delta={p.delta} "
-                      f"budget={session.budget(name)} host_build_s="
-                      f"{secs[name]:.3f} device_bytes={p.device_bytes()} "
-                      f"index_bytes={p.size_bytes()}", flush=True)
+                shape = (f"leaves={p.n_leaves} Lp={p.leaf_mx0.shape[0]} "
+                         f"max_depth={p.max_depth} certified_delta="
+                         f"{session.certified_delta(name)!r}"
+                         if isinstance(p, IndexPlan2D) else
+                         f"h={p.h} Hp={p.seg_lo.shape[0]}")
+                print(f"fit {name}: agg={p.agg} n={p.n} {shape} deg={p.deg} "
+                      f"delta={p.delta} budget={session.budget(name)} "
+                      f"host_build_s={secs[name]:.3f} device_bytes="
+                      f"{p.device_bytes()} index_bytes={p.size_bytes()}",
+                      flush=True)
         print(f"fit {tag}total: {fit_s:.3f} s", flush=True)
         return session
 
@@ -619,7 +708,9 @@ def main() -> None:
 
     counters = (kloc.locate, ksum.range_sum_gather, kmax.range_max_gather,
                 kq.quantile_invert, kdel.delta_sum_gather,
-                kdel.delta_max_gather)
+                kdel.delta_max_gather, k2d.corner_count2d_gather,
+                k2d.corner_eval2d_gather, k2d.corner_count2d,
+                k2d.corner_eval2d)
     phase_launches = {}         # phase -> kernel -> launches on its main path
 
     def reset():
@@ -1201,6 +1292,233 @@ def main() -> None:
         print(f"window: epoch 0 evicted as it should be: {e}", flush=True)
     else:
         fail("window: a window over the evicted epoch 0 answered")
+
+    # -- 10. two-key tables --------------------------------------------------
+    del wsession
+    torch.cuda.empty_cache()
+    on_dev = lambda *arrs: [torch.as_tensor(a, device=dev) for a in arrs]
+    for name, n in (("osm", N_OSM), ("osm_sum", N_OSM_SUM),
+                    ("osm_max", N_OSM_EXT), ("osm_min", N_OSM_EXT),
+                    ("osm_deep", N_OSM_DEEP)):
+        print(f"CUT: {name} n 1000000 -> {n}")
+    opx, opy = osm_points(N_OSM)
+    spx, spy = osm_points(N_OSM_SUM, seed=3)
+    sw = osm_measure(spx, spy)
+    epx, epy = osm_points(N_OSM_EXT, seed=4)
+    ew = osm_measure(epx, epy)
+    session2 = fit(
+        {"osm": (opx, opy), "osm_sum": (spx, spy, sw),
+         "osm_max": (epx, epy, ew), "osm_min": (epx, epy, ew)},
+        {"osm": TableSpec("count2d", ErrorBudget(abs=200.0)),
+         "osm_sum": TableSpec("sum2d", ErrorBudget(abs=1e4)),
+         "osm_max": TableSpec("max2d", ErrorBudget(abs=10.0), deg=2),
+         "osm_min": TableSpec("min2d", ErrorBudget(abs=10.0), deg=2)}, "2d ")
+    names2 = ("osm", "osm_max", "osm_sum", "osm_min")
+    rects = {"osm": make_queries_2d(opx, opy, NQ, seed=SEED),
+             "osm_sum": make_queries_2d(spx, spy, NQ, seed=SEED)}
+    ci = np.random.default_rng(SEED + 50).integers(0, N_OSM_EXT, NQ)
+    corners = (epx[ci], epy[ci])
+    certs = {name: session2.certified_delta(name) for name in names2}
+
+    def check_2d(tag, names, answers, truth, certs):
+        """Q_abs answers within 4 x (rectangles) or 1 x (corners) the
+        table's certified delta of the dense truth, Q_rel answers within
+        EPS_REL of it wherever it is non-zero (1e-6 absolute slack for the
+        summation order of SUM truths)."""
+        for label in ("Q_abs", "Q_rel"):
+            for name, ans in zip(names, answers[label]):
+                a, r = ans.answer, truth[name]
+                check(a.shape == r.shape and bool(torch.isfinite(a).all()),
+                      f"{tag}{label} {name}: bad answers")
+                err = (a - r).abs()
+                share = float(ans.refined.float().mean())
+                if label == "Q_abs":
+                    bound = certs[name] * (1 if "max" in name or "min" in
+                                           name else 4)
+                    e = float(err.max())
+                    check(e <= bound + 1e-6, f"{tag}{label} {name}: |A-R| "
+                          f"{e} > {bound}")
+                    print(f"{tag}{label} {name}: max |A-R| = {e!r} <= "
+                          f"{bound!r}", flush=True)
+                else:
+                    pos = r != 0
+                    rel = float((err[pos] / r[pos].abs()).max())
+                    check(bool((err[pos] <= EPS_REL * r[pos].abs()
+                                + 1e-6).all()),
+                          f"{tag}{label} {name}: relative error {rel} > "
+                          f"{EPS_REL}")
+                    print(f"{tag}{label} {name}: max rel err = {rel!r} <= "
+                          f"{EPS_REL}; refined share {share!r}", flush=True)
+
+    t0 = time.perf_counter()
+    P, S, E = on_dev(opx, opy), on_dev(spx, spy, sw), on_dev(epx, epy, ew)
+    C = on_dev(*corners)
+    truth2 = {"osm": dense_rect(torch, *P, None, *on_dev(*rects["osm"])),
+              "osm_sum": dense_rect(torch, *S, *on_dev(*rects["osm_sum"])),
+              "osm_max": dense_dominance(torch, *E, *C, "max"),
+              "osm_min": dense_dominance(torch, *E, *C, "min")}
+    torch.cuda.synchronize()
+    print(f"2d: dense truth on the card in {time.perf_counter() - t0!r} s",
+          flush=True)
+
+    def batch2d(rel):
+        return QueryBatch.of(
+            QuerySpec.rect("osm", *rects["osm"], rel=rel),
+            QuerySpec.corner("osm_max", *corners, rel=rel),
+            QuerySpec.rect("osm_sum", *rects["osm_sum"], rel=rel),
+            QuerySpec.corner("osm_min", *corners, rel=rel))
+
+    # the main path: one mixed batch under Q_abs, then under Q_rel
+    reset()
+    answers2, main_s = {}, {}
+    for label, rel in (("Q_abs", None), ("Q_rel", EPS_REL)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        answers2[label] = session2.query(batch2d(rel))
+        torch.cuda.synchronize()
+        main_s[label] = time.perf_counter() - t0
+    launches = read("2d")
+    print(f"2d main path: launches {launches}, first-call seconds {main_s}",
+          flush=True)
+    check(launches["corner_count2d_gather"] > 0, "2d: K7 was not launched")
+    check(launches["corner_eval2d_gather"] > 0, "2d: K8 was not launched")
+    check(launches["locate"] > 0, "2d: K1 was not launched by the refinement")
+    check(launches["corner_count2d"] == 0 and launches["corner_eval2d"] == 0,
+          "2d: a plan with Morton codes ran the scan kernels")
+    check_2d("2d ", names2, answers2, truth2, certs)
+
+    # plans deeper than 15 levels: no Morton codes, the scan kernels
+    dpx, dpy = osm_points(N_OSM_DEEP, seed=5)
+    dw = osm_measure(dpx, dpy)
+    deep = {}
+    for name, kw in (("deep_count", dict(deg=3, delta=50.0)),
+                     ("deep_min", dict(measures=dw, agg="min2d", deg=2,
+                                       delta=10.0))):
+        t0 = time.perf_counter()
+        idx = build_index_2d(dpx, dpy, max_depth=DEEP_DEPTH, device=dev, **kw)
+        plan = build_plan_2d(idx)
+        check(plan.leaf_z is None, f"{name}: a depth-{DEEP_DEPTH} plan has "
+              "Morton codes")
+        deep[name] = (plan, idx.certified_delta)
+        print(f"fit {name}: agg={plan.agg} n={plan.n} leaves="
+              f"{plan.n_leaves} Lp={plan.leaf_mx0.shape[0]} max_depth="
+              f"{plan.max_depth} deg={plan.deg} delta={plan.delta} "
+              f"certified_delta={idx.certified_delta!r} host_build_s="
+              f"{time.perf_counter() - t0:.3f}", flush=True)
+    drect = make_queries_2d(dpx, dpy, NQ, seed=SEED + 60)
+    dci = np.random.default_rng(SEED + 61).integers(0, N_OSM_DEEP, NQ)
+    dcorn = (dpx[dci], dpy[dci])
+    reset()
+    deep_ans = {}
+    for label, rel in (("Q_abs", None), ("Q_rel", EPS_REL)):
+        deep_ans[label] = [
+            execute_count2d(deep["deep_count"][0], *drect, eps_rel=rel),
+            execute_extremum2d(deep["deep_min"][0], *dcorn, eps_rel=rel)]
+    torch.cuda.synchronize()
+    launches = read("2d deep")
+    print(f"2d deep plans: launches {launches}", flush=True)
+    check(launches["corner_count2d"] > 0, "2d deep: K12 was not launched")
+    check(launches["corner_eval2d"] > 0, "2d deep: K13 was not launched")
+    check(launches["corner_count2d_gather"] == 0
+          and launches["corner_eval2d_gather"] == 0,
+          "2d deep: a plan without Morton codes ran the gather kernels")
+    D = on_dev(dpx, dpy, dw)
+    dtruth = {"deep_count": dense_rect(torch, D[0], D[1], None,
+                                       *on_dev(*drect)),
+              "deep_min": dense_dominance(torch, *D, *on_dev(*dcorn), "min")}
+    check_2d("2d deep ", ("deep_count", "deep_min"), deep_ans, dtruth,
+             {name: c for name, (_, c) in deep.items()})
+
+    # K7, K8, K12 and K13 against their plain versions: on osm's plan (the
+    # scan kernels on its full flat table), K8 on the dominance plans, K12
+    # and K13 on the deep plans, all at the shapes the paths gave them
+    def clamped(plan, qs):
+        x0, x1, y0, y1 = plan.root
+        lim = ((x0, x1), (x0, x1), (y0, y1), (y0, y1)) if len(qs) == 4 \
+            else ((x0, x1), (y0, y1))
+        return [torch.clamp(q, lo, hi) for q, (lo, hi) in zip(qs, lim)]
+
+    def tables(plan):
+        return ((plan.xcuts, plan.ycuts, plan.leaf_z, plan.leaf_bounds,
+                 plan.leaf_coeffs),
+                (plan.leaf_mx0, plan.leaf_mx1, plan.leaf_my0, plan.leaf_my1,
+                 plan.leaf_bounds, plan.leaf_coeffs))
+
+    op = session2.plan("osm")
+    gather, scan = tables(op)
+    lxc, uxc, lyc, uyc = clamped(op, on_dev(*rects["osm"]))
+    k7_args = (lxc, uxc, lyc, uyc, *gather, op.deg, op.max_depth)
+    k8_args = (uxc, uyc, *gather, op.deg, op.max_depth)
+    k12_args = (lxc, uxc, lyc, uyc, *scan, op.deg)
+    k13_args = (uxc, uyc, *scan, op.deg)
+    k8_sets = [k8_args]
+    for name in ("osm_max", "osm_min"):
+        p = session2.plan(name)
+        g, _ = tables(p)
+        k8_sets.append((*clamped(p, C), *g, p.deg, p.max_depth))
+    k12_sets, k13_sets = [k12_args], [k13_args]
+    dp = deep["deep_count"][0]
+    k12_sets.append((*clamped(dp, on_dev(*drect)), *tables(dp)[1], dp.deg))
+    dp = deep["deep_min"][0]
+    k13_sets.append((*clamped(dp, on_dev(*dcorn)), *tables(dp)[1], dp.deg))
+    hold("corner_count2d_gather", k2d.corner_count2d_gather,
+         k2d.corner_count2d_gather_plain, [k7_args], exact=True)
+    hold("corner_eval2d_gather", k2d.corner_eval2d_gather,
+         k2d.corner_eval2d_gather_plain, k8_sets, exact=True)
+    hold("corner_count2d", k2d.corner_count2d, k2d.corner_count2d_plain,
+         k12_sets, exact=True)
+    hold("corner_eval2d", k2d.corner_eval2d, k2d.corner_eval2d_plain,
+         k13_sets, exact=True)
+    # corners on every split line of osm's plan: K7 equals K12
+    x0, x1, y0, y1 = op.root
+    m = min(op.xcuts.shape[0], op.ycuts.shape[0])
+    on_lines = clamped(op, (op.xcuts[:m], op.xcuts[:m] + 0.5,
+                            op.ycuts[:m], op.ycuts[:m] + 0.5))
+    a = k2d.corner_count2d_gather(*on_lines, *gather, op.deg, op.max_depth)
+    b = k2d.corner_count2d(*on_lines, *scan, op.deg)
+    torch.cuda.synchronize()
+    check(torch.equal(a, b), "2d: K7 and K12 differ on split-line corners")
+    print(f"2d: parity K7/K8/K12/K13 on 1/{len(k8_sets)}/{len(k12_sets)}/"
+          f"{len(k13_sets)} argument sets: max |kernel - plain| = "
+          f"{ {k: errs[k] for k in KERNELS_2D} }; K7 == K12 on {m} "
+          "split-line rectangles", flush=True)
+
+    L, nx, ny = op.leaf_z.shape[0], op.xcuts.shape[0], op.ycuts.shape[0]
+    k, deg = op.leaf_coeffs.shape[1], op.deg
+    table_g = nx * 8 + ny * 8 + L * 4 + L * 4 * 8 + L * k * 8
+    table_s = 4 * L * 8 + L * 4 * 8 + L * k * 8
+    corner_g = (probe_rounds(nx) + probe_rounds(ny) + probe_rounds(L)
+                + horner2d_flops(deg))
+    corner_s = 4 * L + horner2d_flops(deg)
+    tab = (f"xcuts ({nx},), ycuts ({ny},), leaf_z ({L},) int32, bounds "
+           f"({L}, 4), coeffs ({L}, {k})")
+    stab = f"mx0, mx1, my0, my1 ({L},), bounds ({L}, 4), coeffs ({L}, {k})"
+    timed["2d"] = {
+        "corner_count2d_gather": measure(
+            torch, "2d osm: ", "corner_count2d_gather",
+            k2d.corner_count2d_gather, k2d.corner_count2d_gather_plain,
+            k7_args, None, 5 * Q * 8 + table_g, Q * (4 * corner_g + 3),
+            f"lx, ux, ly, uy ({Q},); {tab} f64 -> ({Q},)"),
+        "corner_eval2d_gather": measure(
+            torch, "2d osm: ", "corner_eval2d_gather",
+            k2d.corner_eval2d_gather, k2d.corner_eval2d_gather_plain,
+            k8_args, None, 3 * Q * 8 + table_g, Q * corner_g,
+            f"u, v ({Q},); {tab} f64 -> ({Q},)"),
+        "corner_count2d": measure(
+            torch, "2d osm: ", "corner_count2d", k2d.corner_count2d,
+            k2d.corner_count2d_plain, k12_args, None, 5 * Q * 8 + table_s,
+            Q * (4 * corner_s + 3),
+            f"lx, ux, ly, uy ({Q},); {stab} f64 -> ({Q},)"),
+        "corner_eval2d": measure(
+            torch, "2d osm: ", "corner_eval2d", k2d.corner_eval2d,
+            k2d.corner_eval2d_plain, k13_args, None, 3 * Q * 8 + table_s,
+            Q * corner_s, f"u, v ({Q},); {stab} f64 -> ({Q},)")}
+    for label, rel in (("Q_abs", None), ("Q_rel", EPS_REL)):
+        query_latency(torch, session2, batch2d(rel),
+                      f"2d: session.query {label}", 4 * NQ)
+        profile_batch(torch, session2, batch2d(rel),
+                      f"2d: session.query {label}")
+    del session2
 
     rows = []
     for c in counters:

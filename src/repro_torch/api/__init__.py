@@ -1,8 +1,8 @@
-"""repro_torch.api — the declarative PolyFit query API (static one-key
-tables).
+"""repro_torch.api — the declarative PolyFit query API (one-key tables:
+static, dynamic, windowed; static two-key tables).
 
 * ``ErrorBudget(abs=..., rel=...)`` — the composable error budget; the only
-  place the Lemma 5.1/5.3 delta derivations live.
+  place the Lemma 5.1/5.3/6.3 delta derivations live.
 * ``TableSpec`` — fit-time description of a table (aggregate, budget,
   degree).
 * ``QuerySpec`` / ``QueryBatch`` — declarative request batches.

@@ -1,4 +1,5 @@
-"""The ``PolyFit`` session facade for static and dynamic one-key tables.
+"""The ``PolyFit`` session facade for one-key tables (static, dynamic,
+windowed) and static two-key tables.
 
 The twin of ``repro.api.session``:
 
@@ -27,7 +28,11 @@ certified quantiles (the answer's ``bound`` is the ``(lo, hi)`` key
 interval).  A table fitted with ``TableSpec(..., window=ring)`` is an epoch
 ring (``WindowEngine``): ``ingest`` appends to the open epoch,
 ``advance_epoch`` seals it, and ``QuerySpec.window(table, lq, uq, t0, t1)``
-reads the epochs t0..t1 with the bound composed over them.
+reads the epochs t0..t1 with the bound composed over them.  A two-key
+table (``count2d``/``sum2d`` rectangles through ``QuerySpec.rect``,
+``max2d``/``min2d`` dominance corners through ``QuerySpec.corner``) takes
+``(xs, ys)`` or ``(xs, ys, measures)`` and is fitted as a quadtree
+(``build_index_2d``); its specs mix freely with one-key specs in a batch.
 """
 from __future__ import annotations
 
@@ -39,9 +44,10 @@ import numpy as np
 import torch
 
 from .. import DTYPE, resolve_device
-from ..core import build_index_1d
-from ..engine import (DynamicEngine, IndexPlan, WindowEngine, build_plan,
-                      execute, execute_quantile, resolve_backend)
+from ..core import AGGS_2D, build_index_1d, build_index_2d
+from ..engine import (DynamicEngine, IndexPlan, IndexPlan2D, WindowEngine,
+                      build_plan, build_plan_2d, execute, execute_quantile,
+                      resolve_backend)
 from .budget import ErrorBudget
 from .spec import DEFAULT_REL, KIND_OF_AGG, QueryBatch, QuerySpec, TableSpec
 
@@ -92,12 +98,24 @@ class _Table:
         self.spec = spec
         self.dyn: Optional[DynamicEngine] = None
         self.win: Optional[WindowEngine] = None
-        self._static_plan: Optional[IndexPlan] = None
+        self._static_plan: Union[IndexPlan, IndexPlan2D, None] = None
+        agg, delta = spec.agg, spec.budget.delta(spec.agg)
+        t0 = time.perf_counter()
+        # the error every leaf is certified to: delta, unless a 2-D leaf
+        # stopped at max_depth with residual error
+        self.certified_delta = float(delta)
+        if agg in AGGS_2D:
+            xs, ys, ws = (None if a is None else np.asarray(a, np.float64)
+                          for a in data)
+            idx = build_index_2d(xs, ys, measures=ws, agg=agg,
+                                 deg=spec.degree, delta=delta, device=device)
+            self.certified_delta = idx.certified_delta
+            self._static_plan = build_plan_2d(idx)
+            self.build_seconds = time.perf_counter() - t0
+            return
         keys, meas = data
         keys = np.asarray(keys, np.float64)
         meas = None if meas is None else np.asarray(meas, np.float64)
-        agg, delta = spec.agg, spec.budget.delta(spec.agg)
-        t0 = time.perf_counter()
         if spec.window:
             self.win = WindowEngine(
                 keys, meas, agg=agg, delta=delta, deg=spec.degree,
@@ -116,7 +134,7 @@ class _Table:
         self.build_seconds = time.perf_counter() - t0
 
     @property
-    def plan(self) -> IndexPlan:
+    def plan(self) -> Union[IndexPlan, IndexPlan2D]:
         if self.win is not None:
             raise RuntimeError(
                 f"table {self.name!r} is windowed — there is no single "
@@ -166,10 +184,11 @@ class PolyFit:
             min_bucket: int = 64) -> "PolyFit":
         """Build one index per named table and return the query session.
 
-        ``datasets`` maps table name -> data: a bare key array (COUNT) or
-        ``(keys, measures)`` for SUM/MAX/MIN.  ``specs`` maps the same names
-        to ``TableSpec``s; the spec's ``ErrorBudget`` is the only source of
-        build deltas.  ``device`` defaults to the card and raises
+        ``datasets`` maps table name -> data: a bare key array (COUNT),
+        ``(keys, measures)`` for SUM/MAX/MIN, ``(xs, ys)`` for 2-key COUNT
+        and ``(xs, ys, measures)`` for 2-key SUM/MAX/MIN.  ``specs`` maps
+        the same names to ``TableSpec``s; the spec's ``ErrorBudget`` is the
+        only source of build deltas.  ``device`` defaults to the card and raises
         ``RuntimeError`` when there is none; ``backend`` defaults to
         ``'cuda'`` on a CUDA device and ``'torch'`` on the CPU.
         """
@@ -182,7 +201,16 @@ class PolyFit:
         tables = {}
         for name, spec in specs.items():
             data = datasets[name]
-            if spec.agg == "count":
+            if spec.agg == "count2d":
+                if not (isinstance(data, tuple) and len(data) == 2):
+                    raise ValueError(f"table {name!r}: count2d data must be "
+                                     "(xs, ys)")
+                data = (*data, None)
+            elif spec.agg in AGGS_2D:
+                if not (isinstance(data, tuple) and len(data) == 3):
+                    raise ValueError(f"table {name!r}: {spec.agg} data must "
+                                     "be (xs, ys, measures)")
+            elif spec.agg == "count":
                 if not isinstance(data, tuple):
                     data = (data, None)
                 elif len(data) == 1:
@@ -207,7 +235,7 @@ class PolyFit:
     def budget(self, table: str) -> ErrorBudget:
         return self._table(table).spec.budget
 
-    def plan(self, table: str) -> IndexPlan:
+    def plan(self, table: str) -> Union[IndexPlan, IndexPlan2D]:
         """The table's current device plan (fresh after dynamic merges)."""
         return self._table(table).plan
 
@@ -219,6 +247,13 @@ class PolyFit:
 
     def size_bytes(self) -> Dict[str, int]:
         return {k: t.size_bytes() for k, t in self._tables.items()}
+
+    def certified_delta(self, table: str) -> float:
+        """The per-leaf error the table's fit is certified to: its build
+        delta, or more where a 2-D leaf stopped at the tree's max_depth
+        (``PolyFitIndex2D.certified_delta``); dominance MAX/MIN answers
+        hold this bound, rectangles four times it."""
+        return self._table(table).certified_delta
 
     def build_seconds(self) -> Dict[str, float]:
         """Host seconds each table's index build and plan lowering took."""
@@ -317,6 +352,11 @@ class PolyFit:
             raise ValueError(
                 f"table {spec.table!r} ({t.spec.agg}) answers "
                 f"{t.kind!r} queries, spec asks for {kind!r}")
+        if len(spec.ranges) != t.spec.n_ranges:
+            raise ValueError(
+                f"table {spec.table!r} ({t.spec.agg}) takes "
+                f"{t.spec.n_ranges} range coordinates, spec has "
+                f"{len(spec.ranges)}")
         return kind, t.resolve_rel(spec.rel), ()
 
     def _exec_group(self, table: str, kind: str, ranges, eps_rel, params):

@@ -1,19 +1,21 @@
 """Declarative request/fit descriptions for the ``PolyFit`` session facade.
 
 The twin of ``repro.api.spec`` for static, dynamic and windowed one-key
-tables.  ``QuerySpec`` names a fitted table and carries the query ranges
-(scalars or equal-length batches) — or, for ``kind='quantile'``, the rank
-fractions alone, and for ``kind='window'`` an inclusive epoch interval
-``params=(t0, t1)`` beside the range; ``QueryBatch`` is an ordered tuple of
-specs that may mix kinds freely — the session groups them by (table, kind,
+tables and static two-key tables.  ``QuerySpec`` names a fitted table and
+carries the query ranges (scalars or equal-length batches): ``(lq, uq)``
+for one key, ``(lx, ux, ly, uy)`` for a 2-D rectangle, ``(u, v)`` for a
+2-D dominance corner — or, for ``kind='quantile'``, the rank fractions
+alone, and for ``kind='window'`` an inclusive epoch interval ``params=(t0,
+t1)`` beside the range; ``QueryBatch`` is an ordered tuple of specs that
+may mix kinds and tables freely — the session groups them by (table, kind,
 guarantee, params), dispatches each group through one executor, and
 scatters answers back in request order.
 
 ``TableSpec`` is the fit-time counterpart: aggregate family, ``ErrorBudget``
 (the only source of build deltas — see ``budget.py``), degree, the delta
 buffer of a ``dynamic`` table and the epoch ring of a ``window`` table.
-The 2-key aggregates and the LSM and sharded tables come with their slices
-and raise ``NotImplementedError`` naming them.
+Dynamic 2-key tables, LSM and sharded tables come with their slices and
+raise ``NotImplementedError`` naming them.
 """
 from __future__ import annotations
 
@@ -44,7 +46,7 @@ KIND_OF_AGG = {"count": "count", "sum": "sum", "max": "max", "min": "min",
                "min2d": "min"}
 
 # ROADMAP Queue 1 items of what the port does not serve yet
-_LATER = {"2-D tables": 13, "LSM tables": 12, "sharded tables": 14}
+_LATER = {"dynamic 2-D tables": 13, "LSM tables": 12, "sharded tables": 14}
 
 
 def not_ported(what: str) -> NotImplementedError:
@@ -93,11 +95,9 @@ class QuerySpec:
             if len(self.params) != 2:
                 raise ValueError("window specs need params=(t0, t1); got "
                                  f"{self.params!r}")
-        elif len(self.ranges) == 4:
-            raise not_ported("2-D tables")
-        elif len(self.ranges) != 2:
-            raise ValueError("QuerySpec.ranges must have 2 entries (1-D); "
-                             f"got {len(self.ranges)}")
+        elif len(self.ranges) not in (2, 4):
+            raise ValueError("QuerySpec.ranges must have 2 entries (1-D) or "
+                             f"4 (2-D); got {len(self.ranges)}")
         object.__setattr__(self, "ranges",
                            tuple(_norm_range(r) for r in self.ranges))
         object.__setattr__(self, "params",
@@ -113,6 +113,16 @@ class QuerySpec:
     def range(cls, table: str, lq, uq, rel=DEFAULT_REL) -> "QuerySpec":
         """1-D range (SUM/COUNT over (lq, uq], MAX/MIN over [lq, uq])."""
         return cls(table, (lq, uq), rel)
+
+    @classmethod
+    def rect(cls, table: str, lx, ux, ly, uy, rel=DEFAULT_REL) -> "QuerySpec":
+        """2-key COUNT/SUM over the rectangle (lx, ux] x (ly, uy]."""
+        return cls(table, (lx, ux, ly, uy), rel)
+
+    @classmethod
+    def corner(cls, table: str, u, v, rel=DEFAULT_REL) -> "QuerySpec":
+        """2-key dominance MAX/MIN over {x <= u, y <= v}."""
+        return cls(table, (u, v), rel)
 
     @classmethod
     def quantile(cls, table: str, q, rel=None) -> "QuerySpec":
@@ -162,14 +172,15 @@ class QueryBatch:
 class TableSpec:
     """Fit-time description of one table (dataset x aggregate).
 
-    ``agg``: 'sum' | 'count' | 'max' | 'min'.  ``budget``: the table's
-    ``ErrorBudget`` — the *only* place the build delta comes from.  ``deg``
-    defaults to 2 for SUM/COUNT and 3 for MAX/MIN (the paper's
-    recommendations).  ``dynamic`` wraps the plan in a delta-buffered
-    engine (inserts/deletes without rebuild): ``capacity`` is the buffer's
-    size (a power of two), ``background`` runs merges on a worker thread,
-    ``auto_refit`` merges when the buffer fills or a segment's drift passes
-    its headroom.  ``window`` (the number of sealed epochs to retain) makes
+    ``agg``: 'sum' | 'count' | 'max' | 'min' for one key, or 'count2d' |
+    'sum2d' | 'max2d' | 'min2d' for two (2-D MAX/MIN are dominance-corner
+    queries).  ``budget``: the table's ``ErrorBudget`` — the *only* place
+    the build delta comes from.  ``deg`` defaults to 2 for SUM/COUNT and 3
+    for MAX/MIN/2-D (the paper's recommendations).  ``dynamic`` wraps the
+    plan in a delta-buffered engine (inserts/deletes without rebuild; one
+    key only so far): ``capacity`` is the buffer's size (a power of two),
+    ``background`` runs merges on a worker thread, ``auto_refit`` merges
+    when the buffer fills or a segment's drift passes its headroom.  ``window`` (the number of sealed epochs to retain) makes
     an epoch-ring table that takes ``ingest``/``advance_epoch`` and answers
     window queries; ``capacity`` is then the open epoch's buffer.  ``lsm``
     and ``shards`` name the execution stacks of later slices and raise
@@ -202,8 +213,8 @@ class TableSpec:
             if self.dynamic or self.lsm or self.shards:
                 raise ValueError("window tables manage their own epoch "
                                  "ring; dynamic/lsm/shards do not apply")
-        if self.agg.endswith("2d"):
-            raise not_ported("2-D tables")
+        if self.agg.endswith("2d") and self.dynamic:
+            raise not_ported("dynamic 2-D tables")
         if self.lsm:
             raise not_ported("LSM tables")
         if self.shards is not None:
@@ -213,3 +224,7 @@ class TableSpec:
     def degree(self) -> int:
         return self.deg if self.deg is not None else (
             2 if self.agg in ("sum", "count") else 3)
+
+    @property
+    def n_ranges(self) -> int:
+        return _NRANGES[self.agg]

@@ -8,7 +8,11 @@ from .fitting import (PolyModel, continuum_error, eval_poly, fit_lstsq,
                       fit_minimax_lp, max_error, rescale)
 from .index import (PolyFitIndex1D, assemble_index_1d, build_index_1d,
                     index_from_numpy)
-from .poly import clipped_poly_max, eval_segments, horner, locate, scale_unit
+from .index2d import (AGGS_2D, MergeSortTree, PolyFitIndex2D, build_index_2d,
+                      count_dominated, dominance_rank, index2d_from_numpy,
+                      query_count_2d, query_dommax_2d, query_sum_2d)
+from .poly import (clipped_poly_max, eval_segments, fma, horner, horner_fma,
+                   locate, scale_unit)
 from .quantile import (boundary_array, certified_quantile,
                        certified_quantile_shifted, invert_cf, rank_slack)
 from .queries import (QueryResult, max_eval_segments, poly_max_on_interval,
@@ -20,9 +24,13 @@ __all__ = [
     "fit_minimax_lp", "max_error", "rescale", "FastAcceptFitter",
     "greedy_segmentation", "PolyFitIndex1D", "build_index_1d",
     "assemble_index_1d", "index_from_numpy",
+    "AGGS_2D", "MergeSortTree", "PolyFitIndex2D", "build_index_2d",
+    "count_dominated", "dominance_rank", "index2d_from_numpy",
+    "query_count_2d", "query_sum_2d", "query_dommax_2d",
     "ExactMax", "ExactSum", "build_sparse_table", "sparse_table_range_max",
     "QueryResult", "max_eval_segments", "poly_max_on_interval", "query_max",
-    "query_sum", "clipped_poly_max", "eval_segments", "horner", "locate",
+    "query_sum", "clipped_poly_max", "eval_segments", "fma", "horner",
+    "horner_fma", "locate",
     "scale_unit", "boundary_array", "certified_quantile",
     "certified_quantile_shifted", "invert_cf", "rank_slack",
 ]

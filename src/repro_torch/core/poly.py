@@ -18,8 +18,12 @@ from __future__ import annotations
 import torch
 
 __all__ = [
-    "horner", "locate", "scale_unit", "eval_segments", "clipped_poly_max",
+    "horner", "fma", "horner_fma", "locate", "scale_unit", "eval_segments",
+    "clipped_poly_max",
 ]
+
+# Veltkamp's splitter for float64: 2^27 + 1
+_SPLIT = 134217729.0
 
 
 def horner(c: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
@@ -27,6 +31,44 @@ def horner(c: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     acc = c[..., -1]
     for j in range(c.shape[-1] - 2, -1, -1):
         acc = acc * u + c[..., j]
+    return acc
+
+
+def _split(a: torch.Tensor):
+    """Veltkamp split: a = hi + lo exactly, each half 26 bits wide."""
+    t = _SPLIT * a
+    hi = t - (t - a)
+    return hi, a - hi
+
+
+def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a * b + c rounded as a fused multiply-add would round it, in plain
+    float64 ops (torch has no fused multiply-add).
+
+    Error-free transformations: p = a*b with its exact rounding error e
+    (Dekker's product over a Veltkamp split of a and b), the TwoSum
+    s + t = p + c, and the result s + (t + e).  XLA on the CPU contracts
+    ``a * b + c`` into an FMA, so this is how the port reproduces the
+    reference's rounding where it matters (``core.quantile._newton_root``).
+    Finite inputs whose product stays below about 1e300 only.
+    """
+    p = a * b
+    ah, al = _split(a)
+    bh, bl = _split(b)
+    e = ((ah * bh - p) + ah * bl + al * bh) + al * bl
+    s = p + c
+    bb = s - p
+    t = (p - (s - bb)) + (c - bb)
+    return s + (t + e)
+
+
+def horner_fma(c: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """P(u) by Horner's rule with each step ``fma(acc, u, c_j)``: the
+    rounding of the reference's Horner under XLA's multiply-add
+    contraction."""
+    acc = c[..., -1]
+    for j in range(c.shape[-1] - 2, -1, -1):
+        acc = fma(acc, u, c[..., j])
     return acc
 
 

@@ -35,7 +35,7 @@ from typing import Optional
 
 import torch
 
-from .poly import horner
+from .poly import horner, horner_fma
 from .queries import _roots_cubic, _roots_linear, _roots_quadratic
 
 __all__ = [
@@ -79,21 +79,24 @@ def _newton_root(c: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """One root of P(u) = t on [-1, 1], safeguarded Newton + bisection.
 
     Fixed iteration count; when no sign change exists on the interval the
-    result is rejected downstream by the root validity mask.
+    result is rejected downstream by the root validity mask.  P and P' are
+    evaluated with ``horner_fma``: the reference's Horner runs with fused
+    multiply-adds (XLA on the CPU contracts them), and the 40 steps
+    amplify a one-ulp difference into a different root.
     """
     dc = torch.stack([c[..., j] * float(j) for j in range(1, c.shape[-1])],
                      dim=-1)
     a = torch.full_like(t, -1.0)
     b = torch.ones_like(t)
-    fa = horner(c, a) - t
+    fa = horner_fma(c, a) - t
     u = 0.5 * (a + b)
     for _ in range(_NEWTON_ITERS):
-        fu = horner(c, u) - t
+        fu = horner_fma(c, u) - t
         same = (fu > 0) == (fa > 0)
         a = torch.where(same, u, a)
         fa = torch.where(same, fu, fa)
         b = torch.where(same, b, u)
-        du = horner(dc, u)
+        du = horner_fma(dc, u)
         step = u - fu / torch.where(du == 0, 1.0, du)
         lo = torch.minimum(a, b)
         hi = torch.maximum(a, b)

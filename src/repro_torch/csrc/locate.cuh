@@ -1,4 +1,5 @@
-// Device functions shared by the PolyFit query kernels (polyfit_kernels.cu).
+// Device functions shared by the PolyFit query kernels (polyfit_kernels.cu,
+// quantile.cu, leaf_eval2d.cu).
 //
 // Twins of the plain torch functions in repro_torch/kernels/locate.py and
 // repro_torch/core/poly.py, written to the same order of operations so
@@ -8,15 +9,18 @@
 //   bsearch_count_right  #(keys <= q) in ceil(log2 n) + 1 probe rounds
 //   bsearch_count_left   #(keys < q), the same probe order
 //   locate_segment       max(#(seg_lo <= q) - 1, 0)
+//   interleave2          Morton code of a quadtree cell
+//   locate_leaf2d        leaf row of a 2-D corner: x cut, y cut, Morton code
 //   floor_log2           floor(log2(len)) for len >= 1
 //   rmq_gather           max over [i0, i1) of a (levels, n) sparse table
-//   scale_unit, horner, clipped_poly_max   (core/poly.py)
+//   scale_unit, horner, fma_emul, clipped_poly_max   (core/poly.py)
 //
 // jmax / jmin / jclip follow torch.maximum / torch.minimum / torch.clamp:
 // a NaN operand gives NaN.  CUDA's fmax / fmin would drop it instead.
 #pragma once
 
 #include <math.h>
+#include <stdint.h>
 
 namespace polyfit {
 
@@ -39,15 +43,17 @@ __device__ __forceinline__ int bit_ceil(int n) {
   return n <= 1 ? 1 : 1 << (32 - __clz(n - 1));
 }
 
-// Number of keys[0:n] that are <= q; keys sorted ascending.  Each round
-// probes index c + step - 1 (clamped) and advances the count when the probe
-// is in range and satisfies the predicate: one load and one select.
-__device__ __forceinline__ int bsearch_count_right(const double* __restrict__ keys,
-                                                   int n, double q) {
+// Number of keys[0:n] that are <= q; keys sorted ascending (float64, or
+// int32 Morton codes).  Each round probes index c + step - 1 (clamped) and
+// advances the count when the probe is in range and satisfies the
+// predicate: one load and one select.
+template <typename T>
+__device__ __forceinline__ int bsearch_count_right(const T* __restrict__ keys,
+                                                   int n, T q) {
   int c = 0;
   for (int step = bit_ceil(n); step >= 1; step >>= 1) {
     const int probe = c + step - 1;
-    const double pv = keys[probe < n - 1 ? probe : n - 1];
+    const T pv = keys[probe < n - 1 ? probe : n - 1];
     c = (probe <= n - 1 && pv <= q) ? c + step : c;
   }
   return c;
@@ -55,12 +61,13 @@ __device__ __forceinline__ int bsearch_count_right(const double* __restrict__ ke
 
 // Number of keys[0:n] that are < q: the probe order of bsearch_count_right
 // with a strict compare (the plain version's side="left").
-__device__ __forceinline__ int bsearch_count_left(const double* __restrict__ keys,
-                                                  int n, double q) {
+template <typename T>
+__device__ __forceinline__ int bsearch_count_left(const T* __restrict__ keys,
+                                                  int n, T q) {
   int c = 0;
   for (int step = bit_ceil(n); step >= 1; step >>= 1) {
     const int probe = c + step - 1;
-    const double pv = keys[probe < n - 1 ? probe : n - 1];
+    const T pv = keys[probe < n - 1 ? probe : n - 1];
     c = (probe <= n - 1 && pv < q) ? c + step : c;
   }
   return c;
@@ -69,6 +76,29 @@ __device__ __forceinline__ int bsearch_count_left(const double* __restrict__ key
 __device__ __forceinline__ int locate_segment(const double* __restrict__ seg_lo,
                                               int n, double q) {
   const int c = bsearch_count_right(seg_lo, n, q) - 1;
+  return c > 0 ? c : 0;
+}
+
+// Morton (Z-order) code of cell (ix, iy) at depth bits per axis
+__device__ __forceinline__ int32_t interleave2(int32_t ix, int32_t iy,
+                                               int depth) {
+  int32_t z = 0;
+  for (int b = 0; b < depth; ++b)
+    z = z | (((ix >> b) & 1) << (2 * b)) | (((iy >> b) & 1) << (2 * b + 1));
+  return z;
+}
+
+// Row of the z-sorted leaf table holding corner (qx, qy): cell x = #xcuts
+// <= qx, cell y = #ycuts <= qy (a corner on a split line lands in the
+// higher cell), then max(#leaf_z <= z - 1, 0) over the int32 codes,
+// padded with INT_SENTINEL
+__device__ __forceinline__ int locate_leaf2d(
+    double qx, double qy, const double* __restrict__ xcuts, int nx,
+    const double* __restrict__ ycuts, int ny,
+    const int32_t* __restrict__ leaf_z, int L, int depth) {
+  const int32_t ix = bsearch_count_right(xcuts, nx, qx);
+  const int32_t iy = bsearch_count_right(ycuts, ny, qy);
+  const int c = bsearch_count_right(leaf_z, L, interleave2(ix, iy, depth)) - 1;
   return c > 0 ? c : 0;
 }
 
@@ -91,6 +121,26 @@ __device__ __forceinline__ double rmq_gather(const double* __restrict__ st,
 __device__ __forceinline__ double scale_unit(double q, double lo, double hi) {
   const double span = hi > lo ? hi - lo : 1.0;
   return jclip((2.0 * q - lo - hi) / span, -1.0, 1.0);
+}
+
+// a * b + c rounded as a fused multiply-add rounds it, in plain IEEE
+// operations (core/poly.py fma): Dekker's exact product error over a
+// Veltkamp split, a TwoSum of p + c, then s + (t + e).  With -fmad=false
+// every step rounds on its own, as the plain torch version's do.
+__device__ __forceinline__ double fma_emul(double a, double b, double c) {
+  constexpr double kSplit = 134217729.0;  // 2^27 + 1
+  const double p = a * b;
+  const double ta = kSplit * a;
+  const double ah = ta - (ta - a);
+  const double al = a - ah;
+  const double tb = kSplit * b;
+  const double bh = tb - (tb - b);
+  const double bl = b - bh;
+  const double e = ((ah * bh - p) + ah * bl + al * bh) + al * bl;
+  const double s = p + c;
+  const double bb = s - p;
+  const double t = (p - (s - bb)) + (c - bb);
+  return s + (t + e);
 }
 
 // P(u) for ascending coefficients c[0..deg]

@@ -19,7 +19,9 @@
 // Roots are closed form through deg 3 (the solvers of core/queries.py:
 // acos, cos and pow(|x|, 1/3) as torch computes them on the card, the cubes
 // as explicit products, the divisions by 3 and 27 as multiplies by the
-// reciprocal) and 40 safeguarded Newton/bisection steps above,
+// reciprocal) and 40 safeguarded Newton/bisection steps above, whose
+// Horner steps are emulated fused multiply-adds (fma_emul, as the plain
+// version's horner_fma and the reference's XLA contraction round them),
 // where only the mid inversion solves (the certified sides keep segment
 // endpoint granularity, as the plain version does).  The degree is a
 // template parameter up to kMaxQuantileDeg, so each coefficient row lives
@@ -120,28 +122,41 @@ __device__ __forceinline__ double horner_r(const double (&c)[DEG + 1], double u)
   return acc;
 }
 
-// P'(u) by Horner over the weights c[j] * j (the plain version's dc)
+// Horner with each step fma_emul(acc, u, c[j]) (core/poly.py horner_fma)
 template <int DEG>
-__device__ __forceinline__ double dhorner_r(const double (&c)[DEG + 1], double u) {
-  double acc = c[DEG] * (double)DEG;
+__device__ __forceinline__ double horner_fma_r(const double (&c)[DEG + 1],
+                                               double u) {
+  double acc = c[DEG];
 #pragma unroll
-  for (int j = DEG - 1; j >= 1; --j) acc = acc * u + c[j] * (double)j;
+  for (int j = DEG - 1; j >= 0; --j) acc = fma_emul(acc, u, c[j]);
   return acc;
 }
 
-// one root of P(u) = t on [-1, 1]: safeguarded Newton + bisection
+// P'(u) by horner_fma_r over the weights c[j] * j
+template <int DEG>
+__device__ __forceinline__ double dhorner_fma_r(const double (&c)[DEG + 1],
+                                                double u) {
+  double acc = c[DEG] * (double)DEG;
+#pragma unroll
+  for (int j = DEG - 1; j >= 1; --j) acc = fma_emul(acc, u, c[j] * (double)j);
+  return acc;
+}
+
+// one root of P(u) = t on [-1, 1]: safeguarded Newton + bisection, P and
+// P' evaluated with emulated fused multiply-adds (core/quantile.py
+// _newton_root: the reference's XLA Horner runs with FMAs)
 template <int DEG>
 __device__ double newton_root(const double (&c)[DEG + 1], double t) {
   double a = -1.0, b = 1.0;
-  double fa = horner_r<DEG>(c, a) - t;
+  double fa = horner_fma_r<DEG>(c, a) - t;
   double u = 0.5 * (a + b);
   for (int it = 0; it < kNewtonIters; ++it) {
-    const double fu = horner_r<DEG>(c, u) - t;
+    const double fu = horner_fma_r<DEG>(c, u) - t;
     const bool same = (fu > 0) == (fa > 0);
     a = same ? u : a;
     fa = same ? fu : fa;
     b = same ? b : u;
-    const double du = dhorner_r<DEG>(c, u);
+    const double du = dhorner_fma_r<DEG>(c, u);
     const double step = u - fu / (du == 0 ? 1.0 : du);
     const double lo = jmin(a, b);
     const double hi = jmax(a, b);

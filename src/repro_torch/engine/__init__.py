@@ -1,4 +1,4 @@
-"""repro_torch.engine — backend-dispatched query execution (1-D).
+"""repro_torch.engine — backend-dispatched query execution.
 
 Lower a constructed index into a canonical device-resident ``IndexPlan``
 once, then execute queries through the module-level ``execute_*`` dispatch
@@ -15,15 +15,21 @@ deletes without a rebuild (exact corrections K5/K6 on ``'cuda'``) and
 refits only the segments they touch.  ``execute_quantile`` (K4 on
 ``'cuda'``) and ``DynamicEngine.quantile`` answer certified quantiles of
 SUM/COUNT tables; ``WindowEngine`` keeps an epoch ring of sealed plans and
-answers windowed SUM/COUNT through ``execute_lsm``.
+answers windowed SUM/COUNT through ``execute_lsm``.  Two-key tables lower
+to an ``IndexPlan2D`` (``build_plan_2d``) and run through
+``execute_count2d`` / ``execute_sum2d`` (rectangles, K7 or K12 on
+``'cuda'``) and ``execute_extremum2d`` (dominance corners, K8 or K13).
 """
 from .dynamic import DeltaBuffer, DynamicEngine
 from .engine import (BACKENDS, Engine, QuantileResult, check_pow2, execute,
-                     execute_extremum, execute_quantile, execute_sum,
-                     key_span, pad_fills, raw_extremum, raw_sum,
-                     resolve_backend, truth_extremum, truth_sum)
+                     execute_count2d, execute_extremum, execute_extremum2d,
+                     execute_quantile, execute_sum, execute_sum2d, key_span,
+                     pad_fills, raw_count2d, raw_eval2d, raw_extremum,
+                     raw_sum, resolve_backend, truth_count2d, truth_dommax2d,
+                     truth_extremum, truth_sum, truth_sum2d)
 from .lsm import LsmLevel, LsmPlan, combine_levels, composed_bound, execute_lsm
-from .plan import (IndexPlan, big_sentinel, build_plan, pad_to_multiple,
+from .plan import (IndexPlan, IndexPlan2D, big_sentinel, build_plan,
+                   build_plan_2d, pad_to_multiple, plan2d_from_numpy,
                    plan_from_numpy)
 from .window import WindowEngine
 
@@ -33,4 +39,8 @@ __all__ = ["BACKENDS", "Engine", "QuantileResult", "check_pow2", "execute",
            "truth_extremum", "truth_sum", "IndexPlan", "big_sentinel",
            "build_plan", "pad_to_multiple", "plan_from_numpy", "DeltaBuffer",
            "DynamicEngine", "key_span", "LsmLevel", "LsmPlan",
-           "combine_levels", "composed_bound", "execute_lsm", "WindowEngine"]
+           "combine_levels", "composed_bound", "execute_lsm", "WindowEngine",
+           "execute_count2d", "execute_sum2d", "execute_extremum2d",
+           "raw_count2d", "raw_eval2d", "truth_count2d", "truth_sum2d",
+           "truth_dommax2d", "IndexPlan2D", "build_plan_2d",
+           "plan2d_from_numpy"]

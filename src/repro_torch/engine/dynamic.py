@@ -40,8 +40,8 @@ Quantiles over a dynamic table (``_exec_dyn_quantile``) invert the fitted
 CF against rank targets corrected by the buffer's exact prefix sums and
 re-certify at each candidate key; the reference runs that loop as plain
 XLA for every backend, and so does the port: plain torch, bit-identical
-between ``'torch'`` and ``'cuda'``.  The 2-D engine comes with ROADMAP
-Queue 1 item 13.
+between ``'torch'`` and ``'cuda'``.  The dynamic 2-D engine
+(``DynamicEngine2D``) comes with ROADMAP Queue 1 item 13.
 """
 from __future__ import annotations
 
@@ -62,10 +62,10 @@ from ..core.segmentation import FastAcceptFitter, greedy_segmentation
 from ..kernels import ref as _ref
 from ..kernels.delta_scan import delta_max_gather, delta_sum_gather
 from ..kernels.locate import bsearch_count
-from .engine import (QuantileResult, _prepare, check_pow2, execute_extremum,
-                     key_span, prepare_fractions, quantile_mass,
-                     quantile_tables, raw_extremum, raw_sum, resolve_backend,
-                     truth_extremum, truth_sum)
+from .engine import (QuantileResult, _no_refine, _prepare, check_pow2,
+                     execute_extremum, key_span, prepare_fractions,
+                     quantile_mass, quantile_tables, raw_extremum, raw_sum,
+                     resolve_backend, truth_extremum, truth_sum)
 from .plan import IndexPlan, big_sentinel, build_plan
 
 __all__ = ["DeltaBuffer", "DynamicEngine"]
@@ -179,10 +179,6 @@ def _delta_max(lq, uq, keys, vals, st, *, backend: str):
         return delta_max_gather(lq, uq, keys, st)
     # torch + ref: dense masked max over the (small) buffer
     return _ref.delta_max_ref(lq, uq, keys, vals)
-
-
-def _no_refine(x: torch.Tensor) -> torch.Tensor:
-    return torch.zeros(x.shape, dtype=torch.bool, device=x.device)
 
 
 # ---------------------------------------------------------------------------

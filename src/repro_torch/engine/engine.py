@@ -1,14 +1,18 @@
-"""Backend-dispatched query engine (1-D): one fused execution path per
+"""Backend-dispatched query engine: one fused execution path per
 (aggregate, backend, batch bucket).
 
-The twin of the 1-D part of ``repro.engine.engine``.  Backends pair with
-the reference's ``BACKENDS``:
+The twin of ``repro.engine.engine`` for one-key SUM/COUNT/MAX/MIN and
+QUANTILE and two-key COUNT/SUM rectangles and dominance MAX/MIN.  Backends
+pair with the reference's ``BACKENDS``:
 
 * ``'torch'`` (twin of ``'xla'``) — searchsorted locate + gather + Horner,
   sparse-table interior MAX (the reference semantics of ``core.queries``);
+  the quadtree descent for 2-D;
 * ``'cuda'`` (twin of ``'pallas'``) — the hand-written locate->gather
-  kernels K2 (SUM/COUNT) and K3 (MAX/MIN) of ``csrc/``, and K4 for
-  QUANTILE (certified CF inversion, ``execute_quantile``);
+  kernels K2 (SUM/COUNT) and K3 (MAX/MIN) of ``csrc/``, K4 for QUANTILE
+  (certified CF inversion, ``execute_quantile``), and for 2-D plans K7
+  (rectangles) and K8 (dominance corners), or K12 and K13, the one-hot
+  scans, for plans deeper than 15 levels (no int32 Morton codes);
 * ``'ref'`` — the plain one-hot oracles of ``kernels/ref.py`` (the one-hot
   searchsorted form of ``core.quantile`` for QUANTILE).
 
@@ -25,33 +29,42 @@ Batches are padded to power-of-two buckets, as the reference pads them, so
 answers match it lane for lane.
 
 Q_abs guarantees need no test: build the index with delta = eps_abs/2 (SUM,
-Lemma 5.1) or eps_abs (MAX, Lemma 5.3) and the raw answer already satisfies
-the bound.
+Lemma 5.1), eps_abs (MAX, Lemma 5.3) or eps_abs/4 (2-D COUNT/SUM, Lemma
+6.3) and the raw answer already satisfies the bound.  The 2-D Q_rel truth
+is the merge-sort tree's prefix counts (``core.index2d.mst_*``), plain
+torch ops as the reference runs plain XLA, after K1 finds each corner's
+x rank on ``'cuda'``.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Union
 
 import torch
 
 from .. import DTYPE
 from ..core.exact import sparse_table_range_max
+from ..core.index2d import (mst_count_prefix, mst_weighted_prefix,
+                            quadtree_eval_cf)
 from ..core.poly import eval_segments, horner
 from ..core.quantile import (boundary_array, certified_quantile_shifted,
                              rank_slack)
 from ..core.queries import QueryResult, max_eval_segments
 from ..kernels import ref as _ref
+from ..kernels.leaf_eval2d import (corner_count2d, corner_count2d_gather,
+                                   corner_eval2d, corner_eval2d_gather)
 from ..kernels.locate import locate, locate_segments
 from ..kernels.quantile_invert import quantile_invert
 from ..kernels.range_max import range_max_gather
 from ..kernels.range_sum import range_sum_gather
-from .plan import IndexPlan, big_sentinel, pad_to_multiple
+from .plan import IndexPlan, IndexPlan2D, big_sentinel, pad_to_multiple
 
 __all__ = ["Engine", "BACKENDS", "QuantileResult", "raw_sum", "raw_extremum",
-           "truth_sum", "truth_extremum", "key_span", "check_pow2",
-           "execute_sum", "execute_extremum", "execute_quantile", "execute",
-           "pad_fills", "resolve_backend", "quantile_mass", "quantile_tables",
-           "prepare_fractions"]
+           "raw_count2d", "raw_eval2d", "truth_sum", "truth_extremum",
+           "truth_count2d", "truth_sum2d", "truth_dommax2d", "key_span",
+           "check_pow2", "execute_sum", "execute_extremum",
+           "execute_quantile", "execute_count2d", "execute_sum2d",
+           "execute_extremum2d", "execute", "pad_fills", "resolve_backend",
+           "quantile_mass", "quantile_tables", "prepare_fractions"]
 
 BACKENDS = ("torch", "cuda", "ref")
 
@@ -106,9 +119,14 @@ def _pad_bucket(q: torch.Tensor, size: int, fill: torch.Tensor) -> torch.Tensor:
     return torch.cat([q, fill.expand(p)])
 
 
-def pad_fills(plan: IndexPlan):
+def pad_fills(plan: Union[IndexPlan, IndexPlan2D]):
     """Per-range-coordinate padding fills for bucketed batches — the values
     the ``execute_*`` entry points pad with."""
+    if isinstance(plan, IndexPlan2D):
+        x0, _, y0, _ = plan.root
+        if plan.agg in ("max2d", "min2d"):
+            return (x0, y0)
+        return (x0, x0, y0, y0)
     return (plan.domain_lo, plan.domain_lo)
 
 
@@ -155,6 +173,49 @@ def raw_extremum(plan: IndexPlan, lqc, uqc, *, backend: str):
                              plan.st, lqc, uqc)
 
 
+def raw_count2d(plan: IndexPlan2D, lxc, uxc, lyc, uyc, *, backend: str):
+    """Backend-dispatched raw 2-key COUNT/SUM approximation (clamped
+    corners): K7 on 'cuda', K12 for plans without Morton codes."""
+    if backend == "cuda" and plan.leaf_z is not None:
+        return corner_count2d_gather(
+            lxc, uxc, lyc, uyc, plan.xcuts, plan.ycuts, plan.leaf_z,
+            plan.leaf_bounds, plan.leaf_coeffs, plan.deg, plan.max_depth)
+    if backend == "cuda":
+        # scan path: plans whose depth exceeds the Morton int32 range
+        return corner_count2d(
+            lxc, uxc, lyc, uyc, plan.leaf_mx0, plan.leaf_mx1, plan.leaf_my0,
+            plan.leaf_my1, plan.leaf_bounds, plan.leaf_coeffs, plan.deg)
+    if backend == "ref":
+        return _ref.corner_count2d_ref(
+            lxc, uxc, lyc, uyc, plan.leaf_mx0, plan.leaf_mx1, plan.leaf_my0,
+            plan.leaf_my1, plan.leaf_bounds, plan.leaf_coeffs, plan.deg)
+    ev = lambda u, v: quadtree_eval_cf(
+        plan.children, plan.leaf_of, plan.bounds, plan.qt_coeffs,
+        plan.leaf_nodes, plan.max_depth, plan.deg, u, v)
+    return ev(uxc, uyc) - ev(lxc, uyc) - ev(uxc, lyc) + ev(lxc, lyc)
+
+
+def raw_eval2d(plan: IndexPlan2D, uc, vc, *, backend: str):
+    """Backend-dispatched single-corner evaluation P_{leaf(u,v)}(u, v) —
+    the dominance MAX/MIN path (clamped corners): K8 on 'cuda', K13 for
+    plans without Morton codes."""
+    if backend == "cuda" and plan.leaf_z is not None:
+        return corner_eval2d_gather(
+            uc, vc, plan.xcuts, plan.ycuts, plan.leaf_z, plan.leaf_bounds,
+            plan.leaf_coeffs, plan.deg, plan.max_depth)
+    if backend == "cuda":
+        return corner_eval2d(
+            uc, vc, plan.leaf_mx0, plan.leaf_mx1, plan.leaf_my0,
+            plan.leaf_my1, plan.leaf_bounds, plan.leaf_coeffs, plan.deg)
+    if backend == "ref":
+        return _ref.leaf_eval2d_ref(
+            uc, vc, plan.leaf_mx0, plan.leaf_mx1, plan.leaf_my0,
+            plan.leaf_my1, plan.leaf_bounds, plan.leaf_coeffs, plan.deg)
+    return quadtree_eval_cf(plan.children, plan.leaf_of, plan.bounds,
+                            plan.qt_coeffs, plan.leaf_nodes, plan.max_depth,
+                            plan.deg, uc, vc)
+
+
 def truth_sum(plan: IndexPlan, lq, uq, *, backend: str):
     """Exact static SUM/COUNT over (lq, uq] from the plan's refinement CF."""
     keys, cf = plan.ref_keys, plan.ref_cf
@@ -179,9 +240,43 @@ def truth_extremum(plan: IndexPlan, lq, uq, *, backend: str):
                                   *key_span(plan.ref_keys, lq, uq, backend))
 
 
+def _x_ranks(plan: IndexPlan2D, backend: str, *qs):
+    """#(ref_xs <= q) per lane for each x coordinate (K1 on 'cuda')."""
+    return [_count_le(plan.ref_xs, q, backend) for q in qs]
+
+
+def truth_count2d(plan: IndexPlan2D, lx, ux, ly, uy, *, backend: str):
+    """Exact static 2-key COUNT over (lx, ux] x (ly, uy] (merge-sort tree)."""
+    il, iu = _x_ranks(plan, backend, lx, ux)
+    cf = lambda i, v: mst_count_prefix(plan.ref_xs, plan.ref_ys_levels, i, v)
+    return (cf(iu, uy) - cf(il, uy) - cf(iu, ly) + cf(il, ly)).to(plan.dtype)
+
+
+def truth_sum2d(plan: IndexPlan2D, lx, ux, ly, uy, *, backend: str):
+    """Exact static 2-key SUM over (lx, ux] x (ly, uy] (weighted tree)."""
+    il, iu = _x_ranks(plan, backend, lx, ux)
+    cf = lambda i, v: mst_weighted_prefix(plan.ref_xs, plan.ref_ys_levels,
+                                          plan.ref_wcum, i, v, mode="sum")
+    return (cf(iu, uy) - cf(il, uy) - cf(iu, ly) + cf(il, ly)).to(plan.dtype)
+
+
+def truth_dommax2d(plan: IndexPlan2D, u, v, *, backend: str):
+    """Exact static dominance MAX over {x <= u, y <= v}, in MAX space
+    (-inf when the dominated set is empty)."""
+    (i,) = _x_ranks(plan, backend, u)
+    return mst_weighted_prefix(plan.ref_xs, plan.ref_ys_levels,
+                               plan.ref_wpmax, i, v, mode="max").to(
+        plan.dtype)
+
+
 # ---------------------------------------------------------------------------
 # fused executors
 # ---------------------------------------------------------------------------
+
+def _no_refine(x: torch.Tensor) -> torch.Tensor:
+    """The ``refined`` mask of a Q_abs batch: all False."""
+    return torch.zeros(x.shape, dtype=torch.bool, device=x.device)
+
 
 def _exec_sum(plan: IndexPlan, lq, uq, *, backend: str,
               eps_rel: Optional[float]):
@@ -189,8 +284,7 @@ def _exec_sum(plan: IndexPlan, lq, uq, *, backend: str,
     uqc = torch.maximum(uq, plan.domain_lo)
     approx = raw_sum(plan, lqc, uqc, backend=backend)
     if eps_rel is None:
-        return approx, approx, torch.zeros(approx.shape, dtype=torch.bool,
-                                           device=approx.device)
+        return approx, approx, _no_refine(approx)
     # Lemma 5.2 test: 2d / (A - 2d) <= eps_rel  (requires A > 2d)
     two_d = 2.0 * plan.delta
     ok = ((approx - two_d > 0) &
@@ -207,12 +301,49 @@ def _exec_extremum(plan: IndexPlan, lq, uq, *, backend: str,
     neg = plan.agg == "min"
     if eps_rel is None:
         out = -approx if neg else approx
-        return out, out, torch.zeros(out.shape, dtype=torch.bool,
-                                     device=out.device)
+        return out, out, _no_refine(out)
     # Lemma 5.4 test: A >= delta * (1 + 1/eps_rel), in MAX space (MIN runs
     # on negated measures end to end, exactly like core.queries.query_max)
     ok = approx >= plan.delta * (1.0 + 1.0 / eps_rel)
     truth = truth_extremum(plan, lq, uq, backend=backend)
+    ans = torch.where(ok, approx, truth)
+    if neg:
+        ans, approx = -ans, -approx
+    return ans, approx, ~ok
+
+
+def _exec_rect2d(plan: IndexPlan2D, lx, ux, ly, uy, *, backend: str,
+                 eps_rel: Optional[float]):
+    """Shared 4-corner rectangle executor for 2-key COUNT and SUM: the raw
+    path runs on clamped corners, the Q_rel truth on the raw ones."""
+    x0, x1, y0, y1 = plan.root
+    lxc, uxc = (torch.clamp(q, x0, x1) for q in (lx, ux))
+    lyc, uyc = (torch.clamp(q, y0, y1) for q in (ly, uy))
+    approx = raw_count2d(plan, lxc, uxc, lyc, uyc, backend=backend)
+    if eps_rel is None:
+        return approx, approx, _no_refine(approx)
+    # Lemma 6.4 test: A >= 4*delta*(1 + 1/eps_rel)
+    ok = approx >= 4.0 * plan.delta * (1.0 + 1.0 / eps_rel)
+    truth = (truth_sum2d if plan.agg == "sum2d" else truth_count2d)(
+        plan, lx, ux, ly, uy, backend=backend)
+    return torch.where(ok, approx, truth), approx, ~ok
+
+
+def _exec_extremum2d(plan: IndexPlan2D, u, v, *, backend: str,
+                     eps_rel: Optional[float]):
+    """Dominance MAX/MIN: one fitted-surface evaluation per corner, in MAX
+    space throughout (min2d plans are built on negated measures)."""
+    x0, x1, y0, y1 = plan.root
+    uc = torch.clamp(u, x0, x1)
+    vc = torch.clamp(v, y0, y1)
+    approx = raw_eval2d(plan, uc, vc, backend=backend)
+    neg = plan.agg == "min2d"
+    if eps_rel is None:
+        out = -approx if neg else approx
+        return out, out, _no_refine(out)
+    # Lemma 5.4 shape: A >= delta * (1 + 1/eps_rel), in MAX space
+    ok = approx >= plan.delta * (1.0 + 1.0 / eps_rel)
+    truth = truth_dommax2d(plan, u, v, backend=backend)
     ans = torch.where(ok, approx, truth)
     if neg:
         ans, approx = -ans, -approx
@@ -224,15 +355,17 @@ def _exec_extremum(plan: IndexPlan, lq, uq, *, backend: str,
 # session facade in repro_torch.api) routes through these functions
 # ---------------------------------------------------------------------------
 
-def _prepare(*qs, min_bucket: int, plan: IndexPlan):
-    """Cast to float64 tensors on the plan's device + bucket geometry."""
+def _prepare(*qs, min_bucket: int, plan):
+    """Cast to float64 tensors on the plan's device, padded to the bucket
+    with the plan's fills (``pad_fills``)."""
     check_pow2("min_bucket", min_bucket)
     qs = [torch.as_tensor(q, dtype=DTYPE, device=plan.device).reshape(-1)
           for q in qs]
     n = qs[0].shape[0]
     size = _bucket_size(n, min_bucket)
-    fill = plan.seg_lo[:1].to(DTYPE)
-    return [_pad_bucket(q, size, fill) for q in qs], n
+    fills = [torch.as_tensor(f, dtype=DTYPE, device=plan.device).reshape(1)
+             for f in pad_fills(plan)]
+    return [_pad_bucket(q, size, f) for q, f in zip(qs, fills)], n
 
 
 def _require_exact(cond: bool):
@@ -373,19 +506,77 @@ def execute_extremum(plan: IndexPlan, lq, uq, *,
 execute_extremum.torch_routes = 0
 
 
-def execute(plan: IndexPlan, ranges, *, backend: Optional[str] = None,
-            eps_rel: Optional[float] = None,
+def _execute_rect2d(plan: IndexPlan2D, lx, ux, ly, uy, *, backend,
+                    eps_rel, min_bucket) -> QueryResult:
+    backend = resolve_backend(backend, plan.device)
+    if eps_rel is not None:
+        _require_exact(plan.ref_xs is not None)
+    (lx, ux, ly, uy), n = _prepare(lx, ux, ly, uy, min_bucket=min_bucket,
+                                   plan=plan)
+    ans, approx, refined = _exec_rect2d(plan, lx, ux, ly, uy,
+                                        backend=backend, eps_rel=eps_rel)
+    return QueryResult(ans[:n], approx[:n], refined[:n])
+
+
+def execute_count2d(plan: IndexPlan2D, lx, ux, ly, uy, *,
+                    backend: Optional[str] = None,
+                    eps_rel: Optional[float] = None,
+                    min_bucket: int = 64) -> QueryResult:
+    """2-key COUNT over (lx, ux] x (ly, uy] via 4-corner inclusion-exclusion."""
+    if plan.agg != "count2d":
+        raise ValueError(f"execute_count2d needs a count2d plan, got "
+                         f"{plan.agg}")
+    return _execute_rect2d(plan, lx, ux, ly, uy, backend=backend,
+                           eps_rel=eps_rel, min_bucket=min_bucket)
+
+
+def execute_sum2d(plan: IndexPlan2D, lx, ux, ly, uy, *,
+                  backend: Optional[str] = None,
+                  eps_rel: Optional[float] = None,
+                  min_bucket: int = 64) -> QueryResult:
+    """2-key SUM over (lx, ux] x (ly, uy]: the same 4-corner path over a
+    CF_sum-fitted plan, |A - R| <= 4*delta."""
+    if plan.agg != "sum2d":
+        raise ValueError(f"execute_sum2d needs a sum2d plan, got {plan.agg}")
+    return _execute_rect2d(plan, lx, ux, ly, uy, backend=backend,
+                           eps_rel=eps_rel, min_bucket=min_bucket)
+
+
+def execute_extremum2d(plan: IndexPlan2D, u, v, *,
+                       backend: Optional[str] = None,
+                       eps_rel: Optional[float] = None,
+                       min_bucket: int = 64) -> QueryResult:
+    """Dominance MAX/MIN at (u, v): the extremal measure over
+    {x <= u, y <= v}, |A - R| <= delta (min2d plans run on negated
+    measures end to end)."""
+    if plan.agg not in ("max2d", "min2d"):
+        raise ValueError(f"execute_extremum2d needs a max2d/min2d plan, got "
+                         f"{plan.agg}")
+    backend = resolve_backend(backend, plan.device)
+    if eps_rel is not None:
+        _require_exact(plan.ref_wpmax is not None)
+    (u, v), n = _prepare(u, v, min_bucket=min_bucket, plan=plan)
+    ans, approx, refined = _exec_extremum2d(plan, u, v, backend=backend,
+                                            eps_rel=eps_rel)
+    return QueryResult(ans[:n], approx[:n], refined[:n])
+
+
+def execute(plan: Union[IndexPlan, IndexPlan2D], ranges, *,
+            backend: Optional[str] = None, eps_rel: Optional[float] = None,
             min_bucket: int = 64) -> QueryResult:
-    """Dispatch on the plan: (lq, uq) for 1-D SUM/COUNT/MAX/MIN, and for a
-    1-D SUM/COUNT level ladder (``LsmPlan``)."""
+    """Dispatch on the plan: (lq, uq) for 1-D SUM/COUNT/MAX/MIN and for a
+    1-D SUM/COUNT level ladder (``LsmPlan``), (lx, ux, ly, uy) for 2-D
+    rectangles, (u, v) for 2-D dominance MAX/MIN."""
     kw = dict(backend=backend, eps_rel=eps_rel, min_bucket=min_bucket)
     if hasattr(plan, "levels"):   # LsmPlan level ladder
         from .lsm import execute_lsm
         return execute_lsm(plan, None, ranges, **kw)
-    if not isinstance(plan, IndexPlan):
-        raise NotImplementedError(
-            f"{type(plan).__name__} plans are not ported yet: ROADMAP "
-            "Queue 1 item 13 (2-D)")
+    if isinstance(plan, IndexPlan2D):
+        if plan.agg == "count2d":
+            return execute_count2d(plan, *ranges, **kw)
+        if plan.agg == "sum2d":
+            return execute_sum2d(plan, *ranges, **kw)
+        return execute_extremum2d(plan, *ranges, **kw)
     if plan.agg in ("sum", "count"):
         return execute_sum(plan, *ranges, **kw)
     return execute_extremum(plan, *ranges, **kw)
@@ -421,6 +612,18 @@ class Engine:
                  eps_rel: Optional[float] = None) -> QueryResult:
         return execute_extremum(plan, lq, uq, **self._kw(eps_rel))
 
-    def query(self, plan: IndexPlan, *ranges,
+    def count2d(self, plan: IndexPlan2D, lx, ux, ly, uy,
+                eps_rel: Optional[float] = None) -> QueryResult:
+        return execute_count2d(plan, lx, ux, ly, uy, **self._kw(eps_rel))
+
+    def sum2d(self, plan: IndexPlan2D, lx, ux, ly, uy,
+              eps_rel: Optional[float] = None) -> QueryResult:
+        return execute_sum2d(plan, lx, ux, ly, uy, **self._kw(eps_rel))
+
+    def extremum2d(self, plan: IndexPlan2D, u, v,
+                   eps_rel: Optional[float] = None) -> QueryResult:
+        return execute_extremum2d(plan, u, v, **self._kw(eps_rel))
+
+    def query(self, plan: Union[IndexPlan, IndexPlan2D], *ranges,
               eps_rel: Optional[float] = None) -> QueryResult:
         return execute(plan, ranges, **self._kw(eps_rel))

@@ -13,29 +13,57 @@ single layout every backend executes against.  It bundles, per index:
   sparse table), so the Lemma 5.2/5.4 Q_rel test and the refinement run
   on the device with no host round trip.
 
-``plan_from_numpy`` carries a reference plan across (its fields as numpy),
-so the query path can be held to the reference apart from construction.
-The 2-D plan comes with its slice (ROADMAP Queue 1 item 13).
+``IndexPlan2D`` is the 2-key analogue: the quadtree descent arrays (the
+``torch`` backend), the flattened tile-padded leaf table for the kernels
+and the one-hot ``ref`` oracles, and the merge-sort-tree arrays for exact
+refinement.  The leaf table is stored in Morton (Z-order), so the
+locate->gather kernels binary-search it: ``xcuts``/``ycuts`` are the exact
+dyadic split grids (rebuilt with the tree's own midpoint recursion, so cell
+resolution is bit-identical to the descent's tie rule) and ``leaf_z`` the
+sorted per-leaf Morton interval starts.  Plans deeper than
+``MAX_MORTON_DEPTH`` have no ``leaf_z`` and run the scan kernels.
+
+``plan_from_numpy`` / ``plan2d_from_numpy`` carry a reference plan across
+(its fields as numpy), so the query path can be held to the reference
+apart from construction.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping, Optional
+from typing import Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .. import DTYPE
 from ..core.index import PolyFitIndex1D
+from ..core.index2d import PolyFitIndex2D
+from ..kernels.locate import (INT_SENTINEL, MAX_MORTON_DEPTH, dyadic_cuts,
+                              leaf_morton_codes)
 
-__all__ = ["IndexPlan", "build_plan", "plan_from_numpy", "big_sentinel",
-           "pad_to_multiple", "DEFAULT_BH", "ARRAY_FIELDS", "META_FIELDS"]
+__all__ = ["IndexPlan", "IndexPlan2D", "build_plan", "build_plan_2d",
+           "plan_from_numpy", "plan2d_from_numpy", "big_sentinel",
+           "pad_to_multiple", "DEFAULT_BH", "ARRAY_FIELDS", "META_FIELDS",
+           "ARRAY_FIELDS_2D", "META_FIELDS_2D"]
 
 DEFAULT_BH = 512
 
 ARRAY_FIELDS = ("seg_lo", "seg_next", "seg_hi", "coeffs", "seg_agg", "st",
                 "ref_keys", "ref_cf", "ref_st", "seg_err")
 META_FIELDS = ("agg", "deg", "delta", "h", "n", "bh")
+ARRAY_FIELDS_2D = ("children", "leaf_of", "bounds", "leaf_nodes",
+                   "qt_coeffs", "leaf_mx0", "leaf_mx1", "leaf_my0",
+                   "leaf_my1", "leaf_bounds", "leaf_coeffs", "leaf_z",
+                   "xcuts", "ycuts", "ref_xs", "ref_ys_levels", "leaf_agg",
+                   "ref_wcum", "ref_wpmax")
+META_FIELDS_2D = ("deg", "delta", "n", "n_leaves", "max_depth", "bh", "root",
+                  "agg")
+
+
+def _device_bytes(plan, fields) -> int:
+    return int(sum(t.numel() * t.element_size()
+                   for t in (getattr(plan, f) for f in fields)
+                   if t is not None))
 
 
 def big_sentinel(dtype) -> float:
@@ -106,9 +134,7 @@ class IndexPlan:
     def device_bytes(self) -> int:
         """Bytes every tensor of the plan holds on its device (padding and
         refinement arrays included)."""
-        return int(sum(t.numel() * t.element_size()
-                       for t in (getattr(self, f) for f in ARRAY_FIELDS)
-                       if t is not None))
+        return _device_bytes(self, ARRAY_FIELDS)
 
 
 def build_plan(index: PolyFitIndex1D, dtype: torch.dtype = DTYPE,
@@ -165,3 +191,161 @@ def plan_from_numpy(fields: Mapping, device) -> IndexPlan:
         agg=str(fields["agg"]), deg=int(fields["deg"]),
         delta=float(fields["delta"]), h=int(fields["h"]), n=int(fields["n"]),
         bh=int(fields["bh"]), **arrays)
+
+
+@dataclasses.dataclass(frozen=True)
+class IndexPlan2D:
+    """Device-resident 2-key plan (quadtree + flat leaf table)."""
+
+    # -- metadata --------------------------------------------------------
+    deg: int
+    delta: float
+    n: int
+    n_leaves: int
+    max_depth: int
+    bh: int
+    root: Tuple[float, float, float, float]   # x0, x1, y0, y1
+    # -- quadtree descent arrays ('torch' backend) ------------------------
+    children: torch.Tensor    # (N, 4) int32
+    leaf_of: torch.Tensor     # (N,) int32
+    bounds: torch.Tensor      # (N, 4)
+    leaf_nodes: torch.Tensor  # (n_leaves,) int32
+    qt_coeffs: torch.Tensor   # (n_leaves, (deg+1)^2) — descent-path coeffs
+    # -- flat tile-padded leaf table (kernels, 'ref'), Morton order --------
+    leaf_mx0: torch.Tensor    # (Lp,) membership lower x (sentinel-padded)
+    leaf_mx1: torch.Tensor    # (Lp,) membership upper x (sentinel on root edge)
+    leaf_my0: torch.Tensor    # (Lp,)
+    leaf_my1: torch.Tensor    # (Lp,)
+    leaf_bounds: torch.Tensor  # (Lp, 4) actual x0,x1,y0,y1 (scaling spans)
+    leaf_coeffs: torch.Tensor  # (Lp, (deg+1)^2)
+    # -- locate->gather extras (None when max_depth exceeds Morton range) -
+    leaf_z: Optional[torch.Tensor]  # (Lp,) int32 sorted z-interval starts
+    xcuts: Optional[torch.Tensor]   # (2^max_depth - 1,) exact split grid
+    ycuts: Optional[torch.Tensor]   # (2^max_depth - 1,)
+    # -- exact refinement (merge-sort tree) ------------------------------
+    ref_xs: Optional[torch.Tensor]         # (n,)
+    ref_ys_levels: Optional[torch.Tensor]  # (L, n)
+    # -- measure-carrying extension ----------------------------------------
+    agg: str = "count2d"                   # 'count2d'|'sum2d'|'max2d'|'min2d'
+    leaf_agg: Optional[torch.Tensor] = None   # (Lp,) exact per-leaf measure
+    ref_wcum: Optional[torch.Tensor] = None   # (L, n) block prefix sums
+    ref_wpmax: Optional[torch.Tensor] = None  # (L, n) block prefix maxima
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.leaf_coeffs.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.leaf_coeffs.device
+
+    def size_bytes(self) -> int:
+        """Learned-structure size: topology + per-leaf fits (unpadded)."""
+        nb = lambda t: t.numel() * t.element_size()
+        total = nb(self.children) + nb(self.bounds) + nb(self.qt_coeffs)
+        if self.leaf_agg is not None:
+            total += self.n_leaves * self.leaf_agg.element_size()
+        return int(total)
+
+    def device_bytes(self) -> int:
+        """Bytes every tensor of the plan holds on its device (padding and
+        refinement arrays included)."""
+        return _device_bytes(self, ARRAY_FIELDS_2D)
+
+
+def build_plan_2d(index: PolyFitIndex2D, dtype: torch.dtype = DTYPE,
+                  bh: int = DEFAULT_BH,
+                  with_exact: bool = True) -> IndexPlan2D:
+    """Lower a PolyFitIndex2D into the canonical device plan (on the
+    index's device).
+
+    The flat leaf table reproduces the quadtree descent's tie rule with pure
+    interval membership: a coordinate exactly on an interior split line
+    belongs to the higher-coordinate leaf (the descent tests ``>= mid``), so
+    membership is [x0, x1) x [y0, y1) — except leaves touching the root's
+    right/top edge, whose upper membership bound widens to the sentinel so
+    the root's own boundary stays covered.
+    """
+    big = big_sentinel(dtype)
+    dev = index.device
+    x0r, x1r, y0r, y1r = (float(b) for b in index.root_bounds)
+    bounds = index.bounds.cpu().numpy()
+    lb = bounds[index.leaf_nodes.cpu().numpy()]   # (L, 4) f64
+    coeffs = index.coeffs.cpu().numpy()
+    leaf_agg = (None if index.leaf_agg is None
+                else index.leaf_agg.cpu().numpy())
+    to = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+
+    # locate->gather precomputation: exact dyadic split grids + Morton
+    # z-interval starts, the whole leaf table reordered by z so the scan
+    # path (order-independent) and the binary-search path share one table
+    leaf_z = xcuts = ycuts = None
+    depth = int(index.max_depth)
+    if depth <= MAX_MORTON_DEPTH:
+        xc = dyadic_cuts(x0r, x1r, depth)
+        yc = dyadic_cuts(y0r, y1r, depth)
+        if (np.all(np.diff(xc) > 0) if len(xc) else True) and (
+                np.all(np.diff(yc) > 0) if len(yc) else True):
+            z = leaf_morton_codes(lb, xc, yc, depth)
+            order = np.argsort(z)
+            lb = lb[order]
+            coeffs = coeffs[order]
+            if leaf_agg is not None:
+                leaf_agg = leaf_agg[order]
+            leaf_z = pad_to_multiple(
+                torch.as_tensor(z[order], dtype=torch.int32, device=dev), bh,
+                INT_SENTINEL)
+            # empty cut grids (depth 0) keep a sentinel entry so the kernel
+            # always has a non-empty array to search (count stays 0)
+            xcuts = to(xc if len(xc) else [big])
+            ycuts = to(yc if len(yc) else [big])
+
+    mx0 = lb[:, 0]
+    mx1 = np.where(lb[:, 1] >= x1r, big, lb[:, 1])
+    my0 = lb[:, 2]
+    my1 = np.where(lb[:, 3] >= y1r, big, lb[:, 3])
+
+    ref_xs = ref_ys = ref_wcum = ref_wpmax = None
+    if with_exact and index.exact is not None:
+        ref_xs = index.exact.xs
+        ref_ys = index.exact.ys_levels
+        ref_wcum = index.exact.wcum_levels
+        ref_wpmax = index.exact.wpmax_levels
+
+    return IndexPlan2D(
+        deg=index.deg, delta=float(index.delta), n=int(index.n),
+        n_leaves=index.n_leaves, max_depth=index.max_depth, bh=int(bh),
+        root=(x0r, x1r, y0r, y1r),
+        children=index.children, leaf_of=index.leaf_of,
+        bounds=index.bounds.to(dtype), leaf_nodes=index.leaf_nodes,
+        qt_coeffs=index.coeffs.to(dtype),
+        leaf_mx0=pad_to_multiple(to(mx0), bh, big),
+        leaf_mx1=pad_to_multiple(to(mx1), bh, big),
+        leaf_my0=pad_to_multiple(to(my0), bh, big),
+        leaf_my1=pad_to_multiple(to(my1), bh, big),
+        leaf_bounds=pad_to_multiple(to(lb), bh, 0.0),
+        leaf_coeffs=pad_to_multiple(to(coeffs), bh, 0.0),
+        leaf_z=leaf_z, xcuts=xcuts, ycuts=ycuts,
+        ref_xs=ref_xs, ref_ys_levels=ref_ys,
+        agg=index.agg,
+        leaf_agg=(None if leaf_agg is None
+                  else pad_to_multiple(to(leaf_agg), bh, 0.0)),
+        ref_wcum=ref_wcum, ref_wpmax=ref_wpmax,
+    )
+
+
+def plan2d_from_numpy(fields: Mapping, device) -> IndexPlan2D:
+    """A port ``IndexPlan2D`` from a reference ``IndexPlan2D``'s fields:
+    every name in ``ARRAY_FIELDS_2D`` maps to a numpy array (or None) and
+    every name in ``META_FIELDS_2D`` to its value.  Arrays keep their dtype
+    and are copied to ``device``."""
+    device = torch.device(device)
+    arrays = {f: (None if fields.get(f) is None else
+                  torch.as_tensor(np.array(fields[f]), device=device))
+              for f in ARRAY_FIELDS_2D}
+    return IndexPlan2D(
+        deg=int(fields["deg"]), delta=float(fields["delta"]),
+        n=int(fields["n"]), n_leaves=int(fields["n_leaves"]),
+        max_depth=int(fields["max_depth"]), bh=int(fields["bh"]),
+        root=tuple(float(b) for b in fields["root"]),
+        agg=str(fields["agg"]), **arrays)

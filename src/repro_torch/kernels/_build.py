@@ -32,9 +32,10 @@ __all__ = ["CSRC", "SOURCES", "UNITS", "NVCC_FLAGS", "Build", "build",
            "library", "check", "require_cuda", "stream"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("locate.cuh", "polyfit_kernels.cu", "quantile.cu")
+SOURCES = ("locate.cuh", "polyfit_kernels.cu", "quantile.cu",
+           "leaf_eval2d.cu")
 # translation units: one shared library each, compiled in parallel
-UNITS = ("polyfit_kernels.cu", "quantile.cu")
+UNITS = ("polyfit_kernels.cu", "quantile.cu", "leaf_eval2d.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -54,6 +55,17 @@ _SIGNATURES = {
     # t_mid, t_lo, t_hi, B, seg_lo, seg_hi, coeffs, seg_err, ref_keys,
     # out_mid, out_lo, out_hi, Q, H, deg, h, nk, n, delta, stream
     "polyfit_quantile_invert": (_P,) * 12 + (_I,) * 6 + (_D, _P),
+    # lx, ux, ly, uy, xcuts, ycuts, leaf_z, bounds, coeffs, out, Q, nx, ny,
+    # L, deg, depth, stream
+    "polyfit_corner_count2d_gather": (_P,) * 10 + (_I,) * 6 + (_P,),
+    # u, v, xcuts, ycuts, leaf_z, bounds, coeffs, out, Q, nx, ny, L, deg,
+    # depth, stream
+    "polyfit_corner_eval2d_gather": (_P,) * 8 + (_I,) * 6 + (_P,),
+    # lx, ux, ly, uy, mx0, mx1, my0, my1, bounds, coeffs, out, Q, L, deg,
+    # stream
+    "polyfit_corner_count2d": (_P,) * 11 + (_I,) * 3 + (_P,),
+    # u, v, mx0, mx1, my0, my1, bounds, coeffs, out, Q, L, deg, stream
+    "polyfit_corner_eval2d": (_P,) * 9 + (_I,) * 3 + (_P,),
 }
 
 

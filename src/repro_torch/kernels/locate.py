@@ -10,6 +10,13 @@ of the device functions every gather kernel inlines:
 * ``locate_segments`` — clip(searchsorted(seg_lo, q, right) - 1, 0), the
   gather-path twin of ``core.poly.locate``.
 * ``floor_log2`` and ``rmq_gather`` — the O(1) sparse-table range max.
+* ``interleave2`` / ``locate_leaf2d`` / ``dyadic_cuts`` /
+  ``leaf_morton_codes`` — the 2-D part: quadtree leaves are intervals in
+  Morton (Z-order) space, so a corner resolves with three binary searches
+  (cell x, cell y, leaf z).  The cut grids repeat the tree build's own
+  midpoint recursion, so locating against them is bit-identical to the
+  one-hot membership rule (a corner on a split line goes to the
+  higher-coordinate leaf).
 
 ``locate`` is the wrapper over K1 (``csrc/polyfit_kernels.cu``,
 ``locate_kernel``), the twin of ``locate_pallas``: on CUDA tensors it
@@ -21,12 +28,18 @@ every real key, so the counts never reach it.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import _build
 
 __all__ = ["bsearch_count", "locate_segments", "floor_log2", "rmq_gather",
-           "locate"]
+           "locate", "interleave2", "locate_leaf2d", "dyadic_cuts",
+           "leaf_morton_codes", "MAX_MORTON_DEPTH", "INT_SENTINEL"]
+
+# 2 bits per level must fit an int32 Morton code (sign bit reserved)
+MAX_MORTON_DEPTH = 15
+INT_SENTINEL = int(np.iinfo(np.int32).max)
 
 
 def bsearch_count(keys: torch.Tensor, q: torch.Tensor,
@@ -34,7 +47,8 @@ def bsearch_count(keys: torch.Tensor, q: torch.Tensor,
     """Per-lane ``searchsorted(keys, q, side)`` in ceil(log2 n) + 1 rounds.
 
     Returns the number of ``keys`` entries <= q (side='right') or < q
-    (side='left') as int32.  ``keys`` must be sorted ascending; each round
+    (side='left') as int32.  ``keys`` (float64 or int32, as ``q``) must be
+    sorted ascending; each round
     probes index ``c + step - 1`` (clamped) and advances the count when the
     probe satisfies the predicate.
     """
@@ -105,3 +119,68 @@ def locate(q: torch.Tensor, seg_lo: torch.Tensor) -> torch.Tensor:
 
 
 locate.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# 2-D: quadtree leaves as a Morton-interval table
+# ---------------------------------------------------------------------------
+
+def interleave2(ix: torch.Tensor, iy: torch.Tensor, depth: int) -> torch.Tensor:
+    """Morton (Z-order) code of cell (ix, iy) at ``depth`` bits per axis,
+    as int32."""
+    z = torch.zeros(ix.shape, dtype=torch.int32, device=ix.device)
+    for b in range(depth):
+        z = (z | (((ix >> b) & 1) << (2 * b))
+             | (((iy >> b) & 1) << (2 * b + 1)))
+    return z
+
+
+def locate_leaf2d(qx, qy, xcuts, ycuts, leaf_z, depth: int) -> torch.Tensor:
+    """Leaf-table row containing each (pre-clamped) query corner.
+
+    Three binary searches: cell x = #xcuts <= qx, cell y = #ycuts <= qy
+    (so a corner exactly on a split line lands in the higher cell — the
+    quadtree descent's tie rule), then the Morton code's containing leaf
+    interval in the z-sorted, ``INT_SENTINEL``-padded int32 table.
+    """
+    ix = bsearch_count(xcuts, qx, side="right")
+    iy = bsearch_count(ycuts, qy, side="right")
+    z = interleave2(ix, iy, depth)
+    return torch.clamp(bsearch_count(leaf_z, z, side="right") - 1, min=0)
+
+
+def dyadic_cuts(lo: float, hi: float, depth: int) -> np.ndarray:
+    """The 2^depth - 1 interior split lines of a midpoint-recursive quadtree
+    axis, computed with the *same* float recursion as the tree build
+    (``mid = 0.5*(lo + hi)`` of each node's own bounds), so every leaf
+    boundary equals a cut value exactly."""
+    m = 1 << depth
+    g = np.empty(m + 1, np.float64)
+    g[0], g[m] = lo, hi
+    stack = [(0, m)]
+    while stack:
+        i0, i1 = stack.pop()
+        if i1 - i0 < 2:
+            continue
+        im = (i0 + i1) // 2
+        g[im] = 0.5 * (g[i0] + g[i1])
+        stack.append((i0, im))
+        stack.append((im, i1))
+    return g[1:m]
+
+
+def leaf_morton_codes(leaf_bounds: np.ndarray, xcuts: np.ndarray,
+                      ycuts: np.ndarray, depth: int) -> np.ndarray:
+    """Morton code of each leaf's lower-left cell (its z-interval start).
+
+    A quadtree leaf at depth d covers a contiguous Z-order run of
+    4^(depth-d) cells, so the starts sort the leaves into disjoint
+    intervals covering [0, 4^depth).
+    """
+    ix0 = np.searchsorted(xcuts, leaf_bounds[:, 0], side="right")
+    iy0 = np.searchsorted(ycuts, leaf_bounds[:, 2], side="right")
+    z = np.zeros(len(leaf_bounds), np.int64)
+    for b in range(depth):
+        z |= ((ix0 >> b) & 1) << (2 * b)
+        z |= ((iy0 >> b) & 1) << (2 * b + 1)
+    return z.astype(np.int32)

@@ -3,18 +3,22 @@
 The twin of ``repro.kernels.ref``: the query clamp and the one-hot
 membership rule one_hot[q, j] = (seg_lo[j] <= q) & (q < seg_next[j]) of the
 scan kernels, with a dense interior reduction for MAX, and the dense
-membership oracles of the 1-D delta-buffer corrections.  The engine's
-``ref`` backend runs these.  The 2-D oracles come with their slice
-(ROADMAP Queue 1 item 13).
+membership oracles of the 1-D delta-buffer corrections, and the 2-D
+flat-leaf one-hot oracles (``leaf_eval2d_ref``, ``corner_count2d_ref``:
+the reference's one-hot matmul gather, in chunks of queries).  The
+engine's ``ref`` backend runs these.
 """
 from __future__ import annotations
 
 import torch
 
+from ..core.index2d import bivariate_horner
 from ..core.poly import clipped_poly_max, eval_segments, locate
+from .leaf_eval2d import _CHUNK_ELEMS
 
 __all__ = ["poly_eval_ref", "range_sum_ref", "range_max_ref",
-           "delta_sum_ref", "delta_max_ref"]
+           "delta_sum_ref", "delta_max_ref", "leaf_eval2d_ref",
+           "corner_count2d_ref"]
 
 
 def poly_eval_ref(q, seg_lo, seg_next, seg_hi, coeffs):
@@ -59,3 +63,34 @@ def delta_max_ref(lq, uq, keys, vals):
     """Exact max of buffered measures with key in [lq, uq]; -inf if none."""
     member = (lq[:, None] <= keys[None, :]) & (keys[None, :] <= uq[:, None])
     return torch.where(member, vals[None, :], -torch.inf).amax(dim=1)
+
+
+def leaf_eval2d_ref(qx, qy, mx0, mx1, my0, my1, bounds, coeffs, deg):
+    """CF at (qx, qy) via the flat-leaf one-hot membership rule.
+
+    one_hot[q, j] = (mx0[j] <= qx < mx1[j]) & (my0[j] <= qy < my1[j]) —
+    identical to the quadtree descent's quadrant rule (ties go to the
+    higher-coordinate leaf) provided queries are pre-clamped into the root
+    region; right/top root-edge leaves carry a huge mx1/my1 sentinel.  The
+    (Q, Lp) one-hot is formed a chunk of queries at a time.
+    """
+    table = torch.cat([coeffs, bounds], dim=1)
+    k = coeffs.shape[1]
+    step = max(1, _CHUNK_ELEMS // max(1, mx0.shape[0]))
+    parts = []
+    for s in range(0, qx.shape[0], step):
+        x, y = qx[s:s + step, None], qy[s:s + step, None]
+        one_hot = ((mx0[None, :] <= x) & (x < mx1[None, :]) &
+                   (my0[None, :] <= y) & (y < my1[None, :])).to(coeffs.dtype)
+        parts.append(one_hot @ table)
+    gath = torch.cat(parts) if parts else table.new_zeros(0, table.shape[1])
+    return bivariate_horner(qx, qy, gath[:, :k], gath[:, k:], deg)
+
+
+def corner_count2d_ref(lx, ux, ly, uy, mx0, mx1, my0, my1, bounds, coeffs,
+                       deg):
+    """4-corner inclusion-exclusion COUNT (Eq. 19) over the flat leaf table;
+    corners pre-clamped into the root region by the caller."""
+    ev = lambda qx, qy: leaf_eval2d_ref(qx, qy, mx0, mx1, my0, my1, bounds,
+                                        coeffs, deg)
+    return ev(ux, uy) - ev(lx, uy) - ev(ux, ly) + ev(lx, ly)

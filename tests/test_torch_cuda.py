@@ -1,14 +1,16 @@
 """The CUDA kernels on the card, held to their plain PyTorch versions.
 
 K1 (locate), K2 (range SUM), K3 (range MAX), K4 (quantile inversion), K5
-(buffered SUM), K6 (buffered MAX) and the ``cuda`` engine backend, static,
-dynamic and windowed, must agree with the plain versions on the same
-inputs: K1's int32 ids exactly, the others to rtol = atol = 1e-9
-(compiled with -fmad=false, they are expected to agree bit for bit).  The
-plain versions are held to the JAX reference by the CPU tests
+(buffered SUM), K6 (buffered MAX), the 2-D leaf kernels K7, K8, K12 and
+K13, and the ``cuda`` engine backend, static, dynamic, windowed and 2-D,
+must agree with the plain versions on the same inputs: K1's int32 ids and
+K4's Newton branch and the 2-D kernels exactly, the others to rtol = atol
+= 1e-9 (compiled with -fmad=false, they are expected to agree bit for
+bit).  The plain versions are held to the JAX reference by the CPU tests
 (test_torch_locate.py, test_torch_kernels.py, test_torch_engine.py,
-test_torch_quantile.py), so this file imports no JAX: it runs on a machine
-with a card and PyTorch alone.
+test_torch_quantile.py, test_torch_index2d.py, test_torch_engine2d.py), so
+this file imports no JAX: it runs on a machine with a card and PyTorch
+alone.
 
     python -m pytest tests/test_torch_cuda.py -q      # skips without a card
 """
@@ -17,15 +19,17 @@ import pytest
 import torch
 
 from repro_torch.api import ErrorBudget, PolyFit, QueryBatch, QuerySpec, TableSpec
-from repro_torch.core import build_index_1d
-from repro_torch.data import hki_series, make_queries_1d, tweet_latitudes
+from repro_torch.core import build_index_1d, build_index_2d
+from repro_torch.data import (hki_series, make_queries_1d, make_queries_2d,
+                              osm_points, tweet_latitudes)
 from repro_torch.engine import (DynamicEngine, Engine, WindowEngine,
-                                build_plan, execute_extremum,
+                                build_plan, build_plan_2d, execute_extremum,
                                 execute_quantile)
 from repro_torch.engine.dynamic import _append_1d
 from repro_torch.engine.engine import quantile_mass, quantile_tables
 from repro_torch.engine.plan import big_sentinel
 from repro_torch.kernels import delta_scan as kdelta
+from repro_torch.kernels import leaf_eval2d as k2d
 from repro_torch.kernels import locate as kloc
 from repro_torch.kernels import quantile_invert as kq
 from repro_torch.kernels import range_max as kmax
@@ -356,6 +360,20 @@ def test_quantile_invert_kernel_matches_plain(cuda, quantile_plans, agg,
     assert torch.all(got[0] <= hi) and torch.all(lo <= got[0] + 1e-9)
 
 
+@pytest.mark.parametrize("agg", ["count", "sum"])
+@pytest.mark.parametrize("deg", [4, 5])
+def test_quantile_newton_branch_bit_identical(cuda, quantile_plans, agg,
+                                              deg):
+    """Above deg 3 K4 solves by Newton with emulated fused multiply-adds,
+    step for step as the plain version: every lane equal."""
+    args, kw = _k4_args(quantile_plans[agg, deg], _fractions(cuda))
+    got = kq.quantile_invert(*args, **kw)
+    want = kq.quantile_invert_plain(*args, **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
 def test_quantile_kernel_rejects_bad_arguments(cuda, quantile_plans):
     args, kw = _k4_args(quantile_plans["count", 2], _fractions(cuda))
     with pytest.raises(ValueError, match="shape mismatch"):
@@ -462,3 +480,165 @@ def test_window_queries_launch_kernels(cuda):
             torch.testing.assert_close(got.answer, want.answer, **TOL)
             torch.testing.assert_close(got.refined, want.refined, rtol=0,
                                        atol=0)
+
+
+# ---------------------------------------------------------------------------
+# 2-D: K7, K8 (locate->gather), K12, K13 (one-hot scan)
+# ---------------------------------------------------------------------------
+
+N2 = 3000
+
+
+@pytest.fixture(scope="module")
+def plans2d(cuda):
+    """Port 2-D plans built on the card: COUNT at deg 1-3, a MAX plan, and
+    a depth-0 plan (the root is the only leaf, one-entry cut grids)."""
+    px, py = osm_points(N2, seed=29)
+    w = 50 + 10 * np.sin(px / 10) + 10 * np.cos(py / 15)
+    out = {}
+    for deg in (1, 2, 3):
+        out["count2d", deg] = build_plan_2d(build_index_2d(
+            px, py, deg=deg, delta=20.0, max_depth=6, device=cuda))
+    out["max2d", 2] = build_plan_2d(build_index_2d(
+        px, py, measures=w, agg="max2d", deg=2, delta=4.0, max_depth=6,
+        device=cuda))
+    out["depth0", 2] = build_plan_2d(build_index_2d(
+        px, py, deg=2, delta=20.0, max_depth=0, device=cuda))
+    return px, py, w, out
+
+
+def _corners2d(plan, px, py, cuda, n=50_000):
+    """Rectangles from the data, corners on every split line and on the
+    root's edges, clamped into the root as the engine clamps them."""
+    x0, x1, y0, y1 = plan.root
+    lx, ux, ly, uy = make_queries_2d(px, py, n, seed=31)
+    xc = plan.xcuts.cpu().numpy()
+    yc = plan.ycuts.cpu().numpy()
+    m = min(len(xc), len(yc))
+    lx = np.concatenate([lx, xc[:m], [x0, x0, x1]])
+    ux = np.concatenate([ux, xc[:m] + 1.0, [x1, x0, x1]])
+    ly = np.concatenate([ly, yc[:m], [y0, y1, y0]])
+    uy = np.concatenate([uy, yc[:m] + 1.0, [y1, y1, y1]])
+    lo = [np.clip(q, x0, x1) for q in (lx, ux)]
+    hi = [np.clip(q, y0, y1) for q in (ly, uy)]
+    return tuple(torch.as_tensor(q, device=cuda)
+                 for q in (lo[0], lo[1], hi[0], hi[1]))
+
+
+def _tables(plan):
+    gather = (plan.xcuts, plan.ycuts, plan.leaf_z, plan.leaf_bounds,
+              plan.leaf_coeffs)
+    scan = (plan.leaf_mx0, plan.leaf_mx1, plan.leaf_my0, plan.leaf_my1,
+            plan.leaf_bounds, plan.leaf_coeffs)
+    return gather, scan
+
+
+@pytest.mark.parametrize("key", [("count2d", 1), ("count2d", 2),
+                                 ("count2d", 3), ("max2d", 2),
+                                 ("depth0", 2)])
+def test_leaf_kernels_match_plain(cuda, plans2d, key):
+    """K7, K8, K12 and K13 equal their plain versions in every lane, split
+    lines and root edges included, and the gather and scan kernels equal
+    each other on one plan."""
+    px, py, _, plans = plans2d
+    plan = plans[key]
+    deg, depth = plan.deg, plan.max_depth
+    lx, ux, ly, uy = _corners2d(plan, px, py, cuda)
+    gather, scan = _tables(plan)
+    launches = lambda: (k2d.corner_count2d_gather.launches,
+                        k2d.corner_eval2d_gather.launches,
+                        k2d.corner_count2d.launches,
+                        k2d.corner_eval2d.launches)
+    before = launches()
+    k7 = k2d.corner_count2d_gather(lx, ux, ly, uy, *gather, deg, depth)
+    k8 = k2d.corner_eval2d_gather(ux, uy, *gather, deg, depth)
+    k12 = k2d.corner_count2d(lx, ux, ly, uy, *scan, deg)
+    k13 = k2d.corner_eval2d(ux, uy, *scan, deg)
+    torch.cuda.synchronize()
+    assert launches() == tuple(b + 1 for b in before)
+    exact = dict(rtol=0, atol=0)
+    torch.testing.assert_close(k7, k2d.corner_count2d_gather_plain(
+        lx, ux, ly, uy, *gather, deg, depth), **exact)
+    torch.testing.assert_close(k8, k2d.corner_eval2d_gather_plain(
+        ux, uy, *gather, deg, depth), **exact)
+    torch.testing.assert_close(k12, k2d.corner_count2d_plain(
+        lx, ux, ly, uy, *scan, deg), **exact)
+    torch.testing.assert_close(k13, k2d.corner_eval2d_plain(
+        ux, uy, *scan, deg), **exact)
+    torch.testing.assert_close(k7, k12, **exact)
+    torch.testing.assert_close(k8, k13, **exact)
+
+
+def test_leaf_kernels_reject_bad_arguments(cuda, plans2d):
+    plan = plans2d[3]["count2d", 2]
+    gather, scan = _tables(plan)
+    q = torch.zeros(8, dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError, match="int32"):
+        k2d.corner_eval2d_gather(q, q, *gather[:2], gather[2].long(),
+                                 *gather[3:], plan.deg, plan.max_depth)
+    with pytest.raises(ValueError, match="CUDA device"):
+        k2d.corner_eval2d(q, q.cpu(), *scan, plan.deg)
+    with pytest.raises(ValueError, match="leaf table"):
+        k2d.corner_eval2d(q, q, *scan, plan.deg + 1)
+
+
+@pytest.mark.parametrize("agg", ["count2d", "max2d"])
+@pytest.mark.parametrize("eps_rel", [None, 0.05])
+def test_2d_cuda_backend_matches_torch_backend(cuda, plans2d, agg, eps_rel):
+    """The default backend on the card runs K7 (rectangles) or K8
+    (corners), K1 in the Q_rel truth, and agrees with the 'torch' backend
+    (the quadtree descent, no kernel), refined flags included."""
+    px, py, _, plans = plans2d
+    plan = plans[agg, 2]
+    if agg == "count2d":
+        ranges = make_queries_2d(px, py, 20_000, seed=37)
+        kernel = k2d.corner_count2d_gather
+    else:
+        ci = np.random.default_rng(37).integers(0, N2, 20_000)
+        ranges = (px[ci], py[ci])
+        kernel = k2d.corner_eval2d_gather
+    counts = lambda: (kernel.launches, kloc.locate.launches)
+    before = counts()
+    got = Engine().query(plan, *ranges, eps_rel=eps_rel)
+    torch.cuda.synchronize()
+    k1 = 0 if eps_rel is None else (2 if agg == "count2d" else 1)
+    assert counts() == (before[0] + 1, before[1] + k1)
+    before = counts()
+    want = Engine(backend="torch").query(plan, *ranges, eps_rel=eps_rel)
+    assert counts() == before
+    torch.testing.assert_close(got.answer, want.answer, **TOL)
+    torch.testing.assert_close(got.refined, want.refined, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("agg", ["count2d", "min2d"])
+def test_deep_plan_runs_scan_kernels(cuda, agg):
+    """A plan deeper than 15 levels has no Morton codes: the 'cuda'
+    backend runs K12 / K13 and never K7 / K8."""
+    # a dominance staircase whose steps pass 2 delta along the data's
+    # lower-left frontier splits to depth 16 all along it: delta 10 here
+    rng = np.random.default_rng(41)
+    px, py = rng.uniform(0, 120, N2), rng.uniform(0, 120, N2)
+    w = 50 + 10 * np.sin(px / 10) + 10 * np.cos(py / 15)
+    idx = build_index_2d(px, py, measures=None if agg == "count2d" else w,
+                         agg=agg, deg=2,
+                         delta=5.0 if agg == "count2d" else 10.0,
+                         max_depth=16, device=cuda)
+    plan = build_plan_2d(idx)
+    assert plan.leaf_z is None and plan.max_depth == 16
+    if agg == "count2d":
+        ranges = make_queries_2d(px, py, 10_000, seed=43)
+    else:
+        ci = np.random.default_rng(43).integers(0, N2, 10_000)
+        ranges = (px[ci], py[ci])
+    launches = lambda: (k2d.corner_count2d_gather.launches,
+                        k2d.corner_eval2d_gather.launches,
+                        k2d.corner_count2d.launches,
+                        k2d.corner_eval2d.launches)
+    before = launches()
+    got = Engine().query(plan, *ranges)
+    torch.cuda.synchronize()
+    scan = (1, 0) if agg == "count2d" else (0, 1)
+    assert launches() == (before[0], before[1], before[2] + scan[0],
+                          before[3] + scan[1])
+    want = Engine(backend="torch").query(plan, *ranges)
+    torch.testing.assert_close(got.answer, want.answer, **TOL)

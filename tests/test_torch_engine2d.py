@@ -1,0 +1,368 @@
+"""repro_torch.engine's 2-D path against repro.engine's: twins of
+tests/test_engine.py's 2-D cases and tests/test_locate.py's 2-D cases.
+
+Reference plans (built once per module, 4,000 points, ``max_depth`` <= 7)
+are carried into the port with ``plan2d_from_numpy``, so the query path is
+held to the reference apart from construction (test_torch_index2d.py
+holds construction).  The port's backends — ``torch`` (the quadtree
+descent), ``ref`` (the one-hot oracles) and the plain versions of K7, K8,
+K12 and K13 that the ``cuda`` backend runs on the card — agree with every
+reference backend at rtol = atol = 1e-9 with equal ``refined`` flags, and
+bit for bit with each other, as the reference's backends do; every
+certified bound holds against exact truth computed with numpy.  Each plain
+kernel version is held to its Pallas kernel in interpret mode."""
+import numpy as np
+import pytest
+import jax
+import jax.numpy as jnp
+import torch
+
+jax.config.update("jax_enable_x64", True)
+
+from repro.core import (build_index_2d as r_build,  # noqa: E402
+                        query_count_2d as r_count, query_dommax_2d as r_dom,
+                        query_sum_2d as r_sum)
+from repro.engine import Engine as REngine, build_plan_2d as r_plan  # noqa: E402
+from repro.kernels.leaf_eval2d import (  # noqa: E402
+    corner_count2d_gather_pallas, corner_count2d_pallas,
+    corner_eval2d_gather_pallas, corner_eval2d_pallas)
+from repro_torch.core import build_index_2d  # noqa: E402
+from repro_torch.engine import (Engine, build_plan_2d,  # noqa: E402
+                                execute, execute_count2d, execute_sum2d,
+                                pad_fills, raw_count2d, raw_eval2d)
+from repro_torch.engine.plan import (ARRAY_FIELDS_2D,  # noqa: E402
+                                     META_FIELDS_2D, plan2d_from_numpy)
+from repro_torch.kernels import leaf_eval2d as k2d  # noqa: E402
+from repro_torch.kernels.locate import dyadic_cuts  # noqa: E402
+
+TOL = dict(rtol=1e-9, atol=1e-9)
+N = 4000
+NQ = 256
+DELTA = 25.0
+PORT_BACKENDS = ("torch", "ref")
+R_BACKENDS = ("xla", "pallas", "ref")
+
+
+def port_plan(rplan, device="cpu"):
+    fields = {f: (None if getattr(rplan, f) is None
+                  else np.asarray(getattr(rplan, f))) for f in ARRAY_FIELDS_2D}
+    fields.update({f: getattr(rplan, f) for f in META_FIELDS_2D})
+    return plan2d_from_numpy(fields, device)
+
+
+def _measure(px, py):
+    return 50 + 10 * np.sin(px / 10) + 10 * np.cos(py / 15)
+
+
+@pytest.fixture(scope="module")
+def setup():
+    """The COUNT plan of tests/test_engine.py's plan2d fixture and the
+    measure plans of its plans2d_measure fixture (4,000 points each), with
+    rectangles and data-anchored dominance corners."""
+    rng = np.random.default_rng(13)
+    px = rng.uniform(0, 120, N)
+    py = rng.uniform(0, 120, N)
+    w = _measure(px, py)
+    out = {}
+    for agg, delta, depth in (("count2d", DELTA, 6), ("sum2d", 400.0, 7),
+                              ("max2d", 4.0, 7), ("min2d", 4.0, 7)):
+        idx = r_build(px, py, measures=None if agg == "count2d" else w,
+                      agg=agg, deg=2, delta=delta, max_depth=depth)
+        rplan = r_plan(idx)
+        out[agg] = (idx, rplan, port_plan(rplan))
+    qa = rng.uniform(0, 120, NQ)
+    qc = rng.uniform(0, 120, NQ)
+    rect = (qa, qa + rng.uniform(0.5, 40, NQ), qc, qc + rng.uniform(0.5, 40, NQ))
+    ci = rng.integers(0, N, NQ)   # anchored at data points, so every
+    corners = (px[ci], py[ci])    # corner dominates at least one record
+    return px, py, w, out, rect, corners
+
+
+_REF = {}
+
+
+def ref_answer(setup, agg, backend, eps_rel):
+    """The reference engine's QueryResult, computed once per run."""
+    key = (agg, backend, eps_rel)
+    if key not in _REF:
+        _, _, _, plans, rect, corners = setup
+        ranges = corners if agg in ("max2d", "min2d") else rect
+        _REF[key] = REngine(backend=backend).query(plans[agg][1], *ranges,
+                                                   eps_rel=eps_rel)
+    return _REF[key]
+
+
+def _ranges(setup, agg):
+    _, _, _, _, rect, corners = setup
+    return corners if agg in ("max2d", "min2d") else rect
+
+
+def _truth(setup, agg):
+    px, py, w, _, rect, corners = setup
+    if agg in ("count2d", "sum2d"):
+        m = np.ones(N) if agg == "count2d" else w
+        return np.array([m[(px > a) & (px <= b) & (py > c) & (py <= d)].sum()
+                         for a, b, c, d in zip(*rect)])
+    u, v = corners
+    dom = (px[None, :] <= u[:, None]) & (py[None, :] <= v[:, None])
+    red = np.max if agg == "max2d" else np.min
+    return np.array([red(w[d]) for d in dom])
+
+
+def _raw_cuda_plain(plan, ranges):
+    """The raw answer the 'cuda' backend computes, through the kernels'
+    plain versions (CPU tensors)."""
+    x0, x1, y0, y1 = plan.root
+    t = [torch.as_tensor(r) for r in ranges]
+    if len(t) == 4:
+        c = (torch.clamp(t[0], x0, x1), torch.clamp(t[1], x0, x1),
+             torch.clamp(t[2], y0, y1), torch.clamp(t[3], y0, y1))
+        return raw_count2d(plan, *c, backend="cuda")
+    return raw_eval2d(plan, torch.clamp(t[0], x0, x1),
+                      torch.clamp(t[1], y0, y1), backend="cuda")
+
+
+# ---------------------------------------------------------------------------
+# certified bounds and cross-backend equivalence (tests/test_engine.py)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("backend", PORT_BACKENDS)
+@pytest.mark.parametrize("agg", ["count2d", "sum2d", "max2d", "min2d"])
+def test_certified_bounds_2d(setup, agg, backend):
+    """Lemma 6.3 (4 certified_delta for rectangles) and the dominance
+    bound (certified_delta), on every port backend."""
+    idx, _, plan = setup[3][agg]
+    res = Engine(backend=backend).query(plan, *_ranges(setup, agg))
+    bound = idx.certified_delta * (4 if agg in ("count2d", "sum2d") else 1)
+    assert np.abs(res.answer.numpy() - _truth(setup, agg)).max() \
+        <= bound + 1e-6
+
+
+@pytest.mark.parametrize("agg", ["count2d", "sum2d", "max2d", "min2d"])
+def test_cross_backend_equivalence_2d(setup, agg):
+    """The port's backends and the plain kernels behind 'cuda' agree bit
+    for bit (one leaf rule, one Horner sequence), and with every reference
+    backend at 1e-9."""
+    _, _, plan = setup[3][agg]
+    ranges = _ranges(setup, agg)
+    outs = {b: Engine(backend=b).query(plan, *ranges).answer
+            for b in PORT_BACKENDS}
+    raw = _raw_cuda_plain(plan, ranges)
+    outs["cuda"] = -raw if agg == "min2d" else raw
+    for b in ("ref", "cuda"):
+        torch.testing.assert_close(outs[b], outs["torch"], rtol=0, atol=0,
+                                   msg=b)
+    for rb in R_BACKENDS:
+        want = np.asarray(ref_answer(setup, agg, rb, None).answer)
+        np.testing.assert_allclose(outs["torch"].numpy(), want, **TOL,
+                                   err_msg=rb)
+
+
+@pytest.mark.parametrize("agg", ["count2d", "sum2d", "max2d", "min2d"])
+def test_qrel_2d_fused(setup, agg):
+    """Lemma 6.4 / 5.4 + the merge-sort-tree refinement on every port
+    backend: answers within eps_rel of the truth, equal to the reference's
+    with equal refined flags (its core query path, whose refinement every
+    reference executor shares; compiling the executors' unrolled
+    merge-sort-tree searches would take most of this file's time)."""
+    eps_rel = 0.05
+    idx, _, plan = setup[3][agg]
+    query = {"count2d": r_count, "sum2d": r_sum}.get(agg, r_dom)
+    want = query(idx, *_ranges(setup, agg), eps_rel=eps_rel)
+    truth = _truth(setup, agg)
+    pos = np.abs(truth) > 0
+    for backend in PORT_BACKENDS:
+        res = Engine(backend=backend).query(plan, *_ranges(setup, agg),
+                                            eps_rel=eps_rel)
+        np.testing.assert_allclose(res.answer.numpy(),
+                                   np.asarray(want.answer), **TOL)
+        np.testing.assert_array_equal(res.refined.numpy(),
+                                      np.asarray(want.refined))
+        rel = (np.abs(res.answer.numpy()[pos] - truth[pos])
+               / np.abs(truth[pos]))
+        assert rel.max() <= eps_rel + 1e-9, backend
+
+
+def test_execute_dispatch_2d_aggs(setup):
+    """`execute` routes IndexPlan2D by its agg; a mismatched executor
+    refuses the plan; the pad fills are the root's lower corner."""
+    _, _, _, plans, rect, corners = setup
+    plan_s, plan_m = plans["sum2d"][2], plans["max2d"][2]
+    r1 = execute(plan_s, rect, backend="ref")
+    r2 = execute_sum2d(plan_s, *rect, backend="ref")
+    torch.testing.assert_close(r1.answer, r2.answer, rtol=0, atol=0)
+    r3 = execute(plan_m, corners, backend="ref")
+    assert r3.answer.shape == corners[0].shape
+    with pytest.raises(ValueError, match="count2d"):
+        execute_count2d(plan_s, *rect)
+    x0, _, y0, _ = plan_s.root
+    assert pad_fills(plan_s) == (x0, x0, y0, y0)
+    assert pad_fills(plan_m) == (x0, y0)
+
+
+@pytest.mark.parametrize("nq", [3, 130])
+def test_batch_bucketing_2d(setup, nq):
+    """Padding to power-of-two buckets changes no answer."""
+    _, _, plan = setup[3]["count2d"]
+    full = Engine(backend="torch").query(plan, *setup[4]).answer
+    part = Engine(backend="torch").query(
+        plan, *(r[:nq] for r in setup[4])).answer
+    assert part.shape == (nq,)
+    torch.testing.assert_close(part, full[:nq], rtol=0, atol=0)
+
+
+def test_plan_parity(setup):
+    """The port lowers its own index to the reference's plan: every array
+    field equal."""
+    px, py, _, plans, _, _ = setup
+    ridx, rplan, _ = plans["count2d"]
+    plan = build_plan_2d(build_index_2d(px, py, deg=2, delta=DELTA,
+                                        max_depth=6, device="cpu"))
+    for f in ARRAY_FIELDS_2D:
+        a, b = getattr(plan, f), getattr(rplan, f)
+        assert (a is None) == (b is None), f
+        if a is not None:
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b),
+                                          err_msg=f)
+    assert plan.size_bytes() == rplan.size_bytes()
+    assert plan.device_bytes() == sum(
+        np.asarray(getattr(rplan, f)).nbytes for f in ARRAY_FIELDS_2D
+        if getattr(rplan, f) is not None)
+
+
+# ---------------------------------------------------------------------------
+# split lines and the Morton table (tests/test_locate.py)
+# ---------------------------------------------------------------------------
+
+def test_gather_bit_identical_on_split_lines_2d():
+    """Corners exactly on split lines and on the root's edges: the plain
+    K7 equals the plain K12 equals 'ref', bit for bit, and the reference's
+    gather kernel at 1e-9."""
+    rng = np.random.default_rng(9)
+    px = rng.uniform(0, 120, N)
+    py = rng.uniform(0, 120, N)
+    rplan = r_plan(r_build(px, py, deg=2, delta=20.0, max_depth=5))
+    plan = port_plan(rplan)
+    assert plan.leaf_z is not None
+    xc = plan.xcuts.numpy()
+    yc = plan.ycuts.numpy()
+    x0, x1, y0, y1 = plan.root
+    lx = np.concatenate([xc, [x0, x0, x1], rng.uniform(0, 120, 29)])
+    ux = np.concatenate([xc + 1.0, [x1, x0, x1], rng.uniform(0, 120, 29)])
+    ly = np.concatenate([yc, [y0, y1, y0], rng.uniform(0, 120, 29)])
+    uy = np.concatenate([yc + 1.0, [y1, y1, y1], rng.uniform(0, 120, 29)])
+    lx, ux = np.minimum(lx, ux), np.maximum(lx, ux)
+    ly, uy = np.minimum(ly, uy), np.maximum(ly, uy)
+    c = [torch.clamp(torch.as_tensor(q), lo, hi) for q, lo, hi in
+         ((lx, x0, x1), (ux, x0, x1), (ly, y0, y1), (uy, y0, y1))]
+    gather = k2d.corner_count2d_gather_plain(
+        *c, plan.xcuts, plan.ycuts, plan.leaf_z, plan.leaf_bounds,
+        plan.leaf_coeffs, plan.deg, plan.max_depth)
+    scan = k2d.corner_count2d_plain(
+        *c, plan.leaf_mx0, plan.leaf_mx1, plan.leaf_my0, plan.leaf_my1,
+        plan.leaf_bounds, plan.leaf_coeffs, plan.deg)
+    ref = raw_count2d(plan, *c, backend="ref")
+    torch.testing.assert_close(gather, scan, rtol=0, atol=0)
+    torch.testing.assert_close(gather, ref, rtol=0, atol=0)
+    for b in ("torch", "ref"):
+        got = Engine(backend=b).count2d(plan, lx, ux, ly, uy).answer
+        torch.testing.assert_close(got, gather, rtol=0, atol=0)
+    want = REngine(backend="pallas").count2d(rplan, lx, ux, ly, uy).answer
+    np.testing.assert_allclose(gather.numpy(), np.asarray(want), **TOL)
+
+
+def test_morton_leaf_table_is_sorted_and_disjoint():
+    rng = np.random.default_rng(11)
+    plan = build_plan_2d(build_index_2d(
+        rng.uniform(0, 50, 3000), rng.uniform(0, 50, 3000), deg=2,
+        delta=15.0, max_depth=4, device="cpu"))
+    z = plan.leaf_z.numpy()[: plan.n_leaves]
+    assert np.all(np.diff(z) > 0), "leaf z-interval starts must be sorted"
+    assert z[0] == 0, "the first leaf must cover Morton cell 0"
+    assert np.all(plan.leaf_z.numpy()[plan.n_leaves:] == np.iinfo(np.int32).max)
+    cuts = dyadic_cuts(*map(float, plan.root[:2]), plan.max_depth)
+    assert len(cuts) == (1 << plan.max_depth) - 1
+
+
+# ---------------------------------------------------------------------------
+# the plain kernel versions against the Pallas kernels (interpret mode)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kernel", ["K7", "K8", "K12", "K13"])
+def test_plain_kernels_match_pallas(setup, kernel):
+    """Each plain version of K7, K8, K12 and K13 against its Pallas kernel
+    in interpret mode, on the reference plan's own table and clamped
+    corners; the wrapper runs the plain version on CPU tensors and counts
+    no launch."""
+    agg = "sum2d" if kernel in ("K7", "K12") else "max2d"
+    _, rplan, plan = setup[3][agg]
+    x0, x1, y0, y1 = plan.root
+    if agg == "sum2d":
+        lim = ((x0, x1), (x0, x1), (y0, y1), (y0, y1))
+        q = [np.clip(r, lo, hi) for r, (lo, hi) in zip(setup[4], lim)]
+    else:
+        q = [np.clip(setup[5][0], x0, x1), np.clip(setup[5][1], y0, y1)]
+    rq = [jnp.asarray(a) for a in q]
+    tq = [torch.as_tensor(a) for a in q]
+    gather = ("xcuts", "ycuts", "leaf_z", "leaf_bounds", "leaf_coeffs")
+    scan = ("leaf_mx0", "leaf_mx1", "leaf_my0", "leaf_my1", "leaf_bounds",
+            "leaf_coeffs")
+    deg, depth = plan.deg, plan.max_depth
+    if kernel in ("K7", "K8"):
+        rt = [getattr(rplan, f) for f in gather]
+        pt = [getattr(plan, f) for f in gather]
+        if kernel == "K7":
+            want = corner_count2d_gather_pallas(*rq, *rt, deg=deg,
+                                                depth=depth, bq=128)
+            fn, plain = k2d.corner_count2d_gather, \
+                k2d.corner_count2d_gather_plain
+        else:
+            want = corner_eval2d_gather_pallas(*rq, *rt, deg=deg,
+                                               depth=depth, bq=128)
+            fn, plain = k2d.corner_eval2d_gather, \
+                k2d.corner_eval2d_gather_plain
+        args = (*tq, *pt, deg, depth)
+    else:
+        rt = [getattr(rplan, f) for f in scan]
+        pt = [getattr(plan, f) for f in scan]
+        if kernel == "K12":
+            want = corner_count2d_pallas(*rq, *rt, deg=deg, bq=128,
+                                         bh=rplan.bh)
+            fn, plain = k2d.corner_count2d, k2d.corner_count2d_plain
+        else:
+            want = corner_eval2d_pallas(*rq, *rt, deg=deg, bq=128,
+                                        bh=rplan.bh)
+            fn, plain = k2d.corner_eval2d, k2d.corner_eval2d_plain
+        args = (*tq, *pt, deg)
+    got = plain(*args)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    before = fn.launches
+    torch.testing.assert_close(fn(*args), got, rtol=0, atol=0)
+    assert fn.launches == before
+
+
+def test_deep_plan_routes_to_scan_twins():
+    """A plan deeper than 15 levels has no Morton table: the 'cuda'
+    backend's raw path is the scan (K12/K13 plain versions), equal to the
+    descent bit for bit and to the reference's pallas path (its scan
+    kernels) at 1e-9."""
+    rng = np.random.default_rng(21)
+    px = rng.uniform(0, 120, 3000)
+    py = rng.uniform(0, 120, 3000)
+    w = _measure(px, py)
+    rplan_c = r_plan(r_build(px, py, deg=2, delta=20.0, max_depth=16))
+    rplan_m = r_plan(r_build(px, py, measures=w, agg="min2d", deg=2,
+                             delta=4.0, max_depth=16))
+    qa, qc = rng.uniform(0, 110, 200), rng.uniform(0, 110, 200)
+    rect = (qa, qa + rng.uniform(1, 30, 200), qc, qc + rng.uniform(1, 30, 200))
+    ci = rng.integers(0, 3000, 200)
+    for rplan, ranges in ((rplan_c, rect), (rplan_m, (px[ci], py[ci]))):
+        plan = port_plan(rplan)
+        assert plan.leaf_z is None and plan.xcuts is None
+        raw = _raw_cuda_plain(plan, ranges)
+        x0, x1, y0, y1 = plan.root
+        descent = Engine(backend="torch").query(plan, *ranges).approx
+        torch.testing.assert_close(-raw if plan.agg == "min2d" else raw,
+                                   descent, rtol=0, atol=0)
+        want = REngine(backend="pallas").query(rplan, *ranges).approx
+        np.testing.assert_allclose(descent.numpy(), np.asarray(want), **TOL)
