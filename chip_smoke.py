@@ -67,7 +67,7 @@ Phases, each of which fails the run with a non-zero exit:
               raise;
 10. 2d      - PolyFit.fit of four static two-key tables over OSM-like
               points (cut as the CUT lines say): ``osm`` COUNT rectangles
-              (200k points, delta 50, deg 3), ``osm_sum`` SUM rectangles
+              (100k points, delta 50, deg 3), ``osm_sum`` SUM rectangles
               (50k, delta 2,500), ``osm_max`` / ``osm_min`` dominance
               MAX / MIN (20k, delta 10, deg 2).  One mixed batch of 65,536
               rectangles a rectangle table and 65,536 data-anchored
@@ -84,12 +84,34 @@ Phases, each of which fails the run with a non-zero exit:
               ``osm``'s plan (max abs error 0; K12 and K13 on its full
               flat table), K7 to K12 on corners on the split lines, K8 on
               the dominance plans and K12/K13 on the deep ones, and each is
-              timed on ``osm``'s plan.
+              timed on ``osm``'s plan;
+11. dyn2d   - PolyFit.fit of three dynamic two-key tables
+              (TableSpec(dynamic=True), capacity 4,096) over OSM-like
+              points: ``osm_dyn`` COUNT (100k, delta 50, deg 3),
+              ``osm_sum_dyn`` SUM (40k, delta 2,500, deg 2), ``osm_min_dyn``
+              dominance MIN (20k, delta 10, deg 2).  A hot-box step (1,024
+              inserts in one square degree at a metro core, and the 256
+              base points nearest its center deleted; 64 on the MIN table,
+              whose deletes shadow their victims) is queried while
+              buffered, then flushed (``last_refit_stats``: no rebuild,
+              fewer leaves refit than there are); one MIN insert above
+              every measure (below the frozen floor in MAX space) must
+              merge at once; the merged state is queried; a buffer-full
+              step (3,072 inserts and 1,024 deletes a table, no merge) is
+              queried last.  Each state: 65,536 rectangles or corners a
+              table under Q_abs and Q_rel, checked against dense truth on
+              the card over the live multisets (rectangles within 4 x the
+              live certified delta, corners 1 x, Q_rel within 1%); the
+              counters must show K9 4, K10 4, K11 2, K7 4, K8 2 and K1;
+              K9-K11, K1, K7 and K8 are held to their plain versions at the
+              path's shapes (max abs error 0), and K9-K11 are timed on the
+              full 4,096-slot logs.
 
 The line before last is the card's nvidia-smi name and power limit, the
 line before that the kernels' JSON record: one row a kernel, whose own
-numbers are the dynamic phase's (TWEET at the paper's 1M; the 2-D kernels'
-the 2d phase's) and whose ``launches`` sums every phase, with ``by_phase``
+numbers are the dynamic phase's (TWEET at the paper's 1M; the 2-D leaf
+kernels' the 2d phase's, K9-K11's the dyn2d phase's) and whose
+``launches`` sums every phase, with ``by_phase``
 giving each phase's launches, shape, times and bound; the last line is the
 result.
 Imports nothing of JAX or of the reference package.
@@ -131,13 +153,20 @@ N_EPOCH = 131_072
 INGEST_ROWS = 4096
 WINDOW_RING = 4
 # the 2d phase: OSM-like points (the generator's default 1M, the paper's
-# OSM 100M), cut so that the host builds take about 150 s; measures
-# w = 50 + 10 sin(x/10) + 10 cos(y/15) on the SUM, MAX and MIN tables
-N_OSM = 200_000
+# OSM 100M), cut so that its host builds take about 110 s and the dyn2d
+# phase's about 70 s; measures w = 50 + 10 sin(x/10) + 10 cos(y/15) on the
+# SUM, MAX and MIN tables
+N_OSM = 100_000
 N_OSM_SUM = 50_000
 N_OSM_EXT = 20_000
 N_OSM_DEEP = 20_000
 DEEP_DEPTH = 16             # past MAX_MORTON_DEPTH: the scan kernels
+# the dyn2d phase: dynamic two-key tables over OSM-like points, cut from the
+# generator's 1M (osm_sum_dyn at the size of the reference's own 2-D update
+# bench, benchmarks/bench_updates.py run2d); capacity 4,096 as above
+N_OSM_DYN = 100_000
+N_OSM_SUM_DYN = 40_000
+N_OSM_MIN_DYN = 20_000
 NQ = 65_536                 # ranges per table in the main-path batch
 SEED = 7
 EPS_REL = 0.01
@@ -160,6 +189,9 @@ REPLACES = {
     "corner_eval2d_gather": "src/repro/kernels/leaf_eval2d.py:134",
     "corner_count2d": "src/repro/kernels/leaf_eval2d.py:278",
     "corner_eval2d": "src/repro/kernels/leaf_eval2d.py:193",
+    "delta_count2d_gather": "src/repro/kernels/delta_scan.py:280",
+    "delta_sum2d_gather": "src/repro/kernels/delta_scan.py:378",
+    "delta_dommax2d_gather": "src/repro/kernels/delta_scan.py:461",
 }
 SOURCE = {name: "src/repro_torch/csrc/polyfit_kernels.cu" for name in REPLACES}
 SOURCE["quantile_invert"] = "src/repro_torch/csrc/quantile.cu"
@@ -167,6 +199,10 @@ KERNELS_2D = ("corner_count2d_gather", "corner_eval2d_gather",
               "corner_count2d", "corner_eval2d")
 for _name in KERNELS_2D:
     SOURCE[_name] = "src/repro_torch/csrc/leaf_eval2d.cu"
+KERNELS_DYN2D = ("delta_count2d_gather", "delta_sum2d_gather",
+                 "delta_dommax2d_gather")
+for _name in KERNELS_DYN2D:
+    SOURCE[_name] = "src/repro_torch/csrc/delta2d.cu"
 METHODS = ("linear", "lower", "higher", "nearest", "midpoint")
 
 
@@ -415,8 +451,10 @@ def kernel_row(name, phases, err):
     phase that launched it to (launches, its measure() at that phase's
     shapes, or None where it was not timed there); the row's own numbers
     are the dynamic phase's (TWEET at the paper's 1M), the 2d phase's for
-    the 2-D kernels, and ``launches`` sums them all."""
-    head = phases["2d" if name in KERNELS_2D else "dynamic"][1]
+    the 2-D leaf kernels, the dyn2d phase's for K9-K11, and ``launches``
+    sums them all."""
+    head = phases["2d" if name in KERNELS_2D else
+                  "dyn2d" if name in KERNELS_DYN2D else "dynamic"][1]
     return {"name": name, "route": "cuda", "source": SOURCE[name],
             "replaces": REPLACES[name],
             "launches": sum(n for n, _ in phases.values()),
@@ -500,6 +538,14 @@ def horner2d_flops(deg: int) -> int:
     """f64 operations of one leaf evaluation: the two scaled coordinates
     (5 each) and Horner in v inside Horner in u (2 (deg+1)^2 + 2 (deg+1))."""
     return 10 + 2 * (deg + 1) ** 2 + 2 * (deg + 1)
+
+
+def mst_probes(cap: int) -> int:
+    """Dependent probes of one corner over a (cap.bit_length(), cap)
+    merge-sort tree: the x-rank's binary search and (l + 1) rounds a
+    level."""
+    levels = cap.bit_length()
+    return probe_rounds(cap) + levels * (levels + 1) // 2
 
 
 # ---------------------------------------------------------------------------
@@ -590,6 +636,79 @@ def extremal_victims(rng, live, extreme):
     live.deleted[pick] = True
     live.hot.append((live.base[w0], live.base[w0 + WINDOW - 1]))
     return live.base[pick]
+
+
+# ---------------------------------------------------------------------------
+# the dyn2d phase's data: host mirrors of the live point multisets
+# ---------------------------------------------------------------------------
+
+DYN2D = ("osm_dyn", "osm_sum_dyn", "osm_min_dyn")
+# one degree square at the core of one metro cluster (x = latitude)
+HOT_BOX = (40.2, 41.2, -74.5, -73.5)
+HOT2D_INSERTS, HOT2D_DELETES, HOT2D_VICTIMS = 1024, 256, 64
+FULL2D_DELETES = 1024
+MIN_ABOVE_MAX = 75.0        # a MIN measure above every osm_measure value
+
+
+class Live2D:
+    """One dynamic two-key table's live point multiset on the host."""
+
+    def __init__(self, x, y, w):
+        self.x, self.y = np.array(x), np.array(y)
+        self.w = None if w is None else np.array(w)
+        self.bx, self.by = self.x.copy(), self.y.copy()   # the fitted points
+        self.used = np.zeros(len(self.x), bool)          # deleted base points
+
+    def insert(self, x, y, w=None):
+        self.x = np.concatenate([self.x, x])
+        self.y = np.concatenate([self.y, y])
+        if self.w is not None:
+            self.w = np.concatenate([self.w, w])
+
+    def delete(self, x, y):
+        """Remove one occurrence of each (x, y)."""
+        pos = {}
+        for i, k in enumerate(zip(self.x.tolist(), self.y.tolist())):
+            pos.setdefault(k, []).append(i)
+        keep = np.ones(len(self.x), bool)
+        for k in zip(x.tolist(), y.tolist()):
+            check(bool(pos.get(k)), "deleting a missing point")
+            keep[pos[k].pop()] = False
+        self.x, self.y = self.x[keep], self.y[keep]
+        if self.w is not None:
+            self.w = self.w[keep]
+
+    def pick(self, idx):
+        """The base points ``idx`` (not yet deleted); marks them."""
+        check(not self.used[idx].any(), "a base point deleted twice")
+        self.used[idx] = True
+        return self.bx[idx], self.by[idx]
+
+    def nearest(self, m, cx, cy):
+        """Indices of the m undeleted base points nearest (cx, cy)."""
+        d = np.hypot(self.bx - cx, self.by - cy)
+        d[self.used] = np.inf
+        return np.argsort(d, kind="stable")[:m]
+
+    def queries(self, make_queries_2d, seed, corners):
+        """NQ rectangles (or corners at live points): three quarters over
+        the whole table, a quarter at live points in or near the hot box."""
+        rng = np.random.default_rng(seed)
+        x0, x1, y0, y1 = HOT_BOX
+        near = np.flatnonzero((self.x >= x0 - 1) & (self.x <= x1 + 1)
+                              & (self.y >= y0 - 1) & (self.y <= y1 + 1))
+        m = NQ // 4
+        if corners:
+            ci = np.concatenate([rng.integers(0, len(self.x), NQ - m),
+                                 near[rng.integers(0, len(near), m)]])
+            return self.x[ci], self.y[ci]
+        lx, ux, ly, uy = make_queries_2d(self.x, self.y, NQ - m, seed=seed)
+        ci = near[rng.integers(0, len(near), m)]
+        wx, wy = rng.uniform(0.2, 2.0, (2, m))
+        return (np.concatenate([lx, self.x[ci] - wx / 2]),
+                np.concatenate([ux, self.x[ci] + wx / 2]),
+                np.concatenate([ly, self.y[ci] - wy / 2]),
+                np.concatenate([uy, self.y[ci] + wy / 2]))
 
 
 # ---------------------------------------------------------------------------
@@ -710,7 +829,8 @@ def main() -> None:
                 kq.quantile_invert, kdel.delta_sum_gather,
                 kdel.delta_max_gather, k2d.corner_count2d_gather,
                 k2d.corner_eval2d_gather, k2d.corner_count2d,
-                k2d.corner_eval2d)
+                k2d.corner_eval2d, kdel.delta_count2d_gather,
+                kdel.delta_sum2d_gather, kdel.delta_dommax2d_gather)
     phase_launches = {}         # phase -> kernel -> launches on its main path
 
     def reset():
@@ -1519,6 +1639,228 @@ def main() -> None:
         profile_batch(torch, session2, batch2d(rel),
                       f"2d: session.query {label}")
     del session2
+
+    # -- 11. dynamic two-key tables ------------------------------------------
+    torch.cuda.empty_cache()
+    for name, n in (("osm_dyn", N_OSM_DYN), ("osm_sum_dyn", N_OSM_SUM_DYN),
+                    ("osm_min_dyn", N_OSM_MIN_DYN)):
+        print(f"CUT: {name} n 1000000 -> {n}")
+    rng2 = np.random.default_rng(SEED + 700)
+    cpx, cpy = osm_points(N_OSM_DYN, seed=6)
+    spx2, spy2 = osm_points(N_OSM_SUM_DYN, seed=8)
+    sw2 = osm_measure(spx2, spy2)
+    mpx, mpy = osm_points(N_OSM_MIN_DYN, seed=9)
+    mw = osm_measure(mpx, mpy)
+    live2 = {"osm_dyn": Live2D(cpx, cpy, None),
+             "osm_sum_dyn": Live2D(spx2, spy2, sw2),
+             "osm_min_dyn": Live2D(mpx, mpy, mw)}
+    dsession2 = fit(
+        {"osm_dyn": (cpx, cpy), "osm_sum_dyn": (spx2, spy2, sw2),
+         "osm_min_dyn": (mpx, mpy, mw)},
+        {"osm_dyn": TableSpec("count2d", ErrorBudget(abs=200.0), **dyn_spec),
+         "osm_sum_dyn": TableSpec("sum2d", ErrorBudget(abs=1e4), deg=2,
+                                  **dyn_spec),
+         "osm_min_dyn": TableSpec("min2d", ErrorBudget(abs=10.0), deg=2,
+                                  **dyn_spec)}, "dyn2d ")
+
+    def batch_dyn2d(q, rel):
+        return QueryBatch.of(
+            QuerySpec.rect("osm_dyn", *q["osm_dyn"], rel=rel),
+            QuerySpec.rect("osm_sum_dyn", *q["osm_sum_dyn"], rel=rel),
+            QuerySpec.corner("osm_min_dyn", *q["osm_min_dyn"], rel=rel))
+
+    def dyn2d_state(tag, seed):
+        """One state of the dynamic two-key tables: the main path (a Q_abs
+        and a Q_rel batch), every answer against dense truth over the live
+        multisets on the card, the launch counts, and K9-K11 (and K1, K7,
+        K8) held to their plain versions at the shapes the path gave
+        them."""
+        q = {name: live2[name].queries(make_queries_2d, seed + i,
+                                       name == "osm_min_dyn")
+             for i, name in enumerate(DYN2D)}
+        victims = dsession2.snapshot("osm_min_dyn")[1].vic_x is not None
+        reset()
+        answers, main_s = {}, {}
+        for label, rel in (("Q_abs", None), ("Q_rel", EPS_REL)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            answers[label] = dsession2.query(batch_dyn2d(q, rel))
+            torch.cuda.synchronize()
+            main_s[label] = time.perf_counter() - t0
+        launches = read("dyn2d")
+        want = {"delta_count2d_gather": 4, "delta_sum2d_gather": 4,
+                "delta_dommax2d_gather": 2, "corner_count2d_gather": 4,
+                "corner_eval2d_gather": 2, "corner_count2d": 0,
+                "corner_eval2d": 0, "locate": 4 + (2 if victims else 1)}
+        print(f"{tag}main path: launches {launches}, first-call seconds "
+              f"{main_s}; staleness "
+              f"{ {n: a.staleness for n, a in zip(DYN2D, answers['Q_abs'])} }",
+              flush=True)
+        check(all(launches[k] == v for k, v in want.items()),
+              f"{tag}launches {launches}, expected {want}")
+        t0 = time.perf_counter()
+        qd = {name: on_dev(*q[name]) for name in DYN2D}
+        lv = {name: on_dev(*(a for a in (live2[name].x, live2[name].y,
+                                          live2[name].w) if a is not None))
+              for name in DYN2D}
+        truth = {"osm_dyn": dense_rect(torch, *lv["osm_dyn"], None,
+                                       *qd["osm_dyn"]),
+                 "osm_sum_dyn": dense_rect(torch, *lv["osm_sum_dyn"],
+                                           *qd["osm_sum_dyn"]),
+                 "osm_min_dyn": dense_dominance(torch, *lv["osm_min_dyn"],
+                                                *qd["osm_min_dyn"], "min")}
+        torch.cuda.synchronize()
+        print(f"{tag}dense truth on the card in "
+              f"{time.perf_counter() - t0!r} s", flush=True)
+        check_2d(tag, DYN2D, answers, truth,
+                 {name: dsession2.certified_delta(name) for name in DYN2D})
+        # K9-K11 (both logs, insert log) and K1, K7, K8 at the path's shapes
+        sets = {k: [] for k in ("delta_count2d_gather", "delta_sum2d_gather",
+                                "delta_dommax2d_gather", "locate",
+                                "corner_count2d_gather",
+                                "corner_eval2d_gather")}
+        for name in DYN2D:
+            plan, buf = dsession2.snapshot(name)
+            g, _ = tables(plan)
+            c = clamped(plan, qd[name])
+            if name == "osm_min_dyn":
+                sets["delta_dommax2d_gather"].append(
+                    (*qd[name], buf.ins_x, buf.ins_ylv, buf.ins_wpmax))
+                sets["corner_eval2d_gather"].append(
+                    (*c, *g, plan.deg, plan.max_depth))
+                sets["locate"].append((qd[name][0], plan.ref_xs))
+                continue
+            for p_ in ("ins_", "del_"):
+                log = [getattr(buf, p_ + f) for f in ("x", "ylv", "wcum")]
+                if name == "osm_dyn":
+                    sets["delta_count2d_gather"].append((*qd[name], *log[:2]))
+                else:
+                    sets["delta_sum2d_gather"].append((*qd[name], *log))
+            sets["corner_count2d_gather"].append(
+                (*c, *g, plan.deg, plan.max_depth))
+            sets["locate"] += [(qd[name][0], plan.ref_xs),
+                               (qd[name][1], plan.ref_xs)]
+        plain = {"locate": lambda q, k: kloc.locate_segments(k, q),
+                 "corner_count2d_gather": k2d.corner_count2d_gather_plain,
+                 "corner_eval2d_gather": k2d.corner_eval2d_gather_plain}
+        for k, args in sets.items():
+            mod = kloc if k == "locate" else k2d if k in plain else kdel
+            hold(k, getattr(mod, k), plain.get(k) or getattr(
+                kdel, k + "_plain"), args, exact=True)
+        print(f"{tag}parity K9/K10/K11/K1/K7/K8 on "
+              f"{'/'.join(str(len(v)) for v in sets.values())} argument "
+              f"sets: max |kernel - plain| = "
+              f"{ {k: errs[k] for k in sets} }", flush=True)
+        return q, sets
+
+    def update2d(name, ins, gone):
+        """Insert (xs, ys[, ws]) and delete the base points ``gone`` (an
+        index array) on one table and its host mirror."""
+        lv = live2[name]
+        gx, gy = lv.pick(gone)
+        t0 = time.perf_counter()
+        dsession2.insert(name, *ins)
+        dsession2.delete(name, gx, gy)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        lv.insert(*ins)
+        lv.delete(gx, gy)
+        print(f"dyn2d: {name} took {len(ins[0])} inserts and {len(gx)} "
+              f"deletes in {secs!r} s", flush=True)
+
+    def new_points(name, m, box=None):
+        """m new points (uniform in ``box``, else OSM-like), with measures
+        for the SUM and MIN tables."""
+        if box is None:
+            x, y = osm_points(m, seed=int(rng2.integers(100, 10_000)))
+        else:
+            x = rng2.uniform(box[0], box[1], m)
+            y = rng2.uniform(box[2], box[3], m)
+        return (x, y) if name == "osm_dyn" else (x, y, osm_measure(x, y))
+
+    # step 1: a hot box, queried while buffered, then merged
+    cx, cy = 0.5 * (HOT_BOX[0] + HOT_BOX[1]), 0.5 * (HOT_BOX[2] + HOT_BOX[3])
+    for name in DYN2D:
+        m = HOT2D_VICTIMS if name == "osm_min_dyn" else HOT2D_DELETES
+        update2d(name, new_points(name, HOT2D_INSERTS, HOT_BOX),
+                 live2[name].nearest(m, cx, cy))
+    dyn2d_state("dyn2d hot box, buffered: ", SEED + 710)
+    for name in DYN2D:
+        dyn = dsession2._dyn(name)
+        leaves = dyn.plan.n_leaves
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dsession2.flush(name)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        stats = dyn.last_refit_stats
+        print(f"dyn2d hot box: merge {name}: {secs!r} s, refit_count "
+              f"{dyn.refit_count}, leaves {leaves} -> {dyn.plan.n_leaves}, "
+              f"stats {stats}, certified_delta "
+              f"{dsession2.certified_delta(name)!r}", flush=True)
+        check(not stats["rebuild"] and stats["refit"] < stats["n_leaves"],
+              f"dyn2d: the hot-box merge of {name} refit {stats}")
+    # a MIN measure above every other one sits below the frozen floor (in
+    # MAX space): the insert merges at once
+    dyn = dsession2._dyn("osm_min_dyn")
+    before = dyn.refit_count
+    ins = (np.array([cx]), np.array([cy]), np.array([MIN_ABOVE_MAX]))
+    t0 = time.perf_counter()
+    dsession2.insert("osm_min_dyn", *ins)
+    torch.cuda.synchronize()
+    live2["osm_min_dyn"].insert(*ins)
+    print(f"dyn2d: below-floor insert into osm_min_dyn merged in "
+          f"{time.perf_counter() - t0!r} s: refit_count {before} -> "
+          f"{dyn.refit_count}, pending {dyn.n_pending}, stats "
+          f"{dyn.last_refit_stats}", flush=True)
+    check(dyn.refit_count == before + 1 and dyn.n_pending == 0,
+          "dyn2d: the below-floor insert did not merge once")
+    dyn2d_state("dyn2d hot box, merged: ", SEED + 720)
+
+    # step 2: a full buffer (CAPACITY pending ops a table), no merge
+    for name in DYN2D:
+        lv = live2[name]
+        free = np.flatnonzero(~lv.used)
+        update2d(name, new_points(name, CAPACITY - FULL2D_DELETES),
+                 rng2.choice(free, FULL2D_DELETES, replace=False))
+    check(all(dsession2._dyn(n).n_pending == CAPACITY for n in DYN2D),
+          "dyn2d: the buffer-full step merged or lost an op")
+    tag = "dyn2d buffer full: "
+    q2, sets = dyn2d_state(tag, SEED + 730)
+
+    # K9, K10 and K11 on the full 4,096-slot insert logs
+    cap = CAPACITY
+    levels = cap.bit_length()
+    probes = mst_probes(cap)
+    table = cap * 8 + levels * cap * 8          # the x keys and the levels
+    timed["dyn2d"] = {
+        "delta_count2d_gather": measure(
+            torch, tag, "delta_count2d_gather", kdel.delta_count2d_gather,
+            kdel.delta_count2d_gather_plain,
+            sets["delta_count2d_gather"][0], None, 5 * Q * 8 + table,
+            Q * (4 * probes + 3),
+            f"lx, ux, ly, uy ({Q},); keys_x ({cap},); ys_levels ({levels}, "
+            f"{cap}) f64 -> ({Q},)"),
+        "delta_sum2d_gather": measure(
+            torch, tag, "delta_sum2d_gather", kdel.delta_sum2d_gather,
+            kdel.delta_sum2d_gather_plain, sets["delta_sum2d_gather"][0],
+            None, 5 * Q * 8 + table + levels * cap * 8,
+            Q * (4 * (probes + levels) + 3),
+            f"lx, ux, ly, uy ({Q},); keys_x ({cap},); ys_levels, "
+            f"wcum_levels ({levels}, {cap}) f64 -> ({Q},)"),
+        "delta_dommax2d_gather": measure(
+            torch, tag, "delta_dommax2d_gather", kdel.delta_dommax2d_gather,
+            kdel.delta_dommax2d_gather_plain,
+            sets["delta_dommax2d_gather"][0], None,
+            3 * Q * 8 + table + levels * cap * 8, Q * (probes + levels),
+            f"u, v ({Q},); keys_x ({cap},); ys_levels, wpmax_levels "
+            f"({levels}, {cap}) f64 -> ({Q},)")}
+    for label, rel in (("Q_abs", None), ("Q_rel", EPS_REL)):
+        query_latency(torch, dsession2, batch_dyn2d(q2, rel),
+                      f"{tag}session.query {label}", 3 * NQ)
+        profile_batch(torch, dsession2, batch_dyn2d(q2, rel),
+                      f"{tag}session.query {label}")
+    del dsession2
 
     rows = []
     for c in counters:

@@ -1,5 +1,5 @@
 """The ``PolyFit`` session facade for one-key tables (static, dynamic,
-windowed) and static two-key tables.
+windowed) and two-key tables (static, dynamic).
 
 The twin of ``repro.api.session``:
 
@@ -33,6 +33,8 @@ table (``count2d``/``sum2d`` rectangles through ``QuerySpec.rect``,
 ``max2d``/``min2d`` dominance corners through ``QuerySpec.corner``) takes
 ``(xs, ys)`` or ``(xs, ys, measures)`` and is fitted as a quadtree
 (``build_index_2d``); its specs mix freely with one-key specs in a batch.
+A dynamic two-key table sits behind a ``DynamicEngine2D`` and takes
+``insert(table, xs, ys[, measures])`` and ``delete(table, xs, ys)``.
 """
 from __future__ import annotations
 
@@ -45,9 +47,9 @@ import torch
 
 from .. import DTYPE, resolve_device
 from ..core import AGGS_2D, build_index_1d, build_index_2d
-from ..engine import (DynamicEngine, IndexPlan, IndexPlan2D, WindowEngine,
-                      build_plan, build_plan_2d, execute, execute_quantile,
-                      resolve_backend)
+from ..engine import (DynamicEngine, DynamicEngine2D, IndexPlan, IndexPlan2D,
+                      WindowEngine, build_plan, build_plan_2d, execute,
+                      execute_quantile, resolve_backend)
 from .budget import ErrorBudget
 from .spec import DEFAULT_REL, KIND_OF_AGG, QueryBatch, QuerySpec, TableSpec
 
@@ -89,28 +91,32 @@ class Answer:
 
 class _Table:
     """One fitted table: the spec and its device plan, the
-    ``DynamicEngine`` that holds it for a dynamic table, or the
-    ``WindowEngine`` of an epoch-ring table."""
+    ``DynamicEngine`` / ``DynamicEngine2D`` that holds it for a dynamic
+    table, or the ``WindowEngine`` of an epoch-ring table."""
 
     def __init__(self, name: str, spec: TableSpec, data, *,
                  device: torch.device, backend: str, min_bucket: int):
         self.name = name
         self.spec = spec
-        self.dyn: Optional[DynamicEngine] = None
+        self.dyn: Union[DynamicEngine, DynamicEngine2D, None] = None
         self.win: Optional[WindowEngine] = None
         self._static_plan: Union[IndexPlan, IndexPlan2D, None] = None
         agg, delta = spec.agg, spec.budget.delta(spec.agg)
+        self._certified = float(delta)
         t0 = time.perf_counter()
-        # the error every leaf is certified to: delta, unless a 2-D leaf
-        # stopped at max_depth with residual error
-        self.certified_delta = float(delta)
         if agg in AGGS_2D:
             xs, ys, ws = (None if a is None else np.asarray(a, np.float64)
                           for a in data)
             idx = build_index_2d(xs, ys, measures=ws, agg=agg,
                                  deg=spec.degree, delta=delta, device=device)
-            self.certified_delta = idx.certified_delta
-            self._static_plan = build_plan_2d(idx)
+            if spec.dynamic:
+                self.dyn = DynamicEngine2D(
+                    idx, backend=backend, capacity=spec.capacity,
+                    background=spec.background, auto_refit=spec.auto_refit,
+                    min_bucket=min_bucket)
+            else:
+                self._certified = idx.certified_delta
+                self._static_plan = build_plan_2d(idx)
             self.build_seconds = time.perf_counter() - t0
             return
         keys, meas = data
@@ -132,6 +138,15 @@ class _Table:
             else:
                 self._static_plan = build_plan(idx)
         self.build_seconds = time.perf_counter() - t0
+
+    @property
+    def certified_delta(self) -> float:
+        """The error every leaf is certified to: delta, unless a 2-D leaf
+        stopped at max_depth with residual error; a dynamic 2-D table's
+        follows its live index through merges."""
+        if isinstance(self.dyn, DynamicEngine2D):
+            return self.dyn.index.certified_delta
+        return self._certified
 
     @property
     def plan(self) -> Union[IndexPlan, IndexPlan2D]:
@@ -389,7 +404,7 @@ class PolyFit:
 
     # -- updates (dynamic tables) ----------------------------------------
 
-    def _dyn(self, table: str) -> DynamicEngine:
+    def _dyn(self, table: str) -> Union[DynamicEngine, DynamicEngine2D]:
         t = self._table(table)
         if t.dyn is None:
             raise RuntimeError(f"table {table!r} is static; fit it with "
@@ -397,12 +412,13 @@ class PolyFit:
         return t.dyn
 
     def insert(self, table: str, *args) -> None:
-        """Buffer new records: ``(keys[, measures])``.  Queries fold them
-        in exactly."""
+        """Buffer new records: ``(keys[, measures])``, or ``(xs, ys[,
+        measures])`` for a two-key table.  Queries fold them in exactly."""
         self._dyn(table).insert(*args)
 
     def delete(self, table: str, *args) -> None:
-        """Buffer delete tombstones for existing records."""
+        """Buffer delete tombstones for existing records: ``(keys)``, or
+        ``(xs, ys)`` for a two-key table."""
         self._dyn(table).delete(*args)
 
     def flush(self, table: Optional[str] = None) -> None:

@@ -1,9 +1,9 @@
 """Declarative request/fit descriptions for the ``PolyFit`` session facade.
 
 The twin of ``repro.api.spec`` for static, dynamic and windowed one-key
-tables and static two-key tables.  ``QuerySpec`` names a fitted table and
-carries the query ranges (scalars or equal-length batches): ``(lq, uq)``
-for one key, ``(lx, ux, ly, uy)`` for a 2-D rectangle, ``(u, v)`` for a
+tables and static and dynamic two-key tables.  ``QuerySpec`` names a
+fitted table and carries the query ranges (scalars or equal-length
+batches): ``(lq, uq)`` for one key, ``(lx, ux, ly, uy)`` for a 2-D rectangle, ``(u, v)`` for a
 2-D dominance corner — or, for ``kind='quantile'``, the rank fractions
 alone, and for ``kind='window'`` an inclusive epoch interval ``params=(t0,
 t1)`` beside the range; ``QueryBatch`` is an ordered tuple of specs that
@@ -14,8 +14,8 @@ scatters answers back in request order.
 ``TableSpec`` is the fit-time counterpart: aggregate family, ``ErrorBudget``
 (the only source of build deltas — see ``budget.py``), degree, the delta
 buffer of a ``dynamic`` table and the epoch ring of a ``window`` table.
-Dynamic 2-key tables, LSM and sharded tables come with their slices and
-raise ``NotImplementedError`` naming them.
+LSM and sharded tables come with their slices and raise
+``NotImplementedError`` naming them.
 """
 from __future__ import annotations
 
@@ -46,7 +46,7 @@ KIND_OF_AGG = {"count": "count", "sum": "sum", "max": "max", "min": "min",
                "min2d": "min"}
 
 # ROADMAP Queue 1 items of what the port does not serve yet
-_LATER = {"dynamic 2-D tables": 13, "LSM tables": 12, "sharded tables": 14}
+_LATER = {"LSM tables": 12, "sharded tables": 14}
 
 
 def not_ported(what: str) -> NotImplementedError:
@@ -177,10 +177,11 @@ class TableSpec:
     queries).  ``budget``: the table's ``ErrorBudget`` — the *only* place
     the build delta comes from.  ``deg`` defaults to 2 for SUM/COUNT and 3
     for MAX/MIN/2-D (the paper's recommendations).  ``dynamic`` wraps the
-    plan in a delta-buffered engine (inserts/deletes without rebuild; one
-    key only so far): ``capacity`` is the buffer's size (a power of two),
+    plan in a delta-buffered engine (inserts/deletes without rebuild, one
+    key or two): ``capacity`` is the buffer's size (a power of two),
     ``background`` runs merges on a worker thread, ``auto_refit`` merges
-    when the buffer fills or a segment's drift passes its headroom.  ``window`` (the number of sealed epochs to retain) makes
+    when the buffer fills (or, for one key, when a segment's drift passes
+    its headroom).  ``window`` (the number of sealed epochs to retain) makes
     an epoch-ring table that takes ``ingest``/``advance_epoch`` and answers
     window queries; ``capacity`` is then the open epoch's buffer.  ``lsm``
     and ``shards`` name the execution stacks of later slices and raise
@@ -213,8 +214,6 @@ class TableSpec:
             if self.dynamic or self.lsm or self.shards:
                 raise ValueError("window tables manage their own epoch "
                                  "ring; dynamic/lsm/shards do not apply")
-        if self.agg.endswith("2d") and self.dynamic:
-            raise not_ported("dynamic 2-D tables")
         if self.lsm:
             raise not_ported("LSM tables")
         if self.shards is not None:

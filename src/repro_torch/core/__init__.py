@@ -10,7 +10,8 @@ from .index import (PolyFitIndex1D, assemble_index_1d, build_index_1d,
                     index_from_numpy)
 from .index2d import (AGGS_2D, MergeSortTree, PolyFitIndex2D, build_index_2d,
                       count_dominated, dominance_rank, index2d_from_numpy,
-                      query_count_2d, query_dommax_2d, query_sum_2d)
+                      query_count_2d, query_dommax_2d, query_sum_2d,
+                      selective_refit_2d)
 from .poly import (clipped_poly_max, eval_segments, fma, horner, horner_fma,
                    locate, scale_unit)
 from .quantile import (boundary_array, certified_quantile,
@@ -27,7 +28,7 @@ __all__ = [
     "AGGS_2D", "MergeSortTree", "PolyFitIndex2D", "build_index_2d",
     "count_dominated", "dominance_rank", "index2d_from_numpy",
     "query_count_2d", "query_sum_2d", "query_dommax_2d",
-    "ExactMax", "ExactSum", "build_sparse_table", "sparse_table_range_max",
+    "selective_refit_2d", "ExactMax", "ExactSum", "build_sparse_table", "sparse_table_range_max",
     "QueryResult", "max_eval_segments", "poly_max_on_interval", "query_max",
     "query_sum", "clipped_poly_max", "eval_segments", "fma", "horner",
     "horner_fma", "locate",

@@ -1,6 +1,6 @@
 """PolyFit with two keys (paper §6): quadtree-segmented bivariate surfaces.
 
-The twin of the static part of ``repro.core.index2d``.  Pipeline:
+The twin of ``repro.core.index2d``.  Pipeline:
 
 1. The fitted function per aggregate family:
    * ``count2d`` — ``CF_count(u, v)`` = #points with x<=u and y<=v (Def. 6.2);
@@ -28,8 +28,9 @@ Construction runs on the host with numpy and scipy, with the reference's
 own code (the same LPs, the same ``default_rng(0xF17)`` subsample draws in
 the same order), so the port's tree equals the reference's node for node;
 the built index lives on the query device as float64 tensors.
-``selective_refit_2d`` comes with the dynamic 2-D slice (ROADMAP Queue 1
-item 13).
+``selective_refit_2d`` absorbs a merged update batch by refitting only the
+leaves the changed points' dominance boundaries cross (the merge pass of
+``engine.DynamicEngine2D``).
 """
 from __future__ import annotations
 
@@ -49,6 +50,7 @@ __all__ = [
     "query_count_2d", "query_sum_2d", "query_dommax_2d",
     "mst_count_prefix", "mst_weighted_prefix", "mst_cf", "mst_cf_sum",
     "mst_dommax", "quadtree_locate", "quadtree_eval_cf", "bivariate_horner",
+    "selective_refit_2d",
 ]
 
 AGGS_2D = ("count2d", "sum2d", "max2d", "min2d")
@@ -726,6 +728,159 @@ def _node_depths(children: np.ndarray) -> np.ndarray:
                 depth[c] = depth[node] + 1
                 stack.append(int(c))
     return depth
+
+
+def selective_refit_2d(
+    index: PolyFitIndex2D,
+    px: np.ndarray,
+    py: np.ndarray,
+    w: np.ndarray,
+    changed_x: np.ndarray,
+    changed_y: np.ndarray,
+    changed_w: np.ndarray,
+    *,
+    grid: int = 8,
+    max_fit_points: int = 2048,
+    fast_accept: bool = True,
+    keep_exact: bool = True,
+) -> Tuple[PolyFitIndex2D, dict]:
+    """Absorb a merged update batch by refitting *only* the dirty leaves.
+
+    ``px, py, w`` is the merged dataset (w in *internal* space — negated
+    for min2d, unit for count2d); ``changed_*`` lists every inserted or
+    deleted point with its signed internal measure (+w insert, -w delete).
+
+    A changed point (x0, y0) alters a CF-type F only on its dominance
+    region {u >= x0, v >= y0}:
+
+    * leaves wholly inside it see an exact *constant* shift (every point of
+      the leaf dominates (x0, y0)), absorbed as a constant-coefficient bump
+      that leaves the certified E(I) untouched;
+    * leaves crossed by the region's boundary rays see a non-constant
+      change and are re-fitted against the fresh exact oracle — re-split
+      on the spot while the certificate fails and depth remains;
+    * every other leaf keeps its coefficient row bit for bit.
+
+    For dominance-MAX trees the change is max-composition, so every leaf
+    intersecting a dominance region is re-fitted.  The extremal floor is
+    re-frozen at the merged dataset's minimum; when it moves, every leaf
+    whose raw dominance max dips below the higher of the two floors is
+    re-fitted too.  Points outside the frozen root rectangle force a full
+    rebuild.  Refits run in leaf-slot order on a fresh builder, so its
+    subsample draws repeat the reference's.  The new index lands on the old
+    one's device.
+
+    Returns ``(new_index, stats)`` with stats keys ``n_leaves`` (before),
+    ``refit``, ``split`` (leaves that re-split), ``shifted``, ``rebuild``,
+    ``floor_refit`` (clean leaves re-fitted only because the floor moved;
+    absent after a rebuild).
+    """
+    agg, deg, delta = index.agg, index.deg, index.delta
+    max_depth = index.max_depth
+    device = index.device
+    px = np.asarray(px, np.float64)
+    py = np.asarray(py, np.float64)
+    w = np.asarray(w, np.float64)
+    x0r, x1r, y0r, y1r = index.root_bounds
+    if (px.min() < x0r or px.max() > x1r
+            or py.min() < y0r or py.max() > y1r):
+        meas = None
+        if agg != "count2d":
+            meas = -w if agg == "min2d" else w
+        idx = build_index_2d(px, py, measures=meas, agg=agg, deg=deg,
+                             delta=delta, grid=grid, max_depth=max_depth,
+                             max_fit_points=max_fit_points,
+                             fast_accept=fast_accept, keep_exact=keep_exact,
+                             device=device)
+        return idx, {"n_leaves": index.n_leaves, "refit": idx.n_leaves,
+                     "split": 0, "shifted": 0, "rebuild": True}
+
+    extremal = agg in ("max2d", "min2d")
+    tree = MergeSortTree.build(px, py, ws=None if agg == "count2d" else w)
+    xo = np.argsort(px, kind="stable")
+    sx, sy, sw = px[xo], py[xo], w[xo]
+    # re-freeze the floor at the *merged* dataset's minimum: the build-time
+    # floor would leave refit leaves certified against a stale clamp
+    floor = float(sw.min()) if extremal else None
+    builder = _QuadtreeBuilder(sx, sy, _oracle_2d(tree, agg, floor),
+                               deg=deg, delta=delta, grid=grid,
+                               max_depth=max_depth,
+                               max_fit_points=max_fit_points,
+                               fast_accept=fast_accept)
+
+    # host topology (mutable for splits)
+    children_h = _host(index.children)
+    bounds_h = _host(index.bounds)
+    children = [list(r) for r in children_h]
+    bounds = [tuple(float(x) for x in b) for b in bounds_h]
+    depths = list(_node_depths(children_h))
+    leaf_nodes = _host(index.leaf_nodes)
+    old_coeffs = _host(index.coeffs)
+    old_err = (np.asarray(index.leaf_err) if index.leaf_err is not None
+               else np.full(len(leaf_nodes), float(delta)))
+    lb = bounds_h[leaf_nodes]   # (L, 4): x0, x1, y0, y1
+
+    cx = np.asarray(changed_x, np.float64)[None, :]
+    cy = np.asarray(changed_y, np.float64)[None, :]
+    cw = np.asarray(changed_w, np.float64)
+    # (L, C) classification against each changed point's dominance region
+    untouched = (lb[:, 1:2] < cx) | (lb[:, 3:4] < cy)
+    n_floor = 0
+    if extremal:
+        dirty = (~untouched).any(axis=1)
+        old_floor = index.extremal_floor
+        if old_floor is not None and floor != old_floor:
+            # the frozen clamp moved: a leaf whose raw dominance max dips
+            # below the higher floor (its minimum sits at the lower-left
+            # corner, F being bimonotone) answered with the old clamp
+            raw = tree.dommax_np(lb[:, 0], lb[:, 2])
+            floor_dirty = raw < max(old_floor, floor)
+            n_floor = int((floor_dirty & ~dirty).sum())
+            dirty |= floor_dirty
+        shift = np.zeros(len(lb))
+    else:
+        dominated = (lb[:, 0:1] >= cx) & (lb[:, 2:3] >= cy)
+        dirty = (~(untouched | dominated)).any(axis=1)
+        shift = np.where(dirty, 0.0,
+                         np.where(dominated, cw[None, :], 0.0).sum(axis=1))
+
+    node_coef: Dict[int, Tuple[np.ndarray, float]] = {}
+    n_refit = n_split = n_shift = 0
+    for s, node in enumerate(leaf_nodes):
+        node = int(node)
+        if not dirty[s]:
+            c = old_coeffs[s]
+            if shift[s] != 0.0:
+                c = c.copy()
+                c[0] += shift[s]   # the u^0 v^0 term: an exact CF bump
+                n_shift += 1
+            node_coef[node] = (c, float(old_err[s]))
+            continue
+        x0, x1, y0, y1 = lb[s]
+        coef, err = builder.fit_region(x0, x1, y0, y1)
+        n_refit += 1
+        if err <= delta or depths[node] >= max_depth:
+            node_coef[node] = (coef, err)
+            continue
+        # certificate fails with depth to spare: re-split in place
+        n_split += 1
+        xm, ym = 0.5 * (x0 + x1), 0.5 * (y0 + y1)
+        args = (children, bounds, depths, node_coef)
+        d = depths[node] + 1
+        children[node][0] = builder.build(x0, xm, y0, ym, d, *args)
+        children[node][1] = builder.build(xm, x1, y0, ym, d, *args)
+        children[node][2] = builder.build(x0, xm, ym, y1, d, *args)
+        children[node][3] = builder.build(xm, x1, ym, y1, d, *args)
+
+    new_index = _assemble_index_2d(
+        children, bounds, depths, node_coef, agg=agg, deg=deg, delta=delta,
+        max_depth=max_depth, root_bounds=index.root_bounds, tree=tree,
+        keep_exact=keep_exact, sx=sx, sy=sy, sw=sw, floor=floor,
+        device=device)
+    stats = {"n_leaves": int(len(leaf_nodes)), "refit": n_refit,
+             "split": n_split, "shifted": n_shift, "rebuild": False,
+             "floor_refit": n_floor}
+    return new_index, stats
 
 
 def index2d_from_numpy(fields: Mapping, device) -> PolyFitIndex2D:

@@ -1,8 +1,9 @@
 // Device functions shared by the PolyFit query kernels (polyfit_kernels.cu,
-// quantile.cu, leaf_eval2d.cu).
+// quantile.cu, leaf_eval2d.cu, delta2d.cu).
 //
-// Twins of the plain torch functions in repro_torch/kernels/locate.py and
-// repro_torch/core/poly.py, written to the same order of operations so
+// Twins of the plain torch functions in repro_torch/kernels/locate.py,
+// repro_torch/core/poly.py and repro_torch/core/index2d.py, written to the
+// same order of operations so
 // that a kernel and its plain version agree bit for bit when the file is
 // compiled with -fmad=false (no multiply-add contraction):
 //
@@ -13,6 +14,7 @@
 //   locate_leaf2d        leaf row of a 2-D corner: x cut, y cut, Morton code
 //   floor_log2           floor(log2(len)) for len >= 1
 //   rmq_gather           max over [i0, i1) of a (levels, n) sparse table
+//   mst_prefix           merge-sort-tree count / sum / max over an x prefix
 //   scale_unit, horner, fma_emul, clipped_poly_max   (core/poly.py)
 //
 // jmax / jmin / jclip follow torch.maximum / torch.minimum / torch.clamp:
@@ -21,6 +23,8 @@
 
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace polyfit {
 
@@ -180,6 +184,63 @@ __device__ __forceinline__ double clipped_poly_max(const double* __restrict__ c,
     }
   }
   return a <= b ? best : -INFINITY;
+}
+
+enum class MstMode { kCount, kSum, kMax };
+
+// The merge-sort-tree reduction over x-rank [0, i) with y <= v: the twin
+// of core/index2d.py mst_count_prefix (kCount, an int count) and
+// mst_weighted_prefix (kSum over the per-block inclusive prefix sums, kMax
+// over the prefix maxima; identities 0 and -inf).  ylv and wacc are
+// (levels, n) row-major; level l holds y sorted within blocks of 2^l.
+// Levels descend; block [pos, pos + 2^l) is taken when it fits in [0, i),
+// and an (l + 1)-round binary search counts its y values <= v, every probe
+// clamped as the plain version clamps it.  The weighted modes read one
+// more entry a level, wacc[l][clip(pos + lo - 1, 0, n - 1)], masked to the
+// identity unless the block was taken and lo > 0, and fold it in level
+// order (jmax for NaN parity).  wacc is not read in kCount.
+template <MstMode M>
+__device__ __forceinline__
+    std::conditional_t<M == MstMode::kCount, int, double>
+    mst_prefix(const double* __restrict__ ylv, const double* __restrict__ wacc,
+               int n, int levels, int i, double v) {
+  std::conditional_t<M == MstMode::kCount, int, double> total;
+  if constexpr (M == MstMode::kMax) {
+    total = -INFINITY;
+  } else {
+    total = 0;
+  }
+  int pos = 0;
+  for (int l = levels - 1; l >= 0; --l) {
+    const int b = 1 << l;
+    const bool take = pos + b <= i;
+    const size_t row = (size_t)l * (size_t)n;
+    int lo = 0;
+    int hi = b;
+    for (int r = 0; r <= l; ++r) {
+      const bool active = lo < hi;
+      const int mid = (lo + hi) / 2;
+      int idx = pos + (mid < b - 1 ? mid : b - 1);
+      idx = idx < 0 ? 0 : (idx < n - 1 ? idx : n - 1);
+      const bool go_right = active && ylv[row + idx] <= v;
+      lo = go_right ? mid + 1 : lo;
+      hi = (active && !go_right) ? mid : hi;
+    }
+    if constexpr (M == MstMode::kCount) {
+      total = total + (take ? lo : 0);
+    } else {
+      int j = pos + lo - 1;
+      j = j < 0 ? 0 : (j < n - 1 ? j : n - 1);
+      const bool hit = take && lo > 0;
+      if constexpr (M == MstMode::kSum) {
+        total = total + (hit ? wacc[row + j] : 0.0);
+      } else {
+        total = jmax(total, hit ? wacc[row + j] : -INFINITY);
+      }
+    }
+    pos = take ? pos + b : pos;
+  }
+  return total;
 }
 
 }  // namespace polyfit

@@ -12,7 +12,9 @@ path (or the ``Engine`` shim) with ``backend='torch' | 'cuda' | 'ref'``:
 
 ``DynamicEngine`` wraps an index in a delta buffer that takes inserts and
 deletes without a rebuild (exact corrections K5/K6 on ``'cuda'``) and
-refits only the segments they touch.  ``execute_quantile`` (K4 on
+refits only the segments they touch; ``DynamicEngine2D`` does the same for
+a two-key index (K9-K11 on ``'cuda'``) and refits only the quadtree leaves
+the changed points touch.  ``execute_quantile`` (K4 on
 ``'cuda'``) and ``DynamicEngine.quantile`` answer certified quantiles of
 SUM/COUNT tables; ``WindowEngine`` keeps an epoch ring of sealed plans and
 answers windowed SUM/COUNT through ``execute_lsm``.  Two-key tables lower
@@ -20,7 +22,8 @@ to an ``IndexPlan2D`` (``build_plan_2d``) and run through
 ``execute_count2d`` / ``execute_sum2d`` (rectangles, K7 or K12 on
 ``'cuda'``) and ``execute_extremum2d`` (dominance corners, K8 or K13).
 """
-from .dynamic import DeltaBuffer, DynamicEngine
+from .dynamic import (DeltaBuffer, DeltaBuffer2D, DynamicEngine,
+                      DynamicEngine2D)
 from .engine import (BACKENDS, Engine, QuantileResult, check_pow2, execute,
                      execute_count2d, execute_extremum, execute_extremum2d,
                      execute_quantile, execute_sum, execute_sum2d, key_span,
@@ -38,7 +41,8 @@ __all__ = ["BACKENDS", "Engine", "QuantileResult", "check_pow2", "execute",
            "pad_fills", "raw_extremum", "raw_sum", "resolve_backend",
            "truth_extremum", "truth_sum", "IndexPlan", "big_sentinel",
            "build_plan", "pad_to_multiple", "plan_from_numpy", "DeltaBuffer",
-           "DynamicEngine", "key_span", "LsmLevel", "LsmPlan",
+           "DynamicEngine", "DeltaBuffer2D", "DynamicEngine2D", "key_span",
+           "LsmLevel", "LsmPlan",
            "combine_levels", "composed_bound", "execute_lsm", "WindowEngine",
            "execute_count2d", "execute_sum2d", "execute_extremum2d",
            "raw_count2d", "raw_eval2d", "truth_count2d", "truth_sum2d",

@@ -1,9 +1,8 @@
-"""Dynamic PolyFit (1-D): delta-buffered inserts/deletes with selective
-refit.
+"""Dynamic PolyFit: delta-buffered inserts/deletes with selective refit.
 
-The twin of the 1-D part of ``repro.engine.dynamic``.  A static
-``IndexPlan`` freezes the fitted key array; ``DynamicEngine`` makes it
-updatable while keeping every certified bound:
+The twin of ``repro.engine.dynamic`` without its serving executor
+factories.  A static ``IndexPlan`` freezes the fitted key array;
+``DynamicEngine`` makes it updatable while keeping every certified bound:
 
 * **Delta buffers** — fixed-capacity, device-resident, sentinel-padded
   tensors (a sorted insert log and delete tombstones) with the structures
@@ -40,8 +39,15 @@ Quantiles over a dynamic table (``_exec_dyn_quantile``) invert the fitted
 CF against rank targets corrected by the buffer's exact prefix sums and
 re-certify at each candidate key; the reference runs that loop as plain
 XLA for every backend, and so does the port: plain torch, bit-identical
-between ``'torch'`` and ``'cuda'``.  The dynamic 2-D engine
-(``DynamicEngine2D``) comes with ROADMAP Queue 1 item 13.
+between ``'torch'`` and ``'cuda'``.
+
+``DynamicEngine2D`` applies the same buffering and exact correction to
+two-key COUNT/SUM rectangles and dominance MAX/MIN corners
+(``DeltaBuffer2D``: x-sorted point logs, with merge-sort-tree levels on
+the ``'cuda'`` backend for kernels K9-K11 and the dense oracles of
+``kernels/ref.py`` elsewhere); its merge runs
+``core.index2d.selective_refit_2d`` over the touched leaves only, and
+dominance deletes shadow their victims as MAX/MIN deletes do in 1-D.
 """
 from __future__ import annotations
 
@@ -56,19 +62,27 @@ from .. import DTYPE
 from ..core.exact import build_sparse_table, sparse_table_range_max
 from ..core.fitting import PolyModel, fit_minimax_lp
 from ..core.index import PolyFitIndex1D, _continuum_post, assemble_index_1d
+from ..core.index2d import (MergeSortTree, PolyFitIndex2D,
+                            mst_weighted_prefix, selective_refit_2d)
 from ..core.quantile import invert_cf
 from ..core.queries import QueryResult
 from ..core.segmentation import FastAcceptFitter, greedy_segmentation
 from ..kernels import ref as _ref
-from ..kernels.delta_scan import delta_max_gather, delta_sum_gather
+from ..kernels.delta_scan import (delta_count2d_gather,
+                                  delta_dommax2d_gather, delta_max_gather,
+                                  delta_sum2d_gather, delta_sum_gather)
 from ..kernels.locate import bsearch_count
-from .engine import (QuantileResult, _no_refine, _prepare, check_pow2,
-                     execute_extremum, key_span, prepare_fractions,
-                     quantile_mass, quantile_tables, raw_extremum, raw_sum,
-                     resolve_backend, truth_extremum, truth_sum)
-from .plan import IndexPlan, big_sentinel, build_plan
+from .engine import (QuantileResult, _no_refine, _prepare, _x_ranks,
+                     check_pow2, execute_extremum, key_span,
+                     prepare_fractions, quantile_mass, quantile_tables,
+                     raw_count2d, raw_eval2d, raw_extremum, raw_sum,
+                     resolve_backend, truth_count2d, truth_dommax2d,
+                     truth_extremum, truth_sum, truth_sum2d)
+from .plan import (IndexPlan, IndexPlan2D, big_sentinel, build_plan,
+                   build_plan_2d)
 
-__all__ = ["DeltaBuffer", "DynamicEngine"]
+__all__ = ["DeltaBuffer", "DeltaBuffer2D", "DynamicEngine",
+           "DynamicEngine2D"]
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
@@ -158,6 +172,109 @@ def _append_1d(keys, vals, new_k, new_v, *, cap: int, with_st: bool):
     return k, v, cf, st
 
 
+@dataclasses.dataclass(frozen=True)
+class DeltaBuffer2D:
+    """Insert/delete point logs for a 2-key plan, x-sorted.
+
+    Empty slots hold the sentinel in both coordinates and measure 0.  On
+    the ``'cuda'`` backend, appends also rebuild each log's merge-sort-tree
+    levels ``*_ylv`` (level l = y sorted within blocks of 2^l of the
+    x-order), which K9 reads; on the other backends they stay sentinel and
+    the dense oracles read the raw logs.  Measure-carrying plans
+    (sum2d/max2d/min2d) log each point's measure (``*_w``, internal space:
+    negated for min2d) and, for K10/K11, the per-block inclusive prefix
+    sums ``*_wcum`` and the insert log's prefix maxima ``ins_wpmax``.
+
+    Dominance deletes shadow base victims instead (``vic_x``/``vic_y``,
+    sentinel-padded, and the victim-masked exact tree ``live_wpmax`` over
+    the base points); all three are None until the first such delete.  The
+    buffer is immutable: appends build a new one.
+    """
+
+    ins_x: torch.Tensor
+    ins_y: torch.Tensor
+    ins_ylv: torch.Tensor    # (L, cap) per-level block-sorted y
+    del_x: torch.Tensor
+    del_y: torch.Tensor
+    del_ylv: torch.Tensor    # (L, cap)
+    cap: int
+    # -- measure-carrying plans (sum2d/max2d/min2d) -----------------------
+    ins_w: Optional[torch.Tensor] = None      # (cap,) measures; 0 on padding
+    del_w: Optional[torch.Tensor] = None
+    ins_wcum: Optional[torch.Tensor] = None   # (L, cap) block prefix sums
+    del_wcum: Optional[torch.Tensor] = None
+    ins_wpmax: Optional[torch.Tensor] = None  # (L, cap) block prefix maxima
+    vic_x: Optional[torch.Tensor] = None      # (vcap,) shadowed base points
+    vic_y: Optional[torch.Tensor] = None
+    live_wpmax: Optional[torch.Tensor] = None  # (L, n) victim-masked tree
+
+    @staticmethod
+    def empty(cap: int, dtype: torch.dtype = DTYPE, device=None,
+              weighted: bool = False) -> "DeltaBuffer2D":
+        levels = max(1, cap.bit_length())
+        s = torch.full((cap,), big_sentinel(dtype), dtype=dtype,
+                       device=device)
+        lv = torch.full((levels, cap), big_sentinel(dtype), dtype=dtype,
+                        device=device)
+        if not weighted:
+            return DeltaBuffer2D(s, s, lv, s, s, lv, cap)
+        z = torch.zeros((cap,), dtype=dtype, device=device)
+        zlv = torch.zeros((levels, cap), dtype=dtype, device=device)
+        return DeltaBuffer2D(s, s, lv, s, s, lv, cap, ins_w=z, del_w=z,
+                             ins_wcum=zlv, del_wcum=zlv, ins_wpmax=zlv)
+
+
+def _mst_levels(ys, *, cap: int):
+    """(L, cap) merge-sort-tree levels of the x-sorted log's y values
+    (level l = per-block sort with block size 2^l; level 0 = x order)."""
+    rows = [ys]
+    for l in range(1, max(1, cap.bit_length())):
+        b = 1 << l
+        rows.append(torch.sort(ys.reshape(cap // b, b), dim=1).values
+                    .reshape(-1))
+    return torch.stack(rows)
+
+
+def _mst_levels_w(ys, ws, *, cap: int):
+    """Weighted merge-sort-tree levels of the x-sorted log: block-sorted y
+    plus the per-block inclusive prefix sums and prefix maxima of the
+    weights carried through the same stable sorts.  Returns (ylv, wcum,
+    wpmax), each (L, cap)."""
+    ylv, wcum, wpmax = [ys], [ws], [ws]
+    y, w = ys, ws
+    for l in range(1, max(1, cap.bit_length())):
+        b = 1 << l
+        y2 = y.reshape(cap // b, b)
+        perm = torch.argsort(y2, dim=1, stable=True)
+        y2 = torch.gather(y2, 1, perm)
+        w2 = torch.gather(w.reshape(cap // b, b), 1, perm)
+        y, w = y2.reshape(-1), w2.reshape(-1)
+        ylv.append(y)
+        wcum.append(torch.cumsum(w2, dim=1).reshape(-1))
+        wpmax.append(torch.cummax(w2, dim=1).values.reshape(-1))
+    return torch.stack(ylv), torch.stack(wcum), torch.stack(wpmax)
+
+
+def _append_2d(bx, by, bw, nx, ny, nw, *, cap: int, levels: bool,
+               weighted: bool):
+    """Append a batch of points: the merged x-sorted log and, when the
+    'cuda' corrections read them (``levels``), its merge-sort-tree levels
+    (weighted logs: with prefix sums and maxima).  Returns (x, y, w, ylv,
+    wcum, wpmax), None for what was not built (``bw``/``nw`` are ignored
+    unless ``weighted``)."""
+    x = torch.cat([bx, nx])
+    order = torch.argsort(x, stable=True)[:cap]   # existing first on ties
+    x, y = x[order], torch.cat([by, ny])[order]
+    w = ylv = wcum = wpmax = None
+    if weighted:
+        w = torch.cat([bw, nw])[order]
+        if levels:
+            ylv, wcum, wpmax = _mst_levels_w(y, w, cap=cap)
+    elif levels:
+        ylv = _mst_levels(y, cap=cap)
+    return x, y, w, ylv, wcum, wpmax
+
+
 # ---------------------------------------------------------------------------
 # exact delta corrections (in the query path)
 # ---------------------------------------------------------------------------
@@ -179,6 +296,28 @@ def _delta_max(lq, uq, keys, vals, st, *, backend: str):
         return delta_max_gather(lq, uq, keys, st)
     # torch + ref: dense masked max over the (small) buffer
     return _ref.delta_max_ref(lq, uq, keys, vals)
+
+
+def _delta_count2d(lx, ux, ly, uy, kx, ky, ylv, *, backend: str):
+    if backend == "cuda":
+        # K9: merge-sort-tree dominance counts, O(log^2 cap) a corner
+        return delta_count2d_gather(lx, ux, ly, uy, kx, ylv)
+    # torch + ref: dense membership over the (small) log
+    return _ref.delta_count2d_ref(lx, ux, ly, uy, kx, ky)
+
+
+def _delta_sum2d(lx, ux, ly, uy, kx, ky, wv, ylv, wcum, *, backend: str):
+    if backend == "cuda":
+        # K10: the weighted merge-sort-tree prefix sums
+        return delta_sum2d_gather(lx, ux, ly, uy, kx, ylv, wcum)
+    return _ref.delta_sum2d_ref(lx, ux, ly, uy, kx, ky, wv)
+
+
+def _delta_dommax2d(u, v, kx, ky, wv, ylv, wpmax, *, backend: str):
+    if backend == "cuda":
+        # K11: the weighted merge-sort-tree prefix maxima
+        return delta_dommax2d_gather(u, v, kx, ylv, wpmax)
+    return _ref.delta_dommax2d_ref(u, v, kx, ky, wv)
 
 
 # ---------------------------------------------------------------------------
@@ -324,6 +463,80 @@ def _exec_dyn_extremum(plan: IndexPlan, buf: DeltaBuffer, lq, uq, *,
     # Lemma 5.4: max(static +- delta, exact) stays within delta of the truth
     ok = approx >= plan.delta * (1.0 + 1.0 / eps_rel)
     truth = torch.maximum(truth_extremum(plan, lq, uq, backend=backend), ins)
+    ans = torch.where(ok, approx, truth)
+    if neg:
+        ans, approx = -ans, -approx
+    return ans, approx, ~ok
+
+
+def _exec_dyn_rect2d(plan: IndexPlan2D, buf: DeltaBuffer2D, lx, ux, ly, uy,
+                     *, backend: str, eps_rel: Optional[float]):
+    """2-key COUNT or SUM over (lx, ux] x (ly, uy]: the twin of the
+    reference's ``_exec_dyn_count2d`` and ``_exec_dyn_sum2d``, which differ
+    only in the correction and the truth they read.  The raw path runs on
+    corners clamped to the root, the exact correction and the Q_rel truth
+    on the raw ones (buffered points may lie outside the root)."""
+    x0, x1, y0, y1 = plan.root
+    lxc, uxc = (torch.clamp(q, x0, x1) for q in (lx, ux))
+    lyc, uyc = (torch.clamp(q, y0, y1) for q in (ly, uy))
+    static = raw_count2d(plan, lxc, uxc, lyc, uyc, backend=backend)
+    if plan.agg == "sum2d":
+        corr = (_delta_sum2d(lx, ux, ly, uy, buf.ins_x, buf.ins_y, buf.ins_w,
+                             buf.ins_ylv, buf.ins_wcum, backend=backend)
+                - _delta_sum2d(lx, ux, ly, uy, buf.del_x, buf.del_y,
+                               buf.del_w, buf.del_ylv, buf.del_wcum,
+                               backend=backend))
+    else:
+        corr = (_delta_count2d(lx, ux, ly, uy, buf.ins_x, buf.ins_y,
+                               buf.ins_ylv, backend=backend)
+                - _delta_count2d(lx, ux, ly, uy, buf.del_x, buf.del_y,
+                                 buf.del_ylv, backend=backend))
+    approx = static + corr
+    if eps_rel is None:
+        return approx, approx, _no_refine(approx)
+    ok = approx >= 4.0 * plan.delta * (1.0 + 1.0 / eps_rel)   # Lemma 6.4
+    truth = (truth_sum2d if plan.agg == "sum2d" else truth_count2d)(
+        plan, lx, ux, ly, uy, backend=backend) + corr
+    return torch.where(ok, approx, truth), approx, ~ok
+
+
+def _exec_dyn_dommax2d(plan: IndexPlan2D, buf: DeltaBuffer2D, u, v, *,
+                       backend: str, eps_rel: Optional[float]):
+    """Dominance MAX/MIN, in MAX space throughout; the delete log is never
+    read (dominance deletes shadow a victim: ``buf.vic_x``/``vic_y``/
+    ``live_wpmax``)."""
+    x0, x1, y0, y1 = plan.root
+    static = raw_eval2d(plan, torch.clamp(u, x0, x1), torch.clamp(v, y0, y1),
+                        backend=backend)
+    ins = _delta_dommax2d(u, v, buf.ins_x, buf.ins_y, buf.ins_w, buf.ins_ylv,
+                          buf.ins_wpmax, backend=backend)
+    approx = torch.maximum(static, ins)
+    neg = plan.agg == "min2d"
+    if buf.vic_x is not None:
+        # victim-shadowed path: a corner dominating a deleted base point
+        # cannot trust the fit (the victim may be the maximum) — refine it
+        # against the victim-masked merge-sort tree
+        (i,) = _x_ranks(plan, backend, u)
+        base_exact = mst_weighted_prefix(plan.ref_xs, plan.ref_ys_levels,
+                                         buf.live_wpmax, i, v, mode="max")
+        exact = torch.maximum(base_exact, ins)
+        threat = ((buf.vic_x[None, :] <= u[:, None]) &
+                  (buf.vic_y[None, :] <= v[:, None])).any(dim=1)
+        if eps_rel is None:
+            ans = torch.where(threat, exact, approx)
+            if neg:
+                ans = -ans
+            return ans, ans, threat
+        ok = (~threat) & (approx >= plan.delta * (1.0 + 1.0 / eps_rel))
+        ans = torch.where(ok, approx, exact)
+        if neg:
+            ans, approx = -ans, -approx
+        return ans, approx, ~ok
+    if eps_rel is None:
+        out = -approx if neg else approx
+        return out, out, _no_refine(out)
+    ok = approx >= plan.delta * (1.0 + 1.0 / eps_rel)
+    truth = torch.maximum(truth_dommax2d(plan, u, v, backend=backend), ins)
     ans = torch.where(ok, approx, truth)
     if neg:
         ans, approx = -ans, -approx
@@ -557,13 +770,19 @@ class _DeltaBufferedEngine:
         finally:
             self._thread = None
 
+    def _require_agg(self, *aggs) -> None:
+        if self._agg not in aggs:
+            raise ValueError(f"a {self._agg} table does not answer "
+                             f"{'/'.join(aggs)} queries")
+
     @staticmethod
-    def _flatten(log: List[Tuple[np.ndarray, np.ndarray]]):
+    def _flatten(log: List[Tuple[np.ndarray, ...]], width: int = 2):
+        """The host log's ``width`` columns, each concatenated over its
+        batches."""
         if not log:
-            z = np.zeros((0,))
-            return z, z
-        return (np.concatenate([k for k, _ in log]),
-                np.concatenate([v for _, v in log]))
+            return tuple(np.zeros((0,)) for _ in range(width))
+        return tuple(np.concatenate([e[i] for e in log])
+                     for i in range(width))
 
 
 class DynamicEngine(_DeltaBufferedEngine):
@@ -922,11 +1141,6 @@ class DynamicEngine(_DeltaBufferedEngine):
 
     # -- queries ---------------------------------------------------------
 
-    def _require_agg(self, *aggs) -> None:
-        if self._agg not in aggs:
-            raise ValueError(f"a {self._agg} table does not answer "
-                             f"{'/'.join(aggs)} queries")
-
     def sum(self, lq, uq, eps_rel: Optional[float] = None) -> QueryResult:
         self._require_agg("sum", "count")
         plan, buf = self._state
@@ -974,3 +1188,418 @@ class DynamicEngine(_DeltaBufferedEngine):
         if self._agg in ("sum", "count"):
             return self.sum(lq, uq, eps_rel=eps_rel)
         return self.extremum(lq, uq, eps_rel=eps_rel)
+
+
+class DynamicEngine2D(_DeltaBufferedEngine):
+    """Updatable 2-key plan (COUNT/SUM rectangles, dominance MAX/MIN
+    corners): buffered point inserts and deletes with the exact correction
+    in the query path (K9-K11 on ``'cuda'``); the merge runs
+    ``selective_refit_2d``, touching only the leaves the changed points'
+    dominance boundaries cross (its stats in ``last_refit_stats``).
+
+    Single-writer, lock-free queries and (optionally background) merges as
+    in ``DynamicEngine``; the plan, the buffer and every merged plan live
+    on the index's device, and ``backend`` defaults as there.
+    """
+
+    def __init__(self, index: PolyFitIndex2D, *,
+                 backend: Optional[str] = None, capacity: int = 1024,
+                 min_bucket: int = 64, auto_refit: bool = True,
+                 background: bool = False):
+        if index.exact is None:
+            raise ValueError("DynamicEngine2D requires keep_exact=True")
+        self.device = index.device
+        self._init_dynamic(backend=resolve_backend(backend, self.device),
+                           capacity=capacity, min_bucket=min_bucket,
+                           auto_refit=auto_refit, background=background)
+        self._agg = index.agg
+        self.last_refit_stats: Optional[dict] = None
+        px = _host(index.exact.xs)
+        py = _host(index.exact.ys_levels[0])
+        if self._weighted:
+            if index.measures_sorted is None:
+                raise ValueError(f"a {self._agg} DynamicEngine2D needs an "
+                                 "index built with measures")
+            pw = np.asarray(index.measures_sorted)
+        else:
+            pw = np.ones_like(px)
+        self._install(index, px, py, pw)
+
+    @property
+    def _weighted(self) -> bool:
+        return self._agg != "count2d"
+
+    @property
+    def _extremal(self) -> bool:
+        return self._agg in ("max2d", "min2d")
+
+    # -- state ----------------------------------------------------------
+
+    def _install(self, index: PolyFitIndex2D, px: np.ndarray, py: np.ndarray,
+                 pw: np.ndarray, residual_ins: Optional[list] = None,
+                 residual_del: Optional[list] = None,
+                 residual_vic: Optional[list] = None,
+                 plan: Optional[IndexPlan2D] = None) -> None:
+        """Swap in a fresh (index, plan, empty-or-replayed buffer); the base
+        points ``px, py, pw`` are x-sorted, aligned with the plan's
+        refinement tree."""
+        with self._lock:
+            self._index = index
+            self._px = px
+            self._py = py
+            self._pw = pw
+            self._ins_log: List[Tuple[np.ndarray, np.ndarray, np.ndarray]] = []
+            self._del_log: List[Tuple[np.ndarray, np.ndarray, np.ndarray]] = []
+            self._n_pending = 0
+            self._vic: List[int] = []
+            self._residual_vic: List[Tuple[float, float, float]] = []
+            self._merge_mark = None
+            if plan is None:
+                plan = build_plan_2d(index)
+            buf = DeltaBuffer2D.empty(self.capacity, plan.dtype, plan.device,
+                                      weighted=self._weighted)
+            self._state = (plan, buf)
+            for x, y, w in (residual_ins or []):
+                if len(x):
+                    self._log_ops(x, y, w, delete=False)
+            if self._extremal:
+                nan_dirty = False
+                for xa, ya, wa in (residual_del or []):
+                    for x, y, w in zip(xa, ya, wa):
+                        nan_dirty |= self._delete_extremal_resolved(
+                            float(x), float(y), float(w))
+                for x, y, w in (residual_vic or []):
+                    nan_dirty |= self._delete_extremal_resolved(x, y, w)
+                if nan_dirty:
+                    self._rebuild_ins_buf()
+                if self._vic:
+                    self._refresh_vic_buf()
+            else:
+                for x, y, w in (residual_del or []):
+                    if len(x):
+                        self._log_ops(x, y, w, delete=True)
+
+    @property
+    def plan(self) -> IndexPlan2D:
+        return self._state[0]
+
+    @property
+    def index(self) -> PolyFitIndex2D:
+        return self._index
+
+    @property
+    def agg(self) -> str:
+        return self._agg
+
+    # -- updates --------------------------------------------------------
+
+    def _append(self, buf: DeltaBuffer2D, xs, ys, ws, delete: bool):
+        """``buf`` with a batch appended to its insert or delete log (the
+        merge-sort-tree levels only where K9-K11 read them)."""
+        dt, dev = buf.ins_x.dtype, buf.ins_x.device
+        to = lambda a: torch.as_tensor(a, dtype=dt, device=dev)
+        p = "del_" if delete else "ins_"
+        old = lambda f: getattr(buf, p + f)
+        x, y, w, ylv, wcum, wpmax = _append_2d(
+            old("x"), old("y"), old("w"), to(xs), to(ys),
+            to(ws) if self._weighted else None, cap=buf.cap,
+            levels=self.backend == "cuda", weighted=self._weighted)
+        new = {"x": x, "y": y, "w": w}
+        if ylv is not None:
+            new["ylv"] = ylv
+        if wcum is not None:
+            new["wcum"] = wcum
+        if wpmax is not None and not delete:
+            new["wpmax"] = wpmax
+        return dataclasses.replace(buf, **{p + f: t for f, t in new.items()})
+
+    def _log_ops(self, xs: np.ndarray, ys: np.ndarray, ws: np.ndarray,
+                 delete: bool) -> None:
+        """Append a batch to the device buffer and the host log (locked)."""
+        if self._n_pending + len(xs) > self.capacity:
+            raise RuntimeError("delta buffer overflow: concurrent writers "
+                               "bypassed _ensure_room")
+        plan, buf = self._state
+        self._state = (plan, self._append(buf, xs, ys, ws, delete))
+        (self._del_log if delete else self._ins_log).append((xs, ys, ws))
+        self._n_pending += len(xs)
+
+    def insert(self, xs, ys, ws=None) -> None:
+        """Buffer new points; ``ws`` are the measures of sum2d/max2d/min2d
+        tables (count2d counts points, and takes none).
+
+        A dominance insert *below the frozen extremal floor* merges
+        eagerly: the plan's clamp over-reports every corner that dominates
+        only the new point, and no monotone correction covers it —
+        ``selective_refit_2d`` re-freezes the floor and refits exactly the
+        leaves the old clamp touched."""
+        # always copy: the host log owns these arrays (dominance deletes
+        # NaN-cancel pending inserts in place)
+        xs = np.atleast_1d(np.array(xs, np.float64))
+        ys = np.atleast_1d(np.array(ys, np.float64))
+        if not self._weighted:
+            if ws is not None:
+                raise ValueError("measures only apply to sum2d/max2d/min2d")
+            ws = np.ones_like(xs)
+        else:
+            if ws is None:
+                raise ValueError(f"measures required for agg={self._agg!r}")
+            ws = np.broadcast_to(
+                np.asarray(ws, np.float64), xs.shape).copy()
+            if self._agg == "min2d":
+                ws = -ws
+        self._ensure_room(len(xs))
+        with self._lock:
+            self._log_ops(xs, ys, ws, delete=False)
+            trigger = self.auto_refit and self._n_pending >= self.capacity
+            floor = self._index.extremal_floor if self._extremal else None
+            below_floor = floor is not None and bool((ws < floor).any())
+        if below_floor:
+            self.refit(wait=True)
+        elif trigger:
+            self.refit(wait=not self.background)
+
+    def delete(self, xs, ys) -> None:
+        """Buffer delete tombstones for existing points (KeyError when a
+        point has no live occurrence).  Dominance MAX/MIN deletes shadow
+        their victim (``vic_x``/``vic_y``/``live_wpmax``) instead of
+        merging: corners dominating it refine against the victim-masked
+        merge-sort tree, and the removal rides the next ordinary merge."""
+        xs = np.atleast_1d(np.asarray(xs, np.float64))
+        ys = np.atleast_1d(np.asarray(ys, np.float64))
+        self._ensure_room(len(xs))
+        with self._lock:
+            if self._extremal:
+                nan_dirty = False
+                for x, y in zip(xs, ys):
+                    nan_dirty |= self._delete_extremal_one(float(x),
+                                                           float(y))
+                if nan_dirty:
+                    self._rebuild_ins_buf()
+                self._refresh_vic_buf()
+            else:
+                ws = []
+                batch_tomb: dict = {}   # duplicates within the batch too
+                for x, y in zip(xs, ys):
+                    pt = (float(x), float(y))
+                    ws.append(self._find_victim(
+                        *pt, extra_tomb=batch_tomb.get(pt, 0)))
+                    batch_tomb[pt] = batch_tomb.get(pt, 0) + 1
+                self._log_ops(xs, ys, np.asarray(ws), delete=True)
+            trigger = self.auto_refit and self._n_pending >= self.capacity
+        if trigger:
+            self.refit(wait=not self.background)
+
+    def _shadow(self, pos: int) -> None:
+        """Shadow base point ``pos``: victim mask plus an ordinary
+        tombstone for the next merge (locked)."""
+        self._vic.append(pos)
+        self._log_ops(np.array([self._px[pos]]), np.array([self._py[pos]]),
+                      np.array([float(self._pw[pos])]), delete=True)
+
+    def _delete_extremal_one(self, x: float, y: float) -> bool:
+        """Resolve one dominance delete: shadow the leftmost unshadowed base
+        occurrence of (x, y), else NaN-cancel a pending insert.  Returns
+        True on a NaN-cancel (the device insert log needs a rebuild)."""
+        i0 = np.searchsorted(self._px, x, side="left")
+        i1 = np.searchsorted(self._px, x, side="right")
+        vic_set = set(self._vic)
+        for pos in range(i0, i1):
+            if self._py[pos] == y and pos not in vic_set:
+                self._shadow(pos)
+                return False
+        for e, (xa, ya, wa) in enumerate(self._ins_log):
+            hit = np.where((xa == x) & (ya == y) & ~np.isnan(xa))[0]
+            if len(hit):
+                j = int(hit[0])
+                w = float(wa[j])
+                xa[j] = ya[j] = wa[j] = np.nan
+                self._n_pending -= 1
+                if (self._merge_mark is not None
+                        and e < self._merge_mark[0]):
+                    # the in-flight merge copied this entry before the mark
+                    # and will bake it into the new base — replay there
+                    self._residual_vic.append((x, y, w))
+                return True
+        raise KeyError(f"delete of point ({x!r}, {y!r}): not present")
+
+    def _delete_extremal_resolved(self, x: float, y: float,
+                                  w: float) -> bool:
+        """Replay a residual dominance delete against the fresh base
+        (measure-matched victim preferred, then a pending insert, then any
+        live occurrence).  Locked; returns True on a NaN-cancel."""
+        i0 = np.searchsorted(self._px, x, side="left")
+        i1 = np.searchsorted(self._px, x, side="right")
+        vic_set = set(self._vic)
+        cand = [p for p in range(i0, i1)
+                if self._py[p] == y and p not in vic_set]
+        pos = next((p for p in cand if self._pw[p] == w),
+                   cand[0] if cand else None)
+        if pos is not None:
+            self._shadow(pos)
+            return False
+        for xa, ya, wa in self._ins_log:
+            hit = np.where((xa == x) & (ya == y) & (wa == w)
+                           & ~np.isnan(xa))[0]
+            if len(hit):
+                j = int(hit[0])
+                xa[j] = ya[j] = wa[j] = np.nan
+                self._n_pending -= 1
+                return True
+        raise KeyError(f"delete of point ({x!r}, {y!r}): not present")
+
+    def _refresh_vic_buf(self) -> None:
+        """Rebuild the buffer's victim mask (the shadowed points and the
+        victim-masked weighted merge-sort tree) and swap it in."""
+        plan, buf = self._state
+        if not self._vic:
+            if buf.vic_x is not None:
+                self._state = (plan, dataclasses.replace(
+                    buf, vic_x=None, vic_y=None, live_wpmax=None))
+            return
+        nv = len(self._vic)
+        vcap = self.capacity
+        while vcap < nv:
+            vcap *= 2
+        vic = np.asarray(self._vic)
+        big = big_sentinel(torch.float64)
+        vx = np.full((vcap,), big)
+        vy = np.full((vcap,), big)
+        vx[:nv] = self._px[vic]
+        vy[:nv] = self._py[vic]
+        ws = np.array(self._pw, np.float64, copy=True)
+        ws[vic] = -np.inf
+        # self._px is x-sorted, so the tree's stable argsort is the identity
+        # and its positions align with plan.ref_*
+        t = MergeSortTree.build(self._px, self._py, ws=ws)
+        to = lambda a: torch.as_tensor(a, dtype=plan.dtype, device=plan.device)
+        self._state = (plan, dataclasses.replace(
+            buf, vic_x=to(vx), vic_y=to(vy), live_wpmax=to(t.wpmax_levels)))
+
+    def _rebuild_ins_buf(self) -> None:
+        """Rebuild the device insert log from the non-NaN host entries (one
+        append), after a pending insert was cancelled."""
+        plan, buf = self._state
+        fresh = DeltaBuffer2D.empty(self.capacity, plan.dtype, plan.device,
+                                    weighted=self._weighted)
+        ix, iy, iw = self._flatten(self._ins_log, 3)
+        alive = ~np.isnan(ix)
+        if alive.any():
+            fresh = self._append(fresh, ix[alive], iy[alive], iw[alive],
+                                 delete=False)
+        self._state = (plan, dataclasses.replace(
+            buf, ins_x=fresh.ins_x, ins_y=fresh.ins_y, ins_w=fresh.ins_w,
+            ins_ylv=fresh.ins_ylv, ins_wcum=fresh.ins_wcum,
+            ins_wpmax=fresh.ins_wpmax))
+
+    def _find_victim(self, x: float, y: float, extra_tomb: int = 0) -> float:
+        """Measure (internal space) of the occurrence a tombstone removes:
+        base occurrences first (x-order), then pending inserts; KeyError
+        when every occurrence is already tombstoned."""
+        tomb = extra_tomb + sum(int(np.sum((lx == x) & (ly == y)))
+                                for lx, ly, _ in self._del_log)
+        i0 = np.searchsorted(self._px, x, side="left")
+        i1 = np.searchsorted(self._px, x, side="right")
+        pool = list(self._pw[i0:i1][self._py[i0:i1] == y])
+        for lx, ly, lw in self._ins_log:
+            pool.extend(lw[(lx == x) & (ly == y)])
+        if tomb >= len(pool):
+            raise KeyError(f"delete of point ({x!r}, {y!r}): not present")
+        return float(pool[tomb])
+
+    # -- merge / refit (lifecycle in _DeltaBufferedEngine) ----------------
+
+    def _snapshot(self):
+        # deep-copy the log arrays: dominance deletes NaN-cancel pending
+        # inserts in place on the host log
+        self._merge_mark = (len(self._ins_log), len(self._del_log))
+        self._residual_vic = []
+        return (self._index, self._px, self._py, self._pw,
+                [tuple(a.copy() for a in e) for e in self._ins_log],
+                [tuple(a.copy() for a in e) for e in self._del_log])
+
+    def _merge(self, snap, mark) -> None:
+        index, px, py, pw, ins_log, del_log = snap
+        ix, iy, iw = (np.array(a) for a in self._flatten(ins_log, 3))
+        dx, dy, dw = self._flatten(del_log, 3)
+        keep = np.ones(len(px), bool)
+        for x, y, w in zip(dx, dy, dw):
+            # a tombstone cancels a matching pending insert first, then the
+            # base occurrence carrying the victim's measure
+            m = np.where((ix == x) & (iy == y) & (iw == w)
+                         & ~np.isnan(ix))[0]
+            if len(m):
+                ix[m[0]] = iy[m[0]] = iw[m[0]] = np.nan
+                continue
+            cand = np.where(keep & (px == x) & (py == y) & (pw == w))[0]
+            if not len(cand):
+                cand = np.where(keep & (px == x) & (py == y))[0]
+            if not len(cand):
+                raise KeyError(f"delete of point ({x!r}, {y!r})")
+            keep[cand[0]] = False
+        alive = ~np.isnan(ix)
+        new_px = np.concatenate([px[keep], ix[alive]])
+        new_py = np.concatenate([py[keep], iy[alive]])
+        new_pw = np.concatenate([pw[keep], iw[alive]])
+        if len(new_px) == 0:
+            raise ValueError("merge would empty the dataset")
+        # net changes only: an insert+delete pair that cancelled inside the
+        # buffer never touched the fitted function
+        removed = ~keep
+        cx = np.concatenate([ix[alive], px[removed]])
+        cy = np.concatenate([iy[alive], py[removed]])
+        cw = np.concatenate([iw[alive], -pw[removed]])
+        new_index, stats = selective_refit_2d(index, new_px, new_py, new_pw,
+                                              cx, cy, cw)
+        order = np.argsort(new_px, kind="stable")
+        # build and upload the plan OFF the lock, and let the upload finish
+        # before the swap: a query must never read a plan mid-copy
+        new_plan = build_plan_2d(new_index)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._notify_install_listeners(new_plan)
+        with self._lock:
+            residual_ins = [tuple(a[~np.isnan(e[0])] for a in e)
+                            for e in self._ins_log[mark[0]:]]
+            residual_del = self._del_log[mark[1]:]
+            residual_vic = list(self._residual_vic)
+            self._install(new_index, new_px[order], new_py[order],
+                          new_pw[order], residual_ins, residual_del,
+                          residual_vic, plan=new_plan)
+            self.last_refit_stats = stats
+            self.refit_count += 1
+
+    # -- queries ---------------------------------------------------------
+
+    def _run(self, executor, ranges, eps_rel, exact) -> QueryResult:
+        plan, buf = self._state
+        if eps_rel is not None and getattr(plan, exact) is None:
+            raise ValueError("Q_rel refinement requires exact arrays")
+        qs, n = _prepare(*ranges, min_bucket=self.min_bucket, plan=plan)
+        ans, approx, refined = executor(plan, buf, *qs, backend=self.backend,
+                                        eps_rel=eps_rel)
+        return QueryResult(ans[:n], approx[:n], refined[:n])
+
+    def count2d(self, lx, ux, ly, uy,
+                eps_rel: Optional[float] = None) -> QueryResult:
+        self._require_agg("count2d")
+        return self._run(_exec_dyn_rect2d, (lx, ux, ly, uy), eps_rel,
+                         "ref_xs")
+
+    def sum2d(self, lx, ux, ly, uy,
+              eps_rel: Optional[float] = None) -> QueryResult:
+        self._require_agg("sum2d")
+        return self._run(_exec_dyn_rect2d, (lx, ux, ly, uy), eps_rel,
+                         "ref_xs")
+
+    def extremum2d(self, u, v,
+                   eps_rel: Optional[float] = None) -> QueryResult:
+        self._require_agg("max2d", "min2d")
+        return self._run(_exec_dyn_dommax2d, (u, v), eps_rel, "ref_wpmax")
+
+    def query(self, *ranges, eps_rel: Optional[float] = None) -> QueryResult:
+        if self._agg == "count2d":
+            return self.count2d(*ranges, eps_rel=eps_rel)
+        if self._agg == "sum2d":
+            return self.sum2d(*ranges, eps_rel=eps_rel)
+        return self.extremum2d(*ranges, eps_rel=eps_rel)

@@ -33,9 +33,9 @@ __all__ = ["CSRC", "SOURCES", "UNITS", "NVCC_FLAGS", "Build", "build",
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("locate.cuh", "polyfit_kernels.cu", "quantile.cu",
-           "leaf_eval2d.cu")
+           "leaf_eval2d.cu", "delta2d.cu")
 # translation units: one shared library each, compiled in parallel
-UNITS = ("polyfit_kernels.cu", "quantile.cu", "leaf_eval2d.cu")
+UNITS = ("polyfit_kernels.cu", "quantile.cu", "leaf_eval2d.cu", "delta2d.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -66,6 +66,12 @@ _SIGNATURES = {
     "polyfit_corner_count2d": (_P,) * 11 + (_I,) * 3 + (_P,),
     # u, v, mx0, mx1, my0, my1, bounds, coeffs, out, Q, L, deg, stream
     "polyfit_corner_eval2d": (_P,) * 9 + (_I,) * 3 + (_P,),
+    # lx, ux, ly, uy, kx, ylv, out, Q, cap, levels, stream
+    "polyfit_delta_count2d_gather": (_P,) * 7 + (_I,) * 3 + (_P,),
+    # lx, ux, ly, uy, kx, ylv, wcum, out, Q, cap, levels, stream
+    "polyfit_delta_sum2d_gather": (_P,) * 8 + (_I,) * 3 + (_P,),
+    # u, v, kx, ylv, wpmax, out, Q, cap, levels, stream
+    "polyfit_delta_dommax2d_gather": (_P,) * 6 + (_I,) * 3 + (_P,),
 }
 
 

@@ -1,9 +1,10 @@
-"""Exact delta-buffer corrections for dynamic plans: kernels K5 and K6.
+"""Exact delta-buffer corrections for dynamic plans: kernels K5, K6, K9,
+K10 and K11.
 
-The twin of the 1-D locate->gather part of ``repro.kernels.delta_scan``.
-A ``DynamicEngine`` (``engine/dynamic.py``) buffers inserts and deletes in
-fixed-capacity, sorted, sentinel-padded logs between merges, and keeps on
-append the structures these corrections read:
+The twin of the locate->gather part of ``repro.kernels.delta_scan``.  A
+``DynamicEngine`` / ``DynamicEngine2D`` (``engine/dynamic.py``) buffers
+inserts and deletes in fixed-capacity, sorted, sentinel-padded logs between
+merges, and keeps on append the structures these corrections read:
 
 * ``delta_sum_gather`` (K5) — sum of buffered measures with key in
   (lq, uq]: two binary searches into the sorted log and the difference of
@@ -11,28 +12,40 @@ append the structures these corrections read:
 * ``delta_max_gather`` (K6) — max of buffered measures with key in
   [lq, uq]: the log's covered span [#(keys < lq), #(keys <= uq)) and an
   O(1) two-gather range max against the log's (L, cap) sparse table;
-  an empty span gives -inf.
+  an empty span gives -inf;
+* ``delta_count2d_gather`` (K9) — count of buffered points in (lx, ux] x
+  (ly, uy] over an x-sorted point log: per corner the x-rank #(kx <= x)
+  and the merge-sort-tree prefix count over the log's (L, cap) levels
+  ``ylv`` (``core.index2d.mst_count_prefix``), combined + - - +;
+* ``delta_sum2d_gather`` (K10) — the same over the per-block prefix sums
+  ``wcum`` of the logged measures (``mst_weighted_prefix``, mode 'sum');
+* ``delta_dommax2d_gather`` (K11) — the dominance max over {x <= u,
+  y <= v} from the prefix maxima ``wpmax``; -inf when nothing is dominated.
 
-Sentinel slots hold a huge-but-finite key and measure 0, so they fail
-every membership test and leave the prefix sums flat: neither correction
-needs the fill level.
+Sentinel slots hold a huge-but-finite key (both coordinates for a point
+log) and measure 0, so they fail every membership test and leave the
+prefix sums flat: no correction needs the fill level.
 
 Each ``*_plain`` function is the plain torch version, in the kernel's order
 of operations; each wrapper launches its CUDA kernel
-(``csrc/polyfit_kernels.cu``) on CUDA tensors and runs the plain version on
-CPU tensors.  The one-hot scan twins (``delta_sum_pallas``,
-``delta_max_pallas``) come with the ``cuda_scan`` backend (ROADMAP Queue 2,
-K16 and K17).
+(``csrc/polyfit_kernels.cu`` for K5/K6, ``csrc/delta2d.cu`` for K9-K11) on
+CUDA tensors and runs the plain version on CPU tensors.  The one-hot scan
+twins (``delta_sum_pallas``, ``delta_max_pallas``, ``delta_*2d_pallas``)
+come with the ``cuda_scan`` backend (ROADMAP Queue 2, K16-K20).
 """
 from __future__ import annotations
 
 import torch
 
+from ..core.index2d import mst_count_prefix, mst_weighted_prefix
 from . import _build
 from .locate import bsearch_count, rmq_gather
 
 __all__ = ["delta_sum_gather_plain", "delta_sum_gather",
-           "delta_max_gather_plain", "delta_max_gather"]
+           "delta_max_gather_plain", "delta_max_gather",
+           "delta_count2d_gather_plain", "delta_count2d_gather",
+           "delta_sum2d_gather_plain", "delta_sum2d_gather",
+           "delta_dommax2d_gather_plain", "delta_dommax2d_gather"]
 
 
 def delta_sum_gather_plain(lq, uq, keys, cf):
@@ -101,3 +114,118 @@ def delta_max_gather(lq, uq, keys, st):
 
 
 delta_max_gather.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# two-key point logs: K9, K10, K11
+# ---------------------------------------------------------------------------
+
+def delta_count2d_gather_plain(lx, ux, ly, uy, keys_x, ys_levels):
+    """Plain torch version of K9."""
+    def cf(x, y):
+        i = bsearch_count(keys_x, x, side="right")
+        return mst_count_prefix(keys_x, ys_levels, i, y).to(keys_x.dtype)
+    return cf(ux, uy) - cf(lx, uy) - cf(ux, ly) + cf(lx, ly)
+
+
+def delta_sum2d_gather_plain(lx, ux, ly, uy, keys_x, ys_levels, wcum_levels):
+    """Plain torch version of K10."""
+    def cf(x, y):
+        i = bsearch_count(keys_x, x, side="right")
+        return mst_weighted_prefix(keys_x, ys_levels, wcum_levels, i, y,
+                                   mode="sum")
+    return cf(ux, uy) - cf(lx, uy) - cf(ux, ly) + cf(lx, ly)
+
+
+def delta_dommax2d_gather_plain(u, v, keys_x, ys_levels, wpmax_levels):
+    """Plain torch version of K11."""
+    i = bsearch_count(keys_x, u, side="right")
+    return mst_weighted_prefix(keys_x, ys_levels, wpmax_levels, i, v,
+                               mode="max")
+
+
+def _check_log2d(name, queries, keys_x, tables):
+    """Shapes K9-K11 take: equal-length query vectors, a log of cap slots
+    (a power of two) and (cap.bit_length(), cap) level tables."""
+    Q, cap = queries[0].shape[0], keys_x.shape[0]
+    levels = cap.bit_length()
+    if (any(q.shape != (Q,) for q in queries) or cap < 1 or cap & (cap - 1)
+            or any(t.shape != (levels, cap) for t in tables)):
+        raise ValueError(f"{name}: shape mismatch: queries "
+                         f"{[tuple(q.shape) for q in queries]}, log "
+                         f"{tuple(keys_x.shape)}, tables "
+                         f"{[tuple(t.shape) for t in tables]}")
+    return Q, cap, levels
+
+
+def delta_count2d_gather(lx, ux, ly, uy, keys_x, ys_levels):
+    """(Q,) f64 exact count of buffered points in (lx, ux] x (ly, uy]: K9
+    on CUDA tensors, the plain version on CPU tensors.
+    ``delta_count2d_gather.launches`` counts the kernel launches."""
+    if lx.device.type == "cpu":
+        return delta_count2d_gather_plain(lx, ux, ly, uy, keys_x, ys_levels)
+    _build.require_cuda("delta_count2d_gather", lx, ux, ly, uy, keys_x,
+                        ys_levels)
+    Q, cap, levels = _check_log2d("delta_count2d_gather", (lx, ux, ly, uy),
+                                  keys_x, (ys_levels,))
+    out = torch.empty(Q, dtype=keys_x.dtype, device=lx.device)
+    if Q:
+        _build.check(_build.library().polyfit_delta_count2d_gather(
+            lx.data_ptr(), ux.data_ptr(), ly.data_ptr(), uy.data_ptr(),
+            keys_x.data_ptr(), ys_levels.data_ptr(), out.data_ptr(), Q, cap,
+            levels, _build.stream(lx.device)), "delta_count2d_gather")
+        delta_count2d_gather.launches += 1
+    return out
+
+
+delta_count2d_gather.launches = 0
+
+
+def delta_sum2d_gather(lx, ux, ly, uy, keys_x, ys_levels, wcum_levels):
+    """(Q,) exact sum of buffered measures over (lx, ux] x (ly, uy]: K10 on
+    CUDA tensors, the plain version on CPU tensors.
+    ``delta_sum2d_gather.launches`` counts the kernel launches."""
+    if lx.device.type == "cpu":
+        return delta_sum2d_gather_plain(lx, ux, ly, uy, keys_x, ys_levels,
+                                        wcum_levels)
+    _build.require_cuda("delta_sum2d_gather", lx, ux, ly, uy, keys_x,
+                        ys_levels, wcum_levels)
+    Q, cap, levels = _check_log2d("delta_sum2d_gather", (lx, ux, ly, uy),
+                                  keys_x, (ys_levels, wcum_levels))
+    out = torch.empty(Q, dtype=wcum_levels.dtype, device=lx.device)
+    if Q:
+        _build.check(_build.library().polyfit_delta_sum2d_gather(
+            lx.data_ptr(), ux.data_ptr(), ly.data_ptr(), uy.data_ptr(),
+            keys_x.data_ptr(), ys_levels.data_ptr(), wcum_levels.data_ptr(),
+            out.data_ptr(), Q, cap, levels, _build.stream(lx.device)),
+            "delta_sum2d_gather")
+        delta_sum2d_gather.launches += 1
+    return out
+
+
+delta_sum2d_gather.launches = 0
+
+
+def delta_dommax2d_gather(u, v, keys_x, ys_levels, wpmax_levels):
+    """(Q,) exact dominance max of buffered measures over {x <= u, y <= v}
+    (-inf where none is dominated): K11 on CUDA tensors, the plain version
+    on CPU tensors.  ``delta_dommax2d_gather.launches`` counts the kernel
+    launches."""
+    if u.device.type == "cpu":
+        return delta_dommax2d_gather_plain(u, v, keys_x, ys_levels,
+                                           wpmax_levels)
+    _build.require_cuda("delta_dommax2d_gather", u, v, keys_x, ys_levels,
+                        wpmax_levels)
+    Q, cap, levels = _check_log2d("delta_dommax2d_gather", (u, v), keys_x,
+                                  (ys_levels, wpmax_levels))
+    out = torch.empty(Q, dtype=wpmax_levels.dtype, device=u.device)
+    if Q:
+        _build.check(_build.library().polyfit_delta_dommax2d_gather(
+            u.data_ptr(), v.data_ptr(), keys_x.data_ptr(),
+            ys_levels.data_ptr(), wpmax_levels.data_ptr(), out.data_ptr(), Q,
+            cap, levels, _build.stream(u.device)), "delta_dommax2d_gather")
+        delta_dommax2d_gather.launches += 1
+    return out
+
+
+delta_dommax2d_gather.launches = 0

@@ -2,11 +2,13 @@
 
 The twin of ``repro.kernels.ref``: the query clamp and the one-hot
 membership rule one_hot[q, j] = (seg_lo[j] <= q) & (q < seg_next[j]) of the
-scan kernels, with a dense interior reduction for MAX, and the dense
-membership oracles of the 1-D delta-buffer corrections, and the 2-D
-flat-leaf one-hot oracles (``leaf_eval2d_ref``, ``corner_count2d_ref``:
-the reference's one-hot matmul gather, in chunks of queries).  The
-engine's ``ref`` backend runs these.
+scan kernels, with a dense interior reduction for MAX, the dense
+membership oracles of the 1-D and 2-D delta-buffer corrections (the 2-D
+ones over (Q, cap) in chunks of queries), and the 2-D flat-leaf one-hot
+oracles (``leaf_eval2d_ref``, ``corner_count2d_ref``: the reference's
+one-hot matmul gather, in chunks of queries).  The engine's ``ref``
+backend runs these; its ``torch`` backend runs the 2-D delta oracles too,
+as the reference's ``xla`` backend does.
 """
 from __future__ import annotations
 
@@ -17,7 +19,8 @@ from ..core.poly import clipped_poly_max, eval_segments, locate
 from .leaf_eval2d import _CHUNK_ELEMS
 
 __all__ = ["poly_eval_ref", "range_sum_ref", "range_max_ref",
-           "delta_sum_ref", "delta_max_ref", "leaf_eval2d_ref",
+           "delta_sum_ref", "delta_max_ref", "delta_count2d_ref",
+           "delta_sum2d_ref", "delta_dommax2d_ref", "leaf_eval2d_ref",
            "corner_count2d_ref"]
 
 
@@ -63,6 +66,43 @@ def delta_max_ref(lq, uq, keys, vals):
     """Exact max of buffered measures with key in [lq, uq]; -inf if none."""
     member = (lq[:, None] <= keys[None, :]) & (keys[None, :] <= uq[:, None])
     return torch.where(member, vals[None, :], -torch.inf).amax(dim=1)
+
+
+def _chunked(fn, cap: int, *qs):
+    """``fn`` over query chunks of at most ``_CHUNK_ELEMS`` (query, slot)
+    pairs, concatenated."""
+    step = max(1, _CHUNK_ELEMS // max(1, cap))
+    parts = [fn(*(q[s:s + step] for q in qs))
+             for s in range(0, qs[0].shape[0], step)]
+    return torch.cat(parts) if parts else qs[0].new_zeros(0)
+
+
+def _in_rect(lx, ux, ly, uy, keys_x, keys_y):
+    return ((lx[:, None] < keys_x[None, :]) & (keys_x[None, :] <= ux[:, None])
+            & (ly[:, None] < keys_y[None, :]) & (keys_y[None, :] <= uy[:, None]))
+
+
+def delta_count2d_ref(lx, ux, ly, uy, keys_x, keys_y):
+    """Exact count of buffered points in (lx, ux] x (ly, uy]."""
+    return _chunked(lambda *q: _in_rect(*q, keys_x, keys_y).sum(
+        dim=1, dtype=keys_x.dtype), keys_x.shape[0], lx, ux, ly, uy)
+
+
+def delta_sum2d_ref(lx, ux, ly, uy, keys_x, keys_y, wv):
+    """Exact sum of buffered measures over points in (lx, ux] x (ly, uy];
+    sentinel-padded slots carry weight 0 and never satisfy membership."""
+    return _chunked(lambda *q: _in_rect(*q, keys_x, keys_y).to(wv.dtype) @ wv,
+                    keys_x.shape[0], lx, ux, ly, uy)
+
+
+def delta_dommax2d_ref(u, v, keys_x, keys_y, wv):
+    """Exact dominance max of buffered measures over {x <= u, y <= v};
+    -inf if no buffered point is dominated."""
+    def part(u, v):
+        member = ((keys_x[None, :] <= u[:, None]) &
+                  (keys_y[None, :] <= v[:, None]))
+        return torch.where(member, wv[None, :], -torch.inf).amax(dim=1)
+    return _chunked(part, keys_x.shape[0], u, v)
 
 
 def leaf_eval2d_ref(qx, qy, mx0, mx1, my0, my1, bounds, coeffs, deg):

@@ -2,13 +2,15 @@
 
 K1 (locate), K2 (range SUM), K3 (range MAX), K4 (quantile inversion), K5
 (buffered SUM), K6 (buffered MAX), the 2-D leaf kernels K7, K8, K12 and
-K13, and the ``cuda`` engine backend, static, dynamic, windowed and 2-D,
-must agree with the plain versions on the same inputs: K1's int32 ids and
-K4's Newton branch and the 2-D kernels exactly, the others to rtol = atol
-= 1e-9 (compiled with -fmad=false, they are expected to agree bit for
+K13, the buffered 2-D corrections K9, K10 and K11, and the ``cuda`` engine
+backend, static, dynamic, windowed and 2-D (static and dynamic), must
+agree with the plain versions on the same inputs: K1's int32 ids and K4's
+Newton branch and the 2-D kernels exactly, the others to rtol = atol =
+1e-9 (compiled with -fmad=false, they are expected to agree bit for
 bit).  The plain versions are held to the JAX reference by the CPU tests
 (test_torch_locate.py, test_torch_kernels.py, test_torch_engine.py,
-test_torch_quantile.py, test_torch_index2d.py, test_torch_engine2d.py), so
+test_torch_quantile.py, test_torch_index2d.py, test_torch_engine2d.py,
+test_torch_dynamic2d.py), so
 this file imports no JAX: it runs on a machine with a card and PyTorch
 alone.
 
@@ -22,10 +24,11 @@ from repro_torch.api import ErrorBudget, PolyFit, QueryBatch, QuerySpec, TableSp
 from repro_torch.core import build_index_1d, build_index_2d
 from repro_torch.data import (hki_series, make_queries_1d, make_queries_2d,
                               osm_points, tweet_latitudes)
-from repro_torch.engine import (DynamicEngine, Engine, WindowEngine,
+from repro_torch.engine import (DeltaBuffer2D, DynamicEngine,
+                                DynamicEngine2D, Engine, WindowEngine,
                                 build_plan, build_plan_2d, execute_extremum,
                                 execute_quantile)
-from repro_torch.engine.dynamic import _append_1d
+from repro_torch.engine.dynamic import _append_1d, _append_2d
 from repro_torch.engine.engine import quantile_mass, quantile_tables
 from repro_torch.engine.plan import big_sentinel
 from repro_torch.kernels import delta_scan as kdelta
@@ -642,3 +645,158 @@ def test_deep_plan_runs_scan_kernels(cuda, agg):
                           before[3] + scan[1])
     want = Engine(backend="torch").query(plan, *ranges)
     torch.testing.assert_close(got.answer, want.answer, **TOL)
+
+
+# ---------------------------------------------------------------------------
+# dynamic 2-D: K9, K10, K11 (merge-sort-tree corrections over point logs)
+# ---------------------------------------------------------------------------
+
+def _log2d(cuda, fill):
+    """A weighted x-sorted point log of ``fill`` entries in CAP slots (ties
+    on both axes) with its merge-sort-tree levels, built by the engine's
+    append on the card; and the points."""
+    rng = np.random.default_rng(fill + 1)
+    x = np.round(rng.uniform(0, 100, fill), 1)
+    y = np.round(rng.uniform(0, 100, fill), 1)
+    w = rng.normal(50, 10, fill)
+    e = DeltaBuffer2D.empty(CAP, device=cuda, weighted=True)
+    to = lambda a: torch.as_tensor(a, device=cuda)
+    log = _append_2d(e.ins_x, e.ins_y, e.ins_w, to(x), to(y), to(w), cap=CAP,
+                     levels=True, weighted=True)
+    return log, (x, y)
+
+
+def _rects2d(cuda, pts, n=70_000):
+    """Rectangles with corners on the points' own coordinates, random ones,
+    one left of and one right of the log, one around all of it and one
+    inverted."""
+    x, y = pts
+    rng = np.random.default_rng(53)
+    a, b, c, d = rng.uniform(-10, 110, (4, n))
+    if len(x):
+        k = rng.integers(0, len(x), n // 2)
+        a[:n // 2], c[:n // 2] = x[k], y[k]
+        b[:n // 2], d[:n // 2] = x[k[::-1]], y[k[::-1]]
+    lx = np.concatenate([np.minimum(a, b), [-1e9, 200.0, -1e300, 60.0]])
+    ux = np.concatenate([np.maximum(a, b), [-5.0, 1e9, 1e300, 40.0]])
+    ly = np.concatenate([np.minimum(c, d), [-1e9, -1e9, -1e300, 0.0]])
+    uy = np.concatenate([np.maximum(c, d), [1e9, 1e9, 1e300, 100.0]])
+    return tuple(torch.as_tensor(q, device=cuda) for q in (lx, ux, ly, uy))
+
+
+@pytest.mark.parametrize("fill", [0, 1, 2, CAP])
+def test_delta_2d_kernels_match_plain(cuda, fill):
+    """K9, K10 and K11 equal their plain versions in every lane, bit for
+    bit, on an empty, a one- and a two-entry and a full log."""
+    (x, _, _, ylv, wcum, wpmax), pts = _log2d(cuda, fill)
+    lx, ux, ly, uy = _rects2d(cuda, pts)
+    launches = lambda: (kdelta.delta_count2d_gather.launches,
+                        kdelta.delta_sum2d_gather.launches,
+                        kdelta.delta_dommax2d_gather.launches)
+    before = launches()
+    k9 = kdelta.delta_count2d_gather(lx, ux, ly, uy, x, ylv)
+    k10 = kdelta.delta_sum2d_gather(lx, ux, ly, uy, x, ylv, wcum)
+    k11 = kdelta.delta_dommax2d_gather(ux, uy, x, ylv, wpmax)
+    torch.cuda.synchronize()
+    assert launches() == tuple(b + 1 for b in before)
+    exact = dict(rtol=0, atol=0)
+    torch.testing.assert_close(k9, kdelta.delta_count2d_gather_plain(
+        lx, ux, ly, uy, x, ylv), **exact)
+    torch.testing.assert_close(k10, kdelta.delta_sum2d_gather_plain(
+        lx, ux, ly, uy, x, ylv, wcum), **exact)
+    torch.testing.assert_close(k11, kdelta.delta_dommax2d_gather_plain(
+        ux, uy, x, ylv, wpmax), **exact)
+    if fill == 0:
+        assert not k9.any() and not k10.any()
+        assert torch.isneginf(k11).all()
+    else:
+        assert float(k9[-2]) == fill   # the rectangle around every point
+        assert not k9[-4:-2].any()
+
+
+def test_delta_2d_kernels_reject_bad_arguments(cuda):
+    (x, _, _, ylv, wcum, wpmax), pts = _log2d(cuda, 10)
+    lx, ux, ly, uy = _rects2d(cuda, pts, n=100)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        kdelta.delta_count2d_gather(lx, ux, ly, uy, x, ylv[:5])
+    with pytest.raises(ValueError, match="shape mismatch"):
+        kdelta.delta_sum2d_gather(lx, ux[:50], ly, uy, x, ylv, wcum)
+    with pytest.raises(ValueError, match="CUDA device"):
+        kdelta.delta_dommax2d_gather(ux, uy.cpu(), x, ylv, wpmax)
+    with pytest.raises(ValueError, match="float64"):
+        kdelta.delta_dommax2d_gather(ux, uy, x, ylv, wpmax.float())
+
+
+@pytest.mark.parametrize("agg", ["count2d", "sum2d", "min2d"])
+def test_dynamic2d_cuda_backend_matches_torch_backend(cuda, agg):
+    """DynamicEngine2D on the card: the default 'cuda' backend runs K9
+    (COUNT, both logs) or K10 (SUM) beside K7, or K11 (dominance, the
+    insert log) beside K8, K1 in the Q_rel truth and the victim path, and
+    agrees with the 'torch' backend (dense oracles, quadtree descent)
+    through inserts, deletes, a flush and more updates, refined flags
+    included; both merges refit alike."""
+    px, py = osm_points(N2, seed=47)
+    w = 50 + 10 * np.sin(px / 10) + 10 * np.cos(py / 15)
+    delta = {"count2d": 20.0, "sum2d": 400.0, "min2d": 10.0}[agg]
+    idx = build_index_2d(px, py, measures=None if agg == "count2d" else w,
+                         agg=agg, deg=2, delta=delta, max_depth=6,
+                         device=cuda)
+    dev = DynamicEngine2D(idx, capacity=256, auto_refit=False)
+    host = DynamicEngine2D(idx, backend="torch", capacity=256,
+                           auto_refit=False)
+    assert dev.backend == "cuda"
+    rng = np.random.default_rng(59)
+    dominance = agg == "min2d"
+    if dominance:
+        ci = rng.integers(0, N2, 20_000)
+        ranges = (px[ci], py[ci])
+        delta_k, raw_k = kdelta.delta_dommax2d_gather, k2d.corner_eval2d_gather
+    else:
+        ranges = make_queries_2d(px, py, 20_000, seed=61)
+        delta_k = (kdelta.delta_count2d_gather if agg == "count2d"
+                   else kdelta.delta_sum2d_gather)
+        raw_k = k2d.corner_count2d_gather
+    counts = lambda: (delta_k.launches, raw_k.launches, kloc.locate.launches)
+    gone = rng.choice(N2, 24, replace=False)
+    x0, x1 = px.min(), px.max()
+    y0, y1 = py.min(), py.max()
+
+    def update(step):
+        ins = (rng.uniform(x0, x1, 40), rng.uniform(y0, y1, 40),
+               rng.uniform(40, 60, 40))
+        out = gone[12 * step:12 * (step + 1)]
+        for dyn in (dev, host):
+            dyn.insert(*(ins[:2] if agg == "count2d" else ins))
+            dyn.delete(px[out], py[out])
+
+    def compare():
+        victims = dominance and dev.snapshot()[1].vic_x is not None
+        for eps_rel in (None, 0.05):
+            before = counts()
+            got = dev.query(*ranges, eps_rel=eps_rel)
+            torch.cuda.synchronize()
+            if dominance:
+                k1 = 1 if (victims or eps_rel is not None) else 0
+                want_counts = (before[0] + 1, before[1] + 1, before[2] + k1)
+            else:
+                k1 = 2 if eps_rel is not None else 0
+                want_counts = (before[0] + 2, before[1] + 1, before[2] + k1)
+            assert counts() == want_counts
+            before = counts()
+            want = host.query(*ranges, eps_rel=eps_rel)
+            assert counts() == before
+            torch.testing.assert_close(got.answer, want.answer, **TOL)
+            torch.testing.assert_close(got.refined, want.refined, rtol=0,
+                                       atol=0)
+
+    update(0)
+    compare()
+    dev.flush()
+    host.flush()
+    assert dev.refit_count == host.refit_count == 1
+    assert dev.last_refit_stats == host.last_refit_stats
+    torch.testing.assert_close(dev.index.coeffs.cpu(), host.index.coeffs.cpu(),
+                               rtol=0, atol=0)
+    compare()
+    update(1)
+    compare()

@@ -132,8 +132,8 @@ def test_single_spec_and_not_ported_kinds(sessions):
     with pytest.raises(ValueError, match="not windowed"):
         port.query(tapi.QuerySpec.window("lat", 0.0, 1.0, 0, 0))
     # dynamic one-key tables are ported (ROADMAP Queue 1 item 10), and
-    # static 2-D tables (item 13); LSM tiering, dynamic 2-D tables and
-    # sharding are not
+    # static and dynamic 2-D tables (item 13); LSM tiering and sharding
+    # are not
     assert tapi.TableSpec("count", tapi.ErrorBudget(abs=10),
                           dynamic=True).dynamic
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 12"):
@@ -143,7 +143,7 @@ def test_single_spec_and_not_ported_kinds(sessions):
     assert len(tapi.QuerySpec("lat", (0.0, 1.0, 0.0, 1.0)).ranges) == 4
     with pytest.raises(ValueError, match="range coordinates"):
         port.query(tapi.QuerySpec("lat", (0.0, 1.0, 0.0, 1.0)))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 13"):
-        tapi.TableSpec("count2d", tapi.ErrorBudget(abs=10), dynamic=True)
+    assert tapi.TableSpec("count2d", tapi.ErrorBudget(abs=10),
+                          dynamic=True).dynamic
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 14"):
         tapi.TableSpec("count", tapi.ErrorBudget(abs=10), shards=2)

@@ -4,10 +4,11 @@ derivation, a batch mixing 1-D COUNT, 2-D COUNT and SUM rectangles and
 dominance MAX/MIN corners, data validation).  The same tables fitted from
 the same data answer answer for answer (rtol = atol = 1e-9) with equal
 refined flags, in request order, and keep their certified bounds against
-exact truth computed with numpy.  The reference's mixed batch makes its
-SUM table dynamic; dynamic 2-D tables come with their own slice, so here
-both sessions fit it static.  Its dominance budgets are 10 (the
-reference's 4 takes a 10,000-leaf tree and most of a minute to build)."""
+exact truth computed with numpy.  As in the reference's mixed batch, the
+SUM table is dynamic (``DynamicEngine2D``), and an insert, a delete and a
+flush go through the facade of both sessions.  Its dominance budgets are
+10 (the reference's 4 takes a 10,000-leaf tree and most of a minute to
+build)."""
 import numpy as np
 import pytest
 import jax
@@ -40,7 +41,8 @@ def _specs(api):
             "geo": api.TableSpec("count2d", api.ErrorBudget(abs=4 * DELTA,
                                                             rel=0.05)),
             "spend": api.TableSpec("sum2d", api.ErrorBudget(abs=1600.0),
-                                   deg=2),
+                                   deg=2, dynamic=True, background=False,
+                                   capacity=64),
             "peak": api.TableSpec("max2d", api.ErrorBudget(abs=10.0), deg=2),
             "low": api.TableSpec("min2d", api.ErrorBudget(abs=10.0), deg=2)}
 
@@ -138,6 +140,45 @@ def test_session_2d_mixed_batch(data, sessions, rel):
             assert (err[pos] / truth[pos]).max() <= rel + 1e-9, name
 
 
+def test_session_2d_dynamic_updates(data, sessions):
+    """tests/test_api.py:317-329: an insert and a delete on the dynamic
+    SUM table flow through both facades (the answer moves by the inserted
+    measure, 25.0), the port answers as the reference does at every step,
+    staleness counts the buffered ops, and a flush merges them."""
+    ref, port = sessions
+    rect = (np.array([40.0]), np.array([60.0]),
+            np.array([40.0]), np.array([60.0]))
+    spec = lambda api: api.QuerySpec.rect("spend", *rect)
+
+    def both():
+        got, want = port.query(spec(tapi)), ref.query(spec(rapi))
+        np.testing.assert_allclose(got.value.numpy(), np.asarray(want.value),
+                                   **TOL)
+        return float(got.value[0]), got.staleness
+
+    start, stale = both()
+    assert stale == 0
+    for s in (ref, port):
+        s.insert("spend", [50.0], [50.0], [25.0])
+    before, stale = both()
+    assert stale == 1 and before - start == pytest.approx(25.0)
+    for s in (ref, port):
+        s.delete("spend", [50.0], [50.0])
+    after, stale = both()
+    assert stale == 2 and before - after == pytest.approx(25.0)
+    for s in (ref, port):
+        s.flush("spend")
+    dyn = port._table("spend").dyn
+    assert dyn.refit_count == ref._table("spend").dyn.refit_count == 1
+    assert dyn.n_pending == 0
+    assert dyn.last_refit_stats == ref._table("spend").dyn.last_refit_stats
+    assert port.certified_delta("spend") == dyn.index.certified_delta
+    merged, stale = both()
+    assert stale == 0 and abs(merged - after) <= 1600.0 + 1e-6
+    plan, buf = port.snapshot("spend")
+    assert plan is port.plan("spend") and buf.cap == 64
+
+
 def test_session_2d_spec_and_data_validation(data, sessions):
     keys, px, py, w = data
     _, port = sessions
@@ -162,11 +203,11 @@ def test_session_2d_spec_and_data_validation(data, sessions):
 
 
 def test_session_2d_later_slices_raise():
-    """Dynamic, LSM and sharded 2-D tables come with later slices."""
+    """Dynamic 2-D tables are ported; LSM and sharded 2-D tables come with
+    later slices."""
     b = tapi.ErrorBudget(abs=100.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 13"):
-        tapi.TableSpec("sum2d", b, dynamic=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 13"):
+    assert tapi.TableSpec("sum2d", b, dynamic=True).dynamic
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 12"):
         tapi.TableSpec("count2d", b, dynamic=True, lsm=True)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 14"):
         tapi.TableSpec("count2d", b, shards=2)
