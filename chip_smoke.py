@@ -107,6 +107,22 @@ Phases, each of which fails the run with a non-zero exit:
               path's shapes (max abs error 0), and K9-K11 are timed on the
               full 4,096-slot logs.
 
+The ``cuda_scan`` backend (the one-hot scan kernels K14-K17 and K4's scan
+mode) runs at the end of phases 7-10 on the plans, indexes and logs those
+phases already hold, building no table and fitting nothing (``scan``
+steps): the four static plans take the main-path batch under Q_abs and
+Q_rel and 65,536 quantile fractions on the COUNT and SUM tables; ``osm``
+and ``osm_max`` take the 2d batch (K12/K13, never K7/K8); a
+``DynamicEngine(backend="cuda_scan")`` over each dynamic table's merged
+index takes the table's buffer-full ops and queries; the all-epochs window
+runs through ``execute_lsm``.  Every answer, approximation and refined
+flag must equal the ``cuda`` backend's bit for bit (and hold against the
+truths above), the counters must show K14-K17 and K4's scan mode and none
+of K2, K3, K5, K6, K7 or K8, and K14-K17 and K4's scan mode are held to
+their plain versions (max abs error 0) and timed: K4's scan mode at the
+static COUNT and SUM plans, K14/K15 at the dynamic plans, K16/K17 on the
+full 4,096-slot logs and K16 also on the window's 131,072-slot log.
+
 The line before last is the card's nvidia-smi name and power limit, the
 line before that the kernels' JSON record: one row a kernel, whose own
 numbers are the dynamic phase's (TWEET at the paper's 1M; the 2-D leaf
@@ -124,6 +140,7 @@ import statistics
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -192,6 +209,11 @@ REPLACES = {
     "delta_count2d_gather": "src/repro/kernels/delta_scan.py:280",
     "delta_sum2d_gather": "src/repro/kernels/delta_scan.py:378",
     "delta_dommax2d_gather": "src/repro/kernels/delta_scan.py:461",
+    "range_sum": "src/repro/kernels/range_sum.py:108",
+    "range_max": "src/repro/kernels/range_max.py:142",
+    "delta_sum": "src/repro/kernels/delta_scan.py:80",
+    "delta_max": "src/repro/kernels/delta_scan.py:156",
+    "quantile_invert_scan": "src/repro/kernels/quantile_invert.py:52",
 }
 SOURCE = {name: "src/repro_torch/csrc/polyfit_kernels.cu" for name in REPLACES}
 SOURCE["quantile_invert"] = "src/repro_torch/csrc/quantile.cu"
@@ -203,6 +225,17 @@ KERNELS_DYN2D = ("delta_count2d_gather", "delta_sum2d_gather",
                  "delta_dommax2d_gather")
 for _name in KERNELS_DYN2D:
     SOURCE[_name] = "src/repro_torch/csrc/delta2d.cu"
+# the cuda_scan backend's kernels; K4's scan mode has a row of its own
+KERNELS_SCAN = ("range_sum", "range_max", "delta_sum", "delta_max")
+for _name in KERNELS_SCAN:
+    SOURCE[_name] = "src/repro_torch/csrc/scan1d.cu"
+SOURCE["quantile_invert_scan"] = "src/repro_torch/csrc/quantile.cu"
+# the phase whose measurements head each kernel's row
+HEAD_PHASE = {**dict.fromkeys(KERNELS_2D, "2d"),
+              **dict.fromkeys(KERNELS_DYN2D, "dyn2d"),
+              **dict.fromkeys(KERNELS_SCAN, "scan dynamic"),
+              "quantile_invert_scan": "scan static"}
+SCAN_STATIC = ("lat", "hki", "hki_min", "hki_sum")
 METHODS = ("linear", "lower", "higher", "nearest", "midpoint")
 
 
@@ -246,13 +279,17 @@ def host_range_max(st: np.ndarray, i: np.ndarray, j: np.ndarray) -> np.ndarray:
 
 
 def host_truth(keys, meas, lq, uq, agg):
-    """COUNT over (lq, uq]; MAX/MIN over [lq, uq] (every span non-empty,
-    since the endpoints are drawn from the keys)."""
+    """COUNT and SUM over (lq, uq]; MAX/MIN over [lq, uq] (every span
+    non-empty, since the endpoints are drawn from the keys)."""
     order = np.argsort(keys, kind="stable")
     k = keys[order]
     if agg == "count":
         return (np.searchsorted(k, uq, side="right")
                 - np.searchsorted(k, lq, side="right")).astype(np.float64)
+    if agg == "sum":
+        cf = np.concatenate([[0.0], np.cumsum(meas[order])])
+        return (cf[np.searchsorted(k, uq, side="right")]
+                - cf[np.searchsorted(k, lq, side="right")])
     m = meas[order] if agg == "max" else -meas[order]
     i = np.searchsorted(k, lq, side="left")
     j = np.searchsorted(k, uq, side="right")
@@ -427,12 +464,14 @@ def check_quantiles(tag, name, a, lo, hi, keys, weights, fr):
 
 
 def measure(torch, tag, name, fn, plain, args, library, nbytes, flops,
-            shape):
+            shape, plain_calls=20):
     """Time one kernel, its plain version and its library yardstick on the
-    same arguments, at one shape of the main path."""
+    same arguments, at one shape of the main path (the plain version over
+    ``plain_calls`` calls a graph, fewer where one call takes long)."""
     ms = device_ms(torch, lambda: fn(*args))
     eager_ms = call_ms(torch, lambda: fn(*args))
-    plain_ms = device_ms(torch, lambda: plain(*args))
+    plain_ms = device_ms(torch, lambda: plain(*args), calls=plain_calls,
+                         replays=min(5, plain_calls))
     lib_ms = None if library is None else device_ms(
         torch, lambda: library(*args))
     b_ms, b_by = bound_ms(nbytes, flops)
@@ -451,10 +490,10 @@ def kernel_row(name, phases, err):
     phase that launched it to (launches, its measure() at that phase's
     shapes, or None where it was not timed there); the row's own numbers
     are the dynamic phase's (TWEET at the paper's 1M), the 2d phase's for
-    the 2-D leaf kernels, the dyn2d phase's for K9-K11, and ``launches``
-    sums them all."""
-    head = phases["2d" if name in KERNELS_2D else
-                  "dyn2d" if name in KERNELS_DYN2D else "dynamic"][1]
+    the 2-D leaf kernels, the dyn2d phase's for K9-K11, the scan dynamic
+    step's for K14-K17 and the scan static step's for K4's scan mode
+    (``HEAD_PHASE``), and ``launches`` sums them all."""
+    head = phases[HEAD_PHASE.get(name, "dynamic")][1]
     return {"name": name, "route": "cuda", "source": SOURCE[name],
             "replaces": REPLACES[name],
             "launches": sum(n for n, _ in phases.values()),
@@ -732,9 +771,10 @@ def main() -> None:
     from repro_torch.data import (hki_series, make_queries_1d,
                                   make_queries_2d, osm_points,
                                   tweet_latitudes)
-    from repro_torch.engine import (IndexPlan2D, build_plan_2d,
-                                    execute_count2d, execute_extremum,
-                                    execute_extremum2d, execute_quantile)
+    from repro_torch.engine import (DynamicEngine, IndexPlan2D, build_plan_2d,
+                                    execute, execute_count2d,
+                                    execute_extremum, execute_extremum2d,
+                                    execute_lsm, execute_quantile)
     from repro_torch.engine.engine import quantile_mass, quantile_tables
     from repro_torch.kernels import _build
     from repro_torch.kernels import delta_scan as kdel
@@ -825,12 +865,25 @@ def main() -> None:
         return QueryBatch.of(*(QuerySpec.range(name, *queries[name], rel=rel)
                                for name in names))
 
+    class K4Scan:
+        """K4's scan mode as a counter: its wrapper counts it apart."""
+        __name__ = "quantile_invert_scan"
+        launches = property(
+            lambda self: kq.quantile_invert.scan_launches,
+            lambda self, v: setattr(kq.quantile_invert, "scan_launches", v))
+
     counters = (kloc.locate, ksum.range_sum_gather, kmax.range_max_gather,
                 kq.quantile_invert, kdel.delta_sum_gather,
                 kdel.delta_max_gather, k2d.corner_count2d_gather,
                 k2d.corner_eval2d_gather, k2d.corner_count2d,
                 k2d.corner_eval2d, kdel.delta_count2d_gather,
-                kdel.delta_sum2d_gather, kdel.delta_dommax2d_gather)
+                kdel.delta_sum2d_gather, kdel.delta_dommax2d_gather,
+                ksum.range_sum, kmax.range_max, kdel.delta_sum,
+                kdel.delta_max, K4Scan())
+    # the kernels cuda_scan must not launch
+    GATHERS = ("range_sum_gather", "range_max_gather", "delta_sum_gather",
+               "delta_max_gather", "corner_count2d_gather",
+               "corner_eval2d_gather", "quantile_invert")
     phase_launches = {}         # phase -> kernel -> launches on its main path
 
     def reset():
@@ -1010,21 +1063,27 @@ def main() -> None:
                   f"max |kernel - plain| = {errs['quantile_invert']!r}",
                   flush=True)
 
-    def measure_k4(plan, tag):
-        """Time K4 at one plan's execute_quantile shapes."""
+    def measure_k4(plan, tag, scan=False):
+        """Time K4 (or its scan mode) at one plan's execute_quantile
+        shapes.  The scan mode's counts are comparison sums: a compare and
+        an add per entry of B (three times) and of the key grid."""
         args, kw = k4_args(plan)
+        kw = dict(kw, scan=scan)
         H, cols, nk = plan.seg_lo.shape[0], plan.coeffs.shape[1], \
             args[8].shape[0]
         nbytes = 6 * Q * 8 + 4 * H * 8 + H * cols * 8 + nk * 8
-        flops = Q * quantile_flops(plan.deg, probe_rounds(H),
-                                   probe_rounds(nk))
+        flops = Q * (quantile_flops(plan.deg, 2 * H, 2 * nk) if scan else
+                     quantile_flops(plan.deg, probe_rounds(H),
+                                    probe_rounds(nk)))
         shape = (f"t_mid, t_lo, t_hi ({Q},); B, seg_lo, seg_hi, seg_err "
                  f"({H},); coeffs ({H}, {cols}); ref_keys ({nk},) f64 -> "
                  f"3 x ({Q},)")
-        return measure(torch, tag, "quantile_invert",
+        return measure(torch, tag,
+                       "quantile_invert_scan" if scan else "quantile_invert",
                        lambda *a: kq.quantile_invert(*a, **kw),
                        lambda *a: kq.quantile_invert_plain(*a, **kw), args,
-                       None, nbytes, flops, shape)
+                       None, nbytes, flops, shape,
+                       plain_calls=2 if scan else 20)
 
     qplans = {n: session.plan(n) for n in qnames}
     hold_k4(qplans, "")
@@ -1086,6 +1145,109 @@ def main() -> None:
     query_latency(torch, session, qbatch(qnames), "session.query quantile",
                   2 * NQ)
     profile_batch(torch, session, qbatch(qnames), "session.query quantile")
+
+    # -- 7b. scan: the cuda_scan backend on the static plans ------------------
+    def same_results(tag, triples):
+        """Every field of each (name, cuda_scan result, cuda result) equal
+        bit for bit (QueryResult or QuantileResult)."""
+        for name, g, w in triples:
+            for field, a, b in zip(g._fields, g, w):
+                check(torch.equal(a, b), f"{tag}{name}: cuda_scan {field} "
+                      "differs from cuda")
+
+    def check_scan_launches(tag, launches, want):
+        """The scan step's counts: ``want`` exactly, none of the gather
+        kernels (K2, K3, K5, K6, K7, K8, gather-mode K4)."""
+        print(f"{tag}launches {launches}", flush=True)
+        check(all(launches[k] == v for k, v in want.items()),
+              f"{tag}launches {launches}, expected {want}")
+        check(all(launches[k] == 0 for k in GATHERS),
+              f"{tag}a gather kernel ran on cuda_scan: {launches}")
+
+    def scan_range_args(plan, lq, uq):
+        """(K14 or K15 name, the arguments the path gives it)."""
+        lqc, uqc = (torch.maximum(q, plan.domain_lo) for q in (lq, uq))
+        if plan.agg in ("sum", "count"):
+            return "range_sum", (lqc, uqc, plan.seg_lo, plan.seg_next,
+                                 plan.seg_hi, plan.coeffs)
+        return "range_max", (lqc, uqc, plan.seg_lo, plan.seg_next,
+                             plan.seg_hi, plan.coeffs, plan.seg_agg)
+
+    def hold_scan(sets, tag):
+        """K14-K17 against their plain versions, exactly."""
+        for name, args in sets.items():
+            mod = kdel if name.startswith("delta") else (
+                ksum if name == "range_sum" else kmax)
+            hold(name, getattr(mod, name), getattr(mod, name + "_plain"),
+                 args, exact=True)
+        print(f"{tag}parity {'/'.join(sets)} on "
+              f"{'/'.join(str(len(v)) for v in sets.values())} argument "
+              f"sets: max |kernel - plain| = "
+              f"{ {k: errs[k] for k in sets} }", flush=True)
+
+    def hold_k4_scan(plans, tag):
+        """K4's scan mode against its plain version and the gather mode,
+        exactly, on each plan."""
+        errs.setdefault("quantile_invert_scan", 0.0)
+        for name, plan in plans.items():
+            args, kw = k4_args(plan)
+            got = kq.quantile_invert(*args, scan=True, **kw)
+            want = kq.quantile_invert_plain(*args, scan=True, **kw)
+            gather = kq.quantile_invert(*args, **kw)
+            torch.cuda.synchronize()
+            for label, g, w, a in zip(("answer", "lo", "hi"), got, want,
+                                      gather):
+                check(torch.equal(g, w) and torch.equal(g, a),
+                      f"{tag}K4 scan {label} on {name} differs from its "
+                      "plain version or the gather mode")
+                errs["quantile_invert_scan"] = max(
+                    errs["quantile_invert_scan"], max_abs_err(g, w))
+        print(f"{tag}parity K4 scan mode on {len(plans)} plans: max |kernel "
+              f"- plain| = {errs['quantile_invert_scan']!r}", flush=True)
+
+    tag = "scan static: "
+    step0 = time.perf_counter()
+    s_qs = dict(qs, hki_sum=make_queries_1d(t_s, NQ, seed=SEED + 5))
+    s_truth = dict(truth, hki_sum=host_truth(t_s, v_s, *s_qs["hki_sum"],
+                                             "sum"))
+    splans = {n: session.plan(n) for n in SCAN_STATIC}
+    labels = (("Q_abs", None), ("Q_rel", EPS_REL))
+    run = lambda b: {label: [execute(splans[n], s_qs[n], backend=b,
+                                     eps_rel=rel) for n in SCAN_STATIC]
+                     for label, rel in labels}
+    runq = lambda b: [execute_quantile(qplans[n], fr_t, backend=b)
+                      for n in qnames]
+    want_s, want_q = run("cuda"), runq("cuda")
+    torch.cuda.synchronize()
+    reset()
+    t0 = time.perf_counter()
+    got_s, got_q = run("cuda_scan"), runq("cuda_scan")
+    torch.cuda.synchronize()
+    print(f"{tag}first-call seconds {time.perf_counter() - t0!r}", flush=True)
+    check_scan_launches(tag, read("scan static"),
+                        {"range_sum": 4, "range_max": 4,
+                         "quantile_invert_scan": 2})
+    for label, _ in labels:
+        same_results(f"{tag}{label} ",
+                     zip(SCAN_STATIC, got_s[label], want_s[label]))
+    same_results(tag + "quantile ", zip(qnames, got_q, want_q))
+    check_answers(tag, SCAN_STATIC, {
+        label: [SimpleNamespace(value=r.answer, refined=r.refined)
+                for r in got_s[label]] for label, _ in labels}, s_truth,
+        dict(bounds, hki_sum=HKI_SUM_ABS))
+    for name, res in zip(qnames, got_q):
+        check_quantiles(tag, name, *res, *qkeys[name], fr)
+    scan_sets = {"range_sum": [], "range_max": []}
+    for n in SCAN_STATIC:
+        lq, uq = (torch.as_tensor(q, device=dev) for q in s_qs[n])
+        k, args = scan_range_args(splans[n], lq, uq)
+        scan_sets[k].append(args)
+    hold_scan(scan_sets, tag)
+    hold_k4_scan(qplans, tag)
+    timed["scan static"] = {"quantile_invert_scan": measure_k4(
+        qplans["hki_sum"], "scan hki_sum: ", scan=True)}
+    measure_k4(qplans["lat"], "scan lat: ", scan=True)
+    print(f"{tag}step seconds {time.perf_counter() - step0!r}", flush=True)
 
     # -- 8. dynamic tables ---------------------------------------------------
     del session
@@ -1235,6 +1397,11 @@ def main() -> None:
         check(0 < refit <= max(8, h // 10),
               f"the hot-band merge of {name} refit {refit} of {h} segments")
     dyn_state("hot band, merged: ", SEED + 20, with_k4=True)
+    # scan: a cuda_scan engine over each table's merged index, fed the same
+    # buffer-full ops below
+    scan_dyn = {name: DynamicEngine(dsession._dyn(name).index,
+                                    backend="cuda_scan", capacity=CAPACITY,
+                                    auto_refit=False) for name in DYN}
 
     # step 2: a full buffer (CAPACITY pending ops a table), no merge
     lv = live["lat_dyn"]
@@ -1242,6 +1409,8 @@ def main() -> None:
     gone = lv.pick_base(rng, 1024)
     dsession.insert("lat_dyn", ins)
     dsession.delete("lat_dyn", gone)
+    scan_dyn["lat_dyn"].insert(ins)
+    scan_dyn["lat_dyn"].delete(gone)
     lv.insert(ins)
     lv.delete(gone)
     for name, extreme in (("hki_dyn", np.argmax), ("hki_min_dyn", np.argmin)):
@@ -1251,6 +1420,8 @@ def main() -> None:
         gone = extremal_victims(rng, lv, extreme)
         dsession.insert(name, tb, vb)
         dsession.delete(name, gone)
+        scan_dyn[name].insert(tb, vb)
+        scan_dyn[name].delete(gone)
         lv.insert(tb, vb)
         lv.delete(gone)
     refits = {name: dsession._dyn(name).refit_count for name in DYN}
@@ -1276,6 +1447,75 @@ def main() -> None:
         kdel.delta_max_gather_plain, k6[0], None,
         3 * Q * 8 + cap * 8 + st.numel() * 8, Q * (2 * rounds + 4),
         f"lq, uq ({Q},); keys ({cap},); st {tuple(st.shape)} f64 -> ({Q},)")
+    # scan: the cuda_scan engines against the session's cuda engines
+    tag = "scan dynamic: "
+    step0 = time.perf_counter()
+    check(all(e.n_pending == CAPACITY and e.refit_count == 0
+              for e in scan_dyn.values())
+          and all(e.snapshot()[1].ins_st is None for e in scan_dyn.values()),
+          f"{tag}a cuda_scan engine merged, lost an op or keeps a sparse "
+          "table")
+    drun = lambda engines: {label: [engines[n].query(*dq[n], eps_rel=rel)
+                                    for n in DYN] for label, rel in labels}
+    want_d = drun({n: dsession._dyn(n) for n in DYN})
+    torch.cuda.synchronize()
+    reset()
+    t0 = time.perf_counter()
+    got_d = drun(scan_dyn)
+    torch.cuda.synchronize()
+    print(f"{tag}first-call seconds {time.perf_counter() - t0!r}", flush=True)
+    check_scan_launches(tag, read("scan dynamic"),
+                        {"range_sum": 2, "delta_sum": 4, "range_max": 4,
+                         "delta_max": 4})
+    for label, _ in labels:
+        same_results(f"{tag}{label} ", zip(DYN, got_d[label], want_d[label]))
+    print(f"{tag}every answer, approximation and refined flag equals the "
+          "cuda engine's", flush=True)
+    dt = {name: tuple(torch.as_tensor(q, device=dev) for q in dq[name])
+          for name in DYN}
+    scan_sets = {"range_sum": [], "range_max": [], "delta_sum": [],
+            "delta_max": []}
+    for name in DYN:
+        plan, buf = scan_dyn[name].snapshot()
+        k, args = scan_range_args(plan, *dt[name])
+        scan_sets[k].append(args)
+        if DYN_AGG[name] == "count":
+            scan_sets["delta_sum"] += [(*dt[name], buf.ins_keys, buf.ins_vals),
+                                  (*dt[name], buf.del_keys, buf.del_vals)]
+        else:
+            scan_sets["delta_max"].append(
+                (*dt[name], buf.ins_keys, buf.ins_vals))
+    hold_scan(scan_sets, tag)
+    plan = scan_dyn["lat_dyn"].snapshot()[0]
+    H, cols = plan.seg_lo.shape[0], plan.coeffs.shape[1]
+    deg = cols - 1
+    timed["scan dynamic"] = {
+        "range_sum": measure(
+            torch, tag, "range_sum", ksum.range_sum, ksum.range_sum_plain,
+            scan_sets["range_sum"][0], None,
+            2 * Q * 8 + 3 * H * 8 + H * cols * 8 + Q * 8,
+            Q * (2 * (2 * H + 5 + 2 * deg) + 1),
+            f"lq, uq ({Q},); seg_lo, seg_next, seg_hi ({H},); coeffs ({H}, "
+            f"{cols}) f64 -> ({Q},)")}
+    plan = scan_dyn["hki_dyn"].snapshot()[0]
+    H, cols = plan.seg_lo.shape[0], plan.coeffs.shape[1]
+    timed["scan dynamic"]["range_max"] = measure(
+        torch, tag, "range_max", kmax.range_max, kmax.range_max_plain,
+        scan_sets["range_max"][0], None,
+        2 * Q * 8 + 4 * H * 8 + H * cols * 8 + Q * 8,
+        Q * (7 * H + range_max_flops(0, cols - 1)),
+        f"lq, uq ({Q},); seg_lo, seg_next, seg_hi, seg_agg ({H},); coeffs "
+        f"({H}, {cols}) f64 -> ({Q},)")
+    for name, args in (("delta_sum", scan_sets["delta_sum"][0]),
+                       ("delta_max", scan_sets["delta_max"][0])):
+        cap = args[2].shape[0]
+        timed["scan dynamic"][name] = measure(
+            torch, tag, name, getattr(kdel, name),
+            getattr(kdel, name + "_plain"),
+            args, None, 3 * Q * 8 + 2 * cap * 8, Q * 3 * cap,
+            f"lq, uq ({Q},); keys, vals ({cap},) f64 -> ({Q},)")
+    print(f"{tag}step seconds {time.perf_counter() - step0!r} (engines "
+          "built before the buffer-full ops not counted)", flush=True)
     for label, rel in (("Q_abs", None), ("Q_rel", EPS_REL)):
         query_latency(torch, dsession, batch(DYN, dq, rel),
                       f"buffer full: session.query {label}", 3 * NQ)
@@ -1397,6 +1637,35 @@ def main() -> None:
     profile_batch(torch, wsession, QuerySpec.window(
         "lat_win", *wq["all epochs"], 0, 4), "window all epochs: "
         "session.query Q_abs")
+
+    # scan: the all-epochs window through execute_lsm on cuda_scan (K14 per
+    # sealed epoch, K16 on the open epoch's log)
+    tag = "scan window: "
+    step0 = time.perf_counter()
+    wrun = lambda b: {label: [execute_lsm(lsm, wbuf, wq["all epochs"],
+                                          backend=b, eps_rel=rel)]
+                      for label, rel in labels}
+    want_w = wrun("cuda")
+    torch.cuda.synchronize()
+    reset()
+    got_w = wrun("cuda_scan")
+    torch.cuda.synchronize()
+    check_scan_launches(tag, read("scan window"),
+                        {"range_sum": 2 * len(lsm.levels), "delta_sum": 2})
+    for label, _ in labels:
+        same_results(f"{tag}{label} ",
+                     zip(("lat_win",), got_w[label], want_w[label]))
+    print(f"{tag}every answer equals the cuda backend's", flush=True)
+    hold_scan({"range_sum": [scan_range_args(lvl.plan, lq, uq)[1]
+                             for lvl in lsm.levels],
+               "delta_sum": [(lq, uq, wbuf.ins_keys, wbuf.ins_vals)]}, tag)
+    cap = wbuf.ins_keys.shape[0]
+    timed["scan window"] = {"delta_sum": measure(
+        torch, tag, "delta_sum", kdel.delta_sum, kdel.delta_sum_plain,
+        (lq, uq, wbuf.ins_keys, wbuf.ins_vals), None,
+        3 * Q * 8 + 2 * cap * 8, Q * 3 * cap,
+        f"lq, uq ({Q},); keys, vals ({cap},) f64 -> ({Q},)", plain_calls=2)}
+    print(f"{tag}step seconds {time.perf_counter() - step0!r}", flush=True)
 
     # one more seal evicts epoch 0: its window must raise
     torch.cuda.synchronize()
@@ -1638,6 +1907,30 @@ def main() -> None:
                       f"2d: session.query {label}", 4 * NQ)
         profile_batch(torch, session2, batch2d(rel),
                       f"2d: session.query {label}")
+    # scan: osm's rectangles and osm_max's corners on cuda_scan (K12 and K13
+    # at every depth, never K7 or K8)
+    tag = "scan 2d: "
+    step0 = time.perf_counter()
+    mp = session2.plan("osm_max")
+    reset()
+    got2 = {label: [execute_count2d(op, *rects["osm"], backend="cuda_scan",
+                                    eps_rel=rel),
+                    execute_extremum2d(mp, *corners, backend="cuda_scan",
+                                       eps_rel=rel)]
+            for label, rel in labels}
+    torch.cuda.synchronize()
+    check_scan_launches(tag, read("scan 2d"),
+                        {"corner_count2d": 2, "corner_eval2d": 2})
+    for label, _ in labels:
+        for name, g, w in zip(("osm", "osm_max"), got2[label],
+                              answers2[label][:2]):
+            check(torch.equal(g.answer, w.value)
+                  and torch.equal(g.approx, w.approx)
+                  and torch.equal(g.refined, w.refined),
+                  f"{tag}{label} {name}: cuda_scan differs from cuda")
+    check_2d(tag, ("osm", "osm_max"), got2, truth2, certs)
+    print(f"{tag}every answer equals the cuda backend's; step seconds "
+          f"{time.perf_counter() - step0!r}", flush=True)
     del session2
 
     # -- 11. dynamic two-key tables ------------------------------------------

@@ -144,11 +144,16 @@ def _count(keys: torch.Tensor, q: torch.Tensor, side: str,
            scan: bool) -> torch.Tensor:
     """searchsorted(keys, q, side): the branch-free binary search, or the
     O(Q*n) one-hot comparison sum (the ``scan`` twin — the summed predicate
-    is exactly the bsearch predicate, so indices match)."""
+    is exactly the bsearch predicate, so indices match), its (Q, n)
+    comparison formed a chunk of queries at a time."""
     if scan:
-        cmp = (keys[None, :] <= q[:, None]) if side == "right" else (
-            keys[None, :] < q[:, None])
-        return torch.sum(cmp, dim=1, dtype=torch.int32)
+        from ..kernels.ref import _chunked  # lazy: kernels import core
+
+        def part(q):
+            cmp = (keys[None, :] <= q[:, None]) if side == "right" else (
+                keys[None, :] < q[:, None])
+            return torch.sum(cmp, dim=1, dtype=torch.int32)
+        return _chunked(part, keys.shape[0], q)
     from ..kernels.locate import bsearch_count  # lazy: kernels import core
     return bsearch_count(keys, q, side=side)
 

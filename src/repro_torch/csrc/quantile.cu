@@ -2,6 +2,8 @@
 // thread per rank target.
 //
 // K4 quantile_invert_kernel  replaces repro/kernels/quantile_invert.py:quantile_invert_pallas
+//    (SCAN = false: the 'cuda' backend; SCAN = true: the reference's
+//    scan=True mode, the 'cuda_scan' backend)
 //
 // The twin of repro_torch/core/quantile.py:certified_quantile_shifted, in
 // its order of operations (compiled with -fmad=false, as the plain torch
@@ -38,6 +40,16 @@
 // the dependent key-grid probes and the launch set the time.  What the
 // design does about it: nothing yet; one thread per target, the tables read
 // through L1/L2.
+//
+// The scan mode (SCAN = true) takes every count as the one-hot comparison
+// sum of the reference's scan=True: #(B < t + delta), #(B <= t - delta),
+// #(B < t) and #(ref_keys < x), each over the whole array.  On sorted
+// arrays the summed predicate is the binary search's, so both modes return
+// the same keys bit for bit.  The block's 256 targets walk each array in
+// tiles of 256 entries staged through shared memory (the three B counts in
+// one pass); that makes it bound by operations, 2 (3 Hp + nk) compares and
+// adds a target: at Q = 65,536 and a 200,000-key grid about 2.6e10, about
+// 0.8 ms at the FP64 peak, where the gather mode takes microseconds.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -206,8 +218,34 @@ __device__ __forceinline__ void load_row(const double* __restrict__ coeffs,
   for (int j = 0; j <= DEG; ++j) c[j] = row[j];
 }
 
-// K4: (answer, lower, upper) per slack-shifted rank target
-template <int DEG>
+// #(keys[0:n] < q[e]) where left[e], else #(keys[0:n] <= q[e]), for each of
+// a thread's NC targets: one-hot comparison sums over tiles of the array
+// staged through shared memory, every thread of the block taking part
+template <int NC>
+__device__ void scan_counts(const double* __restrict__ keys, int n,
+                            const double (&q)[NC], const bool (&left)[NC],
+                            int (&c)[NC]) {
+  __shared__ double s_k[kThreads];
+#pragma unroll
+  for (int e = 0; e < NC; ++e) c[e] = 0;
+  for (int t0 = 0; t0 < n; t0 += kThreads) {
+    const int j = t0 + threadIdx.x;
+    if (j < n) s_k[threadIdx.x] = keys[j];
+    __syncthreads();
+    const int m = n - t0 < kThreads ? n - t0 : kThreads;
+    for (int k = 0; k < m; ++k) {
+      const double key = s_k[k];
+#pragma unroll
+      for (int e = 0; e < NC; ++e)
+        c[e] += left[e] ? (key < q[e] ? 1 : 0) : (key <= q[e] ? 1 : 0);
+    }
+    __syncthreads();
+  }
+}
+
+// K4: (answer, lower, upper) per slack-shifted rank target; SCAN takes
+// every count by one-hot comparison sums instead of binary searches
+template <int DEG, bool SCAN>
 __global__ void quantile_invert_kernel(
     const double* __restrict__ t_mid, const double* __restrict__ t_lo,
     const double* __restrict__ t_hi, const double* __restrict__ B,
@@ -217,43 +255,65 @@ __global__ void quantile_invert_kernel(
     double* __restrict__ out_lo, double* __restrict__ out_hi, int Q, int H,
     int h, int nk, int n, double delta) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= Q) return;
+  if (!SCAN && i >= Q) return;
+  const int r = i < Q ? i : Q - 1;   // scan: threads past Q still stage tiles
   constexpr bool tight = DEG <= 3;
   const double b_top = B[h - 1];
   const double dom_hi = seg_hi[h - 1];
+  const double th = t_hi[r], tl = t_lo[r], tm = t_mid[r];
   double c[DEG + 1];
   bool found;
+
+  // the segment of each inversion: the first whose running-max endpoint
+  // value clears the target (hi, mid), past every one at or below it (lo)
+  int s_hi, s_lo, s_mid;
+  if constexpr (SCAN) {
+    const double q[3] = {th + delta, tl - delta, tm};
+    const bool left[3] = {true, false, true};
+    int cnt[3];
+    scan_counts<3>(B, H, q, left, cnt);
+    s_hi = cnt[0], s_lo = cnt[1], s_mid = cnt[2];
+  } else {
+    s_hi = bsearch_count_left(B, H, th + delta);
+    s_lo = bsearch_count_right(B, H, tl - delta);
+    s_mid = bsearch_count_left(B, H, tm);
+  }
 
   // upper end: certified against seg_err, snapped up to the key grid
   double x_hi;
   {
-    const double t = t_hi[i];
-    int s = bsearch_count_left(B, H, t + delta);
-    s = s < h - 1 ? s : h - 1;
+    const int s = s_hi < h - 1 ? s_hi : h - 1;
     const double lo = seg_lo[s], hi = seg_hi[s];
     double x = hi;
     if constexpr (tight) {
       load_row<DEG>(coeffs, s, c);
-      const double root = extreme_root<DEG>(c, t + seg_err[s], 1.0, &found);
+      const double root = extreme_root<DEG>(c, th + seg_err[s], 1.0, &found);
       x = unscale(found ? root : -1.0, lo, hi);
     }
-    int k = bsearch_count_left(ref_keys, nk, x);
+    int k;
+    if constexpr (SCAN) {
+      const double q[1] = {x};
+      const bool left[1] = {true};
+      int cnt[1];
+      scan_counts<1>(ref_keys, nk, q, left, cnt);
+      k = cnt[0];
+    } else {
+      k = bsearch_count_left(ref_keys, nk, x);
+    }
     k = k < n - 1 ? k : n - 1;
-    x_hi = t + delta <= b_top ? ref_keys[k] : dom_hi;
+    x_hi = th + delta <= b_top ? ref_keys[k] : dom_hi;
   }
 
   // lower end: certified against seg_err, no snap
   double x_lo;
   {
-    const double t = t_lo[i];
-    int s = bsearch_count_right(B, H, t - delta);
-    s = s > 0 ? s : 0;
+    int s = s_lo > 0 ? s_lo : 0;
     s = s < h - 1 ? s : h - 1;
     const double below = s > 0 ? seg_hi[s - 1] : seg_lo[0];
     x_lo = below;
     if constexpr (tight) {
       load_row<DEG>(coeffs, s, c);
-      const double T = t - seg_err[s];
+      const double T = tl - seg_err[s];
       const double tiny = 1e-9 * (fabs(T) + 1.0);
       const double root = extreme_root<DEG>(c, T, -1.0, &found);
       const bool start_ok = horner_r<DEG>(c, -1.0) <= T + tiny;
@@ -265,28 +325,27 @@ __global__ void quantile_invert_kernel(
   // answer: the raw fitted crossing (zero error), clipped into [lo, hi]
   double x_mid;
   {
-    const double t = t_mid[i];
-    int s = bsearch_count_left(B, H, t);
-    s = s < h - 1 ? s : h - 1;
+    const int s = s_mid < h - 1 ? s_mid : h - 1;
     load_row<DEG>(coeffs, s, c);
-    const double root = extreme_root<DEG>(c, t, 1.0, &found);
+    const double root = extreme_root<DEG>(c, tm, 1.0, &found);
     const double x = unscale(found ? root : -1.0, seg_lo[s], seg_hi[s]);
-    x_mid = jclip(t <= b_top ? x : dom_hi, x_lo, x_hi);
+    x_mid = jclip(tm <= b_top ? x : dom_hi, x_lo, x_hi);
   }
 
+  if (i >= Q) return;
   out_mid[i] = x_mid;
   out_lo[i] = x_lo;
   out_hi[i] = x_hi;
 }
 
-template <int DEG>
+template <int DEG, bool SCAN>
 void launch(const void* t_mid, const void* t_lo, const void* t_hi,
             const void* B, const void* seg_lo, const void* seg_hi,
             const void* coeffs, const void* seg_err, const void* ref_keys,
             void* out_mid, void* out_lo, void* out_hi, int Q, int H, int h,
             int nk, int n, double delta, cudaStream_t stream) {
-  quantile_invert_kernel<DEG><<<(Q + kThreads - 1) / kThreads, kThreads, 0,
-                                stream>>>(
+  quantile_invert_kernel<DEG, SCAN><<<(Q + kThreads - 1) / kThreads, kThreads,
+                                      0, stream>>>(
       (const double*)t_mid, (const double*)t_lo, (const double*)t_hi,
       (const double*)B, (const double*)seg_lo, (const double*)seg_hi,
       (const double*)coeffs, (const double*)seg_err, (const double*)ref_keys,
@@ -294,26 +353,21 @@ void launch(const void* t_mid, const void* t_lo, const void* t_hi,
       delta);
 }
 
-}  // namespace
-}  // namespace polyfit
-
-extern "C" {
-
-int polyfit_quantile_invert(const void* t_mid, const void* t_lo,
-                            const void* t_hi, const void* B,
-                            const void* seg_lo, const void* seg_hi,
-                            const void* coeffs, const void* seg_err,
-                            const void* ref_keys, void* out_mid, void* out_lo,
-                            void* out_hi, int Q, int H, int deg, int h, int nk,
-                            int n, double delta, void* stream) {
+// one instantiation per degree 1..kMaxQuantileDeg
+template <bool SCAN>
+int dispatch(const void* t_mid, const void* t_lo, const void* t_hi,
+             const void* B, const void* seg_lo, const void* seg_hi,
+             const void* coeffs, const void* seg_err, const void* ref_keys,
+             void* out_mid, void* out_lo, void* out_hi, int Q, int H, int deg,
+             int h, int nk, int n, double delta, void* stream) {
   if (Q <= 0) return (int)cudaGetLastError();
   const cudaStream_t s = (cudaStream_t)stream;
-  static_assert(polyfit::kMaxQuantileDeg == 8, "one case per degree below");
-#define POLYFIT_K4_CASE(D)                                                    \
-  case D:                                                                     \
-    polyfit::launch<D>(t_mid, t_lo, t_hi, B, seg_lo, seg_hi, coeffs, seg_err, \
-                       ref_keys, out_mid, out_lo, out_hi, Q, H, h, nk, n,     \
-                       delta, s);                                             \
+  static_assert(kMaxQuantileDeg == 8, "one case per degree below");
+#define POLYFIT_K4_CASE(D)                                                   \
+  case D:                                                                    \
+    launch<D, SCAN>(t_mid, t_lo, t_hi, B, seg_lo, seg_hi, coeffs, seg_err,   \
+                    ref_keys, out_mid, out_lo, out_hi, Q, H, h, nk, n, delta, \
+                    s);                                                      \
     break;
   switch (deg) {
     POLYFIT_K4_CASE(1)
@@ -329,6 +383,36 @@ int polyfit_quantile_invert(const void* t_mid, const void* t_lo,
   }
 #undef POLYFIT_K4_CASE
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+}  // namespace polyfit
+
+extern "C" {
+
+int polyfit_quantile_invert(const void* t_mid, const void* t_lo,
+                            const void* t_hi, const void* B,
+                            const void* seg_lo, const void* seg_hi,
+                            const void* coeffs, const void* seg_err,
+                            const void* ref_keys, void* out_mid, void* out_lo,
+                            void* out_hi, int Q, int H, int deg, int h, int nk,
+                            int n, double delta, void* stream) {
+  return polyfit::dispatch<false>(t_mid, t_lo, t_hi, B, seg_lo, seg_hi,
+                                  coeffs, seg_err, ref_keys, out_mid, out_lo,
+                                  out_hi, Q, H, deg, h, nk, n, delta, stream);
+}
+
+int polyfit_quantile_invert_scan(const void* t_mid, const void* t_lo,
+                                 const void* t_hi, const void* B,
+                                 const void* seg_lo, const void* seg_hi,
+                                 const void* coeffs, const void* seg_err,
+                                 const void* ref_keys, void* out_mid,
+                                 void* out_lo, void* out_hi, int Q, int H,
+                                 int deg, int h, int nk, int n, double delta,
+                                 void* stream) {
+  return polyfit::dispatch<true>(t_mid, t_lo, t_hi, B, seg_lo, seg_hi,
+                                 coeffs, seg_err, ref_keys, out_mid, out_lo,
+                                 out_hi, Q, H, deg, h, nk, n, delta, stream);
 }
 
 }  // extern "C"

@@ -2,7 +2,9 @@
 
 Lower a constructed index into a canonical device-resident ``IndexPlan``
 once, then execute queries through the module-level ``execute_*`` dispatch
-path (or the ``Engine`` shim) with ``backend='torch' | 'cuda' | 'ref'``:
+path (or the ``Engine`` shim) with ``backend='torch' | 'cuda' | 'cuda_scan'
+| 'ref'`` (``'cuda_scan'``: the one-hot scan kernels, equal to ``'cuda'``
+bit for bit):
 
     from repro_torch.core import build_index_1d
     from repro_torch.engine import Engine, build_plan
@@ -11,16 +13,19 @@ path (or the ``Engine`` shim) with ``backend='torch' | 'cuda' | 'ref'``:
     res = Engine().query(plan, lq, uq, eps_rel=0.01)   # fused approx + refine
 
 ``DynamicEngine`` wraps an index in a delta buffer that takes inserts and
-deletes without a rebuild (exact corrections K5/K6 on ``'cuda'``) and
-refits only the segments they touch; ``DynamicEngine2D`` does the same for
-a two-key index (K9-K11 on ``'cuda'``) and refits only the quadtree leaves
-the changed points touch.  ``execute_quantile`` (K4 on
-``'cuda'``) and ``DynamicEngine.quantile`` answer certified quantiles of
-SUM/COUNT tables; ``WindowEngine`` keeps an epoch ring of sealed plans and
+deletes without a rebuild (exact corrections K5/K6 on ``'cuda'``, K16/K17
+on ``'cuda_scan'``) and refits only the segments they touch;
+``DynamicEngine2D`` does the same for a two-key index (K9-K11 on
+``'cuda'``; ``'cuda_scan'`` waits for K18-K20) and refits only the
+quadtree leaves the changed points touch.
+``execute_quantile`` (K4 on ``'cuda'``, its scan mode on ``'cuda_scan'``)
+and ``DynamicEngine.quantile`` answer certified quantiles of SUM/COUNT
+tables; ``WindowEngine`` keeps an epoch ring of sealed plans and
 answers windowed SUM/COUNT through ``execute_lsm``.  Two-key tables lower
 to an ``IndexPlan2D`` (``build_plan_2d``) and run through
 ``execute_count2d`` / ``execute_sum2d`` (rectangles, K7 or K12 on
-``'cuda'``) and ``execute_extremum2d`` (dominance corners, K8 or K13).
+``'cuda'``, K12 on ``'cuda_scan'``) and ``execute_extremum2d`` (dominance
+corners, K8 or K13; K13 on ``'cuda_scan'``).
 """
 from .dynamic import (DeltaBuffer, DeltaBuffer2D, DynamicEngine,
                       DynamicEngine2D)

@@ -12,10 +12,12 @@ factories.  A static ``IndexPlan`` freezes the fitted key array;
 * **Exact correction in the query path** — every query runs the static
   plan's backend-dispatched approximation *and* an exact correction over
   the buffer: kernels K5 (``delta_sum_gather``) and K6
-  (``delta_max_gather``) on ``'cuda'``, binary searches into the prefix
-  sums (SUM) or a dense masked max (MAX) on ``'torch'``, the one-hot
-  oracles on ``'ref'``.  The only approximation error left is the static
-  plan's own E(I) <= delta, so Lemmas 5.1-5.4 hold over the updated data.
+  (``delta_max_gather``) on ``'cuda'``, the whole-log scans K16
+  (``delta_sum``) and K17 (``delta_max``) on ``'cuda_scan'``, binary
+  searches into the prefix sums (SUM) or a dense masked max (MAX) on
+  ``'torch'``, the one-hot oracles on ``'ref'``.  The only approximation
+  error left is the static plan's own E(I) <= delta, so Lemmas 5.1-5.4
+  hold over the updated data.
 * **Selective refit** — when the buffer fills, or a segment's accumulated
   |measure| drift exceeds its error headroom (delta - E(I)), a merge pass
   re-fits *only* the segments whose spans contain changed keys (greedy
@@ -39,7 +41,7 @@ Quantiles over a dynamic table (``_exec_dyn_quantile``) invert the fitted
 CF against rank targets corrected by the buffer's exact prefix sums and
 re-certify at each candidate key; the reference runs that loop as plain
 XLA for every backend, and so does the port: plain torch, bit-identical
-between ``'torch'`` and ``'cuda'``.
+between ``'torch'`` and the card backends.
 
 ``DynamicEngine2D`` applies the same buffering and exact correction to
 two-key COUNT/SUM rectangles and dominance MAX/MIN corners
@@ -47,7 +49,9 @@ two-key COUNT/SUM rectangles and dominance MAX/MIN corners
 the ``'cuda'`` backend for kernels K9-K11 and the dense oracles of
 ``kernels/ref.py`` elsewhere); its merge runs
 ``core.index2d.selective_refit_2d`` over the touched leaves only, and
-dominance deletes shadow their victims as MAX/MIN deletes do in 1-D.
+dominance deletes shadow their victims as MAX/MIN deletes do in 1-D.  Its
+``'cuda_scan'`` twin needs the two-key scan kernels K18-K20, which are
+still to port: it raises (``check_backend_2d``).
 """
 from __future__ import annotations
 
@@ -69,7 +73,8 @@ from ..core.queries import QueryResult
 from ..core.segmentation import FastAcceptFitter, greedy_segmentation
 from ..kernels import ref as _ref
 from ..kernels.delta_scan import (delta_count2d_gather,
-                                  delta_dommax2d_gather, delta_max_gather,
+                                  delta_dommax2d_gather, delta_max,
+                                  delta_max_gather, delta_sum,
                                   delta_sum2d_gather, delta_sum_gather)
 from ..kernels.locate import bsearch_count
 from .engine import (QuantileResult, _no_refine, _prepare, _x_ranks,
@@ -82,7 +87,7 @@ from .plan import (IndexPlan, IndexPlan2D, big_sentinel, build_plan,
                    build_plan_2d)
 
 __all__ = ["DeltaBuffer", "DeltaBuffer2D", "DynamicEngine",
-           "DynamicEngine2D"]
+           "DynamicEngine2D", "check_backend_2d"]
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
@@ -283,6 +288,9 @@ def _delta_sum(lq, uq, keys, vals, cf, *, backend: str):
     if backend == "cuda":
         # K5: two binary searches into the append-maintained prefix sums
         return delta_sum_gather(lq, uq, keys, cf)
+    if backend == "cuda_scan":
+        # K16: a membership test against every slot of the log
+        return delta_sum(lq, uq, keys, vals)
     if backend == "ref":
         return _ref.delta_sum_ref(lq, uq, keys, vals)
     # torch: the log is sorted and cf precomputed -> two searchsorted lookups
@@ -294,6 +302,9 @@ def _delta_max(lq, uq, keys, vals, st, *, backend: str):
     if backend == "cuda":
         # K6: locate the covered span of the sorted log, O(1) range max
         return delta_max_gather(lq, uq, keys, st)
+    if backend == "cuda_scan":
+        # K17: a masked max over every slot of the log
+        return delta_max(lq, uq, keys, vals)
     # torch + ref: dense masked max over the (small) buffer
     return _ref.delta_max_ref(lq, uq, keys, vals)
 
@@ -794,7 +805,8 @@ class DynamicEngine(_DeltaBufferedEngine):
     (plan, buffer) snapshot, so a refit never blocks them.  The plan, the
     buffer and every merged plan live on the index's device; ``backend``
     defaults to ``'cuda'`` there when it is a CUDA device and ``'torch'``
-    on the CPU, and ``'cuda'`` on a CPU index raises.
+    on the CPU, and the card backends (``'cuda'``, ``'cuda_scan'``) raise
+    on a CPU index.
     """
 
     def __init__(self, index: PolyFitIndex1D, *, backend: Optional[str] = None,
@@ -850,7 +862,7 @@ class DynamicEngine(_DeltaBufferedEngine):
             if plan is None:
                 plan = build_plan(index)
             # the insert-log sparse table is only read by K6, so only the
-            # 'cuda' backend pays its upkeep
+            # 'cuda' backend pays its upkeep ('cuda_scan' reads the log)
             buf = DeltaBuffer.empty(
                 self.capacity, plan.dtype, plan.device,
                 with_st=(self._agg in ("max", "min")
@@ -1175,7 +1187,7 @@ class DynamicEngine(_DeltaBufferedEngine):
         if eps_rel is not None and plan.ref_st is None:
             raise ValueError("Q_rel refinement requires exact arrays")
         backend = self.backend
-        if backend in ("cuda", "ref") and plan.deg > 3:
+        if backend in ("cuda", "cuda_scan", "ref") and plan.deg > 3:
             backend = "torch"   # no in-kernel closed form past deg 3
             execute_extremum.torch_routes += 1
         (lq, uq), n = _prepare(lq, uq, min_bucket=self.min_bucket, plan=plan)
@@ -1188,6 +1200,16 @@ class DynamicEngine(_DeltaBufferedEngine):
         if self._agg in ("sum", "count"):
             return self.sum(lq, uq, eps_rel=eps_rel)
         return self.extremum(lq, uq, eps_rel=eps_rel)
+
+
+def check_backend_2d(backend: Optional[str]) -> None:
+    """Raise for a dynamic two-key table on ``'cuda_scan'``: its buffered
+    corrections are the two-key scan kernels K18-K20, still to port."""
+    if backend == "cuda_scan":
+        raise NotImplementedError(
+            "dynamic two-key tables on backend 'cuda_scan' need the two-key "
+            "scan kernels K18-K20 (delta_count2d, delta_sum2d, "
+            "delta_dommax2d), not ported yet: ROADMAP Queue 2 slice B")
 
 
 class DynamicEngine2D(_DeltaBufferedEngine):
@@ -1206,6 +1228,7 @@ class DynamicEngine2D(_DeltaBufferedEngine):
                  backend: Optional[str] = None, capacity: int = 1024,
                  min_bucket: int = 64, auto_refit: bool = True,
                  background: bool = False):
+        check_backend_2d(backend)
         if index.exact is None:
             raise ValueError("DynamicEngine2D requires keep_exact=True")
         self.device = index.device

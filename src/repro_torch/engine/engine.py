@@ -13,18 +13,22 @@ pair with the reference's ``BACKENDS``:
   (certified CF inversion, ``execute_quantile``), and for 2-D plans K7
   (rectangles) and K8 (dominance corners), or K12 and K13, the one-hot
   scans, for plans deeper than 15 levels (no int32 Morton codes);
+* ``'cuda_scan'`` (twin of ``'pallas_scan'``) — the hand-written one-hot
+  scan kernels: K14 (SUM/COUNT) and K15 (MAX/MIN) test every query against
+  every segment, K4 runs its scan mode (every searchsorted a comparison
+  sum), and 2-D plans of every depth take K12 and K13; the answers equal
+  ``'cuda'``'s bit for bit;
 * ``'ref'`` — the plain one-hot oracles of ``kernels/ref.py`` (the one-hot
   searchsorted form of ``core.quantile`` for QUANTILE).
 
 The default is ``'cuda'`` for a plan on a CUDA device and ``'torch'`` for a
-plan on the CPU.  ``'cuda_scan'`` (twin of ``'pallas_scan'``) is not ported
-yet.
+plan on the CPU; the two card backends raise for a plan on the CPU.
 
 Each path computes the raw approximation, applies the Lemma 5.2/5.4 Q_rel
 acceptance test and merges the exact refinement with ``torch.where`` — the
 refinement arrays live in the plan, so there is no host round trip.  The
 refinement's binary searches over the sorted keys run kernel K1 (``locate``)
-on the ``'cuda'`` backend and the plain ``locate_segments`` on the others.
+on the two card backends and the plain ``locate_segments`` on the others.
 Batches are padded to power-of-two buckets, as the reference pads them, so
 answers match it lane for lane.
 
@@ -33,7 +37,7 @@ Lemma 5.1), eps_abs (MAX, Lemma 5.3) or eps_abs/4 (2-D COUNT/SUM, Lemma
 6.3) and the raw answer already satisfies the bound.  The 2-D Q_rel truth
 is the merge-sort tree's prefix counts (``core.index2d.mst_*``), plain
 torch ops as the reference runs plain XLA, after K1 finds each corner's
-x rank on ``'cuda'``.
+x rank on the card backends.
 """
 from __future__ import annotations
 
@@ -54,8 +58,8 @@ from ..kernels.leaf_eval2d import (corner_count2d, corner_count2d_gather,
                                    corner_eval2d, corner_eval2d_gather)
 from ..kernels.locate import locate, locate_segments
 from ..kernels.quantile_invert import quantile_invert
-from ..kernels.range_max import range_max_gather
-from ..kernels.range_sum import range_sum_gather
+from ..kernels.range_max import range_max, range_max_gather
+from ..kernels.range_sum import range_sum, range_sum_gather
 from .plan import IndexPlan, IndexPlan2D, big_sentinel, pad_to_multiple
 
 __all__ = ["Engine", "BACKENDS", "QuantileResult", "raw_sum", "raw_extremum",
@@ -66,7 +70,9 @@ __all__ = ["Engine", "BACKENDS", "QuantileResult", "raw_sum", "raw_extremum",
            "execute_extremum2d", "execute", "pad_fills", "resolve_backend",
            "quantile_mass", "quantile_tables", "prepare_fractions"]
 
-BACKENDS = ("torch", "cuda", "ref")
+BACKENDS = ("torch", "cuda", "cuda_scan", "ref")
+# the backends that launch the CUDA kernels
+CARD_BACKENDS = ("cuda", "cuda_scan")
 
 
 class QuantileResult(NamedTuple):
@@ -85,10 +91,6 @@ def check_pow2(name: str, v: int) -> None:
 
 
 def _check_backend(backend: str) -> None:
-    if backend == "cuda_scan":
-        raise ValueError("backend 'cuda_scan' (the one-hot scan kernels, "
-                         "twin of 'pallas_scan') is not ported yet: ROADMAP "
-                         "Queue 2, K14 and K15")
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend}")
 
@@ -99,9 +101,9 @@ def resolve_backend(backend: Optional[str], device: torch.device) -> str:
     if backend is None:
         return "cuda" if device.type == "cuda" else "torch"
     _check_backend(backend)
-    if backend == "cuda" and device.type != "cuda":
-        raise ValueError(f"backend 'cuda' runs the CUDA kernels and needs a "
-                         f"plan on a CUDA device, got {device}")
+    if backend in CARD_BACKENDS and device.type != "cuda":
+        raise ValueError(f"backend {backend!r} runs the CUDA kernels and "
+                         f"needs a plan on a CUDA device, got {device}")
     return backend
 
 
@@ -131,9 +133,9 @@ def pad_fills(plan: Union[IndexPlan, IndexPlan2D]):
 
 
 def _locate_keys(keys: torch.Tensor, q: torch.Tensor, backend: str):
-    """max(#(keys <= q) - 1, 0) per lane: K1 on the 'cuda' backend, the
+    """max(#(keys <= q) - 1, 0) per lane: K1 on the card backends, the
     plain binary search on the others."""
-    if backend == "cuda":
+    if backend in CARD_BACKENDS:
         return locate(q, keys)
     return locate_segments(keys, q)
 
@@ -149,10 +151,14 @@ def _count_le(keys: torch.Tensor, q: torch.Tensor, backend: str):
 # ---------------------------------------------------------------------------
 
 def raw_sum(plan: IndexPlan, lqc, uqc, *, backend: str):
-    """Backend-dispatched raw SUM/COUNT approximation (clamped queries)."""
+    """Backend-dispatched raw SUM/COUNT approximation (clamped queries):
+    K2 on 'cuda', K14 on 'cuda_scan'."""
     if backend == "cuda":
         return range_sum_gather(lqc, uqc, plan.seg_lo, plan.seg_hi,
                                 plan.coeffs)
+    if backend == "cuda_scan":
+        return range_sum(lqc, uqc, plan.seg_lo, plan.seg_next, plan.seg_hi,
+                         plan.coeffs)
     if backend == "ref":
         return _ref.range_sum_ref(lqc, uqc, plan.seg_lo, plan.seg_next,
                                   plan.seg_hi, plan.coeffs)
@@ -162,10 +168,13 @@ def raw_sum(plan: IndexPlan, lqc, uqc, *, backend: str):
 
 def raw_extremum(plan: IndexPlan, lqc, uqc, *, backend: str):
     """Backend-dispatched raw MAX approximation, in MAX space (MIN plans run
-    on negated measures end to end)."""
+    on negated measures end to end): K3 on 'cuda', K15 on 'cuda_scan'."""
     if backend == "cuda":
         return range_max_gather(lqc, uqc, plan.seg_lo, plan.seg_hi,
                                 plan.coeffs, plan.st)
+    if backend == "cuda_scan":
+        return range_max(lqc, uqc, plan.seg_lo, plan.seg_next, plan.seg_hi,
+                         plan.coeffs, plan.seg_agg)
     if backend == "ref":
         return _ref.range_max_ref(lqc, uqc, plan.seg_lo, plan.seg_next,
                                   plan.seg_hi, plan.coeffs, plan.seg_agg)
@@ -175,13 +184,15 @@ def raw_extremum(plan: IndexPlan, lqc, uqc, *, backend: str):
 
 def raw_count2d(plan: IndexPlan2D, lxc, uxc, lyc, uyc, *, backend: str):
     """Backend-dispatched raw 2-key COUNT/SUM approximation (clamped
-    corners): K7 on 'cuda', K12 for plans without Morton codes."""
+    corners): K7 on 'cuda', K12 on 'cuda_scan' and for plans without
+    Morton codes."""
     if backend == "cuda" and plan.leaf_z is not None:
         return corner_count2d_gather(
             lxc, uxc, lyc, uyc, plan.xcuts, plan.ycuts, plan.leaf_z,
             plan.leaf_bounds, plan.leaf_coeffs, plan.deg, plan.max_depth)
-    if backend == "cuda":
-        # scan path: plans whose depth exceeds the Morton int32 range
+    if backend in CARD_BACKENDS:
+        # scan path: 'cuda_scan', and plans whose depth exceeds the Morton
+        # int32 range
         return corner_count2d(
             lxc, uxc, lyc, uyc, plan.leaf_mx0, plan.leaf_mx1, plan.leaf_my0,
             plan.leaf_my1, plan.leaf_bounds, plan.leaf_coeffs, plan.deg)
@@ -197,13 +208,13 @@ def raw_count2d(plan: IndexPlan2D, lxc, uxc, lyc, uyc, *, backend: str):
 
 def raw_eval2d(plan: IndexPlan2D, uc, vc, *, backend: str):
     """Backend-dispatched single-corner evaluation P_{leaf(u,v)}(u, v) —
-    the dominance MAX/MIN path (clamped corners): K8 on 'cuda', K13 for
-    plans without Morton codes."""
+    the dominance MAX/MIN path (clamped corners): K8 on 'cuda', K13 on
+    'cuda_scan' and for plans without Morton codes."""
     if backend == "cuda" and plan.leaf_z is not None:
         return corner_eval2d_gather(
             uc, vc, plan.xcuts, plan.ycuts, plan.leaf_z, plan.leaf_bounds,
             plan.leaf_coeffs, plan.deg, plan.max_depth)
-    if backend == "cuda":
+    if backend in CARD_BACKENDS:
         return corner_eval2d(
             uc, vc, plan.leaf_mx0, plan.leaf_mx1, plan.leaf_my0,
             plan.leaf_my1, plan.leaf_bounds, plan.leaf_coeffs, plan.deg)
@@ -227,7 +238,7 @@ def truth_sum(plan: IndexPlan, lq, uq, *, backend: str):
 def key_span(keys: torch.Tensor, lq, uq, backend: str):
     """The span [#(keys < lq), #(keys <= uq)) of the sorted ``keys`` that
     [lq, uq] covers.  #(keys < lq) is #(keys <= the next double below lq):
-    the same binary search (K1 on the 'cuda' backend) serves both ends."""
+    the same binary search (K1 on the card backends) serves both ends."""
     i = _count_le(keys, torch.nextafter(lq, lq.new_full((), -torch.inf)),
                   backend)
     return i, _count_le(keys, uq, backend)
@@ -241,7 +252,8 @@ def truth_extremum(plan: IndexPlan, lq, uq, *, backend: str):
 
 
 def _x_ranks(plan: IndexPlan2D, backend: str, *qs):
-    """#(ref_xs <= q) per lane for each x coordinate (K1 on 'cuda')."""
+    """#(ref_xs <= q) per lane for each x coordinate (K1 on the card
+    backends)."""
     return [_count_le(plan.ref_xs, q, backend) for q in qs]
 
 
@@ -439,10 +451,11 @@ def _exec_quantile(plan: IndexPlan, q, *, backend: str):
     M, slack = quantile_mass(plan)
     err, B, keys, nk = quantile_tables(plan)
     t = qc * M
-    if backend == "cuda":
+    if backend in CARD_BACKENDS:
         return quantile_invert(t, t - slack, t + slack, B, plan.seg_lo,
                                plan.seg_hi, plan.coeffs, err, keys,
-                               h=plan.h, n=nk, delta=float(plan.delta))
+                               h=plan.h, n=nk, delta=float(plan.delta),
+                               scan=backend == "cuda_scan")
     return certified_quantile_shifted(
         t, t - slack, t + slack, seg_lo=plan.seg_lo, seg_hi=plan.seg_hi,
         coeffs=plan.coeffs, seg_err=err, h=plan.h, delta=float(plan.delta),
@@ -457,9 +470,10 @@ def execute_quantile(plan: IndexPlan, q, *, backend: Optional[str] = None,
     (COUNT inverts ranks, SUM cumulative measure — the weighted quantile).
     The returned [lo, hi] always brackets the exact quantile key; there is
     no Q_rel path (the certificate is the guarantee).  K4 runs on the
-    ``'cuda'`` backend; a plan without exact arrays has no key grid to
-    snap to and takes the ``'torch'`` path, as the reference takes XLA,
-    counted in ``execute_quantile.torch_routes``.
+    ``'cuda'`` backend, its scan mode on ``'cuda_scan'``; a plan without
+    exact arrays has no key grid to snap to and takes the ``'torch'`` path,
+    as the reference takes XLA, counted in
+    ``execute_quantile.torch_routes``.
     """
     if plan.agg not in ("sum", "count"):
         raise ValueError("execute_quantile needs a sum/count plan, got "
@@ -467,7 +481,7 @@ def execute_quantile(plan: IndexPlan, q, *, backend: Optional[str] = None,
     if plan.deg < 1:
         raise ValueError("quantile inversion needs a plan with deg >= 1")
     backend = resolve_backend(backend, plan.device)
-    if backend == "cuda" and plan.ref_keys is None:
+    if backend in CARD_BACKENDS and plan.ref_keys is None:
         backend = "torch"   # the kernel's key-grid snap needs ref_keys
         execute_quantile.torch_routes += 1
     q, n = prepare_fractions(q, plan, min_bucket)
@@ -494,7 +508,7 @@ def execute_extremum(plan: IndexPlan, lq, uq, *,
     backend = resolve_backend(backend, plan.device)
     if eps_rel is not None:
         _require_exact(plan.ref_st is not None)
-    if backend in ("cuda", "ref") and plan.deg > 3:
+    if backend in ("cuda", "cuda_scan", "ref") and plan.deg > 3:
         backend = "torch"
         execute_extremum.torch_routes += 1
     (lq, uq), n = _prepare(lq, uq, min_bucket=min_bucket, plan=plan)

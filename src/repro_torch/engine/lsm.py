@@ -8,10 +8,13 @@ fitted once; a query fuses the per-level evaluations exactly:
   composes additively over the levels' data plans:
   ``B = sum_k FACTOR * delta_k`` (``composed_bound``);
 * the optional level-0 delta buffer adds its exact correction (kernel K5
-  on the ``'cuda'`` backend);
+  on the ``'cuda'`` backend, the whole-log scan K16 on ``'cuda_scan'``);
 * under Q_rel the composed bound drives the Lemma 5.2 acceptance test and
   rejected lanes take the sum of the levels' exact answers (kernel K1 in
-  each level's refinement on ``'cuda'``).
+  each level's refinement on both card backends).
+
+Each level's raw approximation is ``engine.raw_sum``: K2 on ``'cuda'``,
+K14 on ``'cuda_scan'``.
 
 Per-level answers are bit-identical to the flat ``execute_sum`` for
 in-domain queries: the below-domain first-key addend is exactly ``+0.0``

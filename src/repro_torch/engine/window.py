@@ -5,9 +5,11 @@ append-only delta buffer (the open epoch); ``advance()`` seals the buffer
 into an immutable fitted plan wrapped as a tombstone-free ``LsmLevel`` and
 pushes it onto a bounded ring.  A window query ``[t0, t1]`` then *is* a
 ladder execution over the selected epoch levels — ``execute_lsm`` fuses
-the per-epoch evaluations exactly (kernel K2 per level on ``'cuda'``, K1
-in each level's Q_rel truth), plus the open epoch's exact buffer
-correction (K5) when the window reaches it.  Bounds compose via
+the per-epoch evaluations exactly (kernel K2 per level on ``'cuda'``, K14
+on ``'cuda_scan'``, K1 in each level's Q_rel truth on both), plus the open
+epoch's exact buffer correction (K5 on ``'cuda'``, K16 on ``'cuda_scan'``;
+K5 on both when the window holds the open epoch alone) when the window
+reaches it.  Bounds compose via
 ``composed_bound`` over the selected levels' deltas.
 
 Epoch ids are dense integers starting at 0; the ring retains the last
@@ -29,7 +31,7 @@ from .. import DTYPE, resolve_device
 from ..core.index import build_index_1d
 from ..core.queries import QueryResult
 from .dynamic import DeltaBuffer, _append_1d, _delta_sum
-from .engine import check_pow2, resolve_backend
+from .engine import CARD_BACKENDS, check_pow2, resolve_backend
 from .lsm import LsmLevel, LsmPlan, composed_bound, execute_lsm
 from .plan import build_plan
 
@@ -192,10 +194,10 @@ class WindowEngine:
             ans = torch.zeros(lq.shape, dtype=DTYPE, device=self.device)
         else:
             # open epoch only: the exact prefix-sum correction is the
-            # answer (K5 on 'cuda'; the reference's gather form on the
-            # other backends, whatever the one-hot oracle would give)
+            # answer (K5 on both card backends; the reference's gather
+            # form on the others, whatever the one-hot oracle would give)
             ans = _delta_sum(lq, uq, buf.ins_keys, buf.ins_vals, buf.ins_cf,
-                             backend="cuda" if self.backend == "cuda"
+                             backend="cuda" if self.backend in CARD_BACKENDS
                              else "torch")
         return QueryResult(ans, ans, torch.zeros(lq.shape, dtype=torch.bool,
                                                  device=self.device))

@@ -3,26 +3,32 @@
 Each kernel module holds a plain torch version and a wrapper that launches
 the CUDA kernel on CUDA tensors (``csrc/``, built by ``_build``) and runs
 the plain version on CPU tensors; ``ref.py`` holds the one-hot oracles.
-The K1 wrapper is ``kernels.locate.locate`` and the K4 wrapper
-``kernels.quantile_invert.quantile_invert``; they are not re-exported
-here, so that ``repro_torch.kernels.locate`` and
-``repro_torch.kernels.quantile_invert`` stay the modules.  The 2-D leaf
-kernels K7, K8, K12 and K13 live in ``kernels.leaf_eval2d``, the buffered
-2-D corrections K9, K10 and K11 beside K5 and K6 in ``kernels.delta_scan``.
+The K1 wrapper is ``kernels.locate.locate``, the K4 wrapper
+``kernels.quantile_invert.quantile_invert`` and the K14 and K15 wrappers
+(the one-hot scans of the ``cuda_scan`` backend)
+``kernels.range_sum.range_sum`` and ``kernels.range_max.range_max``; they
+are not re-exported here, so that ``repro_torch.kernels.locate``,
+``.quantile_invert``, ``.range_sum`` and ``.range_max`` stay the modules.
+The 2-D leaf kernels K7, K8, K12 and K13 live in ``kernels.leaf_eval2d``,
+the buffered 2-D corrections K9, K10 and K11 and the whole-log scans K16
+and K17 beside K5 and K6 in ``kernels.delta_scan``.
 """
 from .delta_scan import (delta_count2d_gather, delta_count2d_gather_plain,
                          delta_dommax2d_gather, delta_dommax2d_gather_plain,
-                         delta_max_gather, delta_max_gather_plain,
-                         delta_sum2d_gather, delta_sum2d_gather_plain,
-                         delta_sum_gather, delta_sum_gather_plain)
+                         delta_max, delta_max_gather, delta_max_gather_plain,
+                         delta_max_plain, delta_sum, delta_sum2d_gather,
+                         delta_sum2d_gather_plain, delta_sum_gather,
+                         delta_sum_gather_plain, delta_sum_plain)
 from .leaf_eval2d import (corner_count2d, corner_count2d_gather,
                           corner_count2d_gather_plain, corner_count2d_plain,
                           corner_eval2d, corner_eval2d_gather,
                           corner_eval2d_gather_plain, corner_eval2d_plain)
 from .locate import bsearch_count, locate_segments, rmq_gather
 from .quantile_invert import quantile_invert_plain
-from .range_max import range_max_gather, range_max_gather_plain
-from .range_sum import range_sum_gather, range_sum_gather_plain
+from .range_max import (range_max_gather, range_max_gather_plain,
+                        range_max_plain)
+from .range_sum import (range_sum_gather, range_sum_gather_plain,
+                        range_sum_plain)
 from .ref import (corner_count2d_ref, delta_count2d_ref, delta_dommax2d_ref,
                   delta_max_ref, delta_sum2d_ref, delta_sum_ref,
                   leaf_eval2d_ref)
@@ -40,4 +46,6 @@ __all__ = ["bsearch_count", "locate_segments", "rmq_gather",
            "delta_count2d_gather", "delta_count2d_gather_plain",
            "delta_sum2d_gather", "delta_sum2d_gather_plain",
            "delta_dommax2d_gather", "delta_dommax2d_gather_plain",
-           "delta_count2d_ref", "delta_sum2d_ref", "delta_dommax2d_ref"]
+           "delta_count2d_ref", "delta_sum2d_ref", "delta_dommax2d_ref",
+           "range_sum_plain", "range_max_plain", "delta_sum",
+           "delta_sum_plain", "delta_max", "delta_max_plain"]

@@ -33,9 +33,10 @@ __all__ = ["CSRC", "SOURCES", "UNITS", "NVCC_FLAGS", "Build", "build",
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("locate.cuh", "polyfit_kernels.cu", "quantile.cu",
-           "leaf_eval2d.cu", "delta2d.cu")
+           "leaf_eval2d.cu", "delta2d.cu", "scan1d.cu")
 # translation units: one shared library each, compiled in parallel
-UNITS = ("polyfit_kernels.cu", "quantile.cu", "leaf_eval2d.cu", "delta2d.cu")
+UNITS = ("polyfit_kernels.cu", "quantile.cu", "leaf_eval2d.cu", "delta2d.cu",
+         "scan1d.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -55,6 +56,8 @@ _SIGNATURES = {
     # t_mid, t_lo, t_hi, B, seg_lo, seg_hi, coeffs, seg_err, ref_keys,
     # out_mid, out_lo, out_hi, Q, H, deg, h, nk, n, delta, stream
     "polyfit_quantile_invert": (_P,) * 12 + (_I,) * 6 + (_D, _P),
+    # the same arguments: K4's scan mode
+    "polyfit_quantile_invert_scan": (_P,) * 12 + (_I,) * 6 + (_D, _P),
     # lx, ux, ly, uy, xcuts, ycuts, leaf_z, bounds, coeffs, out, Q, nx, ny,
     # L, deg, depth, stream
     "polyfit_corner_count2d_gather": (_P,) * 10 + (_I,) * 6 + (_P,),
@@ -72,6 +75,14 @@ _SIGNATURES = {
     "polyfit_delta_sum2d_gather": (_P,) * 8 + (_I,) * 3 + (_P,),
     # u, v, kx, ylv, wpmax, out, Q, cap, levels, stream
     "polyfit_delta_dommax2d_gather": (_P,) * 6 + (_I,) * 3 + (_P,),
+    # lq, uq, seg_lo, seg_next, seg_hi, coeffs, out, Q, H, deg, stream
+    "polyfit_range_sum": (_P,) * 7 + (_I,) * 3 + (_P,),
+    # lq, uq, seg_lo, seg_next, seg_hi, coeffs, seg_agg, out, Q, H, deg,
+    # stream
+    "polyfit_range_max": (_P,) * 8 + (_I,) * 3 + (_P,),
+    # lq, uq, keys, vals, out, Q, D, stream
+    "polyfit_delta_sum": (_P,) * 5 + (_I,) * 2 + (_P,),
+    "polyfit_delta_max": (_P,) * 5 + (_I,) * 2 + (_P,),
 }
 
 

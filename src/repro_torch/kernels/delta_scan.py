@@ -1,10 +1,10 @@
 """Exact delta-buffer corrections for dynamic plans: kernels K5, K6, K9,
-K10 and K11.
+K10, K11, K16 and K17.
 
-The twin of the locate->gather part of ``repro.kernels.delta_scan``.  A
-``DynamicEngine`` / ``DynamicEngine2D`` (``engine/dynamic.py``) buffers
-inserts and deletes in fixed-capacity, sorted, sentinel-padded logs between
-merges, and keeps on append the structures these corrections read:
+The twin of ``repro.kernels.delta_scan``.  A ``DynamicEngine`` /
+``DynamicEngine2D`` (``engine/dynamic.py``) buffers inserts and deletes in
+fixed-capacity, sorted, sentinel-padded logs between merges, and keeps on
+append the structures the gather corrections read:
 
 * ``delta_sum_gather`` (K5) — sum of buffered measures with key in
   (lq, uq]: two binary searches into the sorted log and the difference of
@@ -22,16 +22,26 @@ merges, and keeps on append the structures these corrections read:
 * ``delta_dommax2d_gather`` (K11) — the dominance max over {x <= u,
   y <= v} from the prefix maxima ``wpmax``; -inf when nothing is dominated.
 
+The ``cuda_scan`` backend's one-key twins scan the whole log instead, as
+``delta_sum_pallas`` and ``delta_max_pallas`` do:
+
+* ``delta_sum`` (K16) — the sum of the measures whose key lies in
+  (lq, uq], a membership test against every slot;
+* ``delta_max`` (K17) — the max of the measures whose key lies in
+  [lq, uq], -inf when none does.
+
 Sentinel slots hold a huge-but-finite key (both coordinates for a point
 log) and measure 0, so they fail every membership test and leave the
 prefix sums flat: no correction needs the fill level.
 
 Each ``*_plain`` function is the plain torch version, in the kernel's order
-of operations; each wrapper launches its CUDA kernel
-(``csrc/polyfit_kernels.cu`` for K5/K6, ``csrc/delta2d.cu`` for K9-K11) on
-CUDA tensors and runs the plain version on CPU tensors.  The one-hot scan
-twins (``delta_sum_pallas``, ``delta_max_pallas``, ``delta_*2d_pallas``)
-come with the ``cuda_scan`` backend (ROADMAP Queue 2, K16-K20).
+of operations (K16's and K17's are the one-hot oracles of ``kernels/ref.py``;
+K16's product may add a SUM log's measures in another order than the
+kernel, which adds them in slot order); each wrapper launches its CUDA
+kernel (``csrc/polyfit_kernels.cu`` for K5/K6, ``csrc/delta2d.cu`` for
+K9-K11, ``csrc/scan1d.cu`` for K16/K17) on CUDA tensors and runs the plain
+version on CPU tensors.  The two-key scan twins (``delta_*2d_pallas``,
+K18-K20) are still to port (ROADMAP Queue 2, slice B).
 """
 from __future__ import annotations
 
@@ -40,9 +50,11 @@ import torch
 from ..core.index2d import mst_count_prefix, mst_weighted_prefix
 from . import _build
 from .locate import bsearch_count, rmq_gather
+from .ref import delta_max_ref, delta_sum_ref
 
 __all__ = ["delta_sum_gather_plain", "delta_sum_gather",
-           "delta_max_gather_plain", "delta_max_gather",
+           "delta_max_gather_plain", "delta_max_gather", "delta_sum_plain",
+           "delta_sum", "delta_max_plain", "delta_max",
            "delta_count2d_gather_plain", "delta_count2d_gather",
            "delta_sum2d_gather_plain", "delta_sum2d_gather",
            "delta_dommax2d_gather_plain", "delta_dommax2d_gather"]
@@ -114,6 +126,67 @@ def delta_max_gather(lq, uq, keys, st):
 
 
 delta_max_gather.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# one-key scans over the whole log: K16, K17
+# ---------------------------------------------------------------------------
+
+def delta_sum_plain(lq, uq, keys, vals):
+    """Plain torch version of K16: the one-hot membership product
+    (``ref.delta_sum_ref``)."""
+    return delta_sum_ref(lq, uq, keys, vals)
+
+
+def delta_max_plain(lq, uq, keys, vals):
+    """Plain torch version of K17: the masked max (``ref.delta_max_ref``)."""
+    return delta_max_ref(lq, uq, keys, vals)
+
+
+def _scan_launch(name, lq, uq, keys, vals):
+    """Launch K16 or K17 (``polyfit_<name>``) on validated arguments."""
+    _build.require_cuda(name, lq, uq, keys, vals)
+    Q, D = lq.shape[0], keys.shape[0]
+    if uq.shape[0] != Q or vals.shape != (D,) or D < 1:
+        raise ValueError(f"{name}: shape mismatch {lq.shape} {uq.shape} "
+                         f"{keys.shape} {vals.shape}")
+    out = torch.empty(Q, dtype=vals.dtype, device=lq.device)
+    if Q:
+        _build.check(getattr(_build.library(), f"polyfit_{name}")(
+            lq.data_ptr(), uq.data_ptr(), keys.data_ptr(), vals.data_ptr(),
+            out.data_ptr(), Q, D, _build.stream(lq.device)), name)
+    return out
+
+
+def delta_sum(lq, uq, keys, vals):
+    """(Q,) exact buffered SUM over (lq, uq] by a membership test against
+    every slot of the log: K16 on CUDA tensors, the plain version on CPU
+    tensors.  ``delta_sum.launches`` counts the kernel launches."""
+    if lq.device.type == "cpu":
+        return delta_sum_plain(lq, uq, keys, vals)
+    out = _scan_launch("delta_sum", lq, uq, keys, vals)
+    if lq.shape[0]:
+        delta_sum.launches += 1
+    return out
+
+
+delta_sum.launches = 0
+
+
+def delta_max(lq, uq, keys, vals):
+    """(Q,) exact buffered MAX over [lq, uq] (-inf where no buffered key
+    lies in the range) by a membership test against every slot: K17 on
+    CUDA tensors, the plain version on CPU tensors.  ``delta_max.launches``
+    counts the kernel launches."""
+    if lq.device.type == "cpu":
+        return delta_max_plain(lq, uq, keys, vals)
+    out = _scan_launch("delta_max", lq, uq, keys, vals)
+    if lq.shape[0]:
+        delta_max.launches += 1
+    return out
+
+
+delta_max.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -12,12 +12,19 @@ thread per target).
   plain version on CPU tensors.  ``quantile_invert.launches`` counts the
   kernel launches.
 
+``scan=True`` is the reference kernel's scan mode, which the ``cuda_scan``
+backend runs (the ``pallas_scan`` twin): every searchsorted becomes the
+one-hot comparison sum over the whole array, O(Q (H + n)) work, in the
+plain version (``core.quantile`` with ``scan=True``) and in the kernel (its
+scan instantiation, ``polyfit_quantile_invert_scan``).  The summed
+predicate is the binary search's, so both modes return the same keys bit
+for bit.  ``quantile_invert.scan_launches`` counts the scan launches apart
+from ``launches``.
+
 The boundary array ``B`` (the running max of the segment endpoint values,
 ``core.quantile.boundary_array``) and the padded key grid ``ref_keys`` are
 computed outside the kernel and passed in, as the reference passes them;
-``n`` is the live key count inside the grid.  The one-hot scan mode of the
-reference kernel (``scan=True``, the ``pallas_scan`` twin) comes with the
-``cuda_scan`` backend (ROADMAP Queue 2, with K14-K17).
+``n`` is the live key count inside the grid.
 """
 from __future__ import annotations
 
@@ -35,17 +42,19 @@ MAX_DEG = 8
 
 def quantile_invert_plain(t_mid, t_lo, t_hi, B, seg_lo, seg_hi, coeffs,
                           seg_err, ref_keys, *, h: int, n: int,
-                          delta: float):
+                          delta: float, scan: bool = False):
     """Plain torch version of K4: (answer, lower, upper)."""
     return certified_quantile_shifted(
         t_mid, t_lo, t_hi, seg_lo=seg_lo, seg_hi=seg_hi, coeffs=coeffs,
-        seg_err=seg_err, h=h, delta=delta, B=B, ref_keys=ref_keys, n=n)
+        seg_err=seg_err, h=h, delta=delta, B=B, ref_keys=ref_keys, n=n,
+        scan=scan)
 
 
 def quantile_invert(t_mid, t_lo, t_hi, B, seg_lo, seg_hi, coeffs, seg_err,
-                    ref_keys, *, h: int, n: int, delta: float):
-    """(answer, lower, upper), each (Q,): K4 on CUDA tensors, the plain
-    version on CPU tensors.
+                    ref_keys, *, h: int, n: int, delta: float,
+                    scan: bool = False):
+    """(answer, lower, upper), each (Q,): K4 on CUDA tensors (its scan
+    mode with ``scan``), the plain version on CPU tensors.
 
     ``t_mid``/``t_lo``/``t_hi`` are rank targets with the slack already
     folded in; ``B``/``seg_lo``/``seg_hi``/``seg_err`` (H,) and ``coeffs``
@@ -55,7 +64,7 @@ def quantile_invert(t_mid, t_lo, t_hi, B, seg_lo, seg_hi, coeffs, seg_err,
     if t_mid.device.type == "cpu":
         return quantile_invert_plain(t_mid, t_lo, t_hi, B, seg_lo, seg_hi,
                                      coeffs, seg_err, ref_keys, h=h, n=n,
-                                     delta=delta)
+                                     delta=delta, scan=scan)
     _build.require_cuda("quantile_invert", t_mid, t_lo, t_hi, B, seg_lo,
                         seg_hi, coeffs, seg_err, ref_keys)
     Q, H, nk = t_mid.shape[0], seg_lo.shape[0], ref_keys.shape[0]
@@ -72,14 +81,21 @@ def quantile_invert(t_mid, t_lo, t_hi, B, seg_lo, seg_hi, coeffs, seg_err,
                          f"kernel's 1..{MAX_DEG}")
     out = torch.empty((3, Q), dtype=coeffs.dtype, device=t_mid.device)
     if Q:
-        _build.check(_build.library().polyfit_quantile_invert(
+        lib = _build.library()
+        fn = (lib.polyfit_quantile_invert_scan if scan
+              else lib.polyfit_quantile_invert)
+        _build.check(fn(
             t_mid.data_ptr(), t_lo.data_ptr(), t_hi.data_ptr(), B.data_ptr(),
             seg_lo.data_ptr(), seg_hi.data_ptr(), coeffs.data_ptr(),
             seg_err.data_ptr(), ref_keys.data_ptr(), out[0].data_ptr(),
             out[1].data_ptr(), out[2].data_ptr(), Q, H, deg, h, nk, n,
             float(delta), _build.stream(t_mid.device)), "quantile_invert")
-        quantile_invert.launches += 1
+        if scan:
+            quantile_invert.scan_launches += 1
+        else:
+            quantile_invert.launches += 1
     return out[0], out[1], out[2]
 
 
 quantile_invert.launches = 0
+quantile_invert.scan_launches = 0

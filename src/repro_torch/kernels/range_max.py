@@ -1,18 +1,25 @@
-"""Range MAX query evaluation (paper Eq. 17), and kernel K3.
+"""Range MAX query evaluation (paper Eq. 17): kernels K3 and K15.
 
-The twin of ``repro.kernels.range_max`` (locate->gather part): both
-boundary segments are located with the branch-free binary search, their
-coefficient rows gathered, their clipped maxima taken in closed form
+The twin of ``repro.kernels.range_max``.  Both kernels take the clipped
+maxima of the two boundary segments in closed form
 (``core.poly.clipped_poly_max``, deg <= 3 — the paper's recommended MAX
-range), and the strictly-interior span (il, iu) is answered in O(1) with
-two gathers against the plan's per-segment sparse table.  MIN is served on
-negated aggregates by the caller.
+range) and the max of the per-segment aggregates strictly between them;
+MIN is served on negated aggregates by the caller.
 
-``range_max_gather_plain`` is the plain torch version; ``range_max_gather``
-is the wrapper over K3 (``csrc/polyfit_kernels.cu``,
-``range_max_gather_kernel``), the twin of ``range_max_gather_pallas``.
-The one-hot scan twin (``range_max_pallas``) comes with the ``cuda_scan``
-backend (ROADMAP Queue 2, K15).
+* **gather** (K3, ``range_max_gather``, twin of ``range_max_gather_pallas``,
+  the ``cuda`` backend): both boundary segments located with the
+  branch-free binary search, the interior span (il, iu) answered in O(1)
+  with two gathers against the plan's per-segment sparse table;
+* **scan** (K15, ``range_max``, twin of ``range_max_pallas``, the
+  ``cuda_scan`` backend): both boundary rows by one-hot membership
+  (``range_sum.segment_rows``), the same-segment test on their gathered
+  lo and hi, and a dense masked max of ``seg_agg`` over the segments with
+  lo > lq and next <= uq — O(H) a query.
+
+The max is exact, so the two agree bit for bit.  ``*_plain`` are the plain
+torch versions; the wrappers launch their kernels
+(``csrc/polyfit_kernels.cu`` for K3, ``csrc/scan1d.cu`` for K15) on CUDA
+tensors and run the plain versions on CPU tensors.
 """
 from __future__ import annotations
 
@@ -21,8 +28,11 @@ import torch
 from ..core.poly import clipped_poly_max
 from . import _build
 from .locate import locate_segments, rmq_gather
+from .range_sum import gather_rows, segment_rows
+from .ref import _chunked
 
-__all__ = ["range_max_gather_plain", "range_max_gather"]
+__all__ = ["range_max_gather_plain", "range_max_gather", "range_max_plain",
+           "range_max"]
 
 
 def range_max_gather_plain(lq, uq, seg_lo, seg_hi, coeffs, st):
@@ -46,15 +56,20 @@ def range_max_gather_plain(lq, uq, seg_lo, seg_hi, coeffs, st):
     return torch.maximum(torch.maximum(m_left, m_right), m_int)
 
 
+def _check_deg(name, coeffs):
+    deg = coeffs.shape[1] - 1
+    if deg > 3:
+        raise ValueError(f"{name}: the closed forms cover deg <= 3 (the "
+                         f"paper's MAX range), got deg {deg}")
+    return deg
+
+
 def range_max_gather(lq, uq, seg_lo, seg_hi, coeffs, st):
     """(Q,) approximate MAX over [lq, uq]; ``st`` is the plan's (L, h)
     sparse table over per-segment aggregates (unpadded — in-domain queries
     never locate the sentinel tail).  K3 on CUDA tensors, the plain version
     on CPU tensors.  ``range_max_gather.launches`` counts the launches."""
-    deg = coeffs.shape[1] - 1
-    if deg > 3:
-        raise ValueError("range_max_gather: the closed forms cover deg <= 3 "
-                         f"(the paper's MAX range), got deg {deg}")
+    deg = _check_deg("range_max_gather", coeffs)
     if lq.device.type == "cpu":
         return range_max_gather_plain(lq, uq, seg_lo, seg_hi, coeffs, st)
     _build.require_cuda("range_max_gather", lq, uq, seg_lo, seg_hi, coeffs, st)
@@ -76,3 +91,66 @@ def range_max_gather(lq, uq, seg_lo, seg_hi, coeffs, st):
 
 
 range_max_gather.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the one-hot scan: K15
+# ---------------------------------------------------------------------------
+
+def _interior_max(lq, uq, seg_lo, seg_next, seg_agg):
+    """max of seg_agg over the segments with lo > lq and next <= uq (-inf
+    where none), the (Q, H) mask formed a chunk of queries at a time."""
+    def part(l, u):
+        inside = ((seg_lo[None, :] > l[:, None])
+                  & (seg_next[None, :] <= u[:, None]))
+        return torch.where(inside, seg_agg[None, :], -torch.inf).amax(dim=1)
+    return _chunked(part, seg_lo.shape[0], lq, uq)
+
+
+def range_max_plain(lq, uq, seg_lo, seg_next, seg_hi, coeffs, seg_agg):
+    """Plain torch version of K15, in the kernel's order of operations."""
+    cl, lo_l, hi_l = gather_rows(segment_rows(lq, seg_lo, seg_next), coeffs,
+                                 seg_lo, seg_hi)
+    cu, lo_u, hi_u = gather_rows(segment_rows(uq, seg_lo, seg_next), coeffs,
+                                 seg_lo, seg_hi)
+    same = (lo_l == lo_u) & (hi_l == hi_u)
+    # left boundary: [lq, min(hi_l, uq)], suppressed when lq past hi_l
+    m_left = clipped_poly_max(cl, lo_l, hi_l, lq, torch.minimum(hi_l, uq))
+    m_left = torch.where(lq <= hi_l, m_left, -torch.inf)
+    # right boundary: [max(lo_u, lq), uq], suppressed when same segment
+    m_right = clipped_poly_max(cu, lo_u, hi_u, torch.maximum(lo_u, lq), uq)
+    m_right = torch.where(same, -torch.inf, m_right)
+    m_int = _interior_max(lq, uq, seg_lo, seg_next, seg_agg)
+    return torch.maximum(torch.maximum(m_left, m_right), m_int)
+
+
+def range_max(lq, uq, seg_lo, seg_next, seg_hi, coeffs, seg_agg):
+    """(Q,) approximate MAX over [lq, uq] by one-hot membership against a
+    (sentinel-padded) segment table with its per-segment aggregates
+    ``seg_agg`` (-inf padded): K15 on CUDA tensors, the plain version on
+    CPU tensors.  ``range_max.launches`` counts the kernel launches."""
+    deg = _check_deg("range_max", coeffs)
+    if lq.device.type == "cpu":
+        return range_max_plain(lq, uq, seg_lo, seg_next, seg_hi, coeffs,
+                               seg_agg)
+    _build.require_cuda("range_max", lq, uq, seg_lo, seg_next, seg_hi, coeffs,
+                        seg_agg)
+    Q, H = lq.shape[0], seg_lo.shape[0]
+    if (uq.shape[0] != Q or H < 1 or coeffs.shape[0] != H
+            or any(t.shape[0] != H for t in (seg_next, seg_hi, seg_agg))):
+        raise ValueError("range_max: shape mismatch "
+                         f"{lq.shape} {uq.shape} {seg_lo.shape} "
+                         f"{seg_next.shape} {seg_hi.shape} {coeffs.shape} "
+                         f"{seg_agg.shape}")
+    out = torch.empty(Q, dtype=coeffs.dtype, device=lq.device)
+    if Q:
+        _build.check(_build.library().polyfit_range_max(
+            lq.data_ptr(), uq.data_ptr(), seg_lo.data_ptr(),
+            seg_next.data_ptr(), seg_hi.data_ptr(), coeffs.data_ptr(),
+            seg_agg.data_ptr(), out.data_ptr(), Q, H, deg,
+            _build.stream(lq.device)), "range_max")
+        range_max.launches += 1
+    return out
+
+
+range_max.launches = 0

@@ -1,16 +1,24 @@
-"""Range SUM/COUNT query evaluation (paper Eq. 14), and kernel K2.
+"""Range SUM/COUNT query evaluation (paper Eq. 14): kernels K2 and K14.
 
-The twin of ``repro.kernels.range_sum`` (locate->gather part): for each
-(lq, uq] range, locate both endpoints with the branch-free binary search,
-gather one (deg+1)-coefficient row plus the segment's lo and hi, and
-evaluate A = P_{I(u)}(u) - P_{I(l)}(l) by Horner at the scaled coordinate.
-Per-query work is independent of the table size.
+The twin of ``repro.kernels.range_sum``.  Both kernels evaluate
+A = P_{I(u)}(u) - P_{I(l)}(l) per (lq, uq] range from one gathered
+(deg+1)-coefficient row plus the segment's lo and hi, by Horner at the
+scaled coordinate; they differ in how they find the segment:
 
-``range_sum_gather_plain`` is the plain torch version; ``range_sum_gather``
-is the wrapper over K2 (``csrc/polyfit_kernels.cu``,
-``range_sum_gather_kernel``), the twin of ``range_sum_gather_pallas``.
-The one-hot scan twin (``range_sum_pallas``) comes with the ``cuda_scan``
-backend (ROADMAP Queue 2, K14).
+* **gather** (K2, ``range_sum_gather``, twin of ``range_sum_gather_pallas``,
+  the ``cuda`` backend): the branch-free binary search, O(log H) a query;
+* **scan** (K14, ``range_sum``, twin of ``range_sum_pallas``, the
+  ``cuda_scan`` backend): one-hot membership seg_lo <= q < seg_next
+  against every segment, O(H) a query.  At most one segment holds a
+  clamped query, so the reference's one-hot matmul reads one row: the
+  scan keeps the first segment that holds the query, and a zero row where
+  none does.
+
+Both read the same rows, so on in-domain queries they agree bit for bit.
+``*_plain`` are the plain torch versions, in the kernels' order of
+operations; the wrappers launch their kernels (``csrc/polyfit_kernels.cu``
+for K2, ``csrc/scan1d.cu`` for K14) on CUDA tensors and run the plain
+versions on CPU tensors.
 """
 from __future__ import annotations
 
@@ -19,8 +27,10 @@ import torch
 from ..core.poly import horner, scale_unit
 from . import _build
 from .locate import locate_segments
+from .ref import _chunked
 
-__all__ = ["range_sum_gather_plain", "range_sum_gather"]
+__all__ = ["range_sum_gather_plain", "range_sum_gather", "segment_rows",
+           "gather_rows", "range_sum_plain", "range_sum"]
 
 
 def range_sum_gather_plain(lq, uq, seg_lo, seg_hi, coeffs):
@@ -57,3 +67,62 @@ def range_sum_gather(lq, uq, seg_lo, seg_hi, coeffs):
 
 
 range_sum_gather.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the one-hot scan: K14
+# ---------------------------------------------------------------------------
+
+def segment_rows(q, seg_lo, seg_next):
+    """The first segment with seg_lo <= q < seg_next for each query, -1
+    where none holds it — the (Q, H) membership compared a chunk of queries
+    at a time."""
+    def part(x):
+        m = (seg_lo[None, :] <= x[:, None]) & (x[:, None] < seg_next[None, :])
+        return torch.where(m.any(dim=1), m.to(torch.uint8).argmax(dim=1), -1)
+    return _chunked(part, seg_lo.shape[0], q)
+
+
+def gather_rows(row, *tables):
+    """Each table's row ``row``, zeros where ``row`` is -1."""
+    hit = row >= 0
+    idx = torch.clamp(row, min=0)
+    return [torch.where(hit.reshape(-1, *([1] * (t.dim() - 1))), t[idx], 0.0)
+            for t in tables]
+
+
+def range_sum_plain(lq, uq, seg_lo, seg_next, seg_hi, coeffs):
+    """Plain torch version of K14, in the kernel's order of operations."""
+    vals = []
+    for q in (lq, uq):
+        c, lo, hi = gather_rows(segment_rows(q, seg_lo, seg_next), coeffs,
+                                seg_lo, seg_hi)                  # O(H)
+        vals.append(horner(c, scale_unit(q, lo, hi)))
+    return vals[1] - vals[0]
+
+
+def range_sum(lq, uq, seg_lo, seg_next, seg_hi, coeffs):
+    """(Q,) approximate SUM over (lq, uq] by one-hot membership against a
+    (sentinel-padded) segment table: K14 on CUDA tensors, the plain version
+    on CPU tensors.  ``range_sum.launches`` counts the kernel launches."""
+    if lq.device.type == "cpu":
+        return range_sum_plain(lq, uq, seg_lo, seg_next, seg_hi, coeffs)
+    _build.require_cuda("range_sum", lq, uq, seg_lo, seg_next, seg_hi, coeffs)
+    Q, H = lq.shape[0], seg_lo.shape[0]
+    if (uq.shape[0] != Q or seg_next.shape[0] != H or seg_hi.shape[0] != H
+            or coeffs.shape[0] != H or H < 1):
+        raise ValueError("range_sum: shape mismatch "
+                         f"{lq.shape} {uq.shape} {seg_lo.shape} "
+                         f"{seg_next.shape} {seg_hi.shape} {coeffs.shape}")
+    out = torch.empty(Q, dtype=coeffs.dtype, device=lq.device)
+    if Q:
+        _build.check(_build.library().polyfit_range_sum(
+            lq.data_ptr(), uq.data_ptr(), seg_lo.data_ptr(),
+            seg_next.data_ptr(), seg_hi.data_ptr(), coeffs.data_ptr(),
+            out.data_ptr(), Q, H, coeffs.shape[1] - 1,
+            _build.stream(lq.device)), "range_sum")
+        range_sum.launches += 1
+    return out
+
+
+range_sum.launches = 0

@@ -3,8 +3,9 @@
 The twin of ``repro.kernels.ref``: the query clamp and the one-hot
 membership rule one_hot[q, j] = (seg_lo[j] <= q) & (q < seg_next[j]) of the
 scan kernels, with a dense interior reduction for MAX, the dense
-membership oracles of the 1-D and 2-D delta-buffer corrections (the 2-D
-ones over (Q, cap) in chunks of queries), and the 2-D flat-leaf one-hot
+membership oracles of the 1-D and 2-D delta-buffer corrections (over
+(Q, cap) in chunks of queries; the 1-D ones are also the plain versions
+of kernels K16 and K17), and the 2-D flat-leaf one-hot
 oracles (``leaf_eval2d_ref``, ``corner_count2d_ref``: the reference's
 one-hot matmul gather, in chunks of queries).  The engine's ``ref``
 backend runs these; its ``torch`` backend runs the 2-D delta oracles too,
@@ -56,25 +57,32 @@ def range_max_ref(lq, uq, seg_lo, seg_next, seg_hi, coeffs, seg_agg):
 
 def delta_sum_ref(lq, uq, keys, vals):
     """Exact sum of buffered measures with key in (lq, uq] (delta_scan
-    oracle); sentinel-padded slots never satisfy membership."""
-    member = ((lq[:, None] < keys[None, :]) &
-              (keys[None, :] <= uq[:, None])).to(vals.dtype)
-    return member @ vals
+    oracle); sentinel-padded slots never satisfy membership.  The (Q, cap)
+    membership is formed a chunk of queries at a time."""
+    def part(lq, uq):
+        member = ((lq[:, None] < keys[None, :]) &
+                  (keys[None, :] <= uq[:, None])).to(vals.dtype)
+        return member @ vals
+    return _chunked(part, keys.shape[0], lq, uq)
 
 
 def delta_max_ref(lq, uq, keys, vals):
-    """Exact max of buffered measures with key in [lq, uq]; -inf if none."""
-    member = (lq[:, None] <= keys[None, :]) & (keys[None, :] <= uq[:, None])
-    return torch.where(member, vals[None, :], -torch.inf).amax(dim=1)
+    """Exact max of buffered measures with key in [lq, uq]; -inf if none
+    (a chunk of queries at a time)."""
+    def part(lq, uq):
+        member = ((lq[:, None] <= keys[None, :]) &
+                  (keys[None, :] <= uq[:, None]))
+        return torch.where(member, vals[None, :], -torch.inf).amax(dim=1)
+    return _chunked(part, keys.shape[0], lq, uq)
 
 
 def _chunked(fn, cap: int, *qs):
     """``fn`` over query chunks of at most ``_CHUNK_ELEMS`` (query, slot)
-    pairs, concatenated."""
+    pairs, concatenated (one empty chunk for no queries, so the result
+    keeps ``fn``'s dtype)."""
     step = max(1, _CHUNK_ELEMS // max(1, cap))
-    parts = [fn(*(q[s:s + step] for q in qs))
-             for s in range(0, qs[0].shape[0], step)]
-    return torch.cat(parts) if parts else qs[0].new_zeros(0)
+    return torch.cat([fn(*(q[s:s + step] for q in qs))
+                      for s in range(0, max(1, qs[0].shape[0]), step)])
 
 
 def _in_rect(lx, ux, ly, uy, keys_x, keys_y):

@@ -7,12 +7,17 @@ backend, static, dynamic, windowed and 2-D (static and dynamic), must
 agree with the plain versions on the same inputs: K1's int32 ids and K4's
 Newton branch and the 2-D kernels exactly, the others to rtol = atol =
 1e-9 (compiled with -fmad=false, they are expected to agree bit for
-bit).  The plain versions are held to the JAX reference by the CPU tests
+bit).  The one-hot scans of the ``cuda_scan`` backend, K14 (range SUM),
+K15 (range MAX), K16 (buffered SUM), K17 (buffered MAX) and K4's scan
+mode, equal their plain versions and their gather twins exactly (K16 on
+a SUM log within 1e-12 of the lane's sum of |measure|: the plain product
+may add in another order), and the ``cuda_scan`` backend equals ``cuda``
+bit for bit, static, dynamic, windowed and through the session.  The
+plain versions are held to the JAX reference by the CPU tests
 (test_torch_locate.py, test_torch_kernels.py, test_torch_engine.py,
 test_torch_quantile.py, test_torch_index2d.py, test_torch_engine2d.py,
-test_torch_dynamic2d.py), so
-this file imports no JAX: it runs on a machine with a card and PyTorch
-alone.
+test_torch_dynamic2d.py, test_torch_scan.py), so this file imports no
+JAX: it runs on a machine with a card and PyTorch alone.
 
     python -m pytest tests/test_torch_cuda.py -q      # skips without a card
 """
@@ -800,3 +805,266 @@ def test_dynamic2d_cuda_backend_matches_torch_backend(cuda, agg):
     compare()
     update(1)
     compare()
+
+
+# ---------------------------------------------------------------------------
+# the 'cuda_scan' backend: K14-K17 and K4's scan mode
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("deg", [1, 2, 3])
+def test_range_sum_scan_kernel_matches_plain(plans, queries, deg):
+    """K14 equals its plain version and K2 in every lane: it reads the very
+    rows K2 locates."""
+    p = plans[1]["sum", deg]
+    args = (*queries, p.seg_lo, p.seg_next, p.seg_hi, p.coeffs)
+    before = ksum.range_sum.launches
+    got = ksum.range_sum(*args)
+    torch.cuda.synchronize()
+    assert ksum.range_sum.launches == before + 1
+    torch.testing.assert_close(got, ksum.range_sum_plain(*args), rtol=0,
+                               atol=0)
+    torch.testing.assert_close(got, ksum.range_sum_gather(
+        *queries, p.seg_lo, p.seg_hi, p.coeffs), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("agg,deg", [("max", 1), ("max", 2), ("max", 3),
+                                     ("min", 3)])
+def test_range_max_scan_kernel_matches_plain(plans, queries, agg, deg):
+    """K15 equals its plain version and K3 in every lane."""
+    p = plans[1][agg, deg]
+    args = (*queries, p.seg_lo, p.seg_next, p.seg_hi, p.coeffs, p.seg_agg)
+    before = kmax.range_max.launches
+    got = kmax.range_max(*args)
+    torch.cuda.synchronize()
+    assert kmax.range_max.launches == before + 1
+    torch.testing.assert_close(got, kmax.range_max_plain(*args), rtol=0,
+                               atol=0)
+    torch.testing.assert_close(got, kmax.range_max_gather(
+        *queries, p.seg_lo, p.seg_hi, p.coeffs, p.st), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("fill", [0, 37, CAP])
+def test_delta_scan_kernels_match_plain(cuda, fill):
+    """K16 and K17 against their plain versions and their gather twins K5
+    and K6 on one log: K17 exactly; K16 exactly on a COUNT log (unit
+    measures: every order of summation is exact) and, on a SUM log, within
+    1e-12 x sum |v| of the lane, since the plain one-hot product may add
+    the members in another order than the kernel's slot order."""
+    keys, vals, cf, st = _log(cuda, fill, True)
+    lq, uq = _delta_queries(cuda)
+    ok = lq <= uq
+    before = (kdelta.delta_sum.launches, kdelta.delta_max.launches)
+    got_sum = kdelta.delta_sum(lq, uq, keys, vals)
+    got_max = kdelta.delta_max(lq, uq, keys, vals)
+    torch.cuda.synchronize()
+    assert (kdelta.delta_sum.launches,
+            kdelta.delta_max.launches) == (before[0] + 1, before[1] + 1)
+    scale = float(vals.abs().sum())
+    assert float((got_sum - kdelta.delta_sum_plain(lq, uq, keys, vals))
+                 .abs().max()) <= 1e-12 * scale
+    torch.testing.assert_close(got_sum[ok], kdelta.delta_sum_gather(
+        lq, uq, keys, cf)[ok], **TOL)
+    torch.testing.assert_close(got_max, kdelta.delta_max_plain(
+        lq, uq, keys, vals), rtol=0, atol=0)
+    torch.testing.assert_close(got_max, kdelta.delta_max_gather(
+        lq, uq, keys, st), rtol=0, atol=0)
+    ones = (keys < big_sentinel(torch.float64) / 2).to(torch.float64)
+    ccf = torch.cat([ones.new_zeros(1), torch.cumsum(ones, 0)])
+    got = kdelta.delta_sum(lq, uq, keys, ones)
+    torch.testing.assert_close(got, kdelta.delta_sum_plain(lq, uq, keys,
+                                                           ones),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(got[ok], kdelta.delta_sum_gather(
+        lq, uq, keys, ccf)[ok], rtol=0, atol=0)
+    assert not got[~ok].any()
+    if fill == 0:
+        assert not got_sum.any() and torch.isneginf(got_max).all()
+
+
+@pytest.mark.parametrize("agg", ["count", "sum"])
+@pytest.mark.parametrize("deg", [1, 2, 3, 4, 5])
+def test_quantile_scan_kernel_matches_plain(cuda, quantile_plans, agg, deg):
+    """K4's scan mode equals its plain version (``scan=True``) and the
+    gather mode in every lane, and is counted apart."""
+    args, kw = _k4_args(quantile_plans[agg, deg], _fractions(cuda))
+    before = (kq.quantile_invert.launches, kq.quantile_invert.scan_launches)
+    got = kq.quantile_invert(*args, scan=True, **kw)
+    torch.cuda.synchronize()
+    assert (kq.quantile_invert.launches,
+            kq.quantile_invert.scan_launches) == (before[0], before[1] + 1)
+    want = kq.quantile_invert_plain(*args, scan=True, **kw)
+    gather = kq.quantile_invert(*args, **kw)
+    for g, w, a in zip(got, want, gather):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+        torch.testing.assert_close(g, a, rtol=0, atol=0)
+
+
+def test_scan_kernels_reject_bad_arguments(cuda, plans, queries):
+    p = plans[1]["max", 3]
+    lq, uq = queries
+    with pytest.raises(ValueError, match="shape mismatch"):
+        ksum.range_sum(lq, uq, p.seg_lo, p.seg_next[:-1], p.seg_hi, p.coeffs)
+    with pytest.raises(ValueError, match="CUDA device"):
+        kmax.range_max(lq, uq, p.seg_lo, p.seg_next, p.seg_hi, p.coeffs,
+                       p.seg_agg.cpu())
+    keys, vals, _, _ = _log(cuda, 10, False)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        kdelta.delta_sum(lq, uq[:-1], keys, vals)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        kdelta.delta_max(lq, uq, keys, vals[:-1])
+
+
+@pytest.mark.parametrize("agg", ["sum", "max", "min"])
+@pytest.mark.parametrize("eps_rel", [None, 0.05])
+def test_scan_backend_matches_cuda_backend(plans, queries, agg, eps_rel):
+    """Engine(backend='cuda_scan') runs K14 (SUM) or K15 (MAX/MIN), K1 in
+    the Q_rel refinement as 'cuda' does, neither K2 nor K3, and equals the
+    'cuda' answers bit for bit, refined flags included."""
+    p = plans[1][agg, 3 if agg != "sum" else 2]
+    lq, uq = queries
+    scan, gather = ((ksum.range_sum, ksum.range_sum_gather) if agg == "sum"
+                    else (kmax.range_max, kmax.range_max_gather))
+    counts = lambda: (scan.launches, gather.launches, kloc.locate.launches)
+    before = counts()
+    got = Engine(backend="cuda_scan").query(p, lq, uq, eps_rel=eps_rel)
+    torch.cuda.synchronize()
+    assert counts() == (before[0] + 1, before[1],
+                        before[2] + (0 if eps_rel is None else 2))
+    want = Engine(backend="cuda").query(p, lq, uq, eps_rel=eps_rel)
+    torch.testing.assert_close(got.answer, want.answer, rtol=0, atol=0)
+    torch.testing.assert_close(got.refined, want.refined, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("agg", ["count", "sum"])
+def test_quantile_scan_backend_matches_cuda_backend(cuda, quantile_plans,
+                                                    agg):
+    """execute_quantile on 'cuda_scan' launches K4's scan mode once and
+    equals the 'cuda' triples bit for bit."""
+    plan = quantile_plans[agg, 3]
+    q = _fractions(cuda)
+    before = (kq.quantile_invert.launches, kq.quantile_invert.scan_launches)
+    got = execute_quantile(plan, q, backend="cuda_scan")
+    torch.cuda.synchronize()
+    assert (kq.quantile_invert.launches,
+            kq.quantile_invert.scan_launches) == (before[0], before[1] + 1)
+    for g, w in zip(got, execute_quantile(plan, q)):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("agg", ["count", "max", "min"])
+def test_dynamic_scan_backend_matches_cuda_backend(cuda, agg):
+    """DynamicEngine on 'cuda_scan': K16 (COUNT, both logs) or K17 (MAX/MIN,
+    the insert log) beside K14/K15, no K5/K6 and no sparse table, and the
+    'cuda' engine's answers bit for bit after inserts, deletes (shadowed
+    victims on MAX/MIN), a flush and more updates."""
+    t, v = hki_series(N, seed=3)
+    meas = None if agg == "count" else v
+    delta = 100.0 if agg == "count" else 30.0
+    idx = build_index_1d(t, meas, agg, deg=2 if agg == "count" else 3,
+                         delta=delta, device=cuda)
+    scan = DynamicEngine(idx, backend="cuda_scan", capacity=256,
+                         auto_refit=False)
+    dev = DynamicEngine(idx, capacity=256, auto_refit=False)
+    rng = np.random.default_rng(29)
+    extremal = agg != "count"
+    kernels = ((kdelta.delta_max, kmax.range_max) if extremal
+               else (kdelta.delta_sum, ksum.range_sum))
+    gathers = (kdelta.delta_sum_gather, kdelta.delta_max_gather,
+               ksum.range_sum_gather, kmax.range_max_gather)
+    a, b = t[rng.integers(0, N, 3000)], t[rng.integers(0, N, 3000)]
+    lq, uq = np.minimum(a, b), np.maximum(a, b)
+
+    def update(step):
+        ins_k = np.concatenate([rng.uniform(t[0], t[-1], 40),
+                                [t[0] - 20.0 - step, t[-1] + 30.0 + step]])
+        ins_v = rng.uniform(25_000, 40_000, len(ins_k))
+        gone = t[rng.choice(N, 12, replace=False)]
+        for dyn in (scan, dev):
+            if agg == "count":
+                dyn.insert(ins_k)
+            else:
+                dyn.insert(ins_k, ins_v)
+            dyn.delete(gone)
+
+    def compare():
+        assert scan.snapshot()[1].ins_st is None
+        for eps_rel in (None, 0.05):
+            before = [k.launches for k in kernels + gathers]
+            got = scan.query(lq, uq, eps_rel=eps_rel)
+            torch.cuda.synchronize()
+            after = [k.launches for k in kernels + gathers]
+            assert after == [before[0] + (1 if extremal else 2),
+                             before[1] + 1, *before[2:]]
+            want = dev.query(lq, uq, eps_rel=eps_rel)
+            torch.testing.assert_close(got.answer, want.answer, rtol=0,
+                                       atol=0)
+            torch.testing.assert_close(got.refined, want.refined, rtol=0,
+                                       atol=0)
+
+    update(0)
+    compare()
+    scan.flush()
+    dev.flush()
+    compare()
+    update(1)
+    compare()
+
+
+def test_window_scan_backend_matches_cuda_backend(cuda):
+    """A window table on 'cuda_scan' runs K14 once per sealed epoch in the
+    window and K16 on the open epoch beside them (K5 when the window holds
+    the open epoch alone, as 'cuda' does), and equals 'cuda' bit for
+    bit."""
+    lat = tweet_latitudes(5 * 3000, seed=19)
+    epochs = np.split(lat, 5)
+    kw = dict(agg="count", delta=50.0, ring=8, capacity=4096, device=cuda)
+    scan = WindowEngine(epochs[0], backend="cuda_scan", **kw)
+    dev = WindowEngine(epochs[0], **kw)
+    for w in (scan, dev):
+        for e in epochs[1:4]:
+            w.ingest(e)
+            w.advance()
+        w.ingest(epochs[4])
+    lq, uq = make_queries_1d(lat, 20_000, seed=23)
+    counts = lambda: (ksum.range_sum.launches, kdelta.delta_sum.launches,
+                      kdelta.delta_sum_gather.launches,
+                      ksum.range_sum_gather.launches)
+    for (t0, t1), sealed, open_ in (((0, 4), 4, 1), ((1, 3), 3, 0),
+                                    ((4, 4), 0, 1), ((2, 2), 1, 0)):
+        for eps_rel in (None, 0.01):
+            before = counts()
+            got = scan.query(lq, uq, t0, t1, eps_rel=eps_rel)
+            torch.cuda.synchronize()
+            scanned = open_ if sealed else 0
+            assert counts() == (before[0] + sealed, before[1] + scanned,
+                                before[2] + open_ - scanned, before[3])
+            want = dev.query(lq, uq, t0, t1, eps_rel=eps_rel)
+            torch.testing.assert_close(got.answer, want.answer, rtol=0,
+                                       atol=0)
+            torch.testing.assert_close(got.refined, want.refined, rtol=0,
+                                       atol=0)
+
+
+def test_scan_session_matches_cuda_session(cuda):
+    """PolyFit.fit(backend='cuda_scan') answers a mixed COUNT/MAX batch and
+    quantiles as the default 'cuda' session does, bit for bit."""
+    lat = tweet_latitudes(20_000)
+    t, v = hki_series(20_000)
+    datasets = {"lat": lat, "hki": (t, v)}
+    specs = {"lat": TableSpec("count", ErrorBudget(abs=100.0, rel=0.01)),
+             "hki": TableSpec("max", ErrorBudget(abs=50.0, rel=0.01))}
+    scan = PolyFit.fit(datasets, specs, backend="cuda_scan")
+    dev = PolyFit.fit(datasets, specs)
+    assert scan.backend == "cuda_scan" and dev.backend == "cuda"
+    batch = QueryBatch.of(QuerySpec.range("lat", *make_queries_1d(lat, 5000)),
+                          QuerySpec.range("hki", *make_queries_1d(t, 3000)),
+                          QuerySpec.quantile("lat", np.linspace(0, 1, 999)))
+    before = (ksum.range_sum.launches, kmax.range_max.launches,
+              kq.quantile_invert.scan_launches)
+    got = scan.query(batch)
+    torch.cuda.synchronize()
+    assert (ksum.range_sum.launches, kmax.range_max.launches,
+            kq.quantile_invert.scan_launches) == tuple(b + 1 for b in before)
+    for g, w in zip(got, dev.query(batch)):
+        torch.testing.assert_close(g.value, w.value, rtol=0, atol=0)
+        torch.testing.assert_close(g.refined, w.refined, rtol=0, atol=0)
