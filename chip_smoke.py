@@ -107,26 +107,48 @@ Phases, each of which fails the run with a non-zero exit:
               path's shapes (max abs error 0), and K9-K11 are timed on the
               full 4,096-slot logs.
 
-The ``cuda_scan`` backend (the one-hot scan kernels K14-K17 and K4's scan
-mode) runs at the end of phases 7-10 on the plans, indexes and logs those
-phases already hold, building no table and fitting nothing (``scan``
-steps): the four static plans take the main-path batch under Q_abs and
-Q_rel and 65,536 quantile fractions on the COUNT and SUM tables; ``osm``
-and ``osm_max`` take the 2d batch (K12/K13, never K7/K8); a
-``DynamicEngine(backend="cuda_scan")`` over each dynamic table's merged
-index takes the table's buffer-full ops and queries; the all-epochs window
-runs through ``execute_lsm``.  Every answer, approximation and refined
-flag must equal the ``cuda`` backend's bit for bit (and hold against the
-truths above), the counters must show K14-K17 and K4's scan mode and none
-of K2, K3, K5, K6, K7 or K8, and K14-K17 and K4's scan mode are held to
-their plain versions (max abs error 0) and timed: K4's scan mode at the
-static COUNT and SUM plans, K14/K15 at the dynamic plans, K16/K17 on the
-full 4,096-slot logs and K16 also on the window's 131,072-slot log.
+The ``cuda_scan`` backend (the one-hot scan kernels K14-K17, K4's scan
+mode and the two-key whole-log scans K18-K20) runs at the end of phases
+7-11 on the plans, indexes and logs those phases already hold, building
+no table and fitting nothing (``scan`` steps): the four static plans take
+the main-path batch under Q_abs and Q_rel and 65,536 quantile fractions
+on the COUNT and SUM tables; ``osm`` and ``osm_max`` take the 2d batch
+(K12/K13, never K7/K8); a ``DynamicEngine(backend="cuda_scan")`` over
+each dynamic table's merged index takes the table's buffer-full ops and
+queries; the all-epochs window runs through ``execute_lsm``; a
+``DynamicEngine2D(backend="cuda_scan")`` over each dynamic two-key
+table's merged index takes its buffer-full ops and the 2 x 65,536
+rectangles and 65,536 corners under Q_abs and Q_rel.  Every answer,
+approximation and refined flag must equal the ``cuda`` backend's bit for
+bit (the two-key SUM table's within 1e-9: K19 adds the measures K10
+differences as prefix sums) and hold against the truths above, the
+counters must show K14-K20 and K4's scan mode and none of K2, K3, K5-K11
+or gather-mode K4, and K14-K20 and K4's scan mode are held to their plain
+versions (max abs error 0) and timed: K4's scan mode at the static COUNT
+and SUM plans, K14/K15 at the dynamic plans, K16-K20 on the full
+4,096-slot logs and K16 also on the window's 131,072-slot log.
+
+The ``ops`` step, at the end of phase 7, runs ``repro_torch.kernels.ops``
+(the twin of ``repro.kernels.ops``) on ``lat`` (COUNT, deg 2) and ``hki``
+(MAX, deg 3) through ``from_index`` at float64 and at float32 (its
+default): ``poly_eval`` on 65,536 data keys a table (K21), ``range_sum``
+and ``range_max`` on the main-path ranges on ``cuda`` (K2, K3) and
+``cuda_scan`` (K14, K15).  The counters must show exactly those launches,
+the two backends must agree bit for bit, the float64 answers must equal
+the engine's raw approximation and ``eval_segments`` on the session's
+plans, every answer must meet the table's bound against numpy truth (at
+float32 plus 8 x eps32 x the CF or measure scale, tests/test_kernels.py's
+slack), and each kernel is held to its plain version at both types (max
+abs error 0) and timed: K21 at both, the float32 K2, K3, K14 and K15
+(their rows' ``by_dtype`` entries).
 
 The line before last is the card's nvidia-smi name and power limit, the
-line before that the kernels' JSON record: one row a kernel, whose own
-numbers are the dynamic phase's (TWEET at the paper's 1M; the 2-D leaf
-kernels' the 2d phase's, K9-K11's the dyn2d phase's) and whose
+line before that the kernels' JSON record: one row a kernel (K1-K21 and
+K4's scan mode), whose own numbers are the dynamic phase's (TWEET at the
+paper's 1M; the 2-D leaf kernels' the 2d phase's, K9-K11's the dyn2d
+phase's, K18-K20's the scan dyn2d step's, K21's the float64 ops step's),
+whose ``by_dtype`` gives the float32 numbers of K2, K3, K14, K15 and K21,
+and whose
 ``launches`` sums every phase, with ``by_phase``
 giving each phase's launches, shape, times and bound; the last line is the
 result.
@@ -191,9 +213,11 @@ TOL = 1e-9                  # kernel vs plain version (ROADMAP rule 4)
 TIMED_LAUNCHES = 100
 DEVICE = "cuda"
 
-# NVIDIA H100 SXM data sheet: HBM3 bandwidth and FP64 (non-tensor) peak
+# NVIDIA H100 SXM data sheet: HBM3 bandwidth, FP64 and FP32 (non-tensor)
+# peaks
 HBM_BYTES_PER_S = 3.35e12
 FP64_FLOPS = 34e12
+FP32_FLOPS = 67e12
 
 REPLACES = {
     "locate": "src/repro/kernels/locate.py:179",
@@ -214,6 +238,10 @@ REPLACES = {
     "delta_sum": "src/repro/kernels/delta_scan.py:80",
     "delta_max": "src/repro/kernels/delta_scan.py:156",
     "quantile_invert_scan": "src/repro/kernels/quantile_invert.py:52",
+    "delta_count2d": "src/repro/kernels/delta_scan.py:236",
+    "delta_sum2d": "src/repro/kernels/delta_scan.py:335",
+    "delta_dommax2d": "src/repro/kernels/delta_scan.py:427",
+    "poly_eval": "src/repro/kernels/poly_eval.py:75",
 }
 SOURCE = {name: "src/repro_torch/csrc/polyfit_kernels.cu" for name in REPLACES}
 SOURCE["quantile_invert"] = "src/repro_torch/csrc/quantile.cu"
@@ -230,11 +258,21 @@ KERNELS_SCAN = ("range_sum", "range_max", "delta_sum", "delta_max")
 for _name in KERNELS_SCAN:
     SOURCE[_name] = "src/repro_torch/csrc/scan1d.cu"
 SOURCE["quantile_invert_scan"] = "src/repro_torch/csrc/quantile.cu"
+# the cuda_scan backend's two-key buffered corrections
+KERNELS_SCAN2D = ("delta_count2d", "delta_sum2d", "delta_dommax2d")
+for _name in KERNELS_SCAN2D:
+    SOURCE[_name] = "src/repro_torch/csrc/scan2d.cu"
+SOURCE["poly_eval"] = "src/repro_torch/csrc/scan1d.cu"
+# the kernels with a float32 instantiation (kernels/ops.py's tables): their
+# rows carry the float32 numbers under by_dtype
+KERNELS_F32 = ("poly_eval", "range_sum_gather", "range_max_gather",
+               "range_sum", "range_max")
 # the phase whose measurements head each kernel's row
 HEAD_PHASE = {**dict.fromkeys(KERNELS_2D, "2d"),
               **dict.fromkeys(KERNELS_DYN2D, "dyn2d"),
               **dict.fromkeys(KERNELS_SCAN, "scan dynamic"),
-              "quantile_invert_scan": "scan static"}
+              **dict.fromkeys(KERNELS_SCAN2D, "scan dyn2d"),
+              "quantile_invert_scan": "scan static", "poly_eval": "ops f64"}
 SCAN_STATIC = ("lat", "hki", "hki_min", "hki_sum")
 METHODS = ("linear", "lower", "higher", "nearest", "midpoint")
 
@@ -346,10 +384,11 @@ def device_ms(torch, fn, calls: int = 20, replays: int = 5) -> float:
     return _events_ms(torch, run, calls * replays)
 
 
-def bound_ms(nbytes: float, flops: float):
-    """The least time for the work: bytes over HBM bandwidth or f64 flops
-    over the FP64 peak, whichever is larger."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP64_FLOPS
+def bound_ms(nbytes: float, flops: float, peak: float = FP64_FLOPS):
+    """The least time for the work: bytes over HBM bandwidth or operations
+    over the peak of their type (FP64 unless ``peak`` says otherwise),
+    whichever is larger."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -464,25 +503,32 @@ def check_quantiles(tag, name, a, lo, hi, keys, weights, fr):
 
 
 def measure(torch, tag, name, fn, plain, args, library, nbytes, flops,
-            shape, plain_calls=20):
+            shape, plain_calls=20, peak=FP64_FLOPS):
     """Time one kernel, its plain version and its library yardstick on the
     same arguments, at one shape of the main path (the plain version over
-    ``plain_calls`` calls a graph, fewer where one call takes long)."""
+    ``plain_calls`` calls a graph, fewer where one call takes long); the
+    operations count against ``peak`` (FP64, or FP32 for float32 work)."""
     ms = device_ms(torch, lambda: fn(*args))
     eager_ms = call_ms(torch, lambda: fn(*args))
     plain_ms = device_ms(torch, lambda: plain(*args), calls=plain_calls,
                          replays=min(5, plain_calls))
     lib_ms = None if library is None else device_ms(
         torch, lambda: library(*args))
-    b_ms, b_by = bound_ms(nbytes, flops)
+    b_ms, b_by = bound_ms(nbytes, flops, peak)
+    kind = "f64" if peak == FP64_FLOPS else "f32"
     print(f"{tag}timing {name} [{shape}]: kernel {ms!r} ms on the device, "
           f"{eager_ms!r} ms per eager call; plain {plain_ms!r} ms; library "
           f"{lib_ms!r} ms; bound {b_ms!r} ms ({b_by}: {int(nbytes)} bytes, "
-          f"{int(flops)} f64 operations)", flush=True)
+          f"{int(flops)} {kind} operations)", flush=True)
     return {"shape": shape, "ms": ms, "call_ms": eager_ms,
             "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
             "bound_by": b_by, "bound_bytes": int(nbytes),
             "bound_ops": int(flops)}
+
+
+# the measure() keys a by_phase entry keeps (the timing lines print the
+# shapes and counts, which would make the record too long to read back)
+PHASE_KEYS = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
 
 
 def kernel_row(name, phases, err):
@@ -491,14 +537,16 @@ def kernel_row(name, phases, err):
     shapes, or None where it was not timed there); the row's own numbers
     are the dynamic phase's (TWEET at the paper's 1M), the 2d phase's for
     the 2-D leaf kernels, the dyn2d phase's for K9-K11, the scan dynamic
-    step's for K14-K17 and the scan static step's for K4's scan mode
+    step's for K14-K17, the scan static step's for K4's scan mode, the
+    scan dyn2d step's for K18-K20 and the float64 ops step's for K21
     (``HEAD_PHASE``), and ``launches`` sums them all."""
     head = phases[HEAD_PHASE.get(name, "dynamic")][1]
     return {"name": name, "route": "cuda", "source": SOURCE[name],
             "replaces": REPLACES[name],
             "launches": sum(n for n, _ in phases.values()),
             "max_abs_err": err, **head,
-            "by_phase": [{"phase": ph, "launches": n, **(m or {})}
+            "by_phase": [{"phase": ph, "launches": n,
+                          **{k: m[k] for k in PHASE_KEYS if m}}
                          for ph, (n, m) in phases.items()]}
 
 
@@ -767,19 +815,24 @@ def main() -> None:
     sys.path.insert(0, src)
     from repro_torch.api import (ErrorBudget, PolyFit, QueryBatch, QuerySpec,
                                  TableSpec)
-    from repro_torch.core import build_index_2d
+    from repro_torch.core import PolyFitIndex1D, build_index_2d
     from repro_torch.data import (hki_series, make_queries_1d,
                                   make_queries_2d, osm_points,
                                   tweet_latitudes)
-    from repro_torch.engine import (DynamicEngine, IndexPlan2D, build_plan_2d,
-                                    execute, execute_count2d,
-                                    execute_extremum, execute_extremum2d,
-                                    execute_lsm, execute_quantile)
+    from repro_torch.core.poly import eval_segments
+    from repro_torch.engine import (DynamicEngine, DynamicEngine2D,
+                                    IndexPlan2D, build_plan_2d, execute,
+                                    execute_count2d, execute_extremum,
+                                    execute_extremum2d, execute_lsm,
+                                    execute_quantile, raw_extremum, raw_sum)
+    from repro_torch.engine.plan import big_sentinel
     from repro_torch.engine.engine import quantile_mass, quantile_tables
     from repro_torch.kernels import _build
     from repro_torch.kernels import delta_scan as kdel
     from repro_torch.kernels import leaf_eval2d as k2d
     from repro_torch.kernels import locate as kloc
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import poly_eval as kpe
     from repro_torch.kernels import quantile_invert as kq
     from repro_torch.kernels import range_max as kmax
     from repro_torch.kernels import range_sum as ksum
@@ -879,7 +932,8 @@ def main() -> None:
                 k2d.corner_eval2d, kdel.delta_count2d_gather,
                 kdel.delta_sum2d_gather, kdel.delta_dommax2d_gather,
                 ksum.range_sum, kmax.range_max, kdel.delta_sum,
-                kdel.delta_max, K4Scan())
+                kdel.delta_max, K4Scan(), kdel.delta_count2d,
+                kdel.delta_sum2d, kdel.delta_dommax2d, kpe.poly_eval)
     # the kernels cuda_scan must not launch
     GATHERS = ("range_sum_gather", "range_max_gather", "delta_sum_gather",
                "delta_max_gather", "corner_count2d_gather",
@@ -1247,6 +1301,188 @@ def main() -> None:
     timed["scan static"] = {"quantile_invert_scan": measure_k4(
         qplans["hki_sum"], "scan hki_sum: ", scan=True)}
     measure_k4(qplans["lat"], "scan lat: ", scan=True)
+    print(f"{tag}step seconds {time.perf_counter() - step0!r}", flush=True)
+
+    # -- 7c. ops: kernels.ops on lat and hki at float64 and float32 -----------
+    def index_of(plan):
+        """The PolyFitIndex1D a session plan was lowered from: build_plan
+        pads and casts it and adds the refinement arrays, which from_index
+        leaves out, so its h real rows, aggregates, sparse table and
+        certified errors are the index's."""
+        h = plan.h
+        return PolyFitIndex1D(
+            agg=plan.agg, deg=plan.deg, delta=plan.delta,
+            seg_lo=plan.seg_lo[:h], seg_hi=plan.seg_hi[:h],
+            coeffs=plan.coeffs[:h],
+            seg_start=torch.zeros(h, dtype=torch.int32, device=dev),
+            seg_agg=(plan.seg_agg[:h] if plan.agg in ("max", "min")
+                     else None),
+            st=plan.st, exact_sum=None, exact_max=None, n=plan.n,
+            seg_err=(None if plan.seg_err is None
+                     else plan.seg_err[:h].cpu().numpy()))
+
+    tag = "ops: "
+    step0 = time.perf_counter()
+    ONAMES = ("lat", "hki")
+    oplans = {n: session.plan(n) for n in ONAMES}
+    oidx = {n: index_of(p) for n, p in oplans.items()}
+    # poly_eval on 65,536 data keys a table, ranges from the main path
+    okeys = {"lat": qs["lat"][1], "hki": qs["hki"][1]}
+    f32_rows = {}
+    for dt, phase in ((torch.float64, "ops f64"), (torch.float32, "ops f32")):
+        dname = str(dt).replace("torch.", "")
+        tabs = {n: kops.from_index(oidx[n], dt) for n in ONAMES}
+        if dt == torch.float64:
+            for n in ONAMES:
+                check(all(torch.equal(getattr(tabs[n], f),
+                                      getattr(oplans[n], f))
+                          for f in ("seg_lo", "seg_next", "seg_hi", "coeffs",
+                                    "seg_agg")),
+                      f"{tag}from_index({n}) differs from the session's plan")
+        ranges = {"lat": kops.range_sum, "hki": kops.range_max}
+        reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = {n: {"poly_eval": kops.poly_eval(tabs[n], okeys[n]),
+                   "cuda": ranges[n](tabs[n], *qs[n]),
+                   "cuda_scan": ranges[n](tabs[n], *qs[n],
+                                          backend="cuda_scan")}
+               for n in ONAMES}
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = read(phase)
+        want = {"poly_eval": 2, "range_sum_gather": 1, "range_max_gather": 1,
+                "range_sum": 1, "range_max": 1}
+        print(f"{tag}{dname}: launches {launches}, first-call seconds "
+              f"{secs!r}", flush=True)
+        check(all(launches[k] == want.get(k, 0) for k in launches),
+              f"{tag}{dname}: launches {launches}, expected {want}")
+        for n in ONAMES:
+            for k, v in res[n].items():
+                check(v.dtype == dt and v.shape == (NQ,)
+                      and bool(torch.isfinite(v).all()),
+                      f"{tag}{dname} {n} {k}: bad answers")
+            check(torch.equal(res[n]["cuda"], res[n]["cuda_scan"]),
+                  f"{tag}{dname} {n}: cuda_scan differs from cuda")
+        # the answers against the main path's numpy truth over the ranges
+        # asked (float64 ends): the table's bound, plus at float32 8 x eps
+        # x the CF (COUNT) or measure (MAX) scale, as tests/test_kernels.py
+        # :90 holds its float32 range SUM
+        eps = float(torch.finfo(dt).eps)
+        for n, scale in (("lat", float(len(lat))),
+                         ("hki", float(np.abs(v_h).max()))):
+            truth_n = truth[n]
+            slack = 8 * eps * scale if dt == torch.float32 else 0.0
+            err = np.abs(res[n]["cuda"].double().cpu().numpy() - truth_n)
+            check(err.max() <= bounds[n] + slack + 1e-6,
+                  f"{tag}{dname} {n}: |A-R| {err.max()!r} > {bounds[n]} + "
+                  f"{slack!r}")
+            print(f"{tag}{dname} {n}: max |A-R| = {err.max()!r} <= "
+                  f"{bounds[n]} + {slack!r}", flush=True)
+        # poly_eval at data keys: the fitted CF against the rank, within
+        # delta (certified) at float64; at float32 the keys and segment
+        # ends round to float32 first, which no certificate covers, so the
+        # error is printed only
+        kq_ = torch.as_tensor(okeys["lat"], dtype=dt).double().numpy()
+        rank = np.searchsorted(np.sort(lat), kq_, side="right")
+        perr = np.abs(res["lat"]["poly_eval"].double().cpu().numpy()
+                      - rank).max()
+        if dt == torch.float64:
+            check(perr <= oplans["lat"].delta + 1e-6, f"{tag}{dname} lat "
+                  f"poly_eval: |P - F| {perr!r} > {oplans['lat'].delta}")
+        print(f"{tag}{dname} lat poly_eval: max |P - F| = {perr!r} (delta "
+              f"{oplans['lat'].delta})", flush=True)
+        # each kernel against its plain version, exactly, at the path's
+        # arguments (the queries clamped as the wrappers clamp them)
+        args = {}
+        for n in ONAMES:
+            t = tabs[n]
+            lqc, uqc = (torch.maximum(torch.as_tensor(q, dtype=dt,
+                                                      device=dev),
+                                      t.seg_lo[0]) for q in qs[n])
+            kc = torch.maximum(torch.as_tensor(okeys[n], dtype=dt,
+                                               device=dev), t.seg_lo[0])
+            args.setdefault("poly_eval", []).append(
+                (kc, t.seg_lo, t.seg_next, t.seg_hi, t.coeffs))
+            if n == "lat":
+                args["range_sum_gather"] = [(lqc, uqc, t.seg_lo, t.seg_hi,
+                                             t.coeffs)]
+                args["range_sum"] = [(lqc, uqc, t.seg_lo, t.seg_next,
+                                      t.seg_hi, t.coeffs)]
+            else:
+                args["range_max_gather"] = [(lqc, uqc, t.seg_lo, t.seg_hi,
+                                             t.coeffs, t.st)]
+                args["range_max"] = [(lqc, uqc, t.seg_lo, t.seg_next,
+                                      t.seg_hi, t.coeffs, t.seg_agg)]
+        mods = {"poly_eval": kpe, "range_sum_gather": ksum, "range_sum": ksum,
+                "range_max_gather": kmax, "range_max": kmax}
+        sfx = "" if dt == torch.float64 else " float32"
+        for k, a in args.items():
+            hold(k + sfx, getattr(mods[k], k), getattr(mods[k], k + "_plain"),
+                 a, exact=True)
+        print(f"{tag}{dname} parity K21/K2/K3/K14/K15: max |kernel - plain| "
+              f"= { {k: errs[k + sfx] for k in args} }", flush=True)
+        if dt == torch.float64:
+            # ops on 'cuda' runs the very kernels the engine's raw path does
+            p = oplans["lat"]
+            lqc, uqc = args["range_sum_gather"][0][:2]
+            check(torch.equal(res["lat"]["cuda"],
+                              raw_sum(p, lqc, uqc, backend="cuda")),
+                  f"{tag}range_sum differs from the engine's raw SUM")
+            lqc, uqc = args["range_max_gather"][0][:2]
+            check(torch.equal(res["hki"]["cuda"],
+                              raw_extremum(oplans["hki"], lqc, uqc,
+                                           backend="cuda")),
+                  f"{tag}range_max differs from the engine's raw MAX")
+            check(torch.equal(res["lat"]["poly_eval"], eval_segments(
+                args["poly_eval"][0][0], p.seg_lo, p.seg_hi, p.coeffs)),
+                  f"{tag}poly_eval differs from the plan's eval_segments")
+        # times at this type: K21, and at float32 K2, K3, K14 and K15 too
+        isz = 8 if dt == torch.float64 else 4
+        peak = FP64_FLOPS if dt == torch.float64 else FP32_FLOPS
+        timed[phase] = {}
+        for k in (("poly_eval",) if dt == torch.float64 else KERNELS_F32):
+            a = args[k][0]
+            # positions of seg_lo and coeffs among the kernel's arguments
+            i_lo, i_c = {"poly_eval": (1, 4), "range_sum_gather": (2, 4),
+                         "range_max_gather": (2, 4)}.get(k, (2, 5))
+            H, cols = a[i_lo].shape[0], a[i_c].shape[1]
+            deg = cols - 1
+            table = H * cols * isz
+            if k == "poly_eval":
+                nb, fl = 2 * Q * isz + 3 * H * isz + table, \
+                    Q * (2 * H + 5 + 2 * deg)
+                shape = (f"q ({Q},); seg_lo, seg_next, seg_hi ({H},); "
+                         f"coeffs ({H}, {cols})")
+            elif k == "range_sum_gather":
+                nb = 3 * Q * isz + 2 * H * isz + table
+                fl = Q * (2 * (probe_rounds(H) + 5 + 2 * deg) + 1)
+                shape = (f"lq, uq ({Q},); seg_lo, seg_hi ({H},); coeffs "
+                         f"({H}, {cols})")
+            elif k == "range_max_gather":
+                nb = 3 * Q * isz + 2 * H * isz + table + a[5].numel() * isz
+                fl = Q * range_max_flops(probe_rounds(H), deg)
+                shape = (f"lq, uq ({Q},); seg_lo, seg_hi ({H},); coeffs "
+                         f"({H}, {cols}); st {tuple(a[5].shape)}")
+            elif k == "range_sum":
+                nb = 3 * Q * isz + 3 * H * isz + table
+                fl = Q * (2 * (2 * H + 5 + 2 * deg) + 1)
+                shape = (f"lq, uq ({Q},); seg_lo, seg_next, seg_hi ({H},); "
+                         f"coeffs ({H}, {cols})")
+            else:
+                nb = 3 * Q * isz + 4 * H * isz + table
+                fl = Q * (7 * H + range_max_flops(0, deg))
+                shape = (f"lq, uq ({Q},); seg_lo, seg_next, seg_hi, seg_agg "
+                         f"({H},); coeffs ({H}, {cols})")
+            timed[phase][k] = measure(
+                torch, tag, k, getattr(mods[k], k),
+                getattr(mods[k], k + "_plain"), a, None, nb, fl,
+                f"{shape} {dname} -> ({Q},)", peak=peak)
+            if dt == torch.float32:
+                f32_rows[k] = {"launches": launches[k],
+                               "max_abs_err": errs[k + sfx],
+                               **{f: timed[phase][k][f]
+                                  for f in ("shape", *PHASE_KEYS)}}
     print(f"{tag}step seconds {time.perf_counter() - step0!r}", flush=True)
 
     # -- 8. dynamic tables ---------------------------------------------------
@@ -2044,11 +2280,12 @@ def main() -> None:
               f"{'/'.join(str(len(v)) for v in sets.values())} argument "
               f"sets: max |kernel - plain| = "
               f"{ {k: errs[k] for k in sets} }", flush=True)
-        return q, sets
+        return q, sets, truth
 
-    def update2d(name, ins, gone):
+    def update2d(name, ins, gone, twin=None):
         """Insert (xs, ys[, ws]) and delete the base points ``gone`` (an
-        index array) on one table and its host mirror."""
+        index array) on one table and its host mirror (and on ``twin``, an
+        engine fed the same ops)."""
         lv = live2[name]
         gx, gy = lv.pick(gone)
         t0 = time.perf_counter()
@@ -2058,6 +2295,9 @@ def main() -> None:
         secs = time.perf_counter() - t0
         lv.insert(*ins)
         lv.delete(gx, gy)
+        if twin is not None:
+            twin.insert(*ins)
+            twin.delete(gx, gy)
         print(f"dyn2d: {name} took {len(ins[0])} inserts and {len(gx)} "
               f"deletes in {secs!r} s", flush=True)
 
@@ -2109,17 +2349,25 @@ def main() -> None:
     check(dyn.refit_count == before + 1 and dyn.n_pending == 0,
           "dyn2d: the below-floor insert did not merge once")
     dyn2d_state("dyn2d hot box, merged: ", SEED + 720)
+    # scan: a cuda_scan engine over each table's merged index, fed the same
+    # buffer-full ops below
+    check(all(dsession2._dyn(n).n_pending == 0 for n in DYN2D),
+          "dyn2d: a merged table has buffered ops")
+    scan2d = {name: DynamicEngine2D(dsession2._dyn(name).index,
+                                    backend="cuda_scan", capacity=CAPACITY,
+                                    auto_refit=False) for name in DYN2D}
 
     # step 2: a full buffer (CAPACITY pending ops a table), no merge
     for name in DYN2D:
         lv = live2[name]
         free = np.flatnonzero(~lv.used)
         update2d(name, new_points(name, CAPACITY - FULL2D_DELETES),
-                 rng2.choice(free, FULL2D_DELETES, replace=False))
+                 rng2.choice(free, FULL2D_DELETES, replace=False),
+                 twin=scan2d[name])
     check(all(dsession2._dyn(n).n_pending == CAPACITY for n in DYN2D),
           "dyn2d: the buffer-full step merged or lost an op")
     tag = "dyn2d buffer full: "
-    q2, sets = dyn2d_state(tag, SEED + 730)
+    q2, sets, truth2d = dyn2d_state(tag, SEED + 730)
 
     # K9, K10 and K11 on the full 4,096-slot insert logs
     cap = CAPACITY
@@ -2148,6 +2396,94 @@ def main() -> None:
             3 * Q * 8 + table + levels * cap * 8, Q * (probes + levels),
             f"u, v ({Q},); keys_x ({cap},); ys_levels, wpmax_levels "
             f"({levels}, {cap}) f64 -> ({Q},)")}
+    # scan: the cuda_scan engines (K18-K20 beside K12/K13) against the
+    # session's cuda engines (K9-K11 beside K7/K8) on the buffer-full ops
+    tag = "scan dyn2d: "
+    step0 = time.perf_counter()
+    check(all(e.n_pending == CAPACITY and e.refit_count == 0
+              for e in scan2d.values()),
+          f"{tag}a cuda_scan engine merged or lost an op")
+    big = big_sentinel(torch.float64)
+    check(all(bool((e.snapshot()[1].ins_ylv == big).all())
+              for e in scan2d.values()),
+          f"{tag}a cuda_scan buffer built merge-sort-tree levels")
+    victims = scan2d["osm_min_dyn"].snapshot()[1].vic_x is not None
+    d2run = lambda engines: {label: [engines[n].query(*q2[n], eps_rel=rel)
+                                     for n in DYN2D] for label, rel in labels}
+    want_2 = d2run({n: dsession2._dyn(n) for n in DYN2D})
+    torch.cuda.synchronize()
+    reset()
+    t0 = time.perf_counter()
+    got_2 = d2run(scan2d)
+    torch.cuda.synchronize()
+    print(f"{tag}first-call seconds {time.perf_counter() - t0!r}", flush=True)
+    launches = read("scan dyn2d")
+    want = {"delta_count2d": 4, "delta_sum2d": 4, "delta_dommax2d": 2,
+            "corner_count2d": 4, "corner_eval2d": 2,
+            "locate": 4 + (2 if victims else 1), "delta_count2d_gather": 0,
+            "delta_sum2d_gather": 0, "delta_dommax2d_gather": 0}
+    check_scan_launches(tag, launches, want)
+    for label, _ in labels:
+        for name, g, w in zip(DYN2D, got_2[label], want_2[label]):
+            same = (torch.allclose(g.answer, w.answer, rtol=TOL, atol=TOL)
+                    and torch.allclose(g.approx, w.approx, rtol=TOL,
+                                       atol=TOL)
+                    if name == "osm_sum_dyn" else
+                    torch.equal(g.answer, w.answer)
+                    and torch.equal(g.approx, w.approx))
+            check(same and torch.equal(g.refined, w.refined),
+                  f"{tag}{label} {name}: cuda_scan differs from cuda")
+    print(f"{tag}every answer and refined flag equals the cuda engine's "
+          f"(osm_sum_dyn within {TOL}: K19 adds what K10 differences)",
+          flush=True)
+    check_2d(tag, DYN2D, got_2, truth2d,
+             {name: scan2d[name].index.certified_delta for name in DYN2D})
+    qd2 = {name: on_dev(*q2[name]) for name in DYN2D}
+    scan2d_sets = {k: [] for k in KERNELS_SCAN2D}
+    for name in DYN2D:
+        _, buf = scan2d[name].snapshot()
+        if name == "osm_min_dyn":
+            scan2d_sets["delta_dommax2d"].append(
+                (*qd2[name], buf.ins_x, buf.ins_y, buf.ins_w))
+            continue
+        for p_ in ("ins_", "del_"):
+            log = [getattr(buf, p_ + f) for f in ("x", "y", "w")]
+            if name == "osm_dyn":
+                scan2d_sets["delta_count2d"].append((*qd2[name], *log[:2]))
+            else:
+                scan2d_sets["delta_sum2d"].append((*qd2[name], *log))
+    for k, a in scan2d_sets.items():
+        hold(k, getattr(kdel, k), getattr(kdel, k + "_plain"), a, exact=True)
+    print(f"{tag}parity K18/K19/K20 on "
+          f"{'/'.join(str(len(v)) for v in scan2d_sets.values())} argument "
+          f"sets: max |kernel - plain| = "
+          f"{ {k: errs[k] for k in KERNELS_SCAN2D} }", flush=True)
+    # K18, K19 and K20 on the full 4,096-slot insert logs: 4 compares and
+    # an add, or 2 compares and a max, a (query, slot) pair
+    pairs = Q * cap
+    timed["scan dyn2d"] = {
+        "delta_count2d": measure(
+            torch, tag, "delta_count2d", kdel.delta_count2d,
+            kdel.delta_count2d_plain, scan2d_sets["delta_count2d"][0], None,
+            5 * Q * 8 + 2 * cap * 8, 5 * pairs,
+            f"lx, ux, ly, uy ({Q},); keys_x, keys_y ({cap},) f64 -> ({Q},)",
+            plain_calls=2),
+        "delta_sum2d": measure(
+            torch, tag, "delta_sum2d", kdel.delta_sum2d,
+            kdel.delta_sum2d_plain, scan2d_sets["delta_sum2d"][0], None,
+            5 * Q * 8 + 3 * cap * 8, 5 * pairs,
+            f"lx, ux, ly, uy ({Q},); keys_x, keys_y, wv ({cap},) f64 -> "
+            f"({Q},)", plain_calls=1),
+        "delta_dommax2d": measure(
+            torch, tag, "delta_dommax2d", kdel.delta_dommax2d,
+            kdel.delta_dommax2d_plain, scan2d_sets["delta_dommax2d"][0],
+            None, 3 * Q * 8 + 3 * cap * 8, 3 * pairs,
+            f"u, v ({Q},); keys_x, keys_y, wv ({cap},) f64 -> ({Q},)",
+            plain_calls=2)}
+    print(f"{tag}step seconds {time.perf_counter() - step0!r} (engines "
+          "built before the buffer-full ops not counted)", flush=True)
+    del scan2d
+    tag = "dyn2d buffer full: "
     for label, rel in (("Q_abs", None), ("Q_rel", EPS_REL)):
         query_latency(torch, dsession2, batch_dyn2d(q2, rel),
                       f"{tag}session.query {label}", 3 * NQ)
@@ -2164,6 +2500,8 @@ def main() -> None:
             if launched[name] or m is not None:
                 phases[ph] = (launched[name], m)
         rows.append(kernel_row(name, phases, errs[name]))
+        if name in KERNELS_F32:
+            rows[-1]["by_dtype"] = {"float32": f32_rows[name]}
     print(f"wall: {time.perf_counter() - wall0:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())

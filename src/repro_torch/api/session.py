@@ -50,7 +50,6 @@ from ..core import AGGS_2D, build_index_1d, build_index_2d
 from ..engine import (DynamicEngine, DynamicEngine2D, IndexPlan, IndexPlan2D,
                       WindowEngine, build_plan, build_plan_2d, execute,
                       execute_quantile, resolve_backend)
-from ..engine.dynamic import check_backend_2d
 from .budget import ErrorBudget
 from .spec import DEFAULT_REL, KIND_OF_AGG, QueryBatch, QuerySpec, TableSpec
 
@@ -207,14 +206,10 @@ class PolyFit:
         only source of build deltas.  ``device`` defaults to the card and raises
         ``RuntimeError`` when there is none; ``backend`` defaults to
         ``'cuda'`` on a CUDA device and ``'torch'`` on the CPU
-        (``'cuda_scan'`` selects the one-hot scan kernels; it raises, before
-        any table is built, when a spec asks for a dynamic two-key table,
-        whose scan kernels K18-K20 are still to port).
+        (``'cuda_scan'`` selects the one-hot scan kernels, and the whole-log
+        scans K16-K20 for the buffered corrections of dynamic tables).
         """
         device = resolve_device(device)
-        if any(spec.agg in AGGS_2D and spec.dynamic
-               for spec in specs.values()):
-            check_backend_2d(backend)
         backend = resolve_backend(backend, device)
         missing = set(datasets) ^ set(specs)
         if missing:

@@ -1,5 +1,5 @@
 // Device functions shared by the PolyFit query kernels (polyfit_kernels.cu,
-// quantile.cu, leaf_eval2d.cu, delta2d.cu).
+// quantile.cu, leaf_eval2d.cu, delta2d.cu, scan1d.cu, scan2d.cu).
 //
 // Twins of the plain torch functions in repro_torch/kernels/locate.py,
 // repro_torch/core/poly.py and repro_torch/core/index2d.py, written to the
@@ -19,6 +19,14 @@
 //
 // jmax / jmin / jclip follow torch.maximum / torch.minimum / torch.clamp:
 // a NaN operand gives NaN.  CUDA's fmax / fmin would drop it instead.
+//
+// The functions of the one-key range kernels (jmax, jmin, jclip,
+// locate_segment, rmq_gather, scale_unit, horner, clipped_poly_max) are
+// templates on the element type T, double or float, so that K2, K3, K14,
+// K15 and K21 have float instantiations for float32 plans; every constant
+// among them is written T(...), so a float instantiation rounds each step
+// to float as the plain torch version does on float32 tensors.  The other
+// functions are double only.
 #pragma once
 
 #include <math.h>
@@ -28,16 +36,19 @@
 
 namespace polyfit {
 
-__device__ __forceinline__ double jmax(double a, double b) {
+template <typename T>
+__device__ __forceinline__ T jmax(T a, T b) {
   return (isnan(a) || isnan(b)) ? a + b : (a > b ? a : b);
 }
 
-__device__ __forceinline__ double jmin(double a, double b) {
+template <typename T>
+__device__ __forceinline__ T jmin(T a, T b) {
   return (isnan(a) || isnan(b)) ? a + b : (a < b ? a : b);
 }
 
 // min(max(x, lo), hi), NaN-propagating in x (torch.clamp)
-__device__ __forceinline__ double jclip(double x, double lo, double hi) {
+template <typename T>
+__device__ __forceinline__ T jclip(T x, T lo, T hi) {
   return isnan(x) ? x : jmin(jmax(x, lo), hi);
 }
 
@@ -77,8 +88,9 @@ __device__ __forceinline__ int bsearch_count_left(const T* __restrict__ keys,
   return c;
 }
 
-__device__ __forceinline__ int locate_segment(const double* __restrict__ seg_lo,
-                                              int n, double q) {
+template <typename T>
+__device__ __forceinline__ int locate_segment(const T* __restrict__ seg_lo,
+                                              int n, T q) {
   const int c = bsearch_count_right(seg_lo, n, q) - 1;
   return c > 0 ? c : 0;
 }
@@ -109,8 +121,9 @@ __device__ __forceinline__ int locate_leaf2d(
 __device__ __forceinline__ int floor_log2(int len) { return 31 - __clz(len); }
 
 // max over [i0, i1) against st (levels, n), row-major; empty -> -inf
-__device__ __forceinline__ double rmq_gather(const double* __restrict__ st,
-                                             int n, int i0, int i1) {
+template <typename T>
+__device__ __forceinline__ T rmq_gather(const T* __restrict__ st, int n,
+                                        int i0, int i1) {
   const int length = i1 - i0 > 0 ? i1 - i0 : 0;
   const int lvl = floor_log2(length > 1 ? length : 1);
   const int pow2 = 1 << lvl;
@@ -119,12 +132,13 @@ __device__ __forceinline__ double rmq_gather(const double* __restrict__ st,
   int b = i1 - pow2;
   b = b > 0 ? b : 0;
   b = b < n - 1 ? b : n - 1;
-  return length > 0 ? jmax(st[row + a], st[row + b]) : -INFINITY;
+  return length > 0 ? jmax(st[row + a], st[row + b]) : T(-INFINITY);
 }
 
-__device__ __forceinline__ double scale_unit(double q, double lo, double hi) {
-  const double span = hi > lo ? hi - lo : 1.0;
-  return jclip((2.0 * q - lo - hi) / span, -1.0, 1.0);
+template <typename T>
+__device__ __forceinline__ T scale_unit(T q, T lo, T hi) {
+  const T span = hi > lo ? hi - lo : T(1);
+  return jclip((T(2) * q - lo - hi) / span, T(-1), T(1));
 }
 
 // a * b + c rounded as a fused multiply-add rounds it, in plain IEEE
@@ -148,9 +162,9 @@ __device__ __forceinline__ double fma_emul(double a, double b, double c) {
 }
 
 // P(u) for ascending coefficients c[0..deg]
-__device__ __forceinline__ double horner(const double* __restrict__ c, int deg,
-                                         double u) {
-  double acc = c[deg];
+template <typename T>
+__device__ __forceinline__ T horner(const T* __restrict__ c, int deg, T u) {
+  T acc = c[deg];
   for (int j = deg - 1; j >= 0; --j) acc = acc * u + c[j];
   return acc;
 }
@@ -158,32 +172,32 @@ __device__ __forceinline__ double horner(const double* __restrict__ c, int deg,
 // max over k in [a, b] of P(u(k)): both clamped endpoints plus the real
 // zero-derivative points of P (deg 2: one linear root, deg 3: the two
 // quadratic roots), each clamped into [u(a), u(b)].  a > b gives -inf.
-__device__ __forceinline__ double clipped_poly_max(const double* __restrict__ c,
-                                                   int deg, double slo,
-                                                   double shi, double a,
-                                                   double b) {
-  const double ua = scale_unit(a, slo, shi);
-  const double ub = scale_unit(b, slo, shi);
-  double best = jmax(horner(c, deg, ua), horner(c, deg, ub));
+template <typename T>
+__device__ __forceinline__ T clipped_poly_max(const T* __restrict__ c,
+                                              int deg, T slo, T shi, T a,
+                                              T b) {
+  const T ua = scale_unit(a, slo, shi);
+  const T ub = scale_unit(b, slo, shi);
+  T best = jmax(horner(c, deg, ua), horner(c, deg, ub));
   if (deg >= 2) {
-    const double c1 = c[1];
-    const double c2 = 2.0 * c[2];
-    const double lin = fabs(c2) > 0 ? -c1 / (c2 == 0 ? 1.0 : c2) : ua;
+    const T c1 = c[1];
+    const T c2 = T(2) * c[2];
+    const T lin = fabs(c2) > T(0) ? -c1 / (c2 == T(0) ? T(1) : c2) : ua;
     if (deg == 2) {
       best = jmax(best, horner(c, deg, jclip(lin, ua, ub)));
     } else {  // deg == 3: P' = c1 + 2 c2 u + 3 c3 u^2
-      const double c3 = 3.0 * c[3];
-      const double disc = c2 * c2 - 4.0 * c3 * c1;
-      const double sq = sqrt(jmax(disc, 0.0));
-      const double den = fabs(c3) > 0 ? 2.0 * c3 : 1.0;
-      const bool quad_ok = fabs(c3) > 0 && disc >= 0;
-      const double r1 = quad_ok ? (-c2 - sq) / den : lin;
-      const double r2 = quad_ok ? (-c2 + sq) / den : lin;
+      const T c3 = T(3) * c[3];
+      const T disc = c2 * c2 - T(4) * c3 * c1;
+      const T sq = sqrt(jmax(disc, T(0)));
+      const T den = fabs(c3) > T(0) ? T(2) * c3 : T(1);
+      const bool quad_ok = fabs(c3) > T(0) && disc >= T(0);
+      const T r1 = quad_ok ? (-c2 - sq) / den : lin;
+      const T r2 = quad_ok ? (-c2 + sq) / den : lin;
       best = jmax(best, horner(c, deg, jclip(r1, ua, ub)));
       best = jmax(best, horner(c, deg, jclip(r2, ua, ub)));
     }
   }
-  return a <= b ? best : -INFINITY;
+  return a <= b ? best : T(-INFINITY);
 }
 
 enum class MstMode { kCount, kSum, kMax };

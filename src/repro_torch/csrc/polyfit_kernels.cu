@@ -1,4 +1,5 @@
-// PolyFit query kernels for Hopper (sm_90a), float64, one thread per query.
+// PolyFit query kernels for Hopper (sm_90a), one thread per query: float64,
+// and float32 as well for K2 and K3.
 //
 // K1 locate_kernel            replaces repro/kernels/locate.py:locate_pallas
 // K2 range_sum_gather_kernel  replaces repro/kernels/range_sum.py:range_sum_gather_pallas
@@ -27,6 +28,11 @@
 // queries a thread, is later work.  Compiled with -fmad=false so that
 // Horner's acc * u + c rounds twice, as the plain torch version does.
 //
+// K2 and K3 are templates on the element type: the float instantiations
+// (polyfit_range_sum_gather_f32, polyfit_range_max_gather_f32) serve
+// float32 plans (kernels/ops.py), with the same bodies and the same
+// order of operations at float precision, and half the bytes.
+//
 // Each launcher takes raw device pointers and the CUDA stream, launches on
 // that stream, and returns cudaGetLastError() (0 when the launch was taken).
 
@@ -49,21 +55,22 @@ __global__ void locate_kernel(const double* __restrict__ q,
 }
 
 // K2: A = P_{I(u)}(u) - P_{I(l)}(l) (paper Eq. 14)
-__global__ void range_sum_gather_kernel(const double* __restrict__ lq,
-                                        const double* __restrict__ uq,
-                                        const double* __restrict__ seg_lo,
-                                        const double* __restrict__ seg_hi,
-                                        const double* __restrict__ coeffs,
-                                        double* __restrict__ out, int Q, int H,
+template <typename T>
+__global__ void range_sum_gather_kernel(const T* __restrict__ lq,
+                                        const T* __restrict__ uq,
+                                        const T* __restrict__ seg_lo,
+                                        const T* __restrict__ seg_hi,
+                                        const T* __restrict__ coeffs,
+                                        T* __restrict__ out, int Q, int H,
                                         int deg) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= Q) return;
-  double v[2];
-  const double qs[2] = {lq[i], uq[i]};
+  T v[2];
+  const T qs[2] = {lq[i], uq[i]};
 #pragma unroll
   for (int e = 0; e < 2; ++e) {
     const int idx = locate_segment(seg_lo, H, qs[e]);
-    const double u = scale_unit(qs[e], seg_lo[idx], seg_hi[idx]);
+    const T u = scale_unit(qs[e], seg_lo[idx], seg_hi[idx]);
     v[e] = horner(coeffs + (size_t)idx * (deg + 1), deg, u);
   }
   out[i] = v[1] - v[0];
@@ -71,31 +78,32 @@ __global__ void range_sum_gather_kernel(const double* __restrict__ lq,
 
 // K3: MAX over [lq, uq] (paper Eq. 17): closed-form clipped maxima on the
 // two boundary segments, sparse-table max over the interior (il, iu)
-__global__ void range_max_gather_kernel(const double* __restrict__ lq,
-                                        const double* __restrict__ uq,
-                                        const double* __restrict__ seg_lo,
-                                        const double* __restrict__ seg_hi,
-                                        const double* __restrict__ coeffs,
-                                        const double* __restrict__ st,
-                                        double* __restrict__ out, int Q, int H,
+template <typename T>
+__global__ void range_max_gather_kernel(const T* __restrict__ lq,
+                                        const T* __restrict__ uq,
+                                        const T* __restrict__ seg_lo,
+                                        const T* __restrict__ seg_hi,
+                                        const T* __restrict__ coeffs,
+                                        const T* __restrict__ st,
+                                        T* __restrict__ out, int Q, int H,
                                         int deg, int h) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= Q) return;
-  const double l = lq[i], u = uq[i];
+  const T l = lq[i], u = uq[i];
   const int il = locate_segment(seg_lo, H, l);
   const int iu = locate_segment(seg_lo, H, u);
-  const double lo_l = seg_lo[il], hi_l = seg_hi[il];
-  const double lo_u = seg_lo[iu], hi_u = seg_hi[iu];
-  const double* cl = coeffs + (size_t)il * (deg + 1);
-  const double* cu = coeffs + (size_t)iu * (deg + 1);
+  const T lo_l = seg_lo[il], hi_l = seg_hi[il];
+  const T lo_u = seg_lo[iu], hi_u = seg_hi[iu];
+  const T* cl = coeffs + (size_t)il * (deg + 1);
+  const T* cu = coeffs + (size_t)iu * (deg + 1);
   // left boundary: [lq, min(hi_l, uq)], suppressed when lq is past hi_l
-  double m_left = clipped_poly_max(cl, deg, lo_l, hi_l, l, jmin(hi_l, u));
-  m_left = l <= hi_l ? m_left : -INFINITY;
+  T m_left = clipped_poly_max(cl, deg, lo_l, hi_l, l, jmin(hi_l, u));
+  m_left = l <= hi_l ? m_left : T(-INFINITY);
   // right boundary: [max(lo_u, lq), uq], suppressed when the same segment
-  double m_right = clipped_poly_max(cu, deg, lo_u, hi_u, jmax(lo_u, l), u);
-  m_right = il == iu ? -INFINITY : m_right;
+  T m_right = clipped_poly_max(cu, deg, lo_u, hi_u, jmax(lo_u, l), u);
+  m_right = il == iu ? T(-INFINITY) : m_right;
   // interior segments are exactly (il, iu): an O(1) sparse-table range max
-  const double m_int = rmq_gather(st, h, il + 1, iu);
+  const T m_int = rmq_gather(st, h, il + 1, iu);
   out[i] = jmax(jmax(m_left, m_right), m_int);
 }
 
@@ -132,6 +140,31 @@ __global__ void delta_max_gather_kernel(const double* __restrict__ lq,
 
 inline int blocks_for(int Q) { return (Q + kThreads - 1) / kThreads; }
 
+template <typename T>
+int launch_range_sum_gather(const void* lq, const void* uq, const void* seg_lo,
+                            const void* seg_hi, const void* coeffs, void* out,
+                            int Q, int H, int deg, void* stream) {
+  if (Q > 0)
+    range_sum_gather_kernel<T><<<blocks_for(Q), kThreads, 0,
+                                 (cudaStream_t)stream>>>(
+        (const T*)lq, (const T*)uq, (const T*)seg_lo, (const T*)seg_hi,
+        (const T*)coeffs, (T*)out, Q, H, deg);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_range_max_gather(const void* lq, const void* uq, const void* seg_lo,
+                            const void* seg_hi, const void* coeffs,
+                            const void* st, void* out, int Q, int H, int deg,
+                            int h, void* stream) {
+  if (Q > 0)
+    range_max_gather_kernel<T><<<blocks_for(Q), kThreads, 0,
+                                 (cudaStream_t)stream>>>(
+        (const T*)lq, (const T*)uq, (const T*)seg_lo, (const T*)seg_hi,
+        (const T*)coeffs, (const T*)st, (T*)out, Q, H, deg, h);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace polyfit
 
 extern "C" {
@@ -148,27 +181,36 @@ int polyfit_locate(const void* q, const void* seg_lo, void* out, int Q, int H,
 int polyfit_range_sum_gather(const void* lq, const void* uq, const void* seg_lo,
                              const void* seg_hi, const void* coeffs, void* out,
                              int Q, int H, int deg, void* stream) {
-  if (Q > 0)
-    polyfit::range_sum_gather_kernel<<<polyfit::blocks_for(Q),
-                                       polyfit::kThreads, 0,
-                                       (cudaStream_t)stream>>>(
-        (const double*)lq, (const double*)uq, (const double*)seg_lo,
-        (const double*)seg_hi, (const double*)coeffs, (double*)out, Q, H, deg);
-  return (int)cudaGetLastError();
+  return polyfit::launch_range_sum_gather<double>(lq, uq, seg_lo, seg_hi,
+                                                  coeffs, out, Q, H, deg,
+                                                  stream);
+}
+
+int polyfit_range_sum_gather_f32(const void* lq, const void* uq,
+                                 const void* seg_lo, const void* seg_hi,
+                                 const void* coeffs, void* out, int Q, int H,
+                                 int deg, void* stream) {
+  return polyfit::launch_range_sum_gather<float>(lq, uq, seg_lo, seg_hi,
+                                                 coeffs, out, Q, H, deg,
+                                                 stream);
 }
 
 int polyfit_range_max_gather(const void* lq, const void* uq, const void* seg_lo,
                              const void* seg_hi, const void* coeffs,
                              const void* st, void* out, int Q, int H, int deg,
                              int h, void* stream) {
-  if (Q > 0)
-    polyfit::range_max_gather_kernel<<<polyfit::blocks_for(Q),
-                                       polyfit::kThreads, 0,
-                                       (cudaStream_t)stream>>>(
-        (const double*)lq, (const double*)uq, (const double*)seg_lo,
-        (const double*)seg_hi, (const double*)coeffs, (const double*)st,
-        (double*)out, Q, H, deg, h);
-  return (int)cudaGetLastError();
+  return polyfit::launch_range_max_gather<double>(lq, uq, seg_lo, seg_hi,
+                                                  coeffs, st, out, Q, H, deg,
+                                                  h, stream);
+}
+
+int polyfit_range_max_gather_f32(const void* lq, const void* uq,
+                                 const void* seg_lo, const void* seg_hi,
+                                 const void* coeffs, const void* st, void* out,
+                                 int Q, int H, int deg, int h, void* stream) {
+  return polyfit::launch_range_max_gather<float>(lq, uq, seg_lo, seg_hi,
+                                                 coeffs, st, out, Q, H, deg, h,
+                                                 stream);
 }
 
 int polyfit_delta_sum_gather(const void* lq, const void* uq, const void* keys,

@@ -1,20 +1,24 @@
-// PolyFit one-key one-hot scan kernels for Hopper (sm_90a), float64, one
-// thread per query: the 'cuda_scan' backend.
+// PolyFit one-key one-hot scan kernels for Hopper (sm_90a), one thread per
+// query: the 'cuda_scan' backend, and K21 (kernels/ops.py poly_eval).
 //
 // K14 range_sum_kernel  replaces repro/kernels/range_sum.py:range_sum_pallas
 // K15 range_max_kernel  replaces repro/kernels/range_max.py:range_max_pallas
 // K16 delta_sum_kernel  replaces repro/kernels/delta_scan.py:delta_sum_pallas
 // K17 delta_max_kernel  replaces repro/kernels/delta_scan.py:delta_max_pallas
+// K21 poly_eval_kernel  replaces repro/kernels/poly_eval.py:poly_eval_pallas
 //
 // Twins of the plain versions in repro_torch/kernels/range_sum.py,
-// range_max.py and delta_scan.py, in their order of operations (compiled
-// with -fmad=false, so every multiply and add rounds on its own).  Where
-// the gather kernels K2, K3, K5 and K6 (polyfit_kernels.cu) binary-search
-// a sorted table, these test every query against every entry:
+// range_max.py, poly_eval.py and delta_scan.py, in their order of
+// operations (compiled with -fmad=false, so every multiply and add rounds
+// on its own).  Where the gather kernels K2, K3, K5 and K6
+// (polyfit_kernels.cu) binary-search a sorted table, these test every
+// query against every entry:
 //
 //   K14  the segment holding each endpoint by one-hot membership
 //        seg_lo <= q < seg_next, then its row [coeffs | lo | hi] and Horner
 //        at the scaled coordinate: P(uq) - P(lq);
+//   K21  the same for one key: P_{I(q)}(q), K14's step on one endpoint
+//        (one template, segment_eval_kernel<T, E>, with E = 2 and E = 1);
 //   K15  the same two boundary rows, the left/right/same-segment rules of
 //        the closed-form clipped maxima (deg <= 3), and a dense masked max
 //        of seg_agg over the segments with lo > lq and next <= uq;
@@ -23,26 +27,33 @@
 //   K17  the max of the buffered measures with key in [lq, uq] (-inf when
 //        none).
 //
+// K14, K15 and K21 are templates on the element type: double for the
+// engine's plans, and float (the *_f32 launchers) for the float32 plans of
+// kernels/ops.py, whose sentinel is finfo(float32).max / 4.  K16 and K17
+// are double only.
+//
 // At most one segment holds a clamped query (the next segment's lo closes
-// each one, a sentinel the last), so the reference's one-hot matmul sums
-// one row and exact zeros: the kernels keep the first segment that holds
-// the query, and a zero row when none does.  K14 and K15 then read the
-// very rows K2 and K3 locate, and the interior max is exact, so they agree
-// with the gather kernels bit for bit.  K16 adds the members' measures in
-// log order; the plain version's one-hot product may add them in another
-// order, which changes nothing on a COUNT log (integers) and at most a few
-// ulps of the lane's sum of |measure| on a SUM log.
+// each one, a sentinel the last; a segment whose lo equals the next one's,
+// as two starts rounded to one float can, holds nothing), so the
+// reference's one-hot matmul sums one row and exact zeros: the kernels keep
+// the first segment that holds the query, and a zero row when none does.
+// K14 and K15 then read the very rows K2 and K3 locate, and the interior
+// max is exact, so they agree with the gather kernels bit for bit.  K16
+// adds the members' measures in log order; the plain version's one-hot
+// product may add them in another order, which changes nothing on a COUNT
+// log (integers) and at most a few ulps of the lane's sum of |measure| on
+// a SUM log.
 //
 // What bounds them on an H100: operations.  A block of 256 queries walks
 // the table in tiles of 256 entries staged through shared memory (the
 // table read once a block from L2), and each thread tests its query
-// against every entry: K14 two endpoints x 2 compares, K15 6 compares and
-// a max, K16 and K17 2 compares and an add or a max a (query, entry) pair.
-// At Q = 65,536 against a 131,072-slot log that is about 2.6e10 f64
-// operations for K16, about 0.8 ms at the FP64 peak; the bytes (the
-// queries and the table once) take microseconds.  What the design does
-// about it: nothing more yet; the tile's entries are broadcast from shared
-// memory, one compare-and-select chain a thread.
+// against every entry: K14 two endpoints x 2 compares, K21 one endpoint x
+// 2, K15 6 compares and a max, K16 and K17 2 compares and an add or a max
+// a (query, entry) pair.  At Q = 65,536 against a 131,072-slot log that is
+// about 2.6e10 f64 operations for K16, about 0.8 ms at the FP64 peak; the
+// bytes (the queries and the table once) take microseconds.  What the
+// design does about it: nothing more yet; the tile's entries are broadcast
+// from shared memory, one compare-and-select chain a thread.
 //
 // Each launcher takes raw device pointers and the CUDA stream, launches on
 // that stream, and returns cudaGetLastError() (0 when the launch was
@@ -61,30 +72,38 @@ constexpr int kTile = kThreads;   // table entries staged per tile
 
 // P(u) of segment row ``row``, or of a zero row when row < 0, by Horner
 // from the top coefficient (core/poly.py horner on the gathered row)
-__device__ __forceinline__ double row_horner(const double* __restrict__ coeffs,
-                                             int row, int deg, double u) {
+template <typename T>
+__device__ __forceinline__ T row_horner(const T* __restrict__ coeffs, int row,
+                                        int deg, T u) {
   const bool hit = row >= 0;
-  const double* c = coeffs + (size_t)(hit ? row : 0) * (deg + 1);
-  double acc = hit ? c[deg] : 0.0;
-  for (int j = deg - 1; j >= 0; --j) acc = acc * u + (hit ? c[j] : 0.0);
+  const T* c = coeffs + (size_t)(hit ? row : 0) * (deg + 1);
+  T acc = hit ? c[deg] : T(0);
+  for (int j = deg - 1; j >= 0; --j) acc = acc * u + (hit ? c[j] : T(0));
   return acc;
 }
 
-// K14: A = P_{I(u)}(u) - P_{I(l)}(l), each endpoint's segment found by
-// one-hot membership over the whole table
-__global__ void range_sum_kernel(const double* __restrict__ lq,
-                                 const double* __restrict__ uq,
-                                 const double* __restrict__ seg_lo,
-                                 const double* __restrict__ seg_next,
-                                 const double* __restrict__ seg_hi,
-                                 const double* __restrict__ coeffs,
-                                 double* __restrict__ out, int Q, int H,
-                                 int deg) {
-  __shared__ double s_lo[kTile], s_nx[kTile];
+// K14 (E = 2): A = P_{I(u)}(u) - P_{I(l)}(l); K21 (E = 1, ``uq`` unread):
+// P_{I(q)}(q) with q in ``lq``.  Each endpoint's segment is found by
+// one-hot membership over the whole table.
+template <typename T, int E>
+__global__ void segment_eval_kernel(const T* __restrict__ lq,
+                                    const T* __restrict__ uq,
+                                    const T* __restrict__ seg_lo,
+                                    const T* __restrict__ seg_next,
+                                    const T* __restrict__ seg_hi,
+                                    const T* __restrict__ coeffs,
+                                    T* __restrict__ out, int Q, int H,
+                                    int deg) {
+  __shared__ T s_lo[kTile], s_nx[kTile];
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int r = i < Q ? i : Q - 1;   // threads past Q still stage tiles
-  const double q[2] = {lq[r], uq[r]};
-  int hit[2] = {-1, -1};
+  T q[E];
+  int hit[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    q[e] = e == 0 ? lq[r] : uq[r];
+    hit[e] = -1;
+  }
   for (int t0 = 0; t0 < H; t0 += kTile) {
     const int j = t0 + threadIdx.x;
     if (j < H) {
@@ -94,9 +113,9 @@ __global__ void range_sum_kernel(const double* __restrict__ lq,
     __syncthreads();
     const int n = H - t0 < kTile ? H - t0 : kTile;
     for (int k = 0; k < n; ++k) {
-      const double lo = s_lo[k], nx = s_nx[k];
+      const T lo = s_lo[k], nx = s_nx[k];
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
+      for (int e = 0; e < E; ++e) {
         const bool in = lo <= q[e] && q[e] < nx;
         hit[e] = (hit[e] < 0 && in) ? t0 + k : hit[e];
       }
@@ -104,34 +123,34 @@ __global__ void range_sum_kernel(const double* __restrict__ lq,
     __syncthreads();
   }
   if (i >= Q) return;
-  double v[2];
+  T v[E];
 #pragma unroll
-  for (int e = 0; e < 2; ++e) {
+  for (int e = 0; e < E; ++e) {
     const bool h = hit[e] >= 0;
-    const double lo = h ? seg_lo[hit[e]] : 0.0;
-    const double hi = h ? seg_hi[hit[e]] : 0.0;
+    const T lo = h ? seg_lo[hit[e]] : T(0);
+    const T hi = h ? seg_hi[hit[e]] : T(0);
     v[e] = row_horner(coeffs, hit[e], deg, scale_unit(q[e], lo, hi));
   }
-  out[i] = v[1] - v[0];
+  out[i] = E == 2 ? v[E - 1] - v[0] : v[0];
 }
 
 // K15: MAX over [lq, uq] (paper Eq. 17): closed-form clipped maxima on the
 // two one-hot boundary rows, a dense masked max over the interior
-__global__ void range_max_kernel(const double* __restrict__ lq,
-                                 const double* __restrict__ uq,
-                                 const double* __restrict__ seg_lo,
-                                 const double* __restrict__ seg_next,
-                                 const double* __restrict__ seg_hi,
-                                 const double* __restrict__ coeffs,
-                                 const double* __restrict__ seg_agg,
-                                 double* __restrict__ out, int Q, int H,
-                                 int deg) {
-  __shared__ double s_lo[kTile], s_nx[kTile], s_agg[kTile];
+template <typename T>
+__global__ void range_max_kernel(const T* __restrict__ lq,
+                                 const T* __restrict__ uq,
+                                 const T* __restrict__ seg_lo,
+                                 const T* __restrict__ seg_next,
+                                 const T* __restrict__ seg_hi,
+                                 const T* __restrict__ coeffs,
+                                 const T* __restrict__ seg_agg,
+                                 T* __restrict__ out, int Q, int H, int deg) {
+  __shared__ T s_lo[kTile], s_nx[kTile], s_agg[kTile];
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int r = i < Q ? i : Q - 1;
-  const double l = lq[r], u = uq[r];
+  const T l = lq[r], u = uq[r];
   int hit_l = -1, hit_u = -1;
-  double m_int = -INFINITY;
+  T m_int = -INFINITY;
   for (int t0 = 0; t0 < H; t0 += kTile) {
     const int j = t0 + threadIdx.x;
     if (j < H) {
@@ -142,30 +161,30 @@ __global__ void range_max_kernel(const double* __restrict__ lq,
     __syncthreads();
     const int n = H - t0 < kTile ? H - t0 : kTile;
     for (int k = 0; k < n; ++k) {
-      const double lo = s_lo[k], nx = s_nx[k];
+      const T lo = s_lo[k], nx = s_nx[k];
       hit_l = (hit_l < 0 && lo <= l && l < nx) ? t0 + k : hit_l;
       hit_u = (hit_u < 0 && lo <= u && u < nx) ? t0 + k : hit_u;
       // interior: strictly between the two boundary segments
       const bool interior = lo > l && nx <= u;
-      m_int = jmax(m_int, interior ? s_agg[k] : -INFINITY);
+      m_int = jmax(m_int, interior ? s_agg[k] : T(-INFINITY));
     }
     __syncthreads();
   }
   if (i >= Q) return;
-  const double zero[4] = {0.0, 0.0, 0.0, 0.0};
-  const double* cl = hit_l >= 0 ? coeffs + (size_t)hit_l * (deg + 1) : zero;
-  const double* cu = hit_u >= 0 ? coeffs + (size_t)hit_u * (deg + 1) : zero;
-  const double lo_l = hit_l >= 0 ? seg_lo[hit_l] : 0.0;
-  const double hi_l = hit_l >= 0 ? seg_hi[hit_l] : 0.0;
-  const double lo_u = hit_u >= 0 ? seg_lo[hit_u] : 0.0;
-  const double hi_u = hit_u >= 0 ? seg_hi[hit_u] : 0.0;
+  const T zero[4] = {T(0), T(0), T(0), T(0)};
+  const T* cl = hit_l >= 0 ? coeffs + (size_t)hit_l * (deg + 1) : zero;
+  const T* cu = hit_u >= 0 ? coeffs + (size_t)hit_u * (deg + 1) : zero;
+  const T lo_l = hit_l >= 0 ? seg_lo[hit_l] : T(0);
+  const T hi_l = hit_l >= 0 ? seg_hi[hit_l] : T(0);
+  const T lo_u = hit_u >= 0 ? seg_lo[hit_u] : T(0);
+  const T hi_u = hit_u >= 0 ? seg_hi[hit_u] : T(0);
   const bool same = lo_l == lo_u && hi_l == hi_u;
   // left boundary: [lq, min(hi_l, uq)], suppressed when lq is past hi_l
-  double m_left = clipped_poly_max(cl, deg, lo_l, hi_l, l, jmin(hi_l, u));
-  m_left = l <= hi_l ? m_left : -INFINITY;
+  T m_left = clipped_poly_max(cl, deg, lo_l, hi_l, l, jmin(hi_l, u));
+  m_left = l <= hi_l ? m_left : T(-INFINITY);
   // right boundary: [max(lo_u, lq), uq], suppressed when the same segment
-  double m_right = clipped_poly_max(cu, deg, lo_u, hi_u, jmax(lo_u, l), u);
-  m_right = same ? -INFINITY : m_right;
+  T m_right = clipped_poly_max(cu, deg, lo_u, hi_u, jmax(lo_u, l), u);
+  m_right = same ? T(-INFINITY) : m_right;
   out[i] = jmax(jmax(m_left, m_right), m_int);
 }
 
@@ -228,6 +247,33 @@ __global__ void delta_max_kernel(const double* __restrict__ lq,
 
 inline int blocks_for(int Q) { return (Q + kThreads - 1) / kThreads; }
 
+template <typename T, int E>
+int launch_segment_eval(const void* lq, const void* uq, const void* seg_lo,
+                        const void* seg_next, const void* seg_hi,
+                        const void* coeffs, void* out, int Q, int H, int deg,
+                        void* stream) {
+  if (Q > 0)
+    segment_eval_kernel<T, E><<<blocks_for(Q), kThreads, 0,
+                                (cudaStream_t)stream>>>(
+        (const T*)lq, (const T*)uq, (const T*)seg_lo, (const T*)seg_next,
+        (const T*)seg_hi, (const T*)coeffs, (T*)out, Q, H, deg);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_range_max(const void* lq, const void* uq, const void* seg_lo,
+                     const void* seg_next, const void* seg_hi,
+                     const void* coeffs, const void* seg_agg, void* out, int Q,
+                     int H, int deg, void* stream) {
+  if (deg > 3) return (int)cudaErrorInvalidValue;
+  if (Q > 0)
+    range_max_kernel<T><<<blocks_for(Q), kThreads, 0, (cudaStream_t)stream>>>(
+        (const T*)lq, (const T*)uq, (const T*)seg_lo, (const T*)seg_next,
+        (const T*)seg_hi, (const T*)coeffs, (const T*)seg_agg, (T*)out, Q, H,
+        deg);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 }  // namespace polyfit
 
@@ -237,27 +283,49 @@ int polyfit_range_sum(const void* lq, const void* uq, const void* seg_lo,
                       const void* seg_next, const void* seg_hi,
                       const void* coeffs, void* out, int Q, int H, int deg,
                       void* stream) {
-  if (Q > 0)
-    polyfit::range_sum_kernel<<<polyfit::blocks_for(Q), polyfit::kThreads, 0,
-                                (cudaStream_t)stream>>>(
-        (const double*)lq, (const double*)uq, (const double*)seg_lo,
-        (const double*)seg_next, (const double*)seg_hi, (const double*)coeffs,
-        (double*)out, Q, H, deg);
-  return (int)cudaGetLastError();
+  return polyfit::launch_segment_eval<double, 2>(
+      lq, uq, seg_lo, seg_next, seg_hi, coeffs, out, Q, H, deg, stream);
+}
+
+int polyfit_range_sum_f32(const void* lq, const void* uq, const void* seg_lo,
+                          const void* seg_next, const void* seg_hi,
+                          const void* coeffs, void* out, int Q, int H, int deg,
+                          void* stream) {
+  return polyfit::launch_segment_eval<float, 2>(
+      lq, uq, seg_lo, seg_next, seg_hi, coeffs, out, Q, H, deg, stream);
+}
+
+int polyfit_poly_eval(const void* q, const void* seg_lo, const void* seg_next,
+                      const void* seg_hi, const void* coeffs, void* out, int Q,
+                      int H, int deg, void* stream) {
+  return polyfit::launch_segment_eval<double, 1>(
+      q, nullptr, seg_lo, seg_next, seg_hi, coeffs, out, Q, H, deg, stream);
+}
+
+int polyfit_poly_eval_f32(const void* q, const void* seg_lo,
+                          const void* seg_next, const void* seg_hi,
+                          const void* coeffs, void* out, int Q, int H, int deg,
+                          void* stream) {
+  return polyfit::launch_segment_eval<float, 1>(
+      q, nullptr, seg_lo, seg_next, seg_hi, coeffs, out, Q, H, deg, stream);
 }
 
 int polyfit_range_max(const void* lq, const void* uq, const void* seg_lo,
                       const void* seg_next, const void* seg_hi,
                       const void* coeffs, const void* seg_agg, void* out,
                       int Q, int H, int deg, void* stream) {
-  if (deg > 3) return (int)cudaErrorInvalidValue;
-  if (Q > 0)
-    polyfit::range_max_kernel<<<polyfit::blocks_for(Q), polyfit::kThreads, 0,
-                                (cudaStream_t)stream>>>(
-        (const double*)lq, (const double*)uq, (const double*)seg_lo,
-        (const double*)seg_next, (const double*)seg_hi, (const double*)coeffs,
-        (const double*)seg_agg, (double*)out, Q, H, deg);
-  return (int)cudaGetLastError();
+  return polyfit::launch_range_max<double>(lq, uq, seg_lo, seg_next, seg_hi,
+                                           coeffs, seg_agg, out, Q, H, deg,
+                                           stream);
+}
+
+int polyfit_range_max_f32(const void* lq, const void* uq, const void* seg_lo,
+                          const void* seg_next, const void* seg_hi,
+                          const void* coeffs, const void* seg_agg, void* out,
+                          int Q, int H, int deg, void* stream) {
+  return polyfit::launch_range_max<float>(lq, uq, seg_lo, seg_next, seg_hi,
+                                          coeffs, seg_agg, out, Q, H, deg,
+                                          stream);
 }
 
 int polyfit_delta_sum(const void* lq, const void* uq, const void* keys,

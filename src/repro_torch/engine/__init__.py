@@ -16,8 +16,8 @@ bit for bit):
 deletes without a rebuild (exact corrections K5/K6 on ``'cuda'``, K16/K17
 on ``'cuda_scan'``) and refits only the segments they touch;
 ``DynamicEngine2D`` does the same for a two-key index (K9-K11 on
-``'cuda'``; ``'cuda_scan'`` waits for K18-K20) and refits only the
-quadtree leaves the changed points touch.
+``'cuda'``, the whole-log scans K18-K20 on ``'cuda_scan'``) and refits
+only the quadtree leaves the changed points touch.
 ``execute_quantile`` (K4 on ``'cuda'``, its scan mode on ``'cuda_scan'``)
 and ``DynamicEngine.quantile`` answer certified quantiles of SUM/COUNT
 tables; ``WindowEngine`` keeps an epoch ring of sealed plans and

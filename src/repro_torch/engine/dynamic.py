@@ -46,12 +46,11 @@ between ``'torch'`` and the card backends.
 ``DynamicEngine2D`` applies the same buffering and exact correction to
 two-key COUNT/SUM rectangles and dominance MAX/MIN corners
 (``DeltaBuffer2D``: x-sorted point logs, with merge-sort-tree levels on
-the ``'cuda'`` backend for kernels K9-K11 and the dense oracles of
-``kernels/ref.py`` elsewhere); its merge runs
-``core.index2d.selective_refit_2d`` over the touched leaves only, and
-dominance deletes shadow their victims as MAX/MIN deletes do in 1-D.  Its
-``'cuda_scan'`` twin needs the two-key scan kernels K18-K20, which are
-still to port: it raises (``check_backend_2d``).
+the ``'cuda'`` backend for kernels K9-K11; the whole-log scans K18-K20 on
+``'cuda_scan'`` and the dense oracles of ``kernels/ref.py`` elsewhere
+read the raw logs); its merge runs ``core.index2d.selective_refit_2d``
+over the touched leaves only, and dominance deletes shadow their victims
+as MAX/MIN deletes do in 1-D.
 """
 from __future__ import annotations
 
@@ -72,10 +71,11 @@ from ..core.quantile import invert_cf
 from ..core.queries import QueryResult
 from ..core.segmentation import FastAcceptFitter, greedy_segmentation
 from ..kernels import ref as _ref
-from ..kernels.delta_scan import (delta_count2d_gather,
-                                  delta_dommax2d_gather, delta_max,
-                                  delta_max_gather, delta_sum,
-                                  delta_sum2d_gather, delta_sum_gather)
+from ..kernels.delta_scan import (delta_count2d, delta_count2d_gather,
+                                  delta_dommax2d, delta_dommax2d_gather,
+                                  delta_max, delta_max_gather, delta_sum,
+                                  delta_sum2d, delta_sum2d_gather,
+                                  delta_sum_gather)
 from ..kernels.locate import bsearch_count
 from .engine import (QuantileResult, _no_refine, _prepare, _x_ranks,
                      check_pow2, execute_extremum, key_span,
@@ -87,7 +87,7 @@ from .plan import (IndexPlan, IndexPlan2D, big_sentinel, build_plan,
                    build_plan_2d)
 
 __all__ = ["DeltaBuffer", "DeltaBuffer2D", "DynamicEngine",
-           "DynamicEngine2D", "check_backend_2d"]
+           "DynamicEngine2D"]
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
@@ -185,7 +185,8 @@ class DeltaBuffer2D:
     the ``'cuda'`` backend, appends also rebuild each log's merge-sort-tree
     levels ``*_ylv`` (level l = y sorted within blocks of 2^l of the
     x-order), which K9 reads; on the other backends they stay sentinel and
-    the dense oracles read the raw logs.  Measure-carrying plans
+    the whole-log scans K18-K20 (``'cuda_scan'``) or the dense oracles read
+    the raw logs.  Measure-carrying plans
     (sum2d/max2d/min2d) log each point's measure (``*_w``, internal space:
     negated for min2d) and, for K10/K11, the per-block inclusive prefix
     sums ``*_wcum`` and the insert log's prefix maxima ``ins_wpmax``.
@@ -313,6 +314,9 @@ def _delta_count2d(lx, ux, ly, uy, kx, ky, ylv, *, backend: str):
     if backend == "cuda":
         # K9: merge-sort-tree dominance counts, O(log^2 cap) a corner
         return delta_count2d_gather(lx, ux, ly, uy, kx, ylv)
+    if backend == "cuda_scan":
+        # K18: a membership test against every slot of the log
+        return delta_count2d(lx, ux, ly, uy, kx, ky)
     # torch + ref: dense membership over the (small) log
     return _ref.delta_count2d_ref(lx, ux, ly, uy, kx, ky)
 
@@ -321,6 +325,9 @@ def _delta_sum2d(lx, ux, ly, uy, kx, ky, wv, ylv, wcum, *, backend: str):
     if backend == "cuda":
         # K10: the weighted merge-sort-tree prefix sums
         return delta_sum2d_gather(lx, ux, ly, uy, kx, ylv, wcum)
+    if backend == "cuda_scan":
+        # K19: the members' measures added in slot order
+        return delta_sum2d(lx, ux, ly, uy, kx, ky, wv)
     return _ref.delta_sum2d_ref(lx, ux, ly, uy, kx, ky, wv)
 
 
@@ -328,6 +335,9 @@ def _delta_dommax2d(u, v, kx, ky, wv, ylv, wpmax, *, backend: str):
     if backend == "cuda":
         # K11: the weighted merge-sort-tree prefix maxima
         return delta_dommax2d_gather(u, v, kx, ylv, wpmax)
+    if backend == "cuda_scan":
+        # K20: a masked max over every slot of the log
+        return delta_dommax2d(u, v, kx, ky, wv)
     return _ref.delta_dommax2d_ref(u, v, kx, ky, wv)
 
 
@@ -1202,20 +1212,11 @@ class DynamicEngine(_DeltaBufferedEngine):
         return self.extremum(lq, uq, eps_rel=eps_rel)
 
 
-def check_backend_2d(backend: Optional[str]) -> None:
-    """Raise for a dynamic two-key table on ``'cuda_scan'``: its buffered
-    corrections are the two-key scan kernels K18-K20, still to port."""
-    if backend == "cuda_scan":
-        raise NotImplementedError(
-            "dynamic two-key tables on backend 'cuda_scan' need the two-key "
-            "scan kernels K18-K20 (delta_count2d, delta_sum2d, "
-            "delta_dommax2d), not ported yet: ROADMAP Queue 2 slice B")
-
-
 class DynamicEngine2D(_DeltaBufferedEngine):
     """Updatable 2-key plan (COUNT/SUM rectangles, dominance MAX/MIN
     corners): buffered point inserts and deletes with the exact correction
-    in the query path (K9-K11 on ``'cuda'``); the merge runs
+    in the query path (K9-K11 on ``'cuda'``, K18-K20 on ``'cuda_scan'``);
+    the merge runs
     ``selective_refit_2d``, touching only the leaves the changed points'
     dominance boundaries cross (its stats in ``last_refit_stats``).
 
@@ -1228,7 +1229,6 @@ class DynamicEngine2D(_DeltaBufferedEngine):
                  backend: Optional[str] = None, capacity: int = 1024,
                  min_bucket: int = 64, auto_refit: bool = True,
                  background: bool = False):
-        check_backend_2d(backend)
         if index.exact is None:
             raise ValueError("DynamicEngine2D requires keep_exact=True")
         self.device = index.device

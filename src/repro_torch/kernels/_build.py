@@ -29,14 +29,15 @@ from typing import NamedTuple
 import torch
 
 __all__ = ["CSRC", "SOURCES", "UNITS", "NVCC_FLAGS", "Build", "build",
-           "library", "check", "require_cuda", "stream"]
+           "library", "check", "require_cuda", "float_dtype", "launcher",
+           "stream"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("locate.cuh", "polyfit_kernels.cu", "quantile.cu",
-           "leaf_eval2d.cu", "delta2d.cu", "scan1d.cu")
+           "leaf_eval2d.cu", "delta2d.cu", "scan1d.cu", "scan2d.cu")
 # translation units: one shared library each, compiled in parallel
 UNITS = ("polyfit_kernels.cu", "quantile.cu", "leaf_eval2d.cu", "delta2d.cu",
-         "scan1d.cu")
+         "scan1d.cu", "scan2d.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -83,7 +84,20 @@ _SIGNATURES = {
     # lq, uq, keys, vals, out, Q, D, stream
     "polyfit_delta_sum": (_P,) * 5 + (_I,) * 2 + (_P,),
     "polyfit_delta_max": (_P,) * 5 + (_I,) * 2 + (_P,),
+    # q, seg_lo, seg_next, seg_hi, coeffs, out, Q, H, deg, stream
+    "polyfit_poly_eval": (_P,) * 6 + (_I,) * 3 + (_P,),
+    # lx, ux, ly, uy, kx, ky, out, Q, D, stream
+    "polyfit_delta_count2d": (_P,) * 7 + (_I,) * 2 + (_P,),
+    # lx, ux, ly, uy, kx, ky, w, out, Q, D, stream
+    "polyfit_delta_sum2d": (_P,) * 8 + (_I,) * 2 + (_P,),
+    # u, v, kx, ky, w, out, Q, D, stream
+    "polyfit_delta_dommax2d": (_P,) * 6 + (_I,) * 2 + (_P,),
 }
+# the float32 instantiations (kernels/ops.py's float32 plans) take the
+# arguments of their float64 twins
+for _name in ("polyfit_range_sum_gather", "polyfit_range_max_gather",
+              "polyfit_range_sum", "polyfit_range_max", "polyfit_poly_eval"):
+    _SIGNATURES[_name + "_f32"] = _SIGNATURES[_name]
 
 
 class Build(NamedTuple):
@@ -184,6 +198,23 @@ def require_cuda(name: str, *tensors: torch.Tensor,
             raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
+
+
+def float_dtype(name: str, t: torch.Tensor) -> torch.dtype:
+    """The element type of a kernel that has a float32 instantiation:
+    float64 or float32, taken from ``t``."""
+    if t.dtype not in (torch.float64, torch.float32):
+        raise ValueError(f"{name}: expected torch.float64 or torch.float32, "
+                         f"got {t.dtype}")
+    return t.dtype
+
+
+def launcher(name: str, dtype: torch.dtype):
+    """The launcher ``polyfit_<name>`` for float64 tensors, or its float32
+    instantiation ``polyfit_<name>_f32`` (K2, K3, K14, K15 and K21 only)."""
+    if dtype == torch.float32:
+        name += "_f32"
+    return getattr(library(), f"polyfit_{name}")
 
 
 def stream(device: torch.device) -> int:

@@ -1,5 +1,5 @@
 """Exact delta-buffer corrections for dynamic plans: kernels K5, K6, K9,
-K10, K11, K16 and K17.
+K10, K11, K16, K17, K18, K19 and K20.
 
 The twin of ``repro.kernels.delta_scan``.  A ``DynamicEngine`` /
 ``DynamicEngine2D`` (``engine/dynamic.py``) buffers inserts and deletes in
@@ -22,26 +22,32 @@ append the structures the gather corrections read:
 * ``delta_dommax2d_gather`` (K11) — the dominance max over {x <= u,
   y <= v} from the prefix maxima ``wpmax``; -inf when nothing is dominated.
 
-The ``cuda_scan`` backend's one-key twins scan the whole log instead, as
-``delta_sum_pallas`` and ``delta_max_pallas`` do:
+The ``cuda_scan`` backend's twins scan the whole log instead, as
+``delta_sum_pallas``, ``delta_max_pallas`` and ``delta_*2d_pallas`` do:
 
 * ``delta_sum`` (K16) — the sum of the measures whose key lies in
   (lq, uq], a membership test against every slot;
 * ``delta_max`` (K17) — the max of the measures whose key lies in
-  [lq, uq], -inf when none does.
+  [lq, uq], -inf when none does;
+* ``delta_count2d`` (K18) — the number of logged points in (lx, ux] x
+  (ly, uy], a membership test against every slot of the point log;
+* ``delta_sum2d`` (K19) — the sum of their measures, added in slot order;
+* ``delta_dommax2d`` (K20) — the max measure of the logged points with
+  x <= u and y <= v, -inf when none is dominated.
 
 Sentinel slots hold a huge-but-finite key (both coordinates for a point
 log) and measure 0, so they fail every membership test and leave the
 prefix sums flat: no correction needs the fill level.
 
 Each ``*_plain`` function is the plain torch version, in the kernel's order
-of operations (K16's and K17's are the one-hot oracles of ``kernels/ref.py``;
-K16's product may add a SUM log's measures in another order than the
-kernel, which adds them in slot order); each wrapper launches its CUDA
-kernel (``csrc/polyfit_kernels.cu`` for K5/K6, ``csrc/delta2d.cu`` for
-K9-K11, ``csrc/scan1d.cu`` for K16/K17) on CUDA tensors and runs the plain
-version on CPU tensors.  The two-key scan twins (``delta_*2d_pallas``,
-K18-K20) are still to port (ROADMAP Queue 2, slice B).
+of operations (K16's, K17's, K18's and K20's are the dense oracles of
+``kernels/ref.py``, exact in any order but K16's, whose product may add a
+SUM log's measures in another order than the kernel's slot order; K19's
+adds in slot order, a loop over slots vectorised over queries); each
+wrapper launches its CUDA kernel (``csrc/polyfit_kernels.cu`` for K5/K6,
+``csrc/delta2d.cu`` for K9-K11, ``csrc/scan1d.cu`` for K16/K17,
+``csrc/scan2d.cu`` for K18-K20) on CUDA tensors and runs the plain version
+on CPU tensors.
 """
 from __future__ import annotations
 
@@ -50,14 +56,18 @@ import torch
 from ..core.index2d import mst_count_prefix, mst_weighted_prefix
 from . import _build
 from .locate import bsearch_count, rmq_gather
-from .ref import delta_max_ref, delta_sum_ref
+from .leaf_eval2d import _CHUNK_ELEMS
+from .ref import (_in_rect, delta_count2d_ref, delta_dommax2d_ref,
+                  delta_max_ref, delta_sum_ref)
 
 __all__ = ["delta_sum_gather_plain", "delta_sum_gather",
            "delta_max_gather_plain", "delta_max_gather", "delta_sum_plain",
            "delta_sum", "delta_max_plain", "delta_max",
            "delta_count2d_gather_plain", "delta_count2d_gather",
            "delta_sum2d_gather_plain", "delta_sum2d_gather",
-           "delta_dommax2d_gather_plain", "delta_dommax2d_gather"]
+           "delta_dommax2d_gather_plain", "delta_dommax2d_gather",
+           "delta_count2d_plain", "delta_count2d", "delta_sum2d_plain",
+           "delta_sum2d", "delta_dommax2d_plain", "delta_dommax2d"]
 
 
 def delta_sum_gather_plain(lq, uq, keys, cf):
@@ -302,3 +312,100 @@ def delta_dommax2d_gather(u, v, keys_x, ys_levels, wpmax_levels):
 
 
 delta_dommax2d_gather.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# two-key scans over the whole point log: K18, K19, K20
+# ---------------------------------------------------------------------------
+
+def delta_count2d_plain(lx, ux, ly, uy, keys_x, keys_y):
+    """Plain torch version of K18: the dense membership count
+    (``ref.delta_count2d_ref``), exact in any order."""
+    return delta_count2d_ref(lx, ux, ly, uy, keys_x, keys_y)
+
+
+def delta_sum2d_plain(lx, ux, ly, uy, keys_x, keys_y, wv):
+    """Plain torch version of K19: each query's member measures added in
+    slot order, as the kernel adds them (a loop over slots, vectorised over
+    queries; the membership formed a chunk of slots at a time)."""
+    acc = wv.new_zeros(lx.shape[0])
+    step = max(1, _CHUNK_ELEMS // max(1, lx.shape[0]))
+    for s in range(0, keys_x.shape[0], step):
+        sl = slice(s, s + step)
+        part = torch.where(_in_rect(lx, ux, ly, uy, keys_x[sl], keys_y[sl]),
+                           wv[None, sl], 0.0)
+        for k in range(part.shape[1]):
+            acc = acc + part[:, k]
+    return acc
+
+
+def delta_dommax2d_plain(u, v, keys_x, keys_y, wv):
+    """Plain torch version of K20: the dense masked max
+    (``ref.delta_dommax2d_ref``), exact in any order."""
+    return delta_dommax2d_ref(u, v, keys_x, keys_y, wv)
+
+
+def _scan2d_launch(name, queries, logs):
+    """Launch K18, K19 or K20 (``polyfit_<name>``) on validated arguments:
+    equal-length query vectors and equal-length log columns."""
+    _build.require_cuda(name, *queries, *logs)
+    Q, D = queries[0].shape[0], logs[0].shape[0]
+    if (any(q.shape != (Q,) for q in queries) or D < 1
+            or any(t.shape != (D,) for t in logs)):
+        raise ValueError(f"{name}: shape mismatch: queries "
+                         f"{[tuple(q.shape) for q in queries]}, log "
+                         f"{[tuple(t.shape) for t in logs]}")
+    out = torch.empty(Q, dtype=logs[0].dtype, device=logs[0].device)
+    if Q:
+        _build.check(getattr(_build.library(), f"polyfit_{name}")(
+            *(t.data_ptr() for t in (*queries, *logs, out)), Q, D,
+            _build.stream(out.device)), name)
+    return out
+
+
+def delta_count2d(lx, ux, ly, uy, keys_x, keys_y):
+    """(Q,) f64 exact count of buffered points in (lx, ux] x (ly, uy] by a
+    membership test against every slot of the log: K18 on CUDA tensors,
+    the plain version on CPU tensors.  ``delta_count2d.launches`` counts
+    the kernel launches."""
+    if lx.device.type == "cpu":
+        return delta_count2d_plain(lx, ux, ly, uy, keys_x, keys_y)
+    out = _scan2d_launch("delta_count2d", (lx, ux, ly, uy), (keys_x, keys_y))
+    if lx.shape[0]:
+        delta_count2d.launches += 1
+    return out
+
+
+delta_count2d.launches = 0
+
+
+def delta_sum2d(lx, ux, ly, uy, keys_x, keys_y, wv):
+    """(Q,) exact sum of buffered measures over (lx, ux] x (ly, uy], added
+    in slot order: K19 on CUDA tensors, the plain version on CPU tensors.
+    ``delta_sum2d.launches`` counts the kernel launches."""
+    if lx.device.type == "cpu":
+        return delta_sum2d_plain(lx, ux, ly, uy, keys_x, keys_y, wv)
+    out = _scan2d_launch("delta_sum2d", (lx, ux, ly, uy),
+                         (keys_x, keys_y, wv))
+    if lx.shape[0]:
+        delta_sum2d.launches += 1
+    return out
+
+
+delta_sum2d.launches = 0
+
+
+def delta_dommax2d(u, v, keys_x, keys_y, wv):
+    """(Q,) exact dominance max of buffered measures over {x <= u, y <= v}
+    (-inf where none is dominated) by a test against every slot: K20 on
+    CUDA tensors, the plain version on CPU tensors.
+    ``delta_dommax2d.launches`` counts the kernel launches."""
+    if u.device.type == "cpu":
+        return delta_dommax2d_plain(u, v, keys_x, keys_y, wv)
+    out = _scan2d_launch("delta_dommax2d", (u, v), (keys_x, keys_y, wv))
+    if u.shape[0]:
+        delta_dommax2d.launches += 1
+    return out
+
+
+delta_dommax2d.launches = 0

@@ -1,0 +1,62 @@
+"""Fused segment resolve + Horner evaluation: kernel K21.
+
+The twin of ``repro.kernels.poly_eval``: P_{I(q)}(q) for a batch of keys
+against a (sentinel-padded) segment table, the one-endpoint step of the
+range SUM kernels.  The reference resolves each key's segment by one-hot
+membership seg_lo <= q < seg_next over tiles of segments and gathers the
+row with a matmul; at most one segment holds a key clamped to seg_lo[0]
+(padding is finite), so the matmul reads one row, and the kernel keeps the
+first segment that holds the key and a zero row where none does, as K14
+(``range_sum.range_sum``) does for each of its two endpoints.
+
+``poly_eval_plain`` is the plain torch version, in the kernel's order of
+operations (``range_sum.segment_rows`` and ``gather_rows``, then
+``core.poly.horner`` at ``scale_unit``); the wrapper ``poly_eval`` launches
+K21 (``csrc/scan1d.cu``, float64 or float32 by ``coeffs.dtype``) on CUDA
+tensors and runs the plain version on CPU tensors.  ``kernels/ops.py`` is
+its caller.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..core.poly import horner, scale_unit
+from . import _build
+from .range_sum import gather_rows, segment_rows
+
+__all__ = ["poly_eval_plain", "poly_eval"]
+
+
+def poly_eval_plain(q, seg_lo, seg_next, seg_hi, coeffs):
+    """Plain torch version of K21, in the kernel's order of operations."""
+    c, lo, hi = gather_rows(segment_rows(q, seg_lo, seg_next), coeffs,
+                            seg_lo, seg_hi)                      # O(H)
+    return horner(c, scale_unit(q, lo, hi))
+
+
+def poly_eval(q, seg_lo, seg_next, seg_hi, coeffs):
+    """(Q,) P_{I(q)}(q) by one-hot membership against a (sentinel-padded)
+    segment table: K21 on CUDA tensors, the plain version on CPU tensors.
+    ``poly_eval.launches`` counts the kernel launches."""
+    if q.device.type == "cpu":
+        return poly_eval_plain(q, seg_lo, seg_next, seg_hi, coeffs)
+    dtype = _build.float_dtype("poly_eval", coeffs)
+    _build.require_cuda("poly_eval", q, seg_lo, seg_next, seg_hi, coeffs,
+                        dtype=dtype)
+    Q, H = q.shape[0], seg_lo.shape[0]
+    if (q.dim() != 1 or H < 1 or coeffs.dim() != 2 or coeffs.shape[0] != H
+            or any(t.shape != (H,) for t in (seg_next, seg_hi))):
+        raise ValueError("poly_eval: shape mismatch "
+                         f"{q.shape} {seg_lo.shape} {seg_next.shape} "
+                         f"{seg_hi.shape} {coeffs.shape}")
+    out = torch.empty(Q, dtype=dtype, device=q.device)
+    if Q:
+        _build.check(_build.launcher("poly_eval", dtype)(
+            q.data_ptr(), seg_lo.data_ptr(), seg_next.data_ptr(),
+            seg_hi.data_ptr(), coeffs.data_ptr(), out.data_ptr(), Q, H,
+            coeffs.shape[1] - 1, _build.stream(q.device)), "poly_eval")
+        poly_eval.launches += 1
+    return out
+
+
+poly_eval.launches = 0

@@ -19,7 +19,11 @@ MIN is served on negated aggregates by the caller.
 The max is exact, so the two agree bit for bit.  ``*_plain`` are the plain
 torch versions; the wrappers launch their kernels
 (``csrc/polyfit_kernels.cu`` for K3, ``csrc/scan1d.cu`` for K15) on CUDA
-tensors and run the plain versions on CPU tensors.
+tensors and run the plain versions on CPU tensors.  Both kernels take
+float64 tables and float32 ones (``kernels/ops.py``'s default), picked by
+``coeffs.dtype``; K3 casts the plan's sparse table (kept at the index's
+float64) to that type first, as the reference does: the cast rounds each
+entry monotonically, so it commutes with the max.
 """
 from __future__ import annotations
 
@@ -37,6 +41,7 @@ __all__ = ["range_max_gather_plain", "range_max_gather", "range_max_plain",
 
 def range_max_gather_plain(lq, uq, seg_lo, seg_hi, coeffs, st):
     """Plain torch version of K3, in the kernel's order of operations."""
+    st = st.to(coeffs.dtype)
     il = locate_segments(seg_lo, lq)
     iu = locate_segments(seg_lo, uq)
     lo_l, hi_l = seg_lo[il], seg_hi[il]
@@ -72,7 +77,10 @@ def range_max_gather(lq, uq, seg_lo, seg_hi, coeffs, st):
     deg = _check_deg("range_max_gather", coeffs)
     if lq.device.type == "cpu":
         return range_max_gather_plain(lq, uq, seg_lo, seg_hi, coeffs, st)
-    _build.require_cuda("range_max_gather", lq, uq, seg_lo, seg_hi, coeffs, st)
+    dtype = _build.float_dtype("range_max_gather", coeffs)
+    st = st.to(dtype)
+    _build.require_cuda("range_max_gather", lq, uq, seg_lo, seg_hi, coeffs, st,
+                        dtype=dtype)
     Q, H = lq.shape[0], seg_lo.shape[0]
     if (uq.shape[0] != Q or seg_hi.shape[0] != H or coeffs.shape[0] != H
             or H < 1 or st.dim() != 2 or st.shape[1] < 1):
@@ -81,7 +89,7 @@ def range_max_gather(lq, uq, seg_lo, seg_hi, coeffs, st):
                          f"{seg_hi.shape} {coeffs.shape} {st.shape}")
     out = torch.empty(Q, dtype=coeffs.dtype, device=lq.device)
     if Q:
-        _build.check(_build.library().polyfit_range_max_gather(
+        _build.check(_build.launcher("range_max_gather", dtype)(
             lq.data_ptr(), uq.data_ptr(), seg_lo.data_ptr(),
             seg_hi.data_ptr(), coeffs.data_ptr(), st.data_ptr(),
             out.data_ptr(), Q, H, deg, st.shape[1],
@@ -133,8 +141,9 @@ def range_max(lq, uq, seg_lo, seg_next, seg_hi, coeffs, seg_agg):
     if lq.device.type == "cpu":
         return range_max_plain(lq, uq, seg_lo, seg_next, seg_hi, coeffs,
                                seg_agg)
+    dtype = _build.float_dtype("range_max", coeffs)
     _build.require_cuda("range_max", lq, uq, seg_lo, seg_next, seg_hi, coeffs,
-                        seg_agg)
+                        seg_agg, dtype=dtype)
     Q, H = lq.shape[0], seg_lo.shape[0]
     if (uq.shape[0] != Q or H < 1 or coeffs.shape[0] != H
             or any(t.shape[0] != H for t in (seg_next, seg_hi, seg_agg))):
@@ -144,7 +153,7 @@ def range_max(lq, uq, seg_lo, seg_next, seg_hi, coeffs, seg_agg):
                          f"{seg_agg.shape}")
     out = torch.empty(Q, dtype=coeffs.dtype, device=lq.device)
     if Q:
-        _build.check(_build.library().polyfit_range_max(
+        _build.check(_build.launcher("range_max", dtype)(
             lq.data_ptr(), uq.data_ptr(), seg_lo.data_ptr(),
             seg_next.data_ptr(), seg_hi.data_ptr(), coeffs.data_ptr(),
             seg_agg.data_ptr(), out.data_ptr(), Q, H, deg,

@@ -18,7 +18,9 @@ Both read the same rows, so on in-domain queries they agree bit for bit.
 ``*_plain`` are the plain torch versions, in the kernels' order of
 operations; the wrappers launch their kernels (``csrc/polyfit_kernels.cu``
 for K2, ``csrc/scan1d.cu`` for K14) on CUDA tensors and run the plain
-versions on CPU tensors.
+versions on CPU tensors.  Both kernels take float64 tables (the engine's)
+and float32 ones (``kernels/ops.py``'s default): the wrapper picks the
+instantiation by ``coeffs.dtype`` and every argument must share it.
 """
 from __future__ import annotations
 
@@ -49,7 +51,9 @@ def range_sum_gather(lq, uq, seg_lo, seg_hi, coeffs):
     ``range_sum_gather.launches`` counts the kernel launches."""
     if lq.device.type == "cpu":
         return range_sum_gather_plain(lq, uq, seg_lo, seg_hi, coeffs)
-    _build.require_cuda("range_sum_gather", lq, uq, seg_lo, seg_hi, coeffs)
+    dtype = _build.float_dtype("range_sum_gather", coeffs)
+    _build.require_cuda("range_sum_gather", lq, uq, seg_lo, seg_hi, coeffs,
+                        dtype=dtype)
     Q, H = lq.shape[0], seg_lo.shape[0]
     if uq.shape[0] != Q or seg_hi.shape[0] != H or coeffs.shape[0] != H or H < 1:
         raise ValueError("range_sum_gather: shape mismatch "
@@ -57,7 +61,7 @@ def range_sum_gather(lq, uq, seg_lo, seg_hi, coeffs):
                          f"{seg_hi.shape} {coeffs.shape}")
     out = torch.empty(Q, dtype=coeffs.dtype, device=lq.device)
     if Q:
-        _build.check(_build.library().polyfit_range_sum_gather(
+        _build.check(_build.launcher("range_sum_gather", dtype)(
             lq.data_ptr(), uq.data_ptr(), seg_lo.data_ptr(),
             seg_hi.data_ptr(), coeffs.data_ptr(), out.data_ptr(), Q, H,
             coeffs.shape[1] - 1, _build.stream(lq.device)),
@@ -107,7 +111,9 @@ def range_sum(lq, uq, seg_lo, seg_next, seg_hi, coeffs):
     on CPU tensors.  ``range_sum.launches`` counts the kernel launches."""
     if lq.device.type == "cpu":
         return range_sum_plain(lq, uq, seg_lo, seg_next, seg_hi, coeffs)
-    _build.require_cuda("range_sum", lq, uq, seg_lo, seg_next, seg_hi, coeffs)
+    dtype = _build.float_dtype("range_sum", coeffs)
+    _build.require_cuda("range_sum", lq, uq, seg_lo, seg_next, seg_hi, coeffs,
+                        dtype=dtype)
     Q, H = lq.shape[0], seg_lo.shape[0]
     if (uq.shape[0] != Q or seg_next.shape[0] != H or seg_hi.shape[0] != H
             or coeffs.shape[0] != H or H < 1):
@@ -116,7 +122,7 @@ def range_sum(lq, uq, seg_lo, seg_next, seg_hi, coeffs):
                          f"{seg_next.shape} {seg_hi.shape} {coeffs.shape}")
     out = torch.empty(Q, dtype=coeffs.dtype, device=lq.device)
     if Q:
-        _build.check(_build.library().polyfit_range_sum(
+        _build.check(_build.launcher("range_sum", dtype)(
             lq.data_ptr(), uq.data_ptr(), seg_lo.data_ptr(),
             seg_next.data_ptr(), seg_hi.data_ptr(), coeffs.data_ptr(),
             out.data_ptr(), Q, H, coeffs.shape[1] - 1,

@@ -5,7 +5,8 @@ membership rule one_hot[q, j] = (seg_lo[j] <= q) & (q < seg_next[j]) of the
 scan kernels, with a dense interior reduction for MAX, the dense
 membership oracles of the 1-D and 2-D delta-buffer corrections (over
 (Q, cap) in chunks of queries; the 1-D ones are also the plain versions
-of kernels K16 and K17), and the 2-D flat-leaf one-hot
+of kernels K16 and K17, the 2-D COUNT and dominance ones of K18 and K20),
+and the 2-D flat-leaf one-hot
 oracles (``leaf_eval2d_ref``, ``corner_count2d_ref``: the reference's
 one-hot matmul gather, in chunks of queries).  The engine's ``ref``
 backend runs these; its ``torch`` backend runs the 2-D delta oracles too,

@@ -13,11 +13,20 @@ mode, equal their plain versions and their gather twins exactly (K16 on
 a SUM log within 1e-12 of the lane's sum of |measure|: the plain product
 may add in another order), and the ``cuda_scan`` backend equals ``cuda``
 bit for bit, static, dynamic, windowed and through the session.  The
+two-key scans K18 (buffered COUNT), K19 (buffered SUM, added in slot
+order as its plain version adds) and K20 (buffered dominance MAX) equal
+their plain versions exactly, and a ``DynamicEngine2D`` on ``cuda_scan``
+runs them (no K9-K11) and equals ``cuda`` (COUNT and MIN bit for bit, SUM
+to 1e-9).  K21 (``poly_eval``) and the float32 instantiations of K2, K3,
+K14, K15 and K21 equal their plain versions exactly; each wrapper picks
+its float32 or float64 launcher by the table's type, and every other
+kernel still rejects float32; ``kernels.ops`` runs them on the card.  The
 plain versions are held to the JAX reference by the CPU tests
 (test_torch_locate.py, test_torch_kernels.py, test_torch_engine.py,
 test_torch_quantile.py, test_torch_index2d.py, test_torch_engine2d.py,
-test_torch_dynamic2d.py, test_torch_scan.py), so this file imports no
-JAX: it runs on a machine with a card and PyTorch alone.
+test_torch_dynamic2d.py, test_torch_scan.py, test_torch_scan2d.py,
+test_torch_ops.py), so this file imports no JAX: it runs on a machine
+with a card and PyTorch alone.
 
     python -m pytest tests/test_torch_cuda.py -q      # skips without a card
 """
@@ -32,13 +41,15 @@ from repro_torch.data import (hki_series, make_queries_1d, make_queries_2d,
 from repro_torch.engine import (DeltaBuffer2D, DynamicEngine,
                                 DynamicEngine2D, Engine, WindowEngine,
                                 build_plan, build_plan_2d, execute_extremum,
-                                execute_quantile)
+                                execute_quantile, raw_sum)
 from repro_torch.engine.dynamic import _append_1d, _append_2d
 from repro_torch.engine.engine import quantile_mass, quantile_tables
 from repro_torch.engine.plan import big_sentinel
 from repro_torch.kernels import delta_scan as kdelta
 from repro_torch.kernels import leaf_eval2d as k2d
 from repro_torch.kernels import locate as kloc
+from repro_torch.kernels import ops
+from repro_torch.kernels import poly_eval as kp
 from repro_torch.kernels import quantile_invert as kq
 from repro_torch.kernels import range_max as kmax
 from repro_torch.kernels import range_sum as ksum
@@ -1068,3 +1079,279 @@ def test_scan_session_matches_cuda_session(cuda):
     for g, w in zip(got, dev.query(batch)):
         torch.testing.assert_close(g.value, w.value, rtol=0, atol=0)
         torch.testing.assert_close(g.refined, w.refined, rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# the two-key scans of 'cuda_scan': K18, K19, K20
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("fill", [0, 1, 2, CAP])
+def test_delta_2d_scan_kernels_match_plain(cuda, fill):
+    """K18, K19 and K20 equal their plain versions in every lane (K19 adds
+    in slot order, as its plain version does) and their merge-sort-tree
+    twins K9 and K11 exactly, K10 to 1e-9, on rectangles that are not
+    inverted."""
+    (x, y, w, ylv, wcum, wpmax), pts = _log2d(cuda, fill)
+    lx, ux, ly, uy = _rects2d(cuda, pts)
+    launches = lambda: (kdelta.delta_count2d.launches,
+                        kdelta.delta_sum2d.launches,
+                        kdelta.delta_dommax2d.launches)
+    before = launches()
+    k18 = kdelta.delta_count2d(lx, ux, ly, uy, x, y)
+    k19 = kdelta.delta_sum2d(lx, ux, ly, uy, x, y, w)
+    k20 = kdelta.delta_dommax2d(ux, uy, x, y, w)
+    torch.cuda.synchronize()
+    assert launches() == tuple(b + 1 for b in before)
+    exact = dict(rtol=0, atol=0)
+    torch.testing.assert_close(k18, kdelta.delta_count2d_plain(
+        lx, ux, ly, uy, x, y), **exact)
+    torch.testing.assert_close(k19, kdelta.delta_sum2d_plain(
+        lx, ux, ly, uy, x, y, w), **exact)
+    torch.testing.assert_close(k20, kdelta.delta_dommax2d_plain(
+        ux, uy, x, y, w), **exact)
+    ok = (lx <= ux) & (ly <= uy)
+    torch.testing.assert_close(k18[ok], kdelta.delta_count2d_gather(
+        lx, ux, ly, uy, x, ylv)[ok], **exact)
+    torch.testing.assert_close(k19[ok], kdelta.delta_sum2d_gather(
+        lx, ux, ly, uy, x, ylv, wcum)[ok], **TOL)
+    torch.testing.assert_close(k20, kdelta.delta_dommax2d_gather(
+        ux, uy, x, ylv, wpmax), **exact)
+    if fill == 0:
+        assert not k18.any() and not k19.any()
+        assert torch.isneginf(k20).all()
+    else:
+        assert float(k18[-2]) == fill   # the rectangle around every point
+
+
+def test_delta_2d_scan_kernels_reject_bad_arguments(cuda):
+    (x, y, w, _, _, _), pts = _log2d(cuda, 10)
+    lx, ux, ly, uy = _rects2d(cuda, pts, n=100)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        kdelta.delta_count2d(lx, ux, ly, uy, x, y[:-1])
+    with pytest.raises(ValueError, match="shape mismatch"):
+        kdelta.delta_sum2d(lx, ux[:50], ly, uy, x, y, w)
+    with pytest.raises(ValueError, match="CUDA device"):
+        kdelta.delta_dommax2d(ux, uy, x, y.cpu(), w)
+    with pytest.raises(ValueError, match="float64"):
+        kdelta.delta_sum2d(lx, ux, ly, uy, x, y, w.float())
+
+
+@pytest.mark.parametrize("agg", ["count2d", "sum2d", "min2d"])
+def test_dynamic2d_scan_backend_matches_cuda_backend(cuda, agg):
+    """DynamicEngine2D on 'cuda_scan': K18 (COUNT, both logs), K19 (SUM,
+    both logs) or K20 (dominance, the insert log) beside K12/K13, no K9-K11
+    and no merge-sort-tree levels in its buffer, and the 'cuda' engine's
+    answers (COUNT and MIN bit for bit, SUM to 1e-9) and refined flags
+    after inserts, deletes (shadowed victims on MIN), a flush and more
+    updates."""
+    px, py = osm_points(N2, seed=47)
+    w = 50 + 10 * np.sin(px / 10) + 10 * np.cos(py / 15)
+    delta = {"count2d": 20.0, "sum2d": 400.0, "min2d": 10.0}[agg]
+    idx = build_index_2d(px, py, measures=None if agg == "count2d" else w,
+                         agg=agg, deg=2, delta=delta, max_depth=6,
+                         device=cuda)
+    scan = DynamicEngine2D(idx, backend="cuda_scan", capacity=256,
+                           auto_refit=False)
+    dev = DynamicEngine2D(idx, capacity=256, auto_refit=False)
+    rng = np.random.default_rng(59)
+    if agg == "min2d":
+        ci = rng.integers(0, N2, 20_000)
+        ranges = (px[ci], py[ci])
+        scans = (kdelta.delta_dommax2d,)
+    else:
+        ranges = make_queries_2d(px, py, 20_000, seed=61)
+        scans = ((kdelta.delta_count2d,) if agg == "count2d"
+                 else (kdelta.delta_sum2d,))
+    gathers = (kdelta.delta_count2d_gather, kdelta.delta_sum2d_gather,
+               kdelta.delta_dommax2d_gather, k2d.corner_count2d_gather,
+               k2d.corner_eval2d_gather)
+    gone = rng.choice(N2, 24, replace=False)
+    x0, x1, y0, y1 = px.min(), px.max(), py.min(), py.max()
+
+    def update(step):
+        ins = (rng.uniform(x0, x1, 40), rng.uniform(y0, y1, 40),
+               rng.uniform(40, 60, 40))
+        out = gone[12 * step:12 * (step + 1)]
+        for dyn in (scan, dev):
+            dyn.insert(*(ins[:2] if agg == "count2d" else ins))
+            dyn.delete(px[out], py[out])
+
+    def compare():
+        big = big_sentinel(torch.float64)
+        assert bool((scan.snapshot()[1].ins_ylv == big).all())
+        for eps_rel in (None, 0.05):
+            before = [k.launches for k in scans + gathers]
+            got = scan.query(*ranges, eps_rel=eps_rel)
+            torch.cuda.synchronize()
+            want_scan = 1 if agg == "min2d" else 2
+            assert [k.launches for k in scans + gathers] == \
+                [before[0] + want_scan, *before[1:]]
+            want = dev.query(*ranges, eps_rel=eps_rel)
+            check = (dict(**TOL) if agg == "sum2d" else dict(rtol=0, atol=0))
+            torch.testing.assert_close(got.answer, want.answer, **check)
+            torch.testing.assert_close(got.refined, want.refined, rtol=0,
+                                       atol=0)
+
+    update(0)
+    compare()
+    scan.flush()
+    dev.flush()
+    assert scan.refit_count == dev.refit_count == 1
+    assert scan.last_refit_stats == dev.last_refit_stats
+    compare()
+    update(1)
+    compare()
+
+
+def test_scan_session_dynamic2d_table(cuda):
+    """A session's dynamic two-key table on 'cuda_scan' (it raised before
+    K18-K20) answers as the default 'cuda' session does."""
+    px, py = osm_points(N2, seed=5)
+    w = 50 + 10 * np.sin(px / 10) + 10 * np.cos(py / 15)
+    specs = {"pts": TableSpec("sum2d", ErrorBudget(abs=1600.0, rel=0.05),
+                              deg=2, dynamic=True, capacity=256,
+                              background=False)}
+    scan = PolyFit.fit({"pts": (px, py, w)}, specs, backend="cuda_scan")
+    dev = PolyFit.fit({"pts": (px, py, w)}, specs)
+    rect = make_queries_2d(px, py, 5000, seed=3)
+    for s in (scan, dev):
+        s.insert("pts", px[:16] + 0.01, py[:16] + 0.01, w[:16])
+        s.delete("pts", px[16:24], py[16:24])
+    before = kdelta.delta_sum2d.launches
+    got = scan.query(QuerySpec.rect("pts", *rect))
+    torch.cuda.synchronize()
+    assert kdelta.delta_sum2d.launches == before + 2
+    want = dev.query(QuerySpec.rect("pts", *rect))
+    torch.testing.assert_close(got.value, want.value, **TOL)
+    torch.testing.assert_close(got.refined, want.refined, rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# K21 and the float32 instantiations of K2, K3, K14, K15 and K21
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def ops_tables(cuda):
+    """``ops.from_index`` tables at float32 and float64 on the card: SUM
+    deg 1-4, MAX deg 2-3 (tests/test_kernels.py's data at n 8,000)."""
+    rng = np.random.default_rng(0)
+    keys = np.sort(rng.uniform(0, 1000, 8000))
+    sums = rng.uniform(0, 10, 8000)
+    walk = np.abs(np.cumsum(rng.normal(0, 5, 8000))) + 10
+    out = {}
+    for agg, deg in (("sum", 1), ("sum", 2), ("sum", 3), ("sum", 4),
+                     ("max", 2), ("max", 3)):
+        idx = build_index_1d(keys, sums if agg == "sum" else walk, agg,
+                             deg=deg, delta=30.0 if agg == "sum" else 15.0,
+                             device=cuda)
+        for dt in (torch.float32, torch.float64):
+            out[agg, deg, dt] = ops.from_index(idx, dt)
+    return keys, sums, out
+
+
+def _ops_queries(cuda, keys, dt, n=70_001):
+    rng = np.random.default_rng(3)
+    a, b = keys[rng.integers(0, len(keys), (2, n))]
+    return tuple(torch.maximum(torch.as_tensor(q, dtype=dt, device=cuda),
+                               torch.tensor(keys[0], dtype=dt, device=cuda))
+                 for q in (np.minimum(a, b), np.maximum(a, b)))
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+@pytest.mark.parametrize("deg", [1, 2, 3, 4])
+def test_poly_eval_and_range_sum_kernels_match_plain(cuda, ops_tables, dt,
+                                                     deg):
+    """K21, K2 and K14 at the table's type equal their plain versions in
+    every lane (K14 and K2 each other), output in that type."""
+    keys, _, tabs = ops_tables
+    t = tabs["sum", deg, dt]
+    lq, uq = _ops_queries(cuda, keys, dt)
+    args = (uq, t.seg_lo, t.seg_next, t.seg_hi, t.coeffs)
+    counts = lambda: (kp.poly_eval.launches, ksum.range_sum_gather.launches,
+                      ksum.range_sum.launches)
+    before = counts()
+    k21 = kp.poly_eval(*args)
+    k2 = ksum.range_sum_gather(lq, uq, t.seg_lo, t.seg_hi, t.coeffs)
+    k14 = ksum.range_sum(lq, uq, t.seg_lo, t.seg_next, t.seg_hi, t.coeffs)
+    torch.cuda.synchronize()
+    assert counts() == tuple(b + 1 for b in before)
+    assert k21.dtype == k2.dtype == k14.dtype == dt
+    exact = dict(rtol=0, atol=0)
+    torch.testing.assert_close(k21, kp.poly_eval_plain(*args), **exact)
+    torch.testing.assert_close(k2, ksum.range_sum_gather_plain(
+        lq, uq, t.seg_lo, t.seg_hi, t.coeffs), **exact)
+    torch.testing.assert_close(k14, ksum.range_sum_plain(
+        lq, uq, t.seg_lo, t.seg_next, t.seg_hi, t.coeffs), **exact)
+    torch.testing.assert_close(k14, k2, **exact)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+@pytest.mark.parametrize("deg", [2, 3])
+def test_range_max_kernels_match_plain_by_type(cuda, ops_tables, dt, deg):
+    """K3 (its float64 sparse table cast to the table's type) and K15 at
+    the table's type equal their plain versions and each other."""
+    keys, _, tabs = ops_tables
+    t = tabs["max", deg, dt]
+    lq, uq = _ops_queries(cuda, keys, dt)
+    before = (kmax.range_max_gather.launches, kmax.range_max.launches)
+    k3 = kmax.range_max_gather(lq, uq, t.seg_lo, t.seg_hi, t.coeffs, t.st)
+    k15 = kmax.range_max(lq, uq, t.seg_lo, t.seg_next, t.seg_hi, t.coeffs,
+                         t.seg_agg)
+    torch.cuda.synchronize()
+    assert (kmax.range_max_gather.launches,
+            kmax.range_max.launches) == (before[0] + 1, before[1] + 1)
+    assert k3.dtype == k15.dtype == dt
+    exact = dict(rtol=0, atol=0)
+    torch.testing.assert_close(k3, kmax.range_max_gather_plain(
+        lq, uq, t.seg_lo, t.seg_hi, t.coeffs, t.st), **exact)
+    torch.testing.assert_close(k15, kmax.range_max_plain(
+        lq, uq, t.seg_lo, t.seg_next, t.seg_hi, t.coeffs, t.seg_agg),
+        **exact)
+    torch.testing.assert_close(k15, k3, **exact)
+
+
+def test_ops_on_the_card(cuda, ops_tables):
+    """kernels.ops on the card: 'cuda' launches K21/K2/K3, 'cuda_scan'
+    K21/K14/K15, both bit for bit alike at float32 and float64, within the
+    float32 guarantee of numpy truth, and float64 'cuda' range SUM equal
+    to the engine's raw approximation (both K2)."""
+    keys, sums, tabs = ops_tables
+    rng = np.random.default_rng(1)
+    a, b = keys[rng.integers(0, len(keys), (2, 20_000))]
+    lq, uq = np.minimum(a, b), np.maximum(a, b)
+    for dt in (torch.float32, torch.float64):
+        s, m = tabs["sum", 2, dt], tabs["max", 3, dt]
+        counts = lambda: (kp.poly_eval.launches,
+                          ksum.range_sum_gather.launches,
+                          kmax.range_max_gather.launches,
+                          ksum.range_sum.launches, kmax.range_max.launches)
+        before = counts()
+        g = (ops.poly_eval(s, uq), ops.range_sum(s, lq, uq),
+             ops.range_max(m, lq, uq))
+        torch.cuda.synchronize()
+        assert counts() == (before[0] + 1, before[1] + 1, before[2] + 1,
+                            *before[3:])
+        before = counts()
+        c = (ops.poly_eval(s, uq, backend="cuda_scan"),
+             ops.range_sum(s, lq, uq, backend="cuda_scan"),
+             ops.range_max(m, lq, uq, backend="cuda_scan"))
+        torch.cuda.synchronize()
+        assert counts() == (before[0] + 1, *before[1:3], before[3] + 1,
+                            before[4] + 1)
+        for x, y in zip(g, c):
+            assert x.dtype == dt and x.device.type == "cuda"
+            torch.testing.assert_close(x, y, rtol=0, atol=0)
+    # the float32 guarantee against numpy truth (test_kernels.py:90)
+    cf = np.concatenate([[0.0], np.cumsum(sums)])
+    truth = (cf[np.searchsorted(keys, uq, side="right")]
+             - cf[np.searchsorted(keys, lq, side="right")])
+    got = ops.range_sum(tabs["sum", 2, torch.float32], lq, uq)
+    slack = cf[-1] * np.finfo(np.float32).eps * 8
+    assert np.abs(got.cpu().numpy() - truth).max() <= 2 * 30.0 + slack
+    # float64 'cuda' equals the engine's raw approximation: both are K2
+    s64 = tabs["sum", 2, torch.float64]
+    lqd, uqd = (torch.maximum(torch.as_tensor(q, device=cuda), s64.domain_lo)
+                for q in (lq, uq))
+    torch.testing.assert_close(ops.range_sum(s64, lq, uq),
+                               raw_sum(s64, lqd, uqd, backend="cuda"),
+                               rtol=0, atol=0)

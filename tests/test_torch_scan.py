@@ -25,8 +25,8 @@ the CPU, where its kernels run as their plain versions.
   on ``cuda_scan`` agree with the reference's ``pallas_scan`` at
   rtol = atol = 1e-9 with equal refined flags; the ``cuda_scan`` buffer
   keeps no sparse table.
-* ``cuda_scan`` refuses CPU plans, and dynamic two-key tables on it raise
-  naming the kernels K18-K20 that are still to port.
+* ``cuda_scan`` refuses CPU plans.  Its dynamic two-key tables (K18-K20)
+  are held in tests/test_torch_scan2d.py.
 
 The kernels themselves are held to these plain versions on the card by
 tests/test_torch_cuda.py.
@@ -50,12 +50,10 @@ from repro.kernels.delta_scan import (delta_max_pallas,  # noqa: E402
 from repro.kernels.quantile_invert import quantile_invert_pallas  # noqa: E402
 from repro.kernels.range_max import range_max_pallas  # noqa: E402
 from repro.kernels.range_sum import range_sum_pallas  # noqa: E402
-import repro_torch.api as tapi  # noqa: E402
-from repro_torch.core import (build_index_2d, index_from_numpy,  # noqa: E402
-                              rank_slack)
+from repro_torch.core import index_from_numpy, rank_slack  # noqa: E402
 from repro_torch.engine import (BACKENDS, DynamicEngine,  # noqa: E402
-                                DynamicEngine2D, Engine, WindowEngine,
-                                big_sentinel, execute, execute_quantile)
+                                Engine, WindowEngine, big_sentinel, execute,
+                                execute_quantile)
 from repro_torch.engine import engine as eng  # noqa: E402
 from repro_torch.engine import dynamic as dyn_mod  # noqa: E402
 from repro_torch.engine import lsm as lsm_mod  # noqa: E402
@@ -506,17 +504,3 @@ def test_scan_backend_is_listed_and_needs_a_card(tables):
         WindowEngine(np.arange(10.0), agg="count", delta=4.0,
                      backend="cuda_scan", device="cpu")
 
-
-def test_dynamic_2d_scan_raises_naming_k18_k20():
-    rng = np.random.default_rng(3)
-    px, py = rng.uniform(0, 10, (2, 300))
-    idx = build_index_2d(px, py, deg=1, delta=20.0, max_depth=4,
-                         device="cpu")
-    with pytest.raises(NotImplementedError, match="K18-K20"):
-        DynamicEngine2D(idx, backend="cuda_scan")
-    with pytest.raises(NotImplementedError, match="K18-K20"):
-        tapi.PolyFit.fit(
-            {"pts": (px, py)},
-            {"pts": tapi.TableSpec("count2d", tapi.ErrorBudget(abs=80.0),
-                                   dynamic=True)},
-            backend="cuda_scan", device="cpu")

@@ -1,0 +1,324 @@
+"""The two-key whole-log scans of the ``cuda_scan`` backend (K18-K20) on
+the CPU, where their wrappers run the plain versions.
+
+* The plain K18 (``delta_count2d``), K19 (``delta_sum2d``) and K20
+  (``delta_dommax2d``) against ``delta_count2d_pallas``,
+  ``delta_sum2d_pallas`` and ``delta_dommax2d_pallas`` in interpret mode at
+  log fills {0, 1, 2, cap}, inverted rectangles kept: K18 and K20 exactly,
+  K19 within 1e-12 x the log's sum of |measure| (the Pallas tiles add
+  their one-hot products in another order than K19's slot order).  The
+  same against the dense oracles of ``kernels/ref.py`` (the same bars) and
+  against the merge-sort-tree twins K9-K11 on the same log: counts and
+  maxima exactly, sums at rtol = atol = 1e-9 (K10 differences prefix
+  sums), on rectangles that are not inverted (K9's and K10's inclusion-
+  exclusion is signed there).  K20 keeps a NaN measure as ``jnp.max``
+  does.
+* ``DynamicEngine2D`` on ``cuda_scan`` against the reference's
+  ``DynamicEngine2D(backend="pallas_scan")`` op for op (inserts, deletes,
+  shadowed victims on MIN, a flush, more updates; COUNT, SUM and MIN
+  tables; Q_abs and Q_rel): answers and raw answers at rtol = atol = 1e-9
+  with equal refined flags; against the port's own ``cuda`` route (K9-K11
+  through their plain versions) bit for bit on COUNT and MIN, at 1e-9 on
+  SUM.  The card backends refuse CPU plans, so ``card_route`` lifts that
+  check (as in tests/test_torch_scan.py) and every wrapper runs its plain
+  version.  The ``cuda_scan`` buffer builds no merge-sort-tree levels.
+* A session's dynamic two-key table on ``cuda_scan`` builds and answers
+  as the reference session on ``pallas_scan`` does (1e-9, refined flags
+  equal).
+
+The kernels themselves are held to these plain versions on the card by
+tests/test_torch_cuda.py.
+"""
+import numpy as np
+import pytest
+import jax
+import jax.numpy as jnp
+import torch
+
+jax.config.update("jax_enable_x64", True)
+
+import repro.api as rapi  # noqa: E402
+from repro.core import build_index_2d as r_build  # noqa: E402
+from repro.engine import DynamicEngine2D as RDyn  # noqa: E402
+from repro.kernels.delta_scan import (delta_count2d_pallas,  # noqa: E402
+                                      delta_dommax2d_pallas,
+                                      delta_sum2d_pallas)
+import repro_torch.api as tapi  # noqa: E402
+from repro_torch.api import session as ses_mod  # noqa: E402
+from repro_torch.core import index2d_from_numpy  # noqa: E402
+from repro_torch.engine import DeltaBuffer2D, DynamicEngine2D  # noqa: E402
+from repro_torch.engine import dynamic as dyn_mod  # noqa: E402
+from repro_torch.engine import engine as eng  # noqa: E402
+from repro_torch.engine import lsm as lsm_mod  # noqa: E402
+from repro_torch.engine import window as win_mod  # noqa: E402
+from repro_torch.engine.dynamic import _append_2d  # noqa: E402
+from repro_torch.engine.plan import big_sentinel  # noqa: E402
+from repro_torch.kernels import delta_scan as kd  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
+
+TOL = dict(rtol=1e-9, atol=1e-9)
+CAP = 128
+BQ = 128
+
+
+@pytest.fixture
+def card_route(monkeypatch):
+    """Let the card backends run CPU plans (engines and sessions): every
+    kernel wrapper then takes its plain version, as it does on CPU
+    tensors, and the dispatch under test is the card's."""
+    lift = lambda backend, device: ("torch" if backend is None else backend)
+    for mod in (eng, dyn_mod, lsm_mod, win_mod, ses_mod):
+        monkeypatch.setattr(mod, "resolve_backend", lift)
+
+
+# ---------------------------------------------------------------------------
+# the plain kernels against the Pallas kernels (interpret mode)
+# ---------------------------------------------------------------------------
+
+def _log(fill, seed):
+    """A weighted, x-sorted CAP-slot point log of ``fill`` points (ties on
+    both axes) built by the port's append, with its merge-sort-tree levels
+    (for K9-K11), and the points."""
+    rng = np.random.default_rng(seed)
+    x = np.round(rng.uniform(0, 20, fill), 1)
+    y = np.round(rng.uniform(0, 20, fill), 1)
+    w = rng.normal(50, 10, fill)
+    e = DeltaBuffer2D.empty(CAP, weighted=True)
+    log = _append_2d(e.ins_x, e.ins_y, e.ins_w, torch.as_tensor(x),
+                     torch.as_tensor(y), torch.as_tensor(w), cap=CAP,
+                     levels=True, weighted=True)
+    return log, (x, y)
+
+
+def _rects(pts, seed):
+    """256 rectangles: 48 with corners on the points' own coordinates, 48
+    around one point each, random ones, one around the whole log, one left
+    of it, and eight inverted ones."""
+    x, y = pts
+    rng = np.random.default_rng(seed + 1)
+    a, b, c, d = rng.uniform(-2, 22, (4, 256))
+    if len(x):
+        k = rng.integers(0, len(x), 48)
+        a[:48], c[:48] = x[k], y[k]
+        b[:48], d[:48] = x[k[::-1]], y[k[::-1]]
+        k = rng.integers(0, len(x), 48)
+        a[48:96], b[48:96] = x[k] - rng.uniform(0.01, 3, (2, 48))
+        c[48:96], d[48:96] = y[k] - rng.uniform(0.01, 3, (2, 48))
+        b[48:96] += 2 * (x[k] - b[48:96])
+        d[48:96] += 2 * (y[k] - d[48:96])
+    lx, ux = np.minimum(a, b), np.maximum(a, b)
+    ly, uy = np.minimum(c, d), np.maximum(c, d)
+    lx[-10:-8], ux[-10:-8] = [-1e300, -5.0], [1e300, -1.0]
+    ly[-10:-8], uy[-10:-8] = [-1e300, -1e300], [1e300, 1e300]
+    lx[-8:], ux[-8:] = ux[-8:], lx[-8:]          # inverted
+    return lx, ux, ly, uy
+
+
+@pytest.mark.parametrize("fill", [0, 1, 2, CAP])
+def test_delta_2d_scan_plain_matches_pallas(fill):
+    (gx, gy, gw, ylv, wcum, wpmax), pts = _log(fill, seed=fill)
+    lx, ux, ly, uy = _rects(pts, seed=fill)
+    tq = [torch.as_tensor(q) for q in (lx, ux, ly, uy)]
+    jq = [jnp.asarray(q) for q in (lx, ux, ly, uy)]
+    jx, jy, jw = (jnp.asarray(t.numpy()) for t in (gx, gy, gw))
+    launches = lambda: (kd.delta_count2d.launches, kd.delta_sum2d.launches,
+                        kd.delta_dommax2d.launches)
+    before = launches()
+    k18 = kd.delta_count2d(*tq, gx, gy)
+    k19 = kd.delta_sum2d(*tq, gx, gy, gw)
+    k20 = kd.delta_dommax2d(tq[1], tq[3], gx, gy, gw)
+    assert launches() == before               # plain versions on the CPU
+    torch.testing.assert_close(k18, kd.delta_count2d_plain(*tq, gx, gy),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(k19, kd.delta_sum2d_plain(*tq, gx, gy, gw),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(k20, kd.delta_dommax2d_plain(
+        tq[1], tq[3], gx, gy, gw), rtol=0, atol=0)
+    scale = 1e-12 * float(gw.abs().sum())
+    want18 = delta_count2d_pallas(*jq, jx, jy, bq=BQ, interpret=True)
+    want19 = delta_sum2d_pallas(*jq, jx, jy, jw, bq=BQ, interpret=True)
+    want20 = delta_dommax2d_pallas(jq[1], jq[3], jx, jy, jw, bq=BQ,
+                                   interpret=True)
+    np.testing.assert_array_equal(k18.numpy(), np.asarray(want18))
+    assert np.all(np.abs(k19.numpy() - np.asarray(want19)) <= scale)
+    np.testing.assert_array_equal(k20.numpy(), np.asarray(want20))
+    # the dense oracles the 'torch' and 'ref' backends run
+    np.testing.assert_array_equal(
+        k18.numpy(), tref.delta_count2d_ref(*tq, gx, gy).numpy())
+    assert np.all(np.abs(k19.numpy() - tref.delta_sum2d_ref(
+        *tq, gx, gy, gw).numpy()) <= scale)
+    np.testing.assert_array_equal(
+        k20.numpy(), tref.delta_dommax2d_ref(tq[1], tq[3], gx, gy,
+                                             gw).numpy())
+    # the merge-sort-tree twins K9-K11 on the same log
+    ok = (lx <= ux) & (ly <= uy)
+    np.testing.assert_array_equal(
+        k18.numpy()[ok],
+        kd.delta_count2d_gather_plain(*tq, gx, ylv).numpy()[ok])
+    np.testing.assert_allclose(
+        k19.numpy()[ok],
+        kd.delta_sum2d_gather_plain(*tq, gx, ylv, wcum).numpy()[ok], **TOL)
+    np.testing.assert_array_equal(
+        k20.numpy(), kd.delta_dommax2d_gather_plain(tq[1], tq[3], gx, ylv,
+                                                    wpmax).numpy())
+    assert not k18.numpy()[~ok].any() and not k19.numpy()[~ok].any()
+    if fill == 0:
+        assert torch.isneginf(k20).all()
+    else:
+        assert float(k18[-10]) == fill   # the rectangle around every point
+        assert k18[48:96].min() > 0 and torch.isfinite(k20).any()
+
+
+def test_delta_dommax2d_plain_keeps_nan_as_pallas():
+    """A NaN measure wins every corner that dominates it, as in jnp.max."""
+    (gx, gy, gw, _, _, _), pts = _log(40, seed=7)
+    gw = gw.clone()
+    gw[11] = float("nan")
+    _, ux, _, uy = _rects(pts, seed=7)
+    got = kd.delta_dommax2d_plain(torch.as_tensor(ux), torch.as_tensor(uy),
+                                  gx, gy, gw).numpy()
+    want = np.asarray(delta_dommax2d_pallas(
+        jnp.asarray(ux), jnp.asarray(uy), *(jnp.asarray(t.numpy())
+                                            for t in (gx, gy, gw)),
+        bq=BQ, interpret=True))
+    np.testing.assert_array_equal(got, want)
+    hit = (float(gx[11]) <= ux) & (float(gy[11]) <= uy)
+    assert hit.any() and np.isnan(got[hit]).all()
+    assert not np.isnan(got[~hit]).any()
+
+
+def test_delta_2d_scan_wrappers_check_shapes():
+    q = torch.zeros(8, dtype=torch.float64)
+    s = torch.full((CAP,), big_sentinel(torch.float64), dtype=torch.float64)
+    with pytest.raises(ValueError, match="CUDA device"):
+        kd._scan2d_launch("delta_count2d", (q, q, q, q), (s, s))
+    out = kd.delta_count2d(q, q, q, q, s, s)
+    assert out.shape == (8,) and not out.any()
+    assert torch.isneginf(kd.delta_dommax2d(q, q, s, s, s * 0)).all()
+
+
+# ---------------------------------------------------------------------------
+# DynamicEngine2D on cuda_scan against the reference's pallas_scan
+# ---------------------------------------------------------------------------
+
+def _carry(ridx):
+    """A reference index carried into the port (its fields as numpy)."""
+    arr = lambda a: None if a is None else np.asarray(a)
+    ex = ridx.exact
+    fields = {f: arr(getattr(ridx, f)) for f in
+              ("children", "leaf_of", "bounds", "coeffs", "leaf_nodes",
+               "leaf_agg", "leaf_err", "measures_sorted")}
+    fields.update(deg=ridx.deg, delta=ridx.delta, max_depth=ridx.max_depth,
+                  root_bounds=ridx.root_bounds, n=ridx.n, agg=ridx.agg,
+                  extremal_floor=ridx.extremal_floor,
+                  exact=tuple(arr(a) for a in (ex.xs, ex.ys_levels,
+                                               ex.wcum_levels,
+                                               ex.wpmax_levels, ex.ws)))
+    return index2d_from_numpy(fields, "cpu")
+
+
+@pytest.fixture(scope="module")
+def setup2d():
+    """2,000 points over [0, 100]^2 with the reference tests' measure
+    surface, one reference index per aggregate, the update batches and
+    128 rectangles and corners."""
+    rng = np.random.default_rng(0x5CA2)
+    n = 2000
+    px, py = rng.uniform(0, 100, (2, n))
+    w = 50 + 10 * np.sin(px / 10) + 10 * np.cos(py / 15)
+    delta = {"count2d": 25.0, "sum2d": 400.0, "min2d": 6.0}
+    idx = {agg: r_build(px, py, measures=None if agg == "count2d" else w,
+                        agg=agg, deg=2, delta=delta[agg], max_depth=6)
+           for agg in delta}
+    ins = [(rng.uniform(5, 95, 24), rng.uniform(5, 95, 24),
+            rng.uniform(40, 60, 24)) for _ in range(2)]
+    gone = rng.choice(n, 16, replace=False)
+    a = rng.uniform(0, 80, 128)
+    c = rng.uniform(0, 80, 128)
+    rect = (a, a + rng.uniform(2, 30, 128), c, c + rng.uniform(2, 30, 128))
+    ci = rng.integers(0, n, 128)
+    return px, py, idx, ins, gone, rect, (px[ci], py[ci])
+
+
+@pytest.mark.parametrize("agg", ["count2d", "sum2d", "min2d"])
+def test_dynamic2d_scan_matches_reference(setup2d, card_route, agg):
+    px, py, idx, ins, gone, rect, corners = setup2d
+    kw = dict(capacity=CAP, auto_refit=False)
+    ref = RDyn(idx[agg], backend="pallas_scan", **kw)
+    scan = DynamicEngine2D(_carry(idx[agg]), backend="cuda_scan", **kw)
+    cuda = DynamicEngine2D(_carry(idx[agg]), backend="cuda", **kw)
+    assert scan.backend == "cuda_scan" and cuda.backend == "cuda"
+    ranges = corners if agg == "min2d" else rect
+    run = (lambda e, r: e.extremum2d(*ranges, eps_rel=r)) if agg == "min2d" \
+        else (lambda e, r: (e.count2d if agg == "count2d" else e.sum2d)(
+            *ranges, eps_rel=r))
+
+    def update(step):
+        x, y, w = ins[step]
+        out = gone[8 * step:8 * (step + 1)]
+        for e in (ref, scan, cuda):
+            e.insert(*((x, y) if agg == "count2d" else (x, y, w)))
+            e.delete(px[out], py[out])
+
+    def compare():
+        _, buf = scan.snapshot()
+        big = big_sentinel(torch.float64)
+        assert bool((buf.ins_ylv == big).all())     # no levels on cuda_scan
+        if agg == "min2d" and scan.n_pending:
+            assert buf.vic_x is not None            # shadowed victims
+        for eps_rel in (None, 0.05):
+            got = run(scan, eps_rel)
+            want = run(ref, eps_rel)
+            for f in ("answer", "approx"):
+                np.testing.assert_allclose(getattr(got, f).numpy(),
+                                           np.asarray(getattr(want, f)),
+                                           **TOL)
+            np.testing.assert_array_equal(got.refined.numpy(),
+                                          np.asarray(want.refined))
+            twin = run(cuda, eps_rel)
+            if agg == "sum2d":
+                np.testing.assert_allclose(got.answer.numpy(),
+                                           twin.answer.numpy(), **TOL)
+            else:
+                np.testing.assert_array_equal(got.answer.numpy(),
+                                              twin.answer.numpy())
+            np.testing.assert_array_equal(got.refined.numpy(),
+                                          twin.refined.numpy())
+
+    update(0)
+    compare()
+    for e in (ref, scan, cuda):
+        e.flush()
+    assert scan.refit_count == ref.refit_count == 1
+    assert scan.last_refit_stats == ref.last_refit_stats
+    compare()
+    update(1)
+    compare()
+
+
+def test_session_dynamic2d_table_on_scan_backend(setup2d, card_route):
+    """PolyFit.fit(backend='cuda_scan') with a dynamic two-key SUM table
+    (it raised before K18-K20) builds, takes an insert and a delete, and
+    answers Q_abs and Q_rel rectangles as the reference session on
+    'pallas_scan' does."""
+    px, py, _, ins, gone, rect, _ = setup2d
+    w = 50 + 10 * np.sin(px / 10) + 10 * np.cos(py / 15)
+    spec = lambda api: {"pts": api.TableSpec(
+        "sum2d", api.ErrorBudget(abs=1600.0, rel=0.05), deg=2, dynamic=True,
+        capacity=CAP, background=False)}
+    data = {"pts": (px, py, w)}
+    ref = rapi.PolyFit.fit(data, spec(rapi), backend="pallas_scan")
+    port = tapi.PolyFit.fit(data, spec(tapi), backend="cuda_scan",
+                            device="cpu")
+    assert port.backend == "cuda_scan"
+    for s in (ref, port):
+        s.insert("pts", *ins[0])
+        s.delete("pts", px[gone[:8]], py[gone[:8]])
+    for rel in (None, 0.05):
+        got = port.query(tapi.QuerySpec.rect("pts", *rect, rel=rel))
+        want = ref.query(rapi.QuerySpec.rect("pts", *rect, rel=rel))
+        np.testing.assert_allclose(got.value.numpy(), np.asarray(want.value),
+                                   **TOL)
+        np.testing.assert_array_equal(got.refined.numpy(),
+                                      np.asarray(want.refined))
+        assert got.staleness == want.staleness == 32
