@@ -2,8 +2,9 @@
 // thread per rank target.
 //
 // K4 quantile_invert_kernel  replaces repro/kernels/quantile_invert.py:quantile_invert_pallas
-//    (SCAN = false: the 'cuda' backend; SCAN = true: the reference's
-//    scan=True mode, the 'cuda_scan' backend)
+//    (the 'cuda' backend; quantile_scan_count_kernel and
+//    quantile_scan_finish_kernel are its scan=True mode, the 'cuda_scan'
+//    backend)
 //
 // The twin of repro_torch/core/quantile.py:certified_quantile_shifted, in
 // its order of operations (compiled with -fmad=false, as the plain torch
@@ -41,25 +42,50 @@
 // design does about it: nothing yet; one thread per target, the tables read
 // through L1/L2.
 //
-// The scan mode (SCAN = true) takes every count as the one-hot comparison
-// sum of the reference's scan=True: #(B < t + delta), #(B <= t - delta),
-// #(B < t) and #(ref_keys < x), each over the whole array.  On sorted
-// arrays the summed predicate is the binary search's, so both modes return
-// the same keys bit for bit.  The block's 256 targets walk each array in
-// tiles of 256 entries staged through shared memory (the three B counts in
-// one pass); that makes it bound by operations, 2 (3 Hp + nk) compares and
-// adds a target: at Q = 65,536 and a 200,000-key grid about 2.6e10, about
-// 0.8 ms at the FP64 peak, where the gather mode takes microseconds.
+// The scan mode (polyfit_quantile_invert_scan) takes every count as the
+// one-hot comparison sum of the reference's scan=True: #(B < t + delta),
+// #(B <= t - delta), #(B < t) and #(ref_keys < x), each over the whole
+// array.  On sorted arrays the summed predicate is the binary search's, so
+// both modes return the same keys bit for bit.  It is bound by operations,
+// 2 (3 Hp + nk) compares and adds a target: at Q = 65,536 on hki_sum's plan
+// (Hp 1,024, a 200,064-key grid) 2.67e10, 0.784 ms at the FP64 peak of 34
+// TFLOP/s, which counts an FMA as two operations.  Its design:
+//   - two kernels: a count kernel for the four counts, then a finish
+//     kernel that runs the three inversions, one thread a target;
+//   - the count kernel walks B and the key grid through the shared tile
+//     walker (scan_tile.cuh): 2,048 entries a tile, double-buffered
+//     cp.async copies, a full tile's loop of compile-time length;
+//   - a thread holds 4 targets, so one shared load serves four compares,
+//     each an f64 compare and an increment under its predicate (count_lt,
+//     count_le: the C++ `c += x < q` costs a select more);
+//   - the key grid, 99% of the work, is cut in up to 4 chunks of
+//     interleaved tiles along the grid's second dimension (512 blocks at
+//     Q = 65,536), each block walking all of B for the root it snaps; the
+//     finish kernel adds the integer partial counts (exact in any order).
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py): 1.232 ms
+// at hki_sum's plan (2.370 ms before the redesign), 64% of the bound; its
+// compare-and-increment loop alone reaches 44-46 pairs a clock an SM at 4
+// targets a thread (tools/scan_rates.py), the kernel about 42.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "locate.cuh"
+#include "scan_tile.cuh"
 
 namespace polyfit {
 namespace {
 
 constexpr int kThreads = 256;
+// the scan mode's shape: 128 threads of 4 targets a block, tiles of 2,048
+// entries (16 KB a buffer), the key grid split in up to 4 chunks: 512
+// blocks, about four an SM, at Q = 65,536
+constexpr int kScanThreads = 128;
+constexpr int kScanTargets = 4;
+constexpr int kScanTile = 2048;
+constexpr int kScanChunks = 4;
 // the largest plan degree K4 takes (kernels/quantile_invert.py MAX_DEG):
 // one instantiation per degree, the wrapper raises above it
 constexpr int kMaxQuantileDeg = 8;
@@ -218,34 +244,82 @@ __device__ __forceinline__ void load_row(const double* __restrict__ coeffs,
   for (int j = 0; j <= DEG; ++j) c[j] = row[j];
 }
 
-// #(keys[0:n] < q[e]) where left[e], else #(keys[0:n] <= q[e]), for each of
-// a thread's NC targets: one-hot comparison sums over tiles of the array
-// staged through shared memory, every thread of the block taking part
-template <int NC>
-__device__ void scan_counts(const double* __restrict__ keys, int n,
-                            const double (&q)[NC], const bool (&left)[NC],
-                            int (&c)[NC]) {
-  __shared__ double s_k[kThreads];
-#pragma unroll
-  for (int e = 0; e < NC; ++e) c[e] = 0;
-  for (int t0 = 0; t0 < n; t0 += kThreads) {
-    const int j = t0 + threadIdx.x;
-    if (j < n) s_k[threadIdx.x] = keys[j];
-    __syncthreads();
-    const int m = n - t0 < kThreads ? n - t0 : kThreads;
-    for (int k = 0; k < m; ++k) {
-      const double key = s_k[k];
-#pragma unroll
-      for (int e = 0; e < NC; ++e)
-        c[e] += left[e] ? (key < q[e] ? 1 : 0) : (key <= q[e] ? 1 : 0);
-    }
-    __syncthreads();
+// The three inversions of one target, given its counts: the upper end's
+// root (the point snapped up to the key grid), the snapped upper end from
+// the key count k = #(ref_keys < root), the lower end, and the answer.
+// Both modes run them; only the counts are taken differently.
+
+// upper end: certified against seg_err, the point to snap to the key grid
+template <int DEG>
+__device__ __forceinline__ double upper_root(
+    int s_hi, double th, const double* __restrict__ seg_lo,
+    const double* __restrict__ seg_hi, const double* __restrict__ coeffs,
+    const double* __restrict__ seg_err, int h) {
+  const int s = s_hi < h - 1 ? s_hi : h - 1;
+  const double lo = seg_lo[s], hi = seg_hi[s];
+  double x = hi;
+  if constexpr (DEG <= 3) {
+    double c[DEG + 1];
+    bool found;
+    load_row<DEG>(coeffs, s, c);
+    const double root = extreme_root<DEG>(c, th + seg_err[s], 1.0, &found);
+    x = unscale(found ? root : -1.0, lo, hi);
   }
+  return x;
 }
 
-// K4: (answer, lower, upper) per slack-shifted rank target; SCAN takes
-// every count by one-hot comparison sums instead of binary searches
-template <int DEG, bool SCAN>
+// the upper end snapped up to the key grid
+__device__ __forceinline__ double upper_end(int k, double th, double delta,
+                                            double b_top, double dom_hi,
+                                            const double* __restrict__ ref_keys,
+                                            int n) {
+  k = k < n - 1 ? k : n - 1;
+  return th + delta <= b_top ? ref_keys[k] : dom_hi;
+}
+
+// lower end: certified against seg_err, no snap
+template <int DEG>
+__device__ __forceinline__ double lower_end(
+    int s_lo, double tl, const double* __restrict__ seg_lo,
+    const double* __restrict__ seg_hi, const double* __restrict__ coeffs,
+    const double* __restrict__ seg_err, int h) {
+  int s = s_lo > 0 ? s_lo : 0;
+  s = s < h - 1 ? s : h - 1;
+  const double below = s > 0 ? seg_hi[s - 1] : seg_lo[0];
+  double x_lo = below;
+  if constexpr (DEG <= 3) {
+    double c[DEG + 1];
+    bool found;
+    load_row<DEG>(coeffs, s, c);
+    const double T = tl - seg_err[s];
+    const double tiny = 1e-9 * (fabs(T) + 1.0);
+    const double root = extreme_root<DEG>(c, T, -1.0, &found);
+    const bool start_ok = horner_r<DEG>(c, -1.0) <= T + tiny;
+    const double u = found ? root : 1.0;
+    x_lo = start_ok ? unscale(u, seg_lo[s], seg_hi[s]) : below;
+  }
+  return x_lo;
+}
+
+// answer: the raw fitted crossing (zero error), clipped into [lo, hi]
+template <int DEG>
+__device__ __forceinline__ double answer(
+    int s_mid, double tm, double x_lo, double x_hi, double b_top,
+    double dom_hi, const double* __restrict__ seg_lo,
+    const double* __restrict__ seg_hi, const double* __restrict__ coeffs,
+    int h) {
+  const int s = s_mid < h - 1 ? s_mid : h - 1;
+  double c[DEG + 1];
+  bool found;
+  load_row<DEG>(coeffs, s, c);
+  const double root = extreme_root<DEG>(c, tm, 1.0, &found);
+  const double x = unscale(found ? root : -1.0, seg_lo[s], seg_hi[s]);
+  return jclip(tm <= b_top ? x : dom_hi, x_lo, x_hi);
+}
+
+// K4, gather mode: (answer, lower, upper) per slack-shifted rank target,
+// every count by a binary search
+template <int DEG>
 __global__ void quantile_invert_kernel(
     const double* __restrict__ t_mid, const double* __restrict__ t_lo,
     const double* __restrict__ t_hi, const double* __restrict__ B,
@@ -255,133 +329,164 @@ __global__ void quantile_invert_kernel(
     double* __restrict__ out_lo, double* __restrict__ out_hi, int Q, int H,
     int h, int nk, int n, double delta) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (!SCAN && i >= Q) return;
-  const int r = i < Q ? i : Q - 1;   // scan: threads past Q still stage tiles
-  constexpr bool tight = DEG <= 3;
+  if (i >= Q) return;
   const double b_top = B[h - 1];
   const double dom_hi = seg_hi[h - 1];
-  const double th = t_hi[r], tl = t_lo[r], tm = t_mid[r];
-  double c[DEG + 1];
-  bool found;
-
+  const double th = t_hi[i], tl = t_lo[i], tm = t_mid[i];
   // the segment of each inversion: the first whose running-max endpoint
   // value clears the target (hi, mid), past every one at or below it (lo)
-  int s_hi, s_lo, s_mid;
-  if constexpr (SCAN) {
-    const double q[3] = {th + delta, tl - delta, tm};
-    const bool left[3] = {true, false, true};
-    int cnt[3];
-    scan_counts<3>(B, H, q, left, cnt);
-    s_hi = cnt[0], s_lo = cnt[1], s_mid = cnt[2];
-  } else {
-    s_hi = bsearch_count_left(B, H, th + delta);
-    s_lo = bsearch_count_right(B, H, tl - delta);
-    s_mid = bsearch_count_left(B, H, tm);
-  }
-
-  // upper end: certified against seg_err, snapped up to the key grid
-  double x_hi;
-  {
-    const int s = s_hi < h - 1 ? s_hi : h - 1;
-    const double lo = seg_lo[s], hi = seg_hi[s];
-    double x = hi;
-    if constexpr (tight) {
-      load_row<DEG>(coeffs, s, c);
-      const double root = extreme_root<DEG>(c, th + seg_err[s], 1.0, &found);
-      x = unscale(found ? root : -1.0, lo, hi);
-    }
-    int k;
-    if constexpr (SCAN) {
-      const double q[1] = {x};
-      const bool left[1] = {true};
-      int cnt[1];
-      scan_counts<1>(ref_keys, nk, q, left, cnt);
-      k = cnt[0];
-    } else {
-      k = bsearch_count_left(ref_keys, nk, x);
-    }
-    k = k < n - 1 ? k : n - 1;
-    x_hi = th + delta <= b_top ? ref_keys[k] : dom_hi;
-  }
-
-  // lower end: certified against seg_err, no snap
-  double x_lo;
-  {
-    int s = s_lo > 0 ? s_lo : 0;
-    s = s < h - 1 ? s : h - 1;
-    const double below = s > 0 ? seg_hi[s - 1] : seg_lo[0];
-    x_lo = below;
-    if constexpr (tight) {
-      load_row<DEG>(coeffs, s, c);
-      const double T = tl - seg_err[s];
-      const double tiny = 1e-9 * (fabs(T) + 1.0);
-      const double root = extreme_root<DEG>(c, T, -1.0, &found);
-      const bool start_ok = horner_r<DEG>(c, -1.0) <= T + tiny;
-      const double u = found ? root : 1.0;
-      x_lo = start_ok ? unscale(u, seg_lo[s], seg_hi[s]) : below;
-    }
-  }
-
-  // answer: the raw fitted crossing (zero error), clipped into [lo, hi]
-  double x_mid;
-  {
-    const int s = s_mid < h - 1 ? s_mid : h - 1;
-    load_row<DEG>(coeffs, s, c);
-    const double root = extreme_root<DEG>(c, tm, 1.0, &found);
-    const double x = unscale(found ? root : -1.0, seg_lo[s], seg_hi[s]);
-    x_mid = jclip(tm <= b_top ? x : dom_hi, x_lo, x_hi);
-  }
-
-  if (i >= Q) return;
-  out_mid[i] = x_mid;
+  const int s_hi = bsearch_count_left(B, H, th + delta);
+  const int s_lo = bsearch_count_right(B, H, tl - delta);
+  const int s_mid = bsearch_count_left(B, H, tm);
+  const double x = upper_root<DEG>(s_hi, th, seg_lo, seg_hi, coeffs,
+                                   seg_err, h);
+  const double x_hi = upper_end(bsearch_count_left(ref_keys, nk, x), th,
+                                delta, b_top, dom_hi, ref_keys, n);
+  const double x_lo = lower_end<DEG>(s_lo, tl, seg_lo, seg_hi, coeffs,
+                                     seg_err, h);
+  out_mid[i] = answer<DEG>(s_mid, tm, x_lo, x_hi, b_top, dom_hi, seg_lo,
+                           seg_hi, coeffs, h);
   out_lo[i] = x_lo;
   out_hi[i] = x_hi;
 }
 
-template <int DEG, bool SCAN>
-void launch(const void* t_mid, const void* t_lo, const void* t_hi,
-            const void* B, const void* seg_lo, const void* seg_hi,
-            const void* coeffs, const void* seg_err, const void* ref_keys,
-            void* out_mid, void* out_lo, void* out_hi, int Q, int H, int h,
-            int nk, int n, double delta, cudaStream_t stream) {
-  quantile_invert_kernel<DEG, SCAN><<<(Q + kThreads - 1) / kThreads, kThreads,
-                                      0, stream>>>(
-      (const double*)t_mid, (const double*)t_lo, (const double*)t_hi,
-      (const double*)B, (const double*)seg_lo, (const double*)seg_hi,
-      (const double*)coeffs, (const double*)seg_err, (const double*)ref_keys,
-      (double*)out_mid, (double*)out_lo, (double*)out_hi, Q, H, h, nk, n,
-      delta);
+// K4, scan mode: the same inversions, every count a one-hot comparison sum
+// over the whole array, in two kernels.  The count kernel gives a thread R
+// targets (i0 + r * THREADS); block (x, y) walks all of B for their counts
+// (row 0: #(B < th + delta), #(B <= tl - delta) and #(B < tm); the other
+// rows need only the first, for the root they snap), then the key grid's
+// tiles y, y + S, ... (S = gridDim.y chunks) for #(ref_keys < root), and
+// writes that partial count to row y of ``part`` ((S + 2, Q) int32; rows S
+// and S + 1 keep row 0's lower and answer counts).  The finish kernel adds
+// the S partial counts (integers: any order is exact) and runs the three
+// inversions, one thread a target.
+template <int DEG, int THREADS, int R, int TILE>
+__global__ void __launch_bounds__(THREADS) quantile_scan_count_kernel(
+    const double* __restrict__ t_mid, const double* __restrict__ t_lo,
+    const double* __restrict__ t_hi, const double* __restrict__ B,
+    const double* __restrict__ seg_lo, const double* __restrict__ seg_hi,
+    const double* __restrict__ coeffs, const double* __restrict__ seg_err,
+    const double* __restrict__ ref_keys, int* __restrict__ part, int Q,
+    int H, int h, int nk, double delta) {
+  extern __shared__ double2 s_tile[];
+  double* smem = (double*)s_tile;
+  const int i0 = blockIdx.x * (THREADS * R) + threadIdx.x;
+  const bool row0 = blockIdx.y == 0;
+  double th[R], q_hi[R], q_lo[R], q_mid[R];
+  int s_hi[R], s_lo[R], s_mid[R], k[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    // threads past Q still stage tiles
+    const int i = i0 + r * THREADS < Q ? i0 + r * THREADS : Q - 1;
+    th[r] = t_hi[i];
+    q_hi[r] = th[r] + delta;
+    q_lo[r] = t_lo[i] - delta;
+    q_mid[r] = t_mid[i];
+    s_hi[r] = s_lo[r] = s_mid[r] = k[r] = 0;
+  }
+  const double* b_src[1] = {B};
+  if (row0) {
+    walk_slots<1, TILE, false>(b_src, H, 0, 1, 0.0, smem, [&](const double b) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        count_lt(s_hi[r], b, q_hi[r]);
+        count_le(s_lo[r], b, q_lo[r]);
+        count_lt(s_mid[r], b, q_mid[r]);
+      }
+    });
+  } else {
+    walk_slots<1, TILE, false>(b_src, H, 0, 1, 0.0, smem, [&](const double b) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) count_lt(s_hi[r], b, q_hi[r]);
+    });
+  }
+  double x[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    x[r] = upper_root<DEG>(s_hi[r], th[r], seg_lo, seg_hi, coeffs, seg_err,
+                           h);
+  const double* k_src[1] = {ref_keys};
+  walk_slots<1, TILE, false>(k_src, nk, blockIdx.y, gridDim.y, 0.0, smem,
+                             [&](const double key) {
+#pragma unroll
+                               for (int r = 0; r < R; ++r)
+                                 count_lt(k[r], key, x[r]);
+                             });
+  const int S = gridDim.y;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = i0 + r * THREADS;
+    if (i >= Q) continue;
+    part[(size_t)blockIdx.y * Q + i] = k[r];
+    if (row0) {
+      part[(size_t)S * Q + i] = s_lo[r];
+      part[(size_t)(S + 1) * Q + i] = s_mid[r];
+    }
+  }
 }
 
-// one instantiation per degree 1..kMaxQuantileDeg
-template <bool SCAN>
-int dispatch(const void* t_mid, const void* t_lo, const void* t_hi,
-             const void* B, const void* seg_lo, const void* seg_hi,
-             const void* coeffs, const void* seg_err, const void* ref_keys,
-             void* out_mid, void* out_lo, void* out_hi, int Q, int H, int deg,
-             int h, int nk, int n, double delta, void* stream) {
-  if (Q <= 0) return (int)cudaGetLastError();
-  const cudaStream_t s = (cudaStream_t)stream;
+template <int DEG>
+__global__ void quantile_scan_finish_kernel(
+    const double* __restrict__ t_mid, const double* __restrict__ t_lo,
+    const double* __restrict__ t_hi, const double* __restrict__ B,
+    const double* __restrict__ seg_lo, const double* __restrict__ seg_hi,
+    const double* __restrict__ coeffs, const double* __restrict__ seg_err,
+    const double* __restrict__ ref_keys, const int* __restrict__ part,
+    double* __restrict__ out_mid, double* __restrict__ out_lo,
+    double* __restrict__ out_hi, int Q, int h, int n, int S, double delta) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= Q) return;
+  const double b_top = B[h - 1];
+  const double dom_hi = seg_hi[h - 1];
+  int k = 0;
+  for (int s = 0; s < S; ++s) k += part[(size_t)s * Q + i];
+  const double x_hi = upper_end(k, t_hi[i], delta, b_top, dom_hi, ref_keys,
+                                n);
+  const double x_lo = lower_end<DEG>(part[(size_t)S * Q + i], t_lo[i],
+                                     seg_lo, seg_hi, coeffs, seg_err, h);
+  out_mid[i] = answer<DEG>(part[(size_t)(S + 1) * Q + i], t_mid[i], x_lo,
+                           x_hi, b_top, dom_hi, seg_lo, seg_hi, coeffs, h);
+  out_lo[i] = x_lo;
+  out_hi[i] = x_hi;
+}
+
+// K4's scan mode in S chunks of the key grid: the count kernel, then the
+// finish kernel
+template <int DEG, int THREADS, int R, int TILE>
+void launch_scan(const double* t_mid, const double* t_lo, const double* t_hi,
+                 const double* B, const double* seg_lo, const double* seg_hi,
+                 const double* coeffs, const double* seg_err,
+                 const double* ref_keys, double* out_mid, double* out_lo,
+                 double* out_hi, int* part, int Q, int H, int h, int nk, int n,
+                 double delta, int S, cudaStream_t stream) {
+  constexpr int per_block = THREADS * R;
+  const dim3 grid((Q + per_block - 1) / per_block, S);
+  quantile_scan_count_kernel<DEG, THREADS, R, TILE>
+      <<<grid, THREADS, walk_smem_bytes<1, TILE>(), stream>>>(
+          t_mid, t_lo, t_hi, B, seg_lo, seg_hi, coeffs, seg_err, ref_keys,
+          part, Q, H, h, nk, delta);
+  quantile_scan_finish_kernel<DEG>
+      <<<(Q + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+          t_mid, t_lo, t_hi, B, seg_lo, seg_hi, coeffs, seg_err, ref_keys,
+          part, out_mid, out_lo, out_hi, Q, h, n, S, delta);
+}
+
+// run f(std::integral_constant<int, DEG>()) for the plan's degree: one
+// instantiation per degree 1..kMaxQuantileDeg
+template <typename F>
+int with_degree(int deg, F&& f) {
   static_assert(kMaxQuantileDeg == 8, "one case per degree below");
-#define POLYFIT_K4_CASE(D)                                                   \
-  case D:                                                                    \
-    launch<D, SCAN>(t_mid, t_lo, t_hi, B, seg_lo, seg_hi, coeffs, seg_err,   \
-                    ref_keys, out_mid, out_lo, out_hi, Q, H, h, nk, n, delta, \
-                    s);                                                      \
-    break;
   switch (deg) {
-    POLYFIT_K4_CASE(1)
-    POLYFIT_K4_CASE(2)
-    POLYFIT_K4_CASE(3)
-    POLYFIT_K4_CASE(4)
-    POLYFIT_K4_CASE(5)
-    POLYFIT_K4_CASE(6)
-    POLYFIT_K4_CASE(7)
-    POLYFIT_K4_CASE(8)
-    default:
-      return (int)cudaErrorInvalidValue;
+    case 1: f(std::integral_constant<int, 1>()); break;
+    case 2: f(std::integral_constant<int, 2>()); break;
+    case 3: f(std::integral_constant<int, 3>()); break;
+    case 4: f(std::integral_constant<int, 4>()); break;
+    case 5: f(std::integral_constant<int, 5>()); break;
+    case 6: f(std::integral_constant<int, 6>()); break;
+    case 7: f(std::integral_constant<int, 7>()); break;
+    case 8: f(std::integral_constant<int, 8>()); break;
+    default: return (int)cudaErrorInvalidValue;
   }
-#undef POLYFIT_K4_CASE
   return (int)cudaGetLastError();
 }
 
@@ -397,22 +502,44 @@ int polyfit_quantile_invert(const void* t_mid, const void* t_lo,
                             const void* ref_keys, void* out_mid, void* out_lo,
                             void* out_hi, int Q, int H, int deg, int h, int nk,
                             int n, double delta, void* stream) {
-  return polyfit::dispatch<false>(t_mid, t_lo, t_hi, B, seg_lo, seg_hi,
-                                  coeffs, seg_err, ref_keys, out_mid, out_lo,
-                                  out_hi, Q, H, deg, h, nk, n, delta, stream);
+  using namespace polyfit;
+  if (Q <= 0) return (int)cudaGetLastError();
+  return with_degree(deg, [&](auto d) {
+    quantile_invert_kernel<decltype(d)::value>
+        <<<(Q + kThreads - 1) / kThreads, kThreads, 0,
+           (cudaStream_t)stream>>>(
+            (const double*)t_mid, (const double*)t_lo, (const double*)t_hi,
+            (const double*)B, (const double*)seg_lo, (const double*)seg_hi,
+            (const double*)coeffs, (const double*)seg_err,
+            (const double*)ref_keys, (double*)out_mid, (double*)out_lo,
+            (double*)out_hi, Q, H, h, nk, n, delta);
+  });
 }
 
+int polyfit_quantile_scan_chunks(int nk) {
+  return polyfit::walk_chunks<polyfit::kScanTile>(nk, polyfit::kScanChunks);
+}
+
+// ``part``: (S + 2, Q) int32 scratch, S = polyfit_quantile_scan_chunks(nk)
 int polyfit_quantile_invert_scan(const void* t_mid, const void* t_lo,
                                  const void* t_hi, const void* B,
                                  const void* seg_lo, const void* seg_hi,
                                  const void* coeffs, const void* seg_err,
                                  const void* ref_keys, void* out_mid,
-                                 void* out_lo, void* out_hi, int Q, int H,
-                                 int deg, int h, int nk, int n, double delta,
-                                 void* stream) {
-  return polyfit::dispatch<true>(t_mid, t_lo, t_hi, B, seg_lo, seg_hi,
-                                 coeffs, seg_err, ref_keys, out_mid, out_lo,
-                                 out_hi, Q, H, deg, h, nk, n, delta, stream);
+                                 void* out_lo, void* out_hi, void* part, int Q,
+                                 int H, int deg, int h, int nk, int n,
+                                 double delta, void* stream) {
+  using namespace polyfit;
+  if (Q <= 0) return (int)cudaGetLastError();
+  return with_degree(deg, [&](auto d) {
+    launch_scan<decltype(d)::value, kScanThreads, kScanTargets, kScanTile>(
+        (const double*)t_mid, (const double*)t_lo, (const double*)t_hi,
+        (const double*)B, (const double*)seg_lo, (const double*)seg_hi,
+        (const double*)coeffs, (const double*)seg_err,
+        (const double*)ref_keys, (double*)out_mid, (double*)out_lo,
+        (double*)out_hi, (int*)part, Q, H, h, nk, n, delta,
+        walk_chunks<kScanTile>(nk, kScanChunks), (cudaStream_t)stream);
+  });
 }
 
 }  // extern "C"

@@ -1,5 +1,6 @@
 // PolyFit one-key one-hot scan kernels for Hopper (sm_90a), one thread per
-// query: the 'cuda_scan' backend, and K21 (kernels/ops.py poly_eval).
+// query (K16: four): the 'cuda_scan' backend, and K21 (kernels/ops.py
+// poly_eval).
 //
 // K14 range_sum_kernel  replaces repro/kernels/range_sum.py:range_sum_pallas
 // K15 range_max_kernel  replaces repro/kernels/range_max.py:range_max_pallas
@@ -39,21 +40,46 @@
 // the first segment that holds the query, and a zero row when none does.
 // K14 and K15 then read the very rows K2 and K3 locate, and the interior
 // max is exact, so they agree with the gather kernels bit for bit.  K16
-// adds the members' measures in log order; the plain version's one-hot
-// product may add them in another order, which changes nothing on a COUNT
-// log (integers) and at most a few ulps of the lane's sum of |measure| on
-// a SUM log.
+// adds each chunk's members in slot order and the chunk sums in chunk
+// order (below); the plain version's one-hot product may add them in
+// another order, which changes nothing on a COUNT log (integers) and at
+// most a few ulps of the lane's sum of |measure| on a SUM log.
 //
-// What bounds them on an H100: operations.  A block of 256 queries walks
-// the table in tiles of 256 entries staged through shared memory (the
-// table read once a block from L2), and each thread tests its query
-// against every entry: K14 two endpoints x 2 compares, K21 one endpoint x
-// 2, K15 6 compares and a max, K16 and K17 2 compares and an add or a max
-// a (query, entry) pair.  At Q = 65,536 against a 131,072-slot log that is
-// about 2.6e10 f64 operations for K16, about 0.8 ms at the FP64 peak; the
-// bytes (the queries and the table once) take microseconds.  What the
-// design does about it: nothing more yet; the tile's entries are broadcast
-// from shared memory, one compare-and-select chain a thread.
+// What bounds them on an H100: operations.  K14, K15, K17 and K21: a
+// block of 256 queries walks the table in tiles of 256 entries staged
+// through shared memory (the table read once a block from L2), and each
+// thread tests its query against every entry, one compare-and-select chain
+// a thread: K14 two endpoints x 2 compares, K21 one endpoint x 2, K15 6
+// compares and a max, K17 2 compares and a max a (query, entry) pair.
+//
+// K16 does 2 compares, a select and an add a (query, live slot) pair: at
+// Q = 65,536 against 4,096 live slots 8.05e8 f64 operations, 0.0237 ms at
+// the FP64 peak of 34 TFLOP/s.  That peak counts an FMA as two operations;
+// the compares and the add issue at one f64 operation a lane a clock, so
+// half of it (0.047 ms) is already all the FP64 pipe can issue for this
+// compare-compare-add, and the select takes the integer pipe besides.  Its
+// design:
+//   - the log is sorted with a sentinel tail of value 0 (DeltaBuffer), and
+//     a block stops at its first tile that starts on the sentinel: the
+//     window's open epoch, 4,096 live slots of 131,072, costs 4 tiles, not
+//     128 (every live slot is still tested against every query);
+//   - the shared tile walker (scan_tile.cuh) stages key and value side by
+//     side, 1,024 slots a tile, through double-buffered cp.async copies, so
+//     the next tile's copy overlaps this tile's compares, and a full tile
+//     runs a loop of compile-time length;
+//   - a thread holds 4 queries, so one 16-byte shared load serves four
+//     compare pairs;
+//   - the log is cut in up to 4 chunks of interleaved tiles along the
+//     grid's second dimension (512 blocks at Q = 65,536: R queries a thread
+//     alone would leave 128), and a second small kernel adds each query's
+//     chunk sums in chunk order: no atomics, so two launches give the same
+//     bits.
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py,
+// Q = 65,536): 0.0656 ms on the window's log (2.31 ms before the
+// redesign), 0.0497 ms on a dynamic log of 3,072 live slots in 4,096
+// (0.0730 before): 36% of the bound over the live slots.  The loop alone
+// reaches 16-18 pairs a clock an SM (tools/scan_rates.py) and the kernel
+// 15.5: the loop's three f64 instructions a pair, not the walker, hold it.
 //
 // Each launcher takes raw device pointers and the CUDA stream, launches on
 // that stream, and returns cudaGetLastError() (0 when the launch was
@@ -63,12 +89,23 @@
 #include <stdint.h>
 
 #include "locate.cuh"
+#include "scan_tile.cuh"
 
 namespace polyfit {
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kTile = kThreads;   // table entries staged per tile
+
+// K16's shape: 128 threads of 4 queries a block, tiles of 1,024 slots
+// (16 KB a buffer), the log split in up to 4 chunks: 512 blocks, about
+// four an SM, at Q = 65,536 on a log of four tiles or more
+constexpr int kDeltaThreads = 128;
+constexpr int kDeltaQueries = 4;
+constexpr int kDeltaTile = 1024;
+constexpr int kDeltaChunks = 4;
+
+inline int blocks_for(int Q) { return (Q + kThreads - 1) / kThreads; }
 
 // P(u) of segment row ``row``, or of a zero row when row < 0, by Horner
 // from the top coefficient (core/poly.py horner on the gathered row)
@@ -188,33 +225,73 @@ __global__ void range_max_kernel(const T* __restrict__ lq,
   out[i] = jmax(jmax(m_left, m_right), m_int);
 }
 
-// K16: sum of the buffered measures with key in (lq, uq]; sentinel slots
-// never match
-__global__ void delta_sum_kernel(const double* __restrict__ lq,
-                                 const double* __restrict__ uq,
-                                 const double* __restrict__ keys,
-                                 const double* __restrict__ vals,
-                                 double* __restrict__ out, int Q, int D) {
-  __shared__ double s_k[kTile], s_v[kTile];
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int r = i < Q ? i : Q - 1;
-  const double l = lq[r], u = uq[r];
-  double acc = 0.0;
-  for (int t0 = 0; t0 < D; t0 += kTile) {
-    const int j = t0 + threadIdx.x;
-    if (j < D) {
-      s_k[threadIdx.x] = keys[j];
-      s_v[threadIdx.x] = vals[j];
-    }
-    __syncthreads();
-    const int n = D - t0 < kTile ? D - t0 : kTile;
-    for (int k = 0; k < n; ++k) {
-      const double key = s_k[k];
-      acc = acc + ((l < key && key <= u) ? s_v[k] : 0.0);
-    }
-    __syncthreads();
+// K16: sum of the buffered measures with key in (lq, uq].  A thread adds
+// its R queries' members; block (x, y) walks the log's tiles y, y + S,
+// y + 2S, ... (S = gridDim.y chunks) in slot order and writes its partial
+// sums to row y of ``part``.  The log is sorted with a sentinel tail of
+// value 0 (DeltaBuffer): each block stops at its first tile that starts
+// on the sentinel.
+template <int THREADS, int R, int TILE>
+__global__ void __launch_bounds__(THREADS)
+    delta_sum_kernel(const double* __restrict__ lq,
+                     const double* __restrict__ uq,
+                     const double* __restrict__ keys,
+                     const double* __restrict__ vals,
+                     double* __restrict__ part, int Q, int D,
+                     double sentinel) {
+  extern __shared__ double2 s_kv[];
+  const int i0 = blockIdx.x * (THREADS * R) + threadIdx.x;
+  double l[R], u[R], acc[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    // threads past Q still stage tiles
+    const int i = i0 + r * THREADS < Q ? i0 + r * THREADS : Q - 1;
+    l[r] = lq[i];
+    u[r] = uq[i];
+    acc[r] = 0.0;
   }
-  if (i < Q) out[i] = acc;
+  const double* src[2] = {keys, vals};
+  walk_slots<2, TILE, true>(
+      src, D, blockIdx.y, gridDim.y, sentinel, (double*)s_kv,
+      [&](const double2 kv) {
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          acc[r] = acc[r] + ((l[r] < kv.x && kv.x <= u[r]) ? kv.y : 0.0);
+      });
+  double* row = part + (size_t)blockIdx.y * Q;
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    if (i0 + r * THREADS < Q) row[i0 + r * THREADS] = acc[r];
+}
+
+// K16's combine: the S chunk sums of each query added in chunk order
+__global__ void delta_sum_combine_kernel(const double* __restrict__ part,
+                                         double* __restrict__ out, int Q,
+                                         int S) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= Q) return;
+  double acc = part[i];
+  for (int s = 1; s < S; ++s) acc = acc + part[(size_t)s * Q + i];
+  out[i] = acc;
+}
+
+// K16 in S chunks: the chunk sums go to ``part`` ((S, Q), unused when
+// S = 1), then the combine writes ``out``
+template <int THREADS, int R, int TILE>
+int launch_delta_sum(const void* lq, const void* uq, const void* keys,
+                     const void* vals, void* out, void* part, int Q, int D,
+                     double sentinel, int S, cudaStream_t stream) {
+  constexpr int per_block = THREADS * R;
+  const dim3 grid((Q + per_block - 1) / per_block, S);
+  delta_sum_kernel<THREADS, R, TILE>
+      <<<grid, THREADS, walk_smem_bytes<2, TILE>(), stream>>>(
+          (const double*)lq, (const double*)uq, (const double*)keys,
+          (const double*)vals, (double*)(S > 1 ? part : out), Q, D,
+          sentinel);
+  if (S > 1)
+    delta_sum_combine_kernel<<<blocks_for(Q), kThreads, 0, stream>>>(
+        (const double*)part, (double*)out, Q, S);
+  return (int)cudaGetLastError();
 }
 
 // K17: max of the buffered measures with key in [lq, uq]; -inf when none
@@ -244,8 +321,6 @@ __global__ void delta_max_kernel(const double* __restrict__ lq,
   }
   if (i < Q) out[i] = acc;
 }
-
-inline int blocks_for(int Q) { return (Q + kThreads - 1) / kThreads; }
 
 template <typename T, int E>
 int launch_segment_eval(const void* lq, const void* uq, const void* seg_lo,
@@ -328,15 +403,18 @@ int polyfit_range_max_f32(const void* lq, const void* uq, const void* seg_lo,
                                           stream);
 }
 
+int polyfit_delta_sum_chunks(int D) {
+  return polyfit::walk_chunks<polyfit::kDeltaTile>(D, polyfit::kDeltaChunks);
+}
+
 int polyfit_delta_sum(const void* lq, const void* uq, const void* keys,
-                      const void* vals, void* out, int Q, int D,
-                      void* stream) {
-  if (Q > 0)
-    polyfit::delta_sum_kernel<<<polyfit::blocks_for(Q), polyfit::kThreads, 0,
-                                (cudaStream_t)stream>>>(
-        (const double*)lq, (const double*)uq, (const double*)keys,
-        (const double*)vals, (double*)out, Q, D);
-  return (int)cudaGetLastError();
+                      const void* vals, void* out, void* part, int Q, int D,
+                      double sentinel, void* stream) {
+  using namespace polyfit;
+  if (Q <= 0) return (int)cudaGetLastError();
+  return launch_delta_sum<kDeltaThreads, kDeltaQueries, kDeltaTile>(
+      lq, uq, keys, vals, out, part, Q, D, sentinel,
+      walk_chunks<kDeltaTile>(D, kDeltaChunks), (cudaStream_t)stream);
 }
 
 int polyfit_delta_max(const void* lq, const void* uq, const void* keys,

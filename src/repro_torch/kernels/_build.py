@@ -33,8 +33,9 @@ __all__ = ["CSRC", "SOURCES", "UNITS", "NVCC_FLAGS", "Build", "build",
            "stream"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("locate.cuh", "polyfit_kernels.cu", "quantile.cu",
-           "leaf_eval2d.cu", "delta2d.cu", "scan1d.cu", "scan2d.cu")
+SOURCES = ("locate.cuh", "scan_tile.cuh", "polyfit_kernels.cu",
+           "quantile.cu", "leaf_eval2d.cu", "delta2d.cu", "scan1d.cu",
+           "scan2d.cu")
 # translation units: one shared library each, compiled in parallel
 UNITS = ("polyfit_kernels.cu", "quantile.cu", "leaf_eval2d.cu", "delta2d.cu",
          "scan1d.cu", "scan2d.cu")
@@ -57,8 +58,10 @@ _SIGNATURES = {
     # t_mid, t_lo, t_hi, B, seg_lo, seg_hi, coeffs, seg_err, ref_keys,
     # out_mid, out_lo, out_hi, Q, H, deg, h, nk, n, delta, stream
     "polyfit_quantile_invert": (_P,) * 12 + (_I,) * 6 + (_D, _P),
-    # the same arguments: K4's scan mode
-    "polyfit_quantile_invert_scan": (_P,) * 12 + (_I,) * 6 + (_D, _P),
+    # K4's scan mode: the same with an int32 (S + 2, Q) scratch ``part``
+    # after out_hi, S = polyfit_quantile_scan_chunks(nk)
+    "polyfit_quantile_invert_scan": (_P,) * 13 + (_I,) * 6 + (_D, _P),
+    "polyfit_quantile_scan_chunks": (_I,),
     # lx, ux, ly, uy, xcuts, ycuts, leaf_z, bounds, coeffs, out, Q, nx, ny,
     # L, deg, depth, stream
     "polyfit_corner_count2d_gather": (_P,) * 10 + (_I,) * 6 + (_P,),
@@ -81,8 +84,11 @@ _SIGNATURES = {
     # lq, uq, seg_lo, seg_next, seg_hi, coeffs, seg_agg, out, Q, H, deg,
     # stream
     "polyfit_range_max": (_P,) * 8 + (_I,) * 3 + (_P,),
+    # lq, uq, keys, vals, out, part, Q, D, sentinel, stream; ``part`` an
+    # (S, Q) scratch, S = polyfit_delta_sum_chunks(D)
+    "polyfit_delta_sum": (_P,) * 6 + (_I,) * 2 + (_D, _P),
+    "polyfit_delta_sum_chunks": (_I,),
     # lq, uq, keys, vals, out, Q, D, stream
-    "polyfit_delta_sum": (_P,) * 5 + (_I,) * 2 + (_P,),
     "polyfit_delta_max": (_P,) * 5 + (_I,) * 2 + (_P,),
     # q, seg_lo, seg_next, seg_hi, coeffs, out, Q, H, deg, stream
     "polyfit_poly_eval": (_P,) * 6 + (_I,) * 3 + (_P,),

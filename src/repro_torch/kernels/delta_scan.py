@@ -26,7 +26,8 @@ The ``cuda_scan`` backend's twins scan the whole log instead, as
 ``delta_sum_pallas``, ``delta_max_pallas`` and ``delta_*2d_pallas`` do:
 
 * ``delta_sum`` (K16) — the sum of the measures whose key lies in
-  (lq, uq], a membership test against every slot;
+  (lq, uq], a membership test against every live slot (it stops at the
+  log's sentinel tail);
 * ``delta_max`` (K17) — the max of the measures whose key lies in
   [lq, uq], -inf when none does;
 * ``delta_count2d`` (K18) — the number of logged points in (lx, ux] x
@@ -42,7 +43,8 @@ prefix sums flat: no correction needs the fill level.
 Each ``*_plain`` function is the plain torch version, in the kernel's order
 of operations (K16's, K17's, K18's and K20's are the dense oracles of
 ``kernels/ref.py``, exact in any order but K16's, whose product may add a
-SUM log's measures in another order than the kernel's slot order; K19's
+SUM log's measures in another order than the kernel, which adds each
+chunk of the log in slot order and the chunk sums in chunk order; K19's
 adds in slot order, a loop over slots vectorised over queries); each
 wrapper launches its CUDA kernel (``csrc/polyfit_kernels.cu`` for K5/K6,
 ``csrc/delta2d.cu`` for K9-K11, ``csrc/scan1d.cu`` for K16/K17,
@@ -142,6 +144,11 @@ delta_max_gather.launches = 0
 # one-key scans over the whole log: K16, K17
 # ---------------------------------------------------------------------------
 
+#: the padding key of a float64 log (``engine.plan.big_sentinel``), where
+#: K16 stops
+_SENTINEL = float(torch.finfo(torch.float64).max) / 4
+
+
 def delta_sum_plain(lq, uq, keys, vals):
     """Plain torch version of K16: the one-hot membership product
     (``ref.delta_sum_ref``)."""
@@ -153,29 +160,40 @@ def delta_max_plain(lq, uq, keys, vals):
     return delta_max_ref(lq, uq, keys, vals)
 
 
-def _scan_launch(name, lq, uq, keys, vals):
-    """Launch K16 or K17 (``polyfit_<name>``) on validated arguments."""
+def _scan_args(name, lq, uq, keys, vals):
+    """Validate K16's or K17's arguments: (Q, D, the output, the pointers
+    the launcher takes first)."""
     _build.require_cuda(name, lq, uq, keys, vals)
     Q, D = lq.shape[0], keys.shape[0]
     if uq.shape[0] != Q or vals.shape != (D,) or D < 1:
         raise ValueError(f"{name}: shape mismatch {lq.shape} {uq.shape} "
                          f"{keys.shape} {vals.shape}")
     out = torch.empty(Q, dtype=vals.dtype, device=lq.device)
-    if Q:
-        _build.check(getattr(_build.library(), f"polyfit_{name}")(
-            lq.data_ptr(), uq.data_ptr(), keys.data_ptr(), vals.data_ptr(),
-            out.data_ptr(), Q, D, _build.stream(lq.device)), name)
-    return out
+    return Q, D, out, (lq.data_ptr(), uq.data_ptr(), keys.data_ptr(),
+                       vals.data_ptr(), out.data_ptr())
 
 
 def delta_sum(lq, uq, keys, vals):
     """(Q,) exact buffered SUM over (lq, uq] by a membership test against
-    every slot of the log: K16 on CUDA tensors, the plain version on CPU
-    tensors.  ``delta_sum.launches`` counts the kernel launches."""
+    every live slot of the log: K16 on CUDA tensors, the plain version on
+    CPU tensors.  ``delta_sum.launches`` counts the kernel launches.
+
+    K16 takes the ``DeltaBuffer`` layout as given: keys sorted, and from
+    the first ``big_sentinel`` key on every slot holds that key with value
+    0.  It stops at the first tile of the log that starts on the sentinel
+    (no slot from there on can add anything), so a half-empty log costs
+    half a full one.  The plain version scans every slot of any log."""
     if lq.device.type == "cpu":
         return delta_sum_plain(lq, uq, keys, vals)
-    out = _scan_launch("delta_sum", lq, uq, keys, vals)
-    if lq.shape[0]:
+    Q, D, out, ptrs = _scan_args("delta_sum", lq, uq, keys, vals)
+    if Q:
+        lib = _build.library()
+        # the kernel sums the log in S chunks, then adds them in chunk order
+        part = torch.empty((lib.polyfit_delta_sum_chunks(D), Q),
+                           dtype=vals.dtype, device=lq.device)
+        _build.check(lib.polyfit_delta_sum(
+            *ptrs, part.data_ptr(), Q, D, _SENTINEL,
+            _build.stream(lq.device)), "delta_sum")
         delta_sum.launches += 1
     return out
 
@@ -190,8 +208,10 @@ def delta_max(lq, uq, keys, vals):
     counts the kernel launches."""
     if lq.device.type == "cpu":
         return delta_max_plain(lq, uq, keys, vals)
-    out = _scan_launch("delta_max", lq, uq, keys, vals)
-    if lq.shape[0]:
+    Q, D, out, ptrs = _scan_args("delta_max", lq, uq, keys, vals)
+    if Q:
+        _build.check(_build.library().polyfit_delta_max(
+            *ptrs, Q, D, _build.stream(lq.device)), "delta_max")
         delta_max.launches += 1
     return out
 

@@ -16,7 +16,9 @@ thread per target).
 backend runs (the ``pallas_scan`` twin): every searchsorted becomes the
 one-hot comparison sum over the whole array, O(Q (H + n)) work, in the
 plain version (``core.quantile`` with ``scan=True``) and in the kernel (its
-scan instantiation, ``polyfit_quantile_invert_scan``).  The summed
+scan launcher, ``polyfit_quantile_invert_scan``: a count kernel over
+chunks of the key grid, then a finish kernel, with an int32 scratch the
+wrapper allocates).  The summed
 predicate is the binary search's, so both modes return the same keys bit
 for bit.  ``quantile_invert.scan_launches`` counts the scan launches apart
 from ``launches``.
@@ -82,14 +84,19 @@ def quantile_invert(t_mid, t_lo, t_hi, B, seg_lo, seg_hi, coeffs, seg_err,
     out = torch.empty((3, Q), dtype=coeffs.dtype, device=t_mid.device)
     if Q:
         lib = _build.library()
+        ptrs = [t.data_ptr() for t in (t_mid, t_lo, t_hi, B, seg_lo, seg_hi,
+                                       coeffs, seg_err, ref_keys, out[0],
+                                       out[1], out[2])]
+        if scan:
+            # the scan mode counts the key grid in S chunks (partial counts
+            # and the lower and answer counts in an int32 scratch)
+            part = torch.empty((lib.polyfit_quantile_scan_chunks(nk) + 2, Q),
+                               dtype=torch.int32, device=t_mid.device)
+            ptrs.append(part.data_ptr())
         fn = (lib.polyfit_quantile_invert_scan if scan
               else lib.polyfit_quantile_invert)
-        _build.check(fn(
-            t_mid.data_ptr(), t_lo.data_ptr(), t_hi.data_ptr(), B.data_ptr(),
-            seg_lo.data_ptr(), seg_hi.data_ptr(), coeffs.data_ptr(),
-            seg_err.data_ptr(), ref_keys.data_ptr(), out[0].data_ptr(),
-            out[1].data_ptr(), out[2].data_ptr(), Q, H, deg, h, nk, n,
-            float(delta), _build.stream(t_mid.device)), "quantile_invert")
+        _build.check(fn(*ptrs, Q, H, deg, h, nk, n, float(delta),
+                        _build.stream(t_mid.device)), "quantile_invert")
         if scan:
             quantile_invert.scan_launches += 1
         else:

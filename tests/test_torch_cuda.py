@@ -12,7 +12,10 @@ K15 (range MAX), K16 (buffered SUM), K17 (buffered MAX) and K4's scan
 mode, equal their plain versions and their gather twins exactly (K16 on
 a SUM log within 1e-12 of the lane's sum of |measure|: the plain product
 may add in another order), and the ``cuda_scan`` backend equals ``cuda``
-bit for bit, static, dynamic, windowed and through the session.  The
+bit for bit, static, dynamic, windowed and through the session; K16 on
+fills either side of its tile edges and on the window's 4,096-of-131,072
+layout, K4's scan mode at ragged target counts, and two launches of each
+equal bit for bit.  The
 two-key scans K18 (buffered COUNT), K19 (buffered SUM, added in slot
 order as its plain version adds) and K20 (buffered dominance MAX) equal
 their plain versions exactly, and a ``DynamicEngine2D`` on ``cuda_scan``
@@ -193,19 +196,19 @@ def test_session_on_card_matches_cpu_session():
 CAP = 4096
 
 
-def _log(cuda, fill, with_st):
-    """A sorted, sentinel-padded delta log of ``fill`` entries (ties
-    included) built by the engine's append on the card."""
+def _log(cuda, fill, with_st, cap=CAP):
+    """A sorted, sentinel-padded delta log of ``fill`` entries in ``cap``
+    slots (ties included) built by the engine's append on the card."""
     rng = np.random.default_rng(fill)
     big = big_sentinel(torch.float64)
-    k = np.full(CAP, big)
-    v = np.zeros(CAP)
+    k = np.full(cap, big)
+    v = np.zeros(cap)
     k[:fill] = np.round(rng.uniform(0, 1000, fill), 1)
     v[:fill] = rng.normal(0, 50, fill)
-    empty = torch.full((CAP,), big, dtype=torch.float64, device=cuda)
-    zero = torch.zeros(CAP, dtype=torch.float64, device=cuda)
+    empty = torch.full((cap,), big, dtype=torch.float64, device=cuda)
+    zero = torch.zeros(cap, dtype=torch.float64, device=cuda)
     return _append_1d(empty, zero, torch.as_tensor(k, device=cuda),
-                      torch.as_tensor(v, device=cuda), cap=CAP,
+                      torch.as_tensor(v, device=cuda), cap=cap,
                       with_st=with_st)
 
 
@@ -854,13 +857,16 @@ def test_range_max_scan_kernel_matches_plain(plans, queries, agg, deg):
         *queries, p.seg_lo, p.seg_hi, p.coeffs, p.st), rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("fill", [0, 37, CAP])
+@pytest.mark.parametrize("fill", [0, 1, 37, 255, 256, 257, 1023, 1024, 1025,
+                                  2049, CAP])
 def test_delta_scan_kernels_match_plain(cuda, fill):
     """K16 and K17 against their plain versions and their gather twins K5
     and K6 on one log: K17 exactly; K16 exactly on a COUNT log (unit
     measures: every order of summation is exact) and, on a SUM log, within
     1e-12 x sum |v| of the lane, since the plain one-hot product may add
-    the members in another order than the kernel's slot order."""
+    the members in another order than the kernel's slot order.  The fills
+    sit on both sides of K16's 1,024-slot tiles (where it stops at the
+    sentinel) and of the 256-entry tiles of the other scans."""
     keys, vals, cf, st = _log(cuda, fill, True)
     lq, uq = _delta_queries(cuda)
     ok = lq <= uq
@@ -890,6 +896,54 @@ def test_delta_scan_kernels_match_plain(cuda, fill):
     assert not got[~ok].any()
     if fill == 0:
         assert not got_sum.any() and torch.isneginf(got_max).all()
+
+
+def test_delta_sum_kernel_on_a_window_log(cuda):
+    """K16 on the window's layout: 4,096 live slots of 131,072 (it walks
+    the live tiles only), exactly its plain version on unit measures and
+    within 1e-12 x sum |v| on a SUM log."""
+    keys, vals, _, _ = _log(cuda, CAP, False, cap=32 * CAP)
+    lq, uq = _delta_queries(cuda)
+    ones = (keys < big_sentinel(torch.float64) / 2).to(torch.float64)
+    got = kdelta.delta_sum(lq, uq, keys, ones)
+    torch.testing.assert_close(got, kdelta.delta_sum_plain(lq, uq, keys,
+                                                           ones),
+                               rtol=0, atol=0)
+    assert got.max() > 0
+    got = kdelta.delta_sum(lq, uq, keys, vals)
+    scale = float(vals.abs().sum())
+    assert float((got - kdelta.delta_sum_plain(lq, uq, keys, vals))
+                 .abs().max()) <= 1e-12 * scale
+
+
+def test_scan_kernels_repeat_bit_for_bit(cuda, quantile_plans):
+    """Two launches of K16 and of K4's scan mode on the same inputs give
+    the same bits (no atomics, a fixed order of summation)."""
+    keys, vals, _, _ = _log(cuda, 3000, False)
+    lq, uq = _delta_queries(cuda)
+    assert torch.equal(kdelta.delta_sum(lq, uq, keys, vals),
+                       kdelta.delta_sum(lq, uq, keys, vals))
+    args, kw = _k4_args(quantile_plans["sum", 3], _fractions(cuda))
+    for a, b in zip(kq.quantile_invert(*args, scan=True, **kw),
+                    kq.quantile_invert(*args, scan=True, **kw)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("Q", [1, 255, 65_537])
+def test_quantile_scan_kernel_ragged_counts(cuda, quantile_plans, Q):
+    """K4's scan mode at target counts that leave a block part empty (a
+    block holds 512 targets) equals its plain version and the gather mode
+    in every lane."""
+    rng = np.random.default_rng(Q)
+    q = torch.as_tensor(rng.uniform(0, 1, Q), device=cuda)
+    args, kw = _k4_args(quantile_plans["count", 2], q)
+    got = kq.quantile_invert(*args, scan=True, **kw)
+    want = kq.quantile_invert_plain(*args, scan=True, **kw)
+    gather = kq.quantile_invert(*args, **kw)
+    for g, w, a in zip(got, want, gather):
+        assert g.shape == (Q,)
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+        torch.testing.assert_close(g, a, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("agg", ["count", "sum"])

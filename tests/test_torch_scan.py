@@ -15,6 +15,11 @@ the CPU, where its kernels run as their plain versions.
   a COUNT log (integer measures: every order of summation is exact) and
   within 1e-12 x sum |v| of the lane on a SUM log (the one-hot product may
   add the members in another order than the Pallas tiles).
+* Every log the port hands K16 (the append with ties, a dynamic table's
+  insert and delete logs before and after a merge, a window's open epoch
+  after ingests and a seal) is sorted with a sentinel tail of value 0, the
+  layout at whose first sentinel tile the kernel stops; on those logs the
+  plain K16 equals ``delta_sum_pallas``.
 * The ``cuda_scan`` route equals the ``cuda`` route bit for bit on segment
   boundaries (twin of tests/test_locate.py::
   test_gather_bit_identical_on_boundaries_1d).  Both routes run on CPU
@@ -419,6 +424,98 @@ def _updates(dyn, agg, ops):
         dyn.insert(ins_k, ins_v * scale)
     dyn.delete(del_k)
     dyn.delete(ins_k[:3])          # pending inserts deleted again
+
+
+def _log_layout(keys, vals):
+    """Assert the DeltaBuffer layout K16 relies on (keys non-decreasing;
+    from the first sentinel on every slot holds the sentinel key with value
+    0) and return the number of live slots."""
+    k, v = keys.numpy(), vals.numpy()
+    big = big_sentinel(torch.float64)
+    assert np.all(np.diff(k) >= 0)
+    live = int(np.argmax(k == big)) if (k == big).any() else len(k)
+    assert np.all(k[:live] < big)
+    assert np.all(k[live:] == big) and np.all(v[live:] == 0)
+    return live
+
+
+def _port_logs(source, tables, ops):
+    """(keys, vals) of every log ``source`` builds, in order: the append
+    with ties; a dynamic SUM or COUNT table's insert and delete logs before
+    and after a merge; a window's open epoch after ingests and a seal."""
+    if source == "append":
+        empty = torch.full((DCAP,), big_sentinel(torch.float64),
+                           dtype=torch.float64)
+        rng = np.random.default_rng(61)
+        k1 = np.round(rng.uniform(0, 50, 90), 0)           # many ties
+        k2 = np.concatenate([k1[:20], np.round(rng.uniform(0, 50, 30), 0)])
+        k, v, _, _ = dyn_mod._append_1d(
+            empty, torch.zeros(DCAP, dtype=torch.float64),
+            torch.as_tensor(k1), torch.as_tensor(rng.normal(0, 5, 90)),
+            cap=DCAP, with_st=False)
+        out = [(k, v)]
+        k, v, _, _ = dyn_mod._append_1d(
+            k, v, torch.as_tensor(k2), torch.as_tensor(rng.normal(0, 5, 50)),
+            cap=DCAP, with_st=False)
+        return out + [(k, v)]
+    if source == "window":
+        eps = _epochs(seed=67, n_epochs=4, rows=300)
+        w = WindowEngine(eps[0], agg="count", delta=16.0, deg=2, ring=8,
+                         capacity=512, backend="cuda_scan", device="cpu")
+        w.ingest(eps[1])
+        w.ingest(eps[1][:40])                               # repeated keys
+        out = [(w._buf.ins_keys, w._buf.ins_vals)]
+        w.advance()
+        out.append((w._buf.ins_keys, w._buf.ins_vals))
+        w.ingest(eps[2])
+        return out + [(w._buf.ins_keys, w._buf.ins_vals)]
+    agg = source.split("_")[1]
+    dyn = DynamicEngine(index_from_numpy(_fields(tables[1][agg][0]), "cpu"),
+                        backend="cuda_scan", capacity=DCAP, auto_refit=False)
+
+    def logs():
+        buf = dyn.snapshot()[1]
+        return [(buf.ins_keys, buf.ins_vals), (buf.del_keys, buf.del_vals)]
+
+    _updates(dyn, agg, ops)
+    out = logs()
+    dyn.flush()                 # merged: both logs empty
+    out += logs()
+    ins_k, ins_v, _ = ops       # and refilled after the merge
+    dyn.insert(ins_k[:20], None if agg == "count" else ins_v[:20])
+    dyn.delete(ins_k[:5])
+    return out + logs()
+
+
+@pytest.mark.parametrize("source", ["append", "dynamic_sum",
+                                    "dynamic_count", "window"])
+def test_port_logs_keep_the_sentinel_tail(tables, ops, card_route, source):
+    """Every log the port hands K16 is sorted with a sentinel tail of value
+    0, the layout at whose first sentinel tile K16 stops; on the logs that
+    hold entries, at partial fill, the plain K16 equals delta_sum_pallas
+    (exactly on unit measures, within 1e-12 x sum |v| otherwise)."""
+    logs = _port_logs(source, tables, ops)
+    lives = [_log_layout(k, v) for k, v in logs]
+    assert any(0 < n < k.shape[0] for n, (k, _) in zip(lives, logs))
+    rng = np.random.default_rng(71)
+    for live, (keys, vals) in zip(lives, logs):
+        if not live:
+            continue
+        k = keys[:live].numpy()
+        a, b = rng.uniform(k[0] - 5, k[-1] + 5, (2, BQ))
+        lq, uq = np.minimum(a, b), np.maximum(a, b)
+        on = k[:8]                                          # on the keys
+        lq[:len(on)], uq[:len(on)] = on, on + 1.0
+        want = np.asarray(delta_sum_pallas(
+            jnp.asarray(lq), jnp.asarray(uq), jnp.asarray(keys.numpy()),
+            jnp.asarray(vals.numpy()), bq=BQ, bd=128))
+        got = kdel.delta_sum_plain(torch.as_tensor(lq), torch.as_tensor(uq),
+                                   keys, vals).numpy()
+        v = vals.numpy()
+        if np.all(v[:live] == np.round(v[:live])):
+            np.testing.assert_array_equal(got, want)
+        else:
+            assert np.all(np.abs(got - want) <= 1e-12 * np.abs(v).sum())
 
 
 @pytest.mark.parametrize("agg", AGGS)
