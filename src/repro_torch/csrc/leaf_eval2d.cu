@@ -2,7 +2,8 @@
 //
 // K7  corner_count2d_gather_kernel  replaces repro/kernels/leaf_eval2d.py:corner_count2d_gather_pallas
 // K8  corner_eval2d_gather_kernel   replaces repro/kernels/leaf_eval2d.py:corner_eval2d_gather_pallas
-// K12 corner_count2d_kernel         replaces repro/kernels/leaf_eval2d.py:corner_count2d_pallas
+// K12 corner_count2d_scan_kernel + corner_count2d_finish_kernel
+//                                   replaces repro/kernels/leaf_eval2d.py:corner_count2d_pallas
 // K13 corner_eval2d_kernel          replaces repro/kernels/leaf_eval2d.py:corner_eval2d_pallas
 //
 // Twins of repro_torch/kernels/leaf_eval2d.py's plain versions, in their
@@ -21,23 +22,51 @@
 // cut, the int32 Morton code in the z-sorted table), then one row.
 //
 // Scan (K12, K13), the path of plans deeper than 15 levels (no int32 Morton
-// codes): a block of 256 queries walks the flat leaf table in tiles of 256
-// leaves staged through shared memory (the four membership bounds, 8 KB);
-// each thread tests mx0 <= qx < mx1 and my0 <= qy < my1 for each of its
-// corners and keeps the first leaf that holds it.  Leaves partition the
-// root, so that row is the one the reference's one-hot matmul sums up
-// (its other terms are 0 * x with x finite), and no leaf gives a zero row.
+// codes): every corner is tested against the flat leaf table's membership
+// boxes, mx0 <= qx < mx1 and my0 <= qy < my1, and takes the leaf that
+// holds it.  Leaves partition the root, so that row is the one the
+// reference's one-hot matmul sums up (its other terms are 0 * x with x
+// finite), and no leaf gives a zero row.  K13: a block of 256 queries
+// walks the table in tiles of 256 leaves staged through shared memory
+// (the four bounds, 8 KB), one corner a thread, the first hit kept.
 //
 // What bounds them on an H100.  K7 at Q = 65,536 and about 4,000 leaves
 // must move 5 x 8 B a query plus the table (cut grids, codes, bounds and
 // 16 coefficients a leaf) once, about 3 MB: about 1 us at 3.35 TB/s; its
 // four corners take 3 binary searches each (16 + 16 + 13 dependent loads,
-// L1/L2 hits) and about 50 f64 operations of Horner and scaling.  K12 on
-// the same table must move the same bytes but compares every corner with
-// every leaf: 65,536 x 4 x 4,096 x 4 compares, about 4.3 G f64 operations,
-// about 0.13 ms at the FP64 peak, so operations bound it.  What the design
-// does about it: nothing yet; one thread per query, the gather tables read
-// through L1/L2, the scan's tile broadcast from shared memory.
+// L1/L2 hits) and about 50 f64 operations of Horner and scaling; the
+// gather kernels are one thread a query, their tables read through L1/L2.
+// K12 on the same table must move the same bytes but compares every corner
+// with every leaf: its bound counts 4 compares a corner, 16 f64
+// operations a (query, leaf) pair at the FP64 peak (which counts an FMA as
+// two), 0.0793 ms at osm's 65,536 x 2,560: the 8 compares a pair its four
+// corners need on two x and two y coordinates, at one a lane a clock.
+// Before its redesign it ran K13's loop over four corners, first hit kept:
+// 12 compares and 4 tests and selects a pair, about 22 instructions in the
+// compiled loop, 4.0-4.1 pairs a clock an SM (tools/scan_rates.py).  Its
+// design now:
+//   - the loop (scan_tile.cuh corner_hits_step) tests the query's two x
+//     coordinates against the leaf's x bounds and its two y coordinates
+//     against the y bounds once, 8 compares, and each corner takes the
+//     leaf's index under the AND of its x and y tests: no first-hit test,
+//     since a plan's leaves partition the root and the corners are clamped
+//     into it, so at most one leaf holds a corner
+//     (tests/test_torch_scan2d.py holds the partition);
+//   - the tile walker (scan_tile.cuh) stages the four bounds of a leaf as
+//     one slot (two 16-byte shared loads), 128 leaves a tile,
+//     double-buffered, and stops at the table's sentinel-padded tail;
+//   - a thread holds 2 queries (8 corners), and the table is cut in up to
+//     4 chunks of interleaved tiles along the grid's second dimension;
+//     each chunk writes each corner's leaf (-1 for none), and a finish
+//     kernel takes the lowest index over the chunks (exact, independent of
+//     order), evaluates the four rows and combines them, one thread a
+//     query.
+// The loop alone runs 4.6-4.8 (query, leaf) pairs a clock an SM at 2
+// queries a thread on an NVIDIA H100 80GB HBM3 at 700 W (5.2-5.4 at one;
+// tools/scan_rates.py): about 19.7 instructions a pair, 8 of them f64
+// compares, 4 predicate ANDs, 4 selects and predicate moves, issued at
+// about 3 a clock; half the bound needs 4.  The kernel runs 4.3 at osm
+// (chip_smoke.py, 0.1438 ms).
 //
 // Each launcher takes raw device pointers and the CUDA stream, launches on
 // that stream, and returns cudaGetLastError() (0 when the launch was
@@ -47,6 +76,7 @@
 #include <stdint.h>
 
 #include "locate.cuh"
+#include "scan_tile.cuh"
 
 namespace polyfit {
 namespace {
@@ -55,6 +85,13 @@ constexpr int kThreads = 256;
 constexpr int kTile = kThreads;   // leaves staged per shared-memory tile
 // kernels/leaf_eval2d.py MAX_DEG_2D: one instantiation per degree
 constexpr int kMaxDeg2d = 5;
+// K12's shape: 128 threads of 2 queries (8 corners) a block, tiles of 128
+// leaves (four membership bounds: 4 KB a buffer), the table split in up
+// to 4 chunks
+constexpr int kCountThreads = 128;
+constexpr int kCountQueries = 2;
+constexpr int kCountTile = 128;
+constexpr int kCountChunks = 4;
 
 // P_leaf(u(qx), v(qy)) of one leaf row (bounds b0..b3, coefficients c);
 // hit false evaluates a zero row (a scan corner no leaf holds)
@@ -123,18 +160,17 @@ __global__ void corner_eval2d_gather_kernel(
   out[i] = leaf_value<DEG>(qx, qy, leaf, true, bounds, coeffs);
 }
 
-// The first leaf whose membership box holds each of a thread's NC corners
-// (-1 when none does): the block walks the table tile by tile, every
-// thread of the block loading one leaf's bounds into shared memory.
-template <int NC>
-__device__ __forceinline__ void scan_leaves(
-    const double (&qx)[NC], const double (&qy)[NC],
-    const double* __restrict__ mx0, const double* __restrict__ mx1,
-    const double* __restrict__ my0, const double* __restrict__ my1, int L,
-    int (&hit)[NC]) {
+// The first leaf whose membership box holds the corner (qx, qy) (-1 when
+// none does): the block walks the table tile by tile, every thread of the
+// block loading one leaf's bounds into shared memory.
+__device__ __forceinline__ int scan_leaves(double qx, double qy,
+                                           const double* __restrict__ mx0,
+                                           const double* __restrict__ mx1,
+                                           const double* __restrict__ my0,
+                                           const double* __restrict__ my1,
+                                           int L) {
   __shared__ double s_mx0[kTile], s_mx1[kTile], s_my0[kTile], s_my1[kTile];
-#pragma unroll
-  for (int e = 0; e < NC; ++e) hit[e] = -1;
+  int hit = -1;
   for (int t0 = 0; t0 < L; t0 += kTile) {
     const int j = t0 + threadIdx.x;
     if (j < L) {
@@ -147,36 +183,89 @@ __device__ __forceinline__ void scan_leaves(
     const int n = L - t0 < kTile ? L - t0 : kTile;
     for (int k = 0; k < n; ++k) {
       const double a0 = s_mx0[k], a1 = s_mx1[k], c0 = s_my0[k], c1 = s_my1[k];
-#pragma unroll
-      for (int e = 0; e < NC; ++e) {
-        const bool in = a0 <= qx[e] && qx[e] < a1 && c0 <= qy[e] && qy[e] < c1;
-        hit[e] = (hit[e] < 0 && in) ? t0 + k : hit[e];
-      }
+      const bool in = a0 <= qx && qx < a1 && c0 <= qy && qy < c1;
+      hit = (hit < 0 && in) ? t0 + k : hit;
     }
     __syncthreads();
   }
+  return hit;
 }
 
-// K12: 4-corner COUNT/SUM by one-hot membership over the flat leaf table
-template <int DEG>
-__global__ void corner_count2d_kernel(
+// K12, the scan: a thread holds R queries (i0 + r * THREADS), 4R corners
+// on two x and two y coordinates each; block (x, y) walks the leaf
+// table's tiles y, y + S, y + 2S, ... (S = gridDim.y chunks) up to the
+// sentinel tail, tests each leaf's x bounds against the two x coordinates
+// and its y bounds against the two y coordinates once, and keeps for each
+// corner the leaf whose box holds both of its coordinates (leaves
+// partition the root and the corners are clamped into it: at most one
+// leaf holds a corner).  It writes corner e's leaf, -1 for none, to row
+// 4y + e of ``hits`` (int32), in sign order (ux,uy), (lx,uy), (ux,ly),
+// (lx,ly).
+template <int THREADS, int R, int TILE>
+__global__ void __launch_bounds__(THREADS) corner_count2d_scan_kernel(
     const double* __restrict__ lx, const double* __restrict__ ux,
     const double* __restrict__ ly, const double* __restrict__ uy,
     const double* __restrict__ mx0, const double* __restrict__ mx1,
     const double* __restrict__ my0, const double* __restrict__ my1,
-    const double* __restrict__ bounds, const double* __restrict__ coeffs,
-    double* __restrict__ out, int Q, int L) {
+    int* __restrict__ hits, int Q, int L, double sentinel) {
+  extern __shared__ double2 s_box[];
+  const int i0 = blockIdx.x * (THREADS * R) + threadIdx.x;
+  double x[R][2], y[R][2];
+  int hit[R][4];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    // threads past Q still stage tiles
+    const int i = i0 + r * THREADS < Q ? i0 + r * THREADS : Q - 1;
+    x[r][0] = ux[i];
+    x[r][1] = lx[i];
+    y[r][0] = uy[i];
+    y[r][1] = ly[i];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) hit[r][e] = -1;
+  }
+  const double* src[4] = {mx0, mx1, my0, my1};
+  walk_slots<4, TILE, true>(
+      src, L, blockIdx.y, gridDim.y, sentinel, (double*)s_box,
+      [&](const double2x2 box, int j) {
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          corner_hits_step(hit[r], x[r], y[r], box, j);
+      });
+  const size_t row = 4 * (size_t)blockIdx.y;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = i0 + r * THREADS;
+    if (i >= Q) continue;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) hits[(row + e) * Q + i] = hit[r][e];
+  }
+}
+
+// K12, the finish: a thread a query takes each corner's leaf from the S
+// chunks (the lowest index found; at most one chunk finds one), evaluates
+// the four rows (zeros where no leaf holds a corner) and combines them
+// + - - + (paper Eq. 19)
+template <int DEG>
+__global__ void corner_count2d_finish_kernel(
+    const double* __restrict__ lx, const double* __restrict__ ux,
+    const double* __restrict__ ly, const double* __restrict__ uy,
+    const int* __restrict__ hits, const double* __restrict__ bounds,
+    const double* __restrict__ coeffs, double* __restrict__ out, int Q,
+    int S) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int r = i < Q ? i : Q - 1;   // threads past Q still stage tiles
-  const double qx[4] = {ux[r], lx[r], ux[r], lx[r]};
-  const double qy[4] = {uy[r], uy[r], ly[r], ly[r]};
-  int hit[4];
-  scan_leaves<4>(qx, qy, mx0, mx1, my0, my1, L, hit);
   if (i >= Q) return;
+  const double qx[4] = {ux[i], lx[i], ux[i], lx[i]};
+  const double qy[4] = {uy[i], uy[i], ly[i], ly[i]};
   double v[4];
 #pragma unroll
-  for (int e = 0; e < 4; ++e)
-    v[e] = leaf_value<DEG>(qx[e], qy[e], hit[e], hit[e] >= 0, bounds, coeffs);
+  for (int e = 0; e < 4; ++e) {
+    // -1 (none) is the largest unsigned value: the min keeps any hit
+    unsigned leaf = (unsigned)hits[(size_t)e * Q + i];
+    for (int s = 1; s < S; ++s)
+      leaf = min(leaf, (unsigned)hits[(size_t)(4 * s + e) * Q + i]);
+    const int h = (int)leaf;
+    v[e] = leaf_value<DEG>(qx[e], qy[e], h, h >= 0, bounds, coeffs);
+  }
   out[i] = v[0] - v[1] - v[2] + v[3];
 }
 
@@ -189,13 +278,11 @@ __global__ void corner_eval2d_kernel(
     const double* __restrict__ bounds, const double* __restrict__ coeffs,
     double* __restrict__ out, int Q, int L) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int r = i < Q ? i : Q - 1;
-  const double qx[1] = {u[r]};
-  const double qy[1] = {v[r]};
-  int hit[1];
-  scan_leaves<1>(qx, qy, mx0, mx1, my0, my1, L, hit);
+  const int r = i < Q ? i : Q - 1;   // threads past Q still stage tiles
+  const double qx = u[r], qy = v[r];
+  const int hit = scan_leaves(qx, qy, mx0, mx1, my0, my1, L);
   if (i >= Q) return;
-  out[i] = leaf_value<DEG>(qx[0], qy[0], hit[0], hit[0] >= 0, bounds, coeffs);
+  out[i] = leaf_value<DEG>(qx, qy, hit, hit >= 0, bounds, coeffs);
 }
 
 inline int blocks_for(int Q) { return (Q + kThreads - 1) / kThreads; }
@@ -259,20 +346,36 @@ int polyfit_corner_eval2d_gather(const void* u, const void* v,
   return (int)cudaGetLastError();
 }
 
+int polyfit_corner_count2d_chunks(int L) {
+  return polyfit::walk_chunks<polyfit::kCountTile>(L, polyfit::kCountChunks);
+}
+
+// ``hits``: (4S, Q) int32 scratch, S = polyfit_corner_count2d_chunks(L)
 int polyfit_corner_count2d(const void* lx, const void* ux, const void* ly,
                            const void* uy, const void* mx0, const void* mx1,
                            const void* my0, const void* my1,
                            const void* bounds, const void* coeffs, void* out,
-                           int Q, int L, int deg, void* stream) {
+                           void* hits, int Q, int L, int deg, double sentinel,
+                           void* stream) {
+  using namespace polyfit;
   if (Q <= 0) return (int)cudaGetLastError();
+  constexpr int per_block = kCountThreads * kCountQueries;
+  const int S = walk_chunks<kCountTile>(L, kCountChunks);
+  const dim3 grid((Q + per_block - 1) / per_block, S);
+  // the degree first: a refused degree launches nothing
 #define K12_LAUNCH(D)                                                        \
-  polyfit::corner_count2d_kernel<D>                                          \
-      <<<polyfit::blocks_for(Q), polyfit::kThreads, 0,                       \
+  corner_count2d_scan_kernel<kCountThreads, kCountQueries, kCountTile>       \
+      <<<grid, kCountThreads, walk_smem_bytes<4, kCountTile>(),              \
          (cudaStream_t)stream>>>(                                            \
           (const double*)lx, (const double*)ux, (const double*)ly,           \
           (const double*)uy, (const double*)mx0, (const double*)mx1,         \
-          (const double*)my0, (const double*)my1, (const double*)bounds,     \
-          (const double*)coeffs, (double*)out, Q, L)
+          (const double*)my0, (const double*)my1, (int*)hits, Q, L,          \
+          sentinel);                                                         \
+  corner_count2d_finish_kernel<D>                                            \
+      <<<blocks_for(Q), kThreads, 0, (cudaStream_t)stream>>>(                \
+          (const double*)lx, (const double*)ux, (const double*)ly,           \
+          (const double*)uy, (const int*)hits, (const double*)bounds,        \
+          (const double*)coeffs, (double*)out, Q, S)
   POLYFIT_2D_DISPATCH(deg, K12_LAUNCH)
 #undef K12_LAUNCH
   return (int)cudaGetLastError();

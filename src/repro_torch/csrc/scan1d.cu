@@ -1,9 +1,10 @@
 // PolyFit one-key one-hot scan kernels for Hopper (sm_90a), one thread per
-// query (K16: four): the 'cuda_scan' backend, and K21 (kernels/ops.py
-// poly_eval).
+// query (K15 and K16: four): the 'cuda_scan' backend, and K21
+// (kernels/ops.py poly_eval).
 //
 // K14 range_sum_kernel  replaces repro/kernels/range_sum.py:range_sum_pallas
-// K15 range_max_kernel  replaces repro/kernels/range_max.py:range_max_pallas
+// K15 range_max_scan_kernel + range_max_finish_kernel
+//                       replaces repro/kernels/range_max.py:range_max_pallas
 // K16 delta_sum_kernel  replaces repro/kernels/delta_scan.py:delta_sum_pallas
 // K17 delta_max_kernel  replaces repro/kernels/delta_scan.py:delta_max_pallas
 // K21 poly_eval_kernel  replaces repro/kernels/poly_eval.py:poly_eval_pallas
@@ -20,9 +21,10 @@
 //        at the scaled coordinate: P(uq) - P(lq);
 //   K21  the same for one key: P_{I(q)}(q), K14's step on one endpoint
 //        (one template, segment_eval_kernel<T, E>, with E = 2 and E = 1);
-//   K15  the same two boundary rows, the left/right/same-segment rules of
-//        the closed-form clipped maxima (deg <= 3), and a dense masked max
-//        of seg_agg over the segments with lo > lq and next <= uq;
+//   K15  the same two boundary rows, found from #(seg_lo <= q) (below),
+//        the left/right/same-segment rules of the closed-form clipped
+//        maxima (deg <= 3), and a dense masked max of seg_agg over the
+//        segments with lo > lq and next <= uq;
 //   K16  the sum of the buffered measures with key in (lq, uq], over the
 //        whole sentinel-padded log;
 //   K17  the max of the buffered measures with key in [lq, uq] (-inf when
@@ -37,20 +39,52 @@
 // each one, a sentinel the last; a segment whose lo equals the next one's,
 // as two starts rounded to one float can, holds nothing), so the
 // reference's one-hot matmul sums one row and exact zeros: the kernels keep
-// the first segment that holds the query, and a zero row when none does.
-// K14 and K15 then read the very rows K2 and K3 locate, and the interior
-// max is exact, so they agree with the gather kernels bit for bit.  K16
+// the first segment that holds the query, and a zero row when none does
+// (K15 counts its way there: on a plan's table the segment holding q can
+// only be the last with seg_lo <= q).  K14 and K15 then read the very rows
+// K2 and K3 locate, and the interior max is exact, so they agree with the
+// gather kernels bit for bit.  K16
 // adds each chunk's members in slot order and the chunk sums in chunk
 // order (below); the plain version's one-hot product may add them in
 // another order, which changes nothing on a COUNT log (integers) and at
 // most a few ulps of the lane's sum of |measure| on a SUM log.
 //
-// What bounds them on an H100: operations.  K14, K15, K17 and K21: a
-// block of 256 queries walks the table in tiles of 256 entries staged
-// through shared memory (the table read once a block from L2), and each
-// thread tests its query against every entry, one compare-and-select chain
-// a thread: K14 two endpoints x 2 compares, K21 one endpoint x 2, K15 6
-// compares and a max, K17 2 compares and a max a (query, entry) pair.
+// What bounds them on an H100: operations.  K14, K17 and K21: a block of
+// 256 queries walks the table in tiles of 256 entries staged through
+// shared memory (the table read once a block from L2), and each thread
+// tests its query against every entry, one compare-and-select chain a
+// thread: K14 two endpoints x 2 compares, K21 one endpoint x 2, K17 2
+// compares and a max a (query, entry) pair.
+//
+// K15 before its redesign ran that design too: 9 compares, selects and a
+// NaN-propagating max, about 19 instructions a (query, segment) pair in
+// the compiled loop, 4.7-5.1 pairs a clock an SM (tools/scan_rates.py).
+// Its bound counts 7 f64 operations a pair at the FP64 peak (which counts
+// an FMA as two), 0.0348 ms at hki_dyn's 65,536 x 2,560.  Its design now:
+//   - the loop (scan_tile.cuh max_scan_step) does 3 compares, 2 predicated
+//     increments and a predicated select a pair, about 7.7 instructions:
+//     #(lo <= lq), and the count and max of agg where !(lo <= lq) &&
+//     next <= uq.  A plan's table (engine.plan.build_plan) has seg_lo
+//     non-decreasing, seg_next[j] = seg_lo[j + 1] with the sentinel last,
+//     no NaN, so the interior segments are [#(lo <= lq), #(lo <= uq) - 1)
+//     and the counts give both boundary rows after the loop (upper_count,
+//     boundary_row: the one-hot first hits) with no select a pair; a NaN
+//     lq, for which !(lo <= lq) is no test of lo > lq, gets an empty
+//     interior from the finish kernel;
+//   - the tile walker (scan_tile.cuh) stages start, next start and
+//     aggregate as one four-word slot (two 16-byte shared loads at float64,
+//     one at float32), 128 segments a tile, double-buffered, and stops at
+//     the table's sentinel tail;
+//   - a thread holds 4 queries, and the table is cut in up to 4 chunks of
+//     interleaved tiles along the grid's second dimension; each chunk
+//     writes its two counts and its interior max, and a finish kernel adds
+//     the counts (exact), takes the max (exact) and runs the closed forms,
+//     one thread a query: two launches give the same bits.
+// The loop alone runs 12.1-13.3 pairs a clock an SM on an NVIDIA H100
+// 80GB HBM3 at 700 W (tools/scan_rates.py), the kernel 10.0 at hki_dyn
+// (chip_smoke.py, 0.0586 ms): its 3 compares and 2 selects a pair, not
+// the walker, hold it (a predicated max.f64 comes back from ptxas as NaN
+// tests and selects).
 //
 // K16 does 2 compares, a select and an add a (query, live slot) pair: at
 // Q = 65,536 against 4,096 live slots 8.05e8 f64 operations, 0.0237 ms at
@@ -104,6 +138,14 @@ constexpr int kDeltaThreads = 128;
 constexpr int kDeltaQueries = 4;
 constexpr int kDeltaTile = 1024;
 constexpr int kDeltaChunks = 4;
+
+// K15's shape: 128 threads of 4 queries a block, tiles of 128 segments
+// (start, next start, aggregate and a word of padding: 4 KB a buffer at
+// float64), the table split in up to 4 chunks
+constexpr int kMaxThreads = 128;
+constexpr int kMaxQueries = 4;
+constexpr int kMaxTile = 128;
+constexpr int kMaxChunks = 4;
 
 inline int blocks_for(int Q) { return (Q + kThreads - 1) / kThreads; }
 
@@ -171,43 +213,106 @@ __global__ void segment_eval_kernel(const T* __restrict__ lq,
   out[i] = E == 2 ? v[E - 1] - v[0] : v[0];
 }
 
-// K15: MAX over [lq, uq] (paper Eq. 17): closed-form clipped maxima on the
-// two one-hot boundary rows, a dense masked max over the interior
-template <typename T>
-__global__ void range_max_kernel(const T* __restrict__ lq,
-                                 const T* __restrict__ uq,
-                                 const T* __restrict__ seg_lo,
-                                 const T* __restrict__ seg_next,
-                                 const T* __restrict__ seg_hi,
-                                 const T* __restrict__ coeffs,
-                                 const T* __restrict__ seg_agg,
-                                 T* __restrict__ out, int Q, int H, int deg) {
-  __shared__ T s_lo[kTile], s_nx[kTile], s_agg[kTile];
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int r = i < Q ? i : Q - 1;
-  const T l = lq[r], u = uq[r];
-  int hit_l = -1, hit_u = -1;
-  T m_int = -INFINITY;
-  for (int t0 = 0; t0 < H; t0 += kTile) {
-    const int j = t0 + threadIdx.x;
-    if (j < H) {
-      s_lo[threadIdx.x] = seg_lo[j];
-      s_nx[threadIdx.x] = seg_next[j];
-      s_agg[threadIdx.x] = seg_agg[j];
-    }
-    __syncthreads();
-    const int n = H - t0 < kTile ? H - t0 : kTile;
-    for (int k = 0; k < n; ++k) {
-      const T lo = s_lo[k], nx = s_nx[k];
-      hit_l = (hit_l < 0 && lo <= l && l < nx) ? t0 + k : hit_l;
-      hit_u = (hit_u < 0 && lo <= u && u < nx) ? t0 + k : hit_u;
-      // interior: strictly between the two boundary segments
-      const bool interior = lo > l && nx <= u;
-      m_int = jmax(m_int, interior ? s_agg[k] : T(-INFINITY));
-    }
-    __syncthreads();
+// K15, the scan: a thread holds R queries (i0 + r * THREADS); block (x, y)
+// walks the table's tiles y, y + S, y + 2S, ... (S = gridDim.y chunks) up
+// to the sentinel tail, and writes each query's #(seg_lo <= lq) and its
+// number of interior segments (lo > lq, next <= uq) to rows 2y and 2y + 1
+// of ``cnt`` (int32) and the max of their seg_agg to row y of ``part``
+template <typename T, int THREADS, int R, int TILE>
+__global__ void __launch_bounds__(THREADS)
+    range_max_scan_kernel(const T* __restrict__ lq, const T* __restrict__ uq,
+                          const T* __restrict__ seg_lo,
+                          const T* __restrict__ seg_next,
+                          const T* __restrict__ seg_agg, int* __restrict__ cnt,
+                          T* __restrict__ part, int Q, int H,
+                          double sentinel) {
+  extern __shared__ double2 s_seg[];
+  const int i0 = blockIdx.x * (THREADS * R) + threadIdx.x;
+  T l[R], u[R], m[R];
+  int cl[R], ci[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    // threads past Q still stage tiles
+    const int i = i0 + r * THREADS < Q ? i0 + r * THREADS : Q - 1;
+    l[r] = lq[i];
+    u[r] = uq[i];
+    m[r] = T(-INFINITY);
+    cl[r] = ci[r] = 0;
   }
+  const T* src[3] = {seg_lo, seg_next, seg_agg};
+  walk_slots<4, TILE, true>(
+      src, H, blockIdx.y, gridDim.y, sentinel, (T*)s_seg,
+      [&](const typename Slot<T, 4>::type s) {
+        T w[4];
+        slot_words(s, w);
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          max_scan_step(cl[r], ci[r], m[r], w[0], w[1], w[2], l[r], u[r]);
+      });
+  const size_t y = blockIdx.y;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = i0 + r * THREADS;
+    if (i >= Q) continue;
+    cnt[2 * y * Q + i] = cl[r];
+    cnt[(2 * y + 1) * Q + i] = ci[r];
+    part[y * Q + i] = m[r];
+  }
+}
+
+// The segment holding q, from c = #(seg_lo <= q): on a plan's table
+// (seg_lo non-decreasing, seg_next[j] = seg_lo[j + 1], the sentinel last)
+// no segment before c - 1 can (its next start is <= q) and none from c
+// on (its start is > q), and segment c - 1 does when q < seg_next[c - 1]:
+// the first (only) segment of the one-hot membership.  -1 when none does.
+template <typename T>
+__device__ __forceinline__ int boundary_row(int c, T q,
+                                            const T* __restrict__ seg_next) {
+  return c > 0 && q < seg_next[c - 1] ? c - 1 : -1;
+}
+
+// #(seg_lo <= u) from c_l = #(seg_lo <= l) and the number n of interior
+// segments (lo > l, next <= u) on a plan's table: the segments with
+// next <= u are [0, #(seg_lo <= u) - 1) and those with lo > l start at
+// c_l, so a non-empty interior is [c_l, c_l + n) and the count c_l + n + 1;
+// an empty one leaves #(seg_lo <= u) at c_l, or c_l + 1 where
+// seg_lo[c_l] <= u.  (For l > u or a NaN u it can miss; boundary_row then
+// finds no segment for u, or a row on which both clipped maxima are empty
+// since max(lo_u, l) > u.)
+template <typename T>
+__device__ __forceinline__ int upper_count(int c_l, int n, T u,
+                                           const T* __restrict__ seg_lo,
+                                           int H) {
+  if (n > 0) return c_l + n + 1;
+  return c_l < H && seg_lo[c_l] <= u ? c_l + 1 : c_l;
+}
+
+// K15, the finish: a thread a query adds the S chunks' counts (integers:
+// any order is exact) and takes the max of their interior maxima (exact),
+// locates the two boundary rows, and runs the closed-form clipped maxima
+// on them (paper Eq. 17)
+template <typename T>
+__global__ void range_max_finish_kernel(
+    const T* __restrict__ lq, const T* __restrict__ uq,
+    const T* __restrict__ seg_lo, const T* __restrict__ seg_next,
+    const T* __restrict__ seg_hi, const T* __restrict__ coeffs,
+    const int* __restrict__ cnt, const T* __restrict__ part,
+    T* __restrict__ out, int Q, int H, int deg, int S) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= Q) return;
+  const T l = lq[i], u = uq[i];
+  int c_l = 0, n_int = 0;
+  T m_int = T(-INFINITY);
+  for (int s = 0; s < S; ++s) {
+    c_l += cnt[(size_t)(2 * s) * Q + i];
+    n_int += cnt[(size_t)(2 * s + 1) * Q + i];
+    m_int = jmax(m_int, part[(size_t)s * Q + i]);
+  }
+  const int c_u = upper_count(c_l, n_int, u, seg_lo, H);
+  // !(lo <= lq) holds on every segment when lq is NaN: no interior
+  m_int = isnan(l) ? T(-INFINITY) : m_int;
+  const int hit_l = boundary_row(c_l, l, seg_next);
+  const int hit_u = boundary_row(c_u, u, seg_next);
   const T zero[4] = {T(0), T(0), T(0), T(0)};
   const T* cl = hit_l >= 0 ? coeffs + (size_t)hit_l * (deg + 1) : zero;
   const T* cu = hit_u >= 0 ? coeffs + (size_t)hit_u * (deg + 1) : zero;
@@ -335,17 +440,30 @@ int launch_segment_eval(const void* lq, const void* uq, const void* seg_lo,
   return (int)cudaGetLastError();
 }
 
+// K15 in S chunks: the scan kernel's partials go to ``cnt`` ((2S, Q)
+// int32) and ``part`` ((S, Q)), then the finish kernel writes ``out``
 template <typename T>
 int launch_range_max(const void* lq, const void* uq, const void* seg_lo,
                      const void* seg_next, const void* seg_hi,
-                     const void* coeffs, const void* seg_agg, void* out, int Q,
-                     int H, int deg, void* stream) {
+                     const void* coeffs, const void* seg_agg, void* out,
+                     void* cnt, void* part, int Q, int H, int deg,
+                     double sentinel, void* stream) {
   if (deg > 3) return (int)cudaErrorInvalidValue;
-  if (Q > 0)
-    range_max_kernel<T><<<blocks_for(Q), kThreads, 0, (cudaStream_t)stream>>>(
-        (const T*)lq, (const T*)uq, (const T*)seg_lo, (const T*)seg_next,
-        (const T*)seg_hi, (const T*)coeffs, (const T*)seg_agg, (T*)out, Q, H,
-        deg);
+  if (Q <= 0) return (int)cudaGetLastError();
+  constexpr int per_block = kMaxThreads * kMaxQueries;
+  const int S = walk_chunks<kMaxTile>(H, kMaxChunks);
+  const dim3 grid((Q + per_block - 1) / per_block, S);
+  range_max_scan_kernel<T, kMaxThreads, kMaxQueries, kMaxTile>
+      <<<grid, kMaxThreads, walk_smem_bytes<4, kMaxTile, T>(),
+         (cudaStream_t)stream>>>((const T*)lq, (const T*)uq,
+                                 (const T*)seg_lo, (const T*)seg_next,
+                                 (const T*)seg_agg, (int*)cnt, (T*)part, Q, H,
+                                 sentinel);
+  range_max_finish_kernel<T>
+      <<<blocks_for(Q), kThreads, 0, (cudaStream_t)stream>>>(
+          (const T*)lq, (const T*)uq, (const T*)seg_lo, (const T*)seg_next,
+          (const T*)seg_hi, (const T*)coeffs, (const int*)cnt,
+          (const T*)part, (T*)out, Q, H, deg, S);
   return (int)cudaGetLastError();
 }
 
@@ -385,22 +503,30 @@ int polyfit_poly_eval_f32(const void* q, const void* seg_lo,
       q, nullptr, seg_lo, seg_next, seg_hi, coeffs, out, Q, H, deg, stream);
 }
 
+int polyfit_range_max_chunks(int H) {
+  return polyfit::walk_chunks<polyfit::kMaxTile>(H, polyfit::kMaxChunks);
+}
+
+// ``cnt``: (2S, Q) int32 and ``part``: (S, Q) scratch of the table's type,
+// S = polyfit_range_max_chunks(H)
 int polyfit_range_max(const void* lq, const void* uq, const void* seg_lo,
                       const void* seg_next, const void* seg_hi,
                       const void* coeffs, const void* seg_agg, void* out,
-                      int Q, int H, int deg, void* stream) {
+                      void* cnt, void* part, int Q, int H, int deg,
+                      double sentinel, void* stream) {
   return polyfit::launch_range_max<double>(lq, uq, seg_lo, seg_next, seg_hi,
-                                           coeffs, seg_agg, out, Q, H, deg,
-                                           stream);
+                                           coeffs, seg_agg, out, cnt, part, Q,
+                                           H, deg, sentinel, stream);
 }
 
 int polyfit_range_max_f32(const void* lq, const void* uq, const void* seg_lo,
                           const void* seg_next, const void* seg_hi,
                           const void* coeffs, const void* seg_agg, void* out,
-                          int Q, int H, int deg, void* stream) {
+                          void* cnt, void* part, int Q, int H, int deg,
+                          double sentinel, void* stream) {
   return polyfit::launch_range_max<float>(lq, uq, seg_lo, seg_next, seg_hi,
-                                          coeffs, seg_agg, out, Q, H, deg,
-                                          stream);
+                                          coeffs, seg_agg, out, cnt, part, Q,
+                                          H, deg, sentinel, stream);
 }
 
 int polyfit_delta_sum_chunks(int D) {

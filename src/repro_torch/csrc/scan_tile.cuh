@@ -1,38 +1,46 @@
-// The tile walker of the one-key whole-array scans (scan1d.cu K16,
-// quantile.cu K4's scan mode): every slot of a sorted one-key array is
-// compared with every query, from shared memory.
+// The tile walker of the whole-array scans (scan1d.cu K15 and K16,
+// quantile.cu K4's scan mode, leaf_eval2d.cu K12): every slot of an array
+// is compared with every query, from shared memory.
 //
 //   walk_slots<W, TILE, STOP>(src, n, first, step, stop, smem, f)
 //
 // stages the tiles first, first + step, first + 2 step, ... of slots
-// [0, n) of W parallel double arrays into shared memory (a block's share
-// when ``step`` blocks split the array along the grid's second dimension),
-// slot j's W words side by side (W = 2: a log's key and value, read back
-// as one 16-byte shared load a slot), TILE slots a tile.  The copies are
-// asynchronous (cp.async, 8 bytes each) and double-buffered: the copy of
-// the block's next tile is in flight while its threads compare against
-// this one.  f(slot) runs on every staged slot in order, on a double
-// (W = 1) or a double2 (W = 2); a full tile runs a loop of compile-time
-// length, the ragged last tile a loop of its own.  With STOP the walk ends
-// before the first of its tiles whose first key (word 0) equals ``stop``:
-// on a sorted log whose tail holds the sentinel key with value 0 (the
-// DeltaBuffer layout) no slot from there on can add anything.
+// [0, n) of N <= W parallel arrays of type T (double, or float for K15's
+// float32 plans) into shared memory (a block's share when ``step`` blocks
+// split the array along the grid's second dimension), slot j's N words
+// side by side in a W-word slot (W = 2: a log's key and value, read back
+// as one 16-byte shared load a slot; W = 4: K15's segment start, next
+// start and aggregate and a word of padding, or K12's four membership
+// bounds, read back as one or two 16-byte loads), TILE slots a tile.  The
+// copies are asynchronous (cp.async, one word each) and double-buffered:
+// the copy of the block's next tile is in flight while its threads compare
+// against this one.  f(slot) runs on every staged slot in order (or
+// f(slot, j), with the slot's index j in the array, where f takes it); a
+// full tile runs a loop of compile-time length, the ragged last tile a
+// loop of its own.  With STOP the walk ends before the first of its tiles
+// whose word 0 equals ``stop``: on an array whose word 0 is sorted, or
+// equal to the sentinel on a tail of padding only, no slot from there on
+// can match a query below the sentinel (the DeltaBuffer log, whose tail
+// holds value 0; a plan's segment table and flat leaf table).
 //
 // Every thread of the block must call it with the same arguments (it
-// holds __syncthreads); ``smem`` holds 2 * TILE * W doubles, 16-byte
+// holds __syncthreads); ``smem`` holds 2 * TILE * W words, 16-byte
 // aligned.  On return every copy has landed and the buffers are free.
 #pragma once
 
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 namespace polyfit {
 
-// one 8-byte asynchronous copy, global -> shared (through L1: every block
-// of the grid reads the same array)
-__device__ __forceinline__ void cp_async_8(void* smem, const void* gmem) {
+// one asynchronous copy of BYTES (4 or 8), global -> shared (through L1:
+// every block of the grid reads the same array)
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem) {
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(dst),
-               "l"(gmem)
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(dst),
+               "l"(gmem), "n"(BYTES)
                : "memory");
 }
 
@@ -65,21 +73,133 @@ __device__ __forceinline__ void count_le(int& c, double x, double q) {
       : "d"(x), "d"(q));
 }
 
-template <int W>
+// four doubles read back as two 16-byte shared loads
+struct double2x2 {
+  double2 a, b;
+};
+
+// the type f receives: one slot of W words of T
+template <typename T, int W>
 struct Slot;
 template <>
-struct Slot<1> {
+struct Slot<double, 1> {
   using type = double;
 };
 template <>
-struct Slot<2> {
+struct Slot<double, 2> {
   using type = double2;
 };
+template <>
+struct Slot<double, 4> {
+  using type = double2x2;
+};
+template <>
+struct Slot<float, 4> {
+  using type = float4;
+};
 
-// bytes of dynamic shared memory walk_slots<W, TILE> needs
-template <int W, int TILE>
+// the words of a four-word slot
+__device__ __forceinline__ void slot_words(const double2x2& s,
+                                           double (&w)[4]) {
+  w[0] = s.a.x;
+  w[1] = s.a.y;
+  w[2] = s.b.x;
+  w[3] = s.b.y;
+}
+
+__device__ __forceinline__ void slot_words(const float4& s, float (&w)[4]) {
+  w[0] = s.x;
+  w[1] = s.y;
+  w[2] = s.z;
+  w[3] = s.w;
+}
+
+// K15's loop body (scan1d.cu) for one (query, segment) pair, in PTX:
+// cl += lo <= l; where !(lo <= l) && nx <= u (the interior test
+// lo > l && nx <= u for every l but NaN: the finish kernel empties a NaN
+// lane's interior), ci += 1 and m = agg if agg > m.  Three compares (the
+// second and third AND a predicate in), two predicated increments and a
+// predicated move, which ptxas issues as two selects; a predicated
+// max.f64 comes back from ptxas as NaN tests and selects.  A plan's
+// aggregates hold no NaN, and of equal aggregates the first is kept
+// (-0.0 against +0.0 included).
+__device__ __forceinline__ void max_scan_step(int& cl, int& ci, double& m,
+                                              double lo, double nx,
+                                              double agg, double l,
+                                              double u) {
+  asm("{\n\t.reg .pred p, r, s;\n\t"
+      "setp.le.f64 p, %3, %6;\n\t"
+      "@p add.s32 %0, %0, 1;\n\t"
+      "setp.le.and.f64 r, %4, %7, !p;\n\t"
+      "@r add.s32 %1, %1, 1;\n\t"
+      "setp.gt.and.f64 s, %5, %2, r;\n\t"
+      "@s mov.f64 %2, %5;\n\t}"
+      : "+r"(cl), "+r"(ci), "+d"(m)
+      : "d"(lo), "d"(nx), "d"(agg), "d"(l), "d"(u));
+}
+
+__device__ __forceinline__ void max_scan_step(int& cl, int& ci, float& m,
+                                              float lo, float nx, float agg,
+                                              float l, float u) {
+  asm("{\n\t.reg .pred p, r, s;\n\t"
+      "setp.le.f32 p, %3, %6;\n\t"
+      "@p add.s32 %0, %0, 1;\n\t"
+      "setp.le.and.f32 r, %4, %7, !p;\n\t"
+      "@r add.s32 %1, %1, 1;\n\t"
+      "setp.gt.and.f32 s, %5, %2, r;\n\t"
+      "@s mov.f32 %2, %5;\n\t}"
+      : "+r"(cl), "+r"(ci), "+f"(m)
+      : "f"(lo), "f"(nx), "f"(agg), "f"(l), "f"(u));
+}
+
+// K12's loop body (leaf_eval2d.cu) for one query and one leaf box
+// [x0, x1) x [y0, y1), in PTX: the query's two x coordinates (ux, lx) and
+// two y coordinates (uy, ly) are tested once each (8 compares, the second
+// of each pair ANDing the first in), and corner e = (x[e & 1], y[e >> 1])
+// takes the leaf's index j under the AND of its two tests (4 predicate
+// ANDs and 4 predicated moves).  No first-hit test: at most one leaf of a
+// plan's table holds a clamped corner.
+__device__ __forceinline__ void corner_hits_step(int (&hit)[4],
+                                                 const double (&x)[2],
+                                                 const double (&y)[2],
+                                                 const double2x2& box,
+                                                 int j) {
+  asm("{\n\t.reg .pred a, b, c, d, x0, x1, y0, y1, e0, e1, e2, e3;\n\t"
+      "setp.le.f64 a, %5, %9;\n\t"
+      "setp.lt.and.f64 x0, %9, %6, a;\n\t"
+      "setp.le.f64 b, %5, %10;\n\t"
+      "setp.lt.and.f64 x1, %10, %6, b;\n\t"
+      "setp.le.f64 c, %7, %11;\n\t"
+      "setp.lt.and.f64 y0, %11, %8, c;\n\t"
+      "setp.le.f64 d, %7, %12;\n\t"
+      "setp.lt.and.f64 y1, %12, %8, d;\n\t"
+      "and.pred e0, x0, y0;\n\t"
+      "and.pred e1, x1, y0;\n\t"
+      "and.pred e2, x0, y1;\n\t"
+      "and.pred e3, x1, y1;\n\t"
+      "@e0 mov.b32 %0, %4;\n\t"
+      "@e1 mov.b32 %1, %4;\n\t"
+      "@e2 mov.b32 %2, %4;\n\t"
+      "@e3 mov.b32 %3, %4;\n\t}"
+      : "+r"(hit[0]), "+r"(hit[1]), "+r"(hit[2]), "+r"(hit[3])
+      : "r"(j), "d"(box.a.x), "d"(box.a.y), "d"(box.b.x), "d"(box.b.y),
+        "d"(x[0]), "d"(x[1]), "d"(y[0]), "d"(y[1]));
+}
+
+// f(s, j) where f takes the slot's index, else f(s)
+template <typename F, typename S>
+__device__ __forceinline__ void visit_slot(F& f, const S& s, int j) {
+  if constexpr (std::is_invocable_v<F&, const S&, int>) {
+    f(s, j);
+  } else {
+    f(s);
+  }
+}
+
+// bytes of dynamic shared memory walk_slots<W, TILE> needs over T
+template <int W, int TILE, typename T = double>
 constexpr int walk_smem_bytes() {
-  return 2 * TILE * W * (int)sizeof(double);
+  return 2 * TILE * W * (int)sizeof(T);
 }
 
 // the chunks (grid rows) that split an n-slot array of TILE-slot tiles:
@@ -90,19 +210,21 @@ inline int walk_chunks(int n, int most) {
   return tiles < most ? (tiles > 0 ? tiles : 1) : most;
 }
 
-template <int W, int TILE, bool STOP, typename F>
-__device__ __forceinline__ void walk_slots(const double* const (&src)[W],
-                                           int n, int first, int step,
-                                           double stop, double* smem, F&& f) {
-  using S = typename Slot<W>::type;
+template <int W, int TILE, bool STOP, typename T, int N, typename F>
+__device__ __forceinline__ void walk_slots(const T* const (&src)[N], int n,
+                                           int first, int step, double stop,
+                                           T* smem, F&& f) {
+  static_assert(N <= W, "a slot holds a word of each array");
+  using S = typename Slot<T, W>::type;
   const int tiles = (n + TILE - 1) / TILE;
   auto stage = [&](int t, int buf) {
-    double* dst = smem + buf * (TILE * W);
+    T* dst = smem + buf * (TILE * W);
     const int base = t * TILE;
     const int m = n - base < TILE ? n - base : TILE;
     for (int j = threadIdx.x; j < m; j += blockDim.x) {
 #pragma unroll
-      for (int w = 0; w < W; ++w) cp_async_8(dst + j * W + w, src[w] + base + j);
+      for (int w = 0; w < N; ++w)
+        cp_async<sizeof(T)>(dst + j * W + w, src[w] + base + j);
     }
     cp_async_commit();
   };
@@ -113,15 +235,16 @@ __device__ __forceinline__ void walk_slots(const double* const (&src)[W],
     else cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
-    const double* tile = smem + (it & 1) * (TILE * W);
-    if (STOP && tile[0] == stop) break;   // the same word for every thread
+    const T* tile = smem + (it & 1) * (TILE * W);
+    if (STOP && tile[0] == (T)stop) break;   // the same word for every thread
     const S* slots = reinterpret_cast<const S*>(tile);
-    const int m = n - t * TILE;
+    const int base = t * TILE;
+    const int m = n - base;
     if (m >= TILE) {
 #pragma unroll 8
-      for (int k = 0; k < TILE; ++k) f(slots[k]);
+      for (int k = 0; k < TILE; ++k) visit_slot(f, slots[k], base + k);
     } else {
-      for (int k = 0; k < m; ++k) f(slots[k]);
+      for (int k = 0; k < m; ++k) visit_slot(f, slots[k], base + k);
     }
     __syncthreads();   // this buffer is restaged two tiles on
   }

@@ -30,7 +30,7 @@ import torch
 
 __all__ = ["CSRC", "SOURCES", "UNITS", "NVCC_FLAGS", "Build", "build",
            "library", "check", "require_cuda", "float_dtype", "launcher",
-           "stream"]
+           "stream", "sentinel"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("locate.cuh", "scan_tile.cuh", "polyfit_kernels.cu",
@@ -68,9 +68,11 @@ _SIGNATURES = {
     # u, v, xcuts, ycuts, leaf_z, bounds, coeffs, out, Q, nx, ny, L, deg,
     # depth, stream
     "polyfit_corner_eval2d_gather": (_P,) * 8 + (_I,) * 6 + (_P,),
-    # lx, ux, ly, uy, mx0, mx1, my0, my1, bounds, coeffs, out, Q, L, deg,
-    # stream
-    "polyfit_corner_count2d": (_P,) * 11 + (_I,) * 3 + (_P,),
+    # lx, ux, ly, uy, mx0, mx1, my0, my1, bounds, coeffs, out, hits, Q, L,
+    # deg, sentinel, stream; ``hits`` an (S, 4, Q) int32 scratch,
+    # S = polyfit_corner_count2d_chunks(L)
+    "polyfit_corner_count2d": (_P,) * 12 + (_I,) * 3 + (_D, _P),
+    "polyfit_corner_count2d_chunks": (_I,),
     # u, v, mx0, mx1, my0, my1, bounds, coeffs, out, Q, L, deg, stream
     "polyfit_corner_eval2d": (_P,) * 9 + (_I,) * 3 + (_P,),
     # lx, ux, ly, uy, kx, ylv, out, Q, cap, levels, stream
@@ -81,9 +83,11 @@ _SIGNATURES = {
     "polyfit_delta_dommax2d_gather": (_P,) * 6 + (_I,) * 3 + (_P,),
     # lq, uq, seg_lo, seg_next, seg_hi, coeffs, out, Q, H, deg, stream
     "polyfit_range_sum": (_P,) * 7 + (_I,) * 3 + (_P,),
-    # lq, uq, seg_lo, seg_next, seg_hi, coeffs, seg_agg, out, Q, H, deg,
-    # stream
-    "polyfit_range_max": (_P,) * 8 + (_I,) * 3 + (_P,),
+    # lq, uq, seg_lo, seg_next, seg_hi, coeffs, seg_agg, out, cnt, part, Q,
+    # H, deg, sentinel, stream; ``cnt`` a (2S, Q) int32 and ``part`` an
+    # (S, Q) scratch, S = polyfit_range_max_chunks(H)
+    "polyfit_range_max": (_P,) * 10 + (_I,) * 3 + (_D, _P),
+    "polyfit_range_max_chunks": (_I,),
     # lq, uq, keys, vals, out, part, Q, D, sentinel, stream; ``part`` an
     # (S, Q) scratch, S = polyfit_delta_sum_chunks(D)
     "polyfit_delta_sum": (_P,) * 6 + (_I,) * 2 + (_D, _P),
@@ -226,3 +230,10 @@ def launcher(name: str, dtype: torch.dtype):
 def stream(device: torch.device) -> int:
     """The current CUDA stream of ``device`` as a raw handle."""
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def sentinel(dtype: torch.dtype) -> float:
+    """The padding value of a plan's tables at ``dtype`` (finfo.max / 4,
+    ``engine.plan.big_sentinel``): the whole-table scans K12 and K15 stop
+    at the first tile that starts on it."""
+    return float(torch.finfo(dtype).max) / 4

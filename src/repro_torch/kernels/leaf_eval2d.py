@@ -194,7 +194,13 @@ def _scan_args(name, qs, mx0, mx1, my0, my1, bounds, coeffs, deg):
 def corner_count2d(lx, ux, ly, uy, mx0, mx1, my0, my1, bounds, coeffs,
                    deg: int):
     """(Q,) 4-corner COUNT/SUM by one-hot membership over the flat leaf
-    table: K12 on CUDA tensors, the plain version on CPU tensors."""
+    table: K12 on CUDA tensors, the plain version on CPU tensors.
+
+    K12 takes a plan's flat leaf table as given (``engine.plan.
+    build_plan_2d``): the leaves' membership boxes partition the root, the
+    sentinel-padded leaves sit at the tail only, and the corners are
+    clamped into the root, so at most one leaf holds a corner.  It stops at
+    the first tile of the table whose first ``mx0`` is the sentinel."""
     if lx.device.type == "cpu":
         return corner_count2d_plain(lx, ux, ly, uy, mx0, mx1, my0, my1,
                                     bounds, coeffs, deg)
@@ -202,12 +208,19 @@ def corner_count2d(lx, ux, ly, uy, mx0, mx1, my0, my1, bounds, coeffs,
     _scan_args(name, (lx, ux, ly, uy), mx0, mx1, my0, my1, bounds, coeffs,
                deg)
     out = torch.empty_like(lx)
-    if lx.shape[0]:
-        _build.check(_build.library().polyfit_corner_count2d(
+    Q, L = lx.shape[0], mx0.shape[0]
+    if Q:
+        lib = _build.library()
+        # the kernel scans the table in S chunks; a finish kernel takes
+        # each corner's leaf from them and evaluates it
+        hits = torch.empty((4 * lib.polyfit_corner_count2d_chunks(L), Q),
+                           dtype=torch.int32, device=lx.device)
+        _build.check(lib.polyfit_corner_count2d(
             lx.data_ptr(), ux.data_ptr(), ly.data_ptr(), uy.data_ptr(),
             mx0.data_ptr(), mx1.data_ptr(), my0.data_ptr(), my1.data_ptr(),
             bounds.data_ptr(), coeffs.data_ptr(), out.data_ptr(),
-            lx.shape[0], mx0.shape[0], deg, _build.stream(lx.device)), name)
+            hits.data_ptr(), Q, L, deg, _build.sentinel(torch.float64),
+            _build.stream(lx.device)), name)
         corner_count2d.launches += 1
     return out
 

@@ -12,9 +12,11 @@ MIN is served on negated aggregates by the caller.
   with two gathers against the plan's per-segment sparse table;
 * **scan** (K15, ``range_max``, twin of ``range_max_pallas``, the
   ``cuda_scan`` backend): both boundary rows by one-hot membership
-  (``range_sum.segment_rows``), the same-segment test on their gathered
-  lo and hi, and a dense masked max of ``seg_agg`` over the segments with
-  lo > lq and next <= uq — O(H) a query.
+  (``range_sum.segment_rows``; the kernel counts #(seg_lo <= q) against
+  every segment instead, whose last is the row on a plan's table), the
+  same-segment test on their gathered lo and hi, and a dense masked max of
+  ``seg_agg`` over the segments with lo > lq and next <= uq — O(H) a
+  query.
 
 The max is exact, so the two agree bit for bit.  ``*_plain`` are the plain
 torch versions; the wrappers launch their kernels
@@ -136,7 +138,14 @@ def range_max(lq, uq, seg_lo, seg_next, seg_hi, coeffs, seg_agg):
     """(Q,) approximate MAX over [lq, uq] by one-hot membership against a
     (sentinel-padded) segment table with its per-segment aggregates
     ``seg_agg`` (-inf padded): K15 on CUDA tensors, the plain version on
-    CPU tensors.  ``range_max.launches`` counts the kernel launches."""
+    CPU tensors.  ``range_max.launches`` counts the kernel launches.
+
+    K15 takes a plan's layout as given (``engine.plan.build_plan``):
+    ``seg_lo`` non-decreasing and below the sentinel but for the padded
+    tail, ``seg_next[j] == seg_lo[j + 1]`` with the sentinel last, no NaN.
+    It finds each boundary segment from #(seg_lo <= q) and stops at the
+    first tile of the table that starts on the sentinel.  The plain
+    version tests membership against every entry of any table."""
     deg = _check_deg("range_max", coeffs)
     if lq.device.type == "cpu":
         return range_max_plain(lq, uq, seg_lo, seg_next, seg_hi, coeffs,
@@ -153,10 +162,17 @@ def range_max(lq, uq, seg_lo, seg_next, seg_hi, coeffs, seg_agg):
                          f"{seg_agg.shape}")
     out = torch.empty(Q, dtype=coeffs.dtype, device=lq.device)
     if Q:
+        # the kernel scans the table in S chunks; a finish kernel combines
+        # their boundary counts and interior maxima
+        chunks = _build.library().polyfit_range_max_chunks(H)
+        cnt = torch.empty((2 * chunks, Q), dtype=torch.int32,
+                          device=lq.device)
+        part = torch.empty((chunks, Q), dtype=dtype, device=lq.device)
         _build.check(_build.launcher("range_max", dtype)(
             lq.data_ptr(), uq.data_ptr(), seg_lo.data_ptr(),
             seg_next.data_ptr(), seg_hi.data_ptr(), coeffs.data_ptr(),
-            seg_agg.data_ptr(), out.data_ptr(), Q, H, deg,
+            seg_agg.data_ptr(), out.data_ptr(), cnt.data_ptr(),
+            part.data_ptr(), Q, H, deg, _build.sentinel(dtype),
             _build.stream(lq.device)), "range_max")
         range_max.launches += 1
     return out

@@ -14,8 +14,11 @@ a SUM log within 1e-12 of the lane's sum of |measure|: the plain product
 may add in another order), and the ``cuda_scan`` backend equals ``cuda``
 bit for bit, static, dynamic, windowed and through the session; K16 on
 fills either side of its tile edges and on the window's 4,096-of-131,072
-layout, K4's scan mode at ragged target counts, and two launches of each
-equal bit for bit.  The
+layout, K4's scan mode at ragged target counts, K15 (float64 and float32)
+and K12 at ragged query counts and table lengths on tables in a plan's
+layout (K15 on NaN lanes, an inverted range and every segment boundary,
+K12 on corners on every split line), and two launches of each equal bit
+for bit.  The
 two-key scans K18 (buffered COUNT), K19 (buffered SUM, added in slot
 order as its plain version adds) and K20 (buffered dominance MAX) equal
 their plain versions exactly, and a ``DynamicEngine2D`` on ``cuda_scan``
@@ -917,8 +920,9 @@ def test_delta_sum_kernel_on_a_window_log(cuda):
 
 
 def test_scan_kernels_repeat_bit_for_bit(cuda, quantile_plans):
-    """Two launches of K16 and of K4's scan mode on the same inputs give
-    the same bits (no atomics, a fixed order of summation)."""
+    """Two launches of K16, of K4's scan mode, of K15 and of K12 on the
+    same inputs give the same bits (no atomics; a fixed order of
+    summation, exact counts, maxima and lowest indices across chunks)."""
     keys, vals, _, _ = _log(cuda, 3000, False)
     lq, uq = _delta_queries(cuda)
     assert torch.equal(kdelta.delta_sum(lq, uq, keys, vals),
@@ -927,6 +931,153 @@ def test_scan_kernels_repeat_bit_for_bit(cuda, quantile_plans):
     for a, b in zip(kq.quantile_invert(*args, scan=True, **kw),
                     kq.quantile_invert(*args, scan=True, **kw)):
         assert torch.equal(a, b)
+    bits = lambda t: t.view(torch.int64)
+    table = _segment_table(cuda, 2337, 2560, torch.float64)
+    args = (*_segment_queries(table, 65_537), *table)
+    assert torch.equal(bits(kmax.range_max(*args)),
+                       bits(kmax.range_max(*args)))
+    leaves = _grid_leaves(cuda, 50, 49, 2560)
+    args = (*_grid_corners(leaves, 65_537), *leaves[1:], 3)
+    assert torch.equal(bits(k2d.corner_count2d(*args)),
+                       bits(k2d.corner_count2d(*args)))
+
+
+# the segment tables and leaf tables of the ragged-shape tests: (live
+# entries, slots) from one tile to several chunks of the scans' tiles, and
+# the smoke's shapes (hki_dyn's 2,337 segments in 2,560, osm's 2,450-leaf
+# grid in 2,560)
+SEGMENT_SHAPES = [(1, 512), (200, 256), (257, 257), (300, 512), (700, 1024),
+                  (1100, 1536), (2337, 2560)]
+LEAF_GRIDS = [(1, 1, 512), (16, 16, 256), (257, 1, 257), (16, 32, 512),
+              (32, 32, 1024), (24, 45, 1536), (50, 49, 2560)]
+
+
+def _segment_table(cuda, live, n, dt, seed=0):
+    """A segment table in a plan's layout (engine.plan.build_plan) with
+    ``live`` segments in ``n`` slots at type ``dt``: starts sorted from 0
+    with one segment that holds nothing (two equal starts), seg_next the
+    next start and the sentinel last, cubic rows, the aggregates -inf on
+    the sentinel tail.  (seg_lo, seg_next, seg_hi, coeffs, seg_agg)."""
+    rng = np.random.default_rng(seed + live)
+    big = big_sentinel(dt)
+    lo = np.sort(rng.uniform(0, 1000, live))
+    lo[0] = 0.0
+    if live > 8:
+        lo[4] = lo[5]
+    lo = torch.as_tensor(lo, dtype=dt)
+    nx = torch.cat([lo[1:], torch.tensor([big], dtype=dt)])
+    hi = torch.cat([lo[:-1] + 0.9 * (lo[1:] - lo[:-1]),
+                    torch.tensor([1000.0], dtype=dt)])
+    cf = torch.as_tensor(rng.normal(0, 1, (live, 4)), dtype=dt)
+    agg = torch.as_tensor(rng.normal(0, 10, live), dtype=dt)
+    pad = lambda t, v: torch.cat([t, t.new_full((n - live, *t.shape[1:]),
+                                                v)]).to(cuda)
+    return (pad(lo, big), pad(nx, big), pad(hi, big), pad(cf, 0.0),
+            pad(agg, -np.inf))
+
+
+def _segment_queries(table, Q):
+    """Q ranges over a segment table, its boundary lanes first: NaN lq, uq
+    and both, the domain's low end, an inverted range, every start as lq
+    and as uq, just below every next start; then ranges from [-5, 1005]
+    clamped to the domain as the engine clamps them."""
+    lo, nx = table[0], table[1]
+    live = int((lo < big_sentinel(lo.dtype)).sum())
+    s, nxt = lo[:live].cpu().numpy(), nx[:live].cpu().numpy()
+    below = np.nextafter(nxt, np.array(-np.inf, dtype=nxt.dtype))
+    rng = np.random.default_rng(Q)
+    a, b = rng.uniform(-5, 1005, (2, Q))
+    lq = np.concatenate([[0.0] * 5, s, s[::-1], below, np.minimum(a, b)])
+    uq = np.concatenate([[0.0] * 5, np.roll(s, -3), s, below,
+                         np.maximum(a, b)])
+    lq, uq = np.minimum(lq, uq)[:Q], np.maximum(lq, uq)[:Q]
+    lq[:5] = [np.nan, 0.0, np.nan, 0.0, 700.0][:Q]
+    uq[:5] = [500.0, np.nan, np.nan, 0.0, 300.0][:Q]
+    return tuple(torch.clamp(torch.as_tensor(q, dtype=lo.dtype,
+                                             device=lo.device), min=0.0)
+                 for q in (lq, uq))
+
+
+def _grid_leaves(cuda, gx, gy, n, seed=0):
+    """A flat leaf table in a plan's layout (engine.plan.build_plan_2d):
+    a gx x gy grid of cells over [0, 100]^2 with uneven cuts, in a random
+    order, the cells on the root's top and right edges open to the
+    sentinel, padded to n slots with the sentinel; cubic surfaces.  (cuts,
+    mx0, mx1, my0, my1, bounds, coeffs)."""
+    rng = np.random.default_rng(seed + gx * gy)
+    big = big_sentinel(torch.float64)
+    xs = np.concatenate([[0.0], np.sort(rng.uniform(0, 100, gx - 1)), [100.0]])
+    ys = np.concatenate([[0.0], np.sort(rng.uniform(0, 100, gy - 1)), [100.0]])
+    ix, iy = (a.ravel() for a in np.meshgrid(np.arange(gx), np.arange(gy),
+                                             indexing="ij"))
+    perm = rng.permutation(gx * gy)
+    ix, iy = ix[perm], iy[perm]
+    b = np.stack([xs[ix], xs[ix + 1], ys[iy], ys[iy + 1]], axis=1)
+    pad = lambda a, v: torch.as_tensor(np.concatenate(
+        [a, np.full((n - len(a), *a.shape[1:]), v)]), device=cuda)
+    return ((xs, ys), pad(b[:, 0], big),
+            pad(np.where(b[:, 1] >= 100.0, big, b[:, 1]), big),
+            pad(b[:, 2], big), pad(np.where(b[:, 3] >= 100.0, big, b[:, 3]),
+                                   big),
+            pad(b, 0.0), pad(rng.normal(0, 1, (gx * gy, 16)), 0.0))
+
+
+def _grid_corners(leaves, Q):
+    """Q rectangles over a grid's root, corners on its split lines and on
+    the root's edges first, clamped into the root as the engine clamps
+    them."""
+    xs, ys = leaves[0]
+    k = max(len(xs), len(ys))
+    xs, ys = np.resize(xs, k), np.resize(ys, k)
+    rng = np.random.default_rng(Q)
+    a, b, c, d = rng.uniform(-5, 105, (4, Q))
+    x0 = np.concatenate([xs, rng.permutation(xs), a])
+    x1 = np.concatenate([rng.permutation(xs), xs, b])
+    y0 = np.concatenate([rng.permutation(ys), ys, c])
+    y1 = np.concatenate([ys, rng.permutation(ys), d])
+    x0, x1, y0, y1 = (np.clip(q[:Q], 0.0, 100.0) for q in (x0, x1, y0, y1))
+    return tuple(torch.as_tensor(q, device=leaves[1].device) for q in
+                 (np.minimum(x0, x1), np.maximum(x0, x1), np.minimum(y0, y1),
+                  np.maximum(y0, y1)))
+
+
+@pytest.mark.parametrize("dt", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("Q", [1, 255, 65_537])
+@pytest.mark.parametrize("live,n", SEGMENT_SHAPES)
+def test_range_max_scan_kernel_ragged_shapes(cuda, live, n, Q, dt):
+    """K15 equals its plain version in every lane at ragged query counts
+    and table lengths (one tile, one tile and one slot, one to four chunks
+    of tiles, a sentinel tail that starts mid-tile), on NaN lanes, an
+    inverted range, every segment start and just below every next start,
+    at float64 and float32; one launch a call."""
+    table = _segment_table(cuda, live, n, dt)
+    args = (*_segment_queries(table, Q), *table)
+    before = kmax.range_max.launches
+    got = kmax.range_max(*args)
+    torch.cuda.synchronize()
+    assert kmax.range_max.launches == before + 1
+    assert got.shape == (Q,) and got.dtype == dt
+    torch.testing.assert_close(got, kmax.range_max_plain(*args), rtol=0,
+                               atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("Q", [1, 255, 65_537])
+@pytest.mark.parametrize("gx,gy,n", LEAF_GRIDS)
+def test_corner_count2d_kernel_ragged_shapes(cuda, gx, gy, n, Q):
+    """K12 equals its plain version in every lane at ragged query counts
+    and leaf-table lengths (one leaf, one tile, one tile and one slot, one
+    to four chunks of tiles), corners on split lines and the root's edges
+    included; one launch a call."""
+    leaves = _grid_leaves(cuda, gx, gy, n)
+    args = (*_grid_corners(leaves, Q), *leaves[1:], 3)
+    before = k2d.corner_count2d.launches
+    got = k2d.corner_count2d(*args)
+    torch.cuda.synchronize()
+    assert k2d.corner_count2d.launches == before + 1
+    assert got.shape == (Q,)
+    torch.testing.assert_close(got, k2d.corner_count2d_plain(*args), rtol=0,
+                               atol=0)
 
 
 @pytest.mark.parametrize("Q", [1, 255, 65_537])

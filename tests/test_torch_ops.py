@@ -295,9 +295,11 @@ def test_float32_launchers_picked_by_type(monkeypatch):
         ksum.range_sum(v, v, v, v, v, c)
         kmax.range_max_gather(v, v, v, v, c, st)
         kmax.range_max(v, v, v, v, v, c, v)
+        # K15 asks for its chunk count (the scratch's rows) first
         assert calls == [f"polyfit_{k}{sfx}" for k in (
             "poly_eval", "range_sum_gather", "range_sum",
-            "range_max_gather", "range_max")]
+            "range_max_gather")] + ["polyfit_range_max_chunks",
+                                    f"polyfit_range_max{sfx}"]
         assert [d for _, d in asked] == [dt] * 5
     v32 = torch.empty(16, dtype=torch.float32, device="meta")
     asked.clear()

@@ -55,10 +55,13 @@ from repro.kernels.delta_scan import (delta_max_pallas,  # noqa: E402
 from repro.kernels.quantile_invert import quantile_invert_pallas  # noqa: E402
 from repro.kernels.range_max import range_max_pallas  # noqa: E402
 from repro.kernels.range_sum import range_sum_pallas  # noqa: E402
+from repro_torch.core import build_index_1d as t_build_1d  # noqa: E402
 from repro_torch.core import index_from_numpy, rank_slack  # noqa: E402
+from repro_torch.core.poly import clipped_poly_max  # noqa: E402
 from repro_torch.engine import (BACKENDS, DynamicEngine,  # noqa: E402
                                 Engine, WindowEngine, big_sentinel, execute,
                                 execute_quantile)
+from repro_torch.engine import build_plan as t_build_plan  # noqa: E402
 from repro_torch.engine import engine as eng  # noqa: E402
 from repro_torch.engine import dynamic as dyn_mod  # noqa: E402
 from repro_torch.engine import lsm as lsm_mod  # noqa: E402
@@ -66,9 +69,11 @@ from repro_torch.engine import window as win_mod  # noqa: E402
 from repro_torch.engine.plan import (ARRAY_FIELDS, META_FIELDS,  # noqa: E402
                                      pad_to_multiple, plan_from_numpy)
 from repro_torch.kernels import delta_scan as kdel  # noqa: E402
+from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import quantile_invert as kq  # noqa: E402
 from repro_torch.kernels import range_max as kmax  # noqa: E402
 from repro_torch.kernels import range_sum as ksum  # noqa: E402
+from repro_torch.kernels.range_sum import gather_rows  # noqa: E402
 from repro_torch.core.quantile import boundary_array  # noqa: E402
 
 TOL = dict(rtol=1e-9, atol=1e-9)
@@ -516,6 +521,129 @@ def test_port_logs_keep_the_sentinel_tail(tables, ops, card_route, source):
             np.testing.assert_array_equal(got, want)
         else:
             assert np.all(np.abs(got - want) <= 1e-12 * np.abs(v).sum())
+
+
+def _segment_layout(plan):
+    """Assert the layout K15 relies on (engine.plan.build_plan): seg_lo
+    non-decreasing and below the sentinel on the h real segments, the
+    sentinel on the padded tail only, seg_next[j] == seg_lo[j + 1] with the
+    sentinel last, seg_agg finite on the real segments and -inf on the
+    tail, no NaN anywhere."""
+    lo, nx, agg = (t.numpy() for t in (plan.seg_lo, plan.seg_next,
+                                       plan.seg_agg))
+    big, h = big_sentinel(plan.seg_lo.dtype), plan.h
+    assert not any(np.isnan(a).any() for a in (lo, nx, agg))
+    assert np.all(np.diff(lo) >= 0)
+    assert np.all(lo[:h] < big) and np.all(lo[h:] == big)
+    assert np.all(nx[:-1] == lo[1:]) and nx[-1] == big
+    assert np.all(np.isfinite(agg[:h])) and np.all(agg[h:] == -np.inf)
+
+
+def _k15_count_form(lq, uq, plan):
+    """A numpy transcription of K15's formulation (csrc/scan1d.cu): it
+    counts c_l = #(seg_lo <= lq), and n and the max of seg_agg over the
+    interior !(seg_lo <= lq) & (seg_next <= uq) (emptied for a NaN lq);
+    then #(seg_lo <= uq) is c_l + n + 1 for n > 0, else c_l plus whether
+    seg_lo[c_l] <= uq; each boundary row is c - 1 where q < seg_next[c - 1]
+    (else none); then range_max_plain's closed-form tail on those rows.
+    Returns the answers and the two rows."""
+    lo, nx, agg = (t.numpy() for t in (plan.seg_lo, plan.seg_next,
+                                       plan.seg_agg))
+    H = len(lo)
+
+    def row(c, q):
+        hit = (c > 0) & (q < nx[np.maximum(c - 1, 0)])
+        return torch.as_tensor(np.where(hit, c - 1, -1))
+
+    c_l = (lo[None, :] <= lq[:, None]).sum(axis=1)
+    inside = ~(lo[None, :] <= lq[:, None]) & (nx[None, :] <= uq[:, None])
+    n = inside.sum(axis=1)
+    c_u = np.where(n > 0, c_l + n + 1,
+                   c_l + ((c_l < H) & (lo[np.minimum(c_l, H - 1)] <= uq)))
+    m_int = np.where(inside, agg[None, :], -np.inf).max(axis=1)
+    m_int = torch.as_tensor(np.where(np.isnan(lq), -np.inf, m_int))
+    il, iu = row(c_l, lq), row(c_u, uq)
+    lq, uq = torch.as_tensor(lq), torch.as_tensor(uq)
+    cl, lo_l, hi_l = gather_rows(il, plan.coeffs, plan.seg_lo, plan.seg_hi)
+    cu, lo_u, hi_u = gather_rows(iu, plan.coeffs, plan.seg_lo, plan.seg_hi)
+    same = (lo_l == lo_u) & (hi_l == hi_u)
+    m_left = clipped_poly_max(cl, lo_l, hi_l, lq, torch.minimum(hi_l, uq))
+    m_left = torch.where(lq <= hi_l, m_left, -torch.inf)
+    m_right = clipped_poly_max(cu, lo_u, hi_u, torch.maximum(lo_u, lq), uq)
+    m_right = torch.where(same, -torch.inf, m_right)
+    return (torch.maximum(torch.maximum(m_left, m_right), m_int).numpy(),
+            il.numpy(), iu.numpy())
+
+
+def _layout_plans(source, tables, ops):
+    """The plan ``source`` names, lowered by the port: the static MAX or
+    MIN plan (engine.build_plan), a dynamic MAX plan after a merge, the
+    float32 kernels.ops MAX table, and a float32 table over keys near 1e7
+    0.05 apart, where several segment starts round to one float."""
+    if source in ("static_max", "static_min"):
+        idx = tables[1][source.split("_")[1]][0]
+        return t_build_plan(index_from_numpy(_fields(idx), "cpu"))
+    if source == "dynamic_merged":
+        dyn = DynamicEngine(
+            index_from_numpy(_fields(tables[1]["max"][0]), "cpu"),
+            backend="cuda_scan", capacity=DCAP, auto_refit=False)
+        _updates(dyn, "max", ops)
+        dyn.flush()
+        assert dyn.refit_count == 1 and dyn.n_pending == 0
+        return dyn.snapshot()[0]
+    if source == "ops_f32":
+        return kops.from_index(
+            index_from_numpy(_fields(tables[1]["max"][0]), "cpu"))
+    keys = 1e7 + 0.05 * np.arange(1500)
+    idx = t_build_1d(keys, hki_series(1500, seed=3)[1], "max", deg=3,
+                     delta=15.0, device="cpu")
+    return kops.from_index(idx, torch.float32)
+
+
+@pytest.mark.parametrize("source", ["static_max", "static_min",
+                                    "dynamic_merged", "ops_f32",
+                                    "ops_f32_ties"])
+def test_port_plans_keep_the_segment_layout(tables, ops, card_route,
+                                            source):
+    """Every segment table the port hands K15 keeps the layout the kernel
+    relies on, and on it the kernel's count formulation equals the plain
+    K15 (one-hot first hit, interior lo > lq) bit for bit: on every
+    segment start, just below every next start, the domain's low end,
+    float32 starts that round to one float, inverted ranges and NaN
+    lanes."""
+    plan = _layout_plans(source, tables, ops)
+    _segment_layout(plan)
+    dt = plan.seg_lo.dtype
+    lo = plan.seg_lo.numpy()[:plan.h]
+    below = np.nextafter(plan.seg_next.numpy()[:plan.h],
+                         np.array(-np.inf, dtype=lo.dtype))
+    if source == "ops_f32_ties":
+        assert np.any(np.diff(lo) == 0), "no float32 starts coincide"
+    rng = np.random.default_rng(73)
+    pick = lambda a: a[rng.integers(0, len(a), len(a))]
+    ends = np.concatenate([lo, below, [lo[0]]])
+    a = np.concatenate([ends, pick(ends), lo])
+    b = np.concatenate([pick(ends), ends, below])
+    # then inverted ranges, and NaN lanes: lq, uq, both
+    lq = np.concatenate([np.minimum(a, b), np.maximum(a, b)[::7],
+                         [np.nan, lo[0], np.nan]])
+    uq = np.concatenate([np.maximum(a, b), np.minimum(a, b)[::7],
+                         [lo[-1], np.nan, np.nan]])
+    lq, uq = lq.astype(lo.dtype), uq.astype(lo.dtype)
+    want = kmax.range_max_plain(
+        torch.as_tensor(lq), torch.as_tensor(uq), plan.seg_lo,
+        plan.seg_next, plan.seg_hi, plan.coeffs, plan.seg_agg)
+    assert want.dtype == dt
+    got, il, iu = _k15_count_form(lq, uq, plan)
+    np.testing.assert_array_equal(got, want.numpy())
+    # the very rows the one-hot membership finds (for uq on every range
+    # that is not inverted; on an inverted one both clipped maxima are
+    # empty whatever the rows)
+    rows = [ksum.segment_rows(torch.as_tensor(q), plan.seg_lo,
+                              plan.seg_next).numpy() for q in (lq, uq)]
+    np.testing.assert_array_equal(il, rows[0])
+    ok = ~(lq > uq)
+    np.testing.assert_array_equal(iu[ok], rows[1][ok])
 
 
 @pytest.mark.parametrize("agg", AGGS)

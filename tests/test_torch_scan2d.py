@@ -45,8 +45,11 @@ from repro.kernels.delta_scan import (delta_count2d_pallas,  # noqa: E402
                                       delta_sum2d_pallas)
 import repro_torch.api as tapi  # noqa: E402
 from repro_torch.api import session as ses_mod  # noqa: E402
+from repro_torch.core import build_index_2d as t_build_2d  # noqa: E402
 from repro_torch.core import index2d_from_numpy  # noqa: E402
+from repro_torch.data import osm_points  # noqa: E402
 from repro_torch.engine import DeltaBuffer2D, DynamicEngine2D  # noqa: E402
+from repro_torch.engine import build_plan_2d as t_build_plan_2d  # noqa: E402
 from repro_torch.engine import dynamic as dyn_mod  # noqa: E402
 from repro_torch.engine import engine as eng  # noqa: E402
 from repro_torch.engine import lsm as lsm_mod  # noqa: E402
@@ -294,6 +297,58 @@ def test_dynamic2d_scan_matches_reference(setup2d, card_route, agg):
     compare()
     update(1)
     compare()
+
+
+def _leaf_plan(source, setup2d):
+    """The port's flat leaf table ``source`` names: a COUNT plan over 1,500
+    OSM-like points (Morton depth 8), a depth-16 plan past the int32 Morton
+    range (the scan table alone), and a dynamic COUNT plan after a flush's
+    selective refit."""
+    if source == "osm":
+        px, py = osm_points(1500, seed=5)
+        return t_build_plan_2d(t_build_2d(px, py, deg=2, delta=25.0,
+                                          max_depth=8, device="cpu"))
+    if source == "deep":
+        rng = np.random.default_rng(41)
+        px, py = rng.uniform(0, 120, (2, 1000))
+        plan = t_build_plan_2d(t_build_2d(px, py, deg=2, delta=4.0,
+                                          max_depth=16, device="cpu"))
+        assert plan.leaf_z is None
+        return plan
+    px, py, idx, ins, gone, _, _ = setup2d
+    dyn = DynamicEngine2D(_carry(idx["count2d"]), backend="cuda_scan",
+                          capacity=CAP, auto_refit=False)
+    dyn.insert(*ins[0][:2])
+    dyn.delete(px[gone[:8]], py[gone[:8]])
+    dyn.flush()
+    assert dyn.refit_count == 1 and dyn.n_pending == 0
+    return dyn.snapshot()[0]
+
+
+@pytest.mark.parametrize("source", ["osm", "deep", "dyn2d_refit"])
+def test_port_leaf_tables_partition_the_root(setup2d, card_route, source):
+    """The flat leaf table K12 scans keeps the layout it relies on: the
+    padded leaves (membership bounds all the sentinel) sit at the tail
+    only, and the real leaves' boxes [mx0, mx1) x [my0, my1) partition the
+    root, so every corner clamped into it lies in exactly one leaf: corners
+    on every split line, on the root's edges and corners, and at random."""
+    plan = _leaf_plan(source, setup2d)
+    m = [t.numpy() for t in (plan.leaf_mx0, plan.leaf_mx1, plan.leaf_my0,
+                             plan.leaf_my1)]
+    big, n = big_sentinel(torch.float64), plan.n_leaves
+    assert all(np.all(a[n:] == big) for a in m)
+    assert np.all(m[0][:n] < big) and np.all(m[2][:n] < big)
+    x0, x1, y0, y1 = plan.root
+    xs = np.unique(np.concatenate([m[0][:n], m[1][m[1] < big], [x0, x1]]))
+    ys = np.unique(np.concatenate([m[2][:n], m[3][m[3] < big], [y0, y1]]))
+    rng = np.random.default_rng(79)
+    qx = np.concatenate([xs, rng.choice(xs, len(ys)), [x0, x0, x1, x1],
+                         rng.uniform(x0 - 5, x1 + 5, 500)])
+    qy = np.concatenate([rng.choice(ys, len(xs)), ys, [y0, y1, y0, y1],
+                         rng.uniform(y0 - 5, y1 + 5, 500)])
+    qx, qy = np.clip(qx, x0, x1)[:, None], np.clip(qy, y0, y1)[:, None]
+    holds = ((m[0] <= qx) & (qx < m[1]) & (m[2] <= qy) & (qy < m[3]))
+    assert np.all(holds.sum(axis=1) == 1)
 
 
 def test_session_dynamic2d_table_on_scan_backend(setup2d, card_route):
