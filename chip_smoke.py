@@ -105,7 +105,9 @@ Phases, each of which fails the run with a non-zero exit:
               counters must show K9 4, K10 4, K11 2, K7 4, K8 2 and K1;
               K9-K11, K1, K7 and K8 are held to their plain versions at the
               path's shapes (max abs error 0), and K9-K11 are timed on the
-              full 4,096-slot logs.
+              full 4,096-slot logs, K9 and K10 beside their loads a
+              rectangle (before and after the set-bits walk) and the rate
+              an SM served them at.
 
 The ``cuda_scan`` backend (the one-hot scan kernels K14-K17, K4's scan
 mode and the two-key whole-log scans K18-K20) runs at the end of phases
@@ -636,6 +638,25 @@ def mst_probes(cap: int) -> int:
     level."""
     levels = cap.bit_length()
     return probe_rounds(cap) + levels * (levels + 1) // 2
+
+
+def walk_probes(torch, args, weighted: bool):
+    """Mean loads a rectangle of K9 (K10 where ``weighted``) on one argument
+    set, computed on the card from its x-ranks: as the walk was before its
+    redesign (four corners, each an x-rank and every level's l + 1 probes,
+    K10 a prefix-sum load a level) and as it is (two x-ranks, l + 1 probes
+    for each set bit l of each corner's x-rank, K10 at most one prefix-sum
+    load a set bit)."""
+    lx, ux, _, _, kx = args[:5]
+    cap = kx.shape[0]
+    levels = cap.bit_length()
+    old = 4 * (mst_probes(cap) + (levels if weighted else 0))
+    i = torch.searchsorted(kx, torch.stack([ux, lx]), right=True)
+    bits = torch.stack([(i >> l) & 1 for l in range(levels)]).double()
+    per = torch.arange(1, levels + 1, dtype=torch.float64,
+                       device=kx.device)[:, None, None]
+    tree = 2 * (bits * (per + (1 if weighted else 0))).sum((0, 1))
+    return float(old), float(2 * probe_rounds(cap) + tree.mean())
 
 
 # ---------------------------------------------------------------------------
@@ -2414,6 +2435,22 @@ def main() -> None:
             3 * Q * 8 + table + levels * cap * 8, Q * (probes + levels),
             f"u, v ({Q},); keys_x ({cap},); ys_levels, wpmax_levels "
             f"({levels}, {cap}) f64 -> ({Q},)")}
+    # the probes behind K9's and K10's times: the loads a rectangle, and the
+    # rate at which an SM served them (tools/mst_rates.py measures the
+    # rates of scattered loads alone)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ghz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0]) / 1e3
+    for name, weighted in (("delta_count2d_gather", False),
+                           ("delta_sum2d_gather", True)):
+        old, new = walk_probes(torch, sets[name][0], weighted)
+        ms = timed["dyn2d"][name]["ms"]
+        rate = Q * new / (ms * 1e-3) / sms / (ghz * 1e9)
+        print(f"{tag}probes {name}: {old!r} loads a rectangle before the "
+              f"set-bits walk, {new!r} now; {rate!r} loads a clock an SM at "
+              f"{ms!r} ms ({sms} SMs at {ghz} GHz)", flush=True)
     # scan: the cuda_scan engines (K18-K20 beside K12/K13) against the
     # session's cuda engines (K9-K11 beside K7/K8) on the buffer-full ops
     tag = "scan dyn2d: "

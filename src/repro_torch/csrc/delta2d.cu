@@ -14,8 +14,8 @@
 // wcum and prefix maxima wpmax of the measures carried through the same
 // sorts.  A corner (x, y) is answered by the x-rank #(kx <= x)
 // (locate.cuh bsearch_count_right) and the merge-sort-tree prefix over it
-// (locate.cuh mst_prefix): at most one block a level, one binary search in
-// each, so O(log^2 cap) dependent probes.
+// (locate.cuh mst_prefix, and for K9/K10 mst_prefix_bits): at most one
+// block a level, one binary search in each, so O(log^2 cap) probes.
 //
 // K9 counts buffered points in (lx, ux] x (ly, uy]: cf(ux, uy) - cf(lx, uy)
 // - cf(ux, ly) + cf(lx, ly), each corner's count cast to f64 before the
@@ -28,14 +28,39 @@
 // What bounds them on an H100.  At Q = 65,536 and cap = 4,096 (13 levels)
 // K9 must move four f64 endpoints in and one out a query (2.6 MB) plus the
 // log's x keys and levels once (0.46 MB): about 0.9 us at 3.35 TB/s.  K10
-// adds wcum (0.43 MB), K11 reads two endpoints and wpmax instead.  Each
-// corner walks 13 probes for the x-rank and 91 in the tree, dependent loads
-// that hit L1/L2 (the log's structures are under 1 MB); K9 and K10 run four
-// corners a query, K11 one.  So the byte bound is about 1 us and the
-// dependent probe chains set the time.  What the design does about it:
-// nothing yet; one thread per query, the four corners of K9/K10 in
-// sequence so their chains can overlap only across threads, the tables read
-// through L1/L2.  Staging the upper levels in shared memory is later work.
+// adds wcum (0.43 MB), K11 reads two endpoints and wpmax instead.  The
+// byte bound is about 1 us; the loads set the time.  Written as
+// mst_prefix, a corner walks 13 x-rank probes and 91 tree probes (13
+// levels, l + 1 rounds each, an untaken level's search masked off): 416
+// scattered 8-byte loads a query for K9 (468 for K10), served by L1 and L2
+// (the log's structures are under 1 MB).  tools/mst_rates.py measures the
+// rates behind the design on the card: a dependent chain alone waits about
+// 72 clocks a step in L1 and 360 in L2, but at full occupancy an SM serves
+// only about 3 scattered loads a clock from L1 and 0.6 from L2, and the
+// walks run near 2 loads a clock an SM whatever their shape.  So the
+// number of loads sets the time, then the registers that decide how many
+// threads keep loads in flight.
+//
+// What the design of K9 and K10 does about it (K11 keeps mst_prefix, one
+// thread a query).
+//  * Only the taken levels are searched (locate.cuh mst_prefix_bits): a
+//    level is taken exactly when its bit is set in the x-rank, and its
+//    block is then known from the x-rank alone, so an untaken level costs
+//    no load (34 tree loads a corner for OSM-like rectangles over a
+//    3,072-point log, against 91).  The note there shows that skipping
+//    the untaken levels' +0.0 leaves K10's sum bit for bit.
+//  * Two x-ranks a query, not four: the corners (ux, uy), (lx, uy),
+//    (ux, ly) and (lx, ly) have two distinct x values, and the corners on
+//    one x search the same blocks.  Two threads serve a query, one an x;
+//    each searches its blocks for uy and ly, and a shuffle brings the lx
+//    thread's two corners to the ux thread, which combines a - b - c + d
+//    in the plain version's order.
+//  * Two taken levels at a time: their four searches run in lockstep, a
+//    round issuing its loads before its compares, on 48 registers (five
+//    blocks an SM, one wave at Q = 65,536).  Every taken level in lockstep
+//    needs 140-170 registers and ran 2-3x slower; staging the x keys in
+//    shared memory took the L1 the tree's rows live in.
+// About 163 loads a rectangle for K9 (185 for K10) instead of 416 (468).
 //
 // Each launcher takes raw device pointers and the CUDA stream, launches on
 // that stream, and returns cudaGetLastError() (0 when the launch was
@@ -53,54 +78,59 @@ constexpr int kThreads = 256;
 
 inline int blocks_for(int Q) { return (Q + kThreads - 1) / kThreads; }
 
-// f64 dominance count #(kx <= x, y_j <= y) over the log (one K9 corner)
-__device__ __forceinline__ double corner_count(const double* __restrict__ kx,
-                                               const double* __restrict__ ylv,
-                                               int cap, int levels, double x,
-                                               double y) {
-  const int i = bsearch_count_right(kx, cap, x);
-  return (double)mst_prefix<MstMode::kCount>(ylv, nullptr, cap, levels, i, y);
-}
+// taken levels a thread searches in lockstep (mst_prefix_bits' G)
+constexpr int kLevelsAtOnce = 2;
 
-// dominance sum of the logged measures (one K10 corner)
-__device__ __forceinline__ double corner_sum(const double* __restrict__ kx,
-                                             const double* __restrict__ ylv,
-                                             const double* __restrict__ wcum,
-                                             int cap, int levels, double x,
-                                             double y) {
-  const int i = bsearch_count_right(kx, cap, x);
-  return mst_prefix<MstMode::kSum>(ylv, wcum, cap, levels, i, y);
-}
-
-// K9: buffered COUNT over (lx, ux] x (ly, uy]
-__global__ void delta_count2d_gather_kernel(
-    const double* __restrict__ lx, const double* __restrict__ ux,
-    const double* __restrict__ ly, const double* __restrict__ uy,
-    const double* __restrict__ kx, const double* __restrict__ ylv,
-    double* __restrict__ out, int Q, int cap, int levels) {
-  const int q = blockIdx.x * blockDim.x + threadIdx.x;
-  if (q >= Q) return;
-  const double a = corner_count(kx, ylv, cap, levels, ux[q], uy[q]);
-  const double b = corner_count(kx, ylv, cap, levels, lx[q], uy[q]);
-  const double c = corner_count(kx, ylv, cap, levels, ux[q], ly[q]);
-  const double d = corner_count(kx, ylv, cap, levels, lx[q], ly[q]);
-  out[q] = a - b - c + d;
-}
-
-// K10: buffered SUM of measures over (lx, ux] x (ly, uy]
-__global__ void delta_sum2d_gather_kernel(
+// K9 (M = kCount) and K10 (kSum): the buffered COUNT or SUM of measures
+// over (lx, ux] x (ly, uy].  Two threads serve a query, one an x: thread
+// bit 0 picks it (0: ux, 1: lx), and the thread searches its x-rank's
+// blocks for uy and ly together.
+template <MstMode M>
+__device__ __forceinline__ void rect2d(
     const double* __restrict__ lx, const double* __restrict__ ux,
     const double* __restrict__ ly, const double* __restrict__ uy,
     const double* __restrict__ kx, const double* __restrict__ ylv,
     const double* __restrict__ wcum, double* __restrict__ out, int Q,
-    int cap, int levels) {
-  const int q = blockIdx.x * blockDim.x + threadIdx.x;
-  if (q >= Q) return;
-  const double a = corner_sum(kx, ylv, wcum, cap, levels, ux[q], uy[q]);
-  const double b = corner_sum(kx, ylv, wcum, cap, levels, lx[q], uy[q]);
-  const double c = corner_sum(kx, ylv, wcum, cap, levels, ux[q], ly[q]);
-  const double d = corner_sum(kx, ylv, wcum, cap, levels, lx[q], ly[q]);
-  out[q] = a - b - c + d;
+    int cap) {
+  const long long q = ((long long)blockIdx.x * kThreads + threadIdx.x) / 2;
+  const bool low = threadIdx.x & 1;
+  // lanes past Q redo the last query: every lane reaches the shuffles
+  const int qq = q < Q ? (int)q : Q - 1;
+  const int i = bsearch_count_right(kx, cap, low ? lx[qq] : ux[qq]);
+  const double v[2] = {uy[qq], ly[qq]};
+  MstTotal<M> total[2];
+  mst_prefix_bits<M, 2, kLevelsAtOnce>(ylv, wcum, cap, i, v, total);
+  // a = cf(ux, uy), b = cf(lx, uy), c = cf(ux, ly), d = cf(lx, ly), each
+  // count cast to f64 as the reference casts it to the plan dtype
+  const double a = (double)total[0];
+  const double c = (double)total[1];
+  const double b = __shfl_xor_sync(0xffffffffu, a, 1);
+  const double d = __shfl_xor_sync(0xffffffffu, c, 1);
+  if (q < Q && !low) out[q] = a - b - c + d;
+}
+
+// K9: buffered COUNT over (lx, ux] x (ly, uy]
+__global__ void __launch_bounds__(kThreads) delta_count2d_gather_kernel(
+    const double* __restrict__ lx, const double* __restrict__ ux,
+    const double* __restrict__ ly, const double* __restrict__ uy,
+    const double* __restrict__ kx, const double* __restrict__ ylv,
+    double* __restrict__ out, int Q, int cap) {
+  rect2d<MstMode::kCount>(lx, ux, ly, uy, kx, ylv, nullptr, out, Q, cap);
+}
+
+// K10: buffered SUM of measures over (lx, ux] x (ly, uy]
+__global__ void __launch_bounds__(kThreads) delta_sum2d_gather_kernel(
+    const double* __restrict__ lx, const double* __restrict__ ux,
+    const double* __restrict__ ly, const double* __restrict__ uy,
+    const double* __restrict__ kx, const double* __restrict__ ylv,
+    const double* __restrict__ wcum, double* __restrict__ out, int Q,
+    int cap) {
+  rect2d<MstMode::kSum>(lx, ux, ly, uy, kx, ylv, wcum, out, Q, cap);
+}
+
+// blocks of K9 and K10 for Q queries, two threads each
+inline int rect_blocks(int Q) {
+  return (int)((2LL * Q + kThreads - 1) / kThreads);
 }
 
 // K11: buffered dominance MAX over {x <= u, y <= v}; -inf when empty
@@ -120,17 +150,19 @@ __global__ void delta_dommax2d_gather_kernel(
 
 extern "C" {
 
+// levels is implied by cap (the x-rank's set bits are the levels taken)
 int polyfit_delta_count2d_gather(const void* lx, const void* ux,
                                  const void* ly, const void* uy,
                                  const void* kx, const void* ylv, void* out,
                                  int Q, int cap, int levels, void* stream) {
+  (void)levels;
   if (Q > 0)
-    polyfit::delta_count2d_gather_kernel<<<polyfit::blocks_for(Q),
+    polyfit::delta_count2d_gather_kernel<<<polyfit::rect_blocks(Q),
                                            polyfit::kThreads, 0,
                                            (cudaStream_t)stream>>>(
         (const double*)lx, (const double*)ux, (const double*)ly,
         (const double*)uy, (const double*)kx, (const double*)ylv,
-        (double*)out, Q, cap, levels);
+        (double*)out, Q, cap);
   return (int)cudaGetLastError();
 }
 
@@ -138,13 +170,14 @@ int polyfit_delta_sum2d_gather(const void* lx, const void* ux, const void* ly,
                                const void* uy, const void* kx,
                                const void* ylv, const void* wcum, void* out,
                                int Q, int cap, int levels, void* stream) {
+  (void)levels;
   if (Q > 0)
-    polyfit::delta_sum2d_gather_kernel<<<polyfit::blocks_for(Q),
+    polyfit::delta_sum2d_gather_kernel<<<polyfit::rect_blocks(Q),
                                          polyfit::kThreads, 0,
                                          (cudaStream_t)stream>>>(
         (const double*)lx, (const double*)ux, (const double*)ly,
         (const double*)uy, (const double*)kx, (const double*)ylv,
-        (const double*)wcum, (double*)out, Q, cap, levels);
+        (const double*)wcum, (double*)out, Q, cap);
   return (int)cudaGetLastError();
 }
 

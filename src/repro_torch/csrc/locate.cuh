@@ -15,6 +15,8 @@
 //   floor_log2           floor(log2(len)) for len >= 1
 //   rmq_gather           max over [i0, i1) of a (levels, n) sparse table
 //   mst_prefix           merge-sort-tree count / sum / max over an x prefix
+//   mst_prefix_bits      the same count / sum over the x-rank's set bits
+//                        only, G taken levels' searches in lockstep
 //   scale_unit, horner, fma_emul, clipped_poly_max   (core/poly.py)
 //
 // jmax / jmin / jclip follow torch.maximum / torch.minimum / torch.clamp:
@@ -255,6 +257,120 @@ __device__ __forceinline__
     pos = take ? pos + b : pos;
   }
   return total;
+}
+
+// ---------------------------------------------------------------------------
+// mst_prefix over the set bits of i (K9, K10)
+// ---------------------------------------------------------------------------
+//
+// mst_prefix takes block [pos, pos + 2^l) at level l exactly when bit l of
+// the x-rank i is set, and pos is then i with bits l and below cleared: the
+// levels it takes and their blocks are known from i alone.  mst_prefix_bits
+// searches only those blocks, so an untaken level costs no probe (at cap
+// 4,096 a corner's 91 tree probes become l + 1 for each set bit l: 34 on
+// average for OSM-like rectangles over a 3,072-point log).  Any exact
+// search of a sorted block counts the same y values <= v, so each block is
+// searched by a branch-free power-of-two search: l halving rounds, then
+// one compare.  The count mode sums the block counts (integers, any
+// order).  The sum mode adds wacc[l][pos + lo - 1] for the taken levels
+// with lo > 0 in descending level order, as mst_prefix does; mst_prefix
+// adds +0.0 for every other level, and that is an exact no-op: its total
+// starts at +0.0, and under round-to-nearest a sum is -0.0 only when both
+// addends are, so the total is never -0.0, and x + (+0.0) == x for every
+// other x, NaN and inf included.  So the walk equals mst_prefix bit for
+// bit.
+
+// *a when p, else 0.0: a predicated read-only load that issues no memory
+// access when p is false
+__device__ __forceinline__ double ldg_if(bool p, const double* a) {
+  double v = 0.0;
+  asm("{\n\t.reg .pred q;\n\t"
+      "setp.ne.b32 q, %2, 0;\n\t"
+      "@q ld.global.nc.f64 %0, [%1];\n\t}"
+      : "+d"(v)
+      : "l"(a), "r"((int)p));
+  return v;
+}
+
+template <MstMode M>
+using MstTotal = std::conditional_t<M == MstMode::kCount, int, double>;
+
+// The count (kCount) or sum (kSum) over x-rank [0, i) with y <= v[k] for
+// NY y values that share i, G taken levels at a time: the next G set bits
+// of i, high to low, form a group whose G x NY block searches run in
+// lockstep, each round issuing the group's loads before its compares, so
+// a thread keeps G x NY loads in flight on a few registers.  A group runs
+// the halving rounds of its largest level (the others' loads are
+// predicated off once theirs are done), then the last compare of every
+// search.  The sum mode folds each group in descending level order, so the
+// whole fold is in mst_prefix's order.  Any number of levels.
+template <MstMode M, int NY, int G>
+__device__ __forceinline__ void mst_prefix_bits(
+    const double* __restrict__ ylv, const double* __restrict__ wacc, int n,
+    int i, const double (&v)[NY], MstTotal<M> (&total)[NY]) {
+  static_assert(M != MstMode::kMax, "the dominance max keeps mst_prefix");
+#pragma unroll
+  for (int k = 0; k < NY; ++k) total[k] = 0;
+  unsigned rest = (unsigned)i;
+  while (rest) {
+    bool on[G];
+    int lv[G], c[G][NY];
+    const double* blk[G];
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      on[g] = rest != 0u;
+      lv[g] = on[g] ? 31 - __clz(rest) : 0;
+      rest &= on[g] ? ~(1u << lv[g]) : ~0u;
+      const unsigned pos = (unsigned)i & ~((2u << lv[g]) - 1u);
+      blk[g] = ylv + (size_t)lv[g] * n + pos;
+#pragma unroll
+      for (int k = 0; k < NY; ++k) c[g][k] = 0;
+    }
+    double y[G][NY];
+    for (int r = 0; r < lv[0]; ++r) {
+      int half[G];
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        half[g] = on[g] && r < lv[g] ? 1 << (lv[g] - 1 - r) : 0;
+#pragma unroll
+        for (int k = 0; k < NY; ++k)
+          y[g][k] = ldg_if(half[g] != 0, blk[g] + c[g][k] + half[g] - 1);
+      }
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+#pragma unroll
+        for (int k = 0; k < NY; ++k)
+          c[g][k] += y[g][k] <= v[k] ? half[g] : 0;
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+#pragma unroll
+      for (int k = 0; k < NY; ++k) y[g][k] = ldg_if(on[g], blk[g] + c[g][k]);
+    }
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+#pragma unroll
+      for (int k = 0; k < NY; ++k) {
+        c[g][k] += on[g] && y[g][k] <= v[k] ? 1 : 0;
+        if constexpr (M == MstMode::kCount) total[k] += c[g][k];
+      }
+    }
+    if constexpr (M == MstMode::kSum) {
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+#pragma unroll
+        for (int k = 0; k < NY; ++k)
+          y[g][k] = ldg_if(c[g][k] > 0, wacc + (blk[g] - ylv) + c[g][k] - 1);
+      }
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+#pragma unroll
+        for (int k = 0; k < NY; ++k)
+          total[k] = c[g][k] > 0 ? total[k] + y[g][k] : total[k];
+      }
+    }
+  }
 }
 
 }  // namespace polyfit

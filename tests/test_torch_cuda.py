@@ -688,10 +688,10 @@ def _log2d(cuda, fill):
     return log, (x, y)
 
 
-def _rects2d(cuda, pts, n=70_000):
+def _rects2d(cuda, pts, n=70_000, special=False):
     """Rectangles with corners on the points' own coordinates, random ones,
     one left of and one right of the log, one around all of it and one
-    inverted."""
+    inverted; with ``special`` also NaN, +-inf and signed-zero lanes."""
     x, y = pts
     rng = np.random.default_rng(53)
     a, b, c, d = rng.uniform(-10, 110, (4, n))
@@ -703,13 +703,24 @@ def _rects2d(cuda, pts, n=70_000):
     ux = np.concatenate([np.maximum(a, b), [-5.0, 1e9, 1e300, 40.0]])
     ly = np.concatenate([np.minimum(c, d), [-1e9, -1e9, -1e300, 0.0]])
     uy = np.concatenate([np.maximum(c, d), [1e9, 1e9, 1e300, 100.0]])
+    if special:
+        inf, nan = np.inf, np.nan
+        extra = np.array([  # lx, ux, ly, uy
+            [nan, 50.0, 0.0, 50.0], [0.0, nan, 0.0, 50.0],
+            [0.0, 50.0, nan, 50.0], [0.0, 50.0, 0.0, nan],
+            [-inf, inf, -inf, inf], [-inf, 50.0, -inf, 50.0],
+            [20.0, inf, 20.0, inf], [inf, -inf, inf, -inf],
+            [-0.0, 0.0, -0.0, 0.0], [1e308, inf, 1e308, inf]])
+        lx, ux, ly, uy = (np.concatenate([q, extra[:, j]])
+                          for j, q in enumerate((lx, ux, ly, uy)))
     return tuple(torch.as_tensor(q, device=cuda) for q in (lx, ux, ly, uy))
 
 
-@pytest.mark.parametrize("fill", [0, 1, 2, CAP])
+@pytest.mark.parametrize("fill", [0, 1, 2, CAP - 1025, CAP])
 def test_delta_2d_kernels_match_plain(cuda, fill):
     """K9, K10 and K11 equal their plain versions in every lane, bit for
-    bit, on an empty, a one- and a two-entry and a full log."""
+    bit, on an empty, a one- and a two-entry, a 3,071-entry and a full
+    log."""
     (x, _, _, ylv, wcum, wpmax), pts = _log2d(cuda, fill)
     lx, ux, ly, uy = _rects2d(cuda, pts)
     launches = lambda: (kdelta.delta_count2d_gather.launches,
@@ -734,6 +745,36 @@ def test_delta_2d_kernels_match_plain(cuda, fill):
     else:
         assert float(k9[-2]) == fill   # the rectangle around every point
         assert not k9[-4:-2].any()
+
+
+@pytest.mark.parametrize("nq", [1, 255, 65_537])
+@pytest.mark.parametrize("fill", [2, CAP - 1025, CAP])
+def test_delta_2d_kernels_ragged_and_special_lanes(cuda, fill, nq):
+    """K9 and K10 (two threads a query, a shuffle between them) on ragged
+    query counts, NaN, +-inf and signed-zero lanes (x-rank == cap where a
+    corner passes every key of the full log) equal their plain versions bit
+    for bit, and a second launch equals the first; K11 still equals its
+    plain version."""
+    (x, _, _, ylv, wcum, wpmax), pts = _log2d(cuda, fill)
+    rects = _rects2d(cuda, pts, special=True)
+    lx, ux, ly, uy = (torch.cat([q[:max(nq - 10, 1)], q[-10:]])[:nq]
+                      for q in rects)
+    bits = lambda t: t.view(torch.int64)
+    k9 = kdelta.delta_count2d_gather(lx, ux, ly, uy, x, ylv)
+    k10 = kdelta.delta_sum2d_gather(lx, ux, ly, uy, x, ylv, wcum)
+    k11 = kdelta.delta_dommax2d_gather(ux, uy, x, ylv, wpmax)
+    assert torch.equal(bits(k9), bits(kdelta.delta_count2d_gather_plain(
+        lx, ux, ly, uy, x, ylv)))
+    assert torch.equal(bits(k10), bits(kdelta.delta_sum2d_gather_plain(
+        lx, ux, ly, uy, x, ylv, wcum)))
+    torch.testing.assert_close(k11, kdelta.delta_dommax2d_gather_plain(
+        ux, uy, x, ylv, wpmax), rtol=0, atol=0)
+    assert torch.equal(bits(k9), bits(kdelta.delta_count2d_gather(
+        lx, ux, ly, uy, x, ylv)))
+    assert torch.equal(bits(k10), bits(kdelta.delta_sum2d_gather(
+        lx, ux, ly, uy, x, ylv, wcum)))
+    if nq > 10:   # (-inf, inf]^2: x-rank cap, every slot counted
+        assert float(k9[-6]) == CAP
 
 
 def test_delta_2d_kernels_reject_bad_arguments(cuda):

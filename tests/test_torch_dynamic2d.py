@@ -584,17 +584,18 @@ def _points(fill, seed):
     return x, y, rng.normal(50, 10, fill)
 
 
-def _log(fill, seed=0):
-    """(x, y, w, ylv, wcum, wpmax) of a weighted log of ``fill`` points,
-    appended in two batches by the port's append with its levels."""
-    e = DeltaBuffer2D.empty(CAP, weighted=True)
+def _log(fill, seed=0, cap=CAP, points=None):
+    """(x, y, w, ylv, wcum, wpmax) of a weighted log of ``fill`` points
+    (``points``, else ``_points``) in ``cap`` slots, appended in two
+    batches by the port's append with its levels."""
+    e = DeltaBuffer2D.empty(cap, weighted=True)
     out = (e.ins_x, e.ins_y, e.ins_w, e.ins_ylv, e.ins_wcum, e.ins_wpmax)
-    x, y, w = _points(fill, seed)
+    x, y, w = _points(fill, seed) if points is None else points
     for part in (slice(0, fill // 2), slice(fill // 2, fill)):
         if part.stop > part.start:
             out = _append_2d(*out[:3], *(torch.as_tensor(a[part])
                                          for a in (x, y, w)),
-                             cap=CAP, levels=True, weighted=True)
+                             cap=cap, levels=True, weighted=True)
     return out
 
 
@@ -692,6 +693,99 @@ def test_delta_2d_plain_kernels_match_pallas(fill):
         assert not k9.any() and not k10.any() and torch.isneginf(k11).all()
     else:
         assert k9.max() > 0 and torch.isfinite(k11).any()
+
+
+def _set_bits_form(lx, ux, ly, uy, keys_x, ylv, wcum):
+    """numpy transcription of K9 and K10 as csrc/delta2d.cu computes them:
+    two x-ranks a rectangle by the power-of-two search, then for each
+    corner only the levels whose bit is set in its x-rank i, block start
+    pos = i & ~((2 << l) - 1), a power-of-two search of the block (l
+    halving rounds, then one compare), and for K10 the taken levels' wcum
+    entries added in descending level order."""
+    n, levels = keys_x.shape[0], ylv.shape[0]
+
+    def rank(q):
+        c = np.zeros(q.shape, np.int64)
+        step = 1 << max(0, (n - 1).bit_length())
+        while step >= 1:
+            probe = c + step - 1
+            ok = (probe <= n - 1) & (keys_x[np.minimum(probe, n - 1)] <= q)
+            c = np.where(ok, c + step, c)
+            step >>= 1
+        return c
+
+    def corner(i, v):
+        count, total = np.zeros(i.shape, np.int64), np.zeros(i.shape)
+        for l in range(levels - 1, -1, -1):
+            take = (i >> l) & 1 == 1
+            pos = i & ~((2 << l) - 1)
+            c = np.zeros(i.shape, np.int64)
+            half = (1 << l) >> 1
+            while half:
+                y = ylv[l][np.where(take, pos + c + half - 1, 0)]
+                c = np.where(take & (y <= v), c + half, c)
+                half >>= 1
+            y = ylv[l][np.where(take, pos + c, 0)]
+            c = np.where(take & (y <= v), c + 1, c)
+            count += np.where(take, c, 0)
+            hit = take & (c > 0)
+            w = wcum[l][np.where(hit, pos + c - 1, 0)]
+            total = np.where(hit, total + w, total)
+        return count.astype(np.float64), total
+
+    iu, il = rank(ux), rank(lx)
+    (a, sa), (b, sb) = corner(iu, uy), corner(il, uy)
+    (c, sc), (d, sd) = corner(iu, ly), corner(il, ly)
+    return a - b - c + d, sa - sb - sc + sd
+
+
+@pytest.mark.parametrize("fill", [0, 1, 3, 3072, 4096])
+def test_mst_set_bits_form_matches_plain(fill):
+    """The set-bits formulation K9 and K10 run on the card equals their
+    plain versions bit for bit on a 4,096-slot log (ties on both axes,
+    -0.0 beside +0.0): ~600 rectangles with corners on the points'
+    coordinates, random, inverted and all-covering ones, NaN and +-inf
+    lanes, corners past every key (x-rank == cap on the full log) and on
+    either zero."""
+    cap = 4096
+    x, y, w = _points(fill, seed=fill + 5)
+    x[::7] = np.where(x[::7] == 0.0, -0.0, x[::7])
+    y[1::5] = np.where(y[1::5] == 0.0, -0.0, y[1::5])
+    gx, _, _, ylv, wcum, _ = _log(fill, cap=cap, points=(x, y, w))
+    rng = np.random.default_rng(fill + 71)
+    px, py, _ = _points(max(fill, 1), seed=fill + 5)
+    k = rng.integers(0, len(px), (2, 256))
+    a, b = np.concatenate([px[k], rng.uniform(-2, 22, (2, 256))], axis=1)
+    c, d = np.concatenate([py[k[::-1]], rng.uniform(-2, 22, (2, 256))],
+                          axis=1)
+    inf, nan = np.inf, np.nan
+    special = np.array([  # lx, ux, ly, uy
+        [nan, 10.0, 0.0, 10.0], [0.0, nan, 0.0, 10.0],
+        [0.0, 10.0, nan, 10.0], [0.0, 10.0, 0.0, nan],
+        [-inf, inf, -inf, inf], [-inf, 10.0, -inf, 10.0],
+        [-1e300, 1e300, -1e300, 1e300], [5.0, 1e300, 5.0, 1e300],
+        [0.0, inf, -0.0, inf], [-0.0, 0.0, -0.0, 0.0],
+        [0.0, -0.0, 0.0, -0.0], [-inf, -0.0, -inf, 0.0],
+        [inf, -inf, inf, -inf], [12.0, 4.0, 15.0, 3.0],
+        [-inf, -inf, -inf, -inf], [inf, inf, inf, inf],
+        [1e308, inf, 1e308, inf], [-5.0, 30.0, -5.0, 30.0]])
+    lx = np.concatenate([np.minimum(a, b), special[:, 0]])
+    ux = np.concatenate([np.maximum(a, b), special[:, 1]])
+    ly = np.concatenate([np.minimum(c, d), special[:, 2]])
+    uy = np.concatenate([np.maximum(c, d), special[:, 3]])
+    lx[:16], ux[:16] = ux[:16].copy(), lx[:16].copy()   # inverted ones
+    tq = [torch.as_tensor(q) for q in (lx, ux, ly, uy)]
+    got9, got10 = _set_bits_form(lx, ux, ly, uy, gx.numpy(), ylv.numpy(),
+                                 wcum.numpy())
+    want9 = kd.delta_count2d_gather_plain(*tq, gx, ylv).numpy()
+    want10 = kd.delta_sum2d_gather_plain(*tq, gx, ylv, wcum).numpy()
+    bits = lambda t: t.view(np.int64)
+    np.testing.assert_array_equal(bits(got9), bits(want9))
+    np.testing.assert_array_equal(bits(got10), bits(want10))
+    i_all = np.searchsorted(gx.numpy(), 1e300, side="right")
+    assert (i_all == cap) == (fill == cap)   # level 12 alone taken there
+    if fill:
+        assert want9.max() > 0 and np.abs(want10).max() > 0
 
 
 def test_delta_2d_wrappers_reject_bad_shapes():
