@@ -84,7 +84,9 @@ Phases, each of which fails the run with a non-zero exit:
               ``osm``'s plan (max abs error 0; K12 and K13 on its full
               flat table), K7 to K12 on corners on the split lines, K8 on
               the dominance plans and K12/K13 on the deep ones, and each is
-              timed on ``osm``'s plan;
+              timed on ``osm``'s plan, K7 beside its loads a rectangle
+              (before and after its redesign) and the rate an SM served
+              them at;
 11. dyn2d   - PolyFit.fit of three dynamic two-key tables
               (TableSpec(dynamic=True), capacity 4,096) over OSM-like
               points: ``osm_dyn`` COUNT (100k, delta 50, deg 3),
@@ -128,10 +130,11 @@ counters must show K14-K20 and K4's scan mode and none of K2, K3, K5-K11
 or gather-mode K4, and K14-K20 and K4's scan mode are held to their plain
 versions (max abs error 0) and timed: K4's scan mode at the static COUNT
 and SUM plans, K14/K15 at the dynamic plans, K16-K20 on the full
-4,096-slot logs and K16 also on the window's 131,072-slot log.  K16
-stops at a log's sentinel tail, so its bound counts the slots that hold
-entries (counted on the host before the timing); the bound over every
-slot of the log is printed beside it.
+4,096-slot logs and K16 also on the window's 131,072-slot log.  K16 and
+K17 stop at a log's sentinel tail, so their bounds count the slots that
+hold entries (counted on the card before the timing); the bound over
+every slot of the log and the pairs a clock an SM the time implies are
+printed beside it.
 
 The ``ops`` step, at the end of phase 7, runs ``repro_torch.kernels.ops``
 (the twin of ``repro.kernels.ops``) on ``lat`` (COUNT, deg 2) and ``hki``
@@ -657,6 +660,59 @@ def walk_probes(torch, args, weighted: bool):
                        device=kx.device)[:, None, None]
     tree = 2 * (bits * (per + (1 if weighted else 0))).sum((0, 1))
     return float(old), float(2 * probe_rounds(cap) + tree.mean())
+
+
+def cut_rank_loads(torch, c, q):
+    """Loads of csrc/locate.cuh cut_rank_guess for each value q against the
+    sorted cuts c: the two end cuts, then c[g - 1] and c[g] where they exist
+    at each check of the guess g (at most three), and the binary search's
+    rounds where every check failed (the search alone at n <= 2)."""
+    n = c.shape[0]
+    if n <= 2:
+        return torch.full_like(q, float(probe_rounds(n)))
+    t = (q - c[0]) * ((n - 1) / (c[n - 1] - c[0]))
+    inside = (t >= 0) & (t < n - 1)
+    g = torch.where(inside, torch.where(inside, t, 0.0).long() + 1,
+                    torch.where(t >= 0, n, 0))
+    loads = torch.full_like(q, 2.0)
+    done = torch.zeros_like(q, dtype=torch.bool)
+    for _ in range(3):
+        loads += torch.where(done, 0, (g > 0).double() + (g < n).double())
+        lo_ok = (g == 0) | (c[(g - 1).clamp(0, n - 1)] <= q)
+        hi_ok = (g == n) | (q < c[g.clamp(0, n - 1)])
+        done |= lo_ok & hi_ok
+        g = torch.where(done, g, g + torch.where(lo_ok, 1, -1))
+    return loads + torch.where(done, 0.0, float(probe_rounds(n)))
+
+
+def k7_loads(torch, args):
+    """Mean loads a rectangle of K7 on one argument set, computed on the
+    card from its corners: as it was (four corners, each three binary
+    searches and a row of 4 + (deg+1)^2 8-byte loads) and as it is (each of
+    the two x and two y values ranked once by cut_rank_guess, four leaf-code
+    searches, four rows of 2 + (deg+1)^2 / 2 16-byte loads, 8-byte
+    coefficient loads at an odd count)."""
+    lx, ux, ly, uy, xcuts, ycuts, leaf_z, _, coeffs = args[:9]
+    k = coeffs.shape[1]
+    nx, ny, L = xcuts.shape[0], ycuts.shape[0], leaf_z.shape[0]
+    row_old, row_new = 4 + k, 2 + (k // 2 if k % 2 == 0 else k)
+    old = 4 * (probe_rounds(nx) + probe_rounds(ny) + probe_rounds(L) + row_old)
+    ranks = (cut_rank_loads(torch, xcuts, ux) + cut_rank_loads(torch, xcuts, lx)
+             + cut_rank_loads(torch, ycuts, uy)
+             + cut_rank_loads(torch, ycuts, ly))
+    new = ranks.mean() + 4 * (probe_rounds(L) + row_new)
+    return float(old), float(new)
+
+
+def sm_clock(torch):
+    """The card's SM count and its maximum SM clock in GHz (nvidia-smi
+    clocks.max.sm): the rates a clock an SM below assume that clock."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ghz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0]) / 1e3
+    return sms, ghz
 
 
 # ---------------------------------------------------------------------------
@@ -1283,23 +1339,29 @@ def main() -> None:
         print(f"{tag}parity K4 scan mode on {len(plans)} plans: max |kernel "
               f"- plain| = {errs['quantile_invert_scan']!r}", flush=True)
 
-    def measure_k16(args, tag, plain_calls=20):
-        """Time K16 on one log.  It walks the slots before the log's
-        sentinel tail, so the bound counts those (``live``, counted here,
-        outside the timed window): 2 compares and an add a (query, live
-        slot) pair, the queries and the live slots read once.  The bound
-        over every slot of the log is printed beside it."""
+    def measure_delta_scan(name, args, tag, plain_calls=20):
+        """Time K16 (``delta_sum``) or K17 (``delta_max``) on one log.
+        Each walks the slots before the log's sentinel tail, so the bound
+        counts those (``live``, counted here, outside the timed window): 3
+        f64 operations a (query, live slot) pair (K16: 2 compares and an
+        add; K17: 2 compares and the compare of its select), the queries
+        and the live slots read once.  The bound over every slot of the log
+        and the pairs a clock an SM the time implies are printed beside
+        it."""
         cap = args[2].shape[0]
         live = int((args[2] != big_sentinel(torch.float64)).sum())
-        row = measure(torch, tag, "delta_sum", kdel.delta_sum,
-                      kdel.delta_sum_plain, args, None,
+        row = measure(torch, tag, name, getattr(kdel, name),
+                      getattr(kdel, name + "_plain"), args, None,
                       3 * Q * 8 + 2 * live * 8, Q * 3 * live,
                       f"lq, uq ({Q},); keys, vals ({cap},), {live} live "
                       f"f64 -> ({Q},)", plain_calls=plain_calls)
         cap_ms, cap_by = bound_ms(3 * Q * 8 + 2 * cap * 8, Q * 3 * cap)
-        print(f"{tag}delta_sum bound over all {cap} slots {cap_ms!r} ms "
+        sms, ghz = sm_clock(torch)
+        rate = Q * live / (row["ms"] * 1e-3) / sms / (ghz * 1e9)
+        print(f"{tag}{name} bound over all {cap} slots {cap_ms!r} ms "
               f"({cap_by}); over the {live} live slots {row['bound_ms']!r} "
-              "ms", flush=True)
+              f"ms; {rate!r} (query, live slot) pairs a clock an SM ({sms} "
+              f"SMs at {ghz} GHz)", flush=True)
         return row
 
     tag = "scan static: "
@@ -1785,14 +1847,10 @@ def main() -> None:
         Q * (7 * H + range_max_flops(0, cols - 1)),
         f"lq, uq ({Q},); seg_lo, seg_next, seg_hi, seg_agg ({H},); coeffs "
         f"({H}, {cols}) f64 -> ({Q},)")
-    timed["scan dynamic"]["delta_sum"] = measure_k16(
-        scan_sets["delta_sum"][0], tag)
-    args = scan_sets["delta_max"][0]
-    cap = args[2].shape[0]
-    timed["scan dynamic"]["delta_max"] = measure(
-        torch, tag, "delta_max", kdel.delta_max, kdel.delta_max_plain,
-        args, None, 3 * Q * 8 + 2 * cap * 8, Q * 3 * cap,
-        f"lq, uq ({Q},); keys, vals ({cap},) f64 -> ({Q},)")
+    timed["scan dynamic"]["delta_sum"] = measure_delta_scan(
+        "delta_sum", scan_sets["delta_sum"][0], tag)
+    timed["scan dynamic"]["delta_max"] = measure_delta_scan(
+        "delta_max", scan_sets["delta_max"][0], tag)
     print(f"{tag}step seconds {time.perf_counter() - step0!r} (engines "
           "built before the buffer-full ops not counted)", flush=True)
     for label, rel in (("Q_abs", None), ("Q_rel", EPS_REL)):
@@ -1938,7 +1996,7 @@ def main() -> None:
     hold_scan({"range_sum": [scan_range_args(lvl.plan, lq, uq)[1]
                              for lvl in lsm.levels],
                "delta_sum": [(lq, uq, wbuf.ins_keys, wbuf.ins_vals)]}, tag)
-    timed["scan window"] = {"delta_sum": measure_k16(
+    timed["scan window"] = {"delta_sum": measure_delta_scan("delta_sum",
         (lq, uq, wbuf.ins_keys, wbuf.ins_vals), tag, plain_calls=2)}
     print(f"{tag}step seconds {time.perf_counter() - step0!r}", flush=True)
 
@@ -2177,6 +2235,15 @@ def main() -> None:
             torch, "2d osm: ", "corner_eval2d", k2d.corner_eval2d,
             k2d.corner_eval2d_plain, k13_args, None, 3 * Q * 8 + table_s,
             Q * corner_s, f"u, v ({Q},); {stab} f64 -> ({Q},)")}
+    # the loads behind K7's time, and the rate at which an SM served them
+    # (tools/k7_k17_rates.py measures its variants)
+    old, new = k7_loads(torch, k7_args)
+    sms, ghz = sm_clock(torch)
+    ms = timed["2d"]["corner_count2d_gather"]["ms"]
+    rate = Q * new / (ms * 1e-3) / sms / (ghz * 1e9)
+    print(f"2d osm: loads corner_count2d_gather: {old!r} a rectangle before "
+          f"the redesign, {new!r} now; {rate!r} loads a clock an SM at "
+          f"{ms!r} ms ({sms} SMs at {ghz} GHz)", flush=True)
     for label, rel in (("Q_abs", None), ("Q_rel", EPS_REL)):
         query_latency(torch, session2, batch2d(rel),
                       f"2d: session.query {label}", 4 * NQ)
@@ -2438,11 +2505,7 @@ def main() -> None:
     # the probes behind K9's and K10's times: the loads a rectangle, and the
     # rate at which an SM served them (tools/mst_rates.py measures the
     # rates of scattered loads alone)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    ghz = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm",
-         "--format=csv,noheader,nounits"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.split()[0]) / 1e3
+    sms, ghz = sm_clock(torch)
     for name, weighted in (("delta_count2d_gather", False),
                            ("delta_sum2d_gather", True)):
         old, new = walk_probes(torch, sets[name][0], weighted)

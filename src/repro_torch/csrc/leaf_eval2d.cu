@@ -17,9 +17,11 @@
 // MAX/MIN).  The degree is a template parameter up to kMaxDeg2d, so a
 // leaf's (deg+1)^2 coefficients (16 at deg 3) sit in registers.
 //
-// Gather (K7, K8), one thread per query: a corner's leaf is three
-// branch-free binary searches (locate.cuh locate_leaf2d: the x cut, the y
-// cut, the int32 Morton code in the z-sorted table), then one row.
+// Gather (K7, K8): a corner's leaf is its cell (the number of x cuts and
+// of y cuts at or below it), then a branch-free binary search of the
+// cell's int32 Morton code in the z-sorted table, then one row.  K8, one
+// thread a query, takes the cell by two binary searches (locate.cuh
+// locate_leaf2d); K7, four threads a rectangle, by checked guesses (below).
 //
 // Scan (K12, K13), the path of plans deeper than 15 levels (no int32 Morton
 // codes): every corner is tested against the flat leaf table's membership
@@ -30,12 +32,36 @@
 // walks the table in tiles of 256 leaves staged through shared memory
 // (the four bounds, 8 KB), one corner a thread, the first hit kept.
 //
-// What bounds them on an H100.  K7 at Q = 65,536 and about 4,000 leaves
+// What bounds them on an H100.  K7 at osm's Q = 65,536 and 2,560 leaves
 // must move 5 x 8 B a query plus the table (cut grids, codes, bounds and
-// 16 coefficients a leaf) once, about 3 MB: about 1 us at 3.35 TB/s; its
-// four corners take 3 binary searches each (16 + 16 + 13 dependent loads,
-// L1/L2 hits) and about 50 f64 operations of Horner and scaling; the
-// gather kernels are one thread a query, their tables read through L1/L2.
+// 16 coefficients a leaf) once, about 0.6 MB: 0.93 us at 3.35 TB/s.  What
+// it does instead is scattered loads from L1 and L2.  Before its redesign
+// it ran one thread a rectangle and located each of its four corners in
+// sequence: three binary searches (13 rounds each over 4,095 x cuts, 4,095
+// y cuts and the codes) and a row of 20 8-byte loads, 236 loads a
+// rectangle, at 1.4 a clock an SM (0.0413 ms).  Its design now:
+//   - four threads a rectangle, one a corner: four times the warps in
+//     flight, a leaf-code search and a row each, and the four values
+//     combined in the plain order by shuffles;
+//   - each of the two x and two y values is ranked once, by one of the
+//     four lanes (locate.cuh cut_rank_guess): a guess from the end cuts,
+//     checked against the cuts around it, exact on sorted cuts, about 4
+//     loads instead of 13;
+//   - rows by 16-byte loads (leaf_value_v16): 10 a corner at deg 3, not
+//     20; the wrapper refuses tables that do not start on 16 bytes;
+//   - the Morton code from bit tricks (morton2), not a loop a bit.
+// That is 108 loads a rectangle at osm, served at about 1.5 a clock an SM
+// (tools/k7_k17_rates.py on an OSM-like table, which adds each step alone,
+// three calls on an NVIDIA H100 80GB HBM3 at 700 W: 0.0426-0.0428 ms
+// before, 0.0184-0.0187 now; chip_smoke.py at osm: 0.0173 ms, 1.56 loads
+// a clock an SM).  The same steps at one thread a rectangle, the four
+// code searches in lockstep, ran 2-4% slower (104 registers), at two
+// threads 4-28% slower; staging the codes in shared memory by cp.async
+// gained at most 2% at one thread and lost 5-8% at four (each block
+// stages all 10 KB); capping the registers at 40 or 32 for occupancy
+// spilled and lost 24-30%.  The rows (40 of the 108 loads, 640 bytes a
+// rectangle) come mostly from L2; at 8 x the rectangles the rate reaches
+// 1.9 a clock, so about a fifth of the time is the grid's ramp and tail.
 // K12 on the same table must move the same bytes but compares every corner
 // with every leaf: its bound counts 4 compares a corner, 16 f64
 // operations a (query, leaf) pair at the FP64 peak (which counts an FMA as
@@ -93,19 +119,12 @@ constexpr int kCountQueries = 2;
 constexpr int kCountTile = 128;
 constexpr int kCountChunks = 4;
 
-// P_leaf(u(qx), v(qy)) of one leaf row (bounds b0..b3, coefficients c);
-// hit false evaluates a zero row (a scan corner no leaf holds)
+// P_leaf(u(qx), v(qy)) of a leaf row held in registers: bounds b0..b3,
+// coefficients c
 template <int DEG>
-__device__ __forceinline__ double leaf_value(double qx, double qy, int leaf,
-                                             bool hit,
-                                             const double* __restrict__ bounds,
-                                             const double* __restrict__ coeffs) {
-  constexpr int K = (DEG + 1) * (DEG + 1);
-  double b[4], c[K];
-#pragma unroll
-  for (int e = 0; e < 4; ++e) b[e] = hit ? bounds[(size_t)leaf * 4 + e] : 0.0;
-#pragma unroll
-  for (int e = 0; e < K; ++e) c[e] = hit ? coeffs[(size_t)leaf * K + e] : 0.0;
+__device__ __forceinline__ double row_value(
+    double qx, double qy, const double (&b)[4],
+    const double (&c)[(DEG + 1) * (DEG + 1)]) {
   const double span_x = b[1] > b[0] ? b[1] - b[0] : 1.0;
   const double span_y = b[3] > b[2] ? b[3] - b[2] : 1.0;
   const double us = jclip((2.0 * qx - b[0] - b[1]) / span_x, -1.0, 1.0);
@@ -121,27 +140,93 @@ __device__ __forceinline__ double leaf_value(double qx, double qy, int leaf,
   return acc;
 }
 
-// K7: 4-corner COUNT/SUM over (lx, ux] x (ly, uy], located by binary search
+// P_leaf(u(qx), v(qy)) of one leaf row (bounds b0..b3, coefficients c);
+// hit false evaluates a zero row (a scan corner no leaf holds)
 template <int DEG>
-__global__ void corner_count2d_gather_kernel(
+__device__ __forceinline__ double leaf_value(double qx, double qy, int leaf,
+                                             bool hit,
+                                             const double* __restrict__ bounds,
+                                             const double* __restrict__ coeffs) {
+  constexpr int K = (DEG + 1) * (DEG + 1);
+  double b[4], c[K];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) b[e] = hit ? bounds[(size_t)leaf * 4 + e] : 0.0;
+#pragma unroll
+  for (int e = 0; e < K; ++e) c[e] = hit ? coeffs[(size_t)leaf * K + e] : 0.0;
+  return row_value<DEG>(qx, qy, b, c);
+}
+
+// leaf_value of a row that a leaf holds, read by 16-byte loads: the bounds
+// as two, and the coefficients as (DEG + 1)^2 / 2 where that count is even
+// (deg 1, 3, 5; a row of an odd count starts 8 bytes off 16 every other
+// leaf, so deg 0, 2 and 4 read them 8 bytes at a time).  ``bounds`` and
+// ``coeffs`` must be 16-byte aligned (kernels/leaf_eval2d.py checks).
+template <int DEG>
+__device__ __forceinline__ double leaf_value_v16(
+    double qx, double qy, int leaf, const double* __restrict__ bounds,
+    const double* __restrict__ coeffs) {
+  constexpr int K = (DEG + 1) * (DEG + 1);
+  double b[4], c[K];
+  const double2* b2 = reinterpret_cast<const double2*>(bounds) + 2 * (size_t)leaf;
+  const double2 b01 = __ldg(b2), b23 = __ldg(b2 + 1);
+  b[0] = b01.x;
+  b[1] = b01.y;
+  b[2] = b23.x;
+  b[3] = b23.y;
+  if constexpr (K % 2 == 0) {
+    const double2* c2 =
+        reinterpret_cast<const double2*>(coeffs) + (size_t)leaf * (K / 2);
+#pragma unroll
+    for (int e = 0; e < K / 2; ++e) {
+      const double2 w = __ldg(c2 + e);
+      c[2 * e] = w.x;
+      c[2 * e + 1] = w.y;
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < K; ++e) c[e] = __ldg(coeffs + (size_t)leaf * K + e);
+  }
+  return row_value<DEG>(qx, qy, b, c);
+}
+
+// K7: 4-corner COUNT/SUM over (lx, ux] x (ly, uy], one thread a corner:
+// lanes 4q .. 4q + 3 of the grid answer rectangle q.  Lane e first ranks
+// value e of (ux, lx, uy, ly) against its axis' cuts (cut_rank_guess), so
+// each of the two x and two y values is ranked once; then it takes corner
+// e = (x[e & 1], y[e >> 1]), x = (ux, lx), y = (uy, ly), in the plain
+// version's sign order, with its coordinates and cell from the lanes that
+// ranked them (shuffles), searches the leaf codes for the cell's Morton
+// code and evaluates the leaf's row (16-byte loads); lane 0 combines the
+// four values in the plain order, v0 - v1 - v2 + v3.
+template <int DEG>
+__global__ void __launch_bounds__(kThreads) corner_count2d_gather_kernel(
     const double* __restrict__ lx, const double* __restrict__ ux,
     const double* __restrict__ ly, const double* __restrict__ uy,
     const double* __restrict__ xcuts, const double* __restrict__ ycuts,
     const int32_t* __restrict__ leaf_z, const double* __restrict__ bounds,
     const double* __restrict__ coeffs, double* __restrict__ out, int Q,
     int nx, int ny, int L, int depth) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= Q) return;
-  const double qx[4] = {ux[i], lx[i], ux[i], lx[i]};
-  const double qy[4] = {uy[i], uy[i], ly[i], ly[i]};
-  double v[4];
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const int leaf = locate_leaf2d(qx[e], qy[e], xcuts, nx, ycuts, ny,
-                                   leaf_z, L, depth);
-    v[e] = leaf_value<DEG>(qx[e], qy[e], leaf, true, bounds, coeffs);
-  }
-  out[i] = v[0] - v[1] - v[2] + v[3];
+  constexpr unsigned kAll = 0xffffffffu;
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const int e = threadIdx.x & 3;
+  // lanes past Q still join the shuffles
+  const int q = t / 4 < Q ? (int)(t / 4) : Q - 1;
+  const double* src = e == 0 ? ux : (e == 1 ? lx : (e == 2 ? uy : ly));
+  const double val = src[q];
+  // one inlined search for both axes: the lanes do not split on it
+  const int rank =
+      cut_rank_guess(e < 2 ? xcuts : ycuts, e < 2 ? nx : ny, val);
+  const int xl = e & 1, yl = 2 + (e >> 1);
+  const double qx = __shfl_sync(kAll, val, xl, 4);
+  const double qy = __shfl_sync(kAll, val, yl, 4);
+  const int32_t z = morton2(__shfl_sync(kAll, rank, xl, 4),
+                            __shfl_sync(kAll, rank, yl, 4), depth);
+  const int c = bsearch_count_right(leaf_z, L, z) - 1;
+  const double v = leaf_value_v16<DEG>(qx, qy, c > 0 ? c : 0, bounds, coeffs);
+  const double v1 = __shfl_sync(kAll, v, 1, 4);
+  const double v2 = __shfl_sync(kAll, v, 2, 4);
+  const double v3 = __shfl_sync(kAll, v, 3, 4);
+  if (e == 0 && t / 4 < Q) out[q] = v - v1 - v2 + v3;
 }
 
 // K8: single-corner P_leaf(u, v), located by binary search
@@ -313,10 +398,12 @@ int polyfit_corner_count2d_gather(const void* lx, const void* ux,
                                   int ny, int L, int deg, int depth,
                                   void* stream) {
   if (Q <= 0) return (int)cudaGetLastError();
+  // four threads a rectangle
+  const int blocks =
+      (int)((4LL * Q + polyfit::kThreads - 1) / polyfit::kThreads);
 #define K7_LAUNCH(D)                                                         \
   polyfit::corner_count2d_gather_kernel<D>                                   \
-      <<<polyfit::blocks_for(Q), polyfit::kThreads, 0,                       \
-         (cudaStream_t)stream>>>(                                            \
+      <<<blocks, polyfit::kThreads, 0, (cudaStream_t)stream>>>(              \
           (const double*)lx, (const double*)ux, (const double*)ly,           \
           (const double*)uy, (const double*)xcuts, (const double*)ycuts,     \
           (const int32_t*)leaf_z, (const double*)bounds,                     \

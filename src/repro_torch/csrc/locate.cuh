@@ -12,6 +12,8 @@
 //   locate_segment       max(#(seg_lo <= q) - 1, 0)
 //   interleave2          Morton code of a quadtree cell
 //   locate_leaf2d        leaf row of a 2-D corner: x cut, y cut, Morton code
+//   cut_rank_guess       #(cuts <= q) on sorted cuts by a checked guess (K7)
+//   morton2              interleave2 from bit tricks, no loop (K7)
 //   floor_log2           floor(log2(len)) for len >= 1
 //   rmq_gather           max over [i0, i1) of a (levels, n) sparse table
 //   mst_prefix           merge-sort-tree count / sum / max over an x prefix
@@ -118,6 +120,51 @@ __device__ __forceinline__ int locate_leaf2d(
   const int32_t iy = bsearch_count_right(ycuts, ny, qy);
   const int c = bsearch_count_right(leaf_z, L, interleave2(ix, iy, depth)) - 1;
   return c > 0 ? c : 0;
+}
+
+// #(c[0:n] <= q) for sorted cuts c (K7's x and y cells), equal to
+// bsearch_count_right in every lane.  The plan's cuts (dyadic_cuts) are
+// nearly uniform, so g = floor((q - c[0]) / (c[n-1] - c[0]) (n - 1)) + 1,
+// clamped to [0, n], is the count or one off.  For sorted cuts the count is
+// the unique g in [0, n] with c[g - 1] <= q (or g = 0) and q < c[g] (or
+// g = n): every cut below g is <= q and none from g on is.  So a guess that
+// passes that check is exact whatever its arithmetic; a failed check steps
+// g toward q (down when c[g - 1] > q, else up), at most twice, and a guess
+// still unchecked after that (a NaN q passes no check) takes the binary
+// search.  n <= 2 (the depth-0 and depth-1 grids) takes it at once.
+__device__ __forceinline__ int cut_rank_guess(const double* __restrict__ c,
+                                              int n, double q) {
+  if (n <= 2) return bsearch_count_right(c, n, q);
+  const double c0 = c[0];
+  // NaN or infinite for a NaN q, an infinite one or equal end cuts: the
+  // check decides
+  const double t = (q - c0) * ((double)(n - 1) / (c[n - 1] - c0));
+  int g = t >= 0.0 ? (t < (double)(n - 1) ? (int)t + 1 : n) : 0;
+  for (int check = 0; check < 3; ++check) {
+    const bool lo_ok = g == 0 || c[g - 1] <= q;
+    const bool hi_ok = g == n || q < c[g];
+    if (lo_ok && hi_ok) return g;
+    g += lo_ok ? 1 : -1;
+  }
+  return bsearch_count_right(c, n, q);
+}
+
+// bits 0..15 of v spread to the even bits
+__device__ __forceinline__ uint32_t spread_bits(uint32_t v) {
+  v &= 0x0000ffffu;
+  v = (v | (v << 8)) & 0x00ff00ffu;
+  v = (v | (v << 4)) & 0x0f0f0f0fu;
+  v = (v | (v << 2)) & 0x33333333u;
+  v = (v | (v << 1)) & 0x55555555u;
+  return v;
+}
+
+// interleave2(ix, iy, depth) for ix, iy >= 0 and depth <= 15: the bits of
+// each below depth, x on the even bits and y on the odd ones
+__device__ __forceinline__ int32_t morton2(int32_t ix, int32_t iy, int depth) {
+  const uint32_t mask = (1u << depth) - 1u;
+  return (int32_t)(spread_bits((uint32_t)ix & mask) |
+                   (spread_bits((uint32_t)iy & mask) << 1));
 }
 
 __device__ __forceinline__ int floor_log2(int len) { return 31 - __clz(len); }

@@ -26,9 +26,9 @@
 //        maxima (deg <= 3), and a dense masked max of seg_agg over the
 //        segments with lo > lq and next <= uq;
 //   K16  the sum of the buffered measures with key in (lq, uq], over the
-//        whole sentinel-padded log;
+//        live slots of the sentinel-padded log;
 //   K17  the max of the buffered measures with key in [lq, uq] (-inf when
-//        none).
+//        none), over the live slots, the skipped tail's 0 folded back in.
 //
 // K14, K15 and K21 are templates on the element type: double for the
 // engine's plans, and float (the *_f32 launchers) for the float32 plans of
@@ -49,12 +49,11 @@
 // another order, which changes nothing on a COUNT log (integers) and at
 // most a few ulps of the lane's sum of |measure| on a SUM log.
 //
-// What bounds them on an H100: operations.  K14, K17 and K21: a block of
-// 256 queries walks the table in tiles of 256 entries staged through
-// shared memory (the table read once a block from L2), and each thread
-// tests its query against every entry, one compare-and-select chain a
-// thread: K14 two endpoints x 2 compares, K21 one endpoint x 2, K17 2
-// compares and a max a (query, entry) pair.
+// What bounds them on an H100: operations.  K14 and K21: a block of 256
+// queries walks the table in tiles of 256 entries staged through shared
+// memory (the table read once a block from L2), and each thread tests its
+// query against every entry, one compare-and-select chain a thread: K14
+// two endpoints x 2 compares, K21 one endpoint x 2.
 //
 // K15 before its redesign ran that design too: 9 compares, selects and a
 // NaN-propagating max, about 19 instructions a (query, segment) pair in
@@ -114,6 +113,37 @@
 // (0.0730 before): 36% of the bound over the live slots.  The loop alone
 // reaches 16-18 pairs a clock an SM (tools/scan_rates.py) and the kernel
 // 15.5: the loop's three f64 instructions a pair, not the walker, hold it.
+//
+// K17 does 3 compares a (query, live slot) pair (two for membership, one
+// for the max): its bound is K16's, 0.0178 ms at Q = 65,536 against 3,072
+// live slots.  Before its redesign it ran one query a thread in 256-slot
+// tiles over every slot, sentinel tail included, and paid jmax's NaN tests
+// on every pair: about 10.6 instructions a pair, 5.0 pairs a clock an SM
+// (0.153 ms).  Its design now is K16's:
+//   - the tile walker (scan_tile.cuh walk_tiles, walk_slots with the tile
+//     handed over whole), 1,024 slots a tile through double-buffered
+//     cp.async, 4 queries a thread, the log in up to 4 chunks and a
+//     combine kernel that takes the chunk maxima in chunk order (jmax, no
+//     atomics: two launches give the same bits);
+//   - the loop (scan_tile.cuh member_max_step) has no NaN test: 3 f64
+//     compares and a predicated move, about 5.5 instructions a pair.  Once
+//     a tile has landed the block votes (__syncthreads_or) whether its
+//     measures hold a NaN, and such a tile runs jmax instead; a NaN acc is
+//     never replaced by the compare-only loop, so it stays NaN;
+//   - a block stops at its first tile that starts on the sentinel.  That
+//     is exact for a sum (the tail's values are 0), not for a max: a range
+//     that holds the sentinel (uq = +inf, on a log of negative measures:
+//     a MIN table runs in MAX space negated) has the tail's 0 among its
+//     members.  Every skipped slot is (sentinel, 0.0), so a block that
+//     skipped tiles gives each query with lq <= sentinel <= uq jmax(acc,
+//     0.0); a NaN bound fails that test as it fails every membership test.
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (tools/k7_k17_rates.py,
+// 65,536 ranges): 0.0551 ms on 3,072 live slots of 4,096 (14.0 pairs a
+// clock an SM; K16 0.0520 there), 0.0703 on 4,096 (K16 0.0661); 0.0683
+// at the smoke's 4,032 (chip_smoke.py, 14.8 pairs a clock an SM, 34% of
+// the bound); its loop alone runs 17 pairs a clock an SM, K16's 17-18
+// (tools/scan_rates.py).  A tile that holds a NaN measure costs about
+// twice a clean one.
 //
 // Each launcher takes raw device pointers and the CUDA stream, launches on
 // that stream, and returns cudaGetLastError() (0 when the launch was
@@ -399,32 +429,106 @@ int launch_delta_sum(const void* lq, const void* uq, const void* keys,
   return (int)cudaGetLastError();
 }
 
-// K17: max of the buffered measures with key in [lq, uq]; -inf when none
-__global__ void delta_max_kernel(const double* __restrict__ lq,
-                                 const double* __restrict__ uq,
-                                 const double* __restrict__ keys,
-                                 const double* __restrict__ vals,
-                                 double* __restrict__ out, int Q, int D) {
-  __shared__ double s_k[kTile], s_v[kTile];
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int r = i < Q ? i : Q - 1;
-  const double l = lq[r], u = uq[r];
-  double acc = -INFINITY;
-  for (int t0 = 0; t0 < D; t0 += kTile) {
-    const int j = t0 + threadIdx.x;
-    if (j < D) {
-      s_k[threadIdx.x] = keys[j];
-      s_v[threadIdx.x] = vals[j];
-    }
-    __syncthreads();
-    const int n = D - t0 < kTile ? D - t0 : kTile;
-    for (int k = 0; k < n; ++k) {
-      const double key = s_k[k];
-      acc = jmax(acc, (l <= key && key <= u) ? s_v[k] : -INFINITY);
-    }
-    __syncthreads();
+// K17: max of the buffered measures with key in [lq, uq], -inf when none
+// (NaN where a member's measure is NaN).  A thread holds R queries; block
+// (x, y) walks the log's tiles y, y + S, y + 2S, ... (S = gridDim.y chunks)
+// in slot order and writes its partial maxima to row y of ``part``.  Once a
+// tile has landed the block votes whether its measures hold a NaN: a tile
+// that holds none runs member_max_step (no NaN test), one that does runs
+// jmax, which leaves acc NaN, and member_max_step never replaces a NaN acc,
+// so a NaN stays.  The log is sorted with a sentinel tail of value 0
+// (DeltaBuffer): each block stops at its first tile that starts on the
+// sentinel, and every slot it skips is (sentinel, 0.0), so a query whose
+// range holds the sentinel (lq <= sentinel <= uq: false for a NaN bound)
+// takes jmax(acc, 0.0) where its block skipped tiles.
+template <int THREADS, int R, int TILE>
+__global__ void __launch_bounds__(THREADS)
+    delta_max_kernel(const double* __restrict__ lq,
+                     const double* __restrict__ uq,
+                     const double* __restrict__ keys,
+                     const double* __restrict__ vals,
+                     double* __restrict__ part, int Q, int D,
+                     double sentinel) {
+  extern __shared__ double2 s_kv[];
+  const int i0 = blockIdx.x * (THREADS * R) + threadIdx.x;
+  double l[R], u[R], acc[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    // threads past Q still stage tiles
+    const int i = i0 + r * THREADS < Q ? i0 + r * THREADS : Q - 1;
+    l[r] = lq[i];
+    u[r] = uq[i];
+    acc[r] = -INFINITY;
   }
-  if (i < Q) out[i] = acc;
+  const double* src[2] = {keys, vals};
+  const bool skipped = walk_tiles<2, TILE, true>(
+      src, D, blockIdx.y, gridDim.y, sentinel, (double*)s_kv,
+      [&](const double2* kv, int m) {
+        bool nan = false;
+        for (int k = threadIdx.x; k < m; k += THREADS) nan |= isnan(kv[k].y);
+        if (__syncthreads_or(nan)) {
+          for (int k = 0; k < m; ++k) {
+            const double2 s = kv[k];
+#pragma unroll
+            for (int r = 0; r < R; ++r)
+              acc[r] = jmax(acc[r], (l[r] <= s.x && s.x <= u[r])
+                                        ? s.y : -INFINITY);
+          }
+        } else if (m == TILE) {
+#pragma unroll 8
+          for (int k = 0; k < TILE; ++k) {
+            const double2 s = kv[k];
+#pragma unroll
+            for (int r = 0; r < R; ++r)
+              member_max_step(acc[r], s.x, s.y, l[r], u[r]);
+          }
+        } else {
+          for (int k = 0; k < m; ++k) {
+            const double2 s = kv[k];
+#pragma unroll
+            for (int r = 0; r < R; ++r)
+              member_max_step(acc[r], s.x, s.y, l[r], u[r]);
+          }
+        }
+      });
+  double* row = part + (size_t)blockIdx.y * Q;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (skipped && l[r] <= sentinel && sentinel <= u[r])
+      acc[r] = jmax(acc[r], 0.0);
+    if (i0 + r * THREADS < Q) row[i0 + r * THREADS] = acc[r];
+  }
+}
+
+// K17's combine: the S chunk maxima of each query taken in chunk order
+// (jmax: a NaN chunk gives NaN)
+__global__ void delta_max_combine_kernel(const double* __restrict__ part,
+                                         double* __restrict__ out, int Q,
+                                         int S) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= Q) return;
+  double acc = part[i];
+  for (int s = 1; s < S; ++s) acc = jmax(acc, part[(size_t)s * Q + i]);
+  out[i] = acc;
+}
+
+// K17 in S chunks: the chunk maxima go to ``part`` ((S, Q), unused when
+// S = 1), then the combine writes ``out``
+template <int THREADS, int R, int TILE>
+int launch_delta_max(const void* lq, const void* uq, const void* keys,
+                     const void* vals, void* out, void* part, int Q, int D,
+                     double sentinel, int S, cudaStream_t stream) {
+  constexpr int per_block = THREADS * R;
+  const dim3 grid((Q + per_block - 1) / per_block, S);
+  delta_max_kernel<THREADS, R, TILE>
+      <<<grid, THREADS, walk_smem_bytes<2, TILE>(), stream>>>(
+          (const double*)lq, (const double*)uq, (const double*)keys,
+          (const double*)vals, (double*)(S > 1 ? part : out), Q, D,
+          sentinel);
+  if (S > 1)
+    delta_max_combine_kernel<<<blocks_for(Q), kThreads, 0, stream>>>(
+        (const double*)part, (double*)out, Q, S);
+  return (int)cudaGetLastError();
 }
 
 template <typename T, int E>
@@ -543,15 +647,18 @@ int polyfit_delta_sum(const void* lq, const void* uq, const void* keys,
       walk_chunks<kDeltaTile>(D, kDeltaChunks), (cudaStream_t)stream);
 }
 
+int polyfit_delta_max_chunks(int D) {
+  return polyfit::walk_chunks<polyfit::kDeltaTile>(D, polyfit::kDeltaChunks);
+}
+
 int polyfit_delta_max(const void* lq, const void* uq, const void* keys,
-                      const void* vals, void* out, int Q, int D,
-                      void* stream) {
-  if (Q > 0)
-    polyfit::delta_max_kernel<<<polyfit::blocks_for(Q), polyfit::kThreads, 0,
-                                (cudaStream_t)stream>>>(
-        (const double*)lq, (const double*)uq, (const double*)keys,
-        (const double*)vals, (double*)out, Q, D);
-  return (int)cudaGetLastError();
+                      const void* vals, void* out, void* part, int Q, int D,
+                      double sentinel, void* stream) {
+  using namespace polyfit;
+  if (Q <= 0) return (int)cudaGetLastError();
+  return launch_delta_max<kDeltaThreads, kDeltaQueries, kDeltaTile>(
+      lq, uq, keys, vals, out, part, Q, D, sentinel,
+      walk_chunks<kDeltaTile>(D, kDeltaChunks), (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -1,4 +1,4 @@
-// The tile walker of the whole-array scans (scan1d.cu K15 and K16,
+// The tile walker of the whole-array scans (scan1d.cu K15, K16 and K17,
 // quantile.cu K4's scan mode, leaf_eval2d.cu K12): every slot of an array
 // is compared with every query, from shared memory.
 //
@@ -26,6 +26,12 @@
 // Every thread of the block must call it with the same arguments (it
 // holds __syncthreads); ``smem`` holds 2 * TILE * W words, 16-byte
 // aligned.  On return every copy has landed and the buffers are free.
+//
+//   walk_tiles<W, TILE, STOP>(src, n, first, step, stop, smem, f)
+//
+// is the same walk with each tile handed to f whole (K17, which votes on a
+// tile before it picks its loop), and returns whether it stopped at the
+// sentinel.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -186,6 +192,24 @@ __device__ __forceinline__ void corner_hits_step(int (&hit)[4],
         "d"(x[0]), "d"(x[1]), "d"(y[0]), "d"(y[1]));
 }
 
+// K17's loop body (scan1d.cu) for one (query, log slot) pair, in PTX:
+// acc = v where l <= key && key <= u && v > acc.  Three compares, the
+// second and third ANDing the one before in, and a predicated move; no NaN
+// test (a NaN v fails v > acc, and a NaN acc is never replaced: K17 runs
+// tiles that hold a NaN measure through jmax instead).  Of equal maxima
+// the first is kept (-0.0 against +0.0 included).
+__device__ __forceinline__ void member_max_step(double& acc, double key,
+                                                double v, double l,
+                                                double u) {
+  asm("{\n\t.reg .pred p;\n\t"
+      "setp.le.f64 p, %2, %1;\n\t"
+      "setp.le.and.f64 p, %1, %3, p;\n\t"
+      "setp.gt.and.f64 p, %4, %0, p;\n\t"
+      "@p mov.f64 %0, %4;\n\t}"
+      : "+d"(acc)
+      : "d"(key), "d"(l), "d"(u), "d"(v));
+}
+
 // f(s, j) where f takes the slot's index, else f(s)
 template <typename F, typename S>
 __device__ __forceinline__ void visit_slot(F& f, const S& s, int j) {
@@ -250,6 +274,51 @@ __device__ __forceinline__ void walk_slots(const T* const (&src)[N], int n,
   }
   cp_async_wait<0>();
   __syncthreads();
+}
+
+// walk_slots with the tile handed to f whole: f(tile, m) runs once a tile
+// on every thread of the block, with the tile's first slot in shared
+// memory and its slot count m (TILE, or fewer on the ragged last tile),
+// and may hold __syncthreads.  Returns whether the walk ended at a tile
+// that starts on ``stop`` (with STOP), that is whether it skipped tiles.
+template <int W, int TILE, bool STOP, typename T, int N, typename F>
+__device__ __forceinline__ bool walk_tiles(const T* const (&src)[N], int n,
+                                           int first, int step, double stop,
+                                           T* smem, F&& f) {
+  static_assert(N <= W, "a slot holds a word of each array");
+  using S = typename Slot<T, W>::type;
+  const int tiles = (n + TILE - 1) / TILE;
+  auto stage = [&](int t, int buf) {
+    T* dst = smem + buf * (TILE * W);
+    const int base = t * TILE;
+    const int m = n - base < TILE ? n - base : TILE;
+    for (int j = threadIdx.x; j < m; j += blockDim.x) {
+#pragma unroll
+      for (int w = 0; w < N; ++w)
+        cp_async<sizeof(T)>(dst + j * W + w, src[w] + base + j);
+    }
+    cp_async_commit();
+  };
+  bool stopped = false;
+  if (first < tiles) stage(first, 0);
+  for (int t = first, it = 0; t < tiles; t += step, ++it) {
+    // an empty group past the last tile keeps wait_group<1> exact
+    if (t + step < tiles) stage(t + step, (it + 1) & 1);
+    else cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const T* tile = smem + (it & 1) * (TILE * W);
+    if (STOP && tile[0] == (T)stop) {   // the same word for every thread
+      stopped = true;
+      break;
+    }
+    const int m = n - t * TILE;
+    f(reinterpret_cast<const S*>(tile), m < TILE ? m : TILE);
+    __syncthreads();   // this buffer is restaged two tiles on
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  return stopped;
 }
 
 }  // namespace polyfit

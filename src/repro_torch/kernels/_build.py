@@ -92,8 +92,10 @@ _SIGNATURES = {
     # (S, Q) scratch, S = polyfit_delta_sum_chunks(D)
     "polyfit_delta_sum": (_P,) * 6 + (_I,) * 2 + (_D, _P),
     "polyfit_delta_sum_chunks": (_I,),
-    # lq, uq, keys, vals, out, Q, D, stream
-    "polyfit_delta_max": (_P,) * 5 + (_I,) * 2 + (_P,),
+    # lq, uq, keys, vals, out, part, Q, D, sentinel, stream; ``part`` an
+    # (S, Q) scratch, S = polyfit_delta_max_chunks(D)
+    "polyfit_delta_max": (_P,) * 6 + (_I,) * 2 + (_D, _P),
+    "polyfit_delta_max_chunks": (_I,),
     # q, seg_lo, seg_next, seg_hi, coeffs, out, Q, H, deg, stream
     "polyfit_poly_eval": (_P,) * 6 + (_I,) * 3 + (_P,),
     # lx, ux, ly, uy, kx, ky, out, Q, D, stream

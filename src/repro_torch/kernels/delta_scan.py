@@ -29,7 +29,8 @@ The ``cuda_scan`` backend's twins scan the whole log instead, as
   (lq, uq], a membership test against every live slot (it stops at the
   log's sentinel tail);
 * ``delta_max`` (K17) — the max of the measures whose key lies in
-  [lq, uq], -inf when none does;
+  [lq, uq], -inf when none does (it stops at the log's sentinel tail, and
+  a range that holds the sentinel takes the tail's 0 back in);
 * ``delta_count2d`` (K18) — the number of logged points in (lx, ux] x
   (ly, uy], a membership test against every slot of the point log;
 * ``delta_sum2d`` (K19) — the sum of their measures, added in slot order;
@@ -145,7 +146,7 @@ delta_max_gather.launches = 0
 # ---------------------------------------------------------------------------
 
 #: the padding key of a float64 log (``engine.plan.big_sentinel``), where
-#: K16 stops
+#: K16 and K17 stop
 _SENTINEL = float(torch.finfo(torch.float64).max) / 4
 
 
@@ -203,15 +204,25 @@ delta_sum.launches = 0
 
 def delta_max(lq, uq, keys, vals):
     """(Q,) exact buffered MAX over [lq, uq] (-inf where no buffered key
-    lies in the range) by a membership test against every slot: K17 on
-    CUDA tensors, the plain version on CPU tensors.  ``delta_max.launches``
-    counts the kernel launches."""
+    lies in the range, NaN where a member's measure is NaN) by a membership
+    test against every live slot: K17 on CUDA tensors, the plain version on
+    CPU tensors.  ``delta_max.launches`` counts the kernel launches.
+
+    K17 takes the ``DeltaBuffer`` layout as ``delta_sum`` does: it stops at
+    the first tile of the log that starts on the sentinel, and a range that
+    holds the sentinel takes the skipped slots' value 0 back in.  The plain
+    version scans every slot of any log."""
     if lq.device.type == "cpu":
         return delta_max_plain(lq, uq, keys, vals)
     Q, D, out, ptrs = _scan_args("delta_max", lq, uq, keys, vals)
     if Q:
-        _build.check(_build.library().polyfit_delta_max(
-            *ptrs, Q, D, _build.stream(lq.device)), "delta_max")
+        lib = _build.library()
+        # the kernel takes each chunk's maxima, then their max in chunk order
+        part = torch.empty((lib.polyfit_delta_max_chunks(D), Q),
+                           dtype=vals.dtype, device=lq.device)
+        _build.check(lib.polyfit_delta_max(
+            *ptrs, part.data_ptr(), Q, D, _SENTINEL,
+            _build.stream(lq.device)), "delta_max")
         delta_max.launches += 1
     return out
 

@@ -143,13 +143,21 @@ def corner_count2d_gather(lx, ux, ly, uy, xcuts, ycuts, leaf_z, bounds,
     """(Q,) 4-corner COUNT/SUM over (lx, ux] x (ly, uy] against the
     z-sorted leaf table: K7 on CUDA tensors, the plain version on CPU
     tensors.  ``leaf_z`` is int32, sentinel-padded; ``xcuts``/``ycuts`` the
-    dyadic split grids of a ``depth``-level tree."""
+    dyadic split grids of a ``depth``-level tree, sorted (K7 ranks a corner
+    by a guess it checks against the cuts around it, exact on sorted cuts);
+    ``bounds`` and ``coeffs`` 16-byte aligned, as a plan's are."""
     if lx.device.type == "cpu":
         return corner_count2d_gather_plain(lx, ux, ly, uy, xcuts, ycuts,
                                            leaf_z, bounds, coeffs, deg, depth)
     name = "corner_count2d_gather"
     _gather_args(name, (lx, ux, ly, uy), xcuts, ycuts, leaf_z, bounds,
                  coeffs, deg, depth)
+    # K7 reads the rows by 16-byte loads; a plan's tables are allocations of
+    # their own, so only a view into another tensor can be off
+    if bounds.data_ptr() % 16 or coeffs.data_ptr() % 16:
+        raise ValueError(f"{name}: bounds and coeffs must start on a 16-byte "
+                         "boundary (K7 reads their rows 16 bytes at a time); "
+                         "pass a copy (.clone()) of an offset view")
     out = torch.empty_like(lx)
     if lx.shape[0]:
         _build.check(_build.library().polyfit_corner_count2d_gather(

@@ -215,13 +215,21 @@ def _log(cuda, fill, with_st, cap=CAP):
                       with_st=with_st)
 
 
-def _delta_queries(cuda):
+def _delta_queries(cuda, tail=False):
     """Ranges inside, across and outside the log's keys (below the first,
-    above the last, an empty span on a key, an inverted range)."""
+    above the last, an empty span on a key, an inverted range); with
+    ``tail``, lanes that reach the log's sentinel tail or hold a NaN bound
+    follow: uq = +inf, lq = uq = sentinel, NaN lq, NaN uq."""
     rng = np.random.default_rng(17)
     a, b = rng.uniform(-100, 1100, (2, 70_000))
     lq = np.concatenate([np.minimum(a, b), [-1e9, 2000.0, 500.0, 600.0]])
     uq = np.concatenate([np.maximum(a, b), [-5.0, 1e9, 500.0, 599.0]])
+    if tail:
+        big, inf, nan = big_sentinel(torch.float64), np.inf, np.nan
+        lq = np.concatenate([lq, a[:999], [-inf, big, 2000.0, big, nan, 0.0,
+                                           nan]])
+        uq = np.concatenate([uq, np.full(999, inf), [inf, big, inf, inf,
+                                                     500.0, nan, nan]])
     return tuple(torch.as_tensor(q, device=cuda) for q in (lq, uq))
 
 
@@ -397,6 +405,43 @@ def test_quantile_newton_branch_bit_identical(cuda, quantile_plans, agg,
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def _ulps(a, b):
+    """Per lane, the units in the last place between a and b (0 where they
+    are equal, NaN included; inf where their signs or finiteness differ)."""
+    ia, ib = a.view(torch.int64), b.view(torch.int64)
+    same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+    comparable = (torch.sign(a) == torch.sign(b)) & torch.isfinite(a) \
+        & torch.isfinite(b)
+    gap = (ia - ib).abs().double()
+    return torch.where(same, 0.0, torch.where(comparable, gap, torch.inf))
+
+
+def test_quantile_deg3_kernel_ulps_to_plain(cuda):
+    """K4 at deg 3, gather and scan modes, against its plain version on an
+    HKI SUM table of the smoke's kind (the price summed, deg 3, delta 5e4;
+    20,000 keys) at 65,536 fractions (seed 57 uniform draws plus 0 and 1):
+    within the 1e-9 bar, and the largest gap in units in the last place is
+    printed."""
+    t, v = hki_series(20_000, seed=0)
+    plan = build_plan(build_index_1d(t, v, "sum", deg=3, delta=5e4,
+                                     device=cuda))
+    rng = np.random.default_rng(57)
+    fr = np.concatenate([[0.0, 1.0], rng.uniform(0.0, 1.0, 65_534)])
+    args, kw = _k4_args(plan, torch.as_tensor(fr, device=cuda))
+    for scan in (False, True):
+        got = kq.quantile_invert(*args, scan=scan, **kw)
+        want = kq.quantile_invert_plain(*args, scan=scan, **kw)
+        torch.cuda.synchronize()
+        for label, g, w in zip(("answer", "lo", "hi"), got, want):
+            torch.testing.assert_close(g, w, **TOL)
+            gap = _ulps(g, w)
+            worst = int(gap.argmax())
+            print(f"K4 deg 3 {'scan' if scan else 'gather'} {label}: "
+                  f"largest ulp gap {float(gap.max())!r} at lane {worst} "
+                  f"(fraction {fr[worst]!r}), {int((gap > 0).sum())} lanes "
+                  "differ")
 
 
 def test_quantile_kernel_rejects_bad_arguments(cuda, quantile_plans):
@@ -605,6 +650,96 @@ def test_leaf_kernels_reject_bad_arguments(cuda, plans2d):
         k2d.corner_eval2d(q, q.cpu(), *scan, plan.deg)
     with pytest.raises(ValueError, match="leaf table"):
         k2d.corner_eval2d(q, q, *scan, plan.deg + 1)
+
+
+def _full_quadtree(cuda, depth, deg, seed=0):
+    """A full quadtree built directly, no fit: every cell of a depth-level
+    grid over an awkward root a leaf, z-sorted, random rows.  (root,
+    xcuts, ycuts, leaf_z, bounds, coeffs)."""
+    rng = np.random.default_rng(seed + depth)
+    root = (-3.25, 96.75, 10.0, 10.0 + 60.5)
+    xc = kloc.dyadic_cuts(root[0], root[1], depth)
+    yc = kloc.dyadic_cuts(root[2], root[3], depth)
+    gx = np.concatenate([[root[0]], xc, [root[1]]])
+    gy = np.concatenate([[root[2]], yc, [root[3]]])
+    m = 1 << depth
+    ix, iy = (a.ravel() for a in np.meshgrid(np.arange(m), np.arange(m),
+                                             indexing="ij"))
+    b = np.stack([gx[ix], gx[ix + 1], gy[iy], gy[iy + 1]], axis=1)
+    z = kloc.leaf_morton_codes(b, xc, yc, depth)
+    order = np.argsort(z)
+    to = lambda a: torch.as_tensor(a, device=cuda)
+    return (root, to(xc), to(yc), to(z[order].astype(np.int32)),
+            to(b[order]), to(rng.normal(0, 1, (m * m, (deg + 1) ** 2))))
+
+
+def _quadtree_corners(root, xc, yc, Q, special=False):
+    """Q rectangles over the root: corners on every split line and on the
+    root's edges first, then uniform draws past the root, clamped into it
+    as the engine clamps them; with ``special``, NaN and +-inf coordinates
+    in the first lanes instead (not clamped)."""
+    x0, x1, y0, y1 = root
+    xs = np.concatenate([[x0, x1], xc.cpu().numpy()])
+    ys = np.concatenate([[y0, y1], yc.cpu().numpy()])
+    rng = np.random.default_rng(Q)
+    a, b = rng.uniform(x0 - 5, x1 + 5, (2, Q))
+    c, d = rng.uniform(y0 - 5, y1 + 5, (2, Q))
+    a = np.concatenate([xs, a])[:Q]
+    b = np.concatenate([rng.permutation(xs), b])[:Q]
+    c = np.concatenate([np.resize(ys, len(xs)), c])[:Q]
+    d = np.concatenate([rng.permutation(np.resize(ys, len(xs))), d])[:Q]
+    q = [np.clip(np.minimum(a, b), x0, x1), np.clip(np.maximum(a, b), x0, x1),
+         np.clip(np.minimum(c, d), y0, y1), np.clip(np.maximum(c, d), y0, y1)]
+    if special:
+        odd = np.array([np.nan, np.inf, -np.inf, np.nan, x0, np.inf])
+        for k in range(4):
+            q[k][:len(odd)] = np.roll(odd, k)
+    return tuple(torch.as_tensor(v, device=xc.device) for v in q)
+
+
+@pytest.mark.parametrize("deg", [0, 3, 5])
+@pytest.mark.parametrize("Q", [1, 255, 65_537])
+def test_corner_count2d_gather_kernel_full_quadtree(cuda, Q, deg):
+    """K7 equals its plain version bit for bit on a full depth-7 quadtree
+    (16,384 leaves: 7-level cut grids, 15-round code searches) at ragged
+    query counts, corners on every split line and the root's edges first,
+    at degrees whose rows it reads 8 (deg 0) and 16 bytes at a time; one
+    launch a call, and two launches give the same bits."""
+    root, *table = _full_quadtree(cuda, 7, deg)
+    args = (*_quadtree_corners(root, table[0], table[1], Q), *table, deg, 7)
+    before = k2d.corner_count2d_gather.launches
+    got = k2d.corner_count2d_gather(*args)
+    again = k2d.corner_count2d_gather(*args)
+    torch.cuda.synchronize()
+    assert k2d.corner_count2d_gather.launches == before + 2
+    assert got.shape == (Q,)
+    torch.testing.assert_close(got, k2d.corner_count2d_gather_plain(*args),
+                               rtol=0, atol=0)
+    assert torch.equal(got.view(torch.int64), again.view(torch.int64))
+
+
+def test_corner_count2d_gather_kernel_special_lanes(cuda, plans2d):
+    """K7 on NaN and +-inf corner coordinates equals its plain version (NaN
+    equal) on a plan's table and on the full quadtree, and refuses a table
+    that does not start on a 16-byte boundary (an offset view)."""
+    px, py, _, plans = plans2d
+    plan = plans["count2d", 3]
+    tables = [(plan.root, _tables(plan)[0], plan.deg, plan.max_depth)]
+    root, *table = _full_quadtree(cuda, 7, 3)
+    tables.append((root, tuple(table), 3, 7))
+    for root, gather, deg, depth in tables:
+        qs = _quadtree_corners(root, gather[0], gather[1], 4099, special=True)
+        got = k2d.corner_count2d_gather(*qs, *gather, deg, depth)
+        torch.testing.assert_close(got, k2d.corner_count2d_gather_plain(
+            *qs, *gather, deg, depth), rtol=0, atol=0, equal_nan=True)
+        assert torch.isnan(got[:6]).any()
+    xc, yc, lz, bounds, coeffs = tables[0][1]
+    off = lambda t: torch.cat([t.new_zeros(1), t.flatten()])[1:].view(t.shape)
+    q = torch.zeros(8, dtype=torch.float64, device=cuda)
+    for b, c in ((off(bounds), coeffs), (bounds, off(coeffs))):
+        with pytest.raises(ValueError, match="16-byte"):
+            k2d.corner_count2d_gather(q, q, q, q, xc, yc, lz, b, c, 3,
+                                      plan.max_depth)
 
 
 @pytest.mark.parametrize("agg", ["count2d", "max2d"])
@@ -942,6 +1077,34 @@ def test_delta_scan_kernels_match_plain(cuda, fill):
         assert not got_sum.any() and torch.isneginf(got_max).all()
 
 
+@pytest.mark.parametrize("with_nan", [False, True], ids=["finite", "nan"])
+@pytest.mark.parametrize("fill", [0, 1, 37, 255, 256, 257, 1023, 1024, 1025,
+                                  2048, 2049, CAP])
+def test_delta_max_kernel_tail_lanes(cuda, fill, with_nan):
+    """K17 equals its plain version in value (NaN equal, either zero) on
+    all-negative measures, with and without a NaN measure in the log, on
+    the lanes that reach the sentinel tail (whose 0 K17 folds back in
+    where it skipped tiles) and on NaN bounds; one launch a call, and two
+    launches give the same bits."""
+    keys, vals, _, _ = _log(cuda, fill, False)
+    vals = -vals.abs() - 1.0
+    vals = torch.where(keys < big_sentinel(torch.float64), vals, 0.0)
+    if with_nan and fill:
+        vals[fill // 2] = float("nan")
+    lq, uq = _delta_queries(cuda, tail=True)
+    before = kdelta.delta_max.launches
+    got = kdelta.delta_max(lq, uq, keys, vals)
+    again = kdelta.delta_max(lq, uq, keys, vals)
+    torch.cuda.synchronize()
+    assert kdelta.delta_max.launches == before + 2
+    torch.testing.assert_close(got, kdelta.delta_max_plain(lq, uq, keys,
+                                                           vals),
+                               rtol=0, atol=0, equal_nan=True)
+    assert torch.equal(got.view(torch.int64), again.view(torch.int64))
+    if fill < CAP:   # a range over the sentinel holds the tail's 0
+        assert (got[-6:-3] == 0).all()
+
+
 def test_delta_sum_kernel_on_a_window_log(cuda):
     """K16 on the window's layout: 4,096 live slots of 131,072 (it walks
     the live tiles only), exactly its plain version on unit measures and
@@ -961,13 +1124,15 @@ def test_delta_sum_kernel_on_a_window_log(cuda):
 
 
 def test_scan_kernels_repeat_bit_for_bit(cuda, quantile_plans):
-    """Two launches of K16, of K4's scan mode, of K15 and of K12 on the
+    """Two launches of K16, K17, of K4's scan mode, of K15 and of K12 on the
     same inputs give the same bits (no atomics; a fixed order of
     summation, exact counts, maxima and lowest indices across chunks)."""
     keys, vals, _, _ = _log(cuda, 3000, False)
     lq, uq = _delta_queries(cuda)
     assert torch.equal(kdelta.delta_sum(lq, uq, keys, vals),
                        kdelta.delta_sum(lq, uq, keys, vals))
+    assert torch.equal(kdelta.delta_max(lq, uq, keys, vals),
+                       kdelta.delta_max(lq, uq, keys, vals))
     args, kw = _k4_args(quantile_plans["sum", 3], _fractions(cuda))
     for a, b in zip(kq.quantile_invert(*args, scan=True, **kw),
                     kq.quantile_invert(*args, scan=True, **kw)):

@@ -34,8 +34,9 @@ from repro_torch.engine import (DynamicEngine, execute_extremum,  # noqa: E402
                                 big_sentinel)
 from repro_torch.engine.dynamic import _append_1d  # noqa: E402
 from repro_torch.kernels import (delta_max_gather, delta_max_gather_plain,  # noqa: E402
-                                 delta_max_ref, delta_sum_gather,
-                                 delta_sum_gather_plain, delta_sum_ref)
+                                 delta_max_plain, delta_max_ref,
+                                 delta_sum_gather, delta_sum_gather_plain,
+                                 delta_sum_ref)
 
 N = 2500
 NQ = 256
@@ -663,3 +664,76 @@ def test_dynamic_session_updates(data):
         device="cpu")
     with pytest.raises(RuntimeError, match="static"):
         static.insert("cnt", [1.0])
+
+
+# K17's walk (csrc/scan1d.cu delta_max_kernel): csrc/scan1d.cu kDeltaTile
+# slots a tile, the log in up to kDeltaChunks interleaved chunks
+K17_TILE, K17_CHUNKS = 1024, 4
+
+
+def _k17_walk(lq, uq, keys, vals):
+    """K17's formulation in torch: each chunk walks its tiles in slot order
+    and stops at its first tile that starts on the sentinel; a tile with a
+    NaN measure runs the NaN-propagating max, any other the compare-only
+    step (v > acc, which never replaces a NaN acc); a chunk that skipped
+    tiles gives a range holding the sentinel the tail's 0; the chunks'
+    maxima are taken in chunk order."""
+    big = big_sentinel(torch.float64)
+    D = keys.shape[0]
+    tiles = -(-D // K17_TILE)
+    S = max(1, min(K17_CHUNKS, tiles))
+    out = None
+    for y in range(S):
+        acc = torch.full_like(lq, -torch.inf)
+        skipped = False
+        for t in range(y, tiles, S):
+            k = keys[t * K17_TILE:(t + 1) * K17_TILE]
+            v = vals[t * K17_TILE:(t + 1) * K17_TILE]
+            if k[0] == big:
+                skipped = True
+                break
+            member = (lq[:, None] <= k) & (k <= uq[:, None])
+            if torch.isnan(v).any():
+                acc = torch.maximum(
+                    acc, torch.where(member, v, -torch.inf).amax(dim=1))
+            else:
+                for j in range(k.shape[0]):
+                    acc = torch.where(member[:, j] & (v[j] > acc), v[j], acc)
+        if skipped:
+            holds = (lq <= big) & (big <= uq)
+            acc = torch.where(holds, torch.maximum(acc, torch.zeros_like(acc)),
+                              acc)
+        out = acc if out is None else torch.maximum(out, acc)
+    return out
+
+
+@pytest.mark.parametrize("fill,with_nan", [(0, False), (1, True),
+                                           (1023, False), (1024, True),
+                                           (1025, True), (4096, False),
+                                           (4096, True)])
+def test_delta_max_tail_fold_matches_plain(fill, with_nan):
+    """K17's walk, which stops at the log's sentinel tail and folds the
+    skipped slots' 0 back in, equals the plain masked max in value (NaN
+    equal) on all-negative measures, a NaN measure in some logs, and the
+    lanes that reach the tail: uq = +inf, lq = uq = sentinel, NaN bounds."""
+    cap = 4096
+    big = big_sentinel(torch.float64)
+    rng = np.random.default_rng(fill + 7 * with_nan)
+    k = np.round(rng.uniform(0, 1000, fill), 1)
+    v = -rng.uniform(1, 100, fill)
+    if with_nan:
+        v[rng.integers(0, fill)] = np.nan
+    keys, vals, _, _ = _append_1d(
+        torch.full((cap,), big, dtype=torch.float64),
+        torch.zeros(cap, dtype=torch.float64), torch.as_tensor(k),
+        torch.as_tensor(v), cap=cap, with_st=False)
+    a, b = rng.uniform(-100, 1100, (2, 300))
+    nan, inf = np.nan, np.inf
+    lq = np.concatenate([np.minimum(a, b), a, [big, -inf, 500.0, nan, 0.0,
+                                               nan, big, 2000.0]])
+    uq = np.concatenate([np.maximum(a, b), np.full(300, inf),
+                         [big, inf, 400.0, 10.0, nan, nan, inf, big]])
+    lq, uq = torch.as_tensor(lq), torch.as_tensor(uq)
+    torch.testing.assert_close(_k17_walk(lq, uq, keys, vals),
+                               delta_max_plain(lq, uq, keys, vals),
+                               rtol=0, atol=0, equal_nan=True)

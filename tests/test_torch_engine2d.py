@@ -33,7 +33,7 @@ from repro_torch.engine import (Engine, build_plan_2d,  # noqa: E402
 from repro_torch.engine.plan import (ARRAY_FIELDS_2D,  # noqa: E402
                                      META_FIELDS_2D, plan2d_from_numpy)
 from repro_torch.kernels import leaf_eval2d as k2d  # noqa: E402
-from repro_torch.kernels.locate import dyadic_cuts  # noqa: E402
+from repro_torch.kernels.locate import bsearch_count, dyadic_cuts  # noqa: E402
 
 TOL = dict(rtol=1e-9, atol=1e-9)
 N = 4000
@@ -282,6 +282,67 @@ def test_morton_leaf_table_is_sorted_and_disjoint():
     assert np.all(plan.leaf_z.numpy()[plan.n_leaves:] == np.iinfo(np.int32).max)
     cuts = dyadic_cuts(*map(float, plan.root[:2]), plan.max_depth)
     assert len(cuts) == (1 << plan.max_depth) - 1
+
+
+def _cut_rank_guess(c, q):
+    """csrc/locate.cuh cut_rank_guess in torch: the count of cuts <= q from
+    a guess off the end cuts, accepted when c[g - 1] <= q < c[g] (the ends
+    open), stepped toward q at most twice, else the binary search."""
+    n = c.shape[0]
+    if n <= 2:
+        return bsearch_count(c, q, side="right").long()
+    t = (q - c[0]) * ((n - 1) / (c[n - 1] - c[0]))
+    inside = (t >= 0) & (t < n - 1)
+    g = torch.where(inside, torch.where(inside, t, 0.0).long() + 1,
+                    torch.where(t >= 0, n, 0))
+    rank = torch.zeros_like(g)
+    done = torch.zeros_like(q, dtype=torch.bool)
+    for _ in range(3):
+        lo_ok = (g == 0) | (c[(g - 1).clamp(0, n - 1)] <= q)
+        hi_ok = (g == n) | (q < c[g.clamp(0, n - 1)])
+        ok = lo_ok & hi_ok & ~done
+        rank = torch.where(ok, g, rank)
+        done |= ok
+        g = torch.where(done, g, g + torch.where(lo_ok, 1, -1))
+    return torch.where(done, rank,
+                       bsearch_count(c, q, side="right").long())
+
+
+# roots of awkward span and origin, and the depths K7's cut grids take
+_CUT_ROOTS = ((0.0, 1.0), (-1000.37, -0.37), (123.456, 123.456 + 1e-6),
+              (-7.5, 992.5), (-3e-4, 7e-4))
+
+
+@pytest.mark.parametrize("case", ["depth0", "depth1", "depth12", "depth15",
+                                  "plans"])
+def test_cut_rank_guess_matches_search(request, case):
+    """K7's checked-guess cut rank equals the binary search in every lane,
+    on sorted cut grids: dyadic_cuts at depths 0 (the plan's one-sentinel
+    grid), 1, 12 and 15 over awkward roots, and the plans' own grids;
+    corners on every cut and one ulp either side, the root's edges, NaN,
+    +-inf and uniform draws."""
+    big = float(np.finfo(np.float64).max) / 4
+    rng = np.random.default_rng(23)
+    grids = []
+    if case == "plans":
+        plans = request.getfixturevalue("setup")[3]
+        grids = [(p.root[a], p.root[a + 1], getattr(p, f).numpy())
+                 for _, _, p in plans.values()
+                 for a, f in ((0, "xcuts"), (2, "ycuts"))]
+    else:
+        depth = int(case[5:])
+        for lo, hi in _CUT_ROOTS:
+            c = dyadic_cuts(lo, hi, depth)
+            grids.append((lo, hi, c if len(c) else np.array([big])))
+    for lo, hi, c in grids:
+        assert np.all(np.diff(c) >= 0), "cut grids must be sorted"
+        q = np.concatenate([c, np.nextafter(c, -np.inf),
+                            np.nextafter(c, np.inf), [lo, hi, np.nan,
+                                                      np.inf, -np.inf],
+                            rng.uniform(lo, hi, 4096)])
+        ct, qt = torch.as_tensor(c), torch.as_tensor(q)
+        want = bsearch_count(ct, qt, side="right").long()
+        assert torch.equal(_cut_rank_guess(ct, qt), want)
 
 
 # ---------------------------------------------------------------------------

@@ -15,10 +15,14 @@
 //   k12      K12 (csrc/leaf_eval2d.cu, scan_tile.cuh corner_hits_step):
 //            the two x and two y coordinates tested once, a select a
 //            corner;
+//   k17_old  K17 before its redesign: two compares, a select of the value
+//            or -inf, and jmax (its NaN tests);
+//   k17      K17 (csrc/scan1d.cu, scan_tile.cuh member_max_step): three
+//            compares and a predicated move, no NaN test;
 //   dadd     an f64 add alone, the FP64 pipe's reference rate.
 //
-// A slot holds four doubles (a K16 or K4 key in word 0 and a K16 value in
-// word 2; K15's start, next start and aggregate in words 0-2; K12's box
+// A slot holds four doubles (a K16, K17 or K4 key in word 0 and a K16 or
+// K17 value in word 2; K15's start, next start and aggregate in words 0-2; K12's box
 // x0, x1, y0, y1), a query four (K15's lq, uq in words 0-1; K12's lx, ux,
 // ly, uy).  Built and timed by tools/scan_rates.py.
 #include <cuda_runtime.h>
@@ -33,7 +37,9 @@ using polyfit::double2x2;
 constexpr int kTile = 1024;
 constexpr int kThreads = 256;
 
-enum Loop { kK16, kK4, kK15Old, kK15, kK12Old, kK12, kDadd, kLoops };
+enum Loop {
+  kK16, kK4, kK15Old, kK15, kK12Old, kK12, kK17Old, kK17, kDadd, kLoops
+};
 
 template <int L>
 struct Stage;   // the words of a slot the loop reads, as it reads them
@@ -42,6 +48,10 @@ struct Stage<kK16> {
   using type = double2;
   __device__ static type of(const double2x2& g) { return {g.a.x, g.b.x}; }
 };
+template <>
+struct Stage<kK17Old> : Stage<kK16> {};
+template <>
+struct Stage<kK17> : Stage<kK16> {};
 template <>
 struct Stage<kK4> {
   using type = double;
@@ -74,7 +84,8 @@ __global__ void __launch_bounds__(kThreads)
     x[r][1] = v.a.y;
     x[r][2] = v.b.x;
     x[r][3] = v.b.y;
-    acc[r] = L == kK15 || L == kK15Old ? -INFINITY : 0.0;
+    acc[r] = L == kK15 || L == kK15Old || L == kK17 || L == kK17Old
+                 ? -INFINITY : 0.0;
 #pragma unroll
     for (int e = 0; e < 4; ++e) c[r][e] = L == kK16 || L == kK4 ? 0 : -1;
   }
@@ -111,6 +122,11 @@ __global__ void __launch_bounds__(kThreads)
           const double qx[2] = {x[r][1], x[r][0]};
           const double qy[2] = {x[r][3], x[r][2]};
           polyfit::corner_hits_step(c[r], qx, qy, w, k);
+        } else if constexpr (L == kK17Old) {
+          acc[r] = polyfit::jmax(
+              acc[r], (x[r][0] <= w.x && w.x <= x[r][1]) ? w.y : -INFINITY);
+        } else if constexpr (L == kK17) {
+          polyfit::member_max_step(acc[r], w.x, w.y, x[r][0], x[r][1]);
         } else {
           x[r][0] = x[r][0] + w;
         }
@@ -131,13 +147,14 @@ void run(int loop, const double2x2* g, const double2x2* q, double* out,
   const Kernel kernels[kLoops] = {
       loop_kernel<kK16, R>,  loop_kernel<kK4, R>,     loop_kernel<kK15Old, R>,
       loop_kernel<kK15, R>,  loop_kernel<kK12Old, R>, loop_kernel<kK12, R>,
-      loop_kernel<kDadd, R>};
+      loop_kernel<kK17Old, R>, loop_kernel<kK17, R>, loop_kernel<kDadd, R>};
   kernels[loop]<<<blocks, kThreads>>>(g, q, out, reps);
 }
 
 }  // namespace
 
-// loop 0 k16, 1 k4, 2 k15_old, 3 k15, 4 k12_old, 5 k12, 6 dadd; r 1, 2, 4
+// loop 0 k16, 1 k4, 2 k15_old, 3 k15, 4 k12_old, 5 k12, 6 k17_old, 7 k17,
+// 8 dadd; r 1, 2, 4
 // or 8 queries a thread; ``g`` the tile (1,024 four-word slots), ``q``
 // R four-word queries a thread, ``out`` one value a thread
 extern "C" int scan_rates(int loop, int r, const void* g, const void* q,

@@ -1,7 +1,7 @@
 """The rates at which an H100 runs the inner loops of the whole-array scans
-K16, K4's scan mode, K15 and K12, apart from their kernels
-(``tools/scan_rates.cu``; K15 and K12 as they were before their redesign
-too): (query, slot) pairs a clock an SM at full occupancy, against an f64
+K16, K4's scan mode, K15, K12 and K17, apart from their kernels
+(``tools/scan_rates.cu``; K15, K12 and K17 as they were before their
+redesign too): (query, slot) pairs a clock an SM at full occupancy, against an f64
 add alone.  They bound what any block shape of those kernels can reach.
 Then, from the compiled code (``cuobjdump -sass``), the instructions of
 each loop's innermost body a pair, by opcode.
@@ -32,6 +32,8 @@ LOOPS = (("k16 compare-compare-select-add", (4, 8)),
          ("k15: three compares, two increments, a select", (2, 4, 8)),
          ("k12 before: four corners, first hits", (1, 2)),
          ("k12: two x and two y tests, a select a corner", (1, 2, 4)),
+         ("k17 before: two compares, a select, jmax", (1, 4)),
+         ("k17: three compares, a predicated move", (4, 8)),
          ("f64 add alone", (4, 8)))
 SASS_OPS = ("DSETP", "DMNMX", "DADD", "FSEL", "SEL", "IADD3", "VIADD",
             "PLOP3", "ISETP", "P2R", "MOV", "IMAD", "LDS")
