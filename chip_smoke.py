@@ -130,11 +130,21 @@ counters must show K14-K20 and K4's scan mode and none of K2, K3, K5-K11
 or gather-mode K4, and K14-K20 and K4's scan mode are held to their plain
 versions (max abs error 0) and timed: K4's scan mode at the static COUNT
 and SUM plans, K14/K15 at the dynamic plans, K16-K20 on the full
-4,096-slot logs and K16 also on the window's 131,072-slot log.  K16 and
-K17 stop at a log's sentinel tail, so their bounds count the slots that
-hold entries (counted on the card before the timing); the bound over
-every slot of the log and the pairs a clock an SM the time implies are
-printed beside it.
+4,096-slot logs and K16 also on the window's 131,072-slot log.  K16,
+K17 and K20 stop at a log's sentinel tail, so their bounds count the
+slots that hold entries (counted on the card before the timing); the
+bound over every slot of the log and the pairs a clock an SM the time
+implies are printed beside it.
+
+K1 runs where the main path runs it, on the plans' keys and their search
+trees (``IndexPlan.ref_tree``, ``IndexPlan2D.ref_xs_tree``, built once per
+plan); the fit phases print each plan's tree bytes beside its device
+bytes, and K1's timings print the tree's bytes, its sector loads a query
+(and the binary search's probes before the redesign) and the loads a
+clock an SM its time implies.  Its bound counts the bytes the search
+needs (queries, answers, and of the keys one 32-byte sector a query, or
+every key where that is less) and one compare a binary-search probe; the
+bound with every key read once is printed beside it.
 
 The ``ops`` step, at the end of phase 7, runs ``repro_torch.kernels.ops``
 (the twin of ``repro.kernels.ops``) on ``lat`` (COUNT, deg 2) and ``hki``
@@ -404,6 +414,13 @@ def bound_ms(nbytes: float, flops: float, peak: float = FP64_FLOPS):
 def probe_rounds(n: int) -> int:
     """Probe rounds of the branch-free binary search over n entries."""
     return max(0, (n - 1).bit_length()) + 1
+
+
+def k1_plain(q, keys, tree=None):
+    """K1's plain version on K1's arguments (the binary search needs no
+    tree)."""
+    from repro_torch.kernels.locate import locate_segments
+    return locate_segments(keys, q)
 
 
 def range_max_flops(rounds: int, deg: int) -> int:
@@ -977,7 +994,8 @@ def main() -> None:
                 print(f"fit {name}: agg={p.agg} n={p.n} {shape} deg={p.deg} "
                       f"delta={p.delta} budget={session.budget(name)} "
                       f"host_build_s={secs[name]:.3f} device_bytes="
-                      f"{p.device_bytes()} index_bytes={p.size_bytes()}",
+                      f"{p.device_bytes()} tree_bytes={p.tree_bytes()} "
+                      f"index_bytes={p.size_bytes()}",
                       flush=True)
         print(f"fit {tag}total: {fit_s:.3f} s", flush=True)
         return session
@@ -1119,7 +1137,8 @@ def main() -> None:
                 lo = torch.nextafter(lq, lq.new_full((), -torch.inf))
                 sets["range_max_gather"].append(
                     (lqc, uqc, p.seg_lo, p.seg_hi, p.coeffs, p.st))
-            sets["locate"] += [(uq, p.ref_keys), (lo, p.ref_keys)]
+            sets["locate"] += [(uq, p.ref_keys, p.ref_tree),
+                               (lo, p.ref_keys, p.ref_tree)]
         return sets
 
     errs = {}
@@ -1142,8 +1161,7 @@ def main() -> None:
             errs[name] = max(errs[name], max_abs_err(a, b))
 
     def hold_k123(sets, tag):
-        hold("locate", kloc.locate, lambda q, k: kloc.locate_segments(k, q),
-             sets["locate"], exact=True)
+        hold("locate", kloc.locate, k1_plain, sets["locate"], exact=True)
         hold("range_sum_gather", ksum.range_sum_gather,
              ksum.range_sum_gather_plain, sets["range_sum_gather"])
         hold("range_max_gather", kmax.range_max_gather,
@@ -1229,13 +1247,27 @@ def main() -> None:
         the MAX table's ranges."""
         out = {}
         k1 = sets["locate"][0]
-        n = k1[1].shape[0]
+        n, tree = k1[1].shape[0], k1[2]
+        levels = len(kloc.tree_levels(n))
+        # what the search needs: the queries, the answers, and of the keys
+        # at most one 32-byte sector a query (all of them where that is
+        # less); the search's compares, one a probe of the binary search
         out["locate"] = measure(
-            torch, tag, "locate", kloc.locate,
-            lambda q, k: kloc.locate_segments(k, q), k1,
-            lambda q, k: torch.searchsorted(k, q, right=True),
-            Q * 8 + n * 8 + Q * 4, Q * probe_rounds(n),
-            f"q ({Q},) f64, keys ({n},) f64 -> ({Q},) int32")
+            torch, tag, "locate", kloc.locate, k1_plain, k1,
+            lambda q, k, t: torch.searchsorted(k, q, right=True),
+            Q * 8 + Q * 4 + min(n * 8, Q * 32), Q * probe_rounds(n),
+            f"q ({Q},) f64, keys ({n},) f64, tree {tuple(tree.shape)} f64 "
+            f"-> ({Q},) int32")
+        sms, ghz = sm_clock(torch)
+        rate = Q * (levels + 1) / (out["locate"]["ms"] * 1e-3) / sms / (
+            ghz * 1e9)
+        keys_once, _ = bound_ms(Q * 8 + n * 8 + Q * 4, Q * probe_rounds(n))
+        print(f"{tag}locate: bound if every key were read once "
+              f"{keys_once!r} ms; the search tree's {tree.numel() * 8} bytes "
+              f"beside {n * 8} of keys; {levels + 1} sector loads a query "
+              f"({levels} levels and the leaf; the binary search before the "
+              f"redesign: {probe_rounds(n)} probes), {rate!r} loads a clock "
+              f"an SM ({sms} SMs at {ghz} GHz)", flush=True)
         for name, fn, plain in (
                 ("range_sum_gather", ksum.range_sum_gather,
                  ksum.range_sum_gather_plain),
@@ -1359,6 +1391,30 @@ def main() -> None:
         sms, ghz = sm_clock(torch)
         rate = Q * live / (row["ms"] * 1e-3) / sms / (ghz * 1e9)
         print(f"{tag}{name} bound over all {cap} slots {cap_ms!r} ms "
+              f"({cap_by}); over the {live} live slots {row['bound_ms']!r} "
+              f"ms; {rate!r} (query, live slot) pairs a clock an SM ({sms} "
+              f"SMs at {ghz} GHz)", flush=True)
+        return row
+
+    def measure_dommax2d(args, tag):
+        """Time K20 (``delta_dommax2d``) on one point log.  It walks the
+        slots before the log's sentinel tail, so the bound counts those
+        (``live``, counted here, outside the timed window): 3 f64
+        operations a (query, live slot) pair (2 compares for dominance, the
+        compare of its select), the corners and the live slots read once.
+        The bound over every slot and the pairs a clock an SM the time
+        implies are printed beside it."""
+        cap = args[2].shape[0]
+        live = int((args[2] != big_sentinel(torch.float64)).sum())
+        row = measure(torch, tag, "delta_dommax2d", kdel.delta_dommax2d,
+                      kdel.delta_dommax2d_plain, args, None,
+                      3 * Q * 8 + 3 * live * 8, Q * 3 * live,
+                      f"u, v ({Q},); keys_x, keys_y, wv ({cap},), {live} "
+                      f"live f64 -> ({Q},)", plain_calls=2)
+        cap_ms, cap_by = bound_ms(3 * Q * 8 + 3 * cap * 8, Q * 3 * cap)
+        sms, ghz = sm_clock(torch)
+        rate = Q * live / (row["ms"] * 1e-3) / sms / (ghz * 1e9)
+        print(f"{tag}delta_dommax2d bound over all {cap} slots {cap_ms!r} ms "
               f"({cap_by}); over the {live} live slots {row['bound_ms']!r} "
               f"ms; {rate!r} (query, live slot) pairs a clock an SM ({sms} "
               f"SMs at {ghz} GHz)", flush=True)
@@ -1945,9 +2001,9 @@ def main() -> None:
         wsets["range_sum_gather"].append(
             (torch.maximum(lq, p.domain_lo), torch.maximum(uq, p.domain_lo),
              p.seg_lo, p.seg_hi, p.coeffs))
-        wsets["locate"] += [(uq, p.ref_keys), (lq, p.ref_keys)]
-    hold("locate", kloc.locate, lambda q, k: kloc.locate_segments(k, q),
-         wsets["locate"], exact=True)
+        wsets["locate"] += [(uq, p.ref_keys, p.ref_tree),
+                            (lq, p.ref_keys, p.ref_tree)]
+    hold("locate", kloc.locate, k1_plain, wsets["locate"], exact=True)
     hold("range_sum_gather", ksum.range_sum_gather,
          ksum.range_sum_gather_plain, wsets["range_sum_gather"])
     k5w = (lq, uq, wbuf.ins_keys, wbuf.ins_cf)
@@ -2363,7 +2419,8 @@ def main() -> None:
                     (*qd[name], buf.ins_x, buf.ins_ylv, buf.ins_wpmax))
                 sets["corner_eval2d_gather"].append(
                     (*c, *g, plan.deg, plan.max_depth))
-                sets["locate"].append((qd[name][0], plan.ref_xs))
+                sets["locate"].append((qd[name][0], plan.ref_xs,
+                                       plan.ref_xs_tree))
                 continue
             for p_ in ("ins_", "del_"):
                 log = [getattr(buf, p_ + f) for f in ("x", "ylv", "wcum")]
@@ -2373,9 +2430,9 @@ def main() -> None:
                     sets["delta_sum2d_gather"].append((*qd[name], *log))
             sets["corner_count2d_gather"].append(
                 (*c, *g, plan.deg, plan.max_depth))
-            sets["locate"] += [(qd[name][0], plan.ref_xs),
-                               (qd[name][1], plan.ref_xs)]
-        plain = {"locate": lambda q, k: kloc.locate_segments(k, q),
+            sets["locate"] += [(qd[name][0], plan.ref_xs, plan.ref_xs_tree),
+                               (qd[name][1], plan.ref_xs, plan.ref_xs_tree)]
+        plain = {"locate": k1_plain,
                  "corner_count2d_gather": k2d.corner_count2d_gather_plain,
                  "corner_eval2d_gather": k2d.corner_eval2d_gather_plain}
         for k, args in sets.items():
@@ -2577,7 +2634,8 @@ def main() -> None:
           f"sets: max |kernel - plain| = "
           f"{ {k: errs[k] for k in KERNELS_SCAN2D} }", flush=True)
     # K18, K19 and K20 on the full 4,096-slot insert logs: 4 compares and
-    # an add, or 2 compares and a max, a (query, slot) pair
+    # an add a (query, slot) pair (K18, K19), 3 compares a (query, live
+    # slot) pair (K20)
     pairs = Q * cap
     timed["scan dyn2d"] = {
         "delta_count2d": measure(
@@ -2592,12 +2650,8 @@ def main() -> None:
             5 * Q * 8 + 3 * cap * 8, 5 * pairs,
             f"lx, ux, ly, uy ({Q},); keys_x, keys_y, wv ({cap},) f64 -> "
             f"({Q},)", plain_calls=1),
-        "delta_dommax2d": measure(
-            torch, tag, "delta_dommax2d", kdel.delta_dommax2d,
-            kdel.delta_dommax2d_plain, scan2d_sets["delta_dommax2d"][0],
-            None, 3 * Q * 8 + 3 * cap * 8, 3 * pairs,
-            f"u, v ({Q},); keys_x, keys_y, wv ({cap},) f64 -> ({Q},)",
-            plain_calls=2)}
+        "delta_dommax2d": measure_dommax2d(scan2d_sets["delta_dommax2d"][0],
+                                           tag)}
     print(f"{tag}step seconds {time.perf_counter() - step0!r} (engines "
           "built before the buffer-full ops not counted)", flush=True)
     del scan2d

@@ -10,6 +10,11 @@
 //   bsearch_count_right  #(keys <= q) in ceil(log2 n) + 1 probe rounds
 //   bsearch_count_left   #(keys < q), the same probe order
 //   locate_segment       max(#(seg_lo <= q) - 1, 0)
+//   count_lt, count_le   c += x < q, c += x <= q (PTX: a compare and a
+//                        predicated increment)
+//   tree_shape, tree_count_right
+//                        #(keys <= q) by a descent of the keys' search
+//                        tree (K1)
 //   interleave2          Morton code of a quadtree cell
 //   locate_leaf2d        leaf row of a 2-D corner: x cut, y cut, Morton code
 //   cut_rank_guess       #(cuts <= q) on sorted cuts by a checked guess (K7)
@@ -35,6 +40,8 @@
 
 #include <math.h>
 #include <stdint.h>
+
+#include <cuda_runtime.h>
 
 #include <type_traits>
 
@@ -97,6 +104,99 @@ __device__ __forceinline__ int locate_segment(const T* __restrict__ seg_lo,
                                               int n, T q) {
   const int c = bsearch_count_right(seg_lo, n, q) - 1;
   return c > 0 ? c : 0;
+}
+
+// c += (x < q) and c += (x <= q): an f64 compare and an increment under
+// its predicate, written in PTX (the C++ `c += x < q` becomes a compare, a
+// select and an add)
+__device__ __forceinline__ void count_lt(int& c, double x, double q) {
+  asm("{\n\t.reg .pred p;\n\t"
+      "setp.lt.f64 p, %1, %2;\n\t"
+      "@p add.s32 %0, %0, 1;\n\t}"
+      : "+r"(c)
+      : "d"(x), "d"(q));
+}
+
+__device__ __forceinline__ void count_le(int& c, double x, double q) {
+  asm("{\n\t.reg .pred p;\n\t"
+      "setp.le.f64 p, %1, %2;\n\t"
+      "@p add.s32 %0, %0, 1;\n\t}"
+      : "+r"(c)
+      : "d"(x), "d"(q));
+}
+
+// K1's search tree over n sorted keys (kernels/locate.py search_tree): a
+// static 5-ary B+ tree whose leaf level is the keys array itself (leaf j
+// is keys[4j : 4j + 4]) and whose internal nodes are one 32-byte sector of
+// four separators each: the first key of children 1-4, NaN where the
+// child does not exist (NaN <= q is never true).  The levels are stored
+// root first, level l's nodes from node first[l] on; node i's children are
+// nodes 5i .. 5i + 4 of the level below (leaves below the last level).
+constexpr int kTreeFanout = 5;
+constexpr int kMaxTreeLevels = 13;   // 4 x 5^13 keys > 2^31
+
+struct TreeShape {
+  int levels;                   // internal levels (0 when n <= 4)
+  int first[kMaxTreeLevels];    // each level's first node, root first
+};
+
+// the shape of the search tree over n keys
+__host__ __device__ inline TreeShape tree_shape(int n) {
+  int count[kMaxTreeLevels];
+  int levels = 0;
+  for (int c = n > 0 ? (n - 1) / 4 + 1 : 0; c > 1;) {
+    c = (c + kTreeFanout - 1) / kTreeFanout;
+    count[levels++] = c;
+  }
+  TreeShape s;
+  s.levels = levels;
+  int off = 0;
+  for (int l = 0; l < levels; ++l) {
+    s.first[l] = off;
+    off += count[levels - 1 - l];
+  }
+  return s;
+}
+
+// #(keys[0:n] <= q) on sorted keys by a descent of their search tree: at
+// each level the child is #(separators <= q) (two 16-byte loads, one
+// sector, and four count_le), at the leaf the count is 4 leaf +
+// #(keys[4 leaf + k] <= q) over the keys that exist (the last leaf may be
+// partial: read key by key, never past keys[n - 1]).  Exact with
+// duplicates: every key of an earlier child is <= the chosen child's first
+// key, which is <= q, and every key of a later child is >= the next
+// separator, which is > q.  A NaN q goes left at every level and counts 0.
+// ``keys`` and ``tree`` are 16-byte aligned.
+__device__ __forceinline__ int tree_count_right(
+    const double* __restrict__ keys, int n, const double* __restrict__ tree,
+    const TreeShape& shape, double q) {
+  int node = 0;
+#pragma unroll
+  for (int l = 0; l < kMaxTreeLevels; ++l) {
+    if (l >= shape.levels) break;
+    const double2* s =
+        reinterpret_cast<const double2*>(tree) + 2 * (shape.first[l] + node);
+    const double2 a = __ldg(s), b = __ldg(s + 1);
+    int c = 0;
+    count_le(c, a.x, q);
+    count_le(c, a.y, q);
+    count_le(c, b.x, q);
+    count_le(c, b.y, q);
+    node = kTreeFanout * node + c;
+  }
+  const int base = 4 * node;
+  int c = base;
+  if (base + 4 <= n) {
+    const double2* s = reinterpret_cast<const double2*>(keys + base);
+    const double2 a = __ldg(s), b = __ldg(s + 1);
+    count_le(c, a.x, q);
+    count_le(c, a.y, q);
+    count_le(c, b.x, q);
+    count_le(c, b.y, q);
+  } else {
+    for (int k = base; k < n; ++k) count_le(c, __ldg(keys + k), q);
+  }
+  return c;
 }
 
 // Morton (Z-order) code of cell (ix, iy) at depth bits per axis

@@ -1,7 +1,7 @@
 // PolyFit query kernels for Hopper (sm_90a), one thread per query: float64,
 // and float32 as well for K2 and K3.
 //
-// K1 locate_kernel            replaces repro/kernels/locate.py:locate_pallas
+// K1 locate_tree_kernel       replaces repro/kernels/locate.py:locate_pallas
 // K2 range_sum_gather_kernel  replaces repro/kernels/range_sum.py:range_sum_gather_pallas
 // K3 range_max_gather_kernel  replaces repro/kernels/range_max.py:range_max_gather_pallas
 // K5 delta_sum_gather_kernel  replaces repro/kernels/delta_scan.py:delta_sum_gather_pallas
@@ -15,6 +15,30 @@
 // (the table is tens of KB).  So the bound is bytes, and at these sizes the
 // launch latency (a few us) sets the time.
 //
+// K1 searches a plan's sorted exact keys (200,000 to 1,000,768 on the main
+// path: 1.6-8 MB, held in L2).  Its bound is bytes too: the queries, the
+// keys once and the answers, 2.6 us at 1M keys.  Before its redesign it
+// ran the branch-free binary search, one thread a query: 21 dependent
+// probes at 1M keys, of which the top ~9 levels are shared by every query
+// and hit L1, and each one below touches another 32-byte sector for each
+// query: about 10-12 scattered L2 loads a query, 0.65-0.8 M a launch, which
+// L2 serves at about 0.59 a clock an SM (tools/mst_rates.py): 4-5 us of
+// its 7.4.  Its design now: a search tree built once per plan
+// (kernels/locate.py search_tree, engine/plan.py), a static 5-ary B+ tree
+// whose leaves are the keys array itself and whose internal nodes are one
+// sector of four separators (locate.cuh tree_count_right).  Each sector
+// fetched decides a level: 8 internal levels and the leaf at 1M keys, 9
+// sector loads a query in place of 21 probes (7 + 1 at 200,000, in place
+// of 19); the top 4-5 levels (5-25 KB) stay in L1, which leaves about 4-5
+// L2 sectors a query.  The tree adds n / 4 doubles beside the keys.
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py, Q =
+// 65,536, 20 launches a CUDA graph): 0.00540 ms at 1,000,768 keys (0.00737
+// before) and 0.00464 at 200,000 (0.00637), below torch.searchsorted's
+// 0.00819 and 0.00692.  At 4,096 keys, all in L1, both searches take
+// 0.0039-0.0041 ms (tools/k1_k20_rates.py): that floor, not the L2 loads,
+// is most of K1's time now; above it the tree costs 1.0-1.5 us where the
+// binary search cost 2.4-3.5.
+//
 // K5 and K6 are the exact corrections over a dynamic table's delta buffer:
 // two binary searches into the sorted, sentinel-padded log (cap entries),
 // then a prefix-sum difference (K5) or an O(1) sparse-table range max (K6).
@@ -23,8 +47,8 @@
 // sparse table instead), about 0.5 and 0.6 us at 3.35 TB/s; the log is
 // 32 KB and stays in L1/L2 across the 13 dependent probes a search takes.
 //
-// What the design does about it: nothing yet.  One thread per query, the
-// table read through L1/L2; staging the table in shared memory, or several
+// What the design does about it for K2, K3, K5 and K6: nothing yet.  One
+// thread per query, the table read through L1/L2; staging the table in shared memory, or several
 // queries a thread, is later work.  Compiled with -fmad=false so that
 // Horner's acc * u + c rounds twice, as the plain torch version does.
 //
@@ -45,13 +69,17 @@ namespace polyfit {
 
 constexpr int kThreads = 256;
 
-// K1: segment id per query key, clip(#(seg_lo <= q) - 1, 0)
-__global__ void locate_kernel(const double* __restrict__ q,
-                              const double* __restrict__ seg_lo,
-                              int32_t* __restrict__ out, int Q, int H) {
+// K1: segment id per query key, max(#(keys <= q) - 1, 0), by a descent of
+// the keys' search tree
+__global__ void locate_tree_kernel(const double* __restrict__ q,
+                                   const double* __restrict__ keys,
+                                   const double* __restrict__ tree,
+                                   int32_t* __restrict__ out, int Q, int n,
+                                   TreeShape shape) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= Q) return;
-  out[i] = locate_segment(seg_lo, H, q[i]);
+  const int c = tree_count_right(keys, n, tree, shape, q[i]) - 1;
+  out[i] = c > 0 ? c : 0;
 }
 
 // K2: A = P_{I(u)}(u) - P_{I(l)}(l) (paper Eq. 14)
@@ -169,12 +197,15 @@ int launch_range_max_gather(const void* lq, const void* uq, const void* seg_lo,
 
 extern "C" {
 
-int polyfit_locate(const void* q, const void* seg_lo, void* out, int Q, int H,
-                   void* stream) {
+// ``keys``: n sorted keys, ``tree`` their search tree
+// (kernels/locate.py search_tree), both 16-byte aligned
+int polyfit_locate(const void* q, const void* keys, const void* tree,
+                   void* out, int Q, int n, void* stream) {
   if (Q > 0)
-    polyfit::locate_kernel<<<polyfit::blocks_for(Q), polyfit::kThreads, 0,
-                             (cudaStream_t)stream>>>(
-        (const double*)q, (const double*)seg_lo, (int32_t*)out, Q, H);
+    polyfit::locate_tree_kernel<<<polyfit::blocks_for(Q), polyfit::kThreads,
+                                  0, (cudaStream_t)stream>>>(
+        (const double*)q, (const double*)keys, (const double*)tree,
+        (int32_t*)out, Q, n, polyfit::tree_shape(n));
   return (int)cudaGetLastError();
 }
 

@@ -500,18 +500,6 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// K17's combine: the S chunk maxima of each query taken in chunk order
-// (jmax: a NaN chunk gives NaN)
-__global__ void delta_max_combine_kernel(const double* __restrict__ part,
-                                         double* __restrict__ out, int Q,
-                                         int S) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= Q) return;
-  double acc = part[i];
-  for (int s = 1; s < S; ++s) acc = jmax(acc, part[(size_t)s * Q + i]);
-  out[i] = acc;
-}
-
 // K17 in S chunks: the chunk maxima go to ``part`` ((S, Q), unused when
 // S = 1), then the combine writes ``out``
 template <int THREADS, int R, int TILE>
@@ -526,7 +514,7 @@ int launch_delta_max(const void* lq, const void* uq, const void* keys,
           (const double*)vals, (double*)(S > 1 ? part : out), Q, D,
           sentinel);
   if (S > 1)
-    delta_max_combine_kernel<<<blocks_for(Q), kThreads, 0, stream>>>(
+    chunk_max_combine_kernel<double><<<blocks_for(Q), kThreads, 0, stream>>>(
         (const double*)part, (double*)out, Q, S);
   return (int)cudaGetLastError();
 }

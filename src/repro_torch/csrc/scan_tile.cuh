@@ -29,14 +29,16 @@
 //
 //   walk_tiles<W, TILE, STOP>(src, n, first, step, stop, smem, f)
 //
-// is the same walk with each tile handed to f whole (K17, which votes on a
-// tile before it picks its loop), and returns whether it stopped at the
-// sentinel.
+// is the same walk with each tile handed to f whole (K17 and K20, which
+// vote on a tile before they pick its loop), and returns whether it
+// stopped at the sentinel.
 #pragma once
 
 #include <cuda_runtime.h>
 
 #include <type_traits>
+
+#include "locate.cuh"
 
 namespace polyfit {
 
@@ -58,25 +60,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// c += (x < q) and c += (x <= q): an f64 compare and an increment under
-// its predicate, written in PTX (the C++ `c += x < q` becomes a compare, a
-// select and an add)
-__device__ __forceinline__ void count_lt(int& c, double x, double q) {
-  asm("{\n\t.reg .pred p;\n\t"
-      "setp.lt.f64 p, %1, %2;\n\t"
-      "@p add.s32 %0, %0, 1;\n\t}"
-      : "+r"(c)
-      : "d"(x), "d"(q));
-}
-
-__device__ __forceinline__ void count_le(int& c, double x, double q) {
-  asm("{\n\t.reg .pred p;\n\t"
-      "setp.le.f64 p, %1, %2;\n\t"
-      "@p add.s32 %0, %0, 1;\n\t}"
-      : "+r"(c)
-      : "d"(x), "d"(q));
 }
 
 // four doubles read back as two 16-byte shared loads
@@ -208,6 +191,37 @@ __device__ __forceinline__ void member_max_step(double& acc, double key,
       "@p mov.f64 %0, %4;\n\t}"
       : "+d"(acc)
       : "d"(key), "d"(l), "d"(u), "d"(v));
+}
+
+// K20's loop body (scan2d.cu) for one (query, logged point) pair, in PTX:
+// acc = w where x <= u && y <= v && w > acc.  member_max_step's three
+// compares and predicated move on a dominance test: no NaN test (K20 runs
+// tiles that hold a NaN measure through jmax), and a NaN acc is never
+// replaced.  Of equal maxima the first is kept (-0.0 against +0.0
+// included).
+__device__ __forceinline__ void dominated_max_step(double& acc, double x,
+                                                   double y, double w,
+                                                   double u, double v) {
+  asm("{\n\t.reg .pred p;\n\t"
+      "setp.le.f64 p, %1, %4;\n\t"
+      "setp.le.and.f64 p, %2, %5, p;\n\t"
+      "setp.gt.and.f64 p, %3, %0, p;\n\t"
+      "@p mov.f64 %0, %3;\n\t}"
+      : "+d"(acc)
+      : "d"(x), "d"(y), "d"(w), "d"(u), "d"(v));
+}
+
+// The combine of K17 and K20: the S chunk maxima of each query (rows of an
+// (S, Q) ``part``) taken in chunk order by jmax (a NaN chunk gives NaN), so
+// two launches give the same bits
+template <typename T>
+__global__ void chunk_max_combine_kernel(const T* __restrict__ part,
+                                         T* __restrict__ out, int Q, int S) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= Q) return;
+  T acc = part[i];
+  for (int s = 1; s < S; ++s) acc = jmax(acc, part[(size_t)s * Q + i]);
+  out[i] = acc;
 }
 
 // f(s, j) where f takes the slot's index, else f(s)

@@ -463,7 +463,8 @@ def _exec_dyn_extremum(plan: IndexPlan, buf: DeltaBuffer, lq, uq, *,
         # trust the fitted approximation (the victim may be the maximum) —
         # refine against the victim-masked exact sparse table instead
         base_exact = sparse_table_range_max(
-            buf.live_st, *key_span(plan.ref_keys, lq, uq, backend))
+            buf.live_st, *key_span(plan.ref_keys, lq, uq, backend,
+                                   plan.ref_tree))
         exact = torch.maximum(base_exact, ins)
         vk = buf.vic_keys
         threat = ((lq[:, None] <= vk[None, :]) &

@@ -27,8 +27,9 @@ plan on the CPU; the two card backends raise for a plan on the CPU.
 Each path computes the raw approximation, applies the Lemma 5.2/5.4 Q_rel
 acceptance test and merges the exact refinement with ``torch.where`` — the
 refinement arrays live in the plan, so there is no host round trip.  The
-refinement's binary searches over the sorted keys run kernel K1 (``locate``)
-on the two card backends and the plain ``locate_segments`` on the others.
+refinement's searches of the sorted keys run kernel K1 (``locate``, over the
+plan's search tree) on the two card backends and the plain
+``locate_segments`` on the others.
 Batches are padded to power-of-two buckets, as the reference pads them, so
 answers match it lane for lane.
 
@@ -132,18 +133,22 @@ def pad_fills(plan: Union[IndexPlan, IndexPlan2D]):
     return (plan.domain_lo, plan.domain_lo)
 
 
-def _locate_keys(keys: torch.Tensor, q: torch.Tensor, backend: str):
-    """max(#(keys <= q) - 1, 0) per lane: K1 on the card backends, the
-    plain binary search on the others."""
+def _locate_keys(keys: torch.Tensor, q: torch.Tensor, backend: str,
+                 tree: torch.Tensor):
+    """max(#(keys <= q) - 1, 0) per lane: K1 on the card backends (over
+    ``tree``, the keys' search tree the plan carries), the plain binary
+    search on the others."""
     if backend in CARD_BACKENDS:
-        return locate(q, keys)
+        return locate(q, keys, tree)
     return locate_segments(keys, q)
 
 
-def _count_le(keys: torch.Tensor, q: torch.Tensor, backend: str):
+def _count_le(keys: torch.Tensor, q: torch.Tensor, backend: str,
+              tree: torch.Tensor):
     """#(keys <= q) per lane: the count is 0 exactly when q lies below the
     first key (or is NaN)."""
-    return torch.where(q >= keys[0], _locate_keys(keys, q, backend) + 1, 0)
+    return torch.where(q >= keys[0],
+                       _locate_keys(keys, q, backend, tree) + 1, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -231,30 +236,34 @@ def truth_sum(plan: IndexPlan, lq, uq, *, backend: str):
     """Exact static SUM/COUNT over (lq, uq] from the plan's refinement CF."""
     keys, cf = plan.ref_keys, plan.ref_cf
     cf_at = lambda q: torch.where(
-        q >= keys[0], cf[_locate_keys(keys, q, backend)], 0.0)
+        q >= keys[0], cf[_locate_keys(keys, q, backend, plan.ref_tree)], 0.0)
     return cf_at(uq) - cf_at(lq)
 
 
-def key_span(keys: torch.Tensor, lq, uq, backend: str):
+def key_span(keys: torch.Tensor, lq, uq, backend: str,
+             tree: torch.Tensor):
     """The span [#(keys < lq), #(keys <= uq)) of the sorted ``keys`` that
     [lq, uq] covers.  #(keys < lq) is #(keys <= the next double below lq):
-    the same binary search (K1 on the card backends) serves both ends."""
+    the same search (K1 over ``tree``, the keys' search tree, on the card
+    backends) serves both ends."""
     i = _count_le(keys, torch.nextafter(lq, lq.new_full((), -torch.inf)),
-                  backend)
-    return i, _count_le(keys, uq, backend)
+                  backend, tree)
+    return i, _count_le(keys, uq, backend, tree)
 
 
 def truth_extremum(plan: IndexPlan, lq, uq, *, backend: str):
     """Exact static MAX over [lq, uq] (MAX space) from the refinement
     table."""
     return sparse_table_range_max(plan.ref_st,
-                                  *key_span(plan.ref_keys, lq, uq, backend))
+                                  *key_span(plan.ref_keys, lq, uq, backend,
+                                            plan.ref_tree))
 
 
 def _x_ranks(plan: IndexPlan2D, backend: str, *qs):
-    """#(ref_xs <= q) per lane for each x coordinate (K1 on the card
-    backends)."""
-    return [_count_le(plan.ref_xs, q, backend) for q in qs]
+    """#(ref_xs <= q) per lane for each x coordinate (K1 over the plan's
+    ``ref_xs_tree`` on the card backends)."""
+    return [_count_le(plan.ref_xs, q, backend, plan.ref_xs_tree)
+            for q in qs]
 
 
 def truth_count2d(plan: IndexPlan2D, lx, ux, ly, uy, *, backend: str):

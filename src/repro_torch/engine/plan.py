@@ -11,12 +11,16 @@ single layout every backend executes against.  It bundles, per index:
 * the unpadded sparse table ``st`` over per-segment aggregates (MAX/MIN);
 * the exact-refinement arrays (sorted keys + prefix CF, or keys + measure
   sparse table), so the Lemma 5.2/5.4 Q_rel test and the refinement run
-  on the device with no host round trip.
+  on the device with no host round trip;
+* the sorted keys' search tree ``ref_tree`` (``kernels.locate.search_tree``),
+  which K1 descends on the card backends: the port's own, outside
+  ``ARRAY_FIELDS`` (those mirror the reference's plan).
 
 ``IndexPlan2D`` is the 2-key analogue: the quadtree descent arrays (the
 ``torch`` backend), the flattened tile-padded leaf table for the kernels
 and the one-hot ``ref`` oracles, and the merge-sort-tree arrays for exact
-refinement.  The leaf table is stored in Morton (Z-order), so the
+refinement (with ``ref_xs_tree``, the x keys' search tree, for K1).  The
+leaf table is stored in Morton (Z-order), so the
 locate->gather kernels binary-search it: ``xcuts``/``ycuts`` are the exact
 dyadic split grids (rebuilt with the tree's own midpoint recursion, so cell
 resolution is bit-identical to the descent's tie rule) and ``leaf_z`` the
@@ -39,7 +43,7 @@ from .. import DTYPE
 from ..core.index import PolyFitIndex1D
 from ..core.index2d import PolyFitIndex2D
 from ..kernels.locate import (INT_SENTINEL, MAX_MORTON_DEPTH, dyadic_cuts,
-                              leaf_morton_codes)
+                              leaf_morton_codes, search_tree)
 
 __all__ = ["IndexPlan", "IndexPlan2D", "build_plan", "build_plan_2d",
            "plan_from_numpy", "plan2d_from_numpy", "big_sentinel",
@@ -64,6 +68,20 @@ def _device_bytes(plan, fields) -> int:
     return int(sum(t.numel() * t.element_size()
                    for t in (getattr(plan, f) for f in fields)
                    if t is not None))
+
+
+def _tree_bytes(tree) -> int:
+    return 0 if tree is None else tree.numel() * tree.element_size()
+
+
+def _searchable(keys):
+    """``keys`` and their search tree (None, None for no keys), the keys
+    copied where they are not 16-byte aligned, as K1 reads them."""
+    if keys is None:
+        return None, None
+    if keys.data_ptr() % 16:
+        keys = keys.clone()
+    return keys, search_tree(keys)
 
 
 def big_sentinel(dtype) -> float:
@@ -105,6 +123,8 @@ class IndexPlan:
     ref_st: Optional[torch.Tensor]    # (L2, n) measure sparse table (max/min)
     # -- per-segment certified fit error E(I) -----------------------------
     seg_err: Optional[torch.Tensor] = None   # (Hp,) delta-padded
+    # -- K1's search tree over ref_keys (not in ARRAY_FIELDS) -------------
+    ref_tree: Optional[torch.Tensor] = None  # (nodes, 4)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -132,9 +152,14 @@ class IndexPlan:
         return int(total)
 
     def device_bytes(self) -> int:
-        """Bytes every tensor of the plan holds on its device (padding and
-        refinement arrays included)."""
+        """Bytes the reference plan's arrays (``ARRAY_FIELDS``) hold on the
+        device, padding and refinement arrays included; the port's search
+        tree is counted by ``tree_bytes``."""
         return _device_bytes(self, ARRAY_FIELDS)
+
+    def tree_bytes(self) -> int:
+        """Bytes of ``ref_tree``, K1's search tree (0 without one)."""
+        return _tree_bytes(self.ref_tree)
 
 
 def build_plan(index: PolyFitIndex1D, dtype: torch.dtype = DTYPE,
@@ -157,6 +182,7 @@ def build_plan(index: PolyFitIndex1D, dtype: torch.dtype = DTYPE,
         elif index.exact_max is not None:
             ref_keys = index.exact_max.keys
             ref_st = index.exact_max.st
+    ref_keys, ref_tree = _searchable(ref_keys)
 
     seg_err = None
     if index.seg_err is not None:
@@ -172,7 +198,7 @@ def build_plan(index: PolyFitIndex1D, dtype: torch.dtype = DTYPE,
         coeffs=pad_to_multiple(coeffs, bh, 0.0),
         seg_agg=pad_to_multiple(agg, bh, -torch.inf),
         st=index.st, ref_keys=ref_keys, ref_cf=ref_cf, ref_st=ref_st,
-        seg_err=seg_err,
+        seg_err=seg_err, ref_tree=ref_tree,
     )
 
 
@@ -181,12 +207,14 @@ def plan_from_numpy(fields: Mapping, device) -> IndexPlan:
 
     ``fields`` maps every name in ``ARRAY_FIELDS`` to a numpy array (or
     None where the reference holds None) and every name in ``META_FIELDS``
-    to its scalar.  Arrays keep their dtype and are copied to ``device``.
+    to its scalar.  Arrays keep their dtype and are copied to ``device``;
+    the keys' search tree is built from ``ref_keys``.
     """
     device = torch.device(device)
     arrays = {f: (None if fields.get(f) is None else
                   torch.as_tensor(np.array(fields[f]), device=device))
               for f in ARRAY_FIELDS}
+    arrays["ref_keys"], arrays["ref_tree"] = _searchable(arrays["ref_keys"])
     return IndexPlan(
         agg=str(fields["agg"]), deg=int(fields["deg"]),
         delta=float(fields["delta"]), h=int(fields["h"]), n=int(fields["n"]),
@@ -230,6 +258,8 @@ class IndexPlan2D:
     leaf_agg: Optional[torch.Tensor] = None   # (Lp,) exact per-leaf measure
     ref_wcum: Optional[torch.Tensor] = None   # (L, n) block prefix sums
     ref_wpmax: Optional[torch.Tensor] = None  # (L, n) block prefix maxima
+    # -- K1's search tree over ref_xs (not in ARRAY_FIELDS_2D) -------------
+    ref_xs_tree: Optional[torch.Tensor] = None  # (nodes, 4)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -248,9 +278,14 @@ class IndexPlan2D:
         return int(total)
 
     def device_bytes(self) -> int:
-        """Bytes every tensor of the plan holds on its device (padding and
-        refinement arrays included)."""
+        """Bytes the reference plan's arrays (``ARRAY_FIELDS_2D``) hold on
+        the device, padding and refinement arrays included; the port's
+        search tree is counted by ``tree_bytes``."""
         return _device_bytes(self, ARRAY_FIELDS_2D)
+
+    def tree_bytes(self) -> int:
+        """Bytes of ``ref_xs_tree``, K1's search tree (0 without one)."""
+        return _tree_bytes(self.ref_xs_tree)
 
 
 def build_plan_2d(index: PolyFitIndex2D, dtype: torch.dtype = DTYPE,
@@ -311,6 +346,7 @@ def build_plan_2d(index: PolyFitIndex2D, dtype: torch.dtype = DTYPE,
         ref_ys = index.exact.ys_levels
         ref_wcum = index.exact.wcum_levels
         ref_wpmax = index.exact.wpmax_levels
+    ref_xs, ref_xs_tree = _searchable(ref_xs)
 
     return IndexPlan2D(
         deg=index.deg, delta=float(index.delta), n=int(index.n),
@@ -330,7 +366,7 @@ def build_plan_2d(index: PolyFitIndex2D, dtype: torch.dtype = DTYPE,
         agg=index.agg,
         leaf_agg=(None if leaf_agg is None
                   else pad_to_multiple(to(leaf_agg), bh, 0.0)),
-        ref_wcum=ref_wcum, ref_wpmax=ref_wpmax,
+        ref_wcum=ref_wcum, ref_wpmax=ref_wpmax, ref_xs_tree=ref_xs_tree,
     )
 
 
@@ -338,11 +374,13 @@ def plan2d_from_numpy(fields: Mapping, device) -> IndexPlan2D:
     """A port ``IndexPlan2D`` from a reference ``IndexPlan2D``'s fields:
     every name in ``ARRAY_FIELDS_2D`` maps to a numpy array (or None) and
     every name in ``META_FIELDS_2D`` to its value.  Arrays keep their dtype
-    and are copied to ``device``."""
+    and are copied to ``device``; the x keys' search tree is built from
+    ``ref_xs``."""
     device = torch.device(device)
     arrays = {f: (None if fields.get(f) is None else
                   torch.as_tensor(np.array(fields[f]), device=device))
               for f in ARRAY_FIELDS_2D}
+    arrays["ref_xs"], arrays["ref_xs_tree"] = _searchable(arrays["ref_xs"])
     return IndexPlan2D(
         deg=int(fields["deg"]), delta=float(fields["delta"]),
         n=int(fields["n"]), n_leaves=int(fields["n_leaves"]),

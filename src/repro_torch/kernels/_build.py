@@ -44,8 +44,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _SIGNATURES = {
-    # q, seg_lo, out, Q, H, stream
-    "polyfit_locate": (_P, _P, _P, _I, _I, _P),
+    # q, keys, tree, out, Q, n, stream; ``tree`` the keys' search tree
+    # (kernels/locate.py search_tree)
+    "polyfit_locate": (_P, _P, _P, _P, _I, _I, _P),
     # lq, uq, seg_lo, seg_hi, coeffs, out, Q, H, deg, stream
     "polyfit_range_sum_gather": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # lq, uq, seg_lo, seg_hi, coeffs, st, out, Q, H, deg, h, stream
@@ -102,8 +103,10 @@ _SIGNATURES = {
     "polyfit_delta_count2d": (_P,) * 7 + (_I,) * 2 + (_P,),
     # lx, ux, ly, uy, kx, ky, w, out, Q, D, stream
     "polyfit_delta_sum2d": (_P,) * 8 + (_I,) * 2 + (_P,),
-    # u, v, kx, ky, w, out, Q, D, stream
-    "polyfit_delta_dommax2d": (_P,) * 6 + (_I,) * 2 + (_P,),
+    # u, v, kx, ky, w, out, part, Q, D, sentinel, stream; ``part`` an
+    # (S, Q) scratch, S = polyfit_delta_dommax2d_chunks(D)
+    "polyfit_delta_dommax2d": (_P,) * 7 + (_I,) * 2 + (_D, _P),
+    "polyfit_delta_dommax2d_chunks": (_I,),
 }
 # the float32 instantiations (kernels/ops.py's float32 plans) take the
 # arguments of their float64 twins

@@ -35,7 +35,9 @@ The ``cuda_scan`` backend's twins scan the whole log instead, as
   (ly, uy], a membership test against every slot of the point log;
 * ``delta_sum2d`` (K19) — the sum of their measures, added in slot order;
 * ``delta_dommax2d`` (K20) — the max measure of the logged points with
-  x <= u and y <= v, -inf when none is dominated.
+  x <= u and y <= v, -inf when none is dominated (it stops at the log's
+  sentinel tail, and a corner that dominates the sentinel takes the tail's
+  0 back in).
 
 Sentinel slots hold a huge-but-finite key (both coordinates for a point
 log) and measure 0, so they fail every membership test and leave the
@@ -146,7 +148,7 @@ delta_max_gather.launches = 0
 # ---------------------------------------------------------------------------
 
 #: the padding key of a float64 log (``engine.plan.big_sentinel``), where
-#: K16 and K17 stop
+#: K16, K17 and K20 stop
 _SENTINEL = float(torch.finfo(torch.float64).max) / 4
 
 
@@ -376,9 +378,10 @@ def delta_dommax2d_plain(u, v, keys_x, keys_y, wv):
     return delta_dommax2d_ref(u, v, keys_x, keys_y, wv)
 
 
-def _scan2d_launch(name, queries, logs):
-    """Launch K18, K19 or K20 (``polyfit_<name>``) on validated arguments:
-    equal-length query vectors and equal-length log columns."""
+def _scan2d_args(name, queries, logs):
+    """Validate K18-K20's arguments (equal-length query vectors and
+    equal-length log columns) and allocate the answers: (Q, D, out, the
+    data pointers of queries, log columns and out)."""
     _build.require_cuda(name, *queries, *logs)
     Q, D = queries[0].shape[0], logs[0].shape[0]
     if (any(q.shape != (Q,) for q in queries) or D < 1
@@ -387,10 +390,15 @@ def _scan2d_launch(name, queries, logs):
                          f"{[tuple(q.shape) for q in queries]}, log "
                          f"{[tuple(t.shape) for t in logs]}")
     out = torch.empty(Q, dtype=logs[0].dtype, device=logs[0].device)
+    return Q, D, out, [t.data_ptr() for t in (*queries, *logs, out)]
+
+
+def _scan2d_launch(name, queries, logs):
+    """Launch K18 or K19 (``polyfit_<name>``) on validated arguments."""
+    Q, D, out, ptrs = _scan2d_args(name, queries, logs)
     if Q:
         _build.check(getattr(_build.library(), f"polyfit_{name}")(
-            *(t.data_ptr() for t in (*queries, *logs, out)), Q, D,
-            _build.stream(out.device)), name)
+            *ptrs, Q, D, _build.stream(out.device)), name)
     return out
 
 
@@ -428,13 +436,29 @@ delta_sum2d.launches = 0
 
 def delta_dommax2d(u, v, keys_x, keys_y, wv):
     """(Q,) exact dominance max of buffered measures over {x <= u, y <= v}
-    (-inf where none is dominated) by a test against every slot: K20 on
-    CUDA tensors, the plain version on CPU tensors.
-    ``delta_dommax2d.launches`` counts the kernel launches."""
+    (-inf where none is dominated, NaN where a dominated measure is NaN)
+    by a test against every live slot of the log: K20 on CUDA tensors, the
+    plain version on CPU tensors.  ``delta_dommax2d.launches`` counts the
+    kernel launches.
+
+    K20 takes the ``DeltaBuffer2D`` layout as given: the log sorted by x,
+    and from the first ``big_sentinel`` x on every slot holds (sentinel,
+    sentinel, 0).  It stops at the first tile of the log that starts on the
+    sentinel, and a corner that dominates the sentinel takes the skipped
+    slots' measure 0 back in.  The plain version scans every slot of any
+    log."""
     if u.device.type == "cpu":
         return delta_dommax2d_plain(u, v, keys_x, keys_y, wv)
-    out = _scan2d_launch("delta_dommax2d", (u, v), (keys_x, keys_y, wv))
-    if u.shape[0]:
+    Q, D, out, ptrs = _scan2d_args("delta_dommax2d", (u, v),
+                                   (keys_x, keys_y, wv))
+    if Q:
+        lib = _build.library()
+        # the kernel takes each chunk's maxima, then their max in chunk order
+        part = torch.empty((lib.polyfit_delta_dommax2d_chunks(D), Q),
+                           dtype=out.dtype, device=out.device)
+        _build.check(lib.polyfit_delta_dommax2d(
+            *ptrs, part.data_ptr(), Q, D, _SENTINEL,
+            _build.stream(out.device)), "delta_dommax2d")
         delta_dommax2d.launches += 1
     return out
 

@@ -19,8 +19,12 @@ of the device functions every gather kernel inlines:
   higher-coordinate leaf).
 
 ``locate`` is the wrapper over K1 (``csrc/polyfit_kernels.cu``,
-``locate_kernel``), the twin of ``locate_pallas``: on CUDA tensors it
-launches the kernel, on CPU tensors it runs ``locate_segments``.  The CUDA
+``locate_tree_kernel``), the twin of ``locate_pallas``: on CUDA tensors it
+launches the kernel, on CPU tensors it runs ``locate_segments``.  K1 walks
+the keys' search tree (``search_tree``: a static 5-ary B+ tree of 32-byte
+nodes over the sorted keys, built once per plan by ``engine.plan``), so
+that each sector it fetches decides a level; ``tree_count`` is the same
+descent in torch, held to ``bsearch_count`` by the CPU tests.  The CUDA
 versions of the device functions live in ``csrc/locate.cuh``.
 
 Sentinel-padded tails need no special casing: the padding value exceeds
@@ -34,8 +38,9 @@ import torch
 from . import _build
 
 __all__ = ["bsearch_count", "locate_segments", "floor_log2", "rmq_gather",
-           "locate", "interleave2", "locate_leaf2d", "dyadic_cuts",
-           "leaf_morton_codes", "MAX_MORTON_DEPTH", "INT_SENTINEL"]
+           "locate", "search_tree", "tree_count", "tree_levels", "TREE_FANOUT",
+           "interleave2", "locate_leaf2d", "dyadic_cuts", "leaf_morton_codes",
+           "MAX_MORTON_DEPTH", "INT_SENTINEL"]
 
 # 2 bits per level must fit an int32 Morton code (sign bit reserved)
 MAX_MORTON_DEPTH = 15
@@ -96,24 +101,92 @@ def rmq_gather(st: torch.Tensor, i0: torch.Tensor,
     return torch.where(length > 0, torch.maximum(left, right), -torch.inf)
 
 
-def locate(q: torch.Tensor, seg_lo: torch.Tensor) -> torch.Tensor:
-    """Segment id per query key: (Q,) int32 against sorted (H,) ``seg_lo``.
+#: children of a node of K1's search tree (four separators, 32 bytes)
+TREE_FANOUT = 5
 
-    K1 on CUDA tensors (one thread per query, ceil(log2 H) + 1 probe
-    rounds); ``locate_segments`` on CPU tensors.  ``locate.launches``
-    counts the kernel launches.
+
+def tree_levels(n: int) -> list:
+    """Nodes of each internal level of the search tree over n keys, root
+    first (none when n <= 4: the keys are one leaf)."""
+    counts, c = [], -(-n // 4)
+    while c > 1:
+        c = -(-c // TREE_FANOUT)
+        counts.append(c)
+    return counts[::-1]
+
+
+def search_tree(keys: torch.Tensor) -> torch.Tensor:
+    """K1's search tree over sorted ``keys``: the internal levels of a
+    static 5-ary B+ tree, root first, as a (nodes, 4) tensor of the keys'
+    dtype on their device.
+
+    Its leaf j is ``keys[4j : 4j + 4]`` itself (not copied).  Node i of a
+    level has children 5i .. 5i + 4 on the level below (leaves below the
+    last), and holds the first key of children 1-4, NaN where a child does
+    not exist, so that ``#(separators <= q)`` is the child to descend to.
+    About n / 16 nodes: n / 4 values beside the n keys."""
+    n = keys.shape[0]
+    levels, count, span = [], -(-n // 4), 4
+    for parents in tree_levels(n)[::-1]:
+        child = (TREE_FANOUT * torch.arange(parents, device=keys.device)[:, None]
+                 + torch.arange(1, TREE_FANOUT, device=keys.device))
+        first = keys[torch.clamp(child * span, max=n - 1)]
+        levels.append(torch.where(child < count, first, torch.nan))
+        count, span = parents, span * TREE_FANOUT
+    if not levels:
+        return keys.new_empty((0, TREE_FANOUT - 1))
+    return torch.cat(levels[::-1])
+
+
+def tree_count(keys: torch.Tensor, tree: torch.Tensor,
+               q: torch.Tensor) -> torch.Tensor:
+    """#(keys <= q) per lane as int32 by K1's descent of ``tree``
+    (``search_tree(keys)``): at each level the child is #(separators <=
+    q), at the leaf the count is 4 leaf + #(its keys <= q), over the keys
+    that exist.  Equal to ``bsearch_count(keys, q)`` on sorted keys,
+    duplicates, +-inf and NaN q (count 0) included."""
+    n = keys.shape[0]
+    node = torch.zeros(q.shape, dtype=torch.int64, device=q.device)
+    first = 0
+    for count in tree_levels(n):
+        sep = tree[first + node]
+        node = TREE_FANOUT * node + (sep <= q[..., None]).sum(-1)
+        first += count
+    idx = 4 * node[..., None] + torch.arange(4, device=q.device)
+    hit = (idx < n) & (keys[torch.clamp(idx, max=n - 1)] <= q[..., None])
+    return (4 * node + hit.sum(-1)).to(torch.int32)
+
+
+def locate(q: torch.Tensor, keys: torch.Tensor,
+           tree: torch.Tensor = None) -> torch.Tensor:
+    """Segment id per query key: max(#(keys <= q) - 1, 0) as (Q,) int32
+    against sorted (n,) ``keys``.
+
+    K1 on CUDA tensors: one thread a query descends ``tree``, the keys'
+    ``search_tree`` (the plans carry it; a call without one builds it for
+    that call).  ``keys`` and ``tree`` must be 16-byte aligned (K1 reads a
+    node or a leaf as two 16-byte loads).  It raises on a tree whose shape
+    is not that of ``n`` keys' tree; a tree of other keys of the same count
+    passes unseen.  ``locate_segments`` on CPU tensors.  ``locate.launches`` counts the kernel launches.
     """
     if q.device.type == "cpu":
-        return locate_segments(seg_lo, q)
-    _build.require_cuda("locate", q, seg_lo)
-    Q, H = q.shape[0], seg_lo.shape[0]
-    if H < 1:
-        raise ValueError("locate: seg_lo must not be empty")
+        return locate_segments(keys, q)
+    if tree is None:
+        tree = search_tree(keys)
+    _build.require_cuda("locate", q, keys, tree)
+    Q, n = q.shape[0], keys.shape[0]
+    if n < 1:
+        raise ValueError("locate: keys must not be empty")
+    if tree.shape != (sum(tree_levels(n)), TREE_FANOUT - 1):
+        raise ValueError(f"locate: tree {tuple(tree.shape)} does not have "
+                         f"the shape of the search tree of {n} keys")
+    if keys.data_ptr() % 16 or tree.data_ptr() % 16:
+        raise ValueError("locate: keys and tree must be 16-byte aligned")
     out = torch.empty(Q, dtype=torch.int32, device=q.device)
     if Q:
         _build.check(_build.library().polyfit_locate(
-            q.data_ptr(), seg_lo.data_ptr(), out.data_ptr(), Q, H,
-            _build.stream(q.device)), "locate")
+            q.data_ptr(), keys.data_ptr(), tree.data_ptr(), out.data_ptr(),
+            Q, n, _build.stream(q.device)), "locate")
         locate.launches += 1
     return out
 

@@ -18,10 +18,15 @@ layout, K4's scan mode at ragged target counts, K15 (float64 and float32)
 and K12 at ragged query counts and table lengths on tables in a plan's
 layout (K15 on NaN lanes, an inverted range and every segment boundary,
 K12 on corners on every split line), and two launches of each equal bit
-for bit.  The
+for bit.  K1 equals
+its plain version on keys of 1 to 5,000 entries either side of its
+search tree's leaf, node and level sizes, with the plans' tree and
+without one.  The
 two-key scans K18 (buffered COUNT), K19 (buffered SUM, added in slot
 order as its plain version adds) and K20 (buffered dominance MAX) equal
-their plain versions exactly, and a ``DynamicEngine2D`` on ``cuda_scan``
+their plain versions exactly (K20 also on negative measures, NaN measures
+in some tiles and the corners that reach the sentinel tail, on logs of
+one to several tiles a chunk), and a ``DynamicEngine2D`` on ``cuda_scan``
 runs them (no K9-K11) and equals ``cuda`` (COUNT and MIN bit for bit, SUM
 to 1e-9).  K21 (``poly_eval``) and the float32 instantiations of K2, K3,
 K14, K15 and K21 equal their plain versions exactly; each wrapper picks
@@ -118,6 +123,77 @@ def test_locate_kernel_matches_plain(cuda):
     np.testing.assert_array_equal(
         got.cpu().numpy()[:len(edges)],
         np.maximum(np.searchsorted(padded, edges, side="right") - 1, 0))
+
+
+# K1's search tree: sizes either side of a full leaf (4 keys), a full node
+# (5 children) and a level, and larger tables
+TREE_SIZES = [1, 2, 3, 4, 5, 6, 24, 25, 26, 4097, 5000]
+
+
+def _tree_case(n, seed=0):
+    """n sorted keys with runs of duplicates (a sentinel-padded tail from 24
+    keys on), and queries on every key, the next doubles either side of
+    every key, NaN, +-inf and random values."""
+    rng = np.random.default_rng(seed + n)
+    keys = np.sort(np.round(rng.uniform(0, 50, n)))
+    if n >= 24:
+        keys[-(n // 8):] = big_sentinel(torch.float64)
+    q = np.concatenate([keys, np.nextafter(keys, -np.inf),
+                        np.nextafter(keys, np.inf),
+                        [np.nan, -np.inf, np.inf, -0.0],
+                        rng.uniform(-5, 55, 3000)])
+    return keys, q
+
+
+@pytest.mark.parametrize("n", TREE_SIZES)
+def test_locate_tree_kernel_matches_plain(cuda, n):
+    """K1 (the descent of the keys' search tree) equals the plain binary
+    search in every lane, with the tree passed as the plans pass it and
+    without one (the wrapper builds it); one launch a call."""
+    keys, q = _tree_case(n)
+    kd, qd = (torch.as_tensor(a, device=cuda) for a in (keys, q))
+    tree = kloc.search_tree(kd)
+    want = kloc.locate_segments(kd, qd)
+    before = kloc.locate.launches
+    got = kloc.locate(qd, kd, tree)
+    bare = kloc.locate(qd, kd)
+    torch.cuda.synchronize()
+    assert kloc.locate.launches == before + 2
+    assert got.dtype == torch.int32 and got.shape == qd.shape
+    assert torch.equal(got, want) and torch.equal(bare, want)
+    assert torch.equal(kloc.tree_count(kd, tree, qd),
+                       kloc.bsearch_count(kd, qd))
+    ok = ~np.isnan(q)   # numpy sorts NaN last; the search counts it 0
+    np.testing.assert_array_equal(
+        got.cpu().numpy()[ok],
+        np.maximum(np.searchsorted(keys, q[ok], side="right") - 1, 0))
+    assert not got.cpu().numpy()[~ok].any()
+
+
+def test_locate_rejects_a_misaligned_or_misshapen_tree(cuda):
+    keys, q = _tree_case(4097)
+    kd, qd = (torch.as_tensor(a, device=cuda) for a in (keys, q))
+    tree = kloc.search_tree(kd)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kloc.locate(qd, kd[1:], kloc.search_tree(kd[1:]))
+    with pytest.raises(ValueError, match="search tree"):
+        kloc.locate(qd, kd[:1000], tree)
+    with pytest.raises(ValueError, match="CUDA device"):
+        kloc.locate(qd, kd, tree.cpu())
+
+
+def test_plans_carry_their_keys_search_tree(cuda, plans, plans2d):
+    """Every plan built on the card carries its keys' search tree, aligned
+    for K1."""
+    _, by_key = plans
+    *_, by_key2d = plans2d
+    for p in (*by_key.values(), *by_key2d.values()):
+        keys = p.ref_keys if hasattr(p, "ref_keys") else p.ref_xs
+        tree = p.ref_tree if hasattr(p, "ref_keys") else p.ref_xs_tree
+        assert torch.equal(tree.nan_to_num(-1.0),
+                           kloc.search_tree(keys).nan_to_num(-1.0))
+        assert keys.data_ptr() % 16 == 0 and tree.data_ptr() % 16 == 0
+        assert p.tree_bytes() == tree.numel() * 8
 
 
 @pytest.mark.parametrize("deg", [1, 2, 3])
@@ -1545,6 +1621,73 @@ def test_delta_2d_scan_kernels_reject_bad_arguments(cuda):
         kdelta.delta_dommax2d(ux, uy, x, y.cpu(), w)
     with pytest.raises(ValueError, match="float64"):
         kdelta.delta_sum2d(lx, ux, ly, uy, x, y, w.float())
+
+
+def _min_log2d(cuda, fill, cap, nan_every=0, seed=0):
+    """An x-sorted ``cap``-slot point log of ``fill`` points with negative
+    measures (a MIN table's, negated), built by the engine's append with its
+    merge-sort-tree levels; with ``nan_every`` a NaN measure every that
+    many slots."""
+    rng = np.random.default_rng(seed + fill)
+    x = np.round(rng.uniform(0, 100, fill), 1)
+    y = np.round(rng.uniform(0, 100, fill), 1)
+    w = -rng.uniform(1, 100, fill)
+    e = DeltaBuffer2D.empty(cap, device=cuda, weighted=True)
+    to = lambda a: torch.as_tensor(a, device=cuda)
+    x, y, w, ylv, _, wpmax = _append_2d(e.ins_x, e.ins_y, e.ins_w, to(x),
+                                        to(y), to(w), cap=cap, levels=True,
+                                        weighted=True)
+    if nan_every and fill:
+        w = w.clone()
+        w[:fill:nan_every] = float("nan")
+    return x, y, w, ylv, wpmax
+
+
+def _dom_corners(cuda, n=70_000):
+    """Corners over the log's range, and the lanes that reach the sentinel
+    tail or none of the log: at and above the sentinel, +-inf, NaN."""
+    rng = np.random.default_rng(61)
+    big = big_sentinel(torch.float64)
+    inf, nan = np.inf, np.nan
+    u = np.concatenate([rng.uniform(-10, 110, n),
+                        [inf, big, big, 2 * big, inf, 50.0, nan, inf, -inf,
+                         big, nan, 1e308]])
+    v = np.concatenate([rng.uniform(-10, 110, n),
+                        [inf, big, inf, big, 50.0, inf, 50.0, nan, inf,
+                         np.nextafter(big, 0), nan, 1e308]])
+    return (torch.as_tensor(u, device=cuda), torch.as_tensor(v, device=cuda))
+
+
+@pytest.mark.parametrize("with_nan", [False, True], ids=["finite", "nan"])
+@pytest.mark.parametrize("fill,cap", [(0, CAP), (1, CAP), (1023, CAP),
+                                      (1024, CAP), (1025, CAP), (2049, CAP),
+                                      (3072, CAP), (CAP, CAP),
+                                      (9000, 4 * CAP)])
+def test_delta_dommax2d_kernel_tail_lanes(cuda, fill, cap, with_nan):
+    """K20 equals its plain version in value (NaN equal) and its
+    merge-sort-tree twin K11 on all-negative measures, with and without a
+    NaN measure in some tiles, on the lanes that reach the sentinel tail
+    (whose 0 K20 folds back in where it skipped tiles), on NaN and infinite
+    corners, and on a log of several tiles a chunk (4 x CAP slots); one
+    launch a call, and two launches give the same bits."""
+    x, y, w, ylv, wpmax = _min_log2d(cuda, fill, cap,
+                                     nan_every=700 if with_nan else 0)
+    u, v = _dom_corners(cuda)
+    before = kdelta.delta_dommax2d.launches
+    got = kdelta.delta_dommax2d(u, v, x, y, w)
+    again = kdelta.delta_dommax2d(u, v, x, y, w)
+    torch.cuda.synchronize()
+    assert kdelta.delta_dommax2d.launches == before + 2
+    exact = dict(rtol=0, atol=0, equal_nan=True)
+    torch.testing.assert_close(got, kdelta.delta_dommax2d_plain(u, v, x, y,
+                                                                w), **exact)
+    assert torch.equal(got.view(torch.int64), again.view(torch.int64))
+    if not with_nan:
+        torch.testing.assert_close(got, kdelta.delta_dommax2d_gather(
+            u, v, x, ylv, wpmax), **exact)
+    if fill < cap and not with_nan:   # a corner over the sentinel
+        assert (got[-12:-8] == 0).all()   # dominates the tail's 0
+    assert torch.isneginf(got[-6:-4]).all()   # NaN corners
 
 
 @pytest.mark.parametrize("agg", ["count2d", "sum2d", "min2d"])

@@ -14,10 +14,12 @@ from repro.core import build_index_1d  # noqa: E402
 from repro.data import hki_series  # noqa: E402
 from repro.engine import Engine as REngine, build_plan  # noqa: E402
 from repro_torch.api import ErrorBudget, PolyFit, TableSpec  # noqa: E402
+from repro_torch.core import build_index_1d as t_build  # noqa: E402
 from repro_torch.engine import (Engine, execute_extremum,  # noqa: E402
                                 raw_extremum, raw_sum)
 from repro_torch.engine.plan import (ARRAY_FIELDS, META_FIELDS,  # noqa: E402
-                                     plan_from_numpy)
+                                     build_plan as t_plan, plan_from_numpy)
+from repro_torch.kernels.locate import search_tree  # noqa: E402
 from repro_torch.kernels import range_max, range_sum  # noqa: E402
 
 N = 2000
@@ -153,6 +155,30 @@ def test_batch_bucketing_consistency(plans, data, nq):
     assert got.shape == (nq,)
     ref = np.asarray(REngine(backend="xla").sum(rplan, lq, uq).answer)
     np.testing.assert_allclose(got, ref, **TOL)
+
+
+@pytest.mark.parametrize("source", ["plan_from_numpy", "build_plan"])
+@pytest.mark.parametrize("agg", AGGS)
+def test_plans_carry_the_keys_search_tree(plans, data, agg, source):
+    """A plan carried across from the reference and one the port lowers
+    from its own index both carry ``ref_tree``, the search tree of their
+    ``ref_keys`` (K1's), counted by ``tree_bytes`` and not by
+    ``device_bytes``, which stays the reference's sum."""
+    rplan, plan = plans[agg]
+    if source == "build_plan":
+        keys, meas = data
+        plan = t_plan(t_build(keys, meas[agg], agg, deg=plan.deg,
+                              delta=DELTA, device="cpu"))
+    want = search_tree(plan.ref_keys)
+    assert torch.equal(plan.ref_tree.nan_to_num(-1.0),
+                       want.nan_to_num(-1.0))
+    assert plan.ref_keys.data_ptr() % 16 == 0
+    np.testing.assert_array_equal(plan.ref_keys.numpy(),
+                                  np.asarray(rplan.ref_keys))
+    assert plan.tree_bytes() == want.numel() * 8 > 0
+    assert plan.device_bytes() == sum(
+        np.asarray(getattr(rplan, f)).nbytes for f in ARRAY_FIELDS
+        if getattr(rplan, f) is not None)
 
 
 def test_deg4_max_routes_to_torch(data, queries):

@@ -33,7 +33,8 @@ from repro_torch.engine import (Engine, build_plan_2d,  # noqa: E402
 from repro_torch.engine.plan import (ARRAY_FIELDS_2D,  # noqa: E402
                                      META_FIELDS_2D, plan2d_from_numpy)
 from repro_torch.kernels import leaf_eval2d as k2d  # noqa: E402
-from repro_torch.kernels.locate import bsearch_count, dyadic_cuts  # noqa: E402
+from repro_torch.kernels.locate import (bsearch_count, dyadic_cuts,  # noqa: E402
+                                        search_tree)
 
 TOL = dict(rtol=1e-9, atol=1e-9)
 N = 4000
@@ -228,6 +229,27 @@ def test_plan_parity(setup):
     assert plan.device_bytes() == sum(
         np.asarray(getattr(rplan, f)).nbytes for f in ARRAY_FIELDS_2D
         if getattr(rplan, f) is not None)
+
+
+@pytest.mark.parametrize("source", ["plan2d_from_numpy", "build_plan_2d"])
+def test_plans_carry_the_x_search_tree(setup, source):
+    """Plans carried across from the reference and plans the port lowers
+    from its own index carry ``ref_xs_tree``, the search tree of their
+    ``ref_xs`` (K1's), counted by ``tree_bytes`` only."""
+    px, py, w, plans, _, _ = setup
+    for agg, (_, rplan, plan) in plans.items():
+        if source == "build_plan_2d":
+            plan = build_plan_2d(build_index_2d(
+                px, py, measures=None if agg == "count2d" else w, agg=agg,
+                deg=2, delta=plan.delta, max_depth=plan.max_depth,
+                device="cpu"))
+        want = search_tree(plan.ref_xs)
+        assert torch.equal(plan.ref_xs_tree.nan_to_num(-1.0),
+                           want.nan_to_num(-1.0)), agg
+        assert plan.ref_xs.data_ptr() % 16 == 0
+        np.testing.assert_array_equal(plan.ref_xs.numpy(),
+                                      np.asarray(rplan.ref_xs))
+        assert plan.tree_bytes() == want.numel() * 8 > 0
 
 
 # ---------------------------------------------------------------------------

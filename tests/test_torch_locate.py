@@ -1,8 +1,11 @@
 """repro_torch.kernels.locate against repro.kernels.locate: the branch-free
 binary search, segment location (against ``locate_pallas`` in interpret
 mode) and the sparse-table range max, on boundary endpoints, duplicate
-keys and sentinel-padded tails.  The K1 kernel itself is held to this plain
-version on the card by tests/test_torch_cuda.py."""
+keys and sentinel-padded tails; and K1's search tree (``search_tree``)
+with its plain descent (``tree_count``), held to the binary search and to
+``locate_pallas`` on tables either side of a leaf's, a node's and a
+level's size.  The K1 kernel itself is held to these plain versions on
+the card by tests/test_torch_cuda.py."""
 import numpy as np
 import pytest
 import jax
@@ -89,3 +92,62 @@ def test_floor_log2_matches_reference():
     want = np.asarray(rloc.floor_log2(jnp.asarray(length), 14))
     got = tloc.floor_log2(torch.as_tensor(length), 14).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+# K1's search tree: sizes either side of a full leaf (4 keys), a full node
+# (5 children) and a level (25 leaves), and larger tables
+TREE_SIZES = [1, 2, 3, 4, 5, 6, 24, 25, 26, 4097, 3000]
+
+
+def _tree_case(n):
+    """n sorted keys with runs of duplicates (a sentinel-padded tail from 24
+    keys on), and queries on every key, the next doubles either side of
+    every key, NaN, +-inf and random values (padded to a multiple of 128
+    with the first key).  The keys start at 1, so no query is subnormal:
+    XLA on the CPU flushes those to zero, which ``locate_pallas`` would
+    then count as 0.0."""
+    rng = np.random.default_rng(200 + n)
+    keys = np.sort(np.round(rng.uniform(1, 51, n)))
+    if n >= 24:
+        keys[-(n // 8):] = big_sentinel(np.float64)
+    q = np.concatenate([keys, np.nextafter(keys, -np.inf),
+                        np.nextafter(keys, np.inf),
+                        [np.nan, -np.inf, np.inf, -0.0],
+                        rng.uniform(-5, 55, 300)])
+    return keys, np.pad(q, (0, (-len(q)) % 128), constant_values=keys[0])
+
+
+@pytest.mark.parametrize("n", TREE_SIZES)
+def test_search_tree_walk_matches_bsearch_and_locate_pallas(n):
+    """The descent of ``search_tree`` counts #(keys <= q) as the binary
+    search does in every lane (NaN 0), and max(count - 1, 0) equals the
+    reference's ``locate_pallas``; the tree holds n / 16 nodes or so, each
+    a sorted run of separators with NaN only after the last child."""
+    keys, q = _tree_case(n)
+    kt, qt = torch.as_tensor(keys), torch.as_tensor(q)
+    tree = tloc.search_tree(kt)
+    got = tloc.tree_count(kt, tree, qt)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(),
+                                  tloc.bsearch_count(kt, qt).numpy())
+    want = np.asarray(rloc.locate_pallas(jnp.asarray(q), jnp.asarray(keys),
+                                         bq=len(q)))
+    np.testing.assert_array_equal(np.maximum(got.numpy() - 1, 0), want)
+    t = tree.numpy()
+    assert t.shape == (sum(tloc.tree_levels(n)), 4) and t.shape[0] <= n
+    filled = ~np.isnan(t)
+    assert (filled[:, :1] | ~filled.any(axis=1, keepdims=True)).all()
+    assert (filled[:, :-1] >= filled[:, 1:]).all()   # NaN only at the end
+    with np.errstate(invalid="ignore"):   # inf - inf past the last child
+        steps = np.diff(np.where(filled, t, np.inf), axis=1)
+    assert (steps[filled[:, 1:]] >= 0).all()
+
+
+def test_search_tree_levels_at_the_main_path_sizes():
+    """8 internal levels over lat_dyn's 1,000,768 keys and 7 over lat's
+    200,000: with the leaf, 9 and 8 sector loads a query."""
+    assert len(tloc.tree_levels(1_000_768)) == 8
+    assert len(tloc.tree_levels(200_000)) == 7
+    assert tloc.tree_levels(4) == [] and tloc.tree_levels(5) == [1]
+    assert tloc.search_tree(torch.zeros(4, dtype=torch.float64)).shape == (
+        0, 4)

@@ -12,7 +12,10 @@ the CPU, where their wrappers run the plain versions.
   maxima exactly, sums at rtol = atol = 1e-9 (K10 differences prefix
   sums), on rectangles that are not inverted (K9's and K10's inclusion-
   exclusion is signed there).  K20 keeps a NaN measure as ``jnp.max``
-  does.
+  does, and on a negative-measure log gives the padding's 0 to corners at
+  and above the sentinel, as the Pallas kernel does; a torch transcription
+  of K20's walk (it stops at the sentinel tail and folds that 0 back in)
+  equals the plain K20 on such logs.
 * ``DynamicEngine2D`` on ``cuda_scan`` against the reference's
   ``DynamicEngine2D(backend="pallas_scan")`` op for op (inserts, deletes,
   shadowed victims on MIN, a flush, more updates; COUNT, SUM and MIN
@@ -188,6 +191,121 @@ def test_delta_dommax2d_plain_keeps_nan_as_pallas():
     hit = (float(gx[11]) <= ux) & (float(gy[11]) <= uy)
     assert hit.any() and np.isnan(got[hit]).all()
     assert not np.isnan(got[~hit]).any()
+
+
+def _min_log(fill, cap, seed):
+    """An x-sorted ``cap``-slot point log of ``fill`` points with negative
+    measures (a MIN table's, which runs negated), built by the port's
+    append."""
+    rng = np.random.default_rng(seed)
+    x = np.round(rng.uniform(0, 20, fill), 1)
+    y = np.round(rng.uniform(0, 20, fill), 1)
+    w = -rng.uniform(1, 100, fill)
+    e = DeltaBuffer2D.empty(cap, weighted=True)
+    gx, gy, gw, *_ = _append_2d(e.ins_x, e.ins_y, e.ins_w, torch.as_tensor(x),
+                                torch.as_tensor(y), torch.as_tensor(w),
+                                cap=cap, levels=False, weighted=True)
+    return gx, gy, gw
+
+
+def _tail_corners(seed, n=120):
+    """Corners over the log, and those at and above the sentinel (which
+    dominate the log's padding), +-inf and NaN ones."""
+    rng = np.random.default_rng(seed)
+    big = big_sentinel(torch.float64)
+    inf, nan = np.inf, np.nan
+    u = np.concatenate([rng.uniform(-2, 22, n),
+                        [inf, big, big, 2 * big, inf, 5.0, nan, inf, -inf,
+                         big, 1e308, nan]])
+    v = np.concatenate([rng.uniform(-2, 22, n),
+                        [inf, big, inf, big, 5.0, inf, 5.0, nan, inf,
+                         np.nextafter(big, 0), 1e308, nan]])
+    return u, v
+
+
+@pytest.mark.parametrize("fill", [0, 1, 37, CAP])
+def test_delta_dommax2d_plain_matches_pallas_on_the_sentinel_tail(fill):
+    """On a negative-measure log the padding's measure 0 is the max of
+    every corner that dominates the sentinel: the plain K20 equals
+    ``delta_dommax2d_pallas`` there and on the other corners, and gives 0
+    at and above the sentinel wherever the log has padding."""
+    gx, gy, gw = _min_log(fill, CAP, seed=fill + 3)
+    u, v = _tail_corners(seed=fill)
+    got = kd.delta_dommax2d_plain(torch.as_tensor(u), torch.as_tensor(v),
+                                  gx, gy, gw).numpy()
+    want = np.asarray(delta_dommax2d_pallas(
+        jnp.asarray(u), jnp.asarray(v),
+        *(jnp.asarray(t.numpy()) for t in (gx, gy, gw)), bq=len(u),
+        interpret=True))
+    np.testing.assert_array_equal(got, want)
+    tail = got[-12:-8]
+    assert (tail == 0).all() if fill < CAP else (tail < 0).all()
+    assert np.isneginf(got[[-6, -5, -4, -1]]).all()
+
+
+# K20's walk (csrc/scan2d.cu delta_dommax2d_kernel): kDomTile slots a tile,
+# the log in up to kDomChunks interleaved chunks
+K20_TILE, K20_CHUNKS = 1024, 4
+
+
+def _k20_walk(u, v, kx, ky, w):
+    """K20's formulation in torch: each chunk walks its tiles in slot order
+    and stops at its first tile that starts on the sentinel; a tile with a
+    NaN measure runs the NaN-propagating max, any other the compare-only
+    step (w > acc, which never replaces a NaN acc); a chunk that skipped
+    tiles gives a corner that dominates the sentinel the tail's 0; the
+    chunks' maxima are taken in chunk order."""
+    big = big_sentinel(torch.float64)
+    D = kx.shape[0]
+    tiles = -(-D // K20_TILE)
+    S = max(1, min(K20_CHUNKS, tiles))
+    out = None
+    for c in range(S):
+        acc = torch.full_like(u, -torch.inf)
+        skipped = False
+        for t in range(c, tiles, S):
+            sl = slice(t * K20_TILE, (t + 1) * K20_TILE)
+            x, y, m = kx[sl], ky[sl], w[sl]
+            if x[0] == big:
+                skipped = True
+                break
+            member = (x <= u[:, None]) & (y <= v[:, None])
+            if torch.isnan(m).any():
+                acc = torch.maximum(
+                    acc, torch.where(member, m, -torch.inf).amax(dim=1))
+            else:
+                for j in range(x.shape[0]):
+                    acc = torch.where(member[:, j] & (m[j] > acc), m[j], acc)
+        if skipped:
+            holds = (big <= u) & (big <= v)
+            acc = torch.where(holds, torch.maximum(acc, torch.zeros_like(acc)),
+                              acc)
+        out = acc if out is None else torch.maximum(out, acc)
+    return out
+
+
+@pytest.mark.parametrize("fill,cap,with_nan", [(0, 4096, False),
+                                               (1, 4096, True),
+                                               (1023, 4096, False),
+                                               (1025, 4096, True),
+                                               (3000, 4096, False),
+                                               (4096, 4096, True),
+                                               (9000, 16384, False),
+                                               (9000, 16384, True)])
+def test_delta_dommax2d_tail_fold_matches_plain(fill, cap, with_nan):
+    """K20's walk, which stops at the log's sentinel tail and folds the
+    skipped slots' 0 back in, equals the plain dominance max in value (NaN
+    equal) on all-negative measures, NaN measures in some tiles, logs of
+    one to several tiles a chunk, and the corners that reach the tail:
+    at and above the sentinel, +-inf, NaN."""
+    gx, gy, gw = _min_log(fill, cap, seed=fill + 11 * with_nan)
+    if with_nan and fill:
+        gw = gw.clone()
+        gw[:fill:900] = float("nan")
+    u, v = (torch.as_tensor(a) for a in _tail_corners(seed=fill + 1, n=60))
+    torch.testing.assert_close(_k20_walk(u, v, gx, gy, gw),
+                               kd.delta_dommax2d_plain(u, v, gx, gy, gw),
+                               rtol=0, atol=0, equal_nan=True)
 
 
 def test_delta_2d_scan_wrappers_check_shapes():
