@@ -134,7 +134,14 @@ and SUM plans, K14/K15 at the dynamic plans, K16-K20 on the full
 K17 and K20 stop at a log's sentinel tail, so their bounds count the
 slots that hold entries (counted on the card before the timing); the
 bound over every slot of the log and the pairs a clock an SM the time
-implies are printed beside it.
+implies are printed beside it.  K13 stops at its leaf table's sentinel
+tail likewise (its bound counts the live leaves, the bound over every
+leaf printed beside it).  K19 ranks each rectangle's x range to the slots
+[a, b) of the x-sorted log and tests only those, so its bound counts the
+searches and 3 operations a (rectangle, [a, b) slot) pair (the ranks
+taken on the card before the timing); the old form's bound, 5 operations
+a (rectangle, slot) pair over the live slots and over every slot, the
+mean [a, b) width and the pairs a clock an SM are printed beside it.
 
 K1 runs where the main path runs it, on the plans' keys and their search
 trees (``IndexPlan.ref_tree``, ``IndexPlan2D.ref_xs_tree``, built once per
@@ -1420,6 +1427,76 @@ def main() -> None:
               f"SMs at {ghz} GHz)", flush=True)
         return row
 
+    def measure_corner_eval2d(args, tag):
+        """Time K13 (``corner_eval2d``) on one flat leaf table.  It walks
+        the leaves before the table's sentinel tail, so the bound counts
+        those (``live``, counted here, outside the timed window): 4 f64
+        compares a (corner, live leaf) pair and one row evaluation a
+        corner, the corners, the live leaves' bounds and the rows read
+        once.  The bound over every leaf and the pairs a clock an SM the
+        time implies are printed beside it."""
+        u, mx0, bounds, coeffs = args[0], args[2], args[6], args[7]
+        L, k = mx0.shape[0], coeffs.shape[1]
+        live = int((mx0 != big_sentinel(torch.float64)).sum())
+        rows = L * 4 * 8 + L * k * 8
+        row = measure(torch, tag, "corner_eval2d", k2d.corner_eval2d,
+                      k2d.corner_eval2d_plain, args, None,
+                      3 * Q * 8 + 4 * live * 8 + rows,
+                      Q * (4 * live + horner2d_flops(args[-1])),
+                      f"u, v ({Q},); mx0, mx1, my0, my1 ({L},), {live} "
+                      f"live, bounds ({L}, 4), coeffs ({L}, {k}) f64 -> "
+                      f"({Q},)")
+        all_ms, all_by = bound_ms(3 * Q * 8 + 4 * L * 8 + rows,
+                                  Q * (4 * L + horner2d_flops(args[-1])))
+        sms, ghz = sm_clock(torch)
+        rate = Q * live / (row["ms"] * 1e-3) / sms / (ghz * 1e9)
+        print(f"{tag}corner_eval2d bound over all {L} leaves {all_ms!r} ms "
+              f"({all_by}); over the {live} live leaves "
+              f"{row['bound_ms']!r} ms; {rate!r} (corner, live leaf) pairs "
+              f"a clock an SM ({sms} SMs at {ghz} GHz)", flush=True)
+        return row
+
+    def measure_sum2d(args, tag):
+        """Time K19 (``delta_sum2d``) on one point log.  It ranks each
+        rectangle's x range to slots [a, b) of the x-sorted log by two
+        binary searches and tests only those, so the bound counts the work
+        these rectangles need (the ranks, counted here outside the timed
+        window): the searches' compares, and 3 f64 operations (2 y
+        compares, an add) a (rectangle, [a, b) slot) pair; the rectangles,
+        the answers and the live slots read once.  The bound of the old
+        form, 5 operations a (rectangle, slot) pair, over the live slots
+        and over every slot, the mean [a, b) width and the pairs a clock an
+        SM the time implies are printed beside it."""
+        lx, ux, kx = args[0], args[1], args[4]
+        cap = kx.shape[0]
+        big = big_sentinel(torch.float64)
+        live = int((kx != big).sum())
+        tail = int(torch.searchsorted(kx, torch.tensor([big], device=dev)))
+        a = torch.where(torch.isnan(lx), cap,
+                        torch.searchsorted(kx, lx, right=True))
+        b = torch.where(torch.isnan(ux), 0, torch.clamp(
+            torch.searchsorted(kx, ux, right=True), max=tail))
+        width = float(torch.clamp(b - a, min=0).double().sum())
+        row = measure(torch, tag, "delta_sum2d", kdel.delta_sum2d,
+                      kdel.delta_sum2d_plain, args, None,
+                      5 * Q * 8 + 3 * live * 8,
+                      Q * 2 * probe_rounds(cap) + 3 * width,
+                      f"lx, ux, ly, uy ({Q},); keys_x, keys_y, wv ({cap},), "
+                      f"{live} live, mean [a, b) {width / Q!r} slots f64 -> "
+                      f"({Q},)", plain_calls=1)
+        live_ms, live_by = bound_ms(5 * Q * 8 + 3 * live * 8, 5 * Q * live)
+        cap_ms, cap_by = bound_ms(5 * Q * 8 + 3 * cap * 8, 5 * Q * cap)
+        sms, ghz = sm_clock(torch)
+        per = lambda n: n / (row["ms"] * 1e-3) / sms / (ghz * 1e9)
+        print(f"{tag}delta_sum2d bound of the [a, b) ranges "
+              f"{row['bound_ms']!r} ms; at 5 operations a pair over the "
+              f"{live} live slots {live_ms!r} ms ({live_by}), over all "
+              f"{cap} slots {cap_ms!r} ms ({cap_by}); mean [a, b) width "
+              f"{width / Q!r} slots; {per(Q * live)!r} (rectangle, live "
+              f"slot) pairs and {per(width)!r} (rectangle, [a, b) slot) "
+              f"pairs a clock an SM ({sms} SMs at {ghz} GHz)", flush=True)
+        return row
+
     tag = "scan static: "
     step0 = time.perf_counter()
     s_qs = dict(qs, hki_sum=make_queries_1d(t_s, NQ, seed=SEED + 5))
@@ -2287,10 +2364,7 @@ def main() -> None:
             k2d.corner_count2d_plain, k12_args, None, 5 * Q * 8 + table_s,
             Q * (4 * corner_s + 3),
             f"lx, ux, ly, uy ({Q},); {stab} f64 -> ({Q},)"),
-        "corner_eval2d": measure(
-            torch, "2d osm: ", "corner_eval2d", k2d.corner_eval2d,
-            k2d.corner_eval2d_plain, k13_args, None, 3 * Q * 8 + table_s,
-            Q * corner_s, f"u, v ({Q},); {stab} f64 -> ({Q},)")}
+        "corner_eval2d": measure_corner_eval2d(k13_args, "2d osm: ")}
     # the loads behind K7's time, and the rate at which an SM served them
     # (tools/k7_k17_rates.py measures its variants)
     old, new = k7_loads(torch, k7_args)
@@ -2634,7 +2708,8 @@ def main() -> None:
           f"sets: max |kernel - plain| = "
           f"{ {k: errs[k] for k in KERNELS_SCAN2D} }", flush=True)
     # K18, K19 and K20 on the full 4,096-slot insert logs: 4 compares and
-    # an add a (query, slot) pair (K18, K19), 3 compares a (query, live
+    # an add a (query, slot) pair (K18), 2 compares and an add a (query,
+    # [a, b) slot) pair beside the ranks (K19), 3 compares a (query, live
     # slot) pair (K20)
     pairs = Q * cap
     timed["scan dyn2d"] = {
@@ -2644,12 +2719,7 @@ def main() -> None:
             5 * Q * 8 + 2 * cap * 8, 5 * pairs,
             f"lx, ux, ly, uy ({Q},); keys_x, keys_y ({cap},) f64 -> ({Q},)",
             plain_calls=2),
-        "delta_sum2d": measure(
-            torch, tag, "delta_sum2d", kdel.delta_sum2d,
-            kdel.delta_sum2d_plain, scan2d_sets["delta_sum2d"][0], None,
-            5 * Q * 8 + 3 * cap * 8, 5 * pairs,
-            f"lx, ux, ly, uy ({Q},); keys_x, keys_y, wv ({cap},) f64 -> "
-            f"({Q},)", plain_calls=1),
+        "delta_sum2d": measure_sum2d(scan2d_sets["delta_sum2d"][0], tag),
         "delta_dommax2d": measure_dommax2d(scan2d_sets["delta_dommax2d"][0],
                                            tag)}
     print(f"{tag}step seconds {time.perf_counter() - step0!r} (engines "

@@ -4,7 +4,8 @@
 // K8  corner_eval2d_gather_kernel   replaces repro/kernels/leaf_eval2d.py:corner_eval2d_gather_pallas
 // K12 corner_count2d_scan_kernel + corner_count2d_finish_kernel
 //                                   replaces repro/kernels/leaf_eval2d.py:corner_count2d_pallas
-// K13 corner_eval2d_kernel          replaces repro/kernels/leaf_eval2d.py:corner_eval2d_pallas
+// K13 corner_eval2d_scan_kernel + corner_eval2d_finish_kernel
+//                                   replaces repro/kernels/leaf_eval2d.py:corner_eval2d_pallas
 //
 // Twins of repro_torch/kernels/leaf_eval2d.py's plain versions, in their
 // order of operations (compiled with -fmad=false, so every multiply and add
@@ -28,9 +29,9 @@
 // boxes, mx0 <= qx < mx1 and my0 <= qy < my1, and takes the leaf that
 // holds it.  Leaves partition the root, so that row is the one the
 // reference's one-hot matmul sums up (its other terms are 0 * x with x
-// finite), and no leaf gives a zero row.  K13: a block of 256 queries
-// walks the table in tiles of 256 leaves staged through shared memory
-// (the four bounds, 8 KB), one corner a thread, the first hit kept.
+// finite), and no leaf gives a zero row.  Both run the tile walker
+// (scan_tile.cuh) over the table in chunks, then a finish kernel that
+// takes each corner's leaf and evaluates its row (below).
 //
 // What bounds them on an H100.  K7 at osm's Q = 65,536 and 2,560 leaves
 // must move 5 x 8 B a query plus the table (cut grids, codes, bounds and
@@ -93,6 +94,24 @@
 // compares, 4 predicate ANDs, 4 selects and predicate moves, issued at
 // about 3 a clock; half the bound needs 4.  The kernel runs 4.3 at osm
 // (chip_smoke.py, 0.1438 ms).
+// K13 must do 4 compares a (corner, live leaf) pair, 0.0193 ms at the FP64
+// peak for 65,536 corners against 2,467 live leaves.  Before its redesign
+// it ran one corner a thread in 256-leaf tiles of four 8-byte shared loads
+// a leaf, a first-hit test on every pair, every leaf of the table: 6.6
+// pairs a clock an SM (0.094 ms).  It now runs K12's design with one
+// corner a query:
+//   - the loop (scan_tile.cuh corner_hit_step): 4 f64 compares, each
+//     ANDing the one before in, and a predicated move of the leaf index;
+//   - the tile walker over the four bounds (two 16-byte shared loads a
+//     leaf, 128 leaves a tile), 8 corners a thread, the table in up to 4
+//     chunks, a stop at the sentinel tail;
+//   - a finish kernel, one thread a corner, takes the lowest leaf over the
+//     chunks and evaluates its row by 16-byte loads (leaf_value_v16), the
+//     zero row where no leaf holds the corner (a NaN corner, or one past
+//     the root), as the plain version does.
+// On an NVIDIA H100 80GB HBM3 at 700 W (tools/k13_k19_rates.py, on an
+// OSM-like table of 2,467 leaves): 0.0564 ms, 11.0 pairs a clock an SM;
+// 4 corners a thread 4% slower, rows by 8-byte loads 3%, one chunk 1.9x.
 //
 // Each launcher takes raw device pointers and the CUDA stream, launches on
 // that stream, and returns cudaGetLastError() (0 when the launch was
@@ -108,7 +127,6 @@ namespace polyfit {
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTile = kThreads;   // leaves staged per shared-memory tile
 // kernels/leaf_eval2d.py MAX_DEG_2D: one instantiation per degree
 constexpr int kMaxDeg2d = 5;
 // K12's shape: 128 threads of 2 queries (8 corners) a block, tiles of 128
@@ -245,37 +263,6 @@ __global__ void corner_eval2d_gather_kernel(
   out[i] = leaf_value<DEG>(qx, qy, leaf, true, bounds, coeffs);
 }
 
-// The first leaf whose membership box holds the corner (qx, qy) (-1 when
-// none does): the block walks the table tile by tile, every thread of the
-// block loading one leaf's bounds into shared memory.
-__device__ __forceinline__ int scan_leaves(double qx, double qy,
-                                           const double* __restrict__ mx0,
-                                           const double* __restrict__ mx1,
-                                           const double* __restrict__ my0,
-                                           const double* __restrict__ my1,
-                                           int L) {
-  __shared__ double s_mx0[kTile], s_mx1[kTile], s_my0[kTile], s_my1[kTile];
-  int hit = -1;
-  for (int t0 = 0; t0 < L; t0 += kTile) {
-    const int j = t0 + threadIdx.x;
-    if (j < L) {
-      s_mx0[threadIdx.x] = mx0[j];
-      s_mx1[threadIdx.x] = mx1[j];
-      s_my0[threadIdx.x] = my0[j];
-      s_my1[threadIdx.x] = my1[j];
-    }
-    __syncthreads();
-    const int n = L - t0 < kTile ? L - t0 : kTile;
-    for (int k = 0; k < n; ++k) {
-      const double a0 = s_mx0[k], a1 = s_mx1[k], c0 = s_my0[k], c1 = s_my1[k];
-      const bool in = a0 <= qx && qx < a1 && c0 <= qy && qy < c1;
-      hit = (hit < 0 && in) ? t0 + k : hit;
-    }
-    __syncthreads();
-  }
-  return hit;
-}
-
 // K12, the scan: a thread holds R queries (i0 + r * THREADS), 4R corners
 // on two x and two y coordinates each; block (x, y) walks the leaf
 // table's tiles y, y + S, y + 2S, ... (S = gridDim.y chunks) up to the
@@ -354,23 +341,111 @@ __global__ void corner_count2d_finish_kernel(
   out[i] = v[0] - v[1] - v[2] + v[3];
 }
 
-// K13: single-corner evaluation by one-hot membership
-template <int DEG>
-__global__ void corner_eval2d_kernel(
+// K13, the scan: a thread holds R corners (i0 + r * THREADS); block (x, y)
+// walks the leaf table's tiles y, y + S, y + 2S, ... (S = gridDim.y chunks)
+// up to the sentinel tail and keeps for each corner the leaf whose box holds
+// it (leaves partition the root and the corners are clamped into it: at
+// most one leaf holds a corner; none holds a NaN one).  It writes each
+// corner's leaf, -1 for none, to row y of ``hits`` (int32).
+template <int THREADS, int R, int TILE>
+__global__ void __launch_bounds__(THREADS) corner_eval2d_scan_kernel(
     const double* __restrict__ u, const double* __restrict__ v,
     const double* __restrict__ mx0, const double* __restrict__ mx1,
     const double* __restrict__ my0, const double* __restrict__ my1,
-    const double* __restrict__ bounds, const double* __restrict__ coeffs,
-    double* __restrict__ out, int Q, int L) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int r = i < Q ? i : Q - 1;   // threads past Q still stage tiles
-  const double qx = u[r], qy = v[r];
-  const int hit = scan_leaves(qx, qy, mx0, mx1, my0, my1, L);
-  if (i >= Q) return;
-  out[i] = leaf_value<DEG>(qx, qy, hit, hit >= 0, bounds, coeffs);
+    int* __restrict__ hits, int Q, int L, double sentinel) {
+  extern __shared__ double2 s_box[];
+  const int i0 = blockIdx.x * (THREADS * R) + threadIdx.x;
+  double x[R], y[R];
+  int hit[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    // threads past Q still stage tiles
+    const int i = i0 + r * THREADS < Q ? i0 + r * THREADS : Q - 1;
+    x[r] = u[i];
+    y[r] = v[i];
+    hit[r] = -1;
+  }
+  const double* src[4] = {mx0, mx1, my0, my1};
+  walk_slots<4, TILE, true>(
+      src, L, blockIdx.y, gridDim.y, sentinel, (double*)s_box,
+      [&](const double2x2 box, int j) {
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          corner_hit_step(hit[r], x[r], y[r], box, j);
+      });
+  int* row = hits + (size_t)blockIdx.y * Q;
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    if (i0 + r * THREADS < Q) row[i0 + r * THREADS] = hit[r];
 }
 
+// K13, the finish: a thread a corner takes its leaf from the S chunks (the
+// lowest index found; at most one chunk finds one) and evaluates the row,
+// the zero row where no leaf holds the corner (as the plain version does);
+// with V16 a held row by 16-byte loads (leaf_value_v16)
+template <int DEG, bool V16>
+__global__ void corner_eval2d_finish_kernel(
+    const double* __restrict__ u, const double* __restrict__ v,
+    const int* __restrict__ hits, const double* __restrict__ bounds,
+    const double* __restrict__ coeffs, double* __restrict__ out, int Q,
+    int S) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= Q) return;
+  // -1 (none) is the largest unsigned value: the min keeps any hit
+  unsigned leaf = (unsigned)hits[i];
+  for (int s = 1; s < S; ++s)
+    leaf = min(leaf, (unsigned)hits[(size_t)s * Q + i]);
+  const int h = (int)leaf;
+  if (V16 && h >= 0)
+    out[i] = leaf_value_v16<DEG>(u[i], v[i], h, bounds, coeffs);
+  else
+    out[i] = leaf_value<DEG>(u[i], v[i], h, h >= 0, bounds, coeffs);
+}
+
+// K13's shape: 128 threads of 8 corners a block, tiles of 128 leaves (4 KB
+// a buffer), the table split in up to 4 chunks, rows by 16-byte loads
+constexpr int kEvalThreads = 128;
+constexpr int kEvalQueries = 8;
+constexpr int kEvalTile = 128;
+constexpr int kEvalChunks = 4;
+constexpr bool kEvalV16 = true;
+
 inline int blocks_for(int Q) { return (Q + kThreads - 1) / kThreads; }
+
+// K13 at a given shape in S chunks: the scan writes each chunk's leaves to
+// ``hits`` ((S, Q) int32), the finish evaluates; a refused degree launches
+// nothing and returns cudaErrorInvalidValue
+template <int THREADS, int R, int TILE, bool V16>
+int launch_corner_eval2d(const void* u, const void* v, const void* mx0,
+                         const void* mx1, const void* my0, const void* my1,
+                         const void* bounds, const void* coeffs, void* out,
+                         void* hits, int Q, int L, int deg, double sentinel,
+                         int S, cudaStream_t stream) {
+  static_assert(kMaxDeg2d == 5, "one finish case per degree below");
+  if (deg < 0 || deg > kMaxDeg2d) return (int)cudaErrorInvalidValue;
+  constexpr int per_block = THREADS * R;
+  const dim3 grid((Q + per_block - 1) / per_block, S);
+  corner_eval2d_scan_kernel<THREADS, R, TILE>
+      <<<grid, THREADS, walk_smem_bytes<4, TILE>(), stream>>>(
+          (const double*)u, (const double*)v, (const double*)mx0,
+          (const double*)mx1, (const double*)my0, (const double*)my1,
+          (int*)hits, Q, L, sentinel);
+#define K13_FINISH(D)                                                        \
+  corner_eval2d_finish_kernel<D, V16>                                        \
+      <<<blocks_for(Q), kThreads, 0, stream>>>(                              \
+          (const double*)u, (const double*)v, (const int*)hits,              \
+          (const double*)bounds, (const double*)coeffs, (double*)out, Q, S)
+  switch (deg) {
+    case 0: K13_FINISH(0); break;
+    case 1: K13_FINISH(1); break;
+    case 2: K13_FINISH(2); break;
+    case 3: K13_FINISH(3); break;
+    case 4: K13_FINISH(4); break;
+    case 5: K13_FINISH(5); break;
+  }
+#undef K13_FINISH
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 }  // namespace polyfit
@@ -468,21 +543,23 @@ int polyfit_corner_count2d(const void* lx, const void* ux, const void* ly,
   return (int)cudaGetLastError();
 }
 
+int polyfit_corner_eval2d_chunks(int L) {
+  return polyfit::walk_chunks<polyfit::kEvalTile>(L, polyfit::kEvalChunks);
+}
+
+// ``hits``: (S, Q) int32 scratch, S = polyfit_corner_eval2d_chunks(L)
 int polyfit_corner_eval2d(const void* u, const void* v, const void* mx0,
                           const void* mx1, const void* my0, const void* my1,
                           const void* bounds, const void* coeffs, void* out,
-                          int Q, int L, int deg, void* stream) {
+                          void* hits, int Q, int L, int deg, double sentinel,
+                          void* stream) {
+  using namespace polyfit;
   if (Q <= 0) return (int)cudaGetLastError();
-#define K13_LAUNCH(D)                                                        \
-  polyfit::corner_eval2d_kernel<D>                                           \
-      <<<polyfit::blocks_for(Q), polyfit::kThreads, 0,                       \
-         (cudaStream_t)stream>>>(                                            \
-          (const double*)u, (const double*)v, (const double*)mx0,            \
-          (const double*)mx1, (const double*)my0, (const double*)my1,        \
-          (const double*)bounds, (const double*)coeffs, (double*)out, Q, L)
-  POLYFIT_2D_DISPATCH(deg, K13_LAUNCH)
-#undef K13_LAUNCH
-  return (int)cudaGetLastError();
+  return launch_corner_eval2d<kEvalThreads, kEvalQueries, kEvalTile,
+                              kEvalV16>(
+      u, v, mx0, mx1, my0, my1, bounds, coeffs, out, hits, Q, L, deg,
+      sentinel, walk_chunks<kEvalTile>(L, kEvalChunks),
+      (cudaStream_t)stream);
 }
 
 }  // extern "C"

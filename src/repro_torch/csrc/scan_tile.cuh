@@ -1,6 +1,7 @@
 // The tile walker of the whole-array scans (scan1d.cu K15, K16 and K17,
-// quantile.cu K4's scan mode, leaf_eval2d.cu K12): every slot of an array
-// is compared with every query, from shared memory.
+// quantile.cu K4's scan mode, leaf_eval2d.cu K12 and K13, scan2d.cu K20):
+// every slot of an array is compared with every query, from shared memory;
+// and the PTX loop bodies of those scans and of K19.
 //
 //   walk_slots<W, TILE, STOP>(src, n, first, step, stop, smem, f)
 //
@@ -175,6 +176,24 @@ __device__ __forceinline__ void corner_hits_step(int (&hit)[4],
         "d"(x[0]), "d"(x[1]), "d"(y[0]), "d"(y[1]));
 }
 
+// K13's loop body (leaf_eval2d.cu) for one corner (x, y) and one leaf box
+// [x0, x1) x [y0, y1), in PTX: four compares, each ANDing the one before
+// in, and the leaf's index j moved under their AND.  No first-hit test: at
+// most one leaf of a plan's table holds a clamped corner, and a NaN corner
+// fails every compare.
+__device__ __forceinline__ void corner_hit_step(int& hit, double x, double y,
+                                                const double2x2& box, int j) {
+  asm("{\n\t.reg .pred p;\n\t"
+      "setp.le.f64 p, %2, %6;\n\t"
+      "setp.lt.and.f64 p, %6, %3, p;\n\t"
+      "setp.le.and.f64 p, %4, %7, p;\n\t"
+      "setp.lt.and.f64 p, %7, %5, p;\n\t"
+      "@p mov.b32 %0, %1;\n\t}"
+      : "+r"(hit)
+      : "r"(j), "d"(box.a.x), "d"(box.a.y), "d"(box.b.x), "d"(box.b.y),
+        "d"(x), "d"(y));
+}
+
 // K17's loop body (scan1d.cu) for one (query, log slot) pair, in PTX:
 // acc = v where l <= key && key <= u && v > acc.  Three compares, the
 // second and third ANDing the one before in, and a predicated move; no NaN
@@ -209,6 +228,30 @@ __device__ __forceinline__ void dominated_max_step(double& acc, double x,
       "@p mov.f64 %0, %3;\n\t}"
       : "+d"(acc)
       : "d"(x), "d"(y), "d"(w), "d"(u), "d"(v));
+}
+
+// K19's loop body (scan2d.cu) for one (query, log slot) pair, in PTX: the
+// slot's contribution, w where a <= j < b && ly < y && y <= uy, else +0.0.
+// The slot's x test is the rank test a <= j < b on its index j (two
+// integer compares: on the x-sorted log the slots with lx < x <= ux are
+// [a, b)), then the two y compares, each ANDing the one before in, and a
+// select: two f64 instructions, the add (the caller's) a third.  Nothing
+// here reads the sum, so a group of slots' contributions can be formed
+// ahead of its chain of adds; adding +0.0 changes no sum that starts at
+// +0.0, so the adds equal the plain version's, which adds where(member, w,
+// 0.0) for every slot in slot order.
+__device__ __forceinline__ double rank_member(int j, int a, int b, double ly,
+                                              double uy, double y, double w) {
+  double v;
+  asm("{\n\t.reg .pred p;\n\t"
+      "setp.ge.s32 p, %1, %2;\n\t"
+      "setp.lt.and.s32 p, %1, %3, p;\n\t"
+      "setp.lt.and.f64 p, %4, %6, p;\n\t"
+      "setp.le.and.f64 p, %6, %5, p;\n\t"
+      "selp.f64 %0, %7, 0d0000000000000000, p;\n\t}"
+      : "=d"(v)
+      : "r"(j), "r"(a), "r"(b), "d"(ly), "d"(uy), "d"(y), "d"(w));
+  return v;
 }
 
 // The combine of K17 and K20: the S chunk maxima of each query (rows of an

@@ -74,8 +74,11 @@ _SIGNATURES = {
     # S = polyfit_corner_count2d_chunks(L)
     "polyfit_corner_count2d": (_P,) * 12 + (_I,) * 3 + (_D, _P),
     "polyfit_corner_count2d_chunks": (_I,),
-    # u, v, mx0, mx1, my0, my1, bounds, coeffs, out, Q, L, deg, stream
-    "polyfit_corner_eval2d": (_P,) * 9 + (_I,) * 3 + (_P,),
+    # u, v, mx0, mx1, my0, my1, bounds, coeffs, out, hits, Q, L, deg,
+    # sentinel, stream; ``hits`` an (S, Q) int32 scratch,
+    # S = polyfit_corner_eval2d_chunks(L)
+    "polyfit_corner_eval2d": (_P,) * 10 + (_I,) * 3 + (_D, _P),
+    "polyfit_corner_eval2d_chunks": (_I,),
     # lx, ux, ly, uy, kx, ylv, out, Q, cap, levels, stream
     "polyfit_delta_count2d_gather": (_P,) * 7 + (_I,) * 3 + (_P,),
     # lx, ux, ly, uy, kx, ylv, wcum, out, Q, cap, levels, stream
@@ -101,8 +104,8 @@ _SIGNATURES = {
     "polyfit_poly_eval": (_P,) * 6 + (_I,) * 3 + (_P,),
     # lx, ux, ly, uy, kx, ky, out, Q, D, stream
     "polyfit_delta_count2d": (_P,) * 7 + (_I,) * 2 + (_P,),
-    # lx, ux, ly, uy, kx, ky, w, out, Q, D, stream
-    "polyfit_delta_sum2d": (_P,) * 8 + (_I,) * 2 + (_P,),
+    # lx, ux, ly, uy, kx, ky, w, out, Q, D, sentinel, stream
+    "polyfit_delta_sum2d": (_P,) * 8 + (_I,) * 2 + (_D, _P),
     # u, v, kx, ky, w, out, part, Q, D, sentinel, stream; ``part`` an
     # (S, Q) scratch, S = polyfit_delta_dommax2d_chunks(D)
     "polyfit_delta_dommax2d": (_P,) * 7 + (_I,) * 2 + (_D, _P),
@@ -239,6 +242,6 @@ def stream(device: torch.device) -> int:
 
 def sentinel(dtype: torch.dtype) -> float:
     """The padding value of a plan's tables at ``dtype`` (finfo.max / 4,
-    ``engine.plan.big_sentinel``): the whole-table scans K12 and K15 stop
-    at the first tile that starts on it."""
+    ``engine.plan.big_sentinel``): the whole-table scans K12, K13 and K15
+    stop at the first tile that starts on it."""
     return float(torch.finfo(dtype).max) / 4

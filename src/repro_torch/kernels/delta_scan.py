@@ -33,7 +33,9 @@ The ``cuda_scan`` backend's twins scan the whole log instead, as
   a range that holds the sentinel takes the tail's 0 back in);
 * ``delta_count2d`` (K18) — the number of logged points in (lx, ux] x
   (ly, uy], a membership test against every slot of the point log;
-* ``delta_sum2d`` (K19) — the sum of their measures, added in slot order;
+* ``delta_sum2d`` (K19) — the sum of their measures, added in slot order
+  (it tests only the slots of the rectangle's x range, ranked by two
+  binary searches of the x-sorted log, and stops at its sentinel tail);
 * ``delta_dommax2d`` (K20) — the max measure of the logged points with
   x <= u and y <= v, -inf when none is dominated (it stops at the log's
   sentinel tail, and a corner that dominates the sentinel takes the tail's
@@ -394,7 +396,8 @@ def _scan2d_args(name, queries, logs):
 
 
 def _scan2d_launch(name, queries, logs):
-    """Launch K18 or K19 (``polyfit_<name>``) on validated arguments."""
+    """Launch K18 (``polyfit_<name>``, which takes no sentinel) on
+    validated arguments."""
     Q, D, out, ptrs = _scan2d_args(name, queries, logs)
     if Q:
         _build.check(getattr(_build.library(), f"polyfit_{name}")(
@@ -421,12 +424,23 @@ delta_count2d.launches = 0
 def delta_sum2d(lx, ux, ly, uy, keys_x, keys_y, wv):
     """(Q,) exact sum of buffered measures over (lx, ux] x (ly, uy], added
     in slot order: K19 on CUDA tensors, the plain version on CPU tensors.
-    ``delta_sum2d.launches`` counts the kernel launches."""
+    ``delta_sum2d.launches`` counts the kernel launches.
+
+    K19 takes the ``DeltaBuffer2D`` layout as given: the log sorted by x
+    (NaN last), and from the first ``big_sentinel`` x on every slot holds
+    (sentinel, sentinel, 0).  It ranks each rectangle's x range by two
+    binary searches, a = #(x <= lx) and b = #(x <= ux), so the slots it
+    tests are [a, b) only, and it stops at the sentinel tail; a member's
+    measure is added in slot order, as the plain version adds it, which
+    scans every slot of any log."""
     if lx.device.type == "cpu":
         return delta_sum2d_plain(lx, ux, ly, uy, keys_x, keys_y, wv)
-    out = _scan2d_launch("delta_sum2d", (lx, ux, ly, uy),
-                         (keys_x, keys_y, wv))
-    if lx.shape[0]:
+    Q, D, out, ptrs = _scan2d_args("delta_sum2d", (lx, ux, ly, uy),
+                                   (keys_x, keys_y, wv))
+    if Q:
+        _build.check(_build.library().polyfit_delta_sum2d(
+            *ptrs, Q, D, _SENTINEL, _build.stream(out.device)),
+            "delta_sum2d")
         delta_sum2d.launches += 1
     return out
 

@@ -124,6 +124,16 @@ def _check_queries(name, *qs):
                          f"vectors, got {[tuple(q.shape) for q in qs]}")
 
 
+def _check_aligned(name, bounds, coeffs):
+    """K7 and K13 read the rows by 16-byte loads; a plan's tables are
+    allocations of their own, so only a view into another tensor can be
+    off."""
+    if bounds.data_ptr() % 16 or coeffs.data_ptr() % 16:
+        raise ValueError(f"{name}: bounds and coeffs must start on a 16-byte "
+                         "boundary (the kernel reads their rows 16 bytes at a "
+                         "time); pass a copy (.clone()) of an offset view")
+
+
 def _gather_args(name, qs, xcuts, ycuts, leaf_z, bounds, coeffs, deg, depth):
     _build.require_cuda(name, *qs, xcuts, ycuts, bounds, coeffs)
     _build.require_cuda(name, leaf_z, dtype=torch.int32)
@@ -152,12 +162,7 @@ def corner_count2d_gather(lx, ux, ly, uy, xcuts, ycuts, leaf_z, bounds,
     name = "corner_count2d_gather"
     _gather_args(name, (lx, ux, ly, uy), xcuts, ycuts, leaf_z, bounds,
                  coeffs, deg, depth)
-    # K7 reads the rows by 16-byte loads; a plan's tables are allocations of
-    # their own, so only a view into another tensor can be off
-    if bounds.data_ptr() % 16 or coeffs.data_ptr() % 16:
-        raise ValueError(f"{name}: bounds and coeffs must start on a 16-byte "
-                         "boundary (K7 reads their rows 16 bytes at a time); "
-                         "pass a copy (.clone()) of an offset view")
+    _check_aligned(name, bounds, coeffs)
     out = torch.empty_like(lx)
     if lx.shape[0]:
         _build.check(_build.library().polyfit_corner_count2d_gather(
@@ -235,19 +240,33 @@ def corner_count2d(lx, ux, ly, uy, mx0, mx1, my0, my1, bounds, coeffs,
 
 def corner_eval2d(u, v, mx0, mx1, my0, my1, bounds, coeffs, deg: int):
     """(Q,) single-corner evaluation by one-hot membership over the flat
-    leaf table: K13 on CUDA tensors, the plain version on CPU tensors."""
+    leaf table: K13 on CUDA tensors, the plain version on CPU tensors.
+
+    K13 takes a plan's flat leaf table as K12 does: the leaves' membership
+    boxes partition the root, the sentinel-padded leaves sit at the tail
+    only, and the corners are clamped into the root, so at most one leaf
+    holds a corner.  It stops at the first tile of the table whose first
+    ``mx0`` is the sentinel, and reads the rows by 16-byte loads, so
+    ``bounds`` and ``coeffs`` must start on 16 bytes, as a plan's do."""
     if u.device.type == "cpu":
         return corner_eval2d_plain(u, v, mx0, mx1, my0, my1, bounds, coeffs,
                                    deg)
     name = "corner_eval2d"
     _scan_args(name, (u, v), mx0, mx1, my0, my1, bounds, coeffs, deg)
+    _check_aligned(name, bounds, coeffs)
     out = torch.empty_like(u)
-    if u.shape[0]:
-        _build.check(_build.library().polyfit_corner_eval2d(
+    Q, L = u.shape[0], mx0.shape[0]
+    if Q:
+        lib = _build.library()
+        # the kernel scans the table in S chunks; a finish kernel takes
+        # each corner's leaf from them and evaluates it
+        hits = torch.empty((lib.polyfit_corner_eval2d_chunks(L), Q),
+                           dtype=torch.int32, device=u.device)
+        _build.check(lib.polyfit_corner_eval2d(
             u.data_ptr(), v.data_ptr(), mx0.data_ptr(), mx1.data_ptr(),
             my0.data_ptr(), my1.data_ptr(), bounds.data_ptr(),
-            coeffs.data_ptr(), out.data_ptr(), u.shape[0], mx0.shape[0],
-            deg, _build.stream(u.device)), name)
+            coeffs.data_ptr(), out.data_ptr(), hits.data_ptr(), Q, L, deg,
+            _build.sentinel(torch.float64), _build.stream(u.device)), name)
         corner_eval2d.launches += 1
     return out
 

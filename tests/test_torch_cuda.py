@@ -15,18 +15,22 @@ may add in another order), and the ``cuda_scan`` backend equals ``cuda``
 bit for bit, static, dynamic, windowed and through the session; K16 on
 fills either side of its tile edges and on the window's 4,096-of-131,072
 layout, K4's scan mode at ragged target counts, K15 (float64 and float32)
-and K12 at ragged query counts and table lengths on tables in a plan's
-layout (K15 on NaN lanes, an inverted range and every segment boundary,
-K12 on corners on every split line), and two launches of each equal bit
-for bit.  K1 equals
+and K12 and K13 at ragged query counts and table lengths on tables in a
+plan's layout (K15 on NaN lanes, an inverted range and every segment
+boundary, K12 and K13 on corners on every split line, K13 also past the
+root, on NaN corners and at every degree), and two launches of each equal
+bit for bit.  K1 equals
 its plain version on keys of 1 to 5,000 entries either side of its
 search tree's leaf, node and level sizes, with the plans' tree and
 without one.  The
 two-key scans K18 (buffered COUNT), K19 (buffered SUM, added in slot
-order as its plain version adds) and K20 (buffered dominance MAX) equal
-their plain versions exactly (K20 also on negative measures, NaN measures
-in some tiles and the corners that reach the sentinel tail, on logs of
-one to several tiles a chunk), and a ``DynamicEngine2D`` on ``cuda_scan``
+order as its plain version adds; also on the edge lanes of its x ranks,
+logs with a NaN or an infinite x, -0.0, NaN and infinite measures, a log
+of several staging rounds and ragged rectangle counts) and K20 (buffered
+dominance MAX) equal their plain versions exactly (K20 also on negative
+measures, NaN measures in some tiles and the corners that reach the
+sentinel tail, on logs of one to several tiles a chunk), and a
+``DynamicEngine2D`` on ``cuda_scan``
 runs them (no K9-K11) and equals ``cuda`` (COUNT and MIN bit for bit, SUM
 to 1e-9).  K21 (``poly_eval``) and the float32 instantiations of K2, K3,
 K14, K15 and K21 equal their plain versions exactly; each wrapper picks
@@ -1200,9 +1204,11 @@ def test_delta_sum_kernel_on_a_window_log(cuda):
 
 
 def test_scan_kernels_repeat_bit_for_bit(cuda, quantile_plans):
-    """Two launches of K16, K17, of K4's scan mode, of K15 and of K12 on the
-    same inputs give the same bits (no atomics; a fixed order of
-    summation, exact counts, maxima and lowest indices across chunks)."""
+    """Two launches of K16, K17, of K4's scan mode, of K15, of K12, of K13
+    and of K19 on the same inputs give the same bits (no atomics on the
+    answers; a fixed order of summation, exact counts, maxima and lowest
+    indices across chunks; K19's shared-memory buckets move a rectangle
+    between threads, never its order of summation)."""
     keys, vals, _, _ = _log(cuda, 3000, False)
     lq, uq = _delta_queries(cuda)
     assert torch.equal(kdelta.delta_sum(lq, uq, keys, vals),
@@ -1222,6 +1228,13 @@ def test_scan_kernels_repeat_bit_for_bit(cuda, quantile_plans):
     args = (*_grid_corners(leaves, 65_537), *leaves[1:], 3)
     assert torch.equal(bits(k2d.corner_count2d(*args)),
                        bits(k2d.corner_count2d(*args)))
+    args = (*_grid_corners(leaves, 65_537)[1::2], *leaves[1:], 3)
+    assert torch.equal(bits(k2d.corner_eval2d(*args)),
+                       bits(k2d.corner_eval2d(*args)))
+    kx, ky, w = _k19_log(cuda, 3072, "insert")
+    q = _k19_rects(kx, 65_537)
+    assert torch.equal(bits(kdelta.delta_sum2d(*q, kx, ky, w)),
+                       bits(kdelta.delta_sum2d(*q, kx, ky, w)))
 
 
 # the segment tables and leaf tables of the ragged-shape tests: (live
@@ -1360,6 +1373,169 @@ def test_corner_count2d_kernel_ragged_shapes(cuda, gx, gy, n, Q):
     assert got.shape == (Q,)
     torch.testing.assert_close(got, k2d.corner_count2d_plain(*args), rtol=0,
                                atol=0)
+
+
+# K13's tables: LEAF_GRIDS and one 128-leaf tile, a tile and a slot
+K13_GRIDS = LEAF_GRIDS + [(8, 16, 128), (129, 1, 129)]
+
+
+def _same(got, want):
+    """Equal in every lane, the sign of a zero included; NaN where the
+    other is NaN (a NaN's sign and payload may differ: torch's add and the
+    kernel's need not propagate the same one of two NaN operands)."""
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+    assert torch.equal(torch.signbit(got[~torch.isnan(got)]),
+                       torch.signbit(want[~torch.isnan(want)]))
+
+
+def _special_corners(u, v):
+    """The corners past the root and NaN ones appended to (u, v)."""
+    inf, nan = np.inf, np.nan
+    su = torch.tensor([nan, 0.0, nan, inf, -inf, 100.0, inf, 0.0],
+                      dtype=u.dtype, device=u.device)
+    sv = torch.tensor([0.0, nan, nan, 0.0, 100.0, -inf, inf, 100.0],
+                      dtype=v.dtype, device=v.device)
+    return torch.cat([u, su]), torch.cat([v, sv])
+
+
+@pytest.mark.parametrize("Q", [1, 255, 65_537])
+@pytest.mark.parametrize("gx,gy,n", K13_GRIDS)
+def test_corner_eval2d_kernel_ragged_shapes(cuda, gx, gy, n, Q):
+    """K13 equals its plain version in every lane (NaN where it is NaN) at
+    ragged corner counts and leaf-table lengths (one leaf, one tile, a tile
+    and a slot, one to four chunks of tiles), corners on split lines and
+    the root's edges, past the root and NaN; one launch a call."""
+    leaves = _grid_leaves(cuda, gx, gy, n)
+    _, ux, _, uy = _grid_corners(leaves, Q)
+    u, v = _special_corners(ux, uy)
+    args = (u[-Q:], v[-Q:], *leaves[1:], 3)
+    before = k2d.corner_eval2d.launches
+    got = k2d.corner_eval2d(*args)
+    torch.cuda.synchronize()
+    assert k2d.corner_eval2d.launches == before + 1
+    assert got.shape == (Q,)
+    _same(got, k2d.corner_eval2d_plain(*args))
+
+
+@pytest.mark.parametrize("deg", [0, 1, 2, 3, 4, 5])
+def test_corner_eval2d_kernel_every_degree(cuda, deg):
+    """K13 at every degree 0-5 (one finish instantiation each) equals its
+    plain version in every lane, the special corners included."""
+    leaves = _grid_leaves(cuda, 24, 45, 1536)
+    k = (deg + 1) ** 2
+    coeffs = torch.as_tensor(np.random.default_rng(deg).normal(
+        0, 1, (1536, k)), device=cuda)
+    _, ux, _, uy = _grid_corners(leaves, 20_000)
+    args = (*_special_corners(ux, uy), *leaves[1:5], leaves[5],
+            coeffs, deg)
+    _same(k2d.corner_eval2d(*args), k2d.corner_eval2d_plain(*args))
+
+
+def test_corner_eval2d_kernel_refuses_misaligned_rows(cuda):
+    """K13 reads the rows by 16-byte loads: it refuses bounds or
+    coefficients that do not start on a 16-byte boundary (an offset
+    view), and equals its plain version on a copy of them."""
+    leaves = _grid_leaves(cuda, 16, 16, 256)
+    _, ux, _, uy = _grid_corners(leaves, 1000)
+    bounds, coeffs = leaves[5], leaves[6]
+    off = lambda t: torch.cat([t.new_zeros(1), t.flatten()])[1:].view(t.shape)
+    for b, c in ((off(bounds), coeffs), (bounds, off(coeffs))):
+        with pytest.raises(ValueError, match="16-byte"):
+            k2d.corner_eval2d(ux, uy, *leaves[1:5], b, c, 3)
+        args = (ux, uy, *leaves[1:5], b.clone(), c.clone(), 3)
+        _same(k2d.corner_eval2d(*args), k2d.corner_eval2d_plain(*args))
+
+
+def _k19_log(cuda, fill, kind, cap=CAP):
+    """An x-sorted ``cap``-slot SUM log of ``fill`` points built by the
+    engine's append on the card (tests/test_torch_scan2d.py's _k19_log): an
+    insert log in one append, a delete log in two, measures with -0.0, NaN
+    and +-inf; 'nan_tail' puts a NaN x after the sentinel tail, 'full_nan'
+    and 'full_inf' end a full log on a NaN or an infinite x."""
+    rng = np.random.default_rng(fill + 3)
+    x = np.round(rng.uniform(0, 20, fill), 1)
+    y = np.round(rng.uniform(0, 20, fill), 1)
+    w = rng.normal(50, 10, fill)
+    if fill > 40:
+        w[[3, 17, 29, 31]] = (-0.0, np.nan, np.inf, -np.inf)
+        w[5:40:7] = -w[5:40:7]
+    e = DeltaBuffer2D.empty(cap, device=cuda, weighted=True)
+    bx, by, bw = e.ins_x, e.ins_y, e.ins_w
+    to = lambda a: torch.as_tensor(a, device=cuda)
+    cuts = [0, fill // 2, fill] if kind == "delete" else [0, fill]
+    for c0, c1 in zip(cuts, cuts[1:]):
+        bx, by, bw, *_ = _append_2d(bx, by, bw, to(x[c0:c1]), to(y[c0:c1]),
+                                    to(w[c0:c1]), cap=cap, levels=False,
+                                    weighted=True)
+    if kind in ("nan_tail", "full_nan", "full_inf"):
+        bx, by, bw = bx.clone(), by.clone(), bw.clone()
+        bx[-1] = np.inf if kind == "full_inf" else np.nan
+        by[-1], bw[-1] = 5.0, 7.0
+    return bx, by, bw
+
+
+def _k19_rects(kx, n):
+    """n rectangles over the log, x bounds on logged x values (ties at
+    either end), then the edge lanes: NaN bounds, inverted, +-inf, -0.0,
+    bounds at and above the sentinel."""
+    rng = np.random.default_rng(n)
+    big = big_sentinel(torch.float64)
+    xs = kx[kx < big].cpu().numpy()
+    a, b, c, d = rng.uniform(-2, 22, (4, n))
+    if len(xs):
+        a[:n // 3] = rng.choice(xs, n // 3)
+        b[n // 6:n // 2] = rng.choice(xs, n // 2 - n // 6)
+    lx, ux = np.minimum(a, b), np.maximum(a, b)
+    ly, uy = np.minimum(c, d), np.maximum(c, d)
+    inf, nan = np.inf, np.nan
+    extra = np.array([  # lx, ux, ly, uy
+        [nan, 10.0, 0.0, 10.0], [0.0, nan, 0.0, 10.0],
+        [0.0, 10.0, nan, 10.0], [0.0, 10.0, 0.0, nan], [nan, nan, nan, nan],
+        [12.0, 3.0, 0.0, 20.0], [5.0, 5.0, 0.0, 20.0],
+        [-inf, inf, -inf, inf], [-inf, 10.0, -inf, 10.0],
+        [10.0, inf, 10.0, inf], [inf, inf, -inf, inf],
+        [-0.0, 0.0, -0.0, 20.0], [0.0, 20.0, -0.0, 0.0],
+        [-1.0, big, -1.0, big], [0.0, 2 * big, 0.0, 2 * big],
+        [big, inf, big, inf], [np.nextafter(big, 0), big, 0.0, big],
+        [-1e300, 1e300, -1e300, 1e300]])
+    return [torch.as_tensor(np.concatenate([q, extra[:, j]])[-n:],
+                            device=kx.device)
+            for j, q in enumerate((lx, ux, ly, uy))]
+
+
+@pytest.mark.parametrize("fill,kind,cap", [
+    (0, "insert", CAP), (1, "insert", CAP), (1023, "insert", CAP),
+    (1024, "delete", CAP), (1025, "insert", CAP), (3072, "delete", CAP),
+    (3072, "nan_tail", CAP), (CAP, "insert", CAP), (CAP, "delete", CAP),
+    (CAP, "full_nan", CAP), (CAP, "full_inf", CAP),
+    (9000, "delete", 4 * CAP)])
+def test_delta_sum2d_kernel_rank_lanes(cuda, fill, kind, cap):
+    """K19 (ranks, the sentinel tail cut, buckets, warp unions, the log's
+    (y, w) staged 4,096 slots at a time) equals its plain version in every
+    lane, signed zeros included, NaN where it is NaN, on insert and delete
+    logs of 0 to 4,096 points and on a 16,384-slot log of 9,000 (several
+    stages), on logs with a NaN x after the tail or at the end of a full
+    log and a full log that ends on +inf, on ties at either x end, NaN,
+    inverted, infinite, signed-zero and sentinel bounds, and on -0.0, NaN
+    and +-inf measures; one launch a call."""
+    kx, ky, w = _k19_log(cuda, fill, kind, cap)
+    q = _k19_rects(kx, 70_000)
+    before = kdelta.delta_sum2d.launches
+    got = kdelta.delta_sum2d(*q, kx, ky, w)
+    torch.cuda.synchronize()
+    assert kdelta.delta_sum2d.launches == before + 1
+    _same(got, kdelta.delta_sum2d_plain(*q, kx, ky, w))
+
+
+@pytest.mark.parametrize("Q", [1, 255, 257, 65_537])
+def test_delta_sum2d_kernel_ragged_counts(cuda, Q):
+    """K19 at rectangle counts that leave a block part empty (a block holds
+    256) equals its plain version in every lane."""
+    kx, ky, w = _k19_log(cuda, 3072, "insert")
+    q = _k19_rects(kx, Q)
+    got = kdelta.delta_sum2d(*q, kx, ky, w)
+    assert got.shape == (Q,)
+    _same(got, kdelta.delta_sum2d_plain(*q, kx, ky, w))
 
 
 @pytest.mark.parametrize("Q", [1, 255, 65_537])

@@ -1,5 +1,6 @@
-"""The two-key whole-log scans of the ``cuda_scan`` backend (K18-K20) on
-the CPU, where their wrappers run the plain versions.
+"""The two-key whole-log scans of the ``cuda_scan`` backend (K18-K20) and
+the leaf-table scan K13 on the CPU, where their wrappers run the plain
+versions.
 
 * The plain K18 (``delta_count2d``), K19 (``delta_sum2d``) and K20
   (``delta_dommax2d``) against ``delta_count2d_pallas``,
@@ -15,7 +16,16 @@ the CPU, where their wrappers run the plain versions.
   does, and on a negative-measure log gives the padding's 0 to corners at
   and above the sentinel, as the Pallas kernel does; a torch transcription
   of K20's walk (it stops at the sentinel tail and folds that 0 back in)
-  equals the plain K20 on such logs.
+  equals the plain K20 on such logs.  A torch transcription of K19's walk
+  (each rectangle's x range ranked to slots [a, b) of the x-sorted log, cut
+  at the sentinel tail, the block's rectangles bucketed by a, each warp
+  walking the union of its ranges) equals the plain K19, which tests every
+  slot's x, bit for bit on insert and delete logs of 0 to 4,096 points and
+  on the edge lanes of the ranks.
+* A torch transcription of K13's walk (the leaf table in chunks of tiles
+  that stop at its sentinel tail, any hit kept, the lowest leaf over the
+  chunks, then the row) equals the plain K13 bit for bit on the port's
+  static, depth-16 and refit leaf tables.
 * ``DynamicEngine2D`` on ``cuda_scan`` against the reference's
   ``DynamicEngine2D(backend="pallas_scan")`` op for op (inserts, deletes,
   shadowed victims on MIN, a flush, more updates; COUNT, SUM and MIN
@@ -50,6 +60,7 @@ import repro_torch.api as tapi  # noqa: E402
 from repro_torch.api import session as ses_mod  # noqa: E402
 from repro_torch.core import build_index_2d as t_build_2d  # noqa: E402
 from repro_torch.core import index2d_from_numpy  # noqa: E402
+from repro_torch.core.index2d import bivariate_horner  # noqa: E402
 from repro_torch.data import osm_points  # noqa: E402
 from repro_torch.engine import DeltaBuffer2D, DynamicEngine2D  # noqa: E402
 from repro_torch.engine import build_plan_2d as t_build_plan_2d  # noqa: E402
@@ -60,6 +71,7 @@ from repro_torch.engine import window as win_mod  # noqa: E402
 from repro_torch.engine.dynamic import _append_2d  # noqa: E402
 from repro_torch.engine.plan import big_sentinel  # noqa: E402
 from repro_torch.kernels import delta_scan as kd  # noqa: E402
+from repro_torch.kernels import leaf_eval2d as k2d  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 
 TOL = dict(rtol=1e-9, atol=1e-9)
@@ -308,6 +320,128 @@ def test_delta_dommax2d_tail_fold_matches_plain(fill, cap, with_nan):
                                rtol=0, atol=0, equal_nan=True)
 
 
+# K19's walk (csrc/scan2d.cu delta_sum2d_kernel): blocks of kSumThreads x
+# kSumQueries rectangles bucketed into kRankBuckets by their first slot
+K19_BLOCK, K19_BUCKETS, WARP = 256, 128, 32
+
+
+def _k19_walk(lx, ux, ly, uy, kx, ky, w, block=K19_BLOCK):
+    """K19's formulation in torch: each rectangle's x range ranked to slots
+    [a, b) (a = #(x <= lx), none for a NaN lx; b = #(x <= ux)) and cut at
+    the log's sentinel tail (the first slot whose x is the sentinel, when
+    there is one); each block of ``block`` rectangles bucketed by a, each
+    warp of 32 consecutive ones walking the union of their ranges, a member
+    (a <= j < b and ly < y <= uy) adding its measure in slot order."""
+    big = big_sentinel(torch.float64)
+    D, Q = kx.shape[0], lx.shape[0]
+    tail = int((kx < big).sum())
+    if tail < D and not kx[tail] == big:
+        tail = D
+    a = (kx[None, :] <= lx[:, None]).sum(dim=1)
+    a = torch.where(torch.isnan(lx), D, a)
+    b = torch.clamp((kx[None, :] <= ux[:, None]).sum(dim=1), max=tail)
+    empty = a >= b
+    span = max(tail, 1)
+    shift = max(0, span.bit_length() - 7)
+    key = torch.where(empty, K19_BUCKETS - 1,
+                      torch.clamp(a >> shift, max=K19_BUCKETS - 2))
+    lo = torch.where(empty, D, a)
+    hi = torch.where(empty, 0, b)
+    union = torch.zeros((Q, D), dtype=torch.bool)
+    j = torch.arange(D)
+    for b0 in range(0, Q, block):
+        order = b0 + torch.argsort(key[b0:b0 + block], stable=True)
+        for w0 in range(0, order.shape[0], WARP):
+            g = order[w0:w0 + WARP]
+            union[g] = (j >= lo[g].min()) & (j < hi[g].max())
+    member = (union & (j >= a[:, None]) & (j < b[:, None])
+              & (ly[:, None] < ky[None, :]) & (ky[None, :] <= uy[:, None]))
+    acc = torch.zeros(Q, dtype=w.dtype)
+    for k in range(D):
+        acc = torch.where(member[:, k], acc + w[k], acc)
+    return acc, (b - a).clamp(min=0)
+
+
+def _k19_log(fill, seed, kind):
+    """A 4,096-slot x-sorted SUM log of ``fill`` points built by the port's
+    append: an insert log in one append, a delete log in two (ties with the
+    points already logged); measures with -0.0, NaN and +-inf among them.
+    ``kind`` 'nan_tail' puts a NaN x after the sentinel tail, 'full_nan' and
+    'full_inf' end a full log on a NaN or an infinite x."""
+    rng = np.random.default_rng(seed)
+    cap = 4096
+    x = np.round(rng.uniform(0, 20, fill), 1)
+    y = np.round(rng.uniform(0, 20, fill), 1)
+    w = rng.normal(50, 10, fill)
+    if fill > 40:
+        w[[3, 17, 29, 31]] = (-0.0, np.nan, np.inf, -np.inf)
+        w[5:40:7] = -w[5:40:7]
+    e = DeltaBuffer2D.empty(cap, weighted=True)
+    bx, by, bw = e.ins_x, e.ins_y, e.ins_w
+    cuts = [0, fill // 2, fill] if kind == "delete" else [0, fill]
+    for c0, c1 in zip(cuts, cuts[1:]):
+        bx, by, bw, *_ = _append_2d(
+            bx, by, bw, torch.as_tensor(x[c0:c1]), torch.as_tensor(y[c0:c1]),
+            torch.as_tensor(w[c0:c1]), cap=cap, levels=False, weighted=True)
+    if kind in ("nan_tail", "full_nan", "full_inf"):
+        bx, by, bw = bx.clone(), by.clone(), bw.clone()
+        bx[-1] = {"full_inf": np.inf}.get(kind, np.nan)
+        by[-1], bw[-1] = 5.0, 7.0
+    return bx, by, bw
+
+
+def _k19_rects(kx, seed, n=300):
+    """Rectangles over the log, their x bounds on logged x values (ties at
+    either end), and the edge lanes: NaN bounds, inverted, +-inf, -0.0, and
+    bounds at and above the sentinel."""
+    rng = np.random.default_rng(seed)
+    big = big_sentinel(torch.float64)
+    xs = kx[kx < big].numpy()
+    a, b, c, d = rng.uniform(-2, 22, (4, n))
+    if len(xs):
+        a[:n // 3] = rng.choice(xs, n // 3)
+        b[n // 6:n // 2] = rng.choice(xs, n // 2 - n // 6)
+    lx, ux = np.minimum(a, b), np.maximum(a, b)
+    ly, uy = np.minimum(c, d), np.maximum(c, d)
+    inf, nan = np.inf, np.nan
+    extra = np.array([  # lx, ux, ly, uy
+        [nan, 10.0, 0.0, 10.0], [0.0, nan, 0.0, 10.0],
+        [0.0, 10.0, nan, 10.0], [0.0, 10.0, 0.0, nan], [nan, nan, nan, nan],
+        [12.0, 3.0, 0.0, 20.0], [5.0, 5.0, 0.0, 20.0],
+        [-inf, inf, -inf, inf], [-inf, 10.0, -inf, 10.0],
+        [10.0, inf, 10.0, inf], [inf, inf, -inf, inf],
+        [-0.0, 0.0, -0.0, 20.0], [0.0, 20.0, -0.0, 0.0],
+        [-1.0, big, -1.0, big], [0.0, 2 * big, 0.0, 2 * big],
+        [big, inf, big, inf], [np.nextafter(big, 0), big, 0.0, big],
+        [-1e300, 1e300, -1e300, 1e300]])
+    return [torch.as_tensor(np.concatenate([q, extra[:, j]]))
+            for j, q in enumerate((lx, ux, ly, uy))]
+
+
+@pytest.mark.parametrize("fill,kind", [(0, "insert"), (1, "insert"),
+                                       (1023, "insert"), (1024, "delete"),
+                                       (1025, "insert"), (3072, "delete"),
+                                       (3072, "nan_tail"), (4096, "insert"),
+                                       (4096, "delete"), (4096, "full_nan"),
+                                       (4096, "full_inf")])
+def test_delta_sum2d_rank_walk_matches_plain(fill, kind):
+    """K19's walk (ranks, the sentinel tail cut, buckets and warp unions)
+    equals the plain K19, which tests every slot's x, bit for bit on insert
+    and delete logs of 0 to 4,096 points, logs with a NaN x after the tail
+    or at the end of a full log, a full log that ends on +inf, rectangles
+    with ties at either x end, NaN, inverted, infinite, signed-zero and
+    sentinel bounds, and -0.0, NaN and +-inf measures."""
+    kx, ky, w = _k19_log(fill, seed=fill + 3, kind=kind)
+    q = _k19_rects(kx, seed=fill)
+    got, width = _k19_walk(*q, kx, ky, w)
+    want = kd.delta_sum2d_plain(*q, kx, ky, w)
+    assert torch.equal(got.view(torch.int64), want.view(torch.int64))
+    assert (width > 0).any() if fill > 1 else True
+    # (-inf, inf] takes a full log's infinite x in, never its NaN x
+    if kind in ("full_nan", "full_inf"):
+        assert int(width[-11]) == (4096 if kind == "full_inf" else 4095)
+
+
 def test_delta_2d_scan_wrappers_check_shapes():
     q = torch.zeros(8, dtype=torch.float64)
     s = torch.full((CAP,), big_sentinel(torch.float64), dtype=torch.float64)
@@ -467,6 +601,81 @@ def test_port_leaf_tables_partition_the_root(setup2d, card_route, source):
     qx, qy = np.clip(qx, x0, x1)[:, None], np.clip(qy, y0, y1)[:, None]
     holds = ((m[0] <= qx) & (qx < m[1]) & (m[2] <= qy) & (qy < m[3]))
     assert np.all(holds.sum(axis=1) == 1)
+
+
+# K13's walk (csrc/leaf_eval2d.cu corner_eval2d_scan_kernel): kEvalTile
+# leaves a tile, the table in up to kEvalChunks chunks of interleaved tiles
+K13_TILE, K13_CHUNKS = 128, 4
+
+
+def _k13_walk(u, v, mx0, mx1, my0, my1, bounds, coeffs, deg, tile):
+    """K13's formulation in torch: each chunk walks its tiles in order and
+    stops at its first tile that starts on the sentinel; a corner takes
+    every leaf whose box holds it (the last, no first-hit test); the finish
+    takes the lowest leaf over the chunks (-1, none, as the largest
+    unsigned value) and evaluates its row, the zero row where none holds
+    the corner."""
+    big = big_sentinel(torch.float64)
+    L = mx0.shape[0]
+    tiles = -(-L // tile)
+    S = max(1, min(K13_CHUNKS, tiles))
+    none = 1 << 32
+    leaf = torch.full(u.shape, none, dtype=torch.int64)
+    for c in range(S):
+        hit = torch.full(u.shape, -1, dtype=torch.int64)
+        for t in range(c, tiles, S):
+            sl = slice(t * tile, (t + 1) * tile)
+            if mx0[t * tile] == big:
+                break
+            member = ((mx0[sl] <= u[:, None]) & (u[:, None] < mx1[sl])
+                      & (my0[sl] <= v[:, None]) & (v[:, None] < my1[sl]))
+            j = torch.arange(t * tile, t * tile + member.shape[1])
+            last = torch.where(member, j, -1).amax(dim=1)
+            hit = torch.where(last >= 0, last, hit)
+        leaf = torch.minimum(leaf, torch.where(hit >= 0, hit, none))
+    held = leaf < none
+    row = torch.where(held, leaf, 0)
+    c = torch.where(held[:, None], coeffs[row], 0.0)
+    b = torch.where(held[:, None], bounds[row], 0.0)
+    return bivariate_horner(u, v, c, b, deg), torch.where(held, leaf, -1)
+
+
+@pytest.mark.parametrize("tile", [K13_TILE, 8])
+@pytest.mark.parametrize("source", ["osm", "deep", "dyn2d_refit"])
+def test_corner_eval2d_chunked_walk_matches_plain(setup2d, card_route,
+                                                  source, tile):
+    """K13's walk (chunks of interleaved tiles stopping at the sentinel
+    tail, any hit kept, the lowest over the chunks, then the row) equals the
+    plain K13 bit for bit on the port's static, depth-16 and refit leaf
+    tables, at the kernel's tile and at 8-leaf tiles (up to 4 chunks of
+    several tiles each): corners on every split line, on the root's edges
+    and corners, at random, NaN and +-inf.  Every clamped corner finds its
+    leaf; no other does."""
+    plan = _leaf_plan(source, setup2d)
+    table = (plan.leaf_mx0, plan.leaf_mx1, plan.leaf_my0, plan.leaf_my1,
+             plan.leaf_bounds, plan.leaf_coeffs)
+    big, n = big_sentinel(torch.float64), plan.n_leaves
+    x0, x1, y0, y1 = plan.root
+    m = [t.numpy() for t in table[:4]]
+    xs = np.unique(np.concatenate([m[0][:n], m[1][m[1] < big], [x0, x1]]))
+    ys = np.unique(np.concatenate([m[2][:n], m[3][m[3] < big], [y0, y1]]))
+    rng = np.random.default_rng(83)
+    inf, nan = np.inf, np.nan
+    qx = np.concatenate([xs, rng.choice(xs, len(ys)), [x0, x0, x1, x1],
+                         rng.uniform(x0, x1, 300)])
+    qy = np.concatenate([rng.choice(ys, len(xs)), ys, [y0, y1, y0, y1],
+                         rng.uniform(y0, y1, 300)])
+    qx, qy = np.clip(qx, x0, x1), np.clip(qy, y0, y1)
+    clamped = len(qx)
+    qx = np.concatenate([qx, [nan, x0, nan, inf, -inf, x1, inf]])
+    qy = np.concatenate([qy, [y0, nan, nan, y0, y1, -inf, inf]])
+    u, v = torch.as_tensor(qx), torch.as_tensor(qy)
+    got, leaf = _k13_walk(u, v, *table, plan.deg, tile)
+    want = k2d.corner_eval2d_plain(u, v, *table, plan.deg)
+    assert torch.equal(got.view(torch.int64), want.view(torch.int64))
+    assert (leaf[:clamped] >= 0).all() and (leaf[clamped:] < 0).all()
+    if tile == 8:
+        assert -(-plan.leaf_mx0.shape[0] // 8) >= 4
 
 
 def test_session_dynamic2d_table_on_scan_backend(setup2d, card_route):
