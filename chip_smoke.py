@@ -136,12 +136,16 @@ slots that hold entries (counted on the card before the timing); the
 bound over every slot of the log and the pairs a clock an SM the time
 implies are printed beside it.  K13 stops at its leaf table's sentinel
 tail likewise (its bound counts the live leaves, the bound over every
-leaf printed beside it).  K19 ranks each rectangle's x range to the slots
-[a, b) of the x-sorted log and tests only those, so its bound counts the
-searches and 3 operations a (rectangle, [a, b) slot) pair (the ranks
-taken on the card before the timing); the old form's bound, 5 operations
-a (rectangle, slot) pair over the live slots and over every slot, the
-mean [a, b) width and the pairs a clock an SM are printed beside it.
+leaf printed beside it).  K18 and K19 rank each rectangle's x range to
+the slots [a, b) of the x-sorted log and test only those, so their bound
+counts the searches and 3 operations a (rectangle, [a, b) slot) pair (the
+ranks taken on the card before the timing); the old form's bound, 5
+operations a (rectangle, slot) pair over the live slots and over every
+slot, the live slots, the mean [a, b) width and the pairs a clock an SM
+are printed beside it.  K14 counts #(seg_lo <= q) over the segments
+before its table's sentinel tail, so its bound counts the live segments
+(2 compares a range and segment, and the rows' Horner); the bound over
+every row and K2's time on the same ranges are printed beside it.
 
 K1 runs where the main path runs it, on the plans' keys and their search
 trees (``IndexPlan.ref_tree``, ``IndexPlan2D.ref_xs_tree``, built once per
@@ -1456,18 +1460,22 @@ def main() -> None:
               f"a clock an SM ({sms} SMs at {ghz} GHz)", flush=True)
         return row
 
-    def measure_sum2d(args, tag):
-        """Time K19 (``delta_sum2d``) on one point log.  It ranks each
-        rectangle's x range to slots [a, b) of the x-sorted log by two
-        binary searches and tests only those, so the bound counts the work
-        these rectangles need (the ranks, counted here outside the timed
-        window): the searches' compares, and 3 f64 operations (2 y
-        compares, an add) a (rectangle, [a, b) slot) pair; the rectangles,
-        the answers and the live slots read once.  The bound of the old
-        form, 5 operations a (rectangle, slot) pair, over the live slots
-        and over every slot, the mean [a, b) width and the pairs a clock an
-        SM the time implies are printed beside it."""
+    def measure_rank2d(name, args, tag):
+        """Time K18 (``delta_count2d``) or K19 (``delta_sum2d``) on one
+        point log.  Each ranks each rectangle's x range to slots [a, b) of
+        the x-sorted log by two binary searches and tests only those, so
+        the bound counts the work these rectangles need (the ranks, counted
+        here outside the timed window): the searches' compares, and the f64
+        operations a (rectangle, [a, b) slot) pair (K19: 2 y compares and
+        an add; K18: the 2 y compares, its count being an integer add); the
+        rectangles, the answers and the live slots' columns (K18 reads x
+        and y, K19 also w) read once.  The bound of the old form, 5
+        operations a (rectangle, slot) pair, over the live slots and over
+        every slot, the mean [a, b) width and the pairs a clock an SM the
+        time implies are printed beside it, and for K18 the bound at K19's
+        3 operations a pair."""
         lx, ux, kx = args[0], args[1], args[4]
+        cols = len(args) - 4
         cap = kx.shape[0]
         big = big_sentinel(torch.float64)
         live = int((kx != big).sum())
@@ -1477,24 +1485,71 @@ def main() -> None:
         b = torch.where(torch.isnan(ux), 0, torch.clamp(
             torch.searchsorted(kx, ux, right=True), max=tail))
         width = float(torch.clamp(b - a, min=0).double().sum())
-        row = measure(torch, tag, "delta_sum2d", kdel.delta_sum2d,
-                      kdel.delta_sum2d_plain, args, None,
-                      5 * Q * 8 + 3 * live * 8,
-                      Q * 2 * probe_rounds(cap) + 3 * width,
-                      f"lx, ux, ly, uy ({Q},); keys_x, keys_y, wv ({cap},), "
+        per_pair = 2 if name == "delta_count2d" else 3
+        mod = getattr(kdel, name)
+        row = measure(torch, tag, name, mod, getattr(kdel, name + "_plain"),
+                      args, None, 5 * Q * 8 + cols * live * 8,
+                      Q * 2 * probe_rounds(cap) + per_pair * width,
+                      f"lx, ux, ly, uy ({Q},); {cols} log columns ({cap},), "
                       f"{live} live, mean [a, b) {width / Q!r} slots f64 -> "
                       f"({Q},)", plain_calls=1)
-        live_ms, live_by = bound_ms(5 * Q * 8 + 3 * live * 8, 5 * Q * live)
-        cap_ms, cap_by = bound_ms(5 * Q * 8 + 3 * cap * 8, 5 * Q * cap)
+        live_ms, live_by = bound_ms(5 * Q * 8 + cols * live * 8,
+                                    5 * Q * live)
+        cap_ms, cap_by = bound_ms(5 * Q * 8 + cols * cap * 8, 5 * Q * cap)
+        three = "" if per_pair == 3 else "; at 3 {!r} ms".format(bound_ms(
+            5 * Q * 8 + cols * live * 8,
+            Q * 2 * probe_rounds(cap) + 3 * width)[0])
         sms, ghz = sm_clock(torch)
         per = lambda n: n / (row["ms"] * 1e-3) / sms / (ghz * 1e9)
-        print(f"{tag}delta_sum2d bound of the [a, b) ranges "
-              f"{row['bound_ms']!r} ms; at 5 operations a pair over the "
-              f"{live} live slots {live_ms!r} ms ({live_by}), over all "
-              f"{cap} slots {cap_ms!r} ms ({cap_by}); mean [a, b) width "
-              f"{width / Q!r} slots; {per(Q * live)!r} (rectangle, live "
-              f"slot) pairs and {per(width)!r} (rectangle, [a, b) slot) "
-              f"pairs a clock an SM ({sms} SMs at {ghz} GHz)", flush=True)
+        print(f"{tag}{name} bound of the [a, b) ranges {row['bound_ms']!r} "
+              f"ms ({per_pair} operations a pair{three}); "
+              f"at 5 operations a pair over the {live} live slots "
+              f"{live_ms!r} ms ({live_by}), over all {cap} slots {cap_ms!r} "
+              f"ms ({cap_by}); mean [a, b) width {width / Q!r} slots; "
+              f"{per(Q * live)!r} (rectangle, live slot) pairs and "
+              f"{per(width)!r} (rectangle, [a, b) slot) pairs a clock an SM "
+              f"({sms} SMs at {ghz} GHz)", flush=True)
+        return row
+
+    def range_sum_work(args, isz):
+        """K14's bytes and operations on one plan's segment table: the
+        ranges and the answers, and per range 2 compares a segment start
+        walked and each endpoint's row (scale_unit's 5 operations and
+        Horner's 2 a degree) and the difference; over the ``live``
+        segments before the table's sentinel tail (counted here) and over
+        every row.  (live, H, shape, (bytes, ops) over the live segments,
+        (bytes, ops) over every row, ops of the old form: 4 compares a row
+        and range)."""
+        seg_lo, coeffs = args[2], args[5]
+        H, cols = seg_lo.shape[0], coeffs.shape[1]
+        live = int((seg_lo != big_sentinel(seg_lo.dtype)).sum())
+        finish = 2 * (5 + 2 * (cols - 1)) + 1
+        work = lambda n: (3 * Q * isz + n * (3 + cols) * isz,
+                          Q * (2 * n + finish))
+        shape = (f"lq, uq ({Q},); seg_lo, seg_next, seg_hi ({H},), {live} "
+                 f"live; coeffs ({H}, {cols})")
+        return live, H, shape, work(live), work(H), Q * (4 * H + finish)
+
+    def measure_range_sum(tag, args, dname="f64", peak=FP64_FLOPS):
+        """Time K14 (``range_sum``) at its bound over the live segments,
+        and print the bound over every row, the old form's, and K2
+        (``range_sum_gather``) timed on the same ranges and table."""
+        isz = 8 if peak == FP64_FLOPS else 4
+        live, H, shape, (nb, fl), (nb_all, fl_all), fl_old = \
+            range_sum_work(args, isz)
+        row = measure(torch, tag, "range_sum", ksum.range_sum,
+                      ksum.range_sum_plain, args, None, nb, fl,
+                      f"{shape} {dname} -> ({Q},)", peak=peak)
+        all_ms, all_by = bound_ms(nb_all, fl_all, peak)
+        old_ms, old_by = bound_ms(nb_all, fl_old, peak)
+        lq, uq, seg_lo, _, seg_hi, coeffs = args
+        k2_ms = device_ms(torch, lambda: ksum.range_sum_gather(
+            lq, uq, seg_lo, seg_hi, coeffs))
+        print(f"{tag}range_sum bound over the {live} live segments "
+              f"{row['bound_ms']!r} ms; over all {H} rows {all_ms!r} ms "
+              f"({all_by}); the old form's (4 compares a row and range) "
+              f"{old_ms!r} ms ({old_by}); K2 (range_sum_gather) on the same "
+              f"ranges {k2_ms!r} ms", flush=True)
         return row
 
     tag = "scan static: "
@@ -1702,20 +1757,18 @@ def main() -> None:
                 fl = Q * range_max_flops(probe_rounds(H), deg)
                 shape = (f"lq, uq ({Q},); seg_lo, seg_hi ({H},); coeffs "
                          f"({H}, {cols}); st {tuple(a[5].shape)}")
-            elif k == "range_sum":
-                nb = 3 * Q * isz + 3 * H * isz + table
-                fl = Q * (2 * (2 * H + 5 + 2 * deg) + 1)
-                shape = (f"lq, uq ({Q},); seg_lo, seg_next, seg_hi ({H},); "
-                         f"coeffs ({H}, {cols})")
-            else:
+            elif k == "range_max":
                 nb = 3 * Q * isz + 4 * H * isz + table
                 fl = Q * (7 * H + range_max_flops(0, deg))
                 shape = (f"lq, uq ({Q},); seg_lo, seg_next, seg_hi, seg_agg "
                          f"({H},); coeffs ({H}, {cols})")
-            timed[phase][k] = measure(
-                torch, tag, k, getattr(mods[k], k),
-                getattr(mods[k], k + "_plain"), a, None, nb, fl,
-                f"{shape} {dname} -> ({Q},)", peak=peak)
+            if k == "range_sum":   # its bound over the live segments
+                timed[phase][k] = measure_range_sum(tag, a, dname, peak)
+            else:
+                timed[phase][k] = measure(
+                    torch, tag, k, getattr(mods[k], k),
+                    getattr(mods[k], k + "_plain"), a, None, nb, fl,
+                    f"{shape} {dname} -> ({Q},)", peak=peak)
             if dt == torch.float32:
                 f32_rows[k] = {"launches": launches[k],
                                "max_abs_err": errs[k + sfx],
@@ -1960,17 +2013,8 @@ def main() -> None:
             scan_sets["delta_max"].append(
                 (*dt[name], buf.ins_keys, buf.ins_vals))
     hold_scan(scan_sets, tag)
-    plan = scan_dyn["lat_dyn"].snapshot()[0]
-    H, cols = plan.seg_lo.shape[0], plan.coeffs.shape[1]
-    deg = cols - 1
     timed["scan dynamic"] = {
-        "range_sum": measure(
-            torch, tag, "range_sum", ksum.range_sum, ksum.range_sum_plain,
-            scan_sets["range_sum"][0], None,
-            2 * Q * 8 + 3 * H * 8 + H * cols * 8 + Q * 8,
-            Q * (2 * (2 * H + 5 + 2 * deg) + 1),
-            f"lq, uq ({Q},); seg_lo, seg_next, seg_hi ({H},); coeffs ({H}, "
-            f"{cols}) f64 -> ({Q},)")}
+        "range_sum": measure_range_sum(tag, scan_sets["range_sum"][0])}
     plan = scan_dyn["hki_dyn"].snapshot()[0]
     H, cols = plan.seg_lo.shape[0], plan.coeffs.shape[1]
     timed["scan dynamic"]["range_max"] = measure(
@@ -2707,19 +2751,14 @@ def main() -> None:
           f"{'/'.join(str(len(v)) for v in scan2d_sets.values())} argument "
           f"sets: max |kernel - plain| = "
           f"{ {k: errs[k] for k in KERNELS_SCAN2D} }", flush=True)
-    # K18, K19 and K20 on the full 4,096-slot insert logs: 4 compares and
-    # an add a (query, slot) pair (K18), 2 compares and an add a (query,
-    # [a, b) slot) pair beside the ranks (K19), 3 compares a (query, live
-    # slot) pair (K20)
-    pairs = Q * cap
+    # K18, K19 and K20 on the full 4,096-slot insert logs: 2 compares and
+    # an add a (query, [a, b) slot) pair beside the ranks (K18, K19), 3
+    # compares a (query, live slot) pair (K20)
     timed["scan dyn2d"] = {
-        "delta_count2d": measure(
-            torch, tag, "delta_count2d", kdel.delta_count2d,
-            kdel.delta_count2d_plain, scan2d_sets["delta_count2d"][0], None,
-            5 * Q * 8 + 2 * cap * 8, 5 * pairs,
-            f"lx, ux, ly, uy ({Q},); keys_x, keys_y ({cap},) f64 -> ({Q},)",
-            plain_calls=2),
-        "delta_sum2d": measure_sum2d(scan2d_sets["delta_sum2d"][0], tag),
+        "delta_count2d": measure_rank2d(
+            "delta_count2d", scan2d_sets["delta_count2d"][0], tag),
+        "delta_sum2d": measure_rank2d(
+            "delta_sum2d", scan2d_sets["delta_sum2d"][0], tag),
         "delta_dommax2d": measure_dommax2d(scan2d_sets["delta_dommax2d"][0],
                                            tag)}
     print(f"{tag}step seconds {time.perf_counter() - step0!r} (engines "

@@ -11,7 +11,7 @@
 //   bsearch_count_left   #(keys < q), the same probe order
 //   locate_segment       max(#(seg_lo <= q) - 1, 0)
 //   count_lt, count_le   c += x < q, c += x <= q (PTX: a compare and a
-//                        predicated increment)
+//                        predicated increment; count_le also on float)
 //   tree_shape, tree_count_right
 //                        #(keys <= q) by a descent of the keys' search
 //                        tree (K1)
@@ -123,6 +123,14 @@ __device__ __forceinline__ void count_le(int& c, double x, double q) {
       "@p add.s32 %0, %0, 1;\n\t}"
       : "+r"(c)
       : "d"(x), "d"(q));
+}
+
+__device__ __forceinline__ void count_le(int& c, float x, float q) {
+  asm("{\n\t.reg .pred p;\n\t"
+      "setp.le.f32 p, %1, %2;\n\t"
+      "@p add.s32 %0, %0, 1;\n\t}"
+      : "+r"(c)
+      : "f"(x), "f"(q));
 }
 
 // K1's search tree over n sorted keys (kernels/locate.py search_tree): a

@@ -1,30 +1,31 @@
-// PolyFit one-key one-hot scan kernels for Hopper (sm_90a), one thread per
-// query (K15 and K16: four): the 'cuda_scan' backend, and K21
-// (kernels/ops.py poly_eval).
+// PolyFit one-key scan kernels for Hopper (sm_90a): the 'cuda_scan'
+// backend, and K21 (kernels/ops.py poly_eval).
 //
-// K14 range_sum_kernel  replaces repro/kernels/range_sum.py:range_sum_pallas
+// K14 range_sum_scan_kernel
+//                       replaces repro/kernels/range_sum.py:range_sum_pallas
 // K15 range_max_scan_kernel + range_max_finish_kernel
 //                       replaces repro/kernels/range_max.py:range_max_pallas
 // K16 delta_sum_kernel  replaces repro/kernels/delta_scan.py:delta_sum_pallas
 // K17 delta_max_kernel  replaces repro/kernels/delta_scan.py:delta_max_pallas
-// K21 poly_eval_kernel  replaces repro/kernels/poly_eval.py:poly_eval_pallas
+// K21 segment_eval_kernel
+//                       replaces repro/kernels/poly_eval.py:poly_eval_pallas
 //
 // Twins of the plain versions in repro_torch/kernels/range_sum.py,
 // range_max.py, poly_eval.py and delta_scan.py, in their order of
 // operations (compiled with -fmad=false, so every multiply and add rounds
 // on its own).  Where the gather kernels K2, K3, K5 and K6
 // (polyfit_kernels.cu) binary-search a sorted table, these test every
-// query against every entry:
+// query against every live entry:
 //
-//   K14  the segment holding each endpoint by one-hot membership
-//        seg_lo <= q < seg_next, then its row [coeffs | lo | hi] and Horner
-//        at the scaled coordinate: P(uq) - P(lq);
-//   K21  the same for one key: P_{I(q)}(q), K14's step on one endpoint
-//        (one template, segment_eval_kernel<T, E>, with E = 2 and E = 1);
-//   K15  the same two boundary rows, found from #(seg_lo <= q) (below),
-//        the left/right/same-segment rules of the closed-form clipped
-//        maxima (deg <= 3), and a dense masked max of seg_agg over the
-//        segments with lo > lq and next <= uq;
+//   K14  the segment holding each endpoint, found from #(seg_lo <= q)
+//        (below), then its row [coeffs | lo | hi] and Horner at the
+//        scaled coordinate: P(uq) - P(lq);
+//   K21  the segment holding one key by one-hot membership
+//        seg_lo <= q < seg_next over the whole table, then P_{I(q)}(q);
+//   K15  the same two boundary rows as K14, the left/right/same-segment
+//        rules of the closed-form clipped maxima (deg <= 3), and a dense
+//        masked max of seg_agg over the segments with lo > lq and
+//        next <= uq;
 //   K16  the sum of the buffered measures with key in (lq, uq], over the
 //        live slots of the sentinel-padded log;
 //   K17  the max of the buffered measures with key in [lq, uq] (-inf when
@@ -39,23 +40,48 @@
 // each one, a sentinel the last; a segment whose lo equals the next one's,
 // as two starts rounded to one float can, holds nothing), so the
 // reference's one-hot matmul sums one row and exact zeros: the kernels keep
-// the first segment that holds the query, and a zero row when none does
-// (K15 counts its way there: on a plan's table the segment holding q can
-// only be the last with seg_lo <= q).  K14 and K15 then read the very rows
-// K2 and K3 locate, and the interior max is exact, so they agree with the
-// gather kernels bit for bit.  K16
-// adds each chunk's members in slot order and the chunk sums in chunk
-// order (below); the plain version's one-hot product may add them in
-// another order, which changes nothing on a COUNT log (integers) and at
-// most a few ulps of the lane's sum of |measure| on a SUM log.
+// the first segment that holds the query, and a zero row when none does.
+// K14 and K15 count their way there: on a plan's table (seg_lo
+// non-decreasing, seg_next[j] = seg_lo[j + 1] with the sentinel last, no
+// NaN) the segment holding q can only be the last with seg_lo <= q
+// (boundary_row).  They then read the very rows K2 and K3 locate, and the
+// interior max is exact, so they agree with the gather kernels bit for bit
+// on the queries the engine clamps into the domain.  K16 adds each chunk's
+// members in slot order and the chunk sums in chunk order (below); the
+// plain version's one-hot product may add them in another order, which
+// changes nothing on a COUNT log (integers) and at most a few ulps of the
+// lane's sum of |measure| on a SUM log.
 //
-// What bounds them on an H100: operations.  K14 and K21: a block of 256
-// queries walks the table in tiles of 256 entries staged through shared
-// memory (the table read once a block from L2), and each thread tests its
-// query against every entry, one compare-and-select chain a thread: K14
-// two endpoints x 2 compares, K21 one endpoint x 2.
+// What bounds them on an H100: operations, on long tables.  K21: a block
+// of 256 queries walks the table in tiles of 256 entries staged through
+// shared memory (the table read once a block from L2), and each thread
+// tests its query against every entry, one compare-and-select chain a
+// thread, 2 compares a pair.
 //
-// K15 before its redesign ran that design too: 9 compares, selects and a
+// K14 ran K21's loop on both endpoints (4 compares and 2 selects a
+// (range, entry) pair) over every row of the padded table until its
+// redesign: 0.0199 ms at lat_dyn (105 live segments of 512 rows), 0.0226
+// at float32 on lat (40 of 512), about 80% of its pairs on the padding.
+// Its design now (range_sum_scan_kernel below):
+//   - the tile walker (scan_tile.cuh walk_slots) stages seg_lo alone, one
+//     word a slot, 128 starts a tile, double-buffered, and stops at the
+//     table's sentinel tail: one tile at lat_dyn, not four;
+//   - the loop (locate.cuh count_le) counts #(seg_lo <= lq) and
+//     #(seg_lo <= uq): 2 compares and 2 predicated increments a pair;
+//   - the rows in the same kernel: boundary_row on each count, the row's
+//     coefficients, lo and hi read once, Horner at scale_unit in the plain
+//     version's order: one launch, no finish kernel;
+//   - 1 range a thread in blocks of 256: 256 blocks at Q = 65,536 for 132
+//     SMs.  At these tables the bytes (queries, answers, the live table:
+//     about 1.6 MB, 0.0005 ms at the HBM rate) and the compares (0.0008 ms
+//     at lat_dyn) leave the launch and the queries' loads to set the time.
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (tools/k14_k18_rates.py,
+// Q = 65,536): 0.00540 ms at a lat_dyn-shaped table (0.01955 before), K2
+// 0.00533 on the same ranges; 0.00423 at float32 on a lat-shaped one
+// (0.02249 before); 2 ranges a thread in blocks of 128 ran 0.00644, 4
+// ranges 0.00820.
+//
+// K15 before its redesign ran K21's design too: 9 compares, selects and a
 // NaN-propagating max, about 19 instructions a (query, segment) pair in
 // the compiled loop, 4.7-5.1 pairs a clock an SM (tools/scan_rates.py).
 // Its bound counts 7 f64 operations a pair at the FP64 peak (which counts
@@ -177,6 +203,12 @@ constexpr int kMaxQueries = 4;
 constexpr int kMaxTile = 128;
 constexpr int kMaxChunks = 4;
 
+// K14's shape: blocks of 256 threads of one range each (256 blocks at
+// Q = 65,536 for 132 SMs), tiles of 128 segment starts (1 KB a buffer at
+// float64)
+constexpr int kRangeThreads = 256;
+constexpr int kRangeTile = 128;
+
 inline int blocks_for(int Q) { return (Q + kThreads - 1) / kThreads; }
 
 // P(u) of segment row ``row``, or of a zero row when row < 0, by Horner
@@ -191,12 +223,21 @@ __device__ __forceinline__ T row_horner(const T* __restrict__ coeffs, int row,
   return acc;
 }
 
-// K14 (E = 2): A = P_{I(u)}(u) - P_{I(l)}(l); K21 (E = 1, ``uq`` unread):
-// P_{I(q)}(q) with q in ``lq``.  Each endpoint's segment is found by
-// one-hot membership over the whole table.
-template <typename T, int E>
-__global__ void segment_eval_kernel(const T* __restrict__ lq,
-                                    const T* __restrict__ uq,
+// The segment holding q, from c = #(seg_lo <= q): on a plan's table
+// (seg_lo non-decreasing, seg_next[j] = seg_lo[j + 1], the sentinel last)
+// no segment before c - 1 can (its next start is <= q) and none from c
+// on (its start is > q), and segment c - 1 does when q < seg_next[c - 1]:
+// the first (only) segment of the one-hot membership.  -1 when none does.
+template <typename T>
+__device__ __forceinline__ int boundary_row(int c, T q,
+                                            const T* __restrict__ seg_next) {
+  return c > 0 && q < seg_next[c - 1] ? c - 1 : -1;
+}
+
+// K21: P_{I(q)}(q), the segment holding q found by one-hot membership over
+// the whole table
+template <typename T>
+__global__ void segment_eval_kernel(const T* __restrict__ qs,
                                     const T* __restrict__ seg_lo,
                                     const T* __restrict__ seg_next,
                                     const T* __restrict__ seg_hi,
@@ -205,14 +246,8 @@ __global__ void segment_eval_kernel(const T* __restrict__ lq,
                                     int deg) {
   __shared__ T s_lo[kTile], s_nx[kTile];
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int r = i < Q ? i : Q - 1;   // threads past Q still stage tiles
-  T q[E];
-  int hit[E];
-#pragma unroll
-  for (int e = 0; e < E; ++e) {
-    q[e] = e == 0 ? lq[r] : uq[r];
-    hit[e] = -1;
-  }
+  const T q = qs[i < Q ? i : Q - 1];   // threads past Q still stage tiles
+  int hit = -1;
   for (int t0 = 0; t0 < H; t0 += kTile) {
     const int j = t0 + threadIdx.x;
     if (j < H) {
@@ -223,24 +258,53 @@ __global__ void segment_eval_kernel(const T* __restrict__ lq,
     const int n = H - t0 < kTile ? H - t0 : kTile;
     for (int k = 0; k < n; ++k) {
       const T lo = s_lo[k], nx = s_nx[k];
-#pragma unroll
-      for (int e = 0; e < E; ++e) {
-        const bool in = lo <= q[e] && q[e] < nx;
-        hit[e] = (hit[e] < 0 && in) ? t0 + k : hit[e];
-      }
+      const bool in = lo <= q && q < nx;
+      hit = (hit < 0 && in) ? t0 + k : hit;
     }
     __syncthreads();
   }
   if (i >= Q) return;
-  T v[E];
+  const bool h = hit >= 0;
+  const T lo = h ? seg_lo[hit] : T(0);
+  const T hi = h ? seg_hi[hit] : T(0);
+  out[i] = row_horner(coeffs, hit, deg, scale_unit(q, lo, hi));
+}
+
+// K14: A = P_{I(u)}(u) - P_{I(l)}(l), one range a thread.  The block walks
+// the tiles of seg_lo alone (one word a slot) up to the table's sentinel
+// tail, counting #(seg_lo <= lq) and #(seg_lo <= uq) (count_le), then
+// finds each endpoint's row by boundary_row (the one-hot first hit, on a
+// plan's table) and runs Horner on it at the scaled coordinate, as
+// range_sum_plain does: a zero row where no segment holds the endpoint.
+template <typename T>
+__global__ void __launch_bounds__(kRangeThreads)
+    range_sum_scan_kernel(const T* __restrict__ lq, const T* __restrict__ uq,
+                          const T* __restrict__ seg_lo,
+                          const T* __restrict__ seg_next,
+                          const T* __restrict__ seg_hi,
+                          const T* __restrict__ coeffs, T* __restrict__ out,
+                          int Q, int H, int deg, double sentinel) {
+  extern __shared__ double2 s_lo[];
+  const int i = blockIdx.x * kRangeThreads + threadIdx.x;
+  const int r = i < Q ? i : Q - 1;   // threads past Q still stage tiles
+  const T q[2] = {lq[r], uq[r]};
+  int c[2] = {0, 0};
+  const T* src[1] = {seg_lo};
+  walk_slots<1, kRangeTile, true>(src, H, 0, 1, sentinel, (T*)s_lo,
+                                  [&](const T lo) {
+                                    count_le(c[0], lo, q[0]);
+                                    count_le(c[1], lo, q[1]);
+                                  });
+  if (i >= Q) return;
+  T v[2];
 #pragma unroll
-  for (int e = 0; e < E; ++e) {
-    const bool h = hit[e] >= 0;
-    const T lo = h ? seg_lo[hit[e]] : T(0);
-    const T hi = h ? seg_hi[hit[e]] : T(0);
-    v[e] = row_horner(coeffs, hit[e], deg, scale_unit(q[e], lo, hi));
+  for (int e = 0; e < 2; ++e) {
+    const int hit = boundary_row(c[e], q[e], seg_next);
+    const T lo = hit >= 0 ? seg_lo[hit] : T(0);
+    const T hi = hit >= 0 ? seg_hi[hit] : T(0);
+    v[e] = row_horner(coeffs, hit, deg, scale_unit(q[e], lo, hi));
   }
-  out[i] = E == 2 ? v[E - 1] - v[0] : v[0];
+  out[i] = v[1] - v[0];
 }
 
 // K15, the scan: a thread holds R queries (i0 + r * THREADS); block (x, y)
@@ -288,17 +352,6 @@ __global__ void __launch_bounds__(THREADS)
     cnt[(2 * y + 1) * Q + i] = ci[r];
     part[y * Q + i] = m[r];
   }
-}
-
-// The segment holding q, from c = #(seg_lo <= q): on a plan's table
-// (seg_lo non-decreasing, seg_next[j] = seg_lo[j + 1], the sentinel last)
-// no segment before c - 1 can (its next start is <= q) and none from c
-// on (its start is > q), and segment c - 1 does when q < seg_next[c - 1]:
-// the first (only) segment of the one-hot membership.  -1 when none does.
-template <typename T>
-__device__ __forceinline__ int boundary_row(int c, T q,
-                                            const T* __restrict__ seg_next) {
-  return c > 0 && q < seg_next[c - 1] ? c - 1 : -1;
 }
 
 // #(seg_lo <= u) from c_l = #(seg_lo <= l) and the number n of interior
@@ -519,16 +572,31 @@ int launch_delta_max(const void* lq, const void* uq, const void* keys,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int E>
-int launch_segment_eval(const void* lq, const void* uq, const void* seg_lo,
+template <typename T>
+int launch_segment_eval(const void* q, const void* seg_lo,
                         const void* seg_next, const void* seg_hi,
                         const void* coeffs, void* out, int Q, int H, int deg,
                         void* stream) {
   if (Q > 0)
-    segment_eval_kernel<T, E><<<blocks_for(Q), kThreads, 0,
-                                (cudaStream_t)stream>>>(
-        (const T*)lq, (const T*)uq, (const T*)seg_lo, (const T*)seg_next,
-        (const T*)seg_hi, (const T*)coeffs, (T*)out, Q, H, deg);
+    segment_eval_kernel<T><<<blocks_for(Q), kThreads, 0,
+                             (cudaStream_t)stream>>>(
+        (const T*)q, (const T*)seg_lo, (const T*)seg_next, (const T*)seg_hi,
+        (const T*)coeffs, (T*)out, Q, H, deg);
+  return (int)cudaGetLastError();
+}
+
+// K14 in one launch: the walk and the rows
+template <typename T>
+int launch_range_sum(const void* lq, const void* uq, const void* seg_lo,
+                     const void* seg_next, const void* seg_hi,
+                     const void* coeffs, void* out, int Q, int H, int deg,
+                     double sentinel, void* stream) {
+  if (Q > 0)
+    range_sum_scan_kernel<T>
+        <<<(Q + kRangeThreads - 1) / kRangeThreads, kRangeThreads,
+           walk_smem_bytes<1, kRangeTile, T>(), (cudaStream_t)stream>>>(
+            (const T*)lq, (const T*)uq, (const T*)seg_lo, (const T*)seg_next,
+            (const T*)seg_hi, (const T*)coeffs, (T*)out, Q, H, deg, sentinel);
   return (int)cudaGetLastError();
 }
 
@@ -567,32 +635,34 @@ extern "C" {
 int polyfit_range_sum(const void* lq, const void* uq, const void* seg_lo,
                       const void* seg_next, const void* seg_hi,
                       const void* coeffs, void* out, int Q, int H, int deg,
-                      void* stream) {
-  return polyfit::launch_segment_eval<double, 2>(
-      lq, uq, seg_lo, seg_next, seg_hi, coeffs, out, Q, H, deg, stream);
+                      double sentinel, void* stream) {
+  return polyfit::launch_range_sum<double>(lq, uq, seg_lo, seg_next, seg_hi,
+                                          coeffs, out, Q, H, deg, sentinel,
+                                          stream);
 }
 
 int polyfit_range_sum_f32(const void* lq, const void* uq, const void* seg_lo,
                           const void* seg_next, const void* seg_hi,
                           const void* coeffs, void* out, int Q, int H, int deg,
-                          void* stream) {
-  return polyfit::launch_segment_eval<float, 2>(
-      lq, uq, seg_lo, seg_next, seg_hi, coeffs, out, Q, H, deg, stream);
+                          double sentinel, void* stream) {
+  return polyfit::launch_range_sum<float>(lq, uq, seg_lo, seg_next, seg_hi,
+                                          coeffs, out, Q, H, deg, sentinel,
+                                          stream);
 }
 
 int polyfit_poly_eval(const void* q, const void* seg_lo, const void* seg_next,
                       const void* seg_hi, const void* coeffs, void* out, int Q,
                       int H, int deg, void* stream) {
-  return polyfit::launch_segment_eval<double, 1>(
-      q, nullptr, seg_lo, seg_next, seg_hi, coeffs, out, Q, H, deg, stream);
+  return polyfit::launch_segment_eval<double>(q, seg_lo, seg_next, seg_hi,
+                                            coeffs, out, Q, H, deg, stream);
 }
 
 int polyfit_poly_eval_f32(const void* q, const void* seg_lo,
                           const void* seg_next, const void* seg_hi,
                           const void* coeffs, void* out, int Q, int H, int deg,
                           void* stream) {
-  return polyfit::launch_segment_eval<float, 1>(
-      q, nullptr, seg_lo, seg_next, seg_hi, coeffs, out, Q, H, deg, stream);
+  return polyfit::launch_segment_eval<float>(q, seg_lo, seg_next, seg_hi,
+                                            coeffs, out, Q, H, deg, stream);
 }
 
 int polyfit_range_max_chunks(int H) {

@@ -1,18 +1,19 @@
-// The tile walker of the whole-array scans (scan1d.cu K15, K16 and K17,
-// quantile.cu K4's scan mode, leaf_eval2d.cu K12 and K13, scan2d.cu K20):
-// every slot of an array is compared with every query, from shared memory;
-// and the PTX loop bodies of those scans and of K19.
+// The tile walker of the whole-array scans (scan1d.cu K14, K15, K16 and
+// K17, quantile.cu K4's scan mode, leaf_eval2d.cu K12 and K13, scan2d.cu
+// K20): every slot of an array is compared with every query, from shared
+// memory; and the PTX loop bodies of those scans and of K18 and K19.
 //
 //   walk_slots<W, TILE, STOP>(src, n, first, step, stop, smem, f)
 //
 // stages the tiles first, first + step, first + 2 step, ... of slots
-// [0, n) of N <= W parallel arrays of type T (double, or float for K15's
-// float32 plans) into shared memory (a block's share when ``step`` blocks
-// split the array along the grid's second dimension), slot j's N words
-// side by side in a W-word slot (W = 2: a log's key and value, read back
-// as one 16-byte shared load a slot; W = 4: K15's segment start, next
-// start and aggregate and a word of padding, or K12's four membership
-// bounds, read back as one or two 16-byte loads), TILE slots a tile.  The
+// [0, n) of N <= W parallel arrays of type T (double, or float for K14's
+// and K15's float32 plans) into shared memory (a block's share when
+// ``step`` blocks split the array along the grid's second dimension), slot
+// j's N words side by side in a W-word slot (W = 1: K14's segment starts;
+// W = 2: a log's key and value, read back as one 16-byte shared load a
+// slot; W = 4: K15's segment start, next start and aggregate and a word of
+// padding, or K12's four membership bounds, read back as one or two
+// 16-byte loads), TILE slots a tile.  The
 // copies are asynchronous (cp.async, one word each) and double-buffered:
 // the copy of the block's next tile is in flight while its threads compare
 // against this one.  f(slot) runs on every staged slot in order (or
@@ -74,6 +75,10 @@ struct Slot;
 template <>
 struct Slot<double, 1> {
   using type = double;
+};
+template <>
+struct Slot<float, 1> {
+  using type = float;
 };
 template <>
 struct Slot<double, 2> {
@@ -252,6 +257,51 @@ __device__ __forceinline__ double rank_member(int j, int a, int b, double ly,
       : "=d"(v)
       : "r"(j), "r"(a), "r"(b), "d"(ly), "d"(uy), "d"(y), "d"(w));
   return v;
+}
+
+// K18's loop body (scan2d.cu) for one (rectangle, log slot) pair, in PTX:
+// c += 1 where a <= j < b && ly < y && y <= uy.  rank_member's two integer
+// and two f64 compares, each ANDing the one before in, and an increment
+// under their AND: the FP64 pipe does the two y compares only.  A count is
+// exact in any order, so nothing orders the increments but the counter.
+__device__ __forceinline__ void rank_count_step(int& c, int j, int a, int b,
+                                                double ly, double uy,
+                                                double y) {
+  asm("{\n\t.reg .pred p;\n\t"
+      "setp.ge.s32 p, %1, %2;\n\t"
+      "setp.lt.and.s32 p, %1, %3, p;\n\t"
+      "setp.lt.and.f64 p, %4, %6, p;\n\t"
+      "setp.le.and.f64 p, %6, %5, p;\n\t"
+      "@p add.s32 %0, %0, 1;\n\t}"
+      : "+r"(c)
+      : "r"(j), "r"(a), "r"(b), "d"(ly), "d"(uy), "d"(y));
+}
+
+// K18's loop body in groups (scan2d.cu): one rectangle against the G <= 32
+// consecutive log slots j0 .. j0 + G - 1 whose y are ``y[0 .. G)``.  The
+// rank test a <= j < b runs once for the group, as the mask of its slots
+// in [a, b) (a few integer operations; a = INT_MAX, b = 0 for an empty
+// range give an empty mask); each slot then costs its two y compares (in
+// PTX, the second ANDing the first in) and its bit set under their AND;
+// c += the popcount of the two masks' AND.
+template <int G>
+__device__ __forceinline__ void rank_count_group(int& c, int j0, int a, int b,
+                                                 double ly, double uy,
+                                                 const double* y) {
+  static_assert(G >= 1 && G <= 32, "a group's slots are bits of a word");
+  const int lo = min(max(a - j0, 0), G), hi = min(max(b - j0, 0), G);
+  const unsigned in =
+      (unsigned)(((1ull << hi) - 1ull) & ~((1ull << lo) - 1ull));
+  unsigned m = 0;
+#pragma unroll
+  for (int k = 0; k < G; ++k)
+    asm("{\n\t.reg .pred p;\n\t"
+        "setp.lt.f64 p, %2, %4;\n\t"
+        "setp.le.and.f64 p, %4, %3, p;\n\t"
+        "@p or.b32 %0, %0, %1;\n\t}"
+        : "+r"(m)
+        : "r"(1u << k), "d"(ly), "d"(uy), "d"(y[k]));
+  c += __popc(m & in);
 }
 
 // The combine of K17 and K20: the S chunk maxima of each query (rows of an

@@ -85,8 +85,9 @@ _SIGNATURES = {
     "polyfit_delta_sum2d_gather": (_P,) * 8 + (_I,) * 3 + (_P,),
     # u, v, kx, ylv, wpmax, out, Q, cap, levels, stream
     "polyfit_delta_dommax2d_gather": (_P,) * 6 + (_I,) * 3 + (_P,),
-    # lq, uq, seg_lo, seg_next, seg_hi, coeffs, out, Q, H, deg, stream
-    "polyfit_range_sum": (_P,) * 7 + (_I,) * 3 + (_P,),
+    # lq, uq, seg_lo, seg_next, seg_hi, coeffs, out, Q, H, deg, sentinel,
+    # stream
+    "polyfit_range_sum": (_P,) * 7 + (_I,) * 3 + (_D, _P),
     # lq, uq, seg_lo, seg_next, seg_hi, coeffs, seg_agg, out, cnt, part, Q,
     # H, deg, sentinel, stream; ``cnt`` a (2S, Q) int32 and ``part`` an
     # (S, Q) scratch, S = polyfit_range_max_chunks(H)
@@ -102,8 +103,8 @@ _SIGNATURES = {
     "polyfit_delta_max_chunks": (_I,),
     # q, seg_lo, seg_next, seg_hi, coeffs, out, Q, H, deg, stream
     "polyfit_poly_eval": (_P,) * 6 + (_I,) * 3 + (_P,),
-    # lx, ux, ly, uy, kx, ky, out, Q, D, stream
-    "polyfit_delta_count2d": (_P,) * 7 + (_I,) * 2 + (_P,),
+    # lx, ux, ly, uy, kx, ky, out, Q, D, sentinel, stream
+    "polyfit_delta_count2d": (_P,) * 7 + (_I,) * 2 + (_D, _P),
     # lx, ux, ly, uy, kx, ky, w, out, Q, D, sentinel, stream
     "polyfit_delta_sum2d": (_P,) * 8 + (_I,) * 2 + (_D, _P),
     # u, v, kx, ky, w, out, part, Q, D, sentinel, stream; ``part`` an
@@ -242,6 +243,6 @@ def stream(device: torch.device) -> int:
 
 def sentinel(dtype: torch.dtype) -> float:
     """The padding value of a plan's tables at ``dtype`` (finfo.max / 4,
-    ``engine.plan.big_sentinel``): the whole-table scans K12, K13 and K15
-    stop at the first tile that starts on it."""
+    ``engine.plan.big_sentinel``): the whole-table scans K12-K15 stop at
+    the first tile that starts on it."""
     return float(torch.finfo(dtype).max) / 4

@@ -32,10 +32,11 @@ The ``cuda_scan`` backend's twins scan the whole log instead, as
   [lq, uq], -inf when none does (it stops at the log's sentinel tail, and
   a range that holds the sentinel takes the tail's 0 back in);
 * ``delta_count2d`` (K18) — the number of logged points in (lx, ux] x
-  (ly, uy], a membership test against every slot of the point log;
+  (ly, uy] (it tests only the slots of the rectangle's x range, ranked by
+  two binary searches of the x-sorted log, stops at its sentinel tail and
+  counts the tail's slots without a walk);
 * ``delta_sum2d`` (K19) — the sum of their measures, added in slot order
-  (it tests only the slots of the rectangle's x range, ranked by two
-  binary searches of the x-sorted log, and stops at its sentinel tail);
+  (the same x ranks, and the same stop);
 * ``delta_dommax2d`` (K20) — the max measure of the logged points with
   x <= u and y <= v, -inf when none is dominated (it stops at the log's
   sentinel tail, and a corner that dominates the sentinel takes the tail's
@@ -150,7 +151,7 @@ delta_max_gather.launches = 0
 # ---------------------------------------------------------------------------
 
 #: the padding key of a float64 log (``engine.plan.big_sentinel``), where
-#: K16, K17 and K20 stop
+#: K16-K20 stop
 _SENTINEL = float(torch.finfo(torch.float64).max) / 4
 
 
@@ -395,25 +396,27 @@ def _scan2d_args(name, queries, logs):
     return Q, D, out, [t.data_ptr() for t in (*queries, *logs, out)]
 
 
-def _scan2d_launch(name, queries, logs):
-    """Launch K18 (``polyfit_<name>``, which takes no sentinel) on
-    validated arguments."""
-    Q, D, out, ptrs = _scan2d_args(name, queries, logs)
-    if Q:
-        _build.check(getattr(_build.library(), f"polyfit_{name}")(
-            *ptrs, Q, D, _build.stream(out.device)), name)
-    return out
-
-
 def delta_count2d(lx, ux, ly, uy, keys_x, keys_y):
-    """(Q,) f64 exact count of buffered points in (lx, ux] x (ly, uy] by a
-    membership test against every slot of the log: K18 on CUDA tensors,
-    the plain version on CPU tensors.  ``delta_count2d.launches`` counts
-    the kernel launches."""
+    """(Q,) f64 exact count of buffered points in (lx, ux] x (ly, uy]: K18
+    on CUDA tensors, the plain version on CPU tensors.
+    ``delta_count2d.launches`` counts the kernel launches.
+
+    K18 takes the ``DeltaBuffer2D`` layout as given: the log sorted by x
+    (NaN last), and from the first ``big_sentinel`` x on every slot holds
+    (sentinel, sentinel, 0).  It ranks each rectangle's x range by two
+    binary searches, a = #(x <= lx) and b = #(x <= ux), so the slots it
+    tests are [a, b) only, and it stops at the sentinel tail, whose slots
+    it adds to each rectangle that holds the point (sentinel, sentinel),
+    as the plain version, which tests every slot of any log, counts
+    them."""
     if lx.device.type == "cpu":
         return delta_count2d_plain(lx, ux, ly, uy, keys_x, keys_y)
-    out = _scan2d_launch("delta_count2d", (lx, ux, ly, uy), (keys_x, keys_y))
-    if lx.shape[0]:
+    Q, D, out, ptrs = _scan2d_args("delta_count2d", (lx, ux, ly, uy),
+                                   (keys_x, keys_y))
+    if Q:
+        _build.check(_build.library().polyfit_delta_count2d(
+            *ptrs, Q, D, _SENTINEL, _build.stream(out.device)),
+            "delta_count2d")
         delta_count2d.launches += 1
     return out
 

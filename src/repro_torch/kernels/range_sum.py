@@ -12,7 +12,8 @@ scaled coordinate; they differ in how they find the segment:
   against every segment, O(H) a query.  At most one segment holds a
   clamped query, so the reference's one-hot matmul reads one row: the
   scan keeps the first segment that holds the query, and a zero row where
-  none does.
+  none does (``segment_rows``; the kernel counts #(seg_lo <= q) against
+  every live segment instead, whose last is the row on a plan's table).
 
 Both read the same rows, so on in-domain queries they agree bit for bit.
 ``*_plain`` are the plain torch versions, in the kernels' order of
@@ -108,7 +109,16 @@ def range_sum_plain(lq, uq, seg_lo, seg_next, seg_hi, coeffs):
 def range_sum(lq, uq, seg_lo, seg_next, seg_hi, coeffs):
     """(Q,) approximate SUM over (lq, uq] by one-hot membership against a
     (sentinel-padded) segment table: K14 on CUDA tensors, the plain version
-    on CPU tensors.  ``range_sum.launches`` counts the kernel launches."""
+    on CPU tensors.  ``range_sum.launches`` counts the kernel launches.
+
+    K14 takes a plan's layout as given (``engine.plan.build_plan``):
+    ``seg_lo`` non-decreasing and below the sentinel but for the padded
+    tail, ``seg_next[j] == seg_lo[j + 1]`` with the sentinel last, no NaN.
+    It counts #(seg_lo <= q) for each endpoint, stops at the first tile of
+    the table that starts on the sentinel, and takes the last segment with
+    seg_lo <= q where q lies below its next start: on that layout the
+    one-hot first hit.  The plain version tests membership against every
+    entry of any table."""
     if lq.device.type == "cpu":
         return range_sum_plain(lq, uq, seg_lo, seg_next, seg_hi, coeffs)
     dtype = _build.float_dtype("range_sum", coeffs)
@@ -126,7 +136,7 @@ def range_sum(lq, uq, seg_lo, seg_next, seg_hi, coeffs):
             lq.data_ptr(), uq.data_ptr(), seg_lo.data_ptr(),
             seg_next.data_ptr(), seg_hi.data_ptr(), coeffs.data_ptr(),
             out.data_ptr(), Q, H, coeffs.shape[1] - 1,
-            _build.stream(lq.device)), "range_sum")
+            _build.sentinel(dtype), _build.stream(lq.device)), "range_sum")
         range_sum.launches += 1
     return out
 

@@ -18,15 +18,18 @@ layout, K4's scan mode at ragged target counts, K15 (float64 and float32)
 and K12 and K13 at ragged query counts and table lengths on tables in a
 plan's layout (K15 on NaN lanes, an inverted range and every segment
 boundary, K12 and K13 on corners on every split line, K13 also past the
-root, on NaN corners and at every degree), and two launches of each equal
-bit for bit.  K1 equals
+root, on NaN corners and at every degree), K14 (float64 and float32) on
+NaN, infinite, sentinel, below-the-table and inverted lanes and every
+segment start at ragged range counts, and two launches of each equal bit
+for bit.  K1 equals
 its plain version on keys of 1 to 5,000 entries either side of its
 search tree's leaf, node and level sizes, with the plans' tree and
 without one.  The
-two-key scans K18 (buffered COUNT), K19 (buffered SUM, added in slot
-order as its plain version adds; also on the edge lanes of its x ranks,
-logs with a NaN or an infinite x, -0.0, NaN and infinite measures, a log
-of several staging rounds and ragged rectangle counts) and K20 (buffered
+two-key scans K18 (buffered COUNT) and K19 (buffered SUM, added in slot
+order as its plain version adds; both also on the edge lanes of their x
+ranks, logs with a NaN or an infinite x, -0.0, NaN and infinite measures
+and a log of several staging rounds, K19 at ragged rectangle counts) and
+K20 (buffered
 dominance MAX) equal their plain versions exactly (K20 also on negative
 measures, NaN measures in some tiles and the corners that reach the
 sentinel tail, on logs of one to several tiles a chunk), and a
@@ -1084,20 +1087,64 @@ def test_dynamic2d_cuda_backend_matches_torch_backend(cuda, agg):
 # the 'cuda_scan' backend: K14-K17 and K4's scan mode
 # ---------------------------------------------------------------------------
 
+def _k14_edge_lanes(seg_lo, seg_next):
+    """The edge lanes of a segment table: NaN, +-inf, at and above the
+    sentinel, below the table and its low end, then every start, just below
+    every next start, and the same keys paired the other way round (some
+    ranges inverted)."""
+    big = big_sentinel(seg_lo.dtype)
+    h = int((seg_lo < big).sum())
+    lo, nx = seg_lo[:h].cpu().numpy(), seg_next[:h].cpu().numpy()
+    dt = lo.dtype
+    up = np.nextafter(np.array(big, dtype=dt), np.array(np.inf, dtype=dt))
+    special = np.array([np.nan, np.inf, -np.inf, big, up, lo[0] - 1.0,
+                        lo[0]], dtype=dt)
+    a = np.concatenate([special, lo,
+                        np.nextafter(nx, np.array(-np.inf, dtype=dt))])
+    b = np.random.default_rng(h).permutation(a)
+    to = lambda v: torch.as_tensor(v, device=seg_lo.device)
+    return (to(np.concatenate([a, special[::-1], a])),
+            to(np.concatenate([b, special, a[::-1]])))
+
+
+@pytest.mark.parametrize("dt", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("Q", [1, 255, None], ids=["1", "255", "all"])
 @pytest.mark.parametrize("deg", [1, 2, 3])
-def test_range_sum_scan_kernel_matches_plain(plans, queries, deg):
-    """K14 equals its plain version and K2 in every lane: it reads the very
-    rows K2 locates."""
-    p = plans[1]["sum", deg]
-    args = (*queries, p.seg_lo, p.seg_next, p.seg_hi, p.coeffs)
+def test_range_sum_scan_kernel_matches_plain(plans, queries, ops_tables, deg,
+                                             Q, dt):
+    """K14 (the count walk over seg_lo up to the sentinel tail, boundary
+    rows, Horner) equals its plain version in every lane, NaN equal, and K2
+    in every lane where the two plain versions agree, which is every range
+    clamped into the domain (it reads the very rows K2 locates); on the
+    engine's SUM plans at float64 and ``ops`` SUM tables at float32, at 1,
+    255 and 70,000 and more ranges, the edge lanes first (NaN, +-inf, at
+    and above the sentinel, below the table, every start, just below every
+    next start, inverted ranges); one launch a call."""
+    if dt == torch.float64:
+        p, (lq, uq) = plans[1]["sum", deg], queries
+    else:
+        keys, _, tabs = ops_tables
+        p = tabs["sum", deg, dt]
+        lq, uq = _ops_queries(p.seg_lo.device, keys, dt)
+    el, eu = _k14_edge_lanes(p.seg_lo, p.seg_next)
+    edge = el.shape[0]
+    lq, uq = (torch.cat([e, q])[:Q] for e, q in ((el, lq), (eu, uq)))
+    table = (p.seg_lo, p.seg_next, p.seg_hi, p.coeffs)
     before = ksum.range_sum.launches
-    got = ksum.range_sum(*args)
+    got = ksum.range_sum(lq, uq, *table)
     torch.cuda.synchronize()
     assert ksum.range_sum.launches == before + 1
-    torch.testing.assert_close(got, ksum.range_sum_plain(*args), rtol=0,
-                               atol=0)
-    torch.testing.assert_close(got, ksum.range_sum_gather(
-        *queries, p.seg_lo, p.seg_hi, p.coeffs), rtol=0, atol=0)
+    assert got.shape == lq.shape and got.dtype == dt
+    want = ksum.range_sum_plain(lq, uq, *table)
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+    k2 = ksum.range_sum_gather(lq, uq, p.seg_lo, p.seg_hi, p.coeffs)
+    k2_plain = ksum.range_sum_gather_plain(lq, uq, p.seg_lo, p.seg_hi,
+                                           p.coeffs)
+    agree = (want == k2_plain) | (torch.isnan(want) & torch.isnan(k2_plain))
+    assert agree[edge:].all()
+    torch.testing.assert_close(got[agree], k2[agree], rtol=0, atol=0,
+                               equal_nan=True)
 
 
 @pytest.mark.parametrize("agg,deg", [("max", 1), ("max", 2), ("max", 3),
@@ -1503,28 +1550,35 @@ def _k19_rects(kx, n):
             for j, q in enumerate((lx, ux, ly, uy))]
 
 
+@pytest.mark.parametrize("agg", ["count", "sum"])
 @pytest.mark.parametrize("fill,kind,cap", [
     (0, "insert", CAP), (1, "insert", CAP), (1023, "insert", CAP),
     (1024, "delete", CAP), (1025, "insert", CAP), (3072, "delete", CAP),
     (3072, "nan_tail", CAP), (CAP, "insert", CAP), (CAP, "delete", CAP),
     (CAP, "full_nan", CAP), (CAP, "full_inf", CAP),
     (9000, "delete", 4 * CAP)])
-def test_delta_sum2d_kernel_rank_lanes(cuda, fill, kind, cap):
+def test_delta_sum2d_kernel_rank_lanes(cuda, fill, kind, cap, agg):
     """K19 (ranks, the sentinel tail cut, buckets, warp unions, the log's
     (y, w) staged 4,096 slots at a time) equals its plain version in every
-    lane, signed zeros included, NaN where it is NaN, on insert and delete
-    logs of 0 to 4,096 points and on a 16,384-slot log of 9,000 (several
-    stages), on logs with a NaN x after the tail or at the end of a full
-    log and a full log that ends on +inf, on ties at either x end, NaN,
-    inverted, infinite, signed-zero and sentinel bounds, and on -0.0, NaN
-    and +-inf measures; one launch a call."""
+    lane, signed zeros included, NaN where it is NaN, and K18 (the same
+    ranks against chunks of the live log, y staged alone, int32 counts,
+    the tail's slots counted without a walk) equals its plain version
+    exactly, on insert and delete logs of 0 to 4,096 points and on a
+    16,384-slot log of 9,000 (several stages), on logs with a NaN x after
+    the tail or at the end of a full log and a full log that ends on +inf,
+    on ties at either x end, NaN, inverted, infinite, signed-zero and
+    sentinel bounds, and on -0.0, NaN and +-inf measures; one launch a
+    call."""
     kx, ky, w = _k19_log(cuda, fill, kind, cap)
     q = _k19_rects(kx, 70_000)
-    before = kdelta.delta_sum2d.launches
-    got = kdelta.delta_sum2d(*q, kx, ky, w)
+    log = (kx, ky, w) if agg == "sum" else (kx, ky)
+    kernel = kdelta.delta_sum2d if agg == "sum" else kdelta.delta_count2d
+    plain = getattr(kdelta, kernel.__name__ + "_plain")
+    before = kernel.launches
+    got = kernel(*q, *log)
     torch.cuda.synchronize()
-    assert kdelta.delta_sum2d.launches == before + 1
-    _same(got, kdelta.delta_sum2d_plain(*q, kx, ky, w))
+    assert kernel.launches == before + 1
+    _same(got, plain(*q, *log))
 
 
 @pytest.mark.parametrize("Q", [1, 255, 257, 65_537])

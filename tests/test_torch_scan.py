@@ -15,6 +15,13 @@ the CPU, where its kernels run as their plain versions.
   a COUNT log (integer measures: every order of summation is exact) and
   within 1e-12 x sum |v| of the lane on a SUM log (the one-hot product may
   add the members in another order than the Pallas tiles).
+* A torch transcription of K14's count walk (seg_lo's tiles up to the
+  sentinel tail, #(seg_lo <= q) for each endpoint, the row found from the
+  count, Horner) equals the plain K14 bit for bit, and finds the one-hot
+  rows, on the reference's SUM plans at deg 1-3 (one with two equal
+  starts), float32 tables (one whose starts round to one float) and
+  synthetic tables whose tail starts mid-tile, on a tile edge or nowhere,
+  on NaN, infinite, sentinel, below-the-table and inverted lanes.
 * Every log the port hands K16 (the append with ties, a dynamic table's
   insert and delete logs before and after a merge, a window's open epoch
   after ingests and a seal) is sorted with a sentinel tail of value 0, the
@@ -57,7 +64,8 @@ from repro.kernels.range_max import range_max_pallas  # noqa: E402
 from repro.kernels.range_sum import range_sum_pallas  # noqa: E402
 from repro_torch.core import build_index_1d as t_build_1d  # noqa: E402
 from repro_torch.core import index_from_numpy, rank_slack  # noqa: E402
-from repro_torch.core.poly import clipped_poly_max  # noqa: E402
+from repro_torch.core.poly import (clipped_poly_max, horner,  # noqa: E402
+                                   scale_unit)
 from repro_torch.engine import (BACKENDS, DynamicEngine,  # noqa: E402
                                 Engine, WindowEngine, big_sentinel, execute,
                                 execute_quantile)
@@ -644,6 +652,130 @@ def test_port_plans_keep_the_segment_layout(tables, ops, card_route,
     np.testing.assert_array_equal(il, rows[0])
     ok = ~(lq > uq)
     np.testing.assert_array_equal(iu[ok], rows[1][ok])
+
+
+# K14's walk (csrc/scan1d.cu range_sum_scan_kernel): kRangeTile segment
+# starts a tile
+K14_TILE = 128
+
+
+def _k14_count_walk(lq, uq, seg_lo, seg_next, seg_hi, coeffs):
+    """K14's formulation in torch: the tiles of seg_lo walked up to the
+    first that starts on the sentinel, #(seg_lo <= q) counted over the
+    walked starts for each endpoint, its row the segment c - 1 where
+    q < seg_next[c - 1] (boundary_row; a zero row where none), then Horner
+    at the scaled coordinate, P(uq) - P(lq).  Returns the answers, the
+    starts walked and the two endpoints' rows."""
+    big = big_sentinel(seg_lo.dtype)
+    H = seg_lo.shape[0]
+    walked = next((t for t in range(0, H, K14_TILE) if seg_lo[t] == big), H)
+    vals, rows = [], []
+    for q in (lq, uq):
+        c = (seg_lo[None, :walked] <= q[:, None]).sum(dim=1)
+        hit = (c > 0) & (q < seg_next[(c - 1).clamp(min=0)])
+        rows.append(torch.where(hit, c - 1, -1))
+        cf, lo, hi = gather_rows(rows[-1], coeffs, seg_lo, seg_hi)
+        vals.append(horner(cf, scale_unit(q, lo, hi)))
+    return vals[1] - vals[0], walked, rows
+
+
+def _segment_table(live, n, dt, seed=0):
+    """A segment table in a plan's layout with ``live`` segments in ``n``
+    slots at type ``dt``: starts sorted from 0 (two equal ones, a segment
+    that holds nothing, where there are more than 8), seg_next the next
+    start and the sentinel last, random cubic rows.  (seg_lo, seg_next,
+    seg_hi, coeffs)."""
+    rng = np.random.default_rng(seed + live)
+    big = big_sentinel(dt)
+    lo = np.sort(rng.uniform(0, 1000, live))
+    lo[0] = 0.0
+    if live > 8:
+        lo[4] = lo[5]
+    nx = np.append(lo[1:], big)
+    hi = np.append(lo[:-1] + 0.9 * (lo[1:] - lo[:-1]), 1000.0)
+    pad = lambda a, v: torch.as_tensor(
+        np.concatenate([a, np.full((n - live, *a.shape[1:]), v)]), dtype=dt)
+    return (pad(lo, big), pad(nx, big), pad(hi, big),
+            pad(rng.normal(0, 1, (live, 4)), 0.0))
+
+
+def _k14_table(source, plans, tables):
+    """(seg_lo, seg_next, seg_hi, coeffs) of the table ``source`` names:
+    the reference's SUM plans at deg 1-3 carried into the port, the deg-3
+    one with two equal starts, a float32 ``kernels.ops`` SUM table, the
+    float32 table whose starts round to one float, or a synthetic table of
+    (live, slots) at float64 or float32."""
+    if source.startswith("sum"):
+        p = port_plan(plans[1]["sum", int(source[3])])
+        lo, nx = p.seg_lo.clone(), p.seg_next.clone()
+        if source.endswith("ties"):
+            assert p.h > 8
+            lo[4] = lo[5]
+            nx[3] = lo[4]
+        return lo, nx, p.seg_hi, p.coeffs
+    if source.startswith("ops_f32"):
+        if source == "ops_f32":
+            p = kops.from_index(index_from_numpy(
+                _fields(tables[1]["sum"][0]), "cpu"))
+        else:
+            p = _layout_plans(source, tables, None)
+        assert p.seg_lo.dtype == torch.float32
+        return p.seg_lo, p.seg_next, p.seg_hi, p.coeffs
+    _, live, n, dt = source.split("_")
+    return _segment_table(int(live), int(n), getattr(torch, dt))
+
+
+def _k14_lanes(seg_lo, seg_next, seed=0):
+    """Ranges over a table: every start, just below every next start, the
+    table's low end and below it, NaN, +-inf, the sentinel and above it,
+    random keys over the domain; paired both ways (some inverted)."""
+    big = big_sentinel(seg_lo.dtype)
+    h = int((seg_lo < big).sum())
+    lo, nx = seg_lo.numpy()[:h], seg_next.numpy()[:h]
+    dt = lo.dtype
+    below = np.nextafter(nx, np.array(-np.inf, dtype=dt))
+    rng = np.random.default_rng(seed)
+    span = float(lo[-1] - lo[0]) + 1.0
+    special = np.array([np.nan, np.inf, -np.inf, big,
+                        np.nextafter(np.array(big, dtype=dt),
+                                     np.array(np.inf, dtype=dt)),
+                        float(lo[0]) - 1.0, lo[0]], dtype=dt)
+    rand = rng.uniform(lo[0] - 0.05 * span, lo[-1] + 0.05 * span, 200)
+    a = np.concatenate([lo, below, special, rand.astype(dt)])
+    b = rng.permutation(a)
+    lq = np.concatenate([a, np.minimum(a, b)])
+    uq = np.concatenate([b, np.maximum(a, b)])
+    return torch.as_tensor(lq), torch.as_tensor(uq)
+
+
+@pytest.mark.parametrize("source", ["sum1", "sum2", "sum3", "sum3_ties",
+                                    "ops_f32", "ops_f32_ties",
+                                    "grid_1_512_float64",
+                                    "grid_128_256_float64",
+                                    "grid_200_512_float64",
+                                    "grid_300_300_float64",
+                                    "grid_700_1024_float32"])
+def test_range_sum_count_walk_matches_plain(plans, tables, source):
+    """K14's count walk (the starts' tiles up to the sentinel tail, the two
+    counts, boundary_row, Horner) equals the plain K14 (one-hot first hit
+    over every entry) bit for bit, and finds the very rows the one-hot
+    membership finds, on the reference's SUM plans at deg 1-3, a float32
+    ops table, float32 starts that round to one float, two equal starts,
+    and tables whose tail starts mid-tile, on a tile edge or not at all;
+    on every start, just below every next start, below the table, NaN,
+    +-inf, at and above the sentinel, and inverted ranges."""
+    table = _k14_table(source, plans, tables)
+    lq, uq = _k14_lanes(*table[:2])
+    assert lq.dtype == table[0].dtype
+    got, walked, rows = _k14_count_walk(lq, uq, *table)
+    want = ksum.range_sum_plain(lq, uq, *table)
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+    for q, r in zip((lq, uq), rows):
+        assert torch.equal(r, ksum.segment_rows(q, *table[:2]))
+    h = int((table[0] < big_sentinel(table[0].dtype)).sum())
+    assert walked == min(table[0].shape[0], -(-h // K14_TILE) * K14_TILE)
+    if source.endswith("ties"):
+        assert (table[0][1:h] == table[0][:h - 1]).any()
 
 
 @pytest.mark.parametrize("agg", AGGS)

@@ -21,7 +21,9 @@ versions.
   at the sentinel tail, the block's rectangles bucketed by a, each warp
   walking the union of its ranges) equals the plain K19, which tests every
   slot's x, bit for bit on insert and delete logs of 0 to 4,096 points and
-  on the edge lanes of the ranks.
+  on the edge lanes of the ranks; K18's (the same walk, each warp's union
+  in two parts, the tail's sentinel slots counted without a walk) equals
+  the plain K18 on the same logs and lanes.
 * A torch transcription of K13's walk (the leaf table in chunks of tiles
   that stop at its sentinel tail, any hit kept, the lowest leaf over the
   chunks, then the row) equals the plain K13 bit for bit on the port's
@@ -320,46 +322,85 @@ def test_delta_dommax2d_tail_fold_matches_plain(fill, cap, with_nan):
                                rtol=0, atol=0, equal_nan=True)
 
 
-# K19's walk (csrc/scan2d.cu delta_sum2d_kernel): blocks of kSumThreads x
-# kSumQueries rectangles bucketed into kRankBuckets by their first slot
+# K18's and K19's walk (csrc/scan2d.cu rank_rects, delta_count2d_kernel,
+# delta_sum2d_kernel): blocks of 256 rectangles bucketed into kRankBuckets
+# by their first slot; K18 splits each warp's union between 2 warps
 K19_BLOCK, K19_BUCKETS, WARP = 256, 128, 32
+K18_SPLIT = 2
 
 
-def _k19_walk(lx, ux, ly, uy, kx, ky, w, block=K19_BLOCK):
-    """K19's formulation in torch: each rectangle's x range ranked to slots
-    [a, b) (a = #(x <= lx), none for a NaN lx; b = #(x <= ux)) and cut at
-    the log's sentinel tail (the first slot whose x is the sentinel, when
-    there is one); each block of ``block`` rectangles bucketed by a, each
-    warp of 32 consecutive ones walking the union of their ranges, a member
-    (a <= j < b and ly < y <= uy) adding its measure in slot order."""
+def _log_tail(kx):
+    """The slot where the log's sentinel tail starts: the first slot whose
+    x is the sentinel, when there is one, else the log's size."""
     big = big_sentinel(torch.float64)
-    D, Q = kx.shape[0], lx.shape[0]
+    D = kx.shape[0]
     tail = int((kx < big).sum())
-    if tail < D and not kx[tail] == big:
-        tail = D
+    return tail if tail < D and kx[tail] == big else D
+
+
+def _rank_walk(lx, ux, kx, c1, split=1, block=K19_BLOCK):
+    """The rank prologue and the walk of K18 and K19 in torch: each
+    rectangle's x range ranked to slots [a, b) (a = #(x <= lx), none for a
+    NaN lx; b = #(x <= ux)) and cut at slot c1; each block of ``block``
+    rectangles bucketed by a, each warp of 32 consecutive ones walking the
+    union of their ranges in ``split`` consecutive parts.  Each part's
+    (Q, D) mask of the slots a rectangle walks there and finds in its own
+    range, and the ranges' widths."""
+    D, Q = kx.shape[0], lx.shape[0]
     a = (kx[None, :] <= lx[:, None]).sum(dim=1)
     a = torch.where(torch.isnan(lx), D, a)
-    b = torch.clamp((kx[None, :] <= ux[:, None]).sum(dim=1), max=tail)
+    b = torch.clamp((kx[None, :] <= ux[:, None]).sum(dim=1), max=c1)
     empty = a >= b
-    span = max(tail, 1)
-    shift = max(0, span.bit_length() - 7)
+    shift = max(0, max(c1, 1).bit_length() - 7)
     key = torch.where(empty, K19_BUCKETS - 1,
                       torch.clamp(a >> shift, max=K19_BUCKETS - 2))
     lo = torch.where(empty, D, a)
     hi = torch.where(empty, 0, b)
-    union = torch.zeros((Q, D), dtype=torch.bool)
+    parts = torch.zeros((split, Q, D), dtype=torch.bool)
     j = torch.arange(D)
     for b0 in range(0, Q, block):
         order = b0 + torch.argsort(key[b0:b0 + block], stable=True)
         for w0 in range(0, order.shape[0], WARP):
             g = order[w0:w0 + WARP]
-            union[g] = (j >= lo[g].min()) & (j < hi[g].max())
-    member = (union & (j >= a[:, None]) & (j < b[:, None])
-              & (ly[:, None] < ky[None, :]) & (ky[None, :] <= uy[:, None]))
-    acc = torch.zeros(Q, dtype=w.dtype)
-    for k in range(D):
+            w_lo, w_hi = int(lo[g].min()), int(hi[g].max())
+            n = max(w_hi - w_lo, 0)
+            for h in range(split):
+                parts[h, g] = ((j >= w_lo + n * h // split)
+                               & (j < w_lo + n * (h + 1) // split))
+    in_range = (j >= a[:, None]) & (j < b[:, None])
+    return [p & in_range for p in parts], (b - a).clamp(min=0)
+
+
+def _in_y(ly, uy, ky):
+    return (ly[:, None] < ky[None, :]) & (ky[None, :] <= uy[:, None])
+
+
+def _k19_walk(lx, ux, ly, uy, kx, ky, w):
+    """K19's formulation in torch: the rank walk over the live log [0,
+    tail), a member (a <= j < b and ly < y <= uy) adding its measure in
+    slot order."""
+    (walked,), width = _rank_walk(lx, ux, kx, _log_tail(kx))
+    member = walked & _in_y(ly, uy, ky)
+    acc = torch.zeros(lx.shape[0], dtype=w.dtype)
+    for k in range(kx.shape[0]):
         acc = torch.where(member[:, k], acc + w[k], acc)
-    return acc, (b - a).clamp(min=0)
+    return acc, width
+
+
+def _k18_walk(lx, ux, ly, uy, kx, ky):
+    """K18's formulation in torch: the rank walk over the live log [0,
+    tail), each warp's union in K18_SPLIT parts whose members (a <= j < b
+    and ly < y <= uy) are counted and the counts added; the tail's slots
+    with x the sentinel (whose y is the sentinel) added to each rectangle
+    that holds the point (sentinel, sentinel)."""
+    big = big_sentinel(torch.float64)
+    D, tail = kx.shape[0], _log_tail(kx)
+    parts, width = _rank_walk(lx, ux, kx, tail, split=K18_SPLIT)
+    cnt = sum((p & _in_y(ly, uy, ky)).sum(dim=1) for p in parts)
+    n_tail = int((kx <= big).sum()) - tail if tail < D else 0
+    holds = (lx < big) & (big <= ux) & (ly < big) & (big <= uy)
+    cnt += torch.where(holds, n_tail, 0)
+    return cnt.to(torch.float64), width
 
 
 def _k19_log(fill, seed, kind):
@@ -418,35 +459,47 @@ def _k19_rects(kx, seed, n=300):
             for j, q in enumerate((lx, ux, ly, uy))]
 
 
+@pytest.mark.parametrize("agg", ["count", "sum"])
 @pytest.mark.parametrize("fill,kind", [(0, "insert"), (1, "insert"),
                                        (1023, "insert"), (1024, "delete"),
                                        (1025, "insert"), (3072, "delete"),
                                        (3072, "nan_tail"), (4096, "insert"),
                                        (4096, "delete"), (4096, "full_nan"),
                                        (4096, "full_inf")])
-def test_delta_sum2d_rank_walk_matches_plain(fill, kind):
+def test_delta_sum2d_rank_walk_matches_plain(fill, kind, agg):
     """K19's walk (ranks, the sentinel tail cut, buckets and warp unions)
-    equals the plain K19, which tests every slot's x, bit for bit on insert
-    and delete logs of 0 to 4,096 points, logs with a NaN x after the tail
-    or at the end of a full log, a full log that ends on +inf, rectangles
-    with ties at either x end, NaN, inverted, infinite, signed-zero and
-    sentinel bounds, and -0.0, NaN and +-inf measures."""
+    equals the plain K19, which tests every slot's x, bit for bit, and
+    K18's (the same walk, each warp's union in two parts whose counts are
+    added, the tail's slots counted without a walk) equals the plain K18
+    exactly, on
+    insert and delete logs of 0 to 4,096 points, logs with a NaN x after
+    the tail or at the end of a full log, a full log that ends on +inf,
+    rectangles with ties at either x end, NaN, inverted, infinite,
+    signed-zero and sentinel bounds, and -0.0, NaN and +-inf measures."""
     kx, ky, w = _k19_log(fill, seed=fill + 3, kind=kind)
     q = _k19_rects(kx, seed=fill)
-    got, width = _k19_walk(*q, kx, ky, w)
-    want = kd.delta_sum2d_plain(*q, kx, ky, w)
+    if agg == "sum":
+        got, width = _k19_walk(*q, kx, ky, w)
+        want = kd.delta_sum2d_plain(*q, kx, ky, w)
+    else:
+        got, width = _k18_walk(*q, kx, ky)
+        want = kd.delta_count2d_plain(*q, kx, ky)
     assert torch.equal(got.view(torch.int64), want.view(torch.int64))
     assert (width > 0).any() if fill > 1 else True
     # (-inf, inf] takes a full log's infinite x in, never its NaN x
     if kind in ("full_nan", "full_inf"):
         assert int(width[-11]) == (4096 if kind == "full_inf" else 4095)
+    if agg == "count" and fill < 4096:
+        # (-inf, inf]^2 and (-1, sentinel]^2 count the padding too
+        assert float(want[-11]) == 4096 - (kind == "nan_tail")
+        assert float(want[-5]) == float(want[-11])
 
 
 def test_delta_2d_scan_wrappers_check_shapes():
     q = torch.zeros(8, dtype=torch.float64)
     s = torch.full((CAP,), big_sentinel(torch.float64), dtype=torch.float64)
     with pytest.raises(ValueError, match="CUDA device"):
-        kd._scan2d_launch("delta_count2d", (q, q, q, q), (s, s))
+        kd._scan2d_args("delta_count2d", (q, q, q, q), (s, s))
     out = kd.delta_count2d(q, q, q, q, s, s)
     assert out.shape == (8,) and not out.any()
     assert torch.isneginf(kd.delta_dommax2d(q, q, s, s, s * 0)).all()

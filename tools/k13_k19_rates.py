@@ -291,7 +291,7 @@ def main() -> None:
         print(f"K19 {tag}, shipped, one rectangle of the {NQ} over the whole "
               f"plane: {ms!r} ms", flush=True)
         ms = timed_ms(lambda: kdel.delta_count2d(*q, x, y))
-        print(f"K18 {tag} (unchanged): {ms!r} ms", flush=True)
+        print(f"K18 {tag}: {ms!r} ms", flush=True)
 
     resources(k13_path, "k13_old|corner_eval2d")
     resources(k19_path, "k19_old|delta_sum2d")
