@@ -23,8 +23,8 @@ Phases, each of which fails the run with a non-zero exit:
               np.quantile method for COUNT, the weighted convention for
               SUM) and hold its answer; the counters must show K4;
 6. parity   - each kernel against its plain version on the card, on the
-              plans and queries of phases 4 and 5 (K1 exactly, K2-K4 to
-              1e-9);
+              plans and queries of phases 4 and 5 (K1 and K3 exactly, K2
+              and K4 to 1e-9);
 7. timing   - device time of each kernel, its plain version and the
               one-call library yardstick where there is one (CUDA-event
               timed replays of a CUDA graph of the calls, so host dispatch
@@ -187,6 +187,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -732,6 +733,96 @@ def k7_loads(torch, args):
     return float(old), float(new)
 
 
+def k11_loads(torch, args):
+    """Mean loads a corner of K11 on one argument set, computed on the card
+    from its x-ranks: as it was (the x-rank's rounds, every level's l + 1
+    probes and a prefix-max load a level) and as it is (the x-rank's
+    rounds, l + 1 for each set bit l of the x-rank, and a prefix-max load
+    for each taken block that holds a y at or below the corner's: its
+    first, smallest y)."""
+    u, v, kx, ylv = args[:4]
+    cap = kx.shape[0]
+    levels = cap.bit_length()
+    old = mst_probes(cap) + levels
+    i = torch.searchsorted(kx, u, right=True)
+    new = torch.full_like(u, float(probe_rounds(cap)))
+    for lv in range(levels):
+        take = ((i >> lv) & 1) == 1
+        pos = (i & ~((2 << lv) - 1)).clamp(max=cap - 1)
+        hit = take & (ylv[lv][pos] <= v)
+        new += take.double() * (lv + 1) + hit.double()
+    return float(old), float(new.mean())
+
+
+# instructions of the FP64 pipe in SASS (a compare, a min/max, a fused or
+# plain multiply or add, and the seeds of a division and a square root)
+FP64_PIPE = ("DFMA", "DMUL", "DADD", "DSETP", "DSET", "DMNMX", "MUFU.RCP64H",
+             "MUFU.RSQ64H")
+
+
+def sass_fp64(sass: str, pattern: str):
+    """FP64-pipe instructions of the first kernel in ``sass`` (``cuobjdump
+    -sass``) whose mangled name matches ``pattern``, up to its first
+    unpredicated EXIT (after it come the out-of-line slow paths of the
+    divisions and square roots): (outside loops, inside loops, DSETP
+    inside loops).  A loop is the span from a backward branch's target to
+    the branch."""
+    for block in sass.split("Function : ")[1:]:
+        if not re.search(pattern, block.split()[0]):
+            continue
+        labels, code = {}, []
+        for line in block.splitlines():
+            m = re.match(r"\s*(\.L_x_\d+):", line)
+            if m:
+                labels[m.group(1)] = len(code)
+                continue
+            m = re.match(r"\s*/\*([0-9a-f]+)\*/\s+(@!?U?P\w+\s+)?"
+                         r"([A-Z0-9_.]+)([^;]*)", line)
+            if m:
+                code.append((int(m.group(1), 16), m.group(2), m.group(3),
+                             m.group(4)))
+        addr = {a: k for k, (a, *_rest) in enumerate(code)}
+        end = next((k for k, (_, pred, op, _) in enumerate(code)
+                    if op == "EXIT" and not pred), len(code))
+        looped = [False] * len(code)
+        for k, (_, _, op, rest) in enumerate(code[:end]):
+            if not op.startswith("BRA"):
+                continue
+            m = re.search(r"(\.L_x_\d+)|0x([0-9a-f]+)", rest)
+            if not m:
+                continue
+            t = labels.get(m.group(1)) if m.group(1) else addr.get(
+                int(m.group(2), 16))
+            if t is not None and t < k:
+                for j in range(t, k + 1):
+                    looped[j] = True
+        fp64 = [k for k, (_, _, op, _) in enumerate(code[:end])
+                if op.startswith(FP64_PIPE)]
+        inside = [k for k in fp64 if looped[k]]
+        return (len(fp64) - len(inside), len(inside),
+                sum(code[k][2].startswith("DSETP") for k in inside))
+    raise ValueError(f"no kernel matching {pattern} in the SASS")
+
+
+def k3_sass_counts(sass: str) -> dict:
+    """FP64-pipe instructions outside loops (sass_fp64) of K3's float64
+    instantiations, by degree, and of K1 (``"k1"``), from the SASS of the
+    polyfit_kernels library: K1 is the search tree's descent alone, the
+    code K3 runs for its search."""
+    counts = {deg: sass_fp64(sass, rf"range_max_gather_kernelIdLi{deg}E")[0]
+              for deg in range(4)}
+    counts["k1"] = sass_fp64(sass, r"locate_tree_kernel")[0]
+    return counts
+
+
+def k3_fp64_per_query(counts: dict, deg: int, tree_levels: int) -> int:
+    """FP64-pipe instructions K3 issues a query: two threads, each the
+    straight-line code of its boundary (its SASS outside loops less the
+    unrolled descent, K1's count) and the descent's four compares a node
+    on the tree's levels and the leaf."""
+    return 2 * (counts[deg] - counts["k1"] + 4 * (tree_levels + 1))
+
+
 def sm_clock(torch):
     """The card's SM count and its maximum SM clock in GHz (nvidia-smi
     clocks.max.sm): the rates a clock an SM below assume that clock."""
@@ -962,6 +1053,14 @@ def main() -> None:
     for line in build.log.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             print(f"  ptxas: {line.strip()}")
+    lib = next(p for p in build.paths
+               if os.path.basename(p) == "libpolyfit_kernels.so")
+    k3_fp64 = k3_sass_counts(subprocess.run(
+        [os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump"), "-sass",
+         str(lib)], capture_output=True, text=True, check=True,
+        timeout=300).stdout)
+    print(f"FP64-pipe instructions outside loops in the SASS: K3 by degree "
+          f"and K1 {k3_fp64}", flush=True)
 
     # -- 3. fit -----------------------------------------------------------
     sizes = {"lat": N_TWEET, "hki": N_HKI, "hki_min": N_HKI_MIN,
@@ -1147,7 +1246,8 @@ def main() -> None:
             else:
                 lo = torch.nextafter(lq, lq.new_full((), -torch.inf))
                 sets["range_max_gather"].append(
-                    (lqc, uqc, p.seg_lo, p.seg_hi, p.coeffs, p.st))
+                    (lqc, uqc, p.seg_lo, p.seg_hi, p.coeffs, p.st,
+                     p.seg_tree))
             sets["locate"] += [(uq, p.ref_keys, p.ref_tree),
                                (lo, p.ref_keys, p.ref_tree)]
         return sets
@@ -1176,7 +1276,8 @@ def main() -> None:
         hold("range_sum_gather", ksum.range_sum_gather,
              ksum.range_sum_gather_plain, sets["range_sum_gather"])
         hold("range_max_gather", kmax.range_max_gather,
-             kmax.range_max_gather_plain, sets["range_max_gather"])
+             kmax.range_max_gather_plain, sets["range_max_gather"],
+             exact=True)
         print(f"{tag}parity K1-K3 on {len(sets['locate'])}/"
               f"{len(sets['range_sum_gather'])}/"
               f"{len(sets['range_max_gather'])} argument sets: max |kernel "
@@ -1294,13 +1395,18 @@ def main() -> None:
                 shape = (f"lq, uq ({Q},); seg_lo, seg_hi ({H},); coeffs "
                          f"({H}, {cols}) f64 -> ({Q},)")
             else:
-                st = args[5]
+                # seg_lo's search tree is the kernel's search structure,
+                # not the function's input: its bytes stand beside the
+                # bound (k3_pipe), as K1's do
+                st, tree = args[5], args[6]
                 nbytes += st.numel() * 8
                 flops = Q * range_max_flops(per_end, deg)
                 shape = (f"lq, uq ({Q},); seg_lo, seg_hi ({H},); coeffs "
-                         f"({H}, {cols}); st {tuple(st.shape)} f64 -> ({Q},)")
+                         f"({H}, {cols}); st {tuple(st.shape)}; tree "
+                         f"{tuple(tree.shape)} f64 -> ({Q},)")
             out[name] = measure(torch, tag, name, fn, plain, args, None,
                                 nbytes, flops, shape)
+        k3_pipe(sets["range_max_gather"][0], out["range_max_gather"], tag)
         # the main path's other K3 launch: the MIN table's, a smaller plan
         mn = sets["range_max_gather"][1]
         min_ms = device_ms(torch, lambda: kmax.range_max_gather(*mn))
@@ -1308,6 +1414,22 @@ def main() -> None:
               f"{mn[2].shape[0]}): kernel {min_ms!r} ms on the device",
               flush=True)
         return out
+
+    def k3_pipe(args, m, tag):
+        """K3's FP64-pipe bound beside its byte bound, at the FP64 peak's
+        fused multiply-adds a second (k3_fp64_per_query)."""
+        H, deg = args[2].shape[0], args[4].shape[1] - 1
+        levels = len(kloc.tree_levels(H))
+        per_q = k3_fp64_per_query(k3_fp64, deg, levels)
+        pipe_ms = Q * per_q / (FP64_FLOPS / 2) * 1e3
+        m["fp64_pipe_ms"] = pipe_ms
+        print(f"{tag}range_max_gather: FP64-pipe bound {pipe_ms!r} ms "
+              f"({per_q} FP64-pipe instructions a query: 2 threads x "
+              f"({k3_fp64[deg]} in the SASS outside loops - {k3_fp64['k1']} "
+              f"of the unrolled descent + 4 x {levels + 1} nodes)) beside the "
+              f"byte bound {m['bound_ms']!r} ms (the search tree's "
+              f"{args[6].numel() * 8} bytes beside {H * 8} of seg_lo, left "
+              f"out of it); the kernel {m['ms']!r} ms", flush=True)
 
     timed = {"static": measure_k123(sets, "")}
     timed["static"]["quantile_invert"] = measure_k4(qplans["hki_sum"],
@@ -1704,7 +1826,7 @@ def main() -> None:
                                       t.seg_hi, t.coeffs)]
             else:
                 args["range_max_gather"] = [(lqc, uqc, t.seg_lo, t.seg_hi,
-                                             t.coeffs, t.st)]
+                                             t.coeffs, t.st, t.seg_tree)]
                 args["range_max"] = [(lqc, uqc, t.seg_lo, t.seg_next,
                                       t.seg_hi, t.coeffs, t.seg_agg)]
         mods = {"poly_eval": kpe, "range_sum_gather": ksum, "range_sum": ksum,
@@ -1756,7 +1878,8 @@ def main() -> None:
                 nb = 3 * Q * isz + 2 * H * isz + table + a[5].numel() * isz
                 fl = Q * range_max_flops(probe_rounds(H), deg)
                 shape = (f"lq, uq ({Q},); seg_lo, seg_hi ({H},); coeffs "
-                         f"({H}, {cols}); st {tuple(a[5].shape)}")
+                         f"({H}, {cols}); st {tuple(a[5].shape)}; tree "
+                         f"{tuple(a[6].shape)}")
             elif k == "range_max":
                 nb = 3 * Q * isz + 4 * H * isz + table
                 fl = Q * (7 * H + range_max_flops(0, deg))
@@ -2677,9 +2800,9 @@ def main() -> None:
             3 * Q * 8 + table + levels * cap * 8, Q * (probes + levels),
             f"u, v ({Q},); keys_x ({cap},); ys_levels, wpmax_levels "
             f"({levels}, {cap}) f64 -> ({Q},)")}
-    # the probes behind K9's and K10's times: the loads a rectangle, and the
-    # rate at which an SM served them (tools/mst_rates.py measures the
-    # rates of scattered loads alone)
+    # the probes behind K9's, K10's and K11's times: the loads a rectangle
+    # (a corner for K11), and the rate at which an SM served them
+    # (tools/mst_rates.py measures the rates of scattered loads alone)
     sms, ghz = sm_clock(torch)
     for name, weighted in (("delta_count2d_gather", False),
                            ("delta_sum2d_gather", True)):
@@ -2689,6 +2812,12 @@ def main() -> None:
         print(f"{tag}probes {name}: {old!r} loads a rectangle before the "
               f"set-bits walk, {new!r} now; {rate!r} loads a clock an SM at "
               f"{ms!r} ms ({sms} SMs at {ghz} GHz)", flush=True)
+    old, new = k11_loads(torch, sets["delta_dommax2d_gather"][0])
+    ms = timed["dyn2d"]["delta_dommax2d_gather"]["ms"]
+    rate = Q * new / (ms * 1e-3) / sms / (ghz * 1e9)
+    print(f"{tag}probes delta_dommax2d_gather: {old!r} loads a corner before "
+          f"the set-bits walk, {new!r} now; {rate!r} loads a clock an SM at "
+          f"{ms!r} ms ({sms} SMs at {ghz} GHz)", flush=True)
     # scan: the cuda_scan engines (K18-K20 beside K12/K13) against the
     # session's cuda engines (K9-K11 beside K7/K8) on the buffer-full ops
     tag = "scan dyn2d: "

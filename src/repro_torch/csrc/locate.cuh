@@ -14,23 +14,30 @@
 //                        predicated increment; count_le also on float)
 //   tree_shape, tree_count_right
 //                        #(keys <= q) by a descent of the keys' search
-//                        tree (K1)
+//                        tree (K1, K3; double or float)
+//   load_row_v16         a table's row into registers by 16-byte loads
 //   interleave2          Morton code of a quadtree cell
 //   locate_leaf2d        leaf row of a 2-D corner: x cut, y cut, Morton code
 //   cut_rank_guess       #(cuts <= q) on sorted cuts by a checked guess (K7)
 //   morton2              interleave2 from bit tricks, no loop (K7)
 //   floor_log2           floor(log2(len)) for len >= 1
 //   rmq_gather           max over [i0, i1) of a (levels, n) sparse table
-//   mst_prefix           merge-sort-tree count / sum / max over an x prefix
-//   mst_prefix_bits      the same count / sum over the x-rank's set bits
-//                        only, G taken levels' searches in lockstep
+//   mst_prefix_bits      merge-sort-tree count / sum / max over an x prefix,
+//                        searching the x-rank's set bits only, G taken
+//                        levels' searches in lockstep (K9-K11)
 //   scale_unit, horner, fma_emul, clipped_poly_max   (core/poly.py)
+//   horner_r, clipped_poly_max_r
+//                        the same on a row held in registers, the degree a
+//                        template argument (K3; horner_r also K4); the
+//                        runtime-degree clipped_poly_max (K15) loads the
+//                        row and dispatches to clipped_poly_max_r
 //
 // jmax / jmin / jclip follow torch.maximum / torch.minimum / torch.clamp:
 // a NaN operand gives NaN.  CUDA's fmax / fmin would drop it instead.
 //
 // The functions of the one-key range kernels (jmax, jmin, jclip,
-// locate_segment, rmq_gather, scale_unit, horner, clipped_poly_max) are
+// locate_segment, rmq_gather, scale_unit, horner, clipped_poly_max,
+// horner_r, clipped_poly_max_r) are
 // templates on the element type T, double or float, so that K2, K3, K14,
 // K15 and K21 have float instantiations for float32 plans; every constant
 // among them is written T(...), so a float instantiation rounds each step
@@ -166,41 +173,76 @@ __host__ __device__ inline TreeShape tree_shape(int n) {
   return s;
 }
 
+// Row idx of a row-major table of DEG + 1 values a row, into registers, 16
+// bytes a load where the row's length allows it (DEG + 1 even at double:
+// K3's deg 1 and 3 rows and a search-tree node; 4 at float), 8 bytes a
+// load for a float row of 2, else a value a load: a row of another length
+// starts off 16 bytes every other row.  ``p`` is 16-byte aligned.
+template <int DEG, typename T>
+__device__ __forceinline__ void load_row_v16(const T* __restrict__ p,
+                                             int idx, T (&c)[DEG + 1]) {
+  constexpr int K = DEG + 1;
+  if constexpr (sizeof(T) == 8 && K % 2 == 0) {
+    const double2* r =
+        reinterpret_cast<const double2*>(p) + (size_t)idx * (K / 2);
+#pragma unroll
+    for (int e = 0; e < K / 2; ++e) {
+      const double2 w = __ldg(r + e);
+      c[2 * e] = w.x;
+      c[2 * e + 1] = w.y;
+    }
+  } else if constexpr (sizeof(T) == 4 && K == 4) {
+    const float4 w = __ldg(reinterpret_cast<const float4*>(p) + idx);
+    c[0] = w.x;
+    c[1] = w.y;
+    c[2] = w.z;
+    c[3] = w.w;
+  } else if constexpr (sizeof(T) == 4 && K == 2) {
+    const float2 w = __ldg(reinterpret_cast<const float2*>(p) + idx);
+    c[0] = w.x;
+    c[1] = w.y;
+  } else {
+#pragma unroll
+    for (int e = 0; e < K; ++e) c[e] = __ldg(p + (size_t)idx * K + e);
+  }
+}
+
 // #(keys[0:n] <= q) on sorted keys by a descent of their search tree: at
-// each level the child is #(separators <= q) (two 16-byte loads, one
-// sector, and four count_le), at the leaf the count is 4 leaf +
+// each level the child is #(separators <= q) (one node, a row of four
+// values: load_row_v16, four count_le), at the leaf the count is 4 leaf +
 // #(keys[4 leaf + k] <= q) over the keys that exist (the last leaf may be
 // partial: read key by key, never past keys[n - 1]).  Exact with
 // duplicates: every key of an earlier child is <= the chosen child's first
 // key, which is <= q, and every key of a later child is >= the next
 // separator, which is > q.  A NaN q goes left at every level and counts 0.
-// ``keys`` and ``tree`` are 16-byte aligned.
-__device__ __forceinline__ int tree_count_right(
-    const double* __restrict__ keys, int n, const double* __restrict__ tree,
-    const TreeShape& shape, double q) {
+// ``keys`` and ``tree`` (double or float, the keys' type) are 16-byte
+// aligned.
+template <typename T>
+__device__ __forceinline__ int tree_count_right(const T* __restrict__ keys,
+                                                int n,
+                                                const T* __restrict__ tree,
+                                                const TreeShape& shape, T q) {
   int node = 0;
+  T s[4];
 #pragma unroll
   for (int l = 0; l < kMaxTreeLevels; ++l) {
     if (l >= shape.levels) break;
-    const double2* s =
-        reinterpret_cast<const double2*>(tree) + 2 * (shape.first[l] + node);
-    const double2 a = __ldg(s), b = __ldg(s + 1);
+    load_row_v16<3>(tree, shape.first[l] + node, s);
     int c = 0;
-    count_le(c, a.x, q);
-    count_le(c, a.y, q);
-    count_le(c, b.x, q);
-    count_le(c, b.y, q);
+    count_le(c, s[0], q);
+    count_le(c, s[1], q);
+    count_le(c, s[2], q);
+    count_le(c, s[3], q);
     node = kTreeFanout * node + c;
   }
   const int base = 4 * node;
   int c = base;
   if (base + 4 <= n) {
-    const double2* s = reinterpret_cast<const double2*>(keys + base);
-    const double2 a = __ldg(s), b = __ldg(s + 1);
-    count_le(c, a.x, q);
-    count_le(c, a.y, q);
-    count_le(c, b.x, q);
-    count_le(c, b.y, q);
+    load_row_v16<3>(keys, node, s);
+    count_le(c, s[0], q);
+    count_le(c, s[1], q);
+    count_le(c, s[2], q);
+    count_le(c, s[3], q);
   } else {
     for (int k = base; k < n; ++k) count_le(c, __ldg(keys + k), q);
   }
@@ -318,31 +360,39 @@ __device__ __forceinline__ double fma_emul(double a, double b, double c) {
   return s + (t + e);
 }
 
-// P(u) for ascending coefficients c[0..deg]
-template <typename T>
-__device__ __forceinline__ T horner(const T* __restrict__ c, int deg, T u) {
+// P(u) for ascending coefficients c[0..deg]: c a pointer, or a row held in
+// registers (horner_r), whose compile-time degree unrolls the loop
+template <typename C, typename T>
+__device__ __forceinline__ T horner(const C& c, int deg, T u) {
   T acc = c[deg];
+#pragma unroll
   for (int j = deg - 1; j >= 0; --j) acc = acc * u + c[j];
   return acc;
 }
 
-// max over k in [a, b] of P(u(k)): both clamped endpoints plus the real
+template <int DEG, typename T>
+__device__ __forceinline__ T horner_r(const T (&c)[DEG + 1], T u) {
+  return horner(c, DEG, u);
+}
+
+// max over k in [a, b] of P(u(k)) for a row held in registers, its degree a
+// compile-time constant: both clamped endpoints plus the real
 // zero-derivative points of P (deg 2: one linear root, deg 3: the two
 // quadratic roots), each clamped into [u(a), u(b)].  a > b gives -inf.
-template <typename T>
-__device__ __forceinline__ T clipped_poly_max(const T* __restrict__ c,
-                                              int deg, T slo, T shi, T a,
-                                              T b) {
+template <int DEG, typename T>
+__device__ __forceinline__ T clipped_poly_max_r(const T (&c)[DEG + 1], T slo,
+                                                T shi, T a, T b) {
+  static_assert(DEG >= 0 && DEG <= 3, "the closed forms cover deg <= 3");
   const T ua = scale_unit(a, slo, shi);
   const T ub = scale_unit(b, slo, shi);
-  T best = jmax(horner(c, deg, ua), horner(c, deg, ub));
-  if (deg >= 2) {
+  T best = jmax(horner_r<DEG>(c, ua), horner_r<DEG>(c, ub));
+  if constexpr (DEG >= 2) {
     const T c1 = c[1];
     const T c2 = T(2) * c[2];
     const T lin = fabs(c2) > T(0) ? -c1 / (c2 == T(0) ? T(1) : c2) : ua;
-    if (deg == 2) {
-      best = jmax(best, horner(c, deg, jclip(lin, ua, ub)));
-    } else {  // deg == 3: P' = c1 + 2 c2 u + 3 c3 u^2
+    if constexpr (DEG == 2) {
+      best = jmax(best, horner_r<DEG>(c, jclip(lin, ua, ub)));
+    } else {  // P' = c1 + 2 c2 u + 3 c3 u^2
       const T c3 = T(3) * c[3];
       const T disc = c2 * c2 - T(4) * c3 * c1;
       const T sq = sqrt(jmax(disc, T(0)));
@@ -350,90 +400,71 @@ __device__ __forceinline__ T clipped_poly_max(const T* __restrict__ c,
       const bool quad_ok = fabs(c3) > T(0) && disc >= T(0);
       const T r1 = quad_ok ? (-c2 - sq) / den : lin;
       const T r2 = quad_ok ? (-c2 + sq) / den : lin;
-      best = jmax(best, horner(c, deg, jclip(r1, ua, ub)));
-      best = jmax(best, horner(c, deg, jclip(r2, ua, ub)));
+      best = jmax(best, horner_r<DEG>(c, jclip(r1, ua, ub)));
+      best = jmax(best, horner_r<DEG>(c, jclip(r2, ua, ub)));
     }
   }
   return a <= b ? best : T(-INFINITY);
 }
 
-enum class MstMode { kCount, kSum, kMax };
-
-// The merge-sort-tree reduction over x-rank [0, i) with y <= v: the twin
-// of core/index2d.py mst_count_prefix (kCount, an int count) and
-// mst_weighted_prefix (kSum over the per-block inclusive prefix sums, kMax
-// over the prefix maxima; identities 0 and -inf).  ylv and wacc are
-// (levels, n) row-major; level l holds y sorted within blocks of 2^l.
-// Levels descend; block [pos, pos + 2^l) is taken when it fits in [0, i),
-// and an (l + 1)-round binary search counts its y values <= v, every probe
-// clamped as the plain version clamps it.  The weighted modes read one
-// more entry a level, wacc[l][clip(pos + lo - 1, 0, n - 1)], masked to the
-// identity unless the block was taken and lo > 0, and fold it in level
-// order (jmax for NaN parity).  wacc is not read in kCount.
-template <MstMode M>
-__device__ __forceinline__
-    std::conditional_t<M == MstMode::kCount, int, double>
-    mst_prefix(const double* __restrict__ ylv, const double* __restrict__ wacc,
-               int n, int levels, int i, double v) {
-  std::conditional_t<M == MstMode::kCount, int, double> total;
-  if constexpr (M == MstMode::kMax) {
-    total = -INFINITY;
-  } else {
-    total = 0;
-  }
-  int pos = 0;
-  for (int l = levels - 1; l >= 0; --l) {
-    const int b = 1 << l;
-    const bool take = pos + b <= i;
-    const size_t row = (size_t)l * (size_t)n;
-    int lo = 0;
-    int hi = b;
-    for (int r = 0; r <= l; ++r) {
-      const bool active = lo < hi;
-      const int mid = (lo + hi) / 2;
-      int idx = pos + (mid < b - 1 ? mid : b - 1);
-      idx = idx < 0 ? 0 : (idx < n - 1 ? idx : n - 1);
-      const bool go_right = active && ylv[row + idx] <= v;
-      lo = go_right ? mid + 1 : lo;
-      hi = (active && !go_right) ? mid : hi;
-    }
-    if constexpr (M == MstMode::kCount) {
-      total = total + (take ? lo : 0);
-    } else {
-      int j = pos + lo - 1;
-      j = j < 0 ? 0 : (j < n - 1 ? j : n - 1);
-      const bool hit = take && lo > 0;
-      if constexpr (M == MstMode::kSum) {
-        total = total + (hit ? wacc[row + j] : 0.0);
-      } else {
-        total = jmax(total, hit ? wacc[row + j] : -INFINITY);
-      }
-    }
-    pos = take ? pos + b : pos;
-  }
-  return total;
+template <int DEG, typename T>
+__device__ __forceinline__ T clipped_poly_max_at(const T* __restrict__ c,
+                                                 T slo, T shi, T a, T b) {
+  T r[DEG + 1];
+#pragma unroll
+  for (int j = 0; j <= DEG; ++j) r[j] = c[j];
+  return clipped_poly_max_r<DEG>(r, slo, shi, a, b);
 }
 
+// clipped_poly_max_r on the row c[0..deg] in memory, the degree a runtime
+// argument (K15's finish); the wrappers admit deg 0-3, NaN past them
+template <typename T>
+__device__ __forceinline__ T clipped_poly_max(const T* __restrict__ c,
+                                              int deg, T slo, T shi, T a,
+                                              T b) {
+  switch (deg) {
+    case 0: return clipped_poly_max_at<0>(c, slo, shi, a, b);
+    case 1: return clipped_poly_max_at<1>(c, slo, shi, a, b);
+    case 2: return clipped_poly_max_at<2>(c, slo, shi, a, b);
+    case 3: return clipped_poly_max_at<3>(c, slo, shi, a, b);
+  }
+  return T(NAN);
+}
+
+enum class MstMode { kCount, kSum, kMax };
+
 // ---------------------------------------------------------------------------
-// mst_prefix over the set bits of i (K9, K10)
+// The merge-sort-tree prefix over the set bits of the x-rank (K9-K11)
 // ---------------------------------------------------------------------------
 //
-// mst_prefix takes block [pos, pos + 2^l) at level l exactly when bit l of
-// the x-rank i is set, and pos is then i with bits l and below cleared: the
-// levels it takes and their blocks are known from i alone.  mst_prefix_bits
-// searches only those blocks, so an untaken level costs no probe (at cap
-// 4,096 a corner's 91 tree probes become l + 1 for each set bit l: 34 on
-// average for OSM-like rectangles over a 3,072-point log).  Any exact
-// search of a sorted block counts the same y values <= v, so each block is
-// searched by a branch-free power-of-two search: l halving rounds, then
-// one compare.  The count mode sums the block counts (integers, any
-// order).  The sum mode adds wacc[l][pos + lo - 1] for the taken levels
-// with lo > 0 in descending level order, as mst_prefix does; mst_prefix
-// adds +0.0 for every other level, and that is an exact no-op: its total
-// starts at +0.0, and under round-to-nearest a sum is -0.0 only when both
-// addends are, so the total is never -0.0, and x + (+0.0) == x for every
-// other x, NaN and inf included.  So the walk equals mst_prefix bit for
-// bit.
+// The reduction over x-rank [0, i) with y <= v (the twin of
+// core/index2d.py mst_count_prefix, and of mst_weighted_prefix over the
+// per-block inclusive prefix sums or prefix maxima) walks the levels of
+// ylv and wacc, (levels, n) row-major, level l holding y sorted within
+// blocks of 2^l.  The plain version walks every level, high to low, and
+// takes block [pos, pos + 2^l) at level l when it fits in [0, i); that is
+// exactly when bit l of i is set, and pos is then i with bits l and below
+// cleared: the levels taken and their blocks are known from i alone.
+// mst_prefix_bits searches only those blocks, so an untaken level costs no
+// probe (at cap 4,096 a corner's 91 tree probes become l + 1 for each set
+// bit l: 34 on average for OSM-like rectangles over a 3,072-point log).
+// Any exact search of a sorted block counts the same y values <= v, so
+// each block is searched by a branch-free power-of-two search: l halving
+// rounds, then one compare.  The count mode sums the block counts
+// (integers, any order).  The weighted modes read wacc[l][pos + lo - 1]
+// for the taken levels with lo > 0 and fold it in descending level order,
+// as the plain version does; the plain version folds the identity for
+// every other level, and that is an exact no-op:
+//  * kSum adds +0.0: the total starts at +0.0, and under round-to-nearest
+//    a sum is -0.0 only when both addends are, so the total is never -0.0,
+//    and x + (+0.0) == x for every other x, NaN and inf included.
+//  * kMax folds jmax(total, -inf): the total starts at -inf; for a total
+//    that is not NaN, jmax returns the total where it is above -inf and
+//    -inf (the second operand, the same bits) where it is -inf; a NaN
+//    total stays NaN (its payload may change, and the tests compare NaN
+//    lanes as NaN).
+// So the walk equals the plain version bit for bit (kMax up to a NaN's
+// payload).
 
 // *a when p, else 0.0: a predicated read-only load that issues no memory
 // access when p is false
@@ -450,22 +481,28 @@ __device__ __forceinline__ double ldg_if(bool p, const double* a) {
 template <MstMode M>
 using MstTotal = std::conditional_t<M == MstMode::kCount, int, double>;
 
-// The count (kCount) or sum (kSum) over x-rank [0, i) with y <= v[k] for
-// NY y values that share i, G taken levels at a time: the next G set bits
-// of i, high to low, form a group whose G x NY block searches run in
-// lockstep, each round issuing the group's loads before its compares, so
-// a thread keeps G x NY loads in flight on a few registers.  A group runs
-// the halving rounds of its largest level (the others' loads are
-// predicated off once theirs are done), then the last compare of every
-// search.  The sum mode folds each group in descending level order, so the
-// whole fold is in mst_prefix's order.  Any number of levels.
+// The count (kCount), sum (kSum) or max (kMax) over x-rank [0, i) with
+// y <= v[k] for NY y values that share i, G taken levels at a time: the
+// next G set bits of i, high to low, form a group whose G x NY block
+// searches run in lockstep, each round issuing the group's loads before
+// its compares, so a thread keeps G x NY loads in flight on a few
+// registers.  A group runs the halving rounds of its largest level (the
+// others' loads are predicated off once theirs are done), then the last
+// compare of every search.  The weighted modes fold each group in
+// descending level order, so the whole fold is in the plain version's
+// order.  Any number of levels.
 template <MstMode M, int NY, int G>
 __device__ __forceinline__ void mst_prefix_bits(
     const double* __restrict__ ylv, const double* __restrict__ wacc, int n,
     int i, const double (&v)[NY], MstTotal<M> (&total)[NY]) {
-  static_assert(M != MstMode::kMax, "the dominance max keeps mst_prefix");
 #pragma unroll
-  for (int k = 0; k < NY; ++k) total[k] = 0;
+  for (int k = 0; k < NY; ++k) {
+    if constexpr (M == MstMode::kMax) {
+      total[k] = -INFINITY;
+    } else {
+      total[k] = 0;
+    }
+  }
   unsigned rest = (unsigned)i;
   while (rest) {
     bool on[G];
@@ -511,7 +548,7 @@ __device__ __forceinline__ void mst_prefix_bits(
         if constexpr (M == MstMode::kCount) total[k] += c[g][k];
       }
     }
-    if constexpr (M == MstMode::kSum) {
+    if constexpr (M != MstMode::kCount) {
 #pragma unroll
       for (int g = 0; g < G; ++g) {
 #pragma unroll
@@ -521,8 +558,13 @@ __device__ __forceinline__ void mst_prefix_bits(
 #pragma unroll
       for (int g = 0; g < G; ++g) {
 #pragma unroll
-        for (int k = 0; k < NY; ++k)
-          total[k] = c[g][k] > 0 ? total[k] + y[g][k] : total[k];
+        for (int k = 0; k < NY; ++k) {
+          if constexpr (M == MstMode::kSum) {
+            total[k] = c[g][k] > 0 ? total[k] + y[g][k] : total[k];
+          } else {
+            total[k] = c[g][k] > 0 ? jmax(total[k], y[g][k]) : total[k];
+          }
+        }
       }
     }
   }

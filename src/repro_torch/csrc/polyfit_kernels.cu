@@ -1,5 +1,5 @@
-// PolyFit query kernels for Hopper (sm_90a), one thread per query: float64,
-// and float32 as well for K2 and K3.
+// PolyFit query kernels for Hopper (sm_90a), one thread per query (K3:
+// two): float64, and float32 as well for K2 and K3.
 //
 // K1 locate_tree_kernel       replaces repro/kernels/locate.py:locate_pallas
 // K2 range_sum_gather_kernel  replaces repro/kernels/range_sum.py:range_sum_gather_pallas
@@ -47,10 +47,37 @@
 // sparse table instead), about 0.5 and 0.6 us at 3.35 TB/s; the log is
 // 32 KB and stays in L1/L2 across the 13 dependent probes a search takes.
 //
-// What the design does about it for K2, K3, K5 and K6: nothing yet.  One
-// thread per query, the table read through L1/L2; staging the table in shared memory, or several
-// queries a thread, is later work.  Compiled with -fmad=false so that
-// Horner's acc * u + c rounds twice, as the plain torch version does.
+// K3 adds to K2's searches two closed-form boundary maxima (at deg 3 each
+// two scale_unit divisions, three divisions and a square root for the
+// stationary points, four Horner evaluations and NaN-propagating clips)
+// and two sparse-table loads.  Its SASS issues about 184-188 FP64-pipe
+// instructions a boundary (chip_smoke.py counts them), so at Q = 65,536
+// the FP64 pipe's 17e12 instructions a second bound it at 1.4 us, above
+// its byte bound (0.57 us at Hp 2,560).  Before its redesign one thread
+// ran both searches, then both boundaries, a chain of dependent loads and
+// divisions that 16 warps an SM hid poorly, with the degree a runtime
+// argument (a coefficient a load, loops and branches on deg): 0.0115 ms.
+// Its design now (tools/k3_k11_rates.py measures each step):
+//  * two threads a query, one a boundary: each thread's chain is half as
+//    long and twice the warps are in flight; a shuffle brings the left
+//    boundary's segment and maximum to the right one's thread, which
+//    takes the sparse table and combines in the plain version's order;
+//  * the degree a template argument (locate.cuh clipped_poly_max_r): the
+//    row in registers, by 16-byte loads where its length allows
+//    (locate.cuh load_row_v16; ``coeffs`` 16-byte aligned,
+//    kernels/range_max.py checks), Horner unrolled, no branch on the
+//    degree;
+//  * each endpoint's segment by a descent of seg_lo's search tree (K1's,
+//    kept in MAX/MIN plans as seg_tree): with binary searches the two
+//    searches took 37-44% of the time above the launch's floor; the tree
+//    takes 5-6 sector loads in place of 11-13 probes.  Staging seg_lo in
+//    shared memory ran slower, and a per-plan table of each segment's
+//    stationary points (three divisions and a square root less a
+//    boundary) saved nothing at Hp 2,560.
+//
+// K2, K5 and K6 stay one thread a query, the table read through L1/L2.
+// Compiled with -fmad=false so that Horner's acc * u + c rounds twice, as
+// the plain torch version does.
 //
 // K2 and K3 are templates on the element type: the float instantiations
 // (polyfit_range_sum_gather_f32, polyfit_range_max_gather_f32) serve
@@ -105,34 +132,46 @@ __global__ void range_sum_gather_kernel(const T* __restrict__ lq,
 }
 
 // K3: MAX over [lq, uq] (paper Eq. 17): closed-form clipped maxima on the
-// two boundary segments, sparse-table max over the interior (il, iu)
-template <typename T>
-__global__ void range_max_gather_kernel(const T* __restrict__ lq,
-                                        const T* __restrict__ uq,
-                                        const T* __restrict__ seg_lo,
-                                        const T* __restrict__ seg_hi,
-                                        const T* __restrict__ coeffs,
-                                        const T* __restrict__ st,
-                                        T* __restrict__ out, int Q, int H,
-                                        int deg, int h) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= Q) return;
-  const T l = lq[i], u = uq[i];
-  const int il = locate_segment(seg_lo, H, l);
-  const int iu = locate_segment(seg_lo, H, u);
-  const T lo_l = seg_lo[il], hi_l = seg_hi[il];
-  const T lo_u = seg_lo[iu], hi_u = seg_hi[iu];
-  const T* cl = coeffs + (size_t)il * (deg + 1);
-  const T* cu = coeffs + (size_t)iu * (deg + 1);
-  // left boundary: [lq, min(hi_l, uq)], suppressed when lq is past hi_l
-  T m_left = clipped_poly_max(cl, deg, lo_l, hi_l, l, jmin(hi_l, u));
-  m_left = l <= hi_l ? m_left : T(-INFINITY);
-  // right boundary: [max(lo_u, lq), uq], suppressed when the same segment
-  T m_right = clipped_poly_max(cu, deg, lo_u, hi_u, jmax(lo_u, l), u);
-  m_right = il == iu ? T(-INFINITY) : m_right;
-  // interior segments are exactly (il, iu): an O(1) sparse-table range max
-  const T m_int = rmq_gather(st, h, il + 1, iu);
-  out[i] = jmax(jmax(m_left, m_right), m_int);
+// two boundary segments, sparse-table max over the interior (il, iu).  Two
+// threads serve a query, one a boundary: thread bit 0 picks it (0: lq's
+// segment, 1: uq's).  Each locates its endpoint by a descent of seg_lo's
+// search tree (K1's), reads its segment's row into registers and takes the
+// clipped maximum over its part of the segment; a shuffle brings il and
+// the left maximum to the right thread, which suppresses its own maximum
+// when il == iu, takes the interior's sparse-table max and combines the
+// three in the plain version's order.
+template <typename T, int DEG>
+__global__ void __launch_bounds__(kThreads) range_max_gather_kernel(
+    const T* __restrict__ lq, const T* __restrict__ uq,
+    const T* __restrict__ seg_lo, const T* __restrict__ seg_hi,
+    const T* __restrict__ coeffs, const T* __restrict__ st,
+    const T* __restrict__ tree, TreeShape shape, T* __restrict__ out, int Q,
+    int H, int h) {
+  const long long q = ((long long)blockIdx.x * kThreads + threadIdx.x) / 2;
+  const bool right = threadIdx.x & 1;
+  // lanes past Q redo the last query: every lane reaches the shuffles
+  const int qq = q < Q ? (int)q : Q - 1;
+  const T l = lq[qq], u = uq[qq];
+  // max(#(seg_lo <= q) - 1, 0): locate_segment's count, from the tree
+  int idx = tree_count_right(seg_lo, H, tree, shape, right ? u : l) - 1;
+  idx = idx > 0 ? idx : 0;
+  const T lo = seg_lo[idx], hi = seg_hi[idx];
+  T c[DEG + 1];
+  load_row_v16<DEG>(coeffs, idx, c);
+  // left boundary: [lq, min(hi_l, uq)], suppressed when lq is past hi_l;
+  // right boundary: [max(lo_u, lq), uq]
+  T m = clipped_poly_max_r<DEG>(c, lo, hi, right ? jmax(lo, l) : l,
+                                right ? u : jmin(hi, u));
+  m = right || l <= hi ? m : T(-INFINITY);
+  const int il = __shfl_xor_sync(0xffffffffu, idx, 1);
+  const T m_left = __shfl_xor_sync(0xffffffffu, m, 1);
+  if (q < Q && right) {
+    // the right boundary is suppressed when it is the left one's segment
+    const T m_right = il == idx ? T(-INFINITY) : m;
+    // interior segments are exactly (il, iu): an O(1) sparse-table range max
+    const T m_int = rmq_gather(st, h, il + 1, idx);
+    out[q] = jmax(jmax(m_left, m_right), m_int);
+  }
 }
 
 // K5: sum of buffered measures with key in (lq, uq]: cf[#(keys <= uq)] -
@@ -180,16 +219,31 @@ int launch_range_sum_gather(const void* lq, const void* uq, const void* seg_lo,
   return (int)cudaGetLastError();
 }
 
+// K3 at one instantiation a degree (the wrapper admits deg 0-3), two
+// threads a query
 template <typename T>
 int launch_range_max_gather(const void* lq, const void* uq, const void* seg_lo,
                             const void* seg_hi, const void* coeffs,
-                            const void* st, void* out, int Q, int H, int deg,
-                            int h, void* stream) {
-  if (Q > 0)
-    range_max_gather_kernel<T><<<blocks_for(Q), kThreads, 0,
-                                 (cudaStream_t)stream>>>(
-        (const T*)lq, (const T*)uq, (const T*)seg_lo, (const T*)seg_hi,
-        (const T*)coeffs, (const T*)st, (T*)out, Q, H, deg, h);
+                            const void* st, const void* tree, void* out,
+                            int Q, int H, int deg, int h, void* stream) {
+  if (Q > 0) {
+    const int blocks = (int)((2LL * Q + kThreads - 1) / kThreads);
+    const TreeShape shape = tree_shape(H);
+#define K3_LAUNCH(D)                                                       \
+  range_max_gather_kernel<T, D><<<blocks, kThreads, 0,                      \
+                                  (cudaStream_t)stream>>>(                  \
+      (const T*)lq, (const T*)uq, (const T*)seg_lo, (const T*)seg_hi,       \
+      (const T*)coeffs, (const T*)st, (const T*)tree, shape, (T*)out, Q, H, \
+      h)
+    switch (deg) {
+      case 0: K3_LAUNCH(0); break;
+      case 1: K3_LAUNCH(1); break;
+      case 2: K3_LAUNCH(2); break;
+      case 3: K3_LAUNCH(3); break;
+      default: return (int)cudaErrorInvalidValue;
+    }
+#undef K3_LAUNCH
+  }
   return (int)cudaGetLastError();
 }
 
@@ -226,22 +280,25 @@ int polyfit_range_sum_gather_f32(const void* lq, const void* uq,
                                                  stream);
 }
 
+// ``tree``: seg_lo's search tree (kernels/locate.py search_tree); seg_lo,
+// coeffs and tree 16-byte aligned
 int polyfit_range_max_gather(const void* lq, const void* uq, const void* seg_lo,
                              const void* seg_hi, const void* coeffs,
-                             const void* st, void* out, int Q, int H, int deg,
-                             int h, void* stream) {
+                             const void* st, const void* tree, void* out,
+                             int Q, int H, int deg, int h, void* stream) {
   return polyfit::launch_range_max_gather<double>(lq, uq, seg_lo, seg_hi,
-                                                  coeffs, st, out, Q, H, deg,
-                                                  h, stream);
+                                                  coeffs, st, tree, out, Q, H,
+                                                  deg, h, stream);
 }
 
 int polyfit_range_max_gather_f32(const void* lq, const void* uq,
                                  const void* seg_lo, const void* seg_hi,
-                                 const void* coeffs, const void* st, void* out,
-                                 int Q, int H, int deg, int h, void* stream) {
+                                 const void* coeffs, const void* st,
+                                 const void* tree, void* out, int Q, int H,
+                                 int deg, int h, void* stream) {
   return polyfit::launch_range_max_gather<float>(lq, uq, seg_lo, seg_hi,
-                                                 coeffs, st, out, Q, H, deg, h,
-                                                 stream);
+                                                 coeffs, st, tree, out, Q, H,
+                                                 deg, h, stream);
 }
 
 int polyfit_delta_sum_gather(const void* lq, const void* uq, const void* keys,

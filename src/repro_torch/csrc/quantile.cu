@@ -152,14 +152,6 @@ __device__ __forceinline__ void roots_cubic(double d, double c, double b,
   r[2] = is_cubic ? r2 : NAN;
 }
 
-template <int DEG>
-__device__ __forceinline__ double horner_r(const double (&c)[DEG + 1], double u) {
-  double acc = c[DEG];
-#pragma unroll
-  for (int j = DEG - 1; j >= 0; --j) acc = acc * u + c[j];
-  return acc;
-}
-
 // Horner with each step fma_emul(acc, u, c[j]) (core/poly.py horner_fma)
 template <int DEG>
 __device__ __forceinline__ double horner_fma_r(const double (&c)[DEG + 1],

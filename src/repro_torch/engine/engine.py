@@ -176,7 +176,7 @@ def raw_extremum(plan: IndexPlan, lqc, uqc, *, backend: str):
     on negated measures end to end): K3 on 'cuda', K15 on 'cuda_scan'."""
     if backend == "cuda":
         return range_max_gather(lqc, uqc, plan.seg_lo, plan.seg_hi,
-                                plan.coeffs, plan.st)
+                                plan.coeffs, plan.st, plan.seg_tree)
     if backend == "cuda_scan":
         return range_max(lqc, uqc, plan.seg_lo, plan.seg_next, plan.seg_hi,
                          plan.coeffs, plan.seg_agg)

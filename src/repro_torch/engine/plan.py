@@ -13,8 +13,10 @@ single layout every backend executes against.  It bundles, per index:
   sparse table), so the Lemma 5.2/5.4 Q_rel test and the refinement run
   on the device with no host round trip;
 * the sorted keys' search tree ``ref_tree`` (``kernels.locate.search_tree``),
-  which K1 descends on the card backends: the port's own, outside
-  ``ARRAY_FIELDS`` (those mirror the reference's plan).
+  which K1 descends on the card backends, and for MAX/MIN plans
+  ``seg_tree``, the search tree of the padded ``seg_lo``, which K3
+  descends: the port's own, outside ``ARRAY_FIELDS`` (those mirror the
+  reference's plan).
 
 ``IndexPlan2D`` is the 2-key analogue: the quadtree descent arrays (the
 ``torch`` backend), the flattened tile-padded leaf table for the kernels
@@ -125,6 +127,8 @@ class IndexPlan:
     seg_err: Optional[torch.Tensor] = None   # (Hp,) delta-padded
     # -- K1's search tree over ref_keys (not in ARRAY_FIELDS) -------------
     ref_tree: Optional[torch.Tensor] = None  # (nodes, 4)
+    # -- K3's search tree over seg_lo (max/min; not in ARRAY_FIELDS) -------
+    seg_tree: Optional[torch.Tensor] = None  # (nodes, 4)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -158,8 +162,9 @@ class IndexPlan:
         return _device_bytes(self, ARRAY_FIELDS)
 
     def tree_bytes(self) -> int:
-        """Bytes of ``ref_tree``, K1's search tree (0 without one)."""
-        return _tree_bytes(self.ref_tree)
+        """Bytes of the port's search trees, ``ref_tree`` (K1's) and
+        ``seg_tree`` (K3's); 0 without them."""
+        return _tree_bytes(self.ref_tree) + _tree_bytes(self.seg_tree)
 
 
 def build_plan(index: PolyFitIndex1D, dtype: torch.dtype = DTYPE,
@@ -189,17 +194,25 @@ def build_plan(index: PolyFitIndex1D, dtype: torch.dtype = DTYPE,
         seg_err = pad_to_multiple(
             torch.as_tensor(index.seg_err, dtype=dtype, device=seg_lo.device),
             bh, float(index.delta))
+    h = int(seg_lo.shape[0])
+    seg_lo = pad_to_multiple(seg_lo, bh, big)
     return IndexPlan(
         agg=index.agg, deg=index.deg, delta=float(index.delta),
-        h=int(seg_lo.shape[0]), n=int(index.n), bh=int(bh),
-        seg_lo=pad_to_multiple(seg_lo, bh, big),
+        h=h, n=int(index.n), bh=int(bh), seg_lo=seg_lo,
         seg_next=pad_to_multiple(nxt, bh, big),
         seg_hi=pad_to_multiple(seg_hi, bh, big),
         coeffs=pad_to_multiple(coeffs, bh, 0.0),
         seg_agg=pad_to_multiple(agg, bh, -torch.inf),
         st=index.st, ref_keys=ref_keys, ref_cf=ref_cf, ref_st=ref_st,
-        seg_err=seg_err, ref_tree=ref_tree,
+        seg_err=seg_err, ref_tree=ref_tree, seg_tree=_seg_tree(seg_lo,
+                                                               index.st),
     )
+
+
+def _seg_tree(seg_lo, st):
+    """K3's search tree over a plan's padded starts, for plans that carry
+    a sparse table (MAX/MIN: the plans K3 serves); None for the others."""
+    return None if st is None else search_tree(seg_lo)
 
 
 def plan_from_numpy(fields: Mapping, device) -> IndexPlan:
@@ -215,6 +228,7 @@ def plan_from_numpy(fields: Mapping, device) -> IndexPlan:
                   torch.as_tensor(np.array(fields[f]), device=device))
               for f in ARRAY_FIELDS}
     arrays["ref_keys"], arrays["ref_tree"] = _searchable(arrays["ref_keys"])
+    arrays["seg_tree"] = _seg_tree(arrays["seg_lo"], arrays["st"])
     return IndexPlan(
         agg=str(fields["agg"]), deg=int(fields["deg"]),
         delta=float(fields["delta"]), h=int(fields["h"]), n=int(fields["n"]),

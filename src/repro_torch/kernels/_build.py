@@ -49,9 +49,9 @@ _SIGNATURES = {
     "polyfit_locate": (_P, _P, _P, _P, _I, _I, _P),
     # lq, uq, seg_lo, seg_hi, coeffs, out, Q, H, deg, stream
     "polyfit_range_sum_gather": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
-    # lq, uq, seg_lo, seg_hi, coeffs, st, out, Q, H, deg, h, stream
-    "polyfit_range_max_gather": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                 _P),
+    # lq, uq, seg_lo, seg_hi, coeffs, st, tree, out, Q, H, deg, h, stream;
+    # ``tree`` seg_lo's search tree
+    "polyfit_range_max_gather": (_P,) * 8 + (_I,) * 4 + (_P,),
     # lq, uq, keys, cf, out, Q, cap, stream
     "polyfit_delta_sum_gather": (_P, _P, _P, _P, _P, _I, _I, _P),
     # lq, uq, keys, st, out, Q, cap, stream

@@ -106,4 +106,4 @@ def range_max(table: IndexPlan, lq, uq,
         return _rmax.range_max(lq, uq, table.seg_lo, table.seg_next,
                                table.seg_hi, table.coeffs, table.seg_agg)
     return _rmax.range_max_gather(lq, uq, table.seg_lo, table.seg_hi,
-                                  table.coeffs, table.st)
+                                  table.coeffs, table.st, table.seg_tree)

@@ -8,8 +8,10 @@ MIN is served on negated aggregates by the caller.
 
 * **gather** (K3, ``range_max_gather``, twin of ``range_max_gather_pallas``,
   the ``cuda`` backend): both boundary segments located with the
-  branch-free binary search, the interior span (il, iu) answered in O(1)
-  with two gathers against the plan's per-segment sparse table;
+  branch-free binary search (the kernel: a thread each, by a descent of
+  seg_lo's search tree, which counts the same), the interior span (il, iu)
+  answered in O(1) with two gathers against the plan's per-segment sparse
+  table;
 * **scan** (K15, ``range_max``, twin of ``range_max_pallas``, the
   ``cuda_scan`` backend): both boundary rows by one-hot membership
   (``range_sum.segment_rows``; the kernel counts #(seg_lo <= q) against
@@ -33,7 +35,8 @@ import torch
 
 from ..core.poly import clipped_poly_max
 from . import _build
-from .locate import locate_segments, rmq_gather
+from .locate import (TREE_FANOUT, locate_segments, rmq_gather,
+                     search_tree, tree_levels)
 from .range_sum import gather_rows, segment_rows
 from .ref import _chunked
 
@@ -41,8 +44,9 @@ __all__ = ["range_max_gather_plain", "range_max_gather", "range_max_plain",
            "range_max"]
 
 
-def range_max_gather_plain(lq, uq, seg_lo, seg_hi, coeffs, st):
-    """Plain torch version of K3, in the kernel's order of operations."""
+def range_max_gather_plain(lq, uq, seg_lo, seg_hi, coeffs, st, tree=None):
+    """Plain torch version of K3, in the kernel's order of operations (it
+    takes K3's arguments; the binary search needs no ``tree``)."""
     st = st.to(coeffs.dtype)
     il = locate_segments(seg_lo, lq)
     iu = locate_segments(seg_lo, uq)
@@ -71,30 +75,50 @@ def _check_deg(name, coeffs):
     return deg
 
 
-def range_max_gather(lq, uq, seg_lo, seg_hi, coeffs, st):
+def range_max_gather(lq, uq, seg_lo, seg_hi, coeffs, st, tree=None):
     """(Q,) approximate MAX over [lq, uq]; ``st`` is the plan's (L, h)
     sparse table over per-segment aggregates (unpadded — in-domain queries
     never locate the sentinel tail).  K3 on CUDA tensors, the plain version
-    on CPU tensors.  ``range_max_gather.launches`` counts the launches."""
+    on CPU tensors.  ``range_max_gather.launches`` counts the launches.
+
+    K3 runs two threads a query, one a boundary segment, at one
+    instantiation a degree.  Each finds its segment by a descent of
+    ``tree``, seg_lo's ``search_tree`` (a plan's ``seg_tree``; a call
+    without one builds it), and reads the rows by 16-byte loads where their
+    length allows: ``seg_lo``, ``coeffs`` and ``tree`` must start on 16
+    bytes, as a plan's own tables do.  It raises on a tree whose shape is
+    not that of the tree of H starts; a tree of other starts of the same
+    count passes unseen."""
     deg = _check_deg("range_max_gather", coeffs)
     if lq.device.type == "cpu":
         return range_max_gather_plain(lq, uq, seg_lo, seg_hi, coeffs, st)
     dtype = _build.float_dtype("range_max_gather", coeffs)
     st = st.to(dtype)
+    if tree is None:
+        tree = search_tree(seg_lo)
     _build.require_cuda("range_max_gather", lq, uq, seg_lo, seg_hi, coeffs, st,
-                        dtype=dtype)
+                        tree, dtype=dtype)
     Q, H = lq.shape[0], seg_lo.shape[0]
     if (uq.shape[0] != Q or seg_hi.shape[0] != H or coeffs.shape[0] != H
             or H < 1 or st.dim() != 2 or st.shape[1] < 1):
         raise ValueError("range_max_gather: shape mismatch "
                          f"{lq.shape} {uq.shape} {seg_lo.shape} "
                          f"{seg_hi.shape} {coeffs.shape} {st.shape}")
+    if tree.shape != (sum(tree_levels(H)), TREE_FANOUT - 1):
+        raise ValueError(f"range_max_gather: tree {tuple(tree.shape)} does "
+                         f"not have the shape of the search tree of {H} "
+                         "starts")
+    if any(t.data_ptr() % 16 for t in (seg_lo, coeffs, tree)):
+        raise ValueError("range_max_gather: seg_lo, coeffs and tree must "
+                         "start on a 16-byte boundary (the kernel reads them "
+                         "16 bytes at a time); pass a copy (.clone()) of an "
+                         "offset view")
     out = torch.empty(Q, dtype=coeffs.dtype, device=lq.device)
     if Q:
         _build.check(_build.launcher("range_max_gather", dtype)(
             lq.data_ptr(), uq.data_ptr(), seg_lo.data_ptr(),
             seg_hi.data_ptr(), coeffs.data_ptr(), st.data_ptr(),
-            out.data_ptr(), Q, H, deg, st.shape[1],
+            tree.data_ptr(), out.data_ptr(), Q, H, deg, st.shape[1],
             _build.stream(lq.device)), "range_max_gather")
         range_max_gather.launches += 1
     return out

@@ -4,10 +4,11 @@ K1 (locate), K2 (range SUM), K3 (range MAX), K4 (quantile inversion), K5
 (buffered SUM), K6 (buffered MAX), the 2-D leaf kernels K7, K8, K12 and
 K13, the buffered 2-D corrections K9, K10 and K11, and the ``cuda`` engine
 backend, static, dynamic, windowed and 2-D (static and dynamic), must
-agree with the plain versions on the same inputs: K1's int32 ids and K4's
-Newton branch and the 2-D kernels exactly, the others to rtol = atol =
-1e-9 (compiled with -fmad=false, they are expected to agree bit for
-bit).  The one-hot scans of the ``cuda_scan`` backend, K14 (range SUM),
+agree with the plain versions on the same inputs: K1's int32 ids, K3
+(at every degree 0-3, float64 and float32, on edge lanes and ragged
+counts), K4's Newton branch and the 2-D kernels exactly (NaN as NaN), the
+others to rtol = atol = 1e-9 (compiled with -fmad=false, they are
+expected to agree bit for bit).  The one-hot scans of the ``cuda_scan`` backend, K14 (range SUM),
 K15 (range MAX), K16 (buffered SUM), K17 (buffered MAX) and K4's scan
 mode, equal their plain versions and their gather twins exactly (K16 on
 a SUM log within 1e-12 of the lane's sum of |measure|: the plain product
@@ -54,6 +55,7 @@ import torch
 
 from repro_torch.api import ErrorBudget, PolyFit, QueryBatch, QuerySpec, TableSpec
 from repro_torch.core import build_index_1d, build_index_2d
+from repro_torch.core.exact import build_sparse_table
 from repro_torch.data import (hki_series, make_queries_1d, make_queries_2d,
                               osm_points, tweet_latitudes)
 from repro_torch.engine import (DeltaBuffer2D, DynamicEngine,
@@ -191,7 +193,8 @@ def test_locate_rejects_a_misaligned_or_misshapen_tree(cuda):
 
 def test_plans_carry_their_keys_search_tree(cuda, plans, plans2d):
     """Every plan built on the card carries its keys' search tree, aligned
-    for K1."""
+    for K1, and every MAX/MIN plan its starts' search tree, aligned for
+    K3."""
     _, by_key = plans
     *_, by_key2d = plans2d
     for p in (*by_key.values(), *by_key2d.values()):
@@ -200,7 +203,14 @@ def test_plans_carry_their_keys_search_tree(cuda, plans, plans2d):
         assert torch.equal(tree.nan_to_num(-1.0),
                            kloc.search_tree(keys).nan_to_num(-1.0))
         assert keys.data_ptr() % 16 == 0 and tree.data_ptr() % 16 == 0
-        assert p.tree_bytes() == tree.numel() * 8
+        seg_tree = getattr(p, "seg_tree", None)
+        if seg_tree is not None:
+            assert torch.equal(seg_tree.nan_to_num(-1.0),
+                               kloc.search_tree(p.seg_lo).nan_to_num(-1.0))
+            assert p.seg_lo.data_ptr() % 16 == seg_tree.data_ptr() % 16 == 0
+        assert (seg_tree is not None) == (getattr(p, "st", None) is not None)
+        assert p.tree_bytes() == 8 * (tree.numel() + (
+            0 if seg_tree is None else seg_tree.numel()))
 
 
 @pytest.mark.parametrize("deg", [1, 2, 3])
@@ -217,13 +227,95 @@ def test_range_sum_kernel_matches_plain(plans, queries, deg):
 @pytest.mark.parametrize("agg,deg", [("max", 1), ("max", 2), ("max", 3),
                                      ("min", 3)])
 def test_range_max_kernel_matches_plain(plans, queries, agg, deg):
+    """K3 (two threads a query, one instantiation a degree) equals its plain
+    version in every lane on the plans' ranges; one launch a call."""
     p = plans[1][agg, deg]
     args = (*queries, p.seg_lo, p.seg_hi, p.coeffs, p.st)
     before = kmax.range_max_gather.launches
     got = kmax.range_max_gather(*args)
     torch.cuda.synchronize()
     assert kmax.range_max_gather.launches == before + 1
-    torch.testing.assert_close(got, kmax.range_max_gather_plain(*args), **TOL)
+    torch.testing.assert_close(got, kmax.range_max_gather_plain(*args),
+                               rtol=0, atol=0, equal_nan=True)
+
+
+def _k3_table(cuda, dt, deg):
+    """A MAX segment table in a plan's layout (_segment_table: 300 live
+    segments of 512, two equal starts) at ``deg`` (its rows' first deg + 1
+    coefficients) with the sparse table over its live aggregates:
+    (seg_lo, seg_hi, coeffs, st), st float64 as a plan keeps it."""
+    lo, _, hi, cf, agg = _segment_table(cuda, 300, 512, dt, seed=deg)
+    live = agg[torch.isfinite(agg)].double().cpu().numpy()
+    st = torch.as_tensor(build_sparse_table(live), device=cuda)
+    return lo, hi, cf[:, :deg + 1].contiguous(), st
+
+
+def _k3_edge_lanes(lo, Q):
+    """Q ranges over a _k3_table, its edge lanes first: every pairing of
+    NaN, +-inf, below the table, past its last segment and the sentinel;
+    lq == uq on every start, a range inside each segment (il == iu), a
+    start paired with the third start on, and the same inverted; then
+    ranges from [-5, 1005]."""
+    big = big_sentinel(lo.dtype)
+    s = lo[lo < big].cpu().numpy()
+    dt = s.dtype
+    special = np.array([np.nan, np.inf, -np.inf, -1.0, 1004.0, big],
+                       dtype=dt)
+    a, b = np.meshgrid(special, special)
+    inside = s[:-1] + (s[1:] - s[:-1]) / 3
+    far = np.roll(s, -3)
+    rng = np.random.default_rng(Q)
+    x, y = rng.uniform(-5, 1005, (2, Q)).astype(dt)
+    lq = np.concatenate([a.ravel(), s, s[:-1], inside, s, far,
+                         np.minimum(x, y)])[:Q]
+    uq = np.concatenate([b.ravel(), s, inside, inside, far, s,
+                         np.maximum(x, y)])[:Q]
+    return (torch.as_tensor(lq, device=lo.device),
+            torch.as_tensor(uq, device=lo.device))
+
+
+@pytest.mark.parametrize("dt", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("Q", [1, 255, 65_537])
+@pytest.mark.parametrize("deg", [0, 1, 2, 3])
+def test_range_max_kernel_edge_lanes_and_ragged_counts(cuda, deg, Q, dt):
+    """K3 equals its plain version in every lane (NaN as NaN) at every
+    degree it admits, at float64 and float32, at ragged query counts (an
+    odd count leaves the last query's second thread a lane past Q), on NaN,
+    infinite, below-the-table, past-the-end and sentinel endpoints, ranges
+    with lq == uq, inside one segment (il == iu), on every start and
+    inverted; one launch a call, and two launches give the same bits."""
+    lo, hi, cf, st = _k3_table(cuda, dt, deg)
+    lq, uq = _k3_edge_lanes(lo, Q)
+    args = (lq, uq, lo, hi, cf, st)
+    before = kmax.range_max_gather.launches
+    got = kmax.range_max_gather(*args)
+    again = kmax.range_max_gather(*args)
+    torch.cuda.synchronize()
+    assert kmax.range_max_gather.launches == before + 2
+    assert got.shape == (Q,) and got.dtype == dt
+    torch.testing.assert_close(got, kmax.range_max_gather_plain(*args),
+                               rtol=0, atol=0, equal_nan=True)
+    assert torch.equal(got.view(torch.int32 if dt == torch.float32
+                                else torch.int64),
+                       again.view(torch.int32 if dt == torch.float32
+                                  else torch.int64))
+
+
+def test_range_max_kernel_refuses_misaligned_rows(cuda):
+    """K3 reads rows by 16-byte loads: coeffs that start off 16 bytes (an
+    offset view) are refused, a copy of them is taken."""
+    lo, hi, cf, st = _k3_table(cuda, torch.float64, 3)
+    buf = torch.empty(cf.numel() + 1, dtype=cf.dtype, device=cuda)
+    off = buf[1:].view(cf.shape)
+    off.copy_(cf)
+    lq, uq = _k3_edge_lanes(lo, 1000)
+    with pytest.raises(ValueError, match="16-byte"):
+        kmax.range_max_gather(lq, uq, lo, hi, off, st)
+    torch.testing.assert_close(
+        kmax.range_max_gather(lq, uq, lo, hi, off.clone(), st),
+        kmax.range_max_gather(lq, uq, lo, hi, cf, st), rtol=0, atol=0,
+        equal_nan=True)
 
 
 def test_kernels_reject_cpu_tensors_mixed_in(plans, queries):
@@ -968,29 +1060,39 @@ def test_delta_2d_kernels_match_plain(cuda, fill):
 @pytest.mark.parametrize("nq", [1, 255, 65_537])
 @pytest.mark.parametrize("fill", [2, CAP - 1025, CAP])
 def test_delta_2d_kernels_ragged_and_special_lanes(cuda, fill, nq):
-    """K9 and K10 (two threads a query, a shuffle between them) on ragged
-    query counts, NaN, +-inf and signed-zero lanes (x-rank == cap where a
-    corner passes every key of the full log) equal their plain versions bit
-    for bit, and a second launch equals the first; K11 still equals its
-    plain version."""
+    """K9 and K10 (two threads a query, a shuffle between them) and K11
+    (the set-bits walk in max mode) on ragged query counts, NaN, +-inf and
+    signed-zero lanes (x-rank == cap where a corner passes every key of the
+    full log) equal their plain versions bit for bit (K11 NaN as NaN), one
+    launch each a call, and a second launch equals the first."""
     (x, _, _, ylv, wcum, wpmax), pts = _log2d(cuda, fill)
     rects = _rects2d(cuda, pts, special=True)
     lx, ux, ly, uy = (torch.cat([q[:max(nq - 10, 1)], q[-10:]])[:nq]
                       for q in rects)
     bits = lambda t: t.view(torch.int64)
+    launches = lambda: (kdelta.delta_count2d_gather.launches,
+                        kdelta.delta_sum2d_gather.launches,
+                        kdelta.delta_dommax2d_gather.launches)
+    before = launches()
     k9 = kdelta.delta_count2d_gather(lx, ux, ly, uy, x, ylv)
     k10 = kdelta.delta_sum2d_gather(lx, ux, ly, uy, x, ylv, wcum)
     k11 = kdelta.delta_dommax2d_gather(ux, uy, x, ylv, wpmax)
+    k11_low = kdelta.delta_dommax2d_gather(lx, ly, x, ylv, wpmax)
+    torch.cuda.synchronize()
+    assert launches() == (before[0] + 1, before[1] + 1, before[2] + 2)
     assert torch.equal(bits(k9), bits(kdelta.delta_count2d_gather_plain(
         lx, ux, ly, uy, x, ylv)))
     assert torch.equal(bits(k10), bits(kdelta.delta_sum2d_gather_plain(
         lx, ux, ly, uy, x, ylv, wcum)))
-    torch.testing.assert_close(k11, kdelta.delta_dommax2d_gather_plain(
-        ux, uy, x, ylv, wpmax), rtol=0, atol=0)
+    _same(k11, kdelta.delta_dommax2d_gather_plain(ux, uy, x, ylv, wpmax))
+    _same(k11_low, kdelta.delta_dommax2d_gather_plain(lx, ly, x, ylv,
+                                                      wpmax))
     assert torch.equal(bits(k9), bits(kdelta.delta_count2d_gather(
         lx, ux, ly, uy, x, ylv)))
     assert torch.equal(bits(k10), bits(kdelta.delta_sum2d_gather(
         lx, ux, ly, uy, x, ylv, wcum)))
+    assert torch.equal(bits(k11), bits(kdelta.delta_dommax2d_gather(
+        ux, uy, x, ylv, wpmax)))
     if nq > 10:   # (-inf, inf]^2: x-rank cap, every slot counted
         assert float(k9[-6]) == CAP
 

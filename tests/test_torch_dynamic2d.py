@@ -695,13 +695,25 @@ def test_delta_2d_plain_kernels_match_pallas(fill):
         assert k9.max() > 0 and torch.isfinite(k11).any()
 
 
-def _set_bits_form(lx, ux, ly, uy, keys_x, ylv, wcum):
-    """numpy transcription of K9 and K10 as csrc/delta2d.cu computes them:
-    two x-ranks a rectangle by the power-of-two search, then for each
+def _jmax(a, b):
+    """The kernels' max (locate.cuh jmax): NaN where either is NaN, else
+    the second operand unless the first is greater."""
+    return np.where(np.isnan(a) | np.isnan(b), a + b, np.where(a > b, a, b))
+
+
+def _set_bits_form(lx, ux, ly, uy, keys_x, ylv, wcum, wpmax):
+    """numpy transcription of K9, K10 and K11 as csrc/delta2d.cu computes
+    them: two x-ranks a rectangle by the power-of-two search, then for each
     corner only the levels whose bit is set in its x-rank i, block start
     pos = i & ~((2 << l) - 1), a power-of-two search of the block (l
-    halving rounds, then one compare), and for K10 the taken levels' wcum
-    entries added in descending level order."""
+    halving rounds, then one compare); for K10 the taken levels' wcum
+    entries added in descending level order, for K11 their wpmax entries
+    folded by jmax in that order from -inf within each of the two thread
+    groups of part_bits (a level goes to the low group when its rounds'
+    midpoint, 2 * cum + l + 1 over the rounds cum of the higher set bits,
+    reaches the total rounds), then jmax(high group, low group).  Returns
+    K9's and K10's answers and K11's at the corners (ux, uy) and
+    (lx, ly)."""
     n, levels = keys_x.shape[0], ylv.shape[0]
 
     def rank(q):
@@ -716,8 +728,13 @@ def _set_bits_form(lx, ux, ly, uy, keys_x, ylv, wcum):
 
     def corner(i, v):
         count, total = np.zeros(i.shape, np.int64), np.zeros(i.shape)
+        best = [np.full(i.shape, -np.inf), np.full(i.shape, -np.inf)]
+        rounds = sum(((i >> l) & 1) * (l + 1) for l in range(levels))
+        cum = np.zeros(i.shape, np.int64)
         for l in range(levels - 1, -1, -1):
             take = (i >> l) & 1 == 1
+            low = 2 * cum + l + 1 >= rounds
+            cum = cum + np.where(take, l + 1, 0)
             pos = i & ~((2 << l) - 1)
             c = np.zeros(i.shape, np.int64)
             half = (1 << l) >> 1
@@ -731,27 +748,36 @@ def _set_bits_form(lx, ux, ly, uy, keys_x, ylv, wcum):
             hit = take & (c > 0)
             w = wcum[l][np.where(hit, pos + c - 1, 0)]
             total = np.where(hit, total + w, total)
-        return count.astype(np.float64), total
+            m = wpmax[l][np.where(hit, pos + c - 1, 0)]
+            for g, mine in enumerate((hit & ~low, hit & low)):
+                best[g] = np.where(mine, _jmax(best[g], m), best[g])
+        return count.astype(np.float64), total, _jmax(best[0], best[1])
 
     iu, il = rank(ux), rank(lx)
-    (a, sa), (b, sb) = corner(iu, uy), corner(il, uy)
-    (c, sc), (d, sd) = corner(iu, ly), corner(il, ly)
-    return a - b - c + d, sa - sb - sc + sd
+    (a, sa, ma), (b, sb, _) = corner(iu, uy), corner(il, uy)
+    (c, sc, _), (d, sd, md) = corner(iu, ly), corner(il, ly)
+    return a - b - c + d, sa - sb - sc + sd, ma, md
 
 
 @pytest.mark.parametrize("fill", [0, 1, 3, 3072, 4096])
 def test_mst_set_bits_form_matches_plain(fill):
-    """The set-bits formulation K9 and K10 run on the card equals their
-    plain versions bit for bit on a 4,096-slot log (ties on both axes,
-    -0.0 beside +0.0): ~600 rectangles with corners on the points'
+    """The set-bits formulation K9, K10 and K11 run on the card equals
+    their plain versions bit for bit on a 4,096-slot log (ties on both
+    axes, -0.0 beside +0.0): ~600 rectangles with corners on the points'
     coordinates, random, inverted and all-covering ones, NaN and +-inf
     lanes, corners past every key (x-rank == cap on the full log) and on
-    either zero."""
+    either zero; K11 at the corners (ux, uy) and (lx, ly), also with a NaN
+    measure every 37 points (NaN lanes as NaN)."""
     cap = 4096
     x, y, w = _points(fill, seed=fill + 5)
     x[::7] = np.where(x[::7] == 0.0, -0.0, x[::7])
     y[1::5] = np.where(y[1::5] == 0.0, -0.0, y[1::5])
-    gx, _, _, ylv, wcum, _ = _log(fill, cap=cap, points=(x, y, w))
+    gx, _, _, ylv, wcum, wpmax = _log(fill, cap=cap, points=(x, y, w))
+    w_nan = w.copy()
+    w_nan[::37] = np.nan
+    gx2, _, _, ylv2, _, wpmax_nan = _log(fill, cap=cap,
+                                         points=(x, y, w_nan))
+    assert torch.equal(gx2, gx) and torch.equal(ylv2, ylv)
     rng = np.random.default_rng(fill + 71)
     px, py, _ = _points(max(fill, 1), seed=fill + 5)
     k = rng.integers(0, len(px), (2, 256))
@@ -775,13 +801,26 @@ def test_mst_set_bits_form_matches_plain(fill):
     uy = np.concatenate([np.maximum(c, d), special[:, 3]])
     lx[:16], ux[:16] = ux[:16].copy(), lx[:16].copy()   # inverted ones
     tq = [torch.as_tensor(q) for q in (lx, ux, ly, uy)]
-    got9, got10 = _set_bits_form(lx, ux, ly, uy, gx.numpy(), ylv.numpy(),
-                                 wcum.numpy())
+    got9, got10, _, _ = _set_bits_form(lx, ux, ly, uy, gx.numpy(),
+                                       ylv.numpy(), wcum.numpy(),
+                                       wpmax.numpy())
     want9 = kd.delta_count2d_gather_plain(*tq, gx, ylv).numpy()
     want10 = kd.delta_sum2d_gather_plain(*tq, gx, ylv, wcum).numpy()
     bits = lambda t: t.view(np.int64)
     np.testing.assert_array_equal(bits(got9), bits(want9))
     np.testing.assert_array_equal(bits(got10), bits(want10))
+    for wp in (wpmax, wpmax_nan):
+        _, _, got_u, got_l = _set_bits_form(lx, ux, ly, uy, gx.numpy(),
+                                            ylv.numpy(), wcum.numpy(),
+                                            wp.numpy())
+        for got, (u, v) in ((got_u, (tq[1], tq[3])), (got_l, (tq[0], tq[2]))):
+            want = kd.delta_dommax2d_gather_plain(u, v, gx, ylv, wp).numpy()
+            nan = np.isnan(want)
+            np.testing.assert_array_equal(np.isnan(got), nan)
+            np.testing.assert_array_equal(bits(got[~nan]), bits(want[~nan]))
+    if fill > 37:
+        assert np.isnan(kd.delta_dommax2d_gather_plain(
+            tq[1], tq[3], gx, ylv, wpmax_nan).numpy()).any()
     i_all = np.searchsorted(gx.numpy(), 1e300, side="right")
     assert (i_all == cap) == (fill == cap)   # level 12 alone taken there
     if fill:

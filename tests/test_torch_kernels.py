@@ -1,8 +1,11 @@
 """The plain versions of kernels K2 (range SUM) and K3 (range MAX) against
 ``range_sum_gather_pallas`` / ``range_max_gather_pallas`` in interpret mode,
 for deg 1-3, on reference plans carried across with ``plan_from_numpy``
-(rtol = atol = 1e-9).  The kernels themselves are held to these plain
-versions on the card by tests/test_torch_cuda.py."""
+(rtol = atol = 1e-9); and a torch transcription of K3's two-thread form
+(each boundary's search by seg_lo's search tree, its row and clipped
+maximum, the combine) held to K3's plain version bit for bit.  The kernels
+themselves are held to these plain versions on the card by
+tests/test_torch_cuda.py."""
 import numpy as np
 import pytest
 import jax
@@ -16,8 +19,10 @@ from repro.data import hki_series  # noqa: E402
 from repro.engine import build_plan  # noqa: E402
 from repro.kernels.range_max import range_max_gather_pallas  # noqa: E402
 from repro.kernels.range_sum import range_sum_gather_pallas  # noqa: E402
+from repro_torch.core.poly import clipped_poly_max  # noqa: E402
 from repro_torch.engine.plan import (ARRAY_FIELDS, META_FIELDS,  # noqa: E402
-                                     plan_from_numpy)
+                                     big_sentinel, plan_from_numpy)
+from repro_torch.kernels import locate as tloc  # noqa: E402
 from repro_torch.kernels import range_max as tmax  # noqa: E402
 from repro_torch.kernels import range_sum as tsum  # noqa: E402
 
@@ -112,3 +117,85 @@ def test_range_max_rejects_deg4():
     z = torch.zeros(4, dtype=torch.float64)
     with pytest.raises(ValueError, match="deg <= 3"):
         tmax.range_max_gather(z, z, c[:, 0], c[:, 0], c, c[:1, :4])
+
+
+def _k3_two_threads(lq, uq, seg_lo, seg_hi, coeffs, st, tree):
+    """torch transcription of K3 as csrc/polyfit_kernels.cu runs it: two
+    threads a query (the leading axis), thread 0 lq's boundary, thread 1
+    uq's.  Each finds its segment by the descent of seg_lo's search tree,
+    max(#(seg_lo <= q) - 1, 0), gathers its row and takes the clipped
+    maximum over its part of the segment: thread 0 over [lq, min(hi, uq)],
+    dropped where lq is past hi; thread 1 over [max(lo, lq), uq].  Thread 1
+    then takes thread 0's segment and maximum (the shuffle), drops its own
+    where the two segments are one, takes the sparse-table max over
+    (il, iu) and combines the three in the plain version's order."""
+    st = st.to(coeffs.dtype)
+    q = torch.stack([lq, uq])
+    idx = torch.clamp(tloc.tree_count(seg_lo, tree, q) - 1, min=0)
+    lo, hi, c = seg_lo[idx], seg_hi[idx], coeffs[idx]
+    right = torch.tensor([[False], [True]])
+    m = clipped_poly_max(c, lo, hi, torch.where(right, torch.maximum(lo, lq),
+                                                lq),
+                         torch.where(right, uq, torch.minimum(hi, uq)))
+    m = torch.where(right | (lq <= hi), m, -torch.inf)
+    il, iu = idx[0], idx[1]
+    m_right = torch.where(il == iu, -torch.inf, m[1])
+    m_int = tloc.rmq_gather(st, il + 1, iu)
+    return torch.maximum(torch.maximum(m[0], m_right), m_int)
+
+
+def _k3_edge_lanes(p, lq, uq, dt):
+    """The module's ranges after K3's edge lanes over plan ``p``: every
+    pairing of NaN, +-inf, below the table, past its last segment and the
+    sentinel; lq == uq on every start, on a start and on a segment's end
+    (il == iu), a range inside each segment (il == iu), a start and the
+    third on, and the same inverted (lq > uq)."""
+    s = p.seg_lo[:p.h].double().numpy()
+    e = p.seg_hi[:p.h].double().numpy()
+    special = np.array([np.nan, np.inf, -np.inf, s[0] - 1.0, e[-1] + 5.0,
+                        big_sentinel(dt)])
+    a, b = np.meshgrid(special, special)
+    inside = s + (e - s) / 3
+    far = np.roll(s, -3)
+    el = np.concatenate([a.ravel(), s, s, inside, s, far, lq])
+    eu = np.concatenate([b.ravel(), s, e, inside + (e - s) / 3, far, s, uq])
+    return (torch.as_tensor(el.astype(np.float32 if dt == torch.float32
+                                      else np.float64)),
+            torch.as_tensor(eu.astype(np.float32 if dt == torch.float32
+                                      else np.float64)))
+
+
+def _bits(t):
+    """(NaN mask, the other lanes' bits)."""
+    nan = torch.isnan(t)
+    return nan, t[~nan].view(torch.int32 if t.dtype == torch.float32
+                             else torch.int64)
+
+
+@pytest.mark.parametrize("case", ["max1", "max2", "max3", "min3", "max0",
+                                  "max3_f32", "max2_f32"])
+def test_k3_two_thread_form_matches_plain(plans, queries, case):
+    """K3's two-thread form (_k3_two_threads) equals the plain K3 bit for
+    bit (NaN as NaN) on the plans at deg 0-3 (deg 0: the deg-1 plan's
+    constant terms) and at float32, on the plans' ranges and the edge
+    lanes; the search tree's descent counts as the binary search does."""
+    _, ps = plans
+    dt = torch.float32 if case.endswith("_f32") else torch.float64
+    agg, deg = case[:3], int(case[3])
+    p = port_plan(ps[agg, max(deg, 1)])
+    seg_lo, seg_hi = p.seg_lo.to(dt), p.seg_hi.to(dt)
+    coeffs = p.coeffs[:, :deg + 1].to(dt).contiguous()
+    tree = tloc.search_tree(seg_lo)
+    if dt == torch.float64:
+        assert torch.equal(p.seg_tree.nan_to_num(-1.0),
+                           tree.nan_to_num(-1.0))
+    lq, uq = _k3_edge_lanes(p, *queries, dt)
+    got = _k3_two_threads(lq, uq, seg_lo, seg_hi, coeffs, p.st, tree)
+    want = tmax.range_max_gather_plain(lq, uq, seg_lo, seg_hi, coeffs, p.st)
+    assert got.dtype == want.dtype == dt
+    (gn, gb), (wn, wb) = _bits(got), _bits(want)
+    assert torch.equal(gn, wn) and torch.equal(gb, wb)
+    assert torch.isfinite(want).any() and torch.isneginf(want).any()
+    for q in (lq, uq):
+        assert torch.equal(tloc.tree_count(seg_lo, tree, q),
+                           tloc.bsearch_count(seg_lo, q))

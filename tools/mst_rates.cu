@@ -21,6 +21,7 @@
 // Built and timed by tools/mst_rates.py.
 #include "../src/repro_torch/csrc/delta2d.cu"
 #include "../src/repro_torch/csrc/scan_tile.cuh"
+#include "mst_prefix.cuh"
 
 namespace {
 
