@@ -63,8 +63,8 @@ Phases, each of which fails the run with a non-zero exit:
               the counters must show K2 per sealed epoch, K5 when the
               window reaches the open epoch and K1 under Q_rel, and K1, K2
               and K5 are held to their plain versions at the window's
-              shapes.  One more seal evicts epoch 0, whose window must then
-              raise;
+              shapes (K5 exactly).  One more seal evicts epoch 0, whose
+              window must then raise;
 10. 2d      - PolyFit.fit of four static two-key tables over OSM-like
               points (cut as the CUT lines say): ``osm`` COUNT rectangles
               (100k points, delta 50, deg 3), ``osm_sum`` SUM rectangles
@@ -85,8 +85,8 @@ Phases, each of which fails the run with a non-zero exit:
               flat table), K7 to K12 on corners on the split lines, K8 on
               the dominance plans and K12/K13 on the deep ones, and each is
               timed on ``osm``'s plan, K7 beside its loads a rectangle
-              (before and after its redesign) and the rate an SM served
-              them at;
+              and K8 beside its loads a corner (each before and after its
+              redesign) and the rate an SM served them at;
 11. dyn2d   - PolyFit.fit of three dynamic two-key tables
               (TableSpec(dynamic=True), capacity 4,096) over OSM-like
               points: ``osm_dyn`` COUNT (100k, delta 50, deg 3),
@@ -731,6 +731,23 @@ def k7_loads(torch, args):
              + cut_rank_loads(torch, ycuts, ly))
     new = ranks.mean() + 4 * (probe_rounds(L) + row_new)
     return float(old), float(new)
+
+
+def k8_loads(torch, args):
+    """Mean loads a corner of K8 on one argument set, computed on the card
+    from its corners: as it was (three binary searches and a row of 4 +
+    (deg+1)^2 8-byte loads) and as it is (the x and the y value ranked by
+    cut_rank_guess, one leaf-code search, the row by 16-byte loads: 2 for
+    the bounds and (deg+1)^2 / 2 for the coefficients, 8-byte coefficient
+    loads at an odd count).  Each load counts once: the two lanes of a
+    corner issue the code search's loads together, to one address."""
+    u, v, xcuts, ycuts, leaf_z, _, coeffs = args[:7]
+    k = coeffs.shape[1]
+    nx, ny, L = xcuts.shape[0], ycuts.shape[0], leaf_z.shape[0]
+    old = probe_rounds(nx) + probe_rounds(ny) + probe_rounds(L) + 4 + k
+    ranks = cut_rank_loads(torch, xcuts, u) + cut_rank_loads(torch, ycuts, v)
+    row = 2 + (k // 2 if k % 2 == 0 else k)
+    return float(old), float(ranks.mean() + probe_rounds(L) + row)
 
 
 def k11_loads(torch, args):
@@ -1995,7 +2012,7 @@ def main() -> None:
             _, b = dsession.snapshot(name)
             k6.append((*dt[name], b.ins_keys, b.ins_st))
         hold("delta_sum_gather", kdel.delta_sum_gather,
-             kdel.delta_sum_gather_plain, k5)
+             kdel.delta_sum_gather_plain, k5, exact=True)
         hold("delta_max_gather", kdel.delta_max_gather,
              kdel.delta_max_gather_plain, k6)
         print(f"{tag}parity K5/K6: max |kernel - plain| = "
@@ -2252,7 +2269,7 @@ def main() -> None:
          ksum.range_sum_gather_plain, wsets["range_sum_gather"])
     k5w = (lq, uq, wbuf.ins_keys, wbuf.ins_cf)
     hold("delta_sum_gather", kdel.delta_sum_gather,
-         kdel.delta_sum_gather_plain, [k5w])
+         kdel.delta_sum_gather_plain, [k5w], exact=True)
     print(f"window: parity K1/K2/K5 on {len(wsets['locate'])}/"
           f"{len(wsets['range_sum_gather'])}/1 argument sets: max |kernel - "
           f"plain| = { {k: errs[k] for k in ('locate', 'range_sum_gather', 'delta_sum_gather')} }",
@@ -2541,6 +2558,13 @@ def main() -> None:
     print(f"2d osm: loads corner_count2d_gather: {old!r} a rectangle before "
           f"the redesign, {new!r} now; {rate!r} loads a clock an SM at "
           f"{ms!r} ms ({sms} SMs at {ghz} GHz)", flush=True)
+    # the same for K8 (tools/k5_k8_rates.py measures its variants)
+    old, new = k8_loads(torch, k8_args)
+    ms = timed["2d"]["corner_eval2d_gather"]["ms"]
+    rate = Q * new / (ms * 1e-3) / sms / (ghz * 1e9)
+    print(f"2d osm: loads corner_eval2d_gather: {old!r} a corner before the "
+          f"redesign, {new!r} now; {rate!r} loads a clock an SM at {ms!r} "
+          f"ms", flush=True)
     for label, rel in (("Q_abs", None), ("Q_rel", EPS_REL)):
         query_latency(torch, session2, batch2d(rel),
                       f"2d: session.query {label}", 4 * NQ)

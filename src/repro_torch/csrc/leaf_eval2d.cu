@@ -20,9 +20,10 @@
 //
 // Gather (K7, K8): a corner's leaf is its cell (the number of x cuts and
 // of y cuts at or below it), then a branch-free binary search of the
-// cell's int32 Morton code in the z-sorted table, then one row.  K8, one
-// thread a query, takes the cell by two binary searches (locate.cuh
-// locate_leaf2d); K7, four threads a rectangle, by checked guesses (below).
+// cell's int32 Morton code in the z-sorted table, then one row.  Both rank
+// a coordinate by a checked guess (locate.cuh cut_rank_guess), build the
+// code by bit tricks (morton2) and read rows by 16-byte loads; K7 runs
+// four threads a rectangle, K8 two a corner (below).
 //
 // Scan (K12, K13), the path of plans deeper than 15 levels (no int32 Morton
 // codes): every corner is tested against the flat leaf table's membership
@@ -63,6 +64,24 @@
 // spilled and lost 24-30%.  The rows (40 of the 108 loads, 640 bytes a
 // rectangle) come mostly from L2; at 8 x the rectangles the rate reaches
 // 1.9 a clock, so about a fifth of the time is the grid's ramp and tail.
+// K8 at osm's Q = 65,536 must move 3 x 8 B a corner plus the same table,
+// about 2.1 MB, 0.61 us.  Before its redesign it ran one thread a corner:
+// three binary searches (13 rounds each) and a row of 20 8-byte loads, 59
+// loads a corner at 1.1 a clock an SM (0.0136 ms).  Its design now is
+// K7's steps (about 31 loads a corner at deg 3) at two threads a corner:
+//   - lane e ranks coordinate e (cut_rank_guess), and shuffles give both
+//     lanes the corner and its cell;
+//   - both lanes search the leaf codes (one address: a load serves both)
+//     and split the row (leaf_value_pair): each reads and evaluates the
+//     inner Horner of every other coefficient row, and lane 0 runs the
+//     outer Horner in the plain order, the odd rows' values shuffled in,
+//     so the answer is leaf_value's bit for bit.
+// tools/k5_k8_rates.py on an OSM-like table (NVIDIA H100 80GB HBM3 at 700
+// W): 0.0065 ms, 2.1x the old kernel; one thread a corner ran 0.0080-
+// 0.0083, two threads with lane 0 alone searching and evaluating 0.0076;
+// a search tree over the codes (5 sector loads for 13 rounds) saved
+// nothing at deg 3 and 6-7% at deg 2, under the 15% that would pay for a
+// plan field.
 // K12 on the same table must move the same bytes but compares every corner
 // with every leaf: its bound counts 4 compares a corner, 16 f64
 // operations a (query, leaf) pair at the FP64 peak (which counts an FMA as
@@ -137,16 +156,21 @@ constexpr int kCountQueries = 2;
 constexpr int kCountTile = 128;
 constexpr int kCountChunks = 4;
 
+// q scaled to a leaf's box [lo, hi] on one axis: (2q - lo - hi) / span
+// clipped to [-1, 1], span 1 for a box of no width (core/poly.py)
+__device__ __forceinline__ double unit_coord(double q, double lo, double hi) {
+  const double span = hi > lo ? hi - lo : 1.0;
+  return jclip((2.0 * q - lo - hi) / span, -1.0, 1.0);
+}
+
 // P_leaf(u(qx), v(qy)) of a leaf row held in registers: bounds b0..b3,
 // coefficients c
 template <int DEG>
 __device__ __forceinline__ double row_value(
     double qx, double qy, const double (&b)[4],
     const double (&c)[(DEG + 1) * (DEG + 1)]) {
-  const double span_x = b[1] > b[0] ? b[1] - b[0] : 1.0;
-  const double span_y = b[3] > b[2] ? b[3] - b[2] : 1.0;
-  const double us = jclip((2.0 * qx - b[0] - b[1]) / span_x, -1.0, 1.0);
-  const double vs = jclip((2.0 * qy - b[2] - b[3]) / span_y, -1.0, 1.0);
+  const double us = unit_coord(qx, b[0], b[1]);
+  const double vs = unit_coord(qy, b[2], b[3]);
   double acc = 0.0;
 #pragma unroll
   for (int i = DEG; i >= 0; --i) {
@@ -185,25 +209,8 @@ __device__ __forceinline__ double leaf_value_v16(
     const double* __restrict__ coeffs) {
   constexpr int K = (DEG + 1) * (DEG + 1);
   double b[4], c[K];
-  const double2* b2 = reinterpret_cast<const double2*>(bounds) + 2 * (size_t)leaf;
-  const double2 b01 = __ldg(b2), b23 = __ldg(b2 + 1);
-  b[0] = b01.x;
-  b[1] = b01.y;
-  b[2] = b23.x;
-  b[3] = b23.y;
-  if constexpr (K % 2 == 0) {
-    const double2* c2 =
-        reinterpret_cast<const double2*>(coeffs) + (size_t)leaf * (K / 2);
-#pragma unroll
-    for (int e = 0; e < K / 2; ++e) {
-      const double2 w = __ldg(c2 + e);
-      c[2 * e] = w.x;
-      c[2 * e + 1] = w.y;
-    }
-  } else {
-#pragma unroll
-    for (int e = 0; e < K; ++e) c[e] = __ldg(coeffs + (size_t)leaf * K + e);
-  }
+  load_row_v16<3>(bounds, leaf, b);
+  load_row_v16<K - 1>(coeffs, leaf, c);
   return row_value<DEG>(qx, qy, b, c);
 }
 
@@ -247,20 +254,79 @@ __global__ void __launch_bounds__(kThreads) corner_count2d_gather_kernel(
   if (e == 0 && t / 4 < Q) out[q] = v - v1 - v2 + v3;
 }
 
-// K8: single-corner P_leaf(u, v), located by binary search
+// leaf_value_v16 of corner (qx, qy) split over a pair of lanes (e = 0, 1,
+// both holding the corner and its leaf): lane e takes the rows i = e, e +
+// 2, ... of the coefficient block, each's inner Horner in v from 0 (16
+// bytes a load where a row's length is even: deg 1, 3, 5), and lane 0
+// runs the outer Horner in u in the plain order, acc = acc * us + inner_i
+// for i = DEG down to 0, the odd rows' inner values shuffled from lane 1.
+// Each inner value is computed as leaf_value computes it, so lane 0's
+// result is leaf_value's bit for bit; lane 1's is not used.  Both lanes of
+// every pair of the warp must call it (the shuffles).  ``bounds`` and
+// ``coeffs`` must be 16-byte aligned (kernels/leaf_eval2d.py checks).
 template <int DEG>
-__global__ void corner_eval2d_gather_kernel(
+__device__ __forceinline__ double leaf_value_pair(
+    double qx, double qy, int leaf, int e, const double* __restrict__ bounds,
+    const double* __restrict__ coeffs) {
+  constexpr unsigned kAll = 0xffffffffu;
+  constexpr int D1 = DEG + 1, R = (DEG + 2) / 2;
+  double b[4];
+  load_row_v16<3>(bounds, leaf, b);
+  const double us = unit_coord(qx, b[0], b[1]);
+  const double vs = unit_coord(qy, b[2], b[3]);
+  double in[R];
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    const int i = 2 * k + e;
+    double inner = 0.0;
+    if (i <= DEG) {
+      // row i of the leaf's block is row leaf * D1 + i of D1 values
+      double c[D1];
+      load_row_v16<DEG>(coeffs, leaf * D1 + i, c);
+#pragma unroll
+      for (int j = DEG; j >= 0; --j) inner = inner * vs + c[j];
+    }
+    in[k] = inner;
+  }
+  double acc = 0.0;
+#pragma unroll
+  for (int i = DEG; i >= 0; --i) {
+    double inner = in[i >> 1];
+    if (i & 1) inner = __shfl_sync(kAll, inner, 1, 2);
+    acc = acc * us + inner;
+  }
+  return acc;
+}
+
+// K8: single-corner P_leaf(u, v), two threads a corner: lanes 2q and 2q + 1
+// of the grid answer corner q.  Lane e ranks coordinate e of (u, v) against
+// its axis' cuts (cut_rank_guess); shuffles give both lanes the corner and
+// its cell; both search the leaf codes for the cell's Morton code (the
+// same search: a load serves both lanes), then split the leaf's row
+// (leaf_value_pair), and lane 0 writes it.
+template <int DEG>
+__global__ void __launch_bounds__(kThreads) corner_eval2d_gather_kernel(
     const double* __restrict__ u, const double* __restrict__ v,
     const double* __restrict__ xcuts, const double* __restrict__ ycuts,
     const int32_t* __restrict__ leaf_z, const double* __restrict__ bounds,
     const double* __restrict__ coeffs, double* __restrict__ out, int Q,
     int nx, int ny, int L, int depth) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= Q) return;
-  const double qx = u[i], qy = v[i];
-  const int leaf = locate_leaf2d(qx, qy, xcuts, nx, ycuts, ny, leaf_z, L,
-                                 depth);
-  out[i] = leaf_value<DEG>(qx, qy, leaf, true, bounds, coeffs);
+  constexpr unsigned kAll = 0xffffffffu;
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const int e = threadIdx.x & 1;
+  // lanes past Q still join the shuffles
+  const int q = t / 2 < Q ? (int)(t / 2) : Q - 1;
+  const double val = (e ? v : u)[q];
+  // one inlined search for both axes: the lanes do not split on it
+  const int rank = cut_rank_guess(e ? ycuts : xcuts, e ? ny : nx, val);
+  const double qx = __shfl_sync(kAll, val, 0, 2);
+  const double qy = __shfl_sync(kAll, val, 1, 2);
+  const int32_t z = morton2(__shfl_sync(kAll, rank, 0, 2),
+                            __shfl_sync(kAll, rank, 1, 2), depth);
+  const int c = bsearch_count_right(leaf_z, L, z) - 1;
+  const double a =
+      leaf_value_pair<DEG>(qx, qy, c > 0 ? c : 0, e, bounds, coeffs);
+  if (e == 0 && t / 2 < Q) out[q] = a;
 }
 
 // K12, the scan: a thread holds R queries (i0 + r * THREADS), 4R corners
@@ -495,10 +561,12 @@ int polyfit_corner_eval2d_gather(const void* u, const void* v,
                                  int ny, int L, int deg, int depth,
                                  void* stream) {
   if (Q <= 0) return (int)cudaGetLastError();
+  // two threads a corner
+  const int blocks =
+      (int)((2LL * Q + polyfit::kThreads - 1) / polyfit::kThreads);
 #define K8_LAUNCH(D)                                                         \
   polyfit::corner_eval2d_gather_kernel<D>                                    \
-      <<<polyfit::blocks_for(Q), polyfit::kThreads, 0,                       \
-         (cudaStream_t)stream>>>(                                            \
+      <<<blocks, polyfit::kThreads, 0, (cudaStream_t)stream>>>(              \
           (const double*)u, (const double*)v, (const double*)xcuts,          \
           (const double*)ycuts, (const int32_t*)leaf_z,                      \
           (const double*)bounds, (const double*)coeffs, (double*)out, Q, nx, \

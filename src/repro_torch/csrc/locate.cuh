@@ -16,10 +16,10 @@
 //                        #(keys <= q) by a descent of the keys' search
 //                        tree (K1, K3; double or float)
 //   load_row_v16         a table's row into registers by 16-byte loads
-//   interleave2          Morton code of a quadtree cell
-//   locate_leaf2d        leaf row of a 2-D corner: x cut, y cut, Morton code
-//   cut_rank_guess       #(cuts <= q) on sorted cuts by a checked guess (K7)
-//   morton2              interleave2 from bit tricks, no loop (K7)
+//   cut_rank_guess       #(cuts <= q) on sorted cuts by a checked guess
+//                        (K7, K8)
+//   morton2              Morton code of a quadtree cell from bit tricks
+//                        (K7, K8)
 //   floor_log2           floor(log2(len)) for len >= 1
 //   rmq_gather           max over [i0, i1) of a (levels, n) sparse table
 //   mst_prefix_bits      merge-sort-tree count / sum / max over an x prefix,
@@ -249,30 +249,7 @@ __device__ __forceinline__ int tree_count_right(const T* __restrict__ keys,
   return c;
 }
 
-// Morton (Z-order) code of cell (ix, iy) at depth bits per axis
-__device__ __forceinline__ int32_t interleave2(int32_t ix, int32_t iy,
-                                               int depth) {
-  int32_t z = 0;
-  for (int b = 0; b < depth; ++b)
-    z = z | (((ix >> b) & 1) << (2 * b)) | (((iy >> b) & 1) << (2 * b + 1));
-  return z;
-}
-
-// Row of the z-sorted leaf table holding corner (qx, qy): cell x = #xcuts
-// <= qx, cell y = #ycuts <= qy (a corner on a split line lands in the
-// higher cell), then max(#leaf_z <= z - 1, 0) over the int32 codes,
-// padded with INT_SENTINEL
-__device__ __forceinline__ int locate_leaf2d(
-    double qx, double qy, const double* __restrict__ xcuts, int nx,
-    const double* __restrict__ ycuts, int ny,
-    const int32_t* __restrict__ leaf_z, int L, int depth) {
-  const int32_t ix = bsearch_count_right(xcuts, nx, qx);
-  const int32_t iy = bsearch_count_right(ycuts, ny, qy);
-  const int c = bsearch_count_right(leaf_z, L, interleave2(ix, iy, depth)) - 1;
-  return c > 0 ? c : 0;
-}
-
-// #(c[0:n] <= q) for sorted cuts c (K7's x and y cells), equal to
+// #(c[0:n] <= q) for sorted cuts c (K7's and K8's cells), equal to
 // bsearch_count_right in every lane.  The plan's cuts (dyadic_cuts) are
 // nearly uniform, so g = floor((q - c[0]) / (c[n-1] - c[0]) (n - 1)) + 1,
 // clamped to [0, n], is the count or one off.  For sorted cuts the count is
@@ -309,8 +286,9 @@ __device__ __forceinline__ uint32_t spread_bits(uint32_t v) {
   return v;
 }
 
-// interleave2(ix, iy, depth) for ix, iy >= 0 and depth <= 15: the bits of
-// each below depth, x on the even bits and y on the odd ones
+// Morton (Z-order) code of cell (ix, iy) at depth bits per axis, for ix,
+// iy >= 0 and depth <= 15: the bits of each below depth, x on the even
+// bits and y on the odd ones (kernels/locate.py interleave2)
 __device__ __forceinline__ int32_t morton2(int32_t ix, int32_t iy, int depth) {
   const uint32_t mask = (1u << depth) - 1u;
   return (int32_t)(spread_bits((uint32_t)ix & mask) |

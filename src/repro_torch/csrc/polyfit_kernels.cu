@@ -1,5 +1,5 @@
-// PolyFit query kernels for Hopper (sm_90a), one thread per query (K3:
-// two): float64, and float32 as well for K2 and K3.
+// PolyFit query kernels for Hopper (sm_90a), one thread per query (K3 and
+// K5: two): float64, and float32 as well for K2 and K3.
 //
 // K1 locate_tree_kernel       replaces repro/kernels/locate.py:locate_pallas
 // K2 range_sum_gather_kernel  replaces repro/kernels/range_sum.py:range_sum_gather_pallas
@@ -40,12 +40,26 @@
 // binary search cost 2.4-3.5.
 //
 // K5 and K6 are the exact corrections over a dynamic table's delta buffer:
-// two binary searches into the sorted, sentinel-padded log (cap entries),
-// then a prefix-sum difference (K5) or an O(1) sparse-table range max (K6).
-// At Q = 65,536 and cap = 4,096 they must move about 1.6 MB (K5: lq, uq,
-// out, the log and its prefix sums) and 2.0 MB (K6: the log's 13 x 4,096
+// two searches into the sorted, sentinel-padded log (cap entries), then a
+// prefix-sum difference (K5) or an O(1) sparse-table range max (K6).  At
+// Q = 65,536 and cap = 4,096 they must move about 1.6 MB (K5: lq, uq, out,
+// the log and its prefix sums) and 2.0 MB (K6: the log's 13 x 4,096
 // sparse table instead), about 0.5 and 0.6 us at 3.35 TB/s; the log is
 // 32 KB and stays in L1/L2 across the 13 dependent probes a search takes.
+// What K5 spends instead is the L1's work on scattered loads: a probe
+// round of a warp touches up to 32 lines, and 8 of a 13-round search's
+// rounds do.  Before its redesign one thread ran both searches (0.0065
+// ms at 4,096 slots, 0.0076-0.0085 on the window's 131,072).  Its design
+// now (tools/k5_k8_rates.py measures each step):
+//  * two threads a query, one an endpoint, a shuffle to the uq thread:
+//    twice the warps in flight, each thread's chain half as long (12%
+//    off at 4,096 slots, 13% at 131,072).
+// A descent of the log's search tree (K1's) in place of the binary search
+// took another 14-20% off at 4,096 slots and 22-23% at the window's
+// 131,072 (about 1.5 us a call), but a log's tree must be rebuilt on every
+// append, 0.18 ms at 4,096 slots and 0.56-0.66 ms at 131,072: that pays
+// only where hundreds of query batches run between two appends, so no log
+// keeps one.
 //
 // K3 adds to K2's searches two closed-form boundary maxima (at deg 3 each
 // two scale_unit divisions, three divisions and a square root for the
@@ -75,7 +89,7 @@
 //    stationary points (three divisions and a square root less a
 //    boundary) saved nothing at Hp 2,560.
 //
-// K2, K5 and K6 stay one thread a query, the table read through L1/L2.
+// K2 and K6 stay one thread a query, the table read through L1/L2.
 // Compiled with -fmad=false so that Horner's acc * u + c rounds twice, as
 // the plain torch version does.
 //
@@ -175,18 +189,22 @@ __global__ void __launch_bounds__(kThreads) range_max_gather_kernel(
 }
 
 // K5: sum of buffered measures with key in (lq, uq]: cf[#(keys <= uq)] -
-// cf[#(keys <= lq)] against the log's exclusive prefix sums cf (cap + 1)
-__global__ void delta_sum_gather_kernel(const double* __restrict__ lq,
-                                        const double* __restrict__ uq,
-                                        const double* __restrict__ keys,
-                                        const double* __restrict__ cf,
-                                        double* __restrict__ out, int Q,
-                                        int cap) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= Q) return;
-  const int cu = bsearch_count_right(keys, cap, uq[i]);
-  const int cl = bsearch_count_right(keys, cap, lq[i]);
-  out[i] = cf[cu] - cf[cl];
+// cf[#(keys <= lq)] against the log's exclusive prefix sums cf (cap + 1).
+// Two threads serve a query, one an endpoint: thread bit 0 picks it (0:
+// uq, 1: lq).  Each counts the log's keys <= its endpoint by the
+// branch-free binary search and reads that prefix sum; a shuffle brings
+// cf[#(keys <= lq)] to the uq thread, which writes the difference.
+__global__ void __launch_bounds__(kThreads) delta_sum_gather_kernel(
+    const double* __restrict__ lq, const double* __restrict__ uq,
+    const double* __restrict__ keys, const double* __restrict__ cf,
+    double* __restrict__ out, int Q, int cap) {
+  const long long q = ((long long)blockIdx.x * kThreads + threadIdx.x) / 2;
+  const bool low = threadIdx.x & 1;
+  // lanes past Q redo the last query: every lane reaches the shuffle
+  const int qq = q < Q ? (int)q : Q - 1;
+  const double v = cf[bsearch_count_right(keys, cap, (low ? lq : uq)[qq])];
+  const double v_low = __shfl_xor_sync(0xffffffffu, v, 1);
+  if (q < Q && !low) out[q] = v - v_low;
 }
 
 // K6: max of buffered measures with key in [lq, uq]: the log's covered span
@@ -305,9 +323,10 @@ int polyfit_delta_sum_gather(const void* lq, const void* uq, const void* keys,
                              const void* cf, void* out, int Q, int cap,
                              void* stream) {
   if (Q > 0)
-    polyfit::delta_sum_gather_kernel<<<polyfit::blocks_for(Q),
-                                       polyfit::kThreads, 0,
-                                       (cudaStream_t)stream>>>(
+    // two threads a query
+    polyfit::delta_sum_gather_kernel<<<
+        (int)((2LL * Q + polyfit::kThreads - 1) / polyfit::kThreads),
+        polyfit::kThreads, 0, (cudaStream_t)stream>>>(
         (const double*)lq, (const double*)uq, (const double*)keys,
         (const double*)cf, (double*)out, Q, cap);
   return (int)cudaGetLastError();

@@ -10,7 +10,9 @@ ways to find the leaf:
 * **gather** (K7 ``corner_count2d_gather``, K8 ``corner_eval2d_gather``):
   the leaves are disjoint intervals in Morton (Z-order) space, so a corner
   resolves with three binary searches — the x cut, the y cut, the int32
-  leaf code (``locate_leaf2d``) — and one gathered row.  Plans up to
+  leaf code (``locate_leaf2d``) — and one gathered row.  The kernels take
+  the two cuts by checked guesses (``csrc/locate.cuh`` ``cut_rank_guess``,
+  equal to the search in every lane on sorted cuts).  Plans up to
   ``MAX_MORTON_DEPTH`` levels deep.
 * **scan** (K12 ``corner_count2d``, K13 ``corner_eval2d``): one-hot
   membership ``mx0 <= qx < mx1 and my0 <= qy < my1`` over the whole flat
@@ -125,7 +127,7 @@ def _check_queries(name, *qs):
 
 
 def _check_aligned(name, bounds, coeffs):
-    """K7 and K13 read the rows by 16-byte loads; a plan's tables are
+    """K7, K8 and K13 read the rows by 16-byte loads; a plan's tables are
     allocations of their own, so only a view into another tensor can be
     off."""
     if bounds.data_ptr() % 16 or coeffs.data_ptr() % 16:
@@ -179,13 +181,16 @@ def corner_eval2d_gather(u, v, xcuts, ycuts, leaf_z, bounds, coeffs,
                          deg: int, depth: int):
     """(Q,) single-corner P_leaf(u, v) against the z-sorted leaf table (the
     dominance MAX/MIN path): K8 on CUDA tensors, the plain version on CPU
-    tensors."""
+    tensors.  The arguments are K7's: ``xcuts``/``ycuts`` sorted (K8 ranks
+    a corner by a checked guess, as K7 does), ``bounds`` and ``coeffs``
+    16-byte aligned, as a plan's are."""
     if u.device.type == "cpu":
         return corner_eval2d_gather_plain(u, v, xcuts, ycuts, leaf_z, bounds,
                                           coeffs, deg, depth)
     name = "corner_eval2d_gather"
     _gather_args(name, (u, v), xcuts, ycuts, leaf_z, bounds, coeffs, deg,
                  depth)
+    _check_aligned(name, bounds, coeffs)
     out = torch.empty_like(u)
     if u.shape[0]:
         _build.check(_build.library().polyfit_corner_eval2d_gather(

@@ -39,8 +39,8 @@ from . import _build
 
 __all__ = ["bsearch_count", "locate_segments", "floor_log2", "rmq_gather",
            "locate", "search_tree", "tree_count", "tree_levels", "TREE_FANOUT",
-           "interleave2", "locate_leaf2d", "dyadic_cuts", "leaf_morton_codes",
-           "MAX_MORTON_DEPTH", "INT_SENTINEL"]
+           "check_tree_shape", "interleave2", "locate_leaf2d", "dyadic_cuts",
+           "leaf_morton_codes", "MAX_MORTON_DEPTH", "INT_SENTINEL"]
 
 # 2 bits per level must fit an int32 Morton code (sign bit reserved)
 MAX_MORTON_DEPTH = 15
@@ -138,6 +138,15 @@ def search_tree(keys: torch.Tensor) -> torch.Tensor:
     return torch.cat(levels[::-1])
 
 
+def check_tree_shape(name: str, tree: torch.Tensor, n: int) -> None:
+    """Raise unless ``tree`` has the shape of the search tree of n keys
+    (the kernels that descend one, K1 and K3, check no more: a tree of
+    other keys of the same count passes unseen)."""
+    if tree.shape != (sum(tree_levels(n)), TREE_FANOUT - 1):
+        raise ValueError(f"{name}: tree {tuple(tree.shape)} does not have "
+                         f"the shape of the search tree of {n} keys")
+
+
 def tree_count(keys: torch.Tensor, tree: torch.Tensor,
                q: torch.Tensor) -> torch.Tensor:
     """#(keys <= q) per lane as int32 by K1's descent of ``tree``
@@ -177,9 +186,7 @@ def locate(q: torch.Tensor, keys: torch.Tensor,
     Q, n = q.shape[0], keys.shape[0]
     if n < 1:
         raise ValueError("locate: keys must not be empty")
-    if tree.shape != (sum(tree_levels(n)), TREE_FANOUT - 1):
-        raise ValueError(f"locate: tree {tuple(tree.shape)} does not have "
-                         f"the shape of the search tree of {n} keys")
+    check_tree_shape("locate", tree, n)
     if keys.data_ptr() % 16 or tree.data_ptr() % 16:
         raise ValueError("locate: keys and tree must be 16-byte aligned")
     out = torch.empty(Q, dtype=torch.int32, device=q.device)

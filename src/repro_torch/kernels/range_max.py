@@ -35,8 +35,8 @@ import torch
 
 from ..core.poly import clipped_poly_max
 from . import _build
-from .locate import (TREE_FANOUT, locate_segments, rmq_gather,
-                     search_tree, tree_levels)
+from .locate import (check_tree_shape, locate_segments, rmq_gather,
+                     search_tree)
 from .range_sum import gather_rows, segment_rows
 from .ref import _chunked
 
@@ -104,10 +104,7 @@ def range_max_gather(lq, uq, seg_lo, seg_hi, coeffs, st, tree=None):
         raise ValueError("range_max_gather: shape mismatch "
                          f"{lq.shape} {uq.shape} {seg_lo.shape} "
                          f"{seg_hi.shape} {coeffs.shape} {st.shape}")
-    if tree.shape != (sum(tree_levels(H)), TREE_FANOUT - 1):
-        raise ValueError(f"range_max_gather: tree {tuple(tree.shape)} does "
-                         f"not have the shape of the search tree of {H} "
-                         "starts")
+    check_tree_shape("range_max_gather", tree, H)
     if any(t.data_ptr() % 16 for t in (seg_lo, coeffs, tree)):
         raise ValueError("range_max_gather: seg_lo, coeffs and tree must "
                          "start on a 16-byte boundary (the kernel reads them "

@@ -6,7 +6,9 @@ K13, the buffered 2-D corrections K9, K10 and K11, and the ``cuda`` engine
 backend, static, dynamic, windowed and 2-D (static and dynamic), must
 agree with the plain versions on the same inputs: K1's int32 ids, K3
 (at every degree 0-3, float64 and float32, on edge lanes and ragged
-counts), K4's Newton branch and the 2-D kernels exactly (NaN as NaN), the
+counts), K4's Newton branch, K5 (on the sentinel tail, NaN bounds and
+ragged counts, and the window's 131,072-slot layout), K8 (NaN and +-inf
+corners, ragged counts) and the 2-D kernels exactly (NaN as NaN), the
 others to rtol = atol = 1e-9 (compiled with -fmad=false, they are
 expected to agree bit for bit).  The one-hot scans of the ``cuda_scan`` backend, K14 (range SUM),
 K15 (range MAX), K16 (buffered SUM), K17 (buffered MAX) and K4's scan
@@ -408,16 +410,27 @@ def _delta_queries(cuda, tail=False):
     return tuple(torch.as_tensor(q, device=cuda) for q in (lq, uq))
 
 
-@pytest.mark.parametrize("fill", [0, 37, CAP])
-def test_delta_sum_kernel_matches_plain(cuda, fill):
-    keys, _, cf, _ = _log(cuda, fill, False)
-    lq, uq = _delta_queries(cuda)
+@pytest.mark.parametrize("Q", [1, 255, 65_537, None],
+                         ids=["1", "255", "65537", "all"])
+@pytest.mark.parametrize("fill,cap", [(0, CAP), (37, CAP), (CAP, CAP),
+                                      (CAP, 32 * CAP)])
+def test_delta_sum_kernel_matches_plain(cuda, fill, cap, Q):
+    """K5 (two threads a query) equals its plain version exactly, NaN as
+    NaN, on empty, partly filled and full 4,096-slot logs and the window's
+    131,072-slot layout of 4,096 keys; on ranges inside, across and outside the keys,
+    inverted ones, lanes that reach the sentinel tail or hold a NaN bound,
+    at ragged query counts (an odd count leaves the last pair one query);
+    one launch a call."""
+    keys, _, cf, _ = _log(cuda, fill, False, cap=cap)
+    lq, uq = (q[-Q:] if Q else q for q in _delta_queries(cuda, tail=True))
     before = kdelta.delta_sum_gather.launches
     got = kdelta.delta_sum_gather(lq, uq, keys, cf)
     torch.cuda.synchronize()
     assert kdelta.delta_sum_gather.launches == before + 1
+    assert got.shape == lq.shape
     torch.testing.assert_close(
-        got, kdelta.delta_sum_gather_plain(lq, uq, keys, cf), **TOL)
+        got, kdelta.delta_sum_gather_plain(lq, uq, keys, cf), rtol=0, atol=0,
+        equal_nan=True)
     if fill == 0:
         assert not got.any()
 
@@ -915,6 +928,45 @@ def test_corner_count2d_gather_kernel_special_lanes(cuda, plans2d):
         with pytest.raises(ValueError, match="16-byte"):
             k2d.corner_count2d_gather(q, q, q, q, xc, yc, lz, b, c, 3,
                                       plan.max_depth)
+
+
+@pytest.mark.parametrize("Q", [1, 255, 65_537])
+def test_corner_eval2d_gather_kernel_special_lanes(cuda, plans2d, Q):
+    """K8 (two threads a corner) equals its plain version bit for bit (NaN
+    equal) on a plan's table and on full depth-7 quadtrees at degrees 0, 2
+    and 5 (rows read 8 and 16 bytes at a time), at ragged corner counts,
+    with NaN and +-inf coordinates in the first lanes and corners on every
+    split line and the root's edges after them; one launch a call.  It
+    refuses a table that does not start on a 16-byte boundary (an offset
+    view) and equals its plain version on a copy of it."""
+    plan = plans2d[3]["count2d", 3]
+    tables = [(plan.root, _tables(plan)[0], plan.deg, plan.max_depth)]
+    for deg in (0, 2, 5):
+        root, *table = _full_quadtree(cuda, 7, deg)
+        tables.append((root, tuple(table), deg, 7))
+    for root, gather, deg, depth in tables:
+        _, ux, _, uy = (c[:Q] for c in _quadtree_corners(
+            root, gather[0], gather[1], max(Q, 6), special=True))
+        before = k2d.corner_eval2d_gather.launches
+        got = k2d.corner_eval2d_gather(ux, uy, *gather, deg, depth)
+        torch.cuda.synchronize()
+        assert k2d.corner_eval2d_gather.launches == before + 1
+        assert got.shape == (Q,)
+        _same(got, k2d.corner_eval2d_gather_plain(ux, uy, *gather, deg,
+                                                  depth))
+        if Q > 6:
+            assert torch.isnan(got[:6]).any()
+    xc, yc, lz, bounds, coeffs = tables[0][1]
+    off = lambda t: torch.cat([t.new_zeros(1), t.flatten()])[1:].view(t.shape)
+    q = torch.zeros(8, dtype=torch.float64, device=cuda)
+    for b, c in ((off(bounds), coeffs), (bounds, off(coeffs))):
+        with pytest.raises(ValueError, match="16-byte"):
+            k2d.corner_eval2d_gather(q, q, xc, yc, lz, b, c, 3,
+                                     plan.max_depth)
+        args = (q + plan.root[0], q + plan.root[2], xc, yc, lz, b.clone(),
+                c.clone(), 3, plan.max_depth)
+        _same(k2d.corner_eval2d_gather(*args),
+              k2d.corner_eval2d_gather_plain(*args))
 
 
 @pytest.mark.parametrize("agg", ["count2d", "max2d"])

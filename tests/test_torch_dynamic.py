@@ -33,6 +33,7 @@ from repro_torch.core import index_from_numpy  # noqa: E402
 from repro_torch.engine import (DynamicEngine, execute_extremum,  # noqa: E402
                                 big_sentinel)
 from repro_torch.engine.dynamic import _append_1d  # noqa: E402
+from repro_torch.kernels.locate import bsearch_count  # noqa: E402
 from repro_torch.kernels import (delta_max_gather, delta_max_gather_plain,  # noqa: E402
                                  delta_max_plain, delta_max_ref,
                                  delta_sum_gather, delta_sum_gather_plain,
@@ -547,11 +548,32 @@ def test_append_matches_reference(with_st):
             assert got[3] is None and want[3] is None
 
 
+def _k5_two_lane(lq, uq, keys, cf):
+    """csrc/polyfit_kernels.cu K5 in torch: lane 2q of the grid (256-lane
+    blocks) counts the log's keys <= uq of query q by the binary search and
+    reads that prefix sum, lane 2q + 1 the same for lq; lanes past Q redo
+    the last query; lane 2q writes its value less its partner's (the
+    shuffle)."""
+    Q = lq.shape[0]
+    t = torch.arange(-(-2 * Q // 256) * 256)
+    q = torch.clamp(t // 2, max=Q - 1)
+    low = (t & 1) == 1
+    x = torch.where(low, lq[q], uq[q])
+    c = bsearch_count(keys, x, side="right")
+    v = cf[c.long()]
+    diff = v - v[t ^ 1]
+    out = torch.full((Q,), torch.nan, dtype=cf.dtype)
+    writes = ~low & (t // 2 < Q)
+    out[q[writes]] = diff[writes]
+    return out
+
+
 @pytest.mark.parametrize("fill", [0, 1, 37, CAP])
 def test_delta_sum_gather_plain_matches_pallas(fill):
     """K5's plain version against delta_sum_gather_pallas (interpret mode)
     and the one-hot oracles, on an empty, a partly filled and a full log;
-    the wrapper takes the plain version on CPU tensors."""
+    the wrapper takes the plain version on CPU tensors.  K5's two-lane form
+    equals the plain version bit for bit, on inverted ranges too."""
     (k, v, cf, _), _ = _buffers(max(fill, 1), False)
     if fill == 0:   # an empty log: all sentinels, flat prefix sums
         k = torch.full((CAP,), big_sentinel(torch.float64),
@@ -565,6 +587,7 @@ def test_delta_sum_gather_plain_matches_pallas(fill):
     assert delta_sum_gather.launches == before
     np.testing.assert_array_equal(got.numpy(),
                                   delta_sum_gather_plain(*tq, k, cf).numpy())
+    assert torch.equal(_k5_two_lane(*tq, k, cf), got)
     want = delta_sum_gather_pallas(jnp.asarray(lq), jnp.asarray(uq),
                                    jnp.asarray(k.numpy()),
                                    jnp.asarray(cf.numpy()), bq=128,

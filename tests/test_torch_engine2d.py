@@ -33,7 +33,9 @@ from repro_torch.engine import (Engine, build_plan_2d,  # noqa: E402
 from repro_torch.engine.plan import (ARRAY_FIELDS_2D,  # noqa: E402
                                      META_FIELDS_2D, plan2d_from_numpy)
 from repro_torch.kernels import leaf_eval2d as k2d  # noqa: E402
+from repro_torch.data import osm_points  # noqa: E402
 from repro_torch.kernels.locate import (bsearch_count, dyadic_cuts,  # noqa: E402
+                                        interleave2, leaf_morton_codes,
                                         search_tree)
 
 TOL = dict(rtol=1e-9, atol=1e-9)
@@ -365,6 +367,120 @@ def test_cut_rank_guess_matches_search(request, case):
         ct, qt = torch.as_tensor(c), torch.as_tensor(q)
         want = bsearch_count(ct, qt, side="right").long()
         assert torch.equal(_cut_rank_guess(ct, qt), want)
+
+
+def _morton2(ix, iy, depth):
+    """csrc/locate.cuh morton2 in torch: each rank's bits below ``depth``
+    spread to the even bits by shifts and masks, x even and y odd."""
+    def spread(t):
+        t = t & 0xFFFF
+        for shift, mask in ((8, 0x00FF00FF), (4, 0x0F0F0F0F),
+                            (2, 0x33333333), (1, 0x55555555)):
+            t = (t | (t << shift)) & mask
+        return t
+    m = (1 << depth) - 1
+    return (spread(ix.long() & m) | (spread(iy.long() & m) << 1)).int()
+
+
+def _k8_pair_form(u, v, xcuts, ycuts, leaf_z, bounds, coeffs, deg, depth):
+    """csrc/leaf_eval2d.cu K8 in torch: each coordinate ranked by the
+    checked guess (lane 0 x, lane 1 y), the cell's Morton code by
+    morton2, the code searched in the z-sorted table and clamped to 0,
+    then the row split over the pair (leaf_value_pair): row i's inner
+    Horner in v from 0, computed by lane i % 2, and lane 0's outer Horner
+    in u in the plain order over rows deg .. 0."""
+    ix, iy = _cut_rank_guess(xcuts, u), _cut_rank_guess(ycuts, v)
+    z = _morton2(ix, iy, depth)
+    leaf = torch.clamp(bsearch_count(leaf_z, z, side="right") - 1,
+                       min=0).long()
+    b, c = bounds[leaf], coeffs[leaf]
+    span_y = torch.where(b[:, 3] > b[:, 2], b[:, 3] - b[:, 2], 1.0)
+    vs = torch.clamp((2.0 * v - b[:, 2] - b[:, 3]) / span_y, -1.0, 1.0)
+    inner = []
+    for i in range(deg + 1):     # lane i % 2 computes row i
+        acc = torch.zeros_like(vs)
+        for j in range(deg, -1, -1):
+            acc = acc * vs + c[:, i * (deg + 1) + j]
+        inner.append(acc)
+    span_x = torch.where(b[:, 1] > b[:, 0], b[:, 1] - b[:, 0], 1.0)
+    us = torch.clamp((2.0 * u - b[:, 0] - b[:, 1]) / span_x, -1.0, 1.0)
+    acc = torch.zeros_like(us)
+    for i in range(deg, -1, -1):     # lane 0, the odd rows shuffled in
+        acc = acc * us + inner[i]
+    return acc
+
+
+@pytest.mark.parametrize("depth", [0, 1, 12, 15])
+def test_morton2_matches_leaf_codes(depth):
+    """K7's and K8's Morton code by bit operations (morton2) equals the
+    loop a bit (interleave2) and the code leaf_morton_codes gives a leaf
+    of that cell, at depths 0, 1, 12 and 15 (the int32 limit)."""
+    rng = np.random.default_rng(depth)
+    m = 1 << depth
+    ix = np.concatenate([[0, m - 1, 0, m - 1], rng.integers(0, m, 2000)])
+    iy = np.concatenate([[0, 0, m - 1, m - 1], rng.integers(0, m, 2000)])
+    xc, yc = dyadic_cuts(-7.5, 992.5, depth), dyadic_cuts(3.0, 4.0, depth)
+    gx = np.concatenate([[-7.5], xc, [992.5]])
+    gy = np.concatenate([[3.0], yc, [4.0]])
+    b = np.stack([gx[ix], gx[ix + 1], gy[iy], gy[iy + 1]], axis=1)
+    want = torch.as_tensor(leaf_morton_codes(b, xc, yc, depth))
+    tx, ty = torch.as_tensor(ix), torch.as_tensor(iy)
+    got = _morton2(tx, ty, depth)
+    assert torch.equal(got, want)
+    assert torch.equal(got, interleave2(tx.int(), ty.int(), depth))
+
+
+@pytest.fixture(scope="module")
+def k8_plans(setup):
+    """Plans K8's form is held on: COUNT at deg 1 and 3 (the port's build
+    over 1,500 OSM-like points, 6 levels), the module's COUNT (deg 2) and
+    MAX plans, and a depth-0 plan (the root the only leaf)."""
+    px, py = osm_points(1500, seed=29)
+    plans = {("count2d", deg): build_plan_2d(build_index_2d(
+        px, py, deg=deg, delta=20.0, max_depth=6, device="cpu"))
+        for deg in (1, 3)}
+    plans["count2d", 2] = setup[3]["count2d"][2]
+    plans["max2d", 2] = setup[3]["max2d"][2]
+    plans["depth0", 2] = build_plan_2d(build_index_2d(
+        px, py, deg=2, delta=20.0, max_depth=0, device="cpu"))
+    return plans
+
+
+@pytest.mark.parametrize("key", [("count2d", 1), ("count2d", 2),
+                                 ("count2d", 3), ("max2d", 2),
+                                 ("depth0", 2)], ids=str)
+def test_k8_pair_form_matches_plain(k8_plans, key):
+    """K8's form (checked-guess ranks, morton2, the code search and its
+    clamp, the row split over a pair of lanes and combined by one outer
+    Horner) equals corner_eval2d_gather_plain bit for bit, NaN as NaN: on
+    corners on every split line and one ulp either side, the root's
+    edges and corners, uniform draws over the root, and NaN and +-inf
+    coordinates."""
+    plan = k8_plans[key]
+    x0, x1, y0, y1 = plan.root
+    xc, yc = plan.xcuts.numpy(), plan.ycuts.numpy()
+    if plan.max_depth == 0:
+        xc, yc = np.array([x0, x1]), np.array([y0, y1])
+    rng = np.random.default_rng(31)
+    edges = lambda c, lo, hi: np.concatenate(
+        [c, np.nextafter(c, -np.inf), np.nextafter(c, np.inf), [lo, hi]])
+    ex, ey = edges(xc, x0, x1), edges(yc, y0, y1)
+    n = max(len(ex), len(ey))
+    u = np.concatenate([np.resize(ex, n), rng.permutation(np.resize(ex, n)),
+                        rng.uniform(x0, x1, 3000),
+                        [np.nan, 0.5 * (x0 + x1), np.nan, np.inf, -np.inf,
+                         x0, np.inf, -np.inf]])
+    v = np.concatenate([rng.permutation(np.resize(ey, n)), np.resize(ey, n),
+                        rng.uniform(y0, y1, 3000),
+                        [0.5 * (y0 + y1), np.nan, np.nan, y0, y1, np.inf,
+                         -np.inf, np.inf]])
+    args = (torch.as_tensor(u), torch.as_tensor(v), plan.xcuts, plan.ycuts,
+            plan.leaf_z, plan.leaf_bounds, plan.leaf_coeffs, plan.deg,
+            plan.max_depth)
+    want = k2d.corner_eval2d_gather_plain(*args)
+    got = _k8_pair_form(*args)
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+    assert torch.isnan(want).any() and not torch.isnan(want[:-8]).any()
 
 
 # ---------------------------------------------------------------------------

@@ -8,11 +8,14 @@ the session tests of tests/test_api.py for quantile and window specs."""
 import numpy as np
 import pytest
 import jax
+import torch
 
 jax.config.update("jax_enable_x64", True)
 
 import repro.api as rapi  # noqa: E402
 import repro_torch.api as tapi  # noqa: E402
+import repro_torch.engine.lsm as lsm_mod  # noqa: E402
+import repro_torch.engine.window as win_mod  # noqa: E402
 from repro.engine import WindowEngine as RWindowEngine  # noqa: E402
 from repro_torch.core import build_index_1d  # noqa: E402
 from repro_torch.engine import WindowEngine, build_plan, execute  # noqa: E402
@@ -86,6 +89,33 @@ def test_open_epoch_only_is_exact(ring):
     res = w.query(np.array([-100.0]), np.array([100.0]), 4, 4)
     assert float(res.answer[0]) == len(eps[4])
     assert w.bound(4, 4) == 0.0     # buffer correction is exact
+
+
+def test_open_epoch_card_route_matches_torch_backend(monkeypatch):
+    """The window on the 'cuda' route (the plain kernels on CPU tensors, K5
+    for the open epoch) answers as the 'torch' backend does after every
+    ingest, on ranges that start and end on logged keys with ties too: the
+    open epoch alone bit for bit, the whole window to TOL."""
+    lift = lambda backend, device: "torch" if backend is None else backend
+    for mod in (lsm_mod, win_mod):
+        monkeypatch.setattr(mod, "resolve_backend", lift)
+    eps = _epochs(seed=29, n_epochs=2, rows=300)
+    ties = np.round(eps[1], 0)
+    card, host = (_window(eps[0], agg="count", delta=DELTA, deg=2, ring=4,
+                          capacity=1024, backend=b) for b in ("cuda", None))
+    rng = np.random.default_rng(3)
+    a, b = rng.uniform(-120, 120, (2, 500))
+    lq, uq = np.minimum(a, b), np.maximum(a, b)
+    lq[:7] = uq[:7] = np.sort(ties)[:7]     # ranges on logged keys
+    for batch in (eps[1], ties[:100], ties[100:]):
+        for w in (card, host):
+            w.ingest(batch)
+        e = card.epoch
+        torch.testing.assert_close(card.query(lq, uq, e, e).answer,
+                                   host.query(lq, uq, e, e).answer,
+                                   rtol=0, atol=0)
+        torch.testing.assert_close(card.query(lq, uq, 0, e).answer,
+                                   host.query(lq, uq, 0, e).answer, **TOL)
 
 
 def test_bound_composes_over_selected_epochs(ring):

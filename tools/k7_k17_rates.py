@@ -90,11 +90,12 @@ def timed_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def osm_like_table(dev):
+def osm_like_table(dev, n=100_000, leaf_cap=LEAF_CAP, deg=DEG):
     """(points, root, xcuts, ycuts, leaf_z, bounds, coeffs): a quadtree over
-    100,000 OSM-like points split to depth 12 where a cell holds more than
-    LEAF_CAP points, its leaves z-sorted, random rows."""
-    px, py = osm_points(100_000, seed=2)
+    n OSM-like points split to depth 12 where a cell holds more than
+    ``leaf_cap`` points, its leaves z-sorted, random rows of degree
+    ``deg``."""
+    px, py = osm_points(n, seed=2)
     root = (float(px.min()), float(px.max()), float(py.min()),
             float(py.max()))
     xc, yc = dyadic_cuts(*root[:2], DEPTH), dyadic_cuts(*root[2:], DEPTH)
@@ -105,7 +106,7 @@ def osm_like_table(dev):
     cells, stack = [], [(0, 0, 1 << DEPTH, np.arange(len(px)))]
     while stack:
         i0, j0, s, idx = stack.pop()
-        if len(idx) <= LEAF_CAP or s == 1:
+        if len(idx) <= leaf_cap or s == 1:
             cells.append((i0, j0, s))
             continue
         h = s // 2
@@ -121,7 +122,7 @@ def osm_like_table(dev):
     rng = np.random.default_rng(3)
     to = lambda a: torch.as_tensor(a, device=dev)
     return ((px, py), root, to(xc), to(yc), to(z[order].astype(np.int32)),
-            to(b[order]), to(rng.normal(0, 1, (len(c), (DEG + 1) ** 2))))
+            to(b[order]), to(rng.normal(0, 1, (len(c), (deg + 1) ** 2))))
 
 
 def variant_loads(spec, qs, xcuts, ycuts, L):

@@ -1,7 +1,7 @@
 // Rates behind the design of K7 (csrc/leaf_eval2d.cu) on the card, deg 3:
 //
 //   k7_old   K7 before its redesign: one thread a rectangle, four corners
-//            in sequence, each three binary searches (locate.cuh
+//            in sequence, each three binary searches (leaf2d_locate.cuh
 //            locate_leaf2d: x cut, y cut, leaf code) and a row of 20
 //            8-byte loads (leaf_value);
 //   variant  the redesign's steps one at a time, one thread a rectangle
@@ -20,6 +20,7 @@
 //
 // Built and timed by tools/k7_k17_rates.py.
 #include "../src/repro_torch/csrc/leaf_eval2d.cu"
+#include "leaf2d_locate.cuh"
 
 namespace {
 
