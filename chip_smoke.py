@@ -23,8 +23,8 @@ Phases, each of which fails the run with a non-zero exit:
               np.quantile method for COUNT, the weighted convention for
               SUM) and hold its answer; the counters must show K4;
 6. parity   - each kernel against its plain version on the card, on the
-              plans and queries of phases 4 and 5 (K1 and K3 exactly, K2
-              and K4 to 1e-9);
+              plans and queries of phases 4 and 5 (K1-K3 exactly, K4 to
+              1e-9);
 7. timing   - device time of each kernel, its plain version and the
               one-call library yardstick where there is one (CUDA-event
               timed replays of a CUDA graph of the calls, so host dispatch
@@ -1259,7 +1259,7 @@ def main() -> None:
             if aggs[name] == "count":
                 lo = lq
                 sets["range_sum_gather"].append(
-                    (lqc, uqc, p.seg_lo, p.seg_hi, p.coeffs))
+                    (lqc, uqc, p.seg_lo, p.seg_hi, p.coeffs, p.seg_tree))
             else:
                 lo = torch.nextafter(lq, lq.new_full((), -torch.inf))
                 sets["range_max_gather"].append(
@@ -1291,7 +1291,8 @@ def main() -> None:
     def hold_k123(sets, tag):
         hold("locate", kloc.locate, k1_plain, sets["locate"], exact=True)
         hold("range_sum_gather", ksum.range_sum_gather,
-             ksum.range_sum_gather_plain, sets["range_sum_gather"])
+             ksum.range_sum_gather_plain, sets["range_sum_gather"],
+             exact=True)
         hold("range_max_gather", kmax.range_max_gather,
              kmax.range_max_gather_plain, sets["range_max_gather"],
              exact=True)
@@ -1408,9 +1409,11 @@ def main() -> None:
             nbytes = 2 * Q * 8 + 2 * H * 8 + H * cols * 8 + Q * 8
             per_end = probe_rounds(H)
             if name == "range_sum_gather":
+                # seg_lo's search tree, as K3's, stands beside the bound
                 flops = Q * (2 * (per_end + 5 + 2 * deg) + 1)
                 shape = (f"lq, uq ({Q},); seg_lo, seg_hi ({H},); coeffs "
-                         f"({H}, {cols}) f64 -> ({Q},)")
+                         f"({H}, {cols}); tree {tuple(args[5].shape)} f64 -> "
+                         f"({Q},)")
             else:
                 # seg_lo's search tree is the kernel's search structure,
                 # not the function's input: its bytes stand beside the
@@ -1682,8 +1685,9 @@ def main() -> None:
         all_ms, all_by = bound_ms(nb_all, fl_all, peak)
         old_ms, old_by = bound_ms(nb_all, fl_old, peak)
         lq, uq, seg_lo, _, seg_hi, coeffs = args
+        tree = kloc.search_tree(seg_lo)
         k2_ms = device_ms(torch, lambda: ksum.range_sum_gather(
-            lq, uq, seg_lo, seg_hi, coeffs))
+            lq, uq, seg_lo, seg_hi, coeffs, tree))
         print(f"{tag}range_sum bound over the {live} live segments "
               f"{row['bound_ms']!r} ms; over all {H} rows {all_ms!r} ms "
               f"({all_by}); the old form's (4 compares a row and range) "
@@ -1838,7 +1842,7 @@ def main() -> None:
                 (kc, t.seg_lo, t.seg_next, t.seg_hi, t.coeffs))
             if n == "lat":
                 args["range_sum_gather"] = [(lqc, uqc, t.seg_lo, t.seg_hi,
-                                             t.coeffs)]
+                                             t.coeffs, t.seg_tree)]
                 args["range_sum"] = [(lqc, uqc, t.seg_lo, t.seg_next,
                                       t.seg_hi, t.coeffs)]
             else:
@@ -1890,7 +1894,7 @@ def main() -> None:
                 nb = 3 * Q * isz + 2 * H * isz + table
                 fl = Q * (2 * (probe_rounds(H) + 5 + 2 * deg) + 1)
                 shape = (f"lq, uq ({Q},); seg_lo, seg_hi ({H},); coeffs "
-                         f"({H}, {cols})")
+                         f"({H}, {cols}); tree {tuple(a[5].shape)}")
             elif k == "range_max_gather":
                 nb = 3 * Q * isz + 2 * H * isz + table + a[5].numel() * isz
                 fl = Q * range_max_flops(probe_rounds(H), deg)
@@ -2014,7 +2018,7 @@ def main() -> None:
         hold("delta_sum_gather", kdel.delta_sum_gather,
              kdel.delta_sum_gather_plain, k5, exact=True)
         hold("delta_max_gather", kdel.delta_max_gather,
-             kdel.delta_max_gather_plain, k6)
+             kdel.delta_max_gather_plain, k6, exact=True)
         print(f"{tag}parity K5/K6: max |kernel - plain| = "
               f"{ {k: errs[k] for k in ('delta_sum_gather', 'delta_max_gather')} }",
               flush=True)
@@ -2261,12 +2265,12 @@ def main() -> None:
         p = lvl.plan
         wsets["range_sum_gather"].append(
             (torch.maximum(lq, p.domain_lo), torch.maximum(uq, p.domain_lo),
-             p.seg_lo, p.seg_hi, p.coeffs))
+             p.seg_lo, p.seg_hi, p.coeffs, p.seg_tree))
         wsets["locate"] += [(uq, p.ref_keys, p.ref_tree),
                             (lq, p.ref_keys, p.ref_tree)]
     hold("locate", kloc.locate, k1_plain, wsets["locate"], exact=True)
     hold("range_sum_gather", ksum.range_sum_gather,
-         ksum.range_sum_gather_plain, wsets["range_sum_gather"])
+         ksum.range_sum_gather_plain, wsets["range_sum_gather"], exact=True)
     k5w = (lq, uq, wbuf.ins_keys, wbuf.ins_cf)
     hold("delta_sum_gather", kdel.delta_sum_gather,
          kdel.delta_sum_gather_plain, [k5w], exact=True)

@@ -9,12 +9,13 @@
 //
 //   bsearch_count_right  #(keys <= q) in ceil(log2 n) + 1 probe rounds
 //   bsearch_count_left   #(keys < q), the same probe order
+//   bsearch_count_side   either of the two, picked per lane (K6's pair)
 //   locate_segment       max(#(seg_lo <= q) - 1, 0)
 //   count_lt, count_le   c += x < q, c += x <= q (PTX: a compare and a
 //                        predicated increment; count_le also on float)
 //   tree_shape, tree_count_right
 //                        #(keys <= q) by a descent of the keys' search
-//                        tree (K1, K3; double or float)
+//                        tree (K1, K2, K3; double or float)
 //   load_row_v16         a table's row into registers by 16-byte loads
 //   cut_rank_guess       #(cuts <= q) on sorted cuts by a checked guess
 //                        (K7, K8)
@@ -28,7 +29,7 @@
 //   scale_unit, horner, fma_emul, clipped_poly_max   (core/poly.py)
 //   horner_r, clipped_poly_max_r
 //                        the same on a row held in registers, the degree a
-//                        template argument (K3; horner_r also K4); the
+//                        template argument (K3; horner_r also K2, K4); the
 //                        runtime-degree clipped_poly_max (K15) loads the
 //                        row and dispatches to clipped_poly_max_r
 //
@@ -102,6 +103,22 @@ __device__ __forceinline__ int bsearch_count_left(const T* __restrict__ keys,
     const int probe = c + step - 1;
     const T pv = keys[probe < n - 1 ? probe : n - 1];
     c = (probe <= n - 1 && pv < q) ? c + step : c;
+  }
+  return c;
+}
+
+// #(keys[0:n] <= q) where ``right``, else #(keys[0:n] < q): the probe order
+// of bsearch_count_right with the compare picked per lane, so that the two
+// endpoints of a pair of lanes (K6: lq counts left, uq right) run one loop
+// without diverging.  Equal to bsearch_count_right / bsearch_count_left.
+template <typename T>
+__device__ __forceinline__ int bsearch_count_side(const T* __restrict__ keys,
+                                                  int n, T q, bool right) {
+  int c = 0;
+  for (int step = bit_ceil(n); step >= 1; step >>= 1) {
+    const int probe = c + step - 1;
+    const T pv = keys[probe < n - 1 ? probe : n - 1];
+    c = (probe <= n - 1 && (pv < q || (right && pv == q))) ? c + step : c;
   }
   return c;
 }

@@ -1,5 +1,5 @@
-// PolyFit query kernels for Hopper (sm_90a), one thread per query (K3 and
-// K5: two): float64, and float32 as well for K2 and K3.
+// PolyFit query kernels for Hopper (sm_90a), one thread per query for K1,
+// two for K2, K3, K5 and K6: float64, and float32 as well for K2 and K3.
 //
 // K1 locate_tree_kernel       replaces repro/kernels/locate.py:locate_pallas
 // K2 range_sum_gather_kernel  replaces repro/kernels/range_sum.py:range_sum_gather_pallas
@@ -10,10 +10,10 @@
 // What bounds them on an H100: each is a gather plus a few dozen f64
 // flops a query.  Per query K2 reads two f64 endpoints and writes one f64,
 // so at Q = 65,536 it must move 2 x 8 B in and 8 B out a query plus the
-// segment table once: about 1.6 MB, about 0.5 us at 3.35 TB/s.  The binary
-// search adds ceil(log2 Hp) + 1 dependent loads a query, which hit L1/L2
-// (the table is tens of KB).  So the bound is bytes, and at these sizes the
-// launch latency (a few us) sets the time.
+// segment table once: about 1.6 MB, about 0.5 us at 3.35 TB/s.  Each
+// endpoint's search adds a chain of dependent loads, which hit L1/L2 (the
+// table is tens of KB).  So the bound is bytes, and at these sizes the
+// launch latency and the search chains set the time.
 //
 // K1 searches a plan's sorted exact keys (200,000 to 1,000,768 on the main
 // path: 1.6-8 MB, held in L2).  Its bound is bytes too: the queries, the
@@ -59,7 +59,18 @@
 // 131,072 (about 1.5 us a call), but a log's tree must be rebuilt on every
 // append, 0.18 ms at 4,096 slots and 0.56-0.66 ms at 131,072: that pays
 // only where hundreds of query batches run between two appends, so no log
-// keeps one.
+// keeps one.  K6 had the same shape (one thread a query, both 13-round
+// searches, then two sparse-table loads: 0.005854 ms in chip_smoke.py) and
+// now runs K5's:
+//  * two threads a query, one an endpoint, both in one search loop
+//    (locate.cuh bsearch_count_side: the lq thread counts keys < lq, the
+//    uq thread keys <= uq), a shuffle of #(keys < lq) to the uq thread,
+//    which takes the sparse-table max: 0.004353 ms on the dynamic MAX
+//    table's full log (chip_smoke.py), 12-14% under the old kernel on
+//    tools/k2_k6_rates.py's logs.  Split over the pair (each thread one of
+//    the two sparse-table loads) it timed the same; as two diverging
+//    search loops 16-18% slower; one thread with the two searches in
+//    lockstep also the same.
 //
 // K3 adds to K2's searches two closed-form boundary maxima (at deg 3 each
 // two scale_unit divisions, three divisions and a square root for the
@@ -82,14 +93,31 @@
 //    kernels/range_max.py checks), Horner unrolled, no branch on the
 //    degree;
 //  * each endpoint's segment by a descent of seg_lo's search tree (K1's,
-//    kept in MAX/MIN plans as seg_tree): with binary searches the two
+//    kept in every plan as seg_tree): with binary searches the two
 //    searches took 37-44% of the time above the launch's floor; the tree
 //    takes 5-6 sector loads in place of 11-13 probes.  Staging seg_lo in
 //    shared memory ran slower, and a per-plan table of each segment's
 //    stationary points (three divisions and a square root less a
 //    boundary) saved nothing at Hp 2,560.
 //
-// K2 and K6 stay one thread a query, the table read through L1/L2.
+// K2 had K3's old shape (one thread a query, two binary searches of the
+// padded seg_lo, the degree a runtime argument): 0.005275 ms at lat_dyn's
+// plan, 0.004664 at lat's.  Its design now (tools/k2_k6_rates.py measures
+// every mix of the three, on segment tables of the smoke's shapes):
+//  * two threads a query, one an endpoint, a shuffle of the lq value to the
+//    uq thread, which writes v_u - v_l (10-18% under one thread);
+//  * each endpoint's segment by a descent of seg_lo's search tree, which
+//    every plan keeps as seg_tree: 4 levels and the leaf in place of 10
+//    probes at Hp 512, 5 in place of 13 at 2,560 (13-18% under the binary
+//    search with two threads at a template degree, though at Hp 512 the
+//    live starts fill a few lines that both searches find in L1: the
+//    chain's length, not the lines, set the difference; the tree's build,
+//    0.38-0.73 ms a plan, rides on merges of seconds and seals of 19 s);
+//  * the row in registers by 16-byte loads, Horner at a template degree
+//    (0-8, K4's range; 1-5% under the runtime degree; a runtime-degree form
+//    serves the plans above).
+// 0.003958 ms at lat_dyn's plan, 0.003297 at lat's, 0.002970 at float32
+// (chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W).
 // Compiled with -fmad=false so that Horner's acc * u + c rounds twice, as
 // the plain torch version does.
 //
@@ -123,26 +151,38 @@ __global__ void locate_tree_kernel(const double* __restrict__ q,
   out[i] = c > 0 ? c : 0;
 }
 
-// K2: A = P_{I(u)}(u) - P_{I(l)}(l) (paper Eq. 14)
-template <typename T>
-__global__ void range_sum_gather_kernel(const T* __restrict__ lq,
-                                        const T* __restrict__ uq,
-                                        const T* __restrict__ seg_lo,
-                                        const T* __restrict__ seg_hi,
-                                        const T* __restrict__ coeffs,
-                                        T* __restrict__ out, int Q, int H,
-                                        int deg) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= Q) return;
-  T v[2];
-  const T qs[2] = {lq[i], uq[i]};
-#pragma unroll
-  for (int e = 0; e < 2; ++e) {
-    const int idx = locate_segment(seg_lo, H, qs[e]);
-    const T u = scale_unit(qs[e], seg_lo[idx], seg_hi[idx]);
-    v[e] = horner(coeffs + (size_t)idx * (deg + 1), deg, u);
+// K2: A = P_{I(u)}(u) - P_{I(l)}(l) (paper Eq. 14).  Two threads serve a
+// query, one an endpoint: thread bit 0 picks it (0: lq, 1: uq).  Each
+// locates its endpoint by a descent of seg_lo's search tree (K1's), reads
+// its segment's row into registers and evaluates it by Horner at the
+// template degree; a shuffle brings the lq value to the uq thread, which
+// writes v_u - v_l.  DEG < 0 is the one runtime-degree form (``deg``, a
+// coefficient a load), for plans above the instantiated degrees.
+template <typename T, int DEG>
+__global__ void __launch_bounds__(kThreads) range_sum_gather_kernel(
+    const T* __restrict__ lq, const T* __restrict__ uq,
+    const T* __restrict__ seg_lo, const T* __restrict__ seg_hi,
+    const T* __restrict__ coeffs, const T* __restrict__ tree,
+    TreeShape shape, T* __restrict__ out, int Q, int H, int deg) {
+  const long long q = ((long long)blockIdx.x * kThreads + threadIdx.x) / 2;
+  const bool upper = threadIdx.x & 1;
+  // lanes past Q redo the last query: every lane reaches the shuffle
+  const int qq = q < Q ? (int)q : Q - 1;
+  const T x = (upper ? uq : lq)[qq];
+  // max(#(seg_lo <= x) - 1, 0): locate_segment's count, from the tree
+  int idx = tree_count_right(seg_lo, H, tree, shape, x) - 1;
+  idx = idx > 0 ? idx : 0;
+  const T u = scale_unit(x, seg_lo[idx], seg_hi[idx]);
+  T v;
+  if constexpr (DEG >= 0) {
+    T c[DEG + 1];
+    load_row_v16<DEG>(coeffs, idx, c);
+    v = horner_r<DEG>(c, u);
+  } else {
+    v = horner(coeffs + (size_t)idx * (deg + 1), deg, u);
   }
-  out[i] = v[1] - v[0];
+  const T v_l = __shfl_xor_sync(0xffffffffu, v, 1);
+  if (q < Q && upper) out[q] = v - v_l;
 }
 
 // K3: MAX over [lq, uq] (paper Eq. 17): closed-form clipped maxima on the
@@ -209,31 +249,54 @@ __global__ void __launch_bounds__(kThreads) delta_sum_gather_kernel(
 
 // K6: max of buffered measures with key in [lq, uq]: the log's covered span
 // [#(keys < lq), #(keys <= uq)) against its (levels, cap) sparse table;
-// an empty span gives -inf
-__global__ void delta_max_gather_kernel(const double* __restrict__ lq,
-                                        const double* __restrict__ uq,
-                                        const double* __restrict__ keys,
-                                        const double* __restrict__ st,
-                                        double* __restrict__ out, int Q,
-                                        int cap) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= Q) return;
-  const int i0 = bsearch_count_left(keys, cap, lq[i]);
-  const int i1 = bsearch_count_right(keys, cap, uq[i]);
-  out[i] = rmq_gather(st, cap, i0, i1);
+// an empty span gives -inf.  Two threads serve a query, one an endpoint:
+// thread bit 0 picks it (0: lq, counting keys < lq; 1: uq, counting keys
+// <= uq), one search loop for both (bsearch_count_side).  A shuffle brings
+// #(keys < lq) to the uq thread, which takes the O(1) sparse-table max.
+__global__ void __launch_bounds__(kThreads) delta_max_gather_kernel(
+    const double* __restrict__ lq, const double* __restrict__ uq,
+    const double* __restrict__ keys, const double* __restrict__ st,
+    double* __restrict__ out, int Q, int cap) {
+  const long long q = ((long long)blockIdx.x * kThreads + threadIdx.x) / 2;
+  const bool upper = threadIdx.x & 1;
+  // lanes past Q redo the last query: every lane reaches the shuffle
+  const int qq = q < Q ? (int)q : Q - 1;
+  const int c = bsearch_count_side(keys, cap, (upper ? uq : lq)[qq], upper);
+  const int i0 = __shfl_xor_sync(0xffffffffu, c, 1);
+  if (q < Q && upper) out[q] = rmq_gather(st, cap, i0, c);
 }
 
 inline int blocks_for(int Q) { return (Q + kThreads - 1) / kThreads; }
 
+// K2 at one instantiation a degree 0-8 (K4's range), the runtime-degree
+// form above them, two threads a query
 template <typename T>
 int launch_range_sum_gather(const void* lq, const void* uq, const void* seg_lo,
-                            const void* seg_hi, const void* coeffs, void* out,
-                            int Q, int H, int deg, void* stream) {
-  if (Q > 0)
-    range_sum_gather_kernel<T><<<blocks_for(Q), kThreads, 0,
-                                 (cudaStream_t)stream>>>(
-        (const T*)lq, (const T*)uq, (const T*)seg_lo, (const T*)seg_hi,
-        (const T*)coeffs, (T*)out, Q, H, deg);
+                            const void* seg_hi, const void* coeffs,
+                            const void* tree, void* out, int Q, int H,
+                            int deg, void* stream) {
+  if (Q > 0) {
+    const int blocks = (int)((2LL * Q + kThreads - 1) / kThreads);
+    const TreeShape shape = tree_shape(H);
+#define K2_LAUNCH(D)                                                        \
+  range_sum_gather_kernel<T, D><<<blocks, kThreads, 0,                      \
+                                  (cudaStream_t)stream>>>(                  \
+      (const T*)lq, (const T*)uq, (const T*)seg_lo, (const T*)seg_hi,       \
+      (const T*)coeffs, (const T*)tree, shape, (T*)out, Q, H, deg)
+    switch (deg) {
+      case 0: K2_LAUNCH(0); break;
+      case 1: K2_LAUNCH(1); break;
+      case 2: K2_LAUNCH(2); break;
+      case 3: K2_LAUNCH(3); break;
+      case 4: K2_LAUNCH(4); break;
+      case 5: K2_LAUNCH(5); break;
+      case 6: K2_LAUNCH(6); break;
+      case 7: K2_LAUNCH(7); break;
+      case 8: K2_LAUNCH(8); break;
+      default: K2_LAUNCH(-1); break;
+    }
+#undef K2_LAUNCH
+  }
   return (int)cudaGetLastError();
 }
 
@@ -281,21 +344,25 @@ int polyfit_locate(const void* q, const void* keys, const void* tree,
   return (int)cudaGetLastError();
 }
 
+// ``tree``: seg_lo's search tree (kernels/locate.py search_tree); seg_lo,
+// coeffs and tree 16-byte aligned
 int polyfit_range_sum_gather(const void* lq, const void* uq, const void* seg_lo,
-                             const void* seg_hi, const void* coeffs, void* out,
-                             int Q, int H, int deg, void* stream) {
+                             const void* seg_hi, const void* coeffs,
+                             const void* tree, void* out, int Q, int H,
+                             int deg, void* stream) {
   return polyfit::launch_range_sum_gather<double>(lq, uq, seg_lo, seg_hi,
-                                                  coeffs, out, Q, H, deg,
-                                                  stream);
+                                                  coeffs, tree, out, Q, H,
+                                                  deg, stream);
 }
 
 int polyfit_range_sum_gather_f32(const void* lq, const void* uq,
                                  const void* seg_lo, const void* seg_hi,
-                                 const void* coeffs, void* out, int Q, int H,
-                                 int deg, void* stream) {
+                                 const void* coeffs, const void* tree,
+                                 void* out, int Q, int H, int deg,
+                                 void* stream) {
   return polyfit::launch_range_sum_gather<float>(lq, uq, seg_lo, seg_hi,
-                                                 coeffs, out, Q, H, deg,
-                                                 stream);
+                                                 coeffs, tree, out, Q, H,
+                                                 deg, stream);
 }
 
 // ``tree``: seg_lo's search tree (kernels/locate.py search_tree); seg_lo,
@@ -336,9 +403,10 @@ int polyfit_delta_max_gather(const void* lq, const void* uq, const void* keys,
                              const void* st, void* out, int Q, int cap,
                              void* stream) {
   if (Q > 0)
-    polyfit::delta_max_gather_kernel<<<polyfit::blocks_for(Q),
-                                       polyfit::kThreads, 0,
-                                       (cudaStream_t)stream>>>(
+    // two threads a query
+    polyfit::delta_max_gather_kernel<<<
+        (int)((2LL * Q + polyfit::kThreads - 1) / polyfit::kThreads),
+        polyfit::kThreads, 0, (cudaStream_t)stream>>>(
         (const double*)lq, (const double*)uq, (const double*)keys,
         (const double*)st, (double*)out, Q, cap);
   return (int)cudaGetLastError();

@@ -160,7 +160,7 @@ def raw_sum(plan: IndexPlan, lqc, uqc, *, backend: str):
     K2 on 'cuda', K14 on 'cuda_scan'."""
     if backend == "cuda":
         return range_sum_gather(lqc, uqc, plan.seg_lo, plan.seg_hi,
-                                plan.coeffs)
+                                plan.coeffs, plan.seg_tree)
     if backend == "cuda_scan":
         return range_sum(lqc, uqc, plan.seg_lo, plan.seg_next, plan.seg_hi,
                          plan.coeffs)

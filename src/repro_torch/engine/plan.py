@@ -13,10 +13,9 @@ single layout every backend executes against.  It bundles, per index:
   sparse table), so the Lemma 5.2/5.4 Q_rel test and the refinement run
   on the device with no host round trip;
 * the sorted keys' search tree ``ref_tree`` (``kernels.locate.search_tree``),
-  which K1 descends on the card backends, and for MAX/MIN plans
-  ``seg_tree``, the search tree of the padded ``seg_lo``, which K3
-  descends: the port's own, outside ``ARRAY_FIELDS`` (those mirror the
-  reference's plan).
+  which K1 descends on the card backends, and ``seg_tree``, the search
+  tree of the padded ``seg_lo``, which K2 and K3 descend: the port's own,
+  outside ``ARRAY_FIELDS`` (those mirror the reference's plan).
 
 ``IndexPlan2D`` is the 2-key analogue: the quadtree descent arrays (the
 ``torch`` backend), the flattened tile-padded leaf table for the kernels
@@ -127,7 +126,7 @@ class IndexPlan:
     seg_err: Optional[torch.Tensor] = None   # (Hp,) delta-padded
     # -- K1's search tree over ref_keys (not in ARRAY_FIELDS) -------------
     ref_tree: Optional[torch.Tensor] = None  # (nodes, 4)
-    # -- K3's search tree over seg_lo (max/min; not in ARRAY_FIELDS) -------
+    # -- K2's and K3's search tree over seg_lo (not in ARRAY_FIELDS) --------
     seg_tree: Optional[torch.Tensor] = None  # (nodes, 4)
 
     @property
@@ -163,7 +162,7 @@ class IndexPlan:
 
     def tree_bytes(self) -> int:
         """Bytes of the port's search trees, ``ref_tree`` (K1's) and
-        ``seg_tree`` (K3's); 0 without them."""
+        ``seg_tree`` (K2's and K3's); 0 without them."""
         return _tree_bytes(self.ref_tree) + _tree_bytes(self.seg_tree)
 
 
@@ -204,15 +203,8 @@ def build_plan(index: PolyFitIndex1D, dtype: torch.dtype = DTYPE,
         coeffs=pad_to_multiple(coeffs, bh, 0.0),
         seg_agg=pad_to_multiple(agg, bh, -torch.inf),
         st=index.st, ref_keys=ref_keys, ref_cf=ref_cf, ref_st=ref_st,
-        seg_err=seg_err, ref_tree=ref_tree, seg_tree=_seg_tree(seg_lo,
-                                                               index.st),
+        seg_err=seg_err, ref_tree=ref_tree, seg_tree=search_tree(seg_lo),
     )
-
-
-def _seg_tree(seg_lo, st):
-    """K3's search tree over a plan's padded starts, for plans that carry
-    a sparse table (MAX/MIN: the plans K3 serves); None for the others."""
-    return None if st is None else search_tree(seg_lo)
 
 
 def plan_from_numpy(fields: Mapping, device) -> IndexPlan:
@@ -221,14 +213,14 @@ def plan_from_numpy(fields: Mapping, device) -> IndexPlan:
     ``fields`` maps every name in ``ARRAY_FIELDS`` to a numpy array (or
     None where the reference holds None) and every name in ``META_FIELDS``
     to its scalar.  Arrays keep their dtype and are copied to ``device``;
-    the keys' search tree is built from ``ref_keys``.
+    the search trees are built from ``ref_keys`` and ``seg_lo``.
     """
     device = torch.device(device)
     arrays = {f: (None if fields.get(f) is None else
                   torch.as_tensor(np.array(fields[f]), device=device))
               for f in ARRAY_FIELDS}
     arrays["ref_keys"], arrays["ref_tree"] = _searchable(arrays["ref_keys"])
-    arrays["seg_tree"] = _seg_tree(arrays["seg_lo"], arrays["st"])
+    arrays["seg_tree"] = search_tree(arrays["seg_lo"])
     return IndexPlan(
         agg=str(fields["agg"]), deg=int(fields["deg"]),
         delta=float(fields["delta"]), h=int(fields["h"]), n=int(fields["n"]),

@@ -47,8 +47,9 @@ _SIGNATURES = {
     # q, keys, tree, out, Q, n, stream; ``tree`` the keys' search tree
     # (kernels/locate.py search_tree)
     "polyfit_locate": (_P, _P, _P, _P, _I, _I, _P),
-    # lq, uq, seg_lo, seg_hi, coeffs, out, Q, H, deg, stream
-    "polyfit_range_sum_gather": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # lq, uq, seg_lo, seg_hi, coeffs, tree, out, Q, H, deg, stream;
+    # ``tree`` seg_lo's search tree
+    "polyfit_range_sum_gather": (_P,) * 7 + (_I,) * 3 + (_P,),
     # lq, uq, seg_lo, seg_hi, coeffs, st, tree, out, Q, H, deg, h, stream;
     # ``tree`` seg_lo's search tree
     "polyfit_range_max_gather": (_P,) * 8 + (_I,) * 4 + (_P,),

@@ -125,7 +125,11 @@ delta_sum_gather.launches = 0
 def delta_max_gather(lq, uq, keys, st):
     """(Q,) exact buffered MAX over [lq, uq] (-inf where no buffered key
     lies in the range): K6 on CUDA tensors, the plain version on CPU
-    tensors.  ``delta_max_gather.launches`` counts the kernel launches."""
+    tensors.  ``delta_max_gather.launches`` counts the kernel launches.
+
+    K6 runs two threads a query, one an endpoint, both in one search loop
+    (the lq thread counts keys < lq, the uq thread keys <= uq); the uq
+    thread takes the sparse-table max."""
     if lq.device.type == "cpu":
         return delta_max_gather_plain(lq, uq, keys, st)
     _build.require_cuda("delta_max_gather", lq, uq, keys, st)

@@ -90,7 +90,7 @@ def range_sum(table: IndexPlan, lq, uq,
         return _rsum.range_sum(lq, uq, table.seg_lo, table.seg_next,
                                table.seg_hi, table.coeffs)
     return _rsum.range_sum_gather(lq, uq, table.seg_lo, table.seg_hi,
-                                  table.coeffs)
+                                  table.coeffs, table.seg_tree)
 
 
 def range_max(table: IndexPlan, lq, uq,

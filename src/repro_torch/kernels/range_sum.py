@@ -6,7 +6,9 @@ A = P_{I(u)}(u) - P_{I(l)}(l) per (lq, uq] range from one gathered
 scaled coordinate; they differ in how they find the segment:
 
 * **gather** (K2, ``range_sum_gather``, twin of ``range_sum_gather_pallas``,
-  the ``cuda`` backend): the branch-free binary search, O(log H) a query;
+  the ``cuda`` backend): the branch-free binary search, O(log H) a query
+  (the kernel: a thread an endpoint, by a descent of seg_lo's search tree,
+  which counts the same);
 * **scan** (K14, ``range_sum``, twin of ``range_sum_pallas``, the
   ``cuda_scan`` backend): one-hot membership seg_lo <= q < seg_next
   against every segment, O(H) a query.  At most one segment holds a
@@ -29,15 +31,16 @@ import torch
 
 from ..core.poly import horner, scale_unit
 from . import _build
-from .locate import locate_segments
+from .locate import check_tree_shape, locate_segments, search_tree
 from .ref import _chunked
 
 __all__ = ["range_sum_gather_plain", "range_sum_gather", "segment_rows",
            "gather_rows", "range_sum_plain", "range_sum"]
 
 
-def range_sum_gather_plain(lq, uq, seg_lo, seg_hi, coeffs):
-    """Plain torch version of K2, in the kernel's order of operations."""
+def range_sum_gather_plain(lq, uq, seg_lo, seg_hi, coeffs, tree=None):
+    """Plain torch version of K2, in the kernel's order of operations (it
+    takes K2's arguments; the binary search needs no ``tree``)."""
     vals = []
     for q in (lq, uq):
         idx = locate_segments(seg_lo, q)                   # O(log H)
@@ -46,27 +49,44 @@ def range_sum_gather_plain(lq, uq, seg_lo, seg_hi, coeffs):
     return vals[1] - vals[0]
 
 
-def range_sum_gather(lq, uq, seg_lo, seg_hi, coeffs):
+def range_sum_gather(lq, uq, seg_lo, seg_hi, coeffs, tree=None):
     """(Q,) approximate SUM over (lq, uq] against a (sentinel-padded)
     segment table: K2 on CUDA tensors, the plain version on CPU tensors.
-    ``range_sum_gather.launches`` counts the kernel launches."""
+    ``range_sum_gather.launches`` counts the kernel launches.
+
+    K2 runs two threads a query, one an endpoint, at one instantiation a
+    degree 0-8 (one runtime-degree form above them).  Each finds its
+    segment by a descent of ``tree``, seg_lo's ``search_tree`` (a plan's
+    ``seg_tree``; a call without one builds it), and reads its row by
+    16-byte loads where its length allows: ``seg_lo``, ``coeffs`` and
+    ``tree`` must start on 16 bytes, as a plan's own tables do.  It raises
+    on a tree whose shape is not that of the tree of H starts; a tree of
+    other starts of the same count passes unseen."""
     if lq.device.type == "cpu":
         return range_sum_gather_plain(lq, uq, seg_lo, seg_hi, coeffs)
     dtype = _build.float_dtype("range_sum_gather", coeffs)
+    if tree is None:
+        tree = search_tree(seg_lo)
     _build.require_cuda("range_sum_gather", lq, uq, seg_lo, seg_hi, coeffs,
-                        dtype=dtype)
+                        tree, dtype=dtype)
     Q, H = lq.shape[0], seg_lo.shape[0]
     if uq.shape[0] != Q or seg_hi.shape[0] != H or coeffs.shape[0] != H or H < 1:
         raise ValueError("range_sum_gather: shape mismatch "
                          f"{lq.shape} {uq.shape} {seg_lo.shape} "
                          f"{seg_hi.shape} {coeffs.shape}")
+    check_tree_shape("range_sum_gather", tree, H)
+    if any(t.data_ptr() % 16 for t in (seg_lo, coeffs, tree)):
+        raise ValueError("range_sum_gather: seg_lo, coeffs and tree must "
+                         "start on a 16-byte boundary (the kernel reads them "
+                         "16 bytes at a time); pass a copy (.clone()) of an "
+                         "offset view")
     out = torch.empty(Q, dtype=coeffs.dtype, device=lq.device)
     if Q:
         _build.check(_build.launcher("range_sum_gather", dtype)(
             lq.data_ptr(), uq.data_ptr(), seg_lo.data_ptr(),
-            seg_hi.data_ptr(), coeffs.data_ptr(), out.data_ptr(), Q, H,
-            coeffs.shape[1] - 1, _build.stream(lq.device)),
-            "range_sum_gather")
+            seg_hi.data_ptr(), coeffs.data_ptr(), tree.data_ptr(),
+            out.data_ptr(), Q, H, coeffs.shape[1] - 1,
+            _build.stream(lq.device)), "range_sum_gather")
         range_sum_gather.launches += 1
     return out
 

@@ -4,11 +4,14 @@ K1 (locate), K2 (range SUM), K3 (range MAX), K4 (quantile inversion), K5
 (buffered SUM), K6 (buffered MAX), the 2-D leaf kernels K7, K8, K12 and
 K13, the buffered 2-D corrections K9, K10 and K11, and the ``cuda`` engine
 backend, static, dynamic, windowed and 2-D (static and dynamic), must
-agree with the plain versions on the same inputs: K1's int32 ids, K3
-(at every degree 0-3, float64 and float32, on edge lanes and ragged
+agree with the plain versions on the same inputs: K1's int32 ids, K2 (at
+every degree 0-8 and in its runtime-degree form, float64 and float32,
+with and without seg_lo's search tree, on edge lanes and ragged counts),
+K3 (at every degree 0-3, float64 and float32, on edge lanes and ragged
 counts), K4's Newton branch, K5 (on the sentinel tail, NaN bounds and
-ragged counts, and the window's 131,072-slot layout), K8 (NaN and +-inf
-corners, ragged counts) and the 2-D kernels exactly (NaN as NaN), the
+ragged counts, and the window's 131,072-slot layout), K6 (on NaN
+measures, the sentinel tail, NaN bounds and odd counts), K8 (NaN and
++-inf corners, ragged counts) and the 2-D kernels exactly (NaN as NaN), the
 others to rtol = atol = 1e-9 (compiled with -fmad=false, they are
 expected to agree bit for bit).  The one-hot scans of the ``cuda_scan`` backend, K14 (range SUM),
 K15 (range MAX), K16 (buffered SUM), K17 (buffered MAX) and K4's scan
@@ -195,8 +198,8 @@ def test_locate_rejects_a_misaligned_or_misshapen_tree(cuda):
 
 def test_plans_carry_their_keys_search_tree(cuda, plans, plans2d):
     """Every plan built on the card carries its keys' search tree, aligned
-    for K1, and every MAX/MIN plan its starts' search tree, aligned for
-    K3."""
+    for K1, and every 1-D plan, whatever its aggregate, its starts' search
+    tree, aligned for K2 and K3; ``tree_bytes`` counts both."""
     _, by_key = plans
     *_, by_key2d = plans2d
     for p in (*by_key.values(), *by_key2d.values()):
@@ -210,7 +213,7 @@ def test_plans_carry_their_keys_search_tree(cuda, plans, plans2d):
             assert torch.equal(seg_tree.nan_to_num(-1.0),
                                kloc.search_tree(p.seg_lo).nan_to_num(-1.0))
             assert p.seg_lo.data_ptr() % 16 == seg_tree.data_ptr() % 16 == 0
-        assert (seg_tree is not None) == (getattr(p, "st", None) is not None)
+        assert (seg_tree is not None) == hasattr(p, "seg_lo")
         assert p.tree_bytes() == 8 * (tree.numel() + (
             0 if seg_tree is None else seg_tree.numel()))
 
@@ -318,6 +321,75 @@ def test_range_max_kernel_refuses_misaligned_rows(cuda):
         kmax.range_max_gather(lq, uq, lo, hi, off.clone(), st),
         kmax.range_max_gather(lq, uq, lo, hi, cf, st), rtol=0, atol=0,
         equal_nan=True)
+
+
+def _k2_table(cuda, dt, deg):
+    """A SUM segment table in a plan's layout (_segment_table: 300 live
+    segments of 512, two equal starts) with random rows of ``deg``:
+    (seg_lo, seg_hi, coeffs)."""
+    lo, _, hi, _, _ = _segment_table(cuda, 300, 512, dt, seed=deg)
+    rng = np.random.default_rng(deg)
+    cf = torch.as_tensor(rng.normal(0, 1, (512, deg + 1)), dtype=dt)
+    cf[300:] = 0.0
+    return lo, hi, cf.to(cuda)
+
+
+@pytest.mark.parametrize("dt", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("Q", [1, 255, 65_537])
+@pytest.mark.parametrize("deg", [0, 1, 2, 3, 4, 5, 6, 7, 8, 10])
+def test_range_sum_kernel_every_degree_and_ragged_counts(cuda, deg, Q, dt):
+    """K2 (two threads a query, seg_lo's search tree) equals its plain
+    version in every lane (NaN as NaN) at every instantiated degree 0-8 and
+    in the runtime-degree form (deg 10), at float64 and float32, at ragged
+    query counts (an odd count leaves the last query's pair partly past Q),
+    on NaN, infinite, below-the-table, past-the-end and sentinel endpoints,
+    lq == uq, inside one segment, on every start and inverted; with the
+    tree passed as the plans pass it and without one (the wrapper builds
+    it); one launch a call, and the two give the same bits."""
+    lo, hi, cf = _k2_table(cuda, dt, deg)
+    lq, uq = _k3_edge_lanes(lo, Q)
+    args = (lq, uq, lo, hi, cf)
+    before = ksum.range_sum_gather.launches
+    got = ksum.range_sum_gather(*args, kloc.search_tree(lo))
+    bare = ksum.range_sum_gather(*args)
+    torch.cuda.synchronize()
+    assert ksum.range_sum_gather.launches == before + 2
+    assert got.shape == (Q,) and got.dtype == dt
+    torch.testing.assert_close(got, ksum.range_sum_gather_plain(*args),
+                               rtol=0, atol=0, equal_nan=True)
+    bits = torch.int32 if dt == torch.float32 else torch.int64
+    assert torch.equal(got.view(bits), bare.view(bits))
+
+
+def test_range_sum_kernel_refuses_a_misaligned_or_misshapen_tree(cuda):
+    """K2 reads seg_lo, coeffs and the tree 16 bytes at a time: a tree, a
+    seg_lo or coeffs that start off 16 bytes (offset views) are refused, a
+    copy is taken; so are a tree of another shape and one off the card."""
+    lo, hi, cf = _k2_table(cuda, torch.float64, 3)
+    lq, uq = _k3_edge_lanes(lo, 1000)
+    tree = kloc.search_tree(lo)
+
+    def offset(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    for args in ((lo, hi, cf, offset(tree)), (offset(lo), hi, cf, tree),
+                 (lo, hi, offset(cf), tree)):
+        with pytest.raises(ValueError, match="16-byte"):
+            ksum.range_sum_gather(lq, uq, *args)
+    with pytest.raises(ValueError, match="search tree"):
+        ksum.range_sum_gather(lq, uq, lo, hi, cf, tree[:-1].clone())
+    with pytest.raises(ValueError, match="search tree"):
+        ksum.range_sum_gather(lq, uq, lo, hi, cf, kloc.search_tree(lo[:300]))
+    with pytest.raises(ValueError, match="CUDA device"):
+        ksum.range_sum_gather(lq, uq, lo, hi, cf, tree.cpu())
+    assert torch.equal(
+        ksum.range_sum_gather(lq, uq, lo, hi, cf, offset(tree).clone())
+        .view(torch.int64),
+        ksum.range_sum_gather(lq, uq, lo, hi, cf, tree).view(torch.int64))
 
 
 def test_kernels_reject_cpu_tensors_mixed_in(plans, queries):
@@ -1384,6 +1456,40 @@ def test_delta_max_kernel_tail_lanes(cuda, fill, with_nan):
     assert torch.equal(got.view(torch.int64), again.view(torch.int64))
     if fill < CAP:   # a range over the sentinel holds the tail's 0
         assert (got[-6:-3] == 0).all()
+
+
+@pytest.mark.parametrize("Q", [1, 255, 70_001])
+@pytest.mark.parametrize("with_nan", [False, True], ids=["finite", "nan"])
+@pytest.mark.parametrize("fill", [0, 1, 37, 1024, 3072, CAP])
+def test_delta_max_gather_kernel_tail_lanes(cuda, fill, with_nan, Q):
+    """K6 (two threads a query, the sparse-table step split over the pair)
+    equals its plain version bit for bit, NaN as NaN, on an all-sentinel,
+    partly filled and full log, with and without a NaN measure, on the
+    lanes that reach the sentinel tail or hold a NaN bound, empty and
+    inverted spans, at odd query counts (the last pair partly past Q); one
+    launch a call, and two launches give the same bits."""
+    rng = np.random.default_rng(fill + 3)
+    big = big_sentinel(torch.float64)
+    k = np.round(rng.uniform(0, 1000, fill), 1)
+    v = rng.normal(0, 50, fill)
+    if with_nan and fill:
+        v[rng.integers(0, fill, 1 + fill // 100)] = np.nan
+    keys, _, _, st = _append_1d(
+        torch.full((CAP,), big, dtype=torch.float64, device=cuda),
+        torch.zeros(CAP, dtype=torch.float64, device=cuda),
+        torch.as_tensor(k, device=cuda), torch.as_tensor(v, device=cuda),
+        cap=CAP, with_st=True)
+    lq, uq = (q[-Q:] for q in _delta_queries(cuda, tail=True))
+    before = kdelta.delta_max_gather.launches
+    got = kdelta.delta_max_gather(lq, uq, keys, st)
+    again = kdelta.delta_max_gather(lq, uq, keys, st)
+    torch.cuda.synchronize()
+    assert kdelta.delta_max_gather.launches == before + 2
+    assert got.shape == (Q,)
+    torch.testing.assert_close(
+        got, kdelta.delta_max_gather_plain(lq, uq, keys, st), rtol=0, atol=0,
+        equal_nan=True)
+    assert torch.equal(got.view(torch.int64), again.view(torch.int64))
 
 
 def test_delta_sum_kernel_on_a_window_log(cuda):

@@ -32,8 +32,9 @@ from repro.kernels.delta_scan import (delta_max_gather_pallas,  # noqa: E402
 from repro_torch.core import index_from_numpy  # noqa: E402
 from repro_torch.engine import (DynamicEngine, execute_extremum,  # noqa: E402
                                 big_sentinel)
-from repro_torch.engine.dynamic import _append_1d  # noqa: E402
-from repro_torch.kernels.locate import bsearch_count  # noqa: E402
+from repro_torch.engine.dynamic import DeltaBuffer, _append_1d  # noqa: E402
+from repro_torch.kernels.locate import (bsearch_count, floor_log2,  # noqa: E402
+                                        rmq_gather)
 from repro_torch.kernels import (delta_max_gather, delta_max_gather_plain,  # noqa: E402
                                  delta_max_plain, delta_max_ref,
                                  delta_sum_gather, delta_sum_gather_plain,
@@ -638,6 +639,108 @@ def test_delta_max_gather_plain_matches_pallas(fill):
     np.testing.assert_array_equal(
         delta_max_ref(*tq, k, torch.as_tensor(vals)).numpy(), oracle)
     assert np.isneginf(got.numpy()[lq > uq]).all()
+
+
+def _count_side(keys, x, right):
+    """csrc/locate.cuh bsearch_count_side in torch: the binary search's
+    probe rounds with the compare picked per lane, pv < x or, where
+    ``right``, pv == x too."""
+    n = keys.shape[0]
+    c = torch.zeros(x.shape, dtype=torch.int32)
+    step = 1 << max(0, (n - 1).bit_length())
+    while step >= 1:
+        probe = c + (step - 1)
+        pv = keys[torch.clamp(probe, max=n - 1)]
+        ok = (pv < x) | (right & (pv == x))
+        c = torch.where((probe <= n - 1) & ok, c + step, c)
+        step >>= 1
+    return c
+
+
+def _k6_pair(lq, uq, keys, st, split):
+    """csrc/polyfit_kernels.cu K6 in torch: lane 2q of the grid (256-lane
+    blocks) counts the log's keys < lq of query q, lane 2q + 1 its keys <=
+    uq, in one search loop; lanes past Q redo the last query.  The shipped
+    form shuffles #(keys < lq) to lane 2q + 1, which runs rmq_gather; the
+    ``split`` form (tools/k6_rates.cu) gives each lane its partner's count,
+    lane 2q loads rmq_gather's entry at i0, lane 2q + 1 the one ending at
+    i1 (rmq_gather's level, clamps and indices), and lane 2q + 1 writes
+    jmax(left, right), -inf on an empty span."""
+    Q = lq.shape[0]
+    levels, n = st.shape
+    t = torch.arange(-(-2 * Q // 256) * 256)
+    q = torch.clamp(t // 2, max=Q - 1)
+    upper = (t & 1) == 1
+    c = _count_side(keys, torch.where(upper, uq[q], lq[q]), upper)
+    other = c[t ^ 1]
+    i0, i1 = torch.where(upper, other, c), torch.where(upper, c, other)
+    if split:
+        length = torch.clamp(i1 - i0, min=0)
+        lvl = floor_log2(torch.clamp(length, min=1), levels)
+        b = torch.clamp(i1 - torch.bitwise_left_shift(torch.ones_like(lvl),
+                                                      lvl), 0, n - 1)
+        a = torch.clamp(i0, max=n - 1)
+        e = st.reshape(-1)[lvl.long() * n + torch.where(upper, b, a).long()]
+        val = torch.where(length > 0, torch.maximum(e[t ^ 1], e),
+                          -torch.inf)
+    else:
+        val = rmq_gather(st, i0, i1)
+    out = torch.full((Q,), torch.nan, dtype=st.dtype)
+    writes = upper & (t // 2 < Q)
+    out[q[writes]] = val[writes]
+    return out
+
+
+@pytest.mark.parametrize("split", [False, True], ids=["shipped", "split"])
+@pytest.mark.parametrize("fill,cap,with_nan", [
+    (0, CAP, False), (1, CAP, True), (37, CAP, False), (37, CAP, True),
+    (CAP, CAP, True), (4096, 4096, False)])
+def test_k6_two_thread_form_matches_plain(fill, cap, with_nan, split):
+    """K6's two-thread form (_k6_pair: one search loop for both endpoints,
+    the uq lane taking the sparse-table step, or the step split over the
+    pair) equals the plain K6 bit for bit, NaN as NaN, on an all-sentinel
+    log (``DeltaBuffer.empty``), partly filled and full logs, with NaN
+    measures in some, at an odd range count; on empty spans (lq == uq off a
+    key, lq > uq), endpoints equal to keys, NaN and infinite bounds and the
+    sentinel.  Each lane's count equals the binary search of its side."""
+    big = big_sentinel(torch.float64)
+    if fill == 0:
+        buf = DeltaBuffer.empty(cap, torch.float64, "cpu", with_st=True)
+        keys, st = buf.ins_keys, buf.ins_st
+    else:
+        rng = np.random.default_rng(fill + cap + with_nan)
+        k = np.round(rng.uniform(-10, 610, fill), 1)   # ties included
+        v = rng.normal(0, 10, fill)
+        if with_nan:
+            v[rng.integers(0, fill, 1 + fill // 50)] = np.nan
+        keys, _, _, st = _append_1d(
+            torch.full((cap,), big, dtype=torch.float64),
+            torch.zeros(cap, dtype=torch.float64), torch.as_tensor(k),
+            torch.as_tensor(v), cap=cap, with_st=True)
+    lq, uq = _delta_queries(200 + fill)
+    kh = keys[:fill].numpy()
+    nan, inf = np.nan, np.inf
+    lq = np.concatenate([lq, kh, kh, np.roll(kh, 3), [nan, 0.0, nan, -inf,
+                                                      big, 700.0, big]])
+    uq = np.concatenate([uq, kh, np.roll(kh, 3), kh, [5.0, nan, nan, inf,
+                                                      big, inf, inf]])
+    if len(lq) % 2 == 0:
+        lq, uq = lq[:-1], uq[:-1]
+    lq, uq = torch.as_tensor(lq), torch.as_tensor(uq)
+    want = delta_max_gather_plain(lq, uq, keys, st)
+    got = _k6_pair(lq, uq, keys, st, split)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    ok = ~torch.isnan(want)
+    assert torch.equal(got[ok].view(torch.int64), want[ok].view(torch.int64))
+    assert torch.isneginf(want).any() and (torch.isfinite(want).any()
+                                           or fill == 0)
+    if with_nan:
+        assert torch.isnan(want).any()
+    for x in (lq, uq):
+        for right in (False, True):
+            assert torch.equal(_count_side(keys, x, torch.tensor(right)),
+                               bsearch_count(keys, x, side="right" if right
+                                             else "left"))
 
 
 # ---------------------------------------------------------------------------

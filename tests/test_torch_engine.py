@@ -162,9 +162,10 @@ def test_batch_bucketing_consistency(plans, data, nq):
 def test_plans_carry_the_keys_search_tree(plans, data, agg, source):
     """A plan carried across from the reference and one the port lowers
     from its own index both carry ``ref_tree``, the search tree of their
-    ``ref_keys`` (K1's), and MAX/MIN plans ``seg_tree``, the search tree of
-    their padded ``seg_lo`` (K3's), counted by ``tree_bytes`` and not by
-    ``device_bytes``, which stays the reference's sum."""
+    ``ref_keys`` (K1's), and ``seg_tree``, the search tree of their padded
+    ``seg_lo`` (K2's and K3's), whatever the aggregate, both counted by
+    ``tree_bytes`` and not by ``device_bytes``, which stays the
+    reference's sum."""
     rplan, plan = plans[agg]
     if source == "build_plan":
         keys, meas = data
@@ -176,16 +177,12 @@ def test_plans_carry_the_keys_search_tree(plans, data, agg, source):
     assert plan.ref_keys.data_ptr() % 16 == 0
     np.testing.assert_array_equal(plan.ref_keys.numpy(),
                                   np.asarray(rplan.ref_keys))
-    seg_tree = search_tree(plan.seg_lo) if plan.st is not None else None
-    if seg_tree is None:
-        assert plan.seg_tree is None
-    else:
-        assert torch.equal(plan.seg_tree.nan_to_num(-1.0),
-                           seg_tree.nan_to_num(-1.0))
-        assert plan.seg_lo.data_ptr() % 16 == 0
-    assert (agg in ("max", "min")) == (seg_tree is not None)
-    assert plan.tree_bytes() == 8 * (want.numel() + (
-        0 if seg_tree is None else seg_tree.numel())) > 0
+    seg_tree = search_tree(plan.seg_lo)
+    assert plan.seg_tree is not None and seg_tree.numel() > 0
+    assert torch.equal(plan.seg_tree.nan_to_num(-1.0),
+                       seg_tree.nan_to_num(-1.0))
+    assert plan.seg_lo.data_ptr() % 16 == plan.seg_tree.data_ptr() % 16 == 0
+    assert plan.tree_bytes() == 8 * (want.numel() + seg_tree.numel())
     assert plan.device_bytes() == sum(
         np.asarray(getattr(rplan, f)).nbytes for f in ARRAY_FIELDS
         if getattr(rplan, f) is not None)

@@ -1,9 +1,10 @@
 """The plain versions of kernels K2 (range SUM) and K3 (range MAX) against
 ``range_sum_gather_pallas`` / ``range_max_gather_pallas`` in interpret mode,
 for deg 1-3, on reference plans carried across with ``plan_from_numpy``
-(rtol = atol = 1e-9); and a torch transcription of K3's two-thread form
-(each boundary's search by seg_lo's search tree, its row and clipped
-maximum, the combine) held to K3's plain version bit for bit.  The kernels
+(rtol = atol = 1e-9); and torch transcriptions of K2's and K3's two-thread
+forms (each endpoint's search by seg_lo's search tree; K2 its row's value
+and the difference on the uq thread, K3 each boundary's row and clipped
+maximum and the combine) held to their plain versions bit for bit.  The kernels
 themselves are held to these plain versions on the card by
 tests/test_torch_cuda.py."""
 import numpy as np
@@ -19,7 +20,7 @@ from repro.data import hki_series  # noqa: E402
 from repro.engine import build_plan  # noqa: E402
 from repro.kernels.range_max import range_max_gather_pallas  # noqa: E402
 from repro.kernels.range_sum import range_sum_gather_pallas  # noqa: E402
-from repro_torch.core.poly import clipped_poly_max  # noqa: E402
+from repro_torch.core.poly import clipped_poly_max, horner, scale_unit  # noqa: E402
 from repro_torch.engine.plan import (ARRAY_FIELDS, META_FIELDS,  # noqa: E402
                                      big_sentinel, plan_from_numpy)
 from repro_torch.kernels import locate as tloc  # noqa: E402
@@ -199,3 +200,69 @@ def test_k3_two_thread_form_matches_plain(plans, queries, case):
     for q in (lq, uq):
         assert torch.equal(tloc.tree_count(seg_lo, tree, q),
                            tloc.bsearch_count(seg_lo, q))
+
+
+def _k2_two_threads(lq, uq, seg_lo, seg_hi, coeffs, tree):
+    """torch transcription of K2 as csrc/polyfit_kernels.cu runs it: lane
+    2q of the grid (256-lane blocks) evaluates lq of query q, lane 2q + 1
+    its uq; lanes past Q redo the last query.  Each finds its segment by
+    the descent of seg_lo's search tree, max(#(seg_lo <= x) - 1, 0), and
+    evaluates its row by Horner; lane 2q + 1 takes lane 2q's value (the
+    shuffle) and writes v_u - v_l."""
+    Q = lq.shape[0]
+    t = torch.arange(-(-2 * Q // 256) * 256)
+    q = torch.clamp(t // 2, max=Q - 1)
+    upper = (t & 1) == 1
+    x = torch.where(upper, uq[q], lq[q])
+    idx = torch.clamp(tloc.tree_count(seg_lo, tree, x) - 1, min=0)
+    v = horner(coeffs[idx], scale_unit(x, seg_lo[idx], seg_hi[idx]))
+    out = torch.full((Q,), torch.nan, dtype=coeffs.dtype)
+    writes = upper & (t // 2 < Q)
+    out[q[writes]] = (v - v[t ^ 1])[writes]
+    return out
+
+
+@pytest.mark.parametrize("case", ["sum0", "sum1", "sum2", "sum3", "sum10",
+                                  "sum2_f32", "sum3_f32"])
+def test_k2_two_thread_form_matches_plain(plans, queries, case):
+    """K2's two-thread form (_k2_two_threads) equals the plain K2 bit for
+    bit (NaN as NaN) on the SUM plans at deg 0-3 (deg 0: the deg-1 plan's
+    constant terms), at deg 10 (the runtime-degree form: the deg-3 plan's
+    rows and seven random higher terms) and at float32, on the plans'
+    ranges and K3's edge lanes (segment starts, below the domain, NaN,
+    +-inf, the sentinel, inverted ranges) at an odd count; the plan carries
+    seg_lo's search tree, and its descent counts as the binary search
+    does."""
+    _, ps = plans
+    dt = torch.float32 if case.endswith("_f32") else torch.float64
+    deg = int(case[3:].split("_")[0])
+    p = port_plan(ps["sum", min(max(deg, 1), 3)])
+    seg_lo, seg_hi = p.seg_lo.to(dt), p.seg_hi.to(dt)
+    coeffs = p.coeffs[:, :deg + 1]
+    if deg > 3:
+        rng = np.random.default_rng(deg)
+        extra = torch.as_tensor(rng.normal(0, 1e-3, (coeffs.shape[0],
+                                                     deg - 3)))
+        coeffs = torch.cat([coeffs, extra], dim=1)
+    coeffs = coeffs.to(dt).contiguous()
+    tree = tloc.search_tree(seg_lo)
+    if dt == torch.float64:
+        assert torch.equal(p.seg_tree.nan_to_num(-1.0),
+                           tree.nan_to_num(-1.0))
+    lq, uq = _k3_edge_lanes(p, *queries, dt)
+    if lq.shape[0] % 2 == 0:
+        lq, uq = lq[:-1], uq[:-1]
+    got = _k2_two_threads(lq, uq, seg_lo, seg_hi, coeffs, tree)
+    want = tsum.range_sum_gather_plain(lq, uq, seg_lo, seg_hi, coeffs, tree)
+    assert got.dtype == want.dtype == dt
+    (gn, gb), (wn, wb) = _bits(got), _bits(want)
+    assert torch.equal(gn, wn) and torch.equal(gb, wb)
+    # a NaN endpoint reaches the value through u (deg 0 reads no u)
+    assert torch.isfinite(want).any() and torch.isnan(want).any() == (deg > 0)
+    before = tsum.range_sum_gather.launches
+    assert torch.equal(_bits(tsum.range_sum_gather(lq, uq, seg_lo, seg_hi,
+                                                   coeffs, tree))[1], wb)
+    assert tsum.range_sum_gather.launches == before
+    for x in (lq, uq):
+        assert torch.equal(tloc.tree_count(seg_lo, tree, x),
+                           tloc.bsearch_count(seg_lo, x))
