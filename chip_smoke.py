@@ -23,8 +23,7 @@ Phases, each of which fails the run with a non-zero exit:
               np.quantile method for COUNT, the weighted convention for
               SUM) and hold its answer; the counters must show K4;
 6. parity   - each kernel against its plain version on the card, on the
-              plans and queries of phases 4 and 5 (K1-K3 exactly, K4 to
-              1e-9);
+              plans and queries of phases 4 and 5 (K1-K4 exactly);
 7. timing   - device time of each kernel, its plain version and the
               one-call library yardstick where there is one (CUDA-event
               timed replays of a CUDA graph of the calls, so host dispatch
@@ -445,18 +444,20 @@ def range_max_flops(rounds: int, deg: int) -> int:
 
 def quantile_flops(deg: int, rounds_b: int, rounds_keys: int) -> int:
     """f64 operations of K4 for one rank target (csrc/quantile.cu): three
-    binary searches over B and one over the key grid, and per inversion
-    (hi, lo, mid) the root solve, the root checks and the unscale.  The
-    solve costs, counting a transcendental (acos, cos, pow) as 20: deg 1
-    about 3, deg 2 about 14, deg 3 about 60 plus six transcendentals, and
-    above deg 3 (mid only: the certified sides keep segment endpoints) 40
-    Newton steps of 4 * deg + 10."""
+    searches over B (``rounds_b`` compares each) and the snap's
+    ``rounds_keys`` compares over the key grid, and per inversion (hi, lo,
+    mid) the root solve, the root checks and the unscale.  The solve
+    costs, counting a transcendental (acos, cos, pow) as 20: deg 1 about
+    3, deg 2 about 14, deg 3 about 60 plus the four transcendentals of the
+    trigonometric branch (Cardano's takes two; the solve computes only the
+    branch it keeps), and above deg 3 (mid only: the certified sides keep
+    segment endpoints) 40 Newton steps of 4 * deg + 10."""
     if deg <= 1:
         solve = 3
     elif deg == 2:
         solve = 14
     elif deg == 3:
-        solve = 60 + 6 * 20
+        solve = 60 + 4 * 20
     else:
         solve = 40 * (4 * deg + 10)
     sides = 3 if deg <= 3 else 1
@@ -1308,17 +1309,17 @@ def main() -> None:
     def k4_args(plan):
         """The arguments execute_quantile gives K4 for the fractions: the
         targets and their slack-shifted twins, the boundary array, the
-        tables and the 128-padded key grid (65,536 fractions need no
-        bucket padding)."""
+        tables, the 128-padded key grid and its live keys' search tree
+        (65,536 fractions need no bucket padding)."""
         M, slack = quantile_mass(plan)
         err, B, keys, nk = quantile_tables(plan)
         t = torch.clamp(fr_t, 0.0, 1.0) * M
         return ((t, t - slack, t + slack, B, plan.seg_lo, plan.seg_hi,
-                 plan.coeffs, err, keys),
+                 plan.coeffs, err, keys, plan.ref_tree),
                 dict(h=plan.h, n=nk, delta=float(plan.delta)))
 
     def hold_k4(plans, tag):
-        """Hold K4 to its plain version on each plan (to TOL), print every
+        """Hold K4 to its plain version on each plan (exactly), print every
         lane that differs at all."""
         errs.setdefault("quantile_invert", 0.0)
         for name, plan in plans.items():
@@ -1327,7 +1328,7 @@ def main() -> None:
             want = kq.quantile_invert_plain(*args, **kw)
             torch.cuda.synchronize()
             for label, g, w in zip(("answer", "lo", "hi"), got, want):
-                check(torch.allclose(g, w, rtol=TOL, atol=TOL),
+                check(torch.equal(g, w),
                       f"{tag}K4 {label} on {name} differs from its plain "
                       "version")
                 e = max_abs_err(g, w)
@@ -1347,19 +1348,29 @@ def main() -> None:
 
     def measure_k4(plan, tag, scan=False):
         """Time K4 (or its scan mode) at one plan's execute_quantile
-        shapes.  The scan mode's counts are comparison sums: a compare and
-        an add per entry of B (three times) and of the key grid."""
+        shapes.  The gather mode reads the tables once and a 32-byte
+        sector of the key grid a target for its snap (the grid's tree left
+        out, as K1's), and compares 4 separators a level of the tree and
+        the leaf; the scan mode reads every table and the whole grid, its
+        counts comparison sums: a compare and an add per entry of B (three
+        times) and of the key grid."""
         args, kw = k4_args(plan)
         kw = dict(kw, scan=scan)
         H, cols, nk = plan.seg_lo.shape[0], plan.coeffs.shape[1], \
             args[8].shape[0]
-        nbytes = 6 * Q * 8 + 4 * H * 8 + H * cols * 8 + nk * 8
-        flops = Q * (quantile_flops(plan.deg, 2 * H, 2 * nk) if scan else
-                     quantile_flops(plan.deg, probe_rounds(H),
-                                    probe_rounds(nk)))
+        tables = 6 * Q * 8 + 4 * H * 8 + H * cols * 8
+        if scan:
+            nbytes = tables + nk * 8
+            flops = Q * quantile_flops(plan.deg, 2 * H, 2 * nk)
+        else:
+            nbytes = tables + min(nk * 8, Q * 32)
+            flops = Q * quantile_flops(
+                plan.deg, probe_rounds(H),
+                4 * (len(kloc.tree_levels(kw["n"])) + 1))
         shape = (f"t_mid, t_lo, t_hi ({Q},); B, seg_lo, seg_hi, seg_err "
-                 f"({H},); coeffs ({H}, {cols}); ref_keys ({nk},) f64 -> "
-                 f"3 x ({Q},)")
+                 f"({H},); coeffs ({H}, {cols}); ref_keys ({nk},)"
+                 f"{'' if scan else f'; tree {tuple(args[9].shape)}'} f64 "
+                 f"-> 3 x ({Q},)")
         return measure(torch, tag,
                        "quantile_invert_scan" if scan else "quantile_invert",
                        lambda *a: kq.quantile_invert(*a, **kw),
@@ -1839,7 +1850,7 @@ def main() -> None:
             kc = torch.maximum(torch.as_tensor(okeys[n], dtype=dt,
                                                device=dev), t.seg_lo[0])
             args.setdefault("poly_eval", []).append(
-                (kc, t.seg_lo, t.seg_next, t.seg_hi, t.coeffs))
+                (kc, t.seg_lo, t.seg_next, t.seg_hi, t.coeffs, t.seg_tree))
             if n == "lat":
                 args["range_sum_gather"] = [(lqc, uqc, t.seg_lo, t.seg_hi,
                                              t.coeffs, t.seg_tree)]
@@ -1886,10 +1897,23 @@ def main() -> None:
             deg = cols - 1
             table = H * cols * isz
             if k == "poly_eval":
-                nb, fl = 2 * Q * isz + 3 * H * isz + table, \
-                    Q * (2 * H + 5 + 2 * deg)
+                # keys, answers and the rows the keys touch (start, next
+                # start, end and coefficients; seg_tree left out); a
+                # descent's 4 compares a level and the leaf, the
+                # membership test, scale_unit and Horner a key
+                rows = int(torch.unique(kloc.locate_segments(a[1], a[0]))
+                           .numel())
+                levels = len(kloc.tree_levels(H))
+                nb = 2 * Q * isz + rows * (cols + 3) * isz
+                fl = Q * (4 * (levels + 1) + 1 + 5 + 2 * deg)
+                every_ms, every_by = bound_ms(
+                    2 * Q * isz + 3 * H * isz + table,
+                    Q * (2 * H + 5 + 2 * deg), peak)
+                print(f"{tag}{dname} poly_eval bound over every row (the "
+                      f"old form's one-hot test a row) {every_ms!r} ms "
+                      f"({every_by}); {rows} rows touched", flush=True)
                 shape = (f"q ({Q},); seg_lo, seg_next, seg_hi ({H},); "
-                         f"coeffs ({H}, {cols})")
+                         f"coeffs ({H}, {cols}); tree {tuple(a[5].shape)}")
             elif k == "range_sum_gather":
                 nb = 3 * Q * isz + 2 * H * isz + table
                 fl = Q * (2 * (probe_rounds(H) + 5 + 2 * deg) + 1)

@@ -13,9 +13,10 @@
 //   locate_segment       max(#(seg_lo <= q) - 1, 0)
 //   count_lt, count_le   c += x < q, c += x <= q (PTX: a compare and a
 //                        predicated increment; count_le also on float)
-//   tree_shape, tree_count_right
-//                        #(keys <= q) by a descent of the keys' search
-//                        tree (K1, K2, K3; double or float)
+//   tree_shape, tree_count_right, tree_count_left
+//                        #(keys <= q) and #(keys < q) by a descent of the
+//                        keys' search tree (K1, K2, K3, K21; K4's snap;
+//                        double or float)
 //   load_row_v16         a table's row into registers by 16-byte loads
 //   cut_rank_guess       #(cuts <= q) on sorted cuts by a checked guess
 //                        (K7, K8)
@@ -224,21 +225,32 @@ __device__ __forceinline__ void load_row_v16(const T* __restrict__ p,
   }
 }
 
-// #(keys[0:n] <= q) on sorted keys by a descent of their search tree: at
-// each level the child is #(separators <= q) (one node, a row of four
-// values: load_row_v16, four count_le), at the leaf the count is 4 leaf +
-// #(keys[4 leaf + k] <= q) over the keys that exist (the last leaf may be
+// #(keys[0:n] <= q) (RIGHT) or #(keys[0:n] < q) on sorted keys by a
+// descent of their search tree: at each level the child is #(separators
+// <= q), or < q (one node, a row of four values: load_row_v16, four
+// count_le or count_lt), at the leaf the count is 4 leaf + #(keys[4 leaf +
+// k] <= q), or < q, over the keys that exist (the last leaf may be
 // partial: read key by key, never past keys[n - 1]).  Exact with
 // duplicates: every key of an earlier child is <= the chosen child's first
-// key, which is <= q, and every key of a later child is >= the next
-// separator, which is > q.  A NaN q goes left at every level and counts 0.
+// key, which is <= q (< q), and every key of a later child is >= the next
+// separator, which is > q (>= q).  A NaN q goes left at every level and
+// counts 0; so does a NaN separator (a child that does not exist).
 // ``keys`` and ``tree`` (double or float, the keys' type) are 16-byte
 // aligned.
-template <typename T>
-__device__ __forceinline__ int tree_count_right(const T* __restrict__ keys,
-                                                int n,
-                                                const T* __restrict__ tree,
-                                                const TreeShape& shape, T q) {
+template <bool RIGHT, typename T>
+__device__ __forceinline__ int tree_count(const T* __restrict__ keys, int n,
+                                          const T* __restrict__ tree,
+                                          const TreeShape& shape, T q) {
+  const auto count4 = [q](int& c, const T (&s)[4]) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if constexpr (RIGHT) {
+        count_le(c, s[e], q);
+      } else {
+        count_lt(c, s[e], q);
+      }
+    }
+  };
   int node = 0;
   T s[4];
 #pragma unroll
@@ -246,24 +258,45 @@ __device__ __forceinline__ int tree_count_right(const T* __restrict__ keys,
     if (l >= shape.levels) break;
     load_row_v16<3>(tree, shape.first[l] + node, s);
     int c = 0;
-    count_le(c, s[0], q);
-    count_le(c, s[1], q);
-    count_le(c, s[2], q);
-    count_le(c, s[3], q);
+    count4(c, s);
     node = kTreeFanout * node + c;
   }
   const int base = 4 * node;
   int c = base;
   if (base + 4 <= n) {
     load_row_v16<3>(keys, node, s);
-    count_le(c, s[0], q);
-    count_le(c, s[1], q);
-    count_le(c, s[2], q);
-    count_le(c, s[3], q);
+    count4(c, s);
   } else {
-    for (int k = base; k < n; ++k) count_le(c, __ldg(keys + k), q);
+    for (int k = base; k < n; ++k) {
+      if constexpr (RIGHT) {
+        count_le(c, __ldg(keys + k), q);
+      } else {
+        count_lt(c, __ldg(keys + k), q);
+      }
+    }
   }
   return c;
+}
+
+// #(keys[0:n] <= q) by the descent (K1, K2, K3, K21)
+template <typename T>
+__device__ __forceinline__ int tree_count_right(const T* __restrict__ keys,
+                                                int n,
+                                                const T* __restrict__ tree,
+                                                const TreeShape& shape, T q) {
+  return tree_count<true>(keys, n, tree, shape, q);
+}
+
+// #(keys[0:n] < q) by the descent, the strict twin (K4's snap to the key
+// grid: the tree of the grid's n live keys counts, for every q, what the
+// binary search over the sentinel-padded grid counts once both are
+// clamped to n - 1)
+template <typename T>
+__device__ __forceinline__ int tree_count_left(const T* __restrict__ keys,
+                                               int n,
+                                               const T* __restrict__ tree,
+                                               const TreeShape& shape, T q) {
+  return tree_count<false>(keys, n, tree, shape, q);
 }
 
 // #(c[0:n] <= q) for sorted cuts c (K7's and K8's cells), equal to

@@ -1,5 +1,4 @@
-// PolyFit certified quantile inversion for Hopper (sm_90a), float64, one
-// thread per rank target.
+// PolyFit certified quantile inversion for Hopper (sm_90a), float64.
 //
 // K4 quantile_invert_kernel  replaces repro/kernels/quantile_invert.py:quantile_invert_pallas
 //    (the 'cuda' backend; quantile_scan_count_kernel and
@@ -8,8 +7,8 @@
 //
 // The twin of repro_torch/core/quantile.py:certified_quantile_shifted, in
 // its order of operations (compiled with -fmad=false, as the plain torch
-// version rounds every multiply and add on its own).  Each thread inverts
-// the fitted CF three times:
+// version rounds every multiply and add on its own).  Each target inverts
+// the fitted CF three times (invert_side):
 //
 //   hi   against seg_err: locate the first segment whose running-max
 //        endpoint value B clears t_hi + delta, take the largest root of
@@ -22,25 +21,46 @@
 // Roots are closed form through deg 3 (the solvers of core/queries.py:
 // acos, cos and pow(|x|, 1/3) as torch computes them on the card, the cubes
 // as explicit products, the divisions by 3 and 27 as multiplies by the
-// reciprocal) and 40 safeguarded Newton/bisection steps above, whose
-// Horner steps are emulated fused multiply-adds (fma_emul, as the plain
-// version's horner_fma and the reference's XLA contraction round them),
-// where only the mid inversion solves (the certified sides keep segment
-// endpoint granularity, as the plain version does).  The degree is a
-// template parameter up to kMaxQuantileDeg, so each coefficient row lives
-// in registers.
+// reciprocal), each solve computing only the branch whose roots it keeps
+// (the plain version's torch.where discards the others, so the kept roots
+// have the same bits), and 40 safeguarded Newton/bisection steps above,
+// whose Horner steps are emulated fused multiply-adds (fma_emul, as the
+// plain version's horner_fma and the reference's XLA contraction round
+// them), where only the mid inversion solves (the certified sides keep
+// segment endpoint granularity, as the plain version does).  The degree
+// is a template parameter up to kMaxQuantileDeg, so each coefficient row
+// lives in registers, read by 16-byte loads.
 //
-// What bounds it on an H100: per target it reads three f64 targets and
-// writes three f64 answers (48 B), and runs three binary searches over B
-// (ceil(log2 Hp) + 1 dependent loads each) and one over the key grid
-// (ceil(log2 nk) + 1, the grid is megabytes and misses L1), plus the root
-// solves: about 100 f64 operations and four transcendentals a side at deg
-// 3, some 2,000 for the Newton loop at deg 5.  At Q = 65,536 the bytes
-// (3.1 MB plus the tables once) take about 1 us at 3.35 TB/s and the
-// operations (about 0.05 GFLOP at deg 3) under 2 us at the FP64 peak, so
-// the dependent key-grid probes and the launch set the time.  What the
-// design does about it: nothing yet; one thread per target, the tables read
-// through L1/L2.
+// The gather mode ran one thread a target until its redesign: three
+// binary searches over B, three solves with every root branch computed
+// (at deg 3 six transcendentals a solve, of which four or two are
+// kept), the rows a value a load, and the snap by a binary search over the
+// padded key grid (19-21 dependent probes over 1.6-8 MB that miss L1):
+// 0.0139 ms at the merged lat_dyn plan (deg 2, about 1M keys), 0.02436 at
+// hki_sum's (deg 3, 200k keys), 16 warps an SM at Q = 65,536 each with one
+// long chain.  Its design now (quantile_invert_kernel below):
+//   - three lanes a target, one inversion a lane, in one code path: the
+//     count over B by one binary search with the compare picked per lane
+//     (bsearch_count_side), one solve with the target and the sign picked
+//     per lane; ten targets a warp;
+//   - the hi lane's snap by a descent of the key grid's search tree over
+//     its n live keys (locate.cuh tree_count_left; a plan's ref_tree, K1's
+//     tree): 9 sector loads at 1M keys in place of 21 probes; the count
+//     equals the binary search's over the padded grid once clamped;
+//   - shuffles bring the upper and lower ends to the mid lane.
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (tools/k4_k21_rates.py,
+// 65,536 targets on fitted tables of lat_dyn's and hki_sum's shapes,
+// medians of three runs): 0.01307 ms at deg 2 over 1M keys (0.01347
+// before), 0.01823 at deg 3 over 200k (0.02383).  The tree snap took
+// 19% (deg 2) and 14% (deg 3) off the binary search's; the solves that
+// skip the branches they do not keep 22% at deg 3 (nothing at deg 2);
+// four lanes a target ran 5% faster at deg 2 and 9% slower at deg 3.
+// At deg 2 one thread a target with the tree snap and the skipped
+// branches ran 0.01085: there the snap's descent, a chain of L2 loads,
+// is the longest link (0.0053 ms of the split form's time, 0.0037 of one
+// thread's), and three lanes a target put 3.2 times the warps in flight,
+// about 1.5 waves at the kernel's 59 registers; at deg 3 the split
+// form's shorter solves win.
 //
 // The scan mode (polyfit_quantile_invert_scan) takes every count as the
 // one-hot comparison sum of the reference's scan=True: #(B < t + delta),
@@ -106,50 +126,54 @@ __device__ __forceinline__ double root_linear(double b, double a) {
   return fabs(a) > 0 ? -b / (a == 0 ? 1.0 : a) : NAN;
 }
 
-// a u^2 + b u + c = 0, NaN-padded
+// a u^2 + b u + c = 0, NaN-padded.  Only the branch whose value is kept
+// is computed: the plain version's torch.where discards the other, so the
+// kept value has the same bits.
 __device__ __forceinline__ void roots_quadratic(double c, double b, double a,
                                                 double* r1, double* r2) {
-  const double lin = root_linear(c, b);
-  const double disc = b * b - 4.0 * a * c;
-  const double sq = sqrt(jmax(disc, 0.0));
-  const double denom = a == 0 ? 1.0 : 2.0 * a;
-  const double q1 = (-b - sq) / denom;
-  const double q2 = (-b + sq) / denom;
-  const bool quad_ok = fabs(a) > 0 && disc >= 0;
-  *r1 = quad_ok ? q1 : (fabs(a) > 0 ? NAN : lin);
-  *r2 = quad_ok ? q2 : NAN;
+  if (fabs(a) > 0) {
+    const double disc = b * b - 4.0 * a * c;
+    const double sq = sqrt(jmax(disc, 0.0));
+    const double denom = 2.0 * a;
+    const bool quad_ok = disc >= 0;
+    *r1 = quad_ok ? (-b - sq) / denom : NAN;
+    *r2 = quad_ok ? (-b + sq) / denom : NAN;
+  } else {
+    *r1 = root_linear(c, b);
+    *r2 = NAN;
+  }
 }
 
-// a u^3 + b u^2 + c u + d = 0, NaN-padded: trigonometric for three real
-// roots, Cardano for one, the quadratic when a == 0
+// a u^3 + b u^2 + c u + d = 0, NaN-padded: the quadratic when a == 0 (or
+// NaN), else the trigonometric roots for three real roots (disc <= 0),
+// Cardano's for one (disc > 0 or NaN).  Only the branch whose roots are
+// kept is computed, as in roots_quadratic.
 __device__ __forceinline__ void roots_cubic(double d, double c, double b,
                                             double a, double* r) {
-  double q1, q2;
-  roots_quadratic(d, c, b, &q1, &q2);
-  const double safe_a = fabs(a) > 0 ? a : 1.0;
-  const double shift = b / (3.0 * safe_a);
-  const double p = (3.0 * safe_a * c - b * b) / (3.0 * safe_a * safe_a);
-  const double q = (2.0 * (b * b * b) - 9.0 * safe_a * b * c +
-                    27.0 * safe_a * safe_a * d) /
-                   (27.0 * (safe_a * safe_a * safe_a));
+  if (!(fabs(a) > 0)) {
+    roots_quadratic(d, c, b, &r[0], &r[1]);
+    r[2] = NAN;
+    return;
+  }
+  const double shift = b / (3.0 * a);
+  const double p = (3.0 * a * c - b * b) / (3.0 * a * a);
+  const double q = (2.0 * (b * b * b) - 9.0 * a * b * c + 27.0 * a * a * d) /
+                   (27.0 * (a * a * a));
   const double disc = (q * q) * 0.25 + (p * p * p) * (1.0 / 27.0);
-  const double pm = jmin(p, -1e-300);
-  const double m = 2.0 * sqrt(-pm * (1.0 / 3.0));
-  const double arg = jclip(3.0 * q / (pm * m), -1.0, 1.0);
-  const double theta = acos(arg) * (1.0 / 3.0);
-  const double t0 = m * cos(theta);
-  const double t1 = m * cos(theta - kTwoPiThirds);
-  const double t2 = m * cos(theta - kFourPiThirds);
-  const double sq = sqrt(jmax(disc, 0.0));
-  const double t_single = signed_cbrt(-q / 2.0 + sq) + signed_cbrt(-q / 2.0 - sq);
-  const bool three = disc <= 0;
-  const double r0 = (three ? t0 : t_single) - shift;
-  const double r1 = (three ? t1 : NAN) - shift;
-  const double r2 = (three ? t2 : NAN) - shift;
-  const bool is_cubic = fabs(a) > 0;
-  r[0] = is_cubic ? r0 : q1;
-  r[1] = is_cubic ? r1 : q2;
-  r[2] = is_cubic ? r2 : NAN;
+  if (disc <= 0) {
+    const double pm = jmin(p, -1e-300);
+    const double m = 2.0 * sqrt(-pm * (1.0 / 3.0));
+    const double arg = jclip(3.0 * q / (pm * m), -1.0, 1.0);
+    const double theta = acos(arg) * (1.0 / 3.0);
+    r[0] = m * cos(theta) - shift;
+    r[1] = m * cos(theta - kTwoPiThirds) - shift;
+    r[2] = m * cos(theta - kFourPiThirds) - shift;
+  } else {
+    const double sq = sqrt(jmax(disc, 0.0));
+    r[0] = (signed_cbrt(-q / 2.0 + sq) + signed_cbrt(-q / 2.0 - sq)) - shift;
+    r[1] = NAN;
+    r[2] = NAN;
+  }
 }
 
 // Horner with each step fma_emul(acc, u, c[j]) (core/poly.py horner_fma)
@@ -228,39 +252,49 @@ __device__ __forceinline__ double unscale(double u, double lo, double hi) {
   return hi > lo ? 0.5 * (u * (hi - lo) + lo + hi) : lo;
 }
 
-template <int DEG>
-__device__ __forceinline__ void load_row(const double* __restrict__ coeffs,
-                                         int s, double (&c)[DEG + 1]) {
-  const double* row = coeffs + (size_t)s * (DEG + 1);
-#pragma unroll
-  for (int j = 0; j <= DEG; ++j) c[j] = row[j];
-}
+// The three inversions of a target, one a call, the side picked per lane
+// (both modes run them; only the counts are taken differently):
+//   kHi   the first segment whose running-max endpoint value clears
+//         t + delta (cnt = #(B < t + delta)); the largest root of
+//         P = t + seg_err inside it (the segment's end above deg 3): the
+//         point the upper end snaps up to the key grid (upper_end);
+//   kLo   past every segment at or below t - delta (cnt = #(B <= t -
+//         delta)); where P starts at or below T = t - seg_err, the
+//         smallest root of P = T, else the previous segment's end (that
+//         end alone above deg 3): the lower end, not snapped;
+//   kMid  the segment of the raw crossing (cnt = #(B < t)); the largest
+//         root of P = t (zero error), which the caller clips into
+//         [lower, upper].
+enum Side : int { kHi = 0, kLo = 1, kMid = 2 };
 
-// The three inversions of one target, given its counts: the upper end's
-// root (the point snapped up to the key grid), the snapped upper end from
-// the key count k = #(ref_keys < root), the lower end, and the answer.
-// Both modes run them; only the counts are taken differently.
-
-// upper end: certified against seg_err, the point to snap to the key grid
 template <int DEG>
-__device__ __forceinline__ double upper_root(
-    int s_hi, double th, const double* __restrict__ seg_lo,
+__device__ __forceinline__ double invert_side(
+    int side, int cnt, double t, const double* __restrict__ seg_lo,
     const double* __restrict__ seg_hi, const double* __restrict__ coeffs,
     const double* __restrict__ seg_err, int h) {
-  const int s = s_hi < h - 1 ? s_hi : h - 1;
+  const int s = cnt < h - 1 ? cnt : h - 1;
   const double lo = seg_lo[s], hi = seg_hi[s];
-  double x = hi;
-  if constexpr (DEG <= 3) {
-    double c[DEG + 1];
-    bool found;
-    load_row<DEG>(coeffs, s, c);
-    const double root = extreme_root<DEG>(c, th + seg_err[s], 1.0, &found);
-    x = unscale(found ? root : -1.0, lo, hi);
+  const double below = s > 0 ? seg_hi[s - 1] : seg_lo[0];
+  if constexpr (DEG > 3) {
+    if (side != kMid) return side == kHi ? hi : below;
   }
-  return x;
+  double c[DEG + 1];
+  load_row_v16<DEG>(coeffs, s, c);
+  const double T = side == kMid ? t
+                   : side == kHi ? t + seg_err[s]
+                                 : t - seg_err[s];
+  bool found;
+  const double root =
+      extreme_root<DEG>(c, T, side == kLo ? -1.0 : 1.0, &found);
+  const double x = unscale(found ? root : (side == kLo ? 1.0 : -1.0), lo, hi);
+  if (side != kLo) return x;
+  const double tiny = 1e-9 * (fabs(T) + 1.0);
+  return horner_r<DEG>(c, -1.0) <= T + tiny ? x : below;
 }
 
-// the upper end snapped up to the key grid
+// the upper end: the kHi point snapped up to the key grid from the key
+// count k = #(ref_keys < x), or the domain's top for a target past the
+// fitted mass
 __device__ __forceinline__ double upper_end(int k, double th, double delta,
                                             double b_top, double dom_hi,
                                             const double* __restrict__ ref_keys,
@@ -269,77 +303,55 @@ __device__ __forceinline__ double upper_end(int k, double th, double delta,
   return th + delta <= b_top ? ref_keys[k] : dom_hi;
 }
 
-// lower end: certified against seg_err, no snap
-template <int DEG>
-__device__ __forceinline__ double lower_end(
-    int s_lo, double tl, const double* __restrict__ seg_lo,
-    const double* __restrict__ seg_hi, const double* __restrict__ coeffs,
-    const double* __restrict__ seg_err, int h) {
-  int s = s_lo > 0 ? s_lo : 0;
-  s = s < h - 1 ? s : h - 1;
-  const double below = s > 0 ? seg_hi[s - 1] : seg_lo[0];
-  double x_lo = below;
-  if constexpr (DEG <= 3) {
-    double c[DEG + 1];
-    bool found;
-    load_row<DEG>(coeffs, s, c);
-    const double T = tl - seg_err[s];
-    const double tiny = 1e-9 * (fabs(T) + 1.0);
-    const double root = extreme_root<DEG>(c, T, -1.0, &found);
-    const bool start_ok = horner_r<DEG>(c, -1.0) <= T + tiny;
-    const double u = found ? root : 1.0;
-    x_lo = start_ok ? unscale(u, seg_lo[s], seg_hi[s]) : below;
-  }
-  return x_lo;
-}
+// K4, gather mode: (answer, lower, upper) per slack-shifted rank target.
+// kLanes lanes serve a target, one inversion a lane (lane e of the group
+// runs side e), in one code path: the lane's count over B by one binary
+// search with the compare picked per lane (bsearch_count_side), its
+// segment's row by 16-byte loads, one extreme_root with the target and
+// the sign picked per lane.  The kHi lane snaps its point to the key grid
+// by a descent of the grid's search tree (tree_count_left over the n live
+// keys); shuffles bring the upper and lower ends to the kMid lane, which
+// clips the answer into them.  A warp serves kTargets targets; its spare
+// lanes and lanes past Q redo the last target and write nothing.
+constexpr int kLanes = 3;
+constexpr int kTargets = 32 / kLanes;
 
-// answer: the raw fitted crossing (zero error), clipped into [lo, hi]
 template <int DEG>
-__device__ __forceinline__ double answer(
-    int s_mid, double tm, double x_lo, double x_hi, double b_top,
-    double dom_hi, const double* __restrict__ seg_lo,
-    const double* __restrict__ seg_hi, const double* __restrict__ coeffs,
-    int h) {
-  const int s = s_mid < h - 1 ? s_mid : h - 1;
-  double c[DEG + 1];
-  bool found;
-  load_row<DEG>(coeffs, s, c);
-  const double root = extreme_root<DEG>(c, tm, 1.0, &found);
-  const double x = unscale(found ? root : -1.0, seg_lo[s], seg_hi[s]);
-  return jclip(tm <= b_top ? x : dom_hi, x_lo, x_hi);
-}
-
-// K4, gather mode: (answer, lower, upper) per slack-shifted rank target,
-// every count by a binary search
-template <int DEG>
-__global__ void quantile_invert_kernel(
+__global__ void __launch_bounds__(kThreads) quantile_invert_kernel(
     const double* __restrict__ t_mid, const double* __restrict__ t_lo,
     const double* __restrict__ t_hi, const double* __restrict__ B,
     const double* __restrict__ seg_lo, const double* __restrict__ seg_hi,
     const double* __restrict__ coeffs, const double* __restrict__ seg_err,
-    const double* __restrict__ ref_keys, double* __restrict__ out_mid,
+    const double* __restrict__ ref_keys, const double* __restrict__ tree,
+    TreeShape shape, double* __restrict__ out_mid,
     double* __restrict__ out_lo, double* __restrict__ out_hi, int Q, int H,
-    int h, int nk, int n, double delta) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= Q) return;
+    int h, int n, double delta) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane / kLanes;
+  const int side = lane - g * kLanes;
+  const long long tgt =
+      ((long long)blockIdx.x * kThreads + threadIdx.x) / 32 * kTargets + g;
+  const int i = tgt < Q ? (int)tgt : Q - 1;
+  const bool hi_side = side == kHi, lo_side = side == kLo;
+  const double t = (hi_side ? t_hi : lo_side ? t_lo : t_mid)[i];
   const double b_top = B[h - 1];
   const double dom_hi = seg_hi[h - 1];
-  const double th = t_hi[i], tl = t_lo[i], tm = t_mid[i];
-  // the segment of each inversion: the first whose running-max endpoint
-  // value clears the target (hi, mid), past every one at or below it (lo)
-  const int s_hi = bsearch_count_left(B, H, th + delta);
-  const int s_lo = bsearch_count_right(B, H, tl - delta);
-  const int s_mid = bsearch_count_left(B, H, tm);
-  const double x = upper_root<DEG>(s_hi, th, seg_lo, seg_hi, coeffs,
-                                   seg_err, h);
-  const double x_hi = upper_end(bsearch_count_left(ref_keys, nk, x), th,
-                                delta, b_top, dom_hi, ref_keys, n);
-  const double x_lo = lower_end<DEG>(s_lo, tl, seg_lo, seg_hi, coeffs,
-                                     seg_err, h);
-  out_mid[i] = answer<DEG>(s_mid, tm, x_lo, x_hi, b_top, dom_hi, seg_lo,
-                           seg_hi, coeffs, h);
-  out_lo[i] = x_lo;
-  out_hi[i] = x_hi;
+  const int cnt = bsearch_count_side(
+      B, H, hi_side ? t + delta : lo_side ? t - delta : t, lo_side);
+  double x = invert_side<DEG>(side, cnt, t, seg_lo, seg_hi, coeffs, seg_err,
+                              h);
+  if (hi_side)
+    x = upper_end(tree_count_left(ref_keys, n, tree, shape, x), t, delta,
+                  b_top, dom_hi, ref_keys, n);
+  const int first = lane - side;
+  const double x_hi = __shfl_sync(0xffffffffu, x, first + kHi);
+  const double x_lo = __shfl_sync(0xffffffffu, x, first + kLo);
+  if (tgt >= Q || g >= kTargets) return;
+  if (side == kMid) {
+    out_mid[i] = jclip(t <= b_top ? x : dom_hi, x_lo, x_hi);
+  } else {
+    (hi_side ? out_hi : out_lo)[i] = x;
+  }
 }
 
 // K4, scan mode: the same inversions, every count a one-hot comparison sum
@@ -395,8 +407,8 @@ __global__ void __launch_bounds__(THREADS) quantile_scan_count_kernel(
   double x[R];
 #pragma unroll
   for (int r = 0; r < R; ++r)
-    x[r] = upper_root<DEG>(s_hi[r], th[r], seg_lo, seg_hi, coeffs, seg_err,
-                           h);
+    x[r] = invert_side<DEG>(kHi, s_hi[r], th[r], seg_lo, seg_hi, coeffs,
+                            seg_err, h);
   const double* k_src[1] = {ref_keys};
   walk_slots<1, TILE, false>(k_src, nk, blockIdx.y, gridDim.y, 0.0, smem,
                              [&](const double key) {
@@ -434,10 +446,13 @@ __global__ void quantile_scan_finish_kernel(
   for (int s = 0; s < S; ++s) k += part[(size_t)s * Q + i];
   const double x_hi = upper_end(k, t_hi[i], delta, b_top, dom_hi, ref_keys,
                                 n);
-  const double x_lo = lower_end<DEG>(part[(size_t)S * Q + i], t_lo[i],
-                                     seg_lo, seg_hi, coeffs, seg_err, h);
-  out_mid[i] = answer<DEG>(part[(size_t)(S + 1) * Q + i], t_mid[i], x_lo,
-                           x_hi, b_top, dom_hi, seg_lo, seg_hi, coeffs, h);
+  const double x_lo = invert_side<DEG>(kLo, part[(size_t)S * Q + i],
+                                      t_lo[i], seg_lo, seg_hi, coeffs,
+                                      seg_err, h);
+  const double tm = t_mid[i];
+  const double x = invert_side<DEG>(kMid, part[(size_t)(S + 1) * Q + i], tm,
+                                    seg_lo, seg_hi, coeffs, seg_err, h);
+  out_mid[i] = jclip(tm <= b_top ? x : dom_hi, x_lo, x_hi);
   out_lo[i] = x_lo;
   out_hi[i] = x_hi;
 }
@@ -487,24 +502,31 @@ int with_degree(int deg, F&& f) {
 
 extern "C" {
 
+// ``ref_keys``: the key grid, its first n keys live; ``tree``: their
+// search tree (kernels/locate.py search_tree of ref_keys[:n]); coeffs,
+// ref_keys and tree 16-byte aligned
 int polyfit_quantile_invert(const void* t_mid, const void* t_lo,
                             const void* t_hi, const void* B,
                             const void* seg_lo, const void* seg_hi,
                             const void* coeffs, const void* seg_err,
-                            const void* ref_keys, void* out_mid, void* out_lo,
-                            void* out_hi, int Q, int H, int deg, int h, int nk,
-                            int n, double delta, void* stream) {
+                            const void* ref_keys, const void* tree,
+                            void* out_mid, void* out_lo, void* out_hi, int Q,
+                            int H, int deg, int h, int n, double delta,
+                            void* stream) {
   using namespace polyfit;
   if (Q <= 0) return (int)cudaGetLastError();
+  const long long warps = ((long long)Q + kTargets - 1) / kTargets;
+  const int blocks = (int)((warps * 32 + kThreads - 1) / kThreads);
+  const TreeShape shape = tree_shape(n);
   return with_degree(deg, [&](auto d) {
     quantile_invert_kernel<decltype(d)::value>
-        <<<(Q + kThreads - 1) / kThreads, kThreads, 0,
-           (cudaStream_t)stream>>>(
+        <<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
             (const double*)t_mid, (const double*)t_lo, (const double*)t_hi,
             (const double*)B, (const double*)seg_lo, (const double*)seg_hi,
             (const double*)coeffs, (const double*)seg_err,
-            (const double*)ref_keys, (double*)out_mid, (double*)out_lo,
-            (double*)out_hi, Q, H, h, nk, n, delta);
+            (const double*)ref_keys, (const double*)tree, shape,
+            (double*)out_mid, (double*)out_lo, (double*)out_hi, Q, H, h, n,
+            delta);
   });
 }
 

@@ -14,14 +14,15 @@
 // range_max.py, poly_eval.py and delta_scan.py, in their order of
 // operations (compiled with -fmad=false, so every multiply and add rounds
 // on its own).  Where the gather kernels K2, K3, K5 and K6
-// (polyfit_kernels.cu) binary-search a sorted table, these test every
-// query against every live entry:
+// (polyfit_kernels.cu) search a sorted table, K14-K17 test every query
+// against every live entry:
 //
 //   K14  the segment holding each endpoint, found from #(seg_lo <= q)
 //        (below), then its row [coeffs | lo | hi] and Horner at the
 //        scaled coordinate: P(uq) - P(lq);
-//   K21  the segment holding one key by one-hot membership
-//        seg_lo <= q < seg_next over the whole table, then P_{I(q)}(q);
+//   K21  the segment holding one key, from #(seg_lo <= q) by a descent of
+//        seg_lo's search tree (as K2 finds an endpoint's), then
+//        P_{I(q)}(q);
 //   K15  the same two boundary rows as K14, the left/right/same-segment
 //        rules of the closed-form clipped maxima (deg <= 3), and a dense
 //        masked max of seg_agg over the segments with lo > lq and
@@ -41,22 +42,35 @@
 // as two starts rounded to one float can, holds nothing), so the
 // reference's one-hot matmul sums one row and exact zeros: the kernels keep
 // the first segment that holds the query, and a zero row when none does.
-// K14 and K15 count their way there: on a plan's table (seg_lo
+// K14, K15 and K21 count their way there: on a plan's table (seg_lo
 // non-decreasing, seg_next[j] = seg_lo[j + 1] with the sentinel last, no
 // NaN) the segment holding q can only be the last with seg_lo <= q
-// (boundary_row).  They then read the very rows K2 and K3 locate, and the
-// interior max is exact, so they agree with the gather kernels bit for bit
-// on the queries the engine clamps into the domain.  K16 adds each chunk's
+// (boundary_row).  K14 and K15 then read the very rows K2 and K3 locate,
+// and the interior max is exact, so they agree with the gather kernels bit
+// for bit on the queries the engine clamps into the domain.  K16 adds each chunk's
 // members in slot order and the chunk sums in chunk order (below); the
 // plain version's one-hot product may add them in another order, which
 // changes nothing on a COUNT log (integers) and at most a few ulps of the
 // lane's sum of |measure| on a SUM log.
 //
-// What bounds them on an H100: operations, on long tables.  K21: a block
-// of 256 queries walks the table in tiles of 256 entries staged through
-// shared memory (the table read once a block from L2), and each thread
-// tests its query against every entry, one compare-and-select chain a
-// thread, 2 compares a pair.
+// What bounds K14-K17 on an H100: operations, on long tables.
+//
+// K21 walked the whole padded table until its redesign: a block of 256
+// keys staged it in tiles of 256 entries through shared memory and each
+// thread tested its key's one-hot membership against every entry, 2
+// compares a pair, about 90% of them on the padding: 0.01131 ms at lat's
+// plan (40 live segments of 512), 0.01113 at float32.  Its design now
+// (segment_eval_kernel below): one key a thread; #(seg_lo <= q) by a
+// descent of seg_lo's search tree (seg_tree, which every plan carries:
+// 4 levels and the leaf at 512 rows), the boundary row (the one-hot first
+// hit on a plan's table, as K14 takes it), the row by 16-byte loads and
+// Horner at a template degree 0-8 (a runtime-degree form above).
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (tools/k4_k21_rates.py,
+// 65,536 keys, medians of three runs): 0.003350 ms at a lat-like table
+// (the walk 0.01118), 0.003675 at a lat_dyn-like one (0.01147), 0.005079
+// at 2,295 live segments of 2,560 (0.04749); float32 0.002892, 0.003131,
+// 0.004490; two keys a thread ran 13-24% slower, the binary search
+// 8-16% slower.
 //
 // K14 ran K21's loop on both endpoints (4 compares and 2 selects a
 // (range, entry) pair) over every row of the padded table until its
@@ -185,7 +199,6 @@ namespace polyfit {
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTile = kThreads;   // table entries staged per tile
 
 // K16's shape: 128 threads of 4 queries a block, tiles of 1,024 slots
 // (16 KB a buffer), the log split in up to 4 chunks: 512 blocks, about
@@ -234,40 +247,38 @@ __device__ __forceinline__ int boundary_row(int c, T q,
   return c > 0 && q < seg_next[c - 1] ? c - 1 : -1;
 }
 
-// K21: P_{I(q)}(q), the segment holding q found by one-hot membership over
-// the whole table
-template <typename T>
-__global__ void segment_eval_kernel(const T* __restrict__ qs,
-                                    const T* __restrict__ seg_lo,
-                                    const T* __restrict__ seg_next,
-                                    const T* __restrict__ seg_hi,
-                                    const T* __restrict__ coeffs,
-                                    T* __restrict__ out, int Q, int H,
-                                    int deg) {
-  __shared__ T s_lo[kTile], s_nx[kTile];
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const T q = qs[i < Q ? i : Q - 1];   // threads past Q still stage tiles
-  int hit = -1;
-  for (int t0 = 0; t0 < H; t0 += kTile) {
-    const int j = t0 + threadIdx.x;
-    if (j < H) {
-      s_lo[threadIdx.x] = seg_lo[j];
-      s_nx[threadIdx.x] = seg_next[j];
-    }
-    __syncthreads();
-    const int n = H - t0 < kTile ? H - t0 : kTile;
-    for (int k = 0; k < n; ++k) {
-      const T lo = s_lo[k], nx = s_nx[k];
-      const bool in = lo <= q && q < nx;
-      hit = (hit < 0 && in) ? t0 + k : hit;
-    }
-    __syncthreads();
-  }
+// K21: P_{I(q)}(q), one key a thread.  On a plan's table (seg_lo
+// non-decreasing, seg_next[j] = seg_lo[j + 1], the sentinel last, no NaN)
+// the count #(seg_lo <= q), from a descent of seg_lo's search tree
+// (tree_count_right), gives the one-hot first hit by boundary_row; its row
+// by 16-byte loads (a zero row, lo = hi = 0, where no segment holds q) and
+// Horner at the scaled coordinate at the template degree, in the plain
+// version's order.  DEG < 0 is the one runtime-degree form (``deg``, a
+// coefficient a load), for plans above the instantiated degrees.
+template <typename T, int DEG>
+__global__ void __launch_bounds__(kThreads) segment_eval_kernel(
+    const T* __restrict__ qs, const T* __restrict__ seg_lo,
+    const T* __restrict__ seg_next, const T* __restrict__ seg_hi,
+    const T* __restrict__ coeffs, const T* __restrict__ tree,
+    TreeShape shape, T* __restrict__ out, int Q, int H, int deg) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= Q) return;
-  const bool h = hit >= 0;
-  const T lo = h ? seg_lo[hit] : T(0);
-  const T hi = h ? seg_hi[hit] : T(0);
-  out[i] = row_horner(coeffs, hit, deg, scale_unit(q, lo, hi));
+  const T q = qs[i];
+  const int row =
+      boundary_row(tree_count_right(seg_lo, H, tree, shape, q), q, seg_next);
+  const bool hit = row >= 0;
+  const T lo = hit ? seg_lo[row] : T(0);
+  const T hi = hit ? seg_hi[row] : T(0);
+  const T u = scale_unit(q, lo, hi);
+  if constexpr (DEG >= 0) {
+    T c[DEG + 1];
+    load_row_v16<DEG>(coeffs, hit ? row : 0, c);
+#pragma unroll
+    for (int j = 0; j <= DEG; ++j) c[j] = hit ? c[j] : T(0);
+    out[i] = horner_r<DEG>(c, u);
+  } else {
+    out[i] = row_horner(coeffs, row, deg, u);
+  }
 }
 
 // K14: A = P_{I(u)}(u) - P_{I(l)}(l), one range a thread.  The block walks
@@ -572,16 +583,34 @@ int launch_delta_max(const void* lq, const void* uq, const void* keys,
   return (int)cudaGetLastError();
 }
 
+// K21 at one instantiation a degree 0-8 (K2's range), the runtime-degree
+// form above them, one key a thread
 template <typename T>
 int launch_segment_eval(const void* q, const void* seg_lo,
                         const void* seg_next, const void* seg_hi,
-                        const void* coeffs, void* out, int Q, int H, int deg,
-                        void* stream) {
-  if (Q > 0)
-    segment_eval_kernel<T><<<blocks_for(Q), kThreads, 0,
-                             (cudaStream_t)stream>>>(
-        (const T*)q, (const T*)seg_lo, (const T*)seg_next, (const T*)seg_hi,
-        (const T*)coeffs, (T*)out, Q, H, deg);
+                        const void* coeffs, const void* tree, void* out, int Q,
+                        int H, int deg, void* stream) {
+  if (Q > 0) {
+    const TreeShape shape = tree_shape(H);
+#define K21_LAUNCH(D)                                                       \
+  segment_eval_kernel<T, D><<<blocks_for(Q), kThreads, 0,                   \
+                              (cudaStream_t)stream>>>(                      \
+      (const T*)q, (const T*)seg_lo, (const T*)seg_next, (const T*)seg_hi,  \
+      (const T*)coeffs, (const T*)tree, shape, (T*)out, Q, H, deg)
+    switch (deg) {
+      case 0: K21_LAUNCH(0); break;
+      case 1: K21_LAUNCH(1); break;
+      case 2: K21_LAUNCH(2); break;
+      case 3: K21_LAUNCH(3); break;
+      case 4: K21_LAUNCH(4); break;
+      case 5: K21_LAUNCH(5); break;
+      case 6: K21_LAUNCH(6); break;
+      case 7: K21_LAUNCH(7); break;
+      case 8: K21_LAUNCH(8); break;
+      default: K21_LAUNCH(-1); break;
+    }
+#undef K21_LAUNCH
+  }
   return (int)cudaGetLastError();
 }
 
@@ -650,19 +679,23 @@ int polyfit_range_sum_f32(const void* lq, const void* uq, const void* seg_lo,
                                           stream);
 }
 
+// ``tree``: seg_lo's search tree (kernels/locate.py search_tree); seg_lo,
+// coeffs and tree 16-byte aligned; the table in a plan's layout
 int polyfit_poly_eval(const void* q, const void* seg_lo, const void* seg_next,
-                      const void* seg_hi, const void* coeffs, void* out, int Q,
-                      int H, int deg, void* stream) {
+                      const void* seg_hi, const void* coeffs, const void* tree,
+                      void* out, int Q, int H, int deg, void* stream) {
   return polyfit::launch_segment_eval<double>(q, seg_lo, seg_next, seg_hi,
-                                            coeffs, out, Q, H, deg, stream);
+                                              coeffs, tree, out, Q, H, deg,
+                                              stream);
 }
 
 int polyfit_poly_eval_f32(const void* q, const void* seg_lo,
                           const void* seg_next, const void* seg_hi,
-                          const void* coeffs, void* out, int Q, int H, int deg,
-                          void* stream) {
+                          const void* coeffs, const void* tree, void* out,
+                          int Q, int H, int deg, void* stream) {
   return polyfit::launch_segment_eval<float>(q, seg_lo, seg_next, seg_hi,
-                                            coeffs, out, Q, H, deg, stream);
+                                             coeffs, tree, out, Q, H, deg,
+                                             stream);
 }
 
 int polyfit_range_max_chunks(int H) {

@@ -463,7 +463,8 @@ def _exec_quantile(plan: IndexPlan, q, *, backend: str):
     if backend in CARD_BACKENDS:
         return quantile_invert(t, t - slack, t + slack, B, plan.seg_lo,
                                plan.seg_hi, plan.coeffs, err, keys,
-                               h=plan.h, n=nk, delta=float(plan.delta),
+                               plan.ref_tree, h=plan.h, n=nk,
+                               delta=float(plan.delta),
                                scan=backend == "cuda_scan")
     return certified_quantile_shifted(
         t, t - slack, t + slack, seg_lo=plan.seg_lo, seg_hi=plan.seg_hi,

@@ -13,9 +13,10 @@ single layout every backend executes against.  It bundles, per index:
   sparse table), so the Lemma 5.2/5.4 Q_rel test and the refinement run
   on the device with no host round trip;
 * the sorted keys' search tree ``ref_tree`` (``kernels.locate.search_tree``),
-  which K1 descends on the card backends, and ``seg_tree``, the search
-  tree of the padded ``seg_lo``, which K2 and K3 descend: the port's own,
-  outside ``ARRAY_FIELDS`` (those mirror the reference's plan).
+  which K1 descends on the card backends and K4 for its snap to the key
+  grid, and ``seg_tree``, the search tree of the padded ``seg_lo``, which
+  K2, K3 and K21 descend: the port's own, outside ``ARRAY_FIELDS`` (those
+  mirror the reference's plan).
 
 ``IndexPlan2D`` is the 2-key analogue: the quadtree descent arrays (the
 ``torch`` backend), the flattened tile-padded leaf table for the kernels
@@ -124,9 +125,9 @@ class IndexPlan:
     ref_st: Optional[torch.Tensor]    # (L2, n) measure sparse table (max/min)
     # -- per-segment certified fit error E(I) -----------------------------
     seg_err: Optional[torch.Tensor] = None   # (Hp,) delta-padded
-    # -- K1's search tree over ref_keys (not in ARRAY_FIELDS) -------------
+    # -- K1's and K4's search tree over ref_keys (not in ARRAY_FIELDS) ----
     ref_tree: Optional[torch.Tensor] = None  # (nodes, 4)
-    # -- K2's and K3's search tree over seg_lo (not in ARRAY_FIELDS) --------
+    # -- K2's, K3's and K21's search tree over seg_lo (not in ARRAY_FIELDS)
     seg_tree: Optional[torch.Tensor] = None  # (nodes, 4)
 
     @property
@@ -161,8 +162,8 @@ class IndexPlan:
         return _device_bytes(self, ARRAY_FIELDS)
 
     def tree_bytes(self) -> int:
-        """Bytes of the port's search trees, ``ref_tree`` (K1's) and
-        ``seg_tree`` (K2's and K3's); 0 without them."""
+        """Bytes of the port's search trees, ``ref_tree`` (K1's and K4's)
+        and ``seg_tree`` (K2's, K3's and K21's); 0 without them."""
         return _tree_bytes(self.ref_tree) + _tree_bytes(self.seg_tree)
 
 

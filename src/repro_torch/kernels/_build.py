@@ -58,10 +58,12 @@ _SIGNATURES = {
     # lq, uq, keys, st, out, Q, cap, stream
     "polyfit_delta_max_gather": (_P, _P, _P, _P, _P, _I, _I, _P),
     # t_mid, t_lo, t_hi, B, seg_lo, seg_hi, coeffs, seg_err, ref_keys,
-    # out_mid, out_lo, out_hi, Q, H, deg, h, nk, n, delta, stream
-    "polyfit_quantile_invert": (_P,) * 12 + (_I,) * 6 + (_D, _P),
-    # K4's scan mode: the same with an int32 (S + 2, Q) scratch ``part``
-    # after out_hi, S = polyfit_quantile_scan_chunks(nk)
+    # tree, out_mid, out_lo, out_hi, Q, H, deg, h, n, delta, stream;
+    # ``tree`` the search tree of ref_keys[:n]
+    "polyfit_quantile_invert": (_P,) * 13 + (_I,) * 5 + (_D, _P),
+    # K4's scan mode: t_mid ... ref_keys, out_mid, out_lo, out_hi, an int32
+    # (S + 2, Q) scratch ``part``, S = polyfit_quantile_scan_chunks(nk),
+    # Q, H, deg, h, nk, n, delta, stream
     "polyfit_quantile_invert_scan": (_P,) * 13 + (_I,) * 6 + (_D, _P),
     "polyfit_quantile_scan_chunks": (_I,),
     # lx, ux, ly, uy, xcuts, ycuts, leaf_z, bounds, coeffs, out, Q, nx, ny,
@@ -102,8 +104,9 @@ _SIGNATURES = {
     # (S, Q) scratch, S = polyfit_delta_max_chunks(D)
     "polyfit_delta_max": (_P,) * 6 + (_I,) * 2 + (_D, _P),
     "polyfit_delta_max_chunks": (_I,),
-    # q, seg_lo, seg_next, seg_hi, coeffs, out, Q, H, deg, stream
-    "polyfit_poly_eval": (_P,) * 6 + (_I,) * 3 + (_P,),
+    # q, seg_lo, seg_next, seg_hi, coeffs, tree, out, Q, H, deg, stream;
+    # ``tree`` seg_lo's search tree
+    "polyfit_poly_eval": (_P,) * 7 + (_I,) * 3 + (_P,),
     # lx, ux, ly, uy, kx, ky, out, Q, D, sentinel, stream
     "polyfit_delta_count2d": (_P,) * 7 + (_I,) * 2 + (_D, _P),
     # lx, ux, ly, uy, kx, ky, w, out, Q, D, sentinel, stream

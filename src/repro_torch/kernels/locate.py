@@ -24,7 +24,8 @@ launches the kernel, on CPU tensors it runs ``locate_segments``.  K1 walks
 the keys' search tree (``search_tree``: a static 5-ary B+ tree of 32-byte
 nodes over the sorted keys, built once per plan by ``engine.plan``), so
 that each sector it fetches decides a level; ``tree_count`` is the same
-descent in torch, held to ``bsearch_count`` by the CPU tests.  The CUDA
+descent in torch (``tree_count_left`` its strict twin, K4's snap), held
+to ``bsearch_count`` by the CPU tests.  The CUDA
 versions of the device functions live in ``csrc/locate.cuh``.
 
 Sentinel-padded tails need no special casing: the padding value exceeds
@@ -38,8 +39,8 @@ import torch
 from . import _build
 
 __all__ = ["bsearch_count", "locate_segments", "floor_log2", "rmq_gather",
-           "locate", "search_tree", "tree_count", "tree_levels", "TREE_FANOUT",
-           "check_tree_shape", "interleave2", "locate_leaf2d", "dyadic_cuts",
+           "locate", "search_tree", "tree_count", "tree_count_left",
+           "tree_levels", "TREE_FANOUT", "check_tree_shape", "interleave2", "locate_leaf2d", "dyadic_cuts",
            "leaf_morton_codes", "MAX_MORTON_DEPTH", "INT_SENTINEL"]
 
 # 2 bits per level must fit an int32 Morton code (sign bit reserved)
@@ -140,30 +141,39 @@ def search_tree(keys: torch.Tensor) -> torch.Tensor:
 
 def check_tree_shape(name: str, tree: torch.Tensor, n: int) -> None:
     """Raise unless ``tree`` has the shape of the search tree of n keys
-    (the kernels that descend one, K1 and K3, check no more: a tree of
+    (the kernels that descend one, K1-K4 and K21, check no more: a tree of
     other keys of the same count passes unseen)."""
     if tree.shape != (sum(tree_levels(n)), TREE_FANOUT - 1):
         raise ValueError(f"{name}: tree {tuple(tree.shape)} does not have "
                          f"the shape of the search tree of {n} keys")
 
 
-def tree_count(keys: torch.Tensor, tree: torch.Tensor,
-               q: torch.Tensor) -> torch.Tensor:
-    """#(keys <= q) per lane as int32 by K1's descent of ``tree``
-    (``search_tree(keys)``): at each level the child is #(separators <=
-    q), at the leaf the count is 4 leaf + #(its keys <= q), over the keys
-    that exist.  Equal to ``bsearch_count(keys, q)`` on sorted keys,
-    duplicates, +-inf and NaN q (count 0) included."""
+def tree_count(keys: torch.Tensor, tree: torch.Tensor, q: torch.Tensor,
+               side: str = "right") -> torch.Tensor:
+    """#(keys <= q) (side='right') or #(keys < q) (side='left') per lane
+    as int32 by K1's descent of ``tree`` (``search_tree(keys)``): at each
+    level the child is #(separators <= q) (or < q), at the leaf the count
+    is 4 leaf + #(its keys <= q) (or < q), over the keys that exist.  Equal
+    to ``bsearch_count(keys, q, side)`` on sorted keys, duplicates, +-inf
+    and NaN q (count 0) included."""
     n = keys.shape[0]
+    hit = (lambda a, b: a <= b) if side == "right" else (lambda a, b: a < b)
     node = torch.zeros(q.shape, dtype=torch.int64, device=q.device)
     first = 0
     for count in tree_levels(n):
         sep = tree[first + node]
-        node = TREE_FANOUT * node + (sep <= q[..., None]).sum(-1)
+        node = TREE_FANOUT * node + hit(sep, q[..., None]).sum(-1)
         first += count
     idx = 4 * node[..., None] + torch.arange(4, device=q.device)
-    hit = (idx < n) & (keys[torch.clamp(idx, max=n - 1)] <= q[..., None])
-    return (4 * node + hit.sum(-1)).to(torch.int32)
+    leaf = (idx < n) & hit(keys[torch.clamp(idx, max=n - 1)], q[..., None])
+    return (4 * node + leaf.sum(-1)).to(torch.int32)
+
+
+def tree_count_left(keys: torch.Tensor, tree: torch.Tensor,
+                    q: torch.Tensor) -> torch.Tensor:
+    """#(keys < q) by the descent (``csrc/locate.cuh`` tree_count_left, K4's
+    snap to the key grid): ``tree_count`` with side='left'."""
+    return tree_count(keys, tree, q, side="left")
 
 
 def locate(q: torch.Tensor, keys: torch.Tensor,

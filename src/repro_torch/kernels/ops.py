@@ -74,7 +74,7 @@ def poly_eval(table: IndexPlan, q, backend: str = "cuda") -> torch.Tensor:
         return _ref.poly_eval_ref(q, table.seg_lo, table.seg_next,
                                   table.seg_hi, table.coeffs)
     return _pe.poly_eval(q, table.seg_lo, table.seg_next, table.seg_hi,
-                         table.coeffs)
+                         table.coeffs, table.seg_tree)
 
 
 def range_sum(table: IndexPlan, lq, uq,

@@ -68,6 +68,7 @@ from repro_torch.engine import (DeltaBuffer2D, DynamicEngine,
                                 build_plan, build_plan_2d, execute_extremum,
                                 execute_quantile, raw_sum)
 from repro_torch.engine.dynamic import _append_1d, _append_2d
+from repro_torch.core import boundary_array
 from repro_torch.engine.engine import quantile_mass, quantile_tables
 from repro_torch.engine.plan import big_sentinel
 from repro_torch.kernels import delta_scan as kdelta
@@ -648,9 +649,94 @@ def test_quantile_invert_kernel_matches_plain(cuda, quantile_plans, agg,
     assert kq.quantile_invert.launches == before + 1
     want = kq.quantile_invert_plain(*args, **kw)
     for g, w in zip(got, want):
-        torch.testing.assert_close(g, w, **TOL)
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
     lo, hi = got[1], got[2]
     assert torch.all(got[0] <= hi) and torch.all(lo <= got[0] + 1e-9)
+
+
+def _k4_wide(plan, deg, Q):
+    """K4's arguments on ``plan`` for Q fractions (0, 1, uniform draws; the
+    last two targets past the mass and below 0 from Q = 4 on), its rows
+    widened to ``deg`` above the plan's 5 by small random higher terms on
+    the live rows (the boundary array recomputed from them)."""
+    rng = np.random.default_rng(Q + deg)
+    q = np.concatenate([[0.0, 1.0], rng.uniform(0, 1, Q)])[:Q]
+    args, kw = _k4_args(plan, torch.as_tensor(q, device=plan.device))
+    args = list(args)
+    if Q >= 4:
+        M, slack = quantile_mass(plan)
+        t = args[0].clone()
+        t[-2], t[-1] = 3.0 * M, -3.0
+        args[:3] = t, t - slack, t + slack
+    if deg > 5:
+        extra = torch.zeros((args[6].shape[0], deg - 5), dtype=torch.float64)
+        extra[:plan.h] = torch.as_tensor(rng.normal(0, 1e-3,
+                                                    (plan.h, deg - 5)))
+        args[6] = torch.cat([args[6], extra.to(plan.device)], dim=1)
+        args[3] = boundary_array(args[6])
+    return tuple(args), kw
+
+
+@pytest.mark.parametrize("Q", [1, 11, 81, 65_537])
+@pytest.mark.parametrize("deg", [1, 2, 3, 4, 5, 6, 7, 8])
+def test_quantile_invert_kernel_every_degree_and_ragged_counts(
+        cuda, quantile_plans, deg, Q):
+    """K4's gather mode (three lanes a target, ten targets a warp, the snap
+    by a descent of the key grid's tree) equals its plain version in every
+    lane at every instantiated degree 1-8 (deg 6-8: the deg-5 plan's rows
+    widened), at target counts that leave a warp or a block part empty,
+    with targets past the mass and below 0; with the plan's ``ref_tree``
+    and without a tree (the wrapper builds it): one launch a call, and the
+    two give the same bits."""
+    plan = quantile_plans["sum" if deg % 2 else "count", min(deg, 5)]
+    args, kw = _k4_wide(plan, deg, Q)
+    assert args[0].shape == (Q,) and args[6].shape[1] == deg + 1
+    before = kq.quantile_invert.launches
+    got = kq.quantile_invert(*args, plan.ref_tree, **kw)
+    bare = kq.quantile_invert(*args, **kw)
+    torch.cuda.synchronize()
+    assert kq.quantile_invert.launches == before + 2
+    want = kq.quantile_invert_plain(*args, **kw)
+    for g, b, w in zip(got, bare, want):
+        assert g.shape == (Q,)
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+        assert torch.equal(g.view(torch.int64), b.view(torch.int64))
+
+
+def test_quantile_invert_refuses_a_misaligned_or_misshapen_tree(
+        cuda, quantile_plans):
+    """K4 reads its rows, the key grid and the grid's tree 16 bytes at a
+    time: coeffs, ref_keys or a tree that start off 16 bytes (offset
+    views) are refused, and coeffs in the scan mode too; a copy is taken;
+    so are a tree of another shape and one off the card."""
+    plan = quantile_plans["count", 3]
+    args, kw = _k4_args(plan, _fractions(cuda)[:5000])
+    tree = plan.ref_tree
+
+    def offset(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    with pytest.raises(ValueError, match="16-byte"):
+        kq.quantile_invert(*args, offset(tree), **kw)
+    with pytest.raises(ValueError, match="16-byte"):
+        kq.quantile_invert(*args[:8], offset(args[8]), tree, **kw)
+    for scan in (False, True):
+        with pytest.raises(ValueError, match="16-byte"):
+            kq.quantile_invert(*args[:6], offset(args[6]), *args[7:], tree,
+                               scan=scan, **kw)
+    with pytest.raises(ValueError, match="search tree"):
+        kq.quantile_invert(*args, tree[:-1].clone(), **kw)
+    with pytest.raises(ValueError, match="search tree"):
+        kq.quantile_invert(*args, kloc.search_tree(args[8][:kw["n"] - 300]),
+                           **kw)
+    with pytest.raises(ValueError, match="CUDA device"):
+        kq.quantile_invert(*args, tree.cpu(), **kw)
+    for g, w in zip(kq.quantile_invert(*args, offset(tree).clone(), **kw),
+                    kq.quantile_invert(*args, tree, **kw)):
+        assert torch.equal(g.view(torch.int64), w.view(torch.int64))
 
 
 @pytest.mark.parametrize("agg", ["count", "sum"])
@@ -2306,7 +2392,8 @@ def _ops_queries(cuda, keys, dt, n=70_001):
 def test_poly_eval_and_range_sum_kernels_match_plain(cuda, ops_tables, dt,
                                                      deg):
     """K21, K2 and K14 at the table's type equal their plain versions in
-    every lane (K14 and K2 each other), output in that type."""
+    every lane (K14 and K2 each other), output in that type; K21 and K2
+    descend the plan's ``seg_tree``."""
     keys, _, tabs = ops_tables
     t = tabs["sum", deg, dt]
     lq, uq = _ops_queries(cuda, keys, dt)
@@ -2314,8 +2401,9 @@ def test_poly_eval_and_range_sum_kernels_match_plain(cuda, ops_tables, dt,
     counts = lambda: (kp.poly_eval.launches, ksum.range_sum_gather.launches,
                       ksum.range_sum.launches)
     before = counts()
-    k21 = kp.poly_eval(*args)
-    k2 = ksum.range_sum_gather(lq, uq, t.seg_lo, t.seg_hi, t.coeffs)
+    k21 = kp.poly_eval(*args, t.seg_tree)
+    k2 = ksum.range_sum_gather(lq, uq, t.seg_lo, t.seg_hi, t.coeffs,
+                               t.seg_tree)
     k14 = ksum.range_sum(lq, uq, t.seg_lo, t.seg_next, t.seg_hi, t.coeffs)
     torch.cuda.synchronize()
     assert counts() == tuple(b + 1 for b in before)
@@ -2327,6 +2415,79 @@ def test_poly_eval_and_range_sum_kernels_match_plain(cuda, ops_tables, dt,
     torch.testing.assert_close(k14, ksum.range_sum_plain(
         lq, uq, t.seg_lo, t.seg_next, t.seg_hi, t.coeffs), **exact)
     torch.testing.assert_close(k14, k2, **exact)
+
+
+def _k21_case(cuda, dt, deg, Q):
+    """A segment table in a plan's layout (_segment_table: 300 live
+    segments of 512, two equal starts) with random rows of ``deg``, and Q
+    keys, its edge lanes first: every start, the doubles either side of
+    each, the sentinel, +-inf, NaN, below the domain; then keys from
+    [-5, 1005].  (q, seg_lo, seg_next, seg_hi, coeffs)."""
+    lo, nx, hi, _, _ = _segment_table(cuda, 300, 512, dt, seed=deg)
+    rng = np.random.default_rng(deg)
+    cf = torch.as_tensor(rng.normal(0, 1, (512, deg + 1)), dtype=dt)
+    cf[300:] = 0.0
+    s = lo[:300]
+    inf = torch.tensor(np.inf, dtype=dt, device=cuda)
+    edge = torch.cat([s, torch.nextafter(s, -inf), torch.nextafter(s, inf),
+                      torch.tensor([big_sentinel(dt), np.inf, -np.inf,
+                                    np.nan, -1.0], dtype=dt, device=cuda)])
+    rand = torch.as_tensor(rng.uniform(-5, 1005, Q), dtype=dt, device=cuda)
+    return torch.cat([edge, rand])[:Q], lo, nx, hi, cf.to(cuda)
+
+
+@pytest.mark.parametrize("dt", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("Q", [1, 255, 65_537])
+@pytest.mark.parametrize("deg", [0, 1, 2, 3, 4, 5, 6, 7, 8, 10])
+def test_poly_eval_kernel_every_degree_and_ragged_counts(cuda, deg, Q, dt):
+    """K21 (a key a thread, #(seg_lo <= q) by a descent of seg_lo's search
+    tree, the boundary row) equals its plain version (one-hot membership
+    over every row) in every lane (NaN as NaN) at every instantiated degree
+    0-8 and in the runtime-degree form (deg 10), at float64 and float32, at
+    ragged key counts, on every start, either side of it, the sentinel,
+    +-inf, NaN and below the domain; with the tree passed and without one
+    (the wrapper builds it): one launch a call, the two the same bits."""
+    q, lo, nx, hi, cf = _k21_case(cuda, dt, deg, Q)
+    before = kp.poly_eval.launches
+    got = kp.poly_eval(q, lo, nx, hi, cf, kloc.search_tree(lo))
+    bare = kp.poly_eval(q, lo, nx, hi, cf)
+    torch.cuda.synchronize()
+    assert kp.poly_eval.launches == before + 2
+    assert got.shape == (Q,) and got.dtype == dt
+    torch.testing.assert_close(got, kp.poly_eval_plain(q, lo, nx, hi, cf),
+                               rtol=0, atol=0, equal_nan=True)
+    bits = torch.int32 if dt == torch.float32 else torch.int64
+    assert torch.equal(got.view(bits), bare.view(bits))
+
+
+def test_poly_eval_kernel_refuses_a_misaligned_or_misshapen_tree(cuda):
+    """K21 reads seg_lo, coeffs and the tree 16 bytes at a time: a tree, a
+    seg_lo or coeffs that start off 16 bytes (offset views) are refused, a
+    copy is taken; so are a tree of another shape and one off the card."""
+    q, lo, nx, hi, cf = _k21_case(cuda, torch.float64, 3, 1000)
+    tree = kloc.search_tree(lo)
+
+    def offset(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    for args in ((lo, nx, hi, cf, offset(tree)), (offset(lo), nx, hi, cf, tree),
+                 (lo, nx, hi, offset(cf), tree)):
+        with pytest.raises(ValueError, match="16-byte"):
+            kp.poly_eval(q, *args)
+    with pytest.raises(ValueError, match="search tree"):
+        kp.poly_eval(q, lo, nx, hi, cf, tree[:-1].clone())
+    with pytest.raises(ValueError, match="search tree"):
+        kp.poly_eval(q, lo, nx, hi, cf, kloc.search_tree(lo[:300]))
+    with pytest.raises(ValueError, match="CUDA device"):
+        kp.poly_eval(q, lo, nx, hi, cf, tree.cpu())
+    assert torch.equal(
+        kp.poly_eval(q, lo, nx, hi, cf, offset(tree).clone())
+        .view(torch.int64),
+        kp.poly_eval(q, lo, nx, hi, cf, tree).view(torch.int64))
 
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.float64])

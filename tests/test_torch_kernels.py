@@ -4,7 +4,8 @@ for deg 1-3, on reference plans carried across with ``plan_from_numpy``
 (rtol = atol = 1e-9); and torch transcriptions of K2's and K3's two-thread
 forms (each endpoint's search by seg_lo's search tree; K2 its row's value
 and the difference on the uq thread, K3 each boundary's row and clipped
-maximum and the combine) held to their plain versions bit for bit.  The kernels
+maximum and the combine) and of K21's descent-plus-membership form held to
+their plain versions bit for bit.  The kernels
 themselves are held to these plain versions on the card by
 tests/test_torch_cuda.py."""
 import numpy as np
@@ -24,6 +25,7 @@ from repro_torch.core.poly import clipped_poly_max, horner, scale_unit  # noqa: 
 from repro_torch.engine.plan import (ARRAY_FIELDS, META_FIELDS,  # noqa: E402
                                      big_sentinel, plan_from_numpy)
 from repro_torch.kernels import locate as tloc  # noqa: E402
+from repro_torch.kernels import poly_eval as tpe  # noqa: E402
 from repro_torch.kernels import range_max as tmax  # noqa: E402
 from repro_torch.kernels import range_sum as tsum  # noqa: E402
 
@@ -266,3 +268,72 @@ def test_k2_two_thread_form_matches_plain(plans, queries, case):
     for x in (lq, uq):
         assert torch.equal(tloc.tree_count(seg_lo, tree, x),
                            tloc.bsearch_count(seg_lo, x))
+
+
+def _k21_descent(q, seg_lo, seg_next, seg_hi, coeffs, tree):
+    """torch transcription of K21 as csrc/scan1d.cu runs it: one key a
+    thread, c = #(seg_lo <= q) by the descent of seg_lo's search tree, the
+    boundary row c - 1 where q < seg_next[c - 1] (else none: the zero row,
+    lo = hi = 0), Horner at the scaled coordinate."""
+    c = tloc.tree_count(seg_lo, tree, q).long()
+    prev = torch.clamp(c - 1, min=0)
+    hit = (c > 0) & (q < seg_next[prev])
+    zero = torch.zeros((), dtype=coeffs.dtype)
+    lo = torch.where(hit, seg_lo[prev], zero)
+    hi = torch.where(hit, seg_hi[prev], zero)
+    cf = torch.where(hit[:, None], coeffs[prev], zero)
+    return horner(cf, scale_unit(q, lo, hi))
+
+
+@pytest.mark.parametrize("case", ["sum0", "sum1", "sum2", "sum3", "sum10",
+                                  "sum2_f32", "sum3_f32"])
+def test_k21_descent_form_matches_plain(plans, queries, case):
+    """K21's descent-plus-membership form (_k21_descent) equals the plain
+    K21 (one-hot membership over every row) bit for bit (NaN as NaN) on the
+    SUM plans at deg 0-3 (deg 0: the deg-1 plan's constant terms), at deg
+    10 (the runtime-degree form: the deg-3 plan's rows and seven random
+    higher terms) and at float32, where the table (padded with float32's
+    sentinel, seg_next its starts shifted, as a float32 plan is) has two
+    starts rounded to one float; on the plans' range endpoints, every
+    start, the doubles either side of each, the sentinel, +inf, NaN and
+    below the domain.  The wrapper runs the plain version on CPU tensors,
+    counting nothing."""
+    _, ps = plans
+    dt = torch.float32 if case.endswith("_f32") else torch.float64
+    deg = int(case[3:].split("_")[0])
+    p = port_plan(ps["sum", min(max(deg, 1), 3)])
+    coeffs = p.coeffs[:, :deg + 1]
+    if deg > 3:
+        rng = np.random.default_rng(deg)
+        extra = torch.as_tensor(rng.normal(0, 1e-3, (coeffs.shape[0],
+                                                     deg - 3)))
+        coeffs = torch.cat([coeffs, extra], dim=1)
+    lo64, hi64 = p.seg_lo.clone(), p.seg_hi
+    if dt == torch.float32:
+        # starts 4 and 5 a millionth of an ulp of float32 apart
+        lo64[5] = lo64[4] * (1 + 1e-12)
+    big = big_sentinel(dt)
+    pad = lambda t: torch.where(t >= big_sentinel(torch.float64),
+                                torch.tensor(big, dtype=dt), t.to(dt))
+    seg_lo, seg_hi = pad(lo64), pad(hi64)
+    seg_next = torch.cat([seg_lo[1:], torch.tensor([big], dtype=dt)])
+    coeffs = coeffs.to(dt).contiguous()
+    if dt == torch.float32:
+        assert seg_lo[4] == seg_lo[5] and lo64[4] != lo64[5]
+    tree = tloc.search_tree(seg_lo)
+    s = seg_lo[:p.h]
+    edge = torch.cat([s, torch.nextafter(s, torch.tensor(-np.inf, dtype=dt)),
+                      torch.nextafter(s, torch.tensor(np.inf, dtype=dt)),
+                      torch.tensor([big, np.inf, np.nan, -np.inf,
+                                    float(s[0]) - 1.0], dtype=dt)])
+    q = torch.cat([edge, *(torch.as_tensor(x).to(dt) for x in queries)])
+    got = _k21_descent(q, seg_lo, seg_next, seg_hi, coeffs, tree)
+    want = tpe.poly_eval_plain(q, seg_lo, seg_next, seg_hi, coeffs, tree)
+    assert got.dtype == want.dtype == dt
+    (gn, gb), (wn, wb) = _bits(got), _bits(want)
+    assert torch.equal(gn, wn) and torch.equal(gb, wb)
+    assert torch.isfinite(want).any() and torch.isnan(want).any() == (deg > 0)
+    before = tpe.poly_eval.launches
+    assert torch.equal(_bits(tpe.poly_eval(q, seg_lo, seg_next, seg_hi,
+                                           coeffs, tree))[1], wb)
+    assert tpe.poly_eval.launches == before

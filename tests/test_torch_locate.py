@@ -4,7 +4,8 @@ mode) and the sparse-table range max, on boundary endpoints, duplicate
 keys and sentinel-padded tails; and K1's search tree (``search_tree``)
 with its plain descent (``tree_count``), held to the binary search and to
 ``locate_pallas`` on tables either side of a leaf's, a node's and a
-level's size.  The K1 kernel itself is held to these plain versions on
+level's size, and its strict twin (``tree_count_left``, K4's snap) held
+to ``torch.searchsorted`` and the reference's binary search.  The K1 kernel itself is held to these plain versions on
 the card by tests/test_torch_cuda.py."""
 import numpy as np
 import pytest
@@ -151,3 +152,27 @@ def test_search_tree_levels_at_the_main_path_sizes():
     assert tloc.tree_levels(4) == [] and tloc.tree_levels(5) == [1]
     assert tloc.search_tree(torch.zeros(4, dtype=torch.float64)).shape == (
         0, 4)
+
+
+@pytest.mark.parametrize("n", TREE_SIZES)
+def test_tree_count_left_matches_searchsorted(n):
+    """The strict descent (``tree_count_left``, K4's snap to the key grid)
+    counts #(keys < q) as ``torch.searchsorted(..., right=False)`` does on
+    sorted keys with runs of duplicates and a sentinel tail, at counts that
+    leave partial leaves and nodes, on every key, the doubles either side
+    of each, +-inf and -0.0; a NaN query counts 0, as the binary search
+    counts it (searchsorted puts NaN above every key).  The reference's
+    binary search with side='left' agrees in every lane."""
+    keys, q = _tree_case(n)
+    kt, qt = torch.as_tensor(keys), torch.as_tensor(q)
+    tree = tloc.search_tree(kt)
+    got = tloc.tree_count_left(kt, tree, qt)
+    assert got.dtype == torch.int32
+    nan = torch.isnan(qt)
+    want = torch.searchsorted(kt, qt, right=False).to(torch.int32)
+    assert torch.equal(got[~nan], want[~nan])
+    assert nan.any() and torch.equal(got[nan], torch.zeros_like(got[nan]))
+    assert torch.equal(got, tloc.bsearch_count(kt, qt, side="left"))
+    ref = np.asarray(rloc.bsearch_count(jnp.asarray(keys), jnp.asarray(q),
+                                        side="left"))
+    np.testing.assert_array_equal(got.numpy(), ref)

@@ -8,8 +8,11 @@ rtol = atol = 1e-9, and every certificate brackets the exact quantile
 computed with numpy: COUNT against every ``numpy.quantile`` interpolation
 method, SUM against the weighted convention x* = min{k : F(k) >= q *
 total}.  The plain version of kernel K4 (``quantile_invert_plain``) is held
-to ``quantile_invert_pallas`` in interpret mode for deg 1-5; the kernel
-itself is held to the plain version on the card by tests/test_torch_cuda.py.
+to ``quantile_invert_pallas`` in interpret mode for deg 1-5, and a torch
+transcription of K4's gather kernel (three lanes a target, one inversion a
+lane, the snap by the strict descent of the key grid's search tree) to the
+plain version bit for bit; the kernel itself is held to the plain version
+on the card by tests/test_torch_cuda.py.
 """
 import functools
 
@@ -33,6 +36,10 @@ from repro_torch.engine import (DynamicEngine, Engine,  # noqa: E402
 from repro_torch.engine.plan import (ARRAY_FIELDS, META_FIELDS,  # noqa: E402
                                      big_sentinel, pad_to_multiple,
                                      plan_from_numpy)
+from repro_torch.core.poly import horner  # noqa: E402
+from repro_torch.core.quantile import _extreme_root, _unscale  # noqa: E402
+from repro_torch.kernels.locate import (bsearch_count, search_tree,  # noqa: E402
+                                        tree_count_left)
 from repro_torch.kernels.quantile_invert import (  # noqa: E402
     quantile_invert, quantile_invert_plain)
 
@@ -305,6 +312,104 @@ def test_many_fractions_keep_certificates_and_parity(deg):
     # lanes at deg 3, by 2.2e-16), and the answer is then hi
     assert np.all(res.answer.numpy() <= res.hi.numpy())
     assert np.all(res.lo.numpy() <= res.answer.numpy() + 1e-12)
+
+
+def _k4_lanes(t_mid, t_lo, t_hi, B, seg_lo, seg_hi, coeffs, seg_err,
+              ref_keys, tree, *, h, n, delta):
+    """torch transcription of K4's gather kernel as csrc/quantile.cu runs
+    it: lane e of each group of three in a warp (ten groups, two spare
+    lanes) runs side e (0 hi, 1 lo, 2 mid) of target 10 warp + group,
+    lanes past Q and the spare ones redoing the last target.  Each lane
+    counts its key over B by the binary search with the side picked per
+    lane, inverts its segment (invert_side: the largest or the smallest
+    root by the sign picked per lane, Newton for mid above deg 3, the
+    segment's end or the one below for hi and lo above deg 3); the hi lane
+    snaps to the key grid by the strict descent of ``tree`` over the n live
+    keys; the mid lane takes the hi and lo lanes' ends (the shuffles) and
+    clips.  Returns the triple and the hi lanes' points before the snap."""
+    Q, deg = t_mid.shape[0], coeffs.shape[1] - 1
+    lanes = -(-Q // 10) * 32
+    lane = torch.arange(lanes) % 32
+    g, side = lane // 3, lane % 3
+    tgt = torch.arange(lanes) // 32 * 10 + g
+    i = torch.clamp(tgt, max=Q - 1)
+    t = torch.where(side == 0, t_hi[i], torch.where(side == 1, t_lo[i],
+                                                    t_mid[i]))
+    key = torch.where(side == 0, t + delta,
+                      torch.where(side == 1, t - delta, t))
+    cnt = torch.where(side == 1, bsearch_count(B, key, side="right"),
+                      bsearch_count(B, key, side="left"))
+    s = torch.clamp(cnt, max=h - 1).long()
+    lo, hi = seg_lo[s], seg_hi[s]
+    below = torch.where(s > 0, seg_hi[torch.clamp(s - 1, min=0)], seg_lo[0])
+    c = coeffs[s]
+    T = torch.where(side == 2, t, torch.where(side == 0, t + seg_err[s],
+                                              t - seg_err[s]))
+    r_max, f_max = _extreme_root(c, T, "max")
+    r_min, f_min = _extreme_root(c, T, "min")
+    root = torch.where(side == 1, r_min, r_max)
+    found = torch.where(side == 1, f_min, f_max)
+    x = _unscale(torch.where(found, root, torch.where(side == 1, 1.0, -1.0)),
+                 lo, hi)
+    tiny = 1e-9 * (torch.abs(T) + 1.0)
+    start_ok = horner(c, torch.full_like(t, -1.0)) <= T + tiny
+    x = torch.where((side == 1) & ~start_ok, below, x)
+    if deg > 3:
+        x = torch.where(side == 0, hi, torch.where(side == 1, below, x))
+    point = x
+    b_top, dom_hi = B[h - 1], seg_hi[h - 1]
+    k = torch.clamp(tree_count_left(ref_keys[:n], tree, x), max=n - 1).long()
+    snapped = torch.where(t + delta <= b_top, ref_keys[k], dom_hi)
+    x = torch.where(side == 0, snapped, x)
+    first = torch.arange(lanes) - side
+    x_hi, x_lo = x[first], x[first + 1]
+    mid = torch.clamp(torch.where(t <= b_top, x, dom_hi), x_lo, x_hi)
+    out = torch.full((3, Q), torch.nan, dtype=t_mid.dtype)
+    for e, v in ((2, mid), (1, x), (0, x)):
+        w = (side == e) & (tgt < Q) & (g < 10)
+        out[{2: 0, 1: 1, 0: 2}[e], i[w]] = v[w]
+    return out, point[side == 0]
+
+
+@pytest.mark.parametrize("agg", ["count", "sum"])
+@pytest.mark.parametrize("deg", [1, 2, 3, 4, 5])
+def test_k4_lane_form_matches_plain(agg, deg):
+    """K4's lane form (_k4_lanes) equals the plain K4 bit for bit (NaN as
+    NaN) on the COUNT and SUM plans at deg 1-5, at the fractions 0 and 1, a
+    fine grid and the module's, and at targets past the mass and below 0,
+    at a count that leaves the last warp part empty.  Its snap counts the
+    n live keys by the strict descent of their tree: for every hi lane's
+    point (a root or a segment's end, below the sentinel) that count equals
+    the binary search's over the 128-padded grid, so after the clamp to
+    n - 1 the same key is read."""
+    rplan, plan = _plans("skew", agg, deg=deg)
+    fr = np.concatenate([FRACTIONS, np.linspace(0.0, 1.0, 1025)])
+    args = [torch.as_tensor(a) for a in _kernel_args(rplan, agg, fr)]
+    M = float(rplan.n) if agg == "count" else float(rplan.ref_cf[-1])
+    slack = float(args[2][0] - args[0][0])
+    extra = torch.tensor([M * 1.01, M + 3.0, M * 3.0, -3.0, M - 0.5])
+    for j, shift in enumerate((0.0, -slack, slack)):
+        args[j] = torch.cat([args[j], extra + shift])
+    keys = args[8]
+    n = int(rplan.n)
+    tree = search_tree(keys[:n].clone())
+    kw = dict(h=int(rplan.h), n=n, delta=float(rplan.delta))
+    got, points = _k4_lanes(*args, tree, **kw)
+    want = quantile_invert_plain(*args, tree, **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(torch.isnan(g), torch.isnan(w))
+        assert torch.equal(g[~torch.isnan(g)].view(torch.int64),
+                           w[~torch.isnan(w)].view(torch.int64))
+    # the snap's count on these points, NaN and -inf too, over the live
+    # keys of this grid and of a grid whose live keys leave a padded tail
+    big = big_sentinel(torch.float64)
+    assert bool((points < big).all())
+    pts = torch.cat([points, torch.tensor([np.nan, -np.inf])])
+    for m in (n, n - 37):
+        grid = pad_to_multiple(keys[:m].clone(), 128, big)
+        live = tree_count_left(keys[:m], search_tree(keys[:m].clone()), pts)
+        assert torch.equal(live, bsearch_count(grid, pts, side="left"))
+        assert grid.shape[0] == (n if m == n else -(-m // 128) * 128)
 
 
 # ---------------------------------------------------------------------------
