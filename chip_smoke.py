@@ -2,7 +2,7 @@
 """Drive the PyTorch + CUDA port of PolyFit (src/repro_torch) once on one
 NVIDIA card, and hold its kernels to their plain PyTorch versions.
 
-    python3 chip_smoke.py             # about 10-14 minutes on an H100 host
+    python3 chip_smoke.py             # about 14-17 minutes on an H100 host
 
 Phases, each of which fails the run with a non-zero exit:
 
@@ -12,6 +12,18 @@ Phases, each of which fails the run with a non-zero exit:
 3. fit      - PolyFit.fit on the card: TWEET latitudes (COUNT), HKI minute
               bars (MAX, deg 3; and SUM of the prices, deg 3) and a smaller
               HKI table for MIN, cut to the sizes printed on the CUT lines;
+              then the parallel step, which builds no session:
+              build_index_1d(method="parallel") (lockstep-chunked greedy
+              segmentation, every round's probes fitted by one batched
+              Lawson call on the card) of the paper's 1M TWEET keys and of
+              the static lat table's 200k, at delta 50: every segment must
+              certify and the segments tile the keys, the 200k build is
+              compared with lat's greedy fit (segments within chunks - 1,
+              both seconds printed), the lockstep rounds and one Lawson
+              round's device time at the largest (B, Lmax) are printed,
+              and 65,536 ranges go through execute_sum on each plan under
+              Q_abs and Q_rel against numpy truth, K2 held to its plain
+              version there;
 4. main     - one mixed batch of COUNT, MAX and MIN ranges through
               session.query under Q_abs, then under Q_rel, checked against
               exact answers computed on the host with numpy alone; the
@@ -32,8 +44,8 @@ Phases, each of which fails the run with a non-zero exit:
               one batch traced by torch.profiler (device busy time, idle
               share, heaviest kernels);
 8. dynamic  - PolyFit.fit of three dynamic tables (TableSpec(dynamic=True),
-              capacity 4,096): TWEET 1M (COUNT, the paper's size), HKI 300k
-              (MAX, deg 3) and HKI 100k (MIN), cut as the CUT lines say.  A hot-band step (inserts
+              capacity 4,096): TWEET 300k (COUNT), HKI 300k (MAX, deg 3)
+              and HKI 100k (MIN), cut as the CUT lines say.  A hot-band step (inserts
               and deletes in one dense band, appended bars and extremal
               deletes in one window) is queried while buffered, then
               flushed (the merge must refit few segments) and queried
@@ -47,7 +59,7 @@ Phases, each of which fails the run with a non-zero exit:
               through the session's dynamic quantile path (plain torch by
               design) and are checked against numpy over the live
               multiset; in the merged state K4 runs through
-              execute_quantile on the 1M-key plan, is held to its plain
+              execute_quantile on the 300k-key plan, is held to its plain
               version there and timed.  K1-K3 are timed again at the
               dynamic plans, K5/K6 on the full buffers, with the
               full-buffer query latency, one 4,096-record insert and the
@@ -108,7 +120,30 @@ Phases, each of which fails the run with a non-zero exit:
               path's shapes (max abs error 0), and K9-K11 are timed on the
               full 4,096-slot logs, K9 and K10 beside their loads a
               rectangle (before and after the set-bits walk) and the rate
-              an SM served them at.
+              an SM served them at;
+12. lsm     - PolyFit.fit of three LSM-tiered tables (TableSpec(dynamic=True,
+              lsm=True), capacity 2,048) at the reference's LSM bench
+              configuration: ``lsm`` TWEET 100k COUNT (delta 50),
+              ``lsm_max`` HKI 50k MAX (deg 3, delta 50) and ``lsm_sum2d``
+              OSM-like 100k SUM rectangles (w = 50 + 20 sin(x/7) + 15
+              cos(y/11), delta 1% of sum |w|).  Ten batches of 512 inserts
+              a table (uniform over its domain; new bars valued by the
+              series at their time plus the generator's noise; a
+              compaction every second batch), deletes of 3 x 256 base rows (tombstones; on
+              ``lsm_max`` the 64 largest bars of one window, victims that
+              must compact nothing), and one more buffered batch; at least
+              two levels and one compaction a table.  65,536 ranges or
+              rectangles a table under Q_abs and Q_rel through one mixed
+              session batch, checked against numpy truth (1-D) or dense
+              truth on the card (2-D) over the live multisets: Q_abs within
+              the composed bound, Q_rel within 1%.  The counters must show
+              exactly K2, K3 and K7 a level, K8 four times a level, K5, K6
+              and K10 on the buffers and K1 in the exact answers, each held
+              to its plain version at the ladder's shapes (max abs error
+              0); ``execute_lsm`` on the ``lsm`` ladder and buffer on
+              ``cuda_scan`` (K14, K16) equals ``cuda`` bit for bit.  The
+              worst insert, compaction-carrying, tombstone and victim
+              delete ops and the fused query latency are printed.
 
 The ``cuda_scan`` backend (the one-hot scan kernels K14-K17, K4's scan
 mode and the two-key whole-log scans K18-K20) runs at the end of phases
@@ -172,8 +207,8 @@ abs error 0) and timed: K21 at both, the float32 K2, K3, K14 and K15
 
 The line before last is the card's nvidia-smi name and power limit, the
 line before that the kernels' JSON record: one row a kernel (K1-K21 and
-K4's scan mode), whose own numbers are the dynamic phase's (TWEET at the
-paper's 1M; the 2-D leaf kernels' the 2d phase's, K9-K11's the dyn2d
+K4's scan mode), whose own numbers are the dynamic phase's (TWEET 300k;
+the 2-D leaf kernels' the 2d phase's, K9-K11's the dyn2d
 phase's, K18-K20's the scan dyn2d step's, K21's the float64 ops step's),
 whose ``by_dtype`` gives the float32 numbers of K2, K3, K14, K15 and K21,
 and whose
@@ -208,13 +243,30 @@ N_HKI_MIN = 50_000
 # 3.3 bars' worth of the summed price (bars sit near 30,000)
 N_HKI_SUM = 200_000
 HKI_SUM_ABS = 1e5
-# the dynamic phase: TWEET at the paper's size, HKI cut (its 0.9M-bar MAX
-# build alone takes 190-330 s of host time); its MIN table exercises the
-# negation and victim paths
-N_TWEET_DYN = 1_000_000
+# the dynamic phase: TWEET cut from the paper's 1M (its greedy fit took
+# 204 s of host time; the parallel step fits the paper's size instead), HKI
+# cut (its 0.9M-bar MAX build alone takes 190-330 s of host time); its MIN
+# table exercises the negation and victim paths
+N_TWEET_DYN = 300_000
 N_HKI_DYN = 300_000
 N_HKI_MIN_DYN = 100_000
 CAPACITY = 4096             # delta-buffer slots per dynamic table
+# the parallel step: batched-Lawson construction (method="parallel") of the
+# paper's 1M TWEET keys and of the static phase's 200k, at lat_dyn's delta
+N_PARALLEL = 1_000_000
+PARALLEL_DELTA = 50.0
+# the lsm phase, at the reference's LSM bench configuration
+# (benchmarks/bench_updates.py run_lsm): TWEET 100k COUNT (delta 50), OSM-like
+# 100k SUM rectangles (w = 50 + 20 sin(x/7) + 15 cos(y/11), delta 1% of
+# sum |w|), and an HKI MAX table (deg 3, hki_dyn's delta) for the victims;
+# capacity 2,048, ten insert batches of 512, three deletes of 256 base rows
+N_LSM = 100_000
+N_LSM_MAX = 50_000
+N_LSM_SUM2D = 100_000
+LSM_CAPACITY = 2048
+LSM_BATCH = LSM_CAPACITY // 4
+LSM_BATCHES = 10
+LSM_VICTIMS = 64            # the largest bars of one WINDOW-bar window
 # the window phase: four sealed epochs of 131,072 TWEET rows, each filled
 # by 32 ingests of 4,096 rows; the ring retains 4 sealed epochs
 N_EPOCH = 131_072
@@ -573,7 +625,7 @@ def kernel_row(name, phases, err):
     """One kernel's row of the kernels' JSON record.  ``phases`` maps each
     phase that launched it to (launches, its measure() at that phase's
     shapes, or None where it was not timed there); the row's own numbers
-    are the dynamic phase's (TWEET at the paper's 1M), the 2d phase's for
+    are the dynamic phase's (TWEET 300k), the 2d phase's for
     the 2-D leaf kernels, the dyn2d phase's for K9-K11, the scan dynamic
     step's for K14-K17, the scan static step's for K4's scan mode, the
     scan dyn2d step's for K18-K20 and the float64 ops step's for K21
@@ -1032,16 +1084,20 @@ def main() -> None:
     sys.path.insert(0, src)
     from repro_torch.api import (ErrorBudget, PolyFit, QueryBatch, QuerySpec,
                                  TableSpec)
-    from repro_torch.core import PolyFitIndex1D, build_index_2d
+    from repro_torch.core import (PolyFitIndex1D, build_index_1d,
+                                  build_index_2d, lawson_batched)
+    from repro_torch.core import segmentation as kseg
+    from repro_torch.core.index2d import _node_depths
     from repro_torch.data import (hki_series, make_queries_1d,
                                   make_queries_2d, osm_points,
                                   tweet_latitudes)
     from repro_torch.core.poly import eval_segments
     from repro_torch.engine import (DynamicEngine, DynamicEngine2D,
-                                    IndexPlan2D, build_plan_2d, execute,
-                                    execute_count2d, execute_extremum,
-                                    execute_extremum2d, execute_lsm,
-                                    execute_quantile, raw_extremum, raw_sum)
+                                    IndexPlan2D, build_plan, build_plan_2d,
+                                    composed_bound, execute, execute_count2d,
+                                    execute_extremum, execute_extremum2d,
+                                    execute_lsm, execute_quantile,
+                                    execute_sum, raw_extremum, raw_sum)
     from repro_torch.engine.plan import big_sentinel
     from repro_torch.engine.engine import quantile_mass, quantile_tables
     from repro_torch.kernels import _build
@@ -1110,6 +1166,8 @@ def main() -> None:
             if session.is_window(name):
                 lsm, _ = session.window_snapshot(name, 0, 0)
                 plans = [lvl.plan for lvl in lsm.levels]
+            elif session.is_lsm(name):
+                plans = [lvl.plan for lvl in session.plan(name).levels]
             else:
                 plans = [session.plan(name)]
             for p in plans:
@@ -1127,22 +1185,6 @@ def main() -> None:
                       flush=True)
         print(f"fit {tag}total: {fit_s:.3f} s", flush=True)
         return session
-
-    session = fit(datasets, specs, "")
-
-    # -- 4. main path -----------------------------------------------------
-    qs = {"lat": make_queries_1d(lat, NQ, seed=SEED),
-          "hki": make_queries_1d(t_h, NQ, seed=SEED),
-          "hki_min": make_queries_1d(t_m, NQ, seed=SEED)}
-    keys = {"lat": (lat, None), "hki": (t_h, v_h), "hki_min": (t_m, v_m)}
-    aggs = {"lat": "count", "hki": "max", "hki_min": "min"}
-    truth = {name: host_truth(*keys[name], *qs[name], aggs[name])
-             for name in qs}
-    bounds = {"lat": 100.0, "hki": 50.0, "hki_min": 50.0}
-
-    def batch(names, queries, rel):
-        return QueryBatch.of(*(QuerySpec.range(name, *queries[name], rel=rel)
-                               for name in names))
 
     class K4Scan:
         """K4's scan mode as a counter: its wrapper counts it apart."""
@@ -1180,6 +1222,151 @@ def main() -> None:
         for k, v in launches.items():
             acc[k] += v
         return launches
+
+    errs = {}
+
+    def hold(name, fn, plain, args_list, exact=False):
+        """Hold a kernel to its plain version on each argument set (equal
+        when ``exact``, else to TOL); keep the largest |kernel - plain| in
+        errs."""
+        errs.setdefault(name, 0.0)
+        for args in args_list:
+            a, b = fn(*args), plain(*args)
+            torch.cuda.synchronize()
+            if exact:
+                check(torch.equal(a, b), f"{name} differs from its plain "
+                      "version")
+            else:
+                check(torch.allclose(a, b, rtol=TOL, atol=TOL,
+                                     equal_nan=False),
+                      f"{name} differs from its plain version")
+            errs[name] = max(errs[name], max_abs_err(a, b))
+
+    session = fit(datasets, specs, "")
+
+    # -- 3b. parallel: batched-Lawson construction on the card ----------------
+    step0 = time.perf_counter()
+    labels = (("Q_abs", None), ("Q_rel", EPS_REL))
+    rounds = []     # (B, Lmax) of each lockstep round's lawson_batched call
+
+    def counted_lawson(u, F, valid, deg, iters=60):
+        rounds.append(tuple(u.shape))
+        return lawson_batched(u, F, valid, deg, iters)
+
+    def parallel_build(name, keys, greedy=None):
+        """build_index_1d(method="parallel") of ``keys`` on the card (its
+        rounds counted), every segment certified and the segments tiling
+        the keys; then 65,536 ranges through execute_sum on its plan under
+        Q_abs and Q_rel against numpy truth, K2 held to its plain version
+        there.  ``greedy``: (segments, seconds) of the greedy fit of the
+        same keys."""
+        tag = f"parallel {name}: "
+        rounds.clear()
+        kseg.lawson_batched = counted_lawson
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            idx = build_index_1d(keys, None, "count", deg=2,
+                                 delta=PARALLEL_DELTA, method="parallel",
+                                 device=dev)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        finally:
+            kseg.lawson_batched = lawson_batched
+        k = np.sort(keys)
+        starts = idx.seg_start.cpu().numpy().astype(np.int64)
+        ends = np.append(starts[1:], len(k)) - 1
+        check(bool(np.all(idx.seg_err <= PARALLEL_DELTA)),
+              f"{tag}a segment certifies {idx.seg_err.max()!r} > "
+              f"{PARALLEL_DELTA}")
+        check(starts[0] == 0 and bool(np.all(np.diff(starts) > 0))
+              and np.array_equal(idx.seg_lo.cpu().numpy(), k[starts])
+              and np.array_equal(idx.seg_hi.cpu().numpy(), k[ends]),
+              f"{tag}the segments do not tile the keys")
+        chunks = max(1, min(64, len(k) // 4096, len(k)))
+        big = max(rounds, key=lambda r: r[0] * r[1])
+        vs = ""
+        if greedy is not None:
+            check(greedy[0] <= idx.h <= greedy[0] + chunks - 1,
+                  f"{tag}{idx.h} segments against greedy's {greedy[0]} "
+                  f"({chunks} chunks)")
+            vs = (f"; greedy GS: {greedy[0]} segments in {greedy[1]!r} s "
+                  f"(within chunks - 1 = {chunks - 1})")
+        print(f"{tag}n {len(k)}, delta {PARALLEL_DELTA}, {chunks} chunks: "
+              f"{idx.h} segments in {secs!r} s, {len(rounds)} lockstep "
+              f"rounds, the largest (B, Lmax) {big}; every segment certifies "
+              f"(max err {float(idx.seg_err.max())!r}) and the segments tile "
+              f"the keys{vs}", flush=True)
+        plan = build_plan(idx)
+        lq, uq = make_queries_1d(keys, NQ, seed=SEED + 80)
+        truth = {name: host_truth(keys, None, lq, uq, "count")}
+        reset()
+        res = {label: [execute_sum(plan, lq, uq, eps_rel=rel)]
+               for label, rel in labels}
+        torch.cuda.synchronize()
+        launches = read("parallel")
+        check(launches["range_sum_gather"] == 2 and launches["locate"] == 2,
+              f"{tag}execute_sum launches {launches}")
+        check_answers(tag, (name,), {
+            label: [SimpleNamespace(value=r.answer, refined=r.refined)
+                    for r in res[label]] for label, _ in labels}, truth,
+            {name: 2 * PARALLEL_DELTA})
+        lqd, uqd = (torch.maximum(torch.as_tensor(q, device=dev),
+                                  plan.domain_lo) for q in (lq, uq))
+        hold("range_sum_gather", ksum.range_sum_gather,
+             ksum.range_sum_gather_plain,
+             [(lqd, uqd, plan.seg_lo, plan.seg_hi, plan.coeffs,
+               plan.seg_tree)], exact=True)
+        print(f"{tag}parity K2 on its plan: max |kernel - plain| = "
+              f"{errs['range_sum_gather']!r}", flush=True)
+        return big
+
+    if N_PARALLEL < 1_000_000:
+        print(f"CUT: tweet (parallel) n 1000000 -> {N_PARALLEL}", flush=True)
+    big = parallel_build("tweet", tweet_latitudes(N_PARALLEL))
+    parallel_build("lat", lat, (session.plan("lat").h,
+                                session.build_seconds()["lat"]))
+    # one lockstep round at the largest (B, Lmax): its device time by CUDA
+    # events around eager calls, and the device's busy time under the
+    # profiler (about iters x 6 small launches a round)
+    B, L = big
+    u = torch.sort(torch.rand((B, L), dtype=torch.float64, device=dev,
+                              generator=torch.Generator(dev).manual_seed(SEED))
+                   * 2.0 - 1.0, dim=1).values
+    F = torch.cumsum(torch.ones_like(u), dim=1)
+    ones = torch.ones_like(u)
+    one_round = lambda: lawson_batched(u, F, ones, 2, 40)
+    for _ in range(3):
+        one_round()
+    round_ms = _events_ms(torch, lambda: [one_round() for _ in range(5)], 5)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        one_round()
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+    launched = sum(e.count for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    print(f"parallel: one lawson_batched round at (B, Lmax) = {big}, deg 2, "
+          f"40 steps: {round_ms!r} ms between CUDA events (eager calls), "
+          f"device busy {busy!r} us in {launched} device launches; step "
+          f"seconds {time.perf_counter() - step0!r}", flush=True)
+
+
+    # -- 4. main path -----------------------------------------------------
+    qs = {"lat": make_queries_1d(lat, NQ, seed=SEED),
+          "hki": make_queries_1d(t_h, NQ, seed=SEED),
+          "hki_min": make_queries_1d(t_m, NQ, seed=SEED)}
+    keys = {"lat": (lat, None), "hki": (t_h, v_h), "hki_min": (t_m, v_m)}
+    aggs = {"lat": "count", "hki": "max", "hki_min": "min"}
+    truth = {name: host_truth(*keys[name], *qs[name], aggs[name])
+             for name in qs}
+    bounds = {"lat": 100.0, "hki": 50.0, "hki_min": 50.0}
+
+    def batch(names, queries, rel):
+        return QueryBatch.of(*(QuerySpec.range(name, *queries[name], rel=rel)
+                               for name in names))
 
     def drive(session, names, queries, tag, phase):
         """The main path of one phase: counters to 0, a Q_abs and a Q_rel
@@ -1269,25 +1456,6 @@ def main() -> None:
             sets["locate"] += [(uq, p.ref_keys, p.ref_tree),
                                (lo, p.ref_keys, p.ref_tree)]
         return sets
-
-    errs = {}
-
-    def hold(name, fn, plain, args_list, exact=False):
-        """Hold a kernel to its plain version on each argument set (equal
-        when ``exact``, else to TOL); keep the largest |kernel - plain| in
-        errs."""
-        errs.setdefault(name, 0.0)
-        for args in args_list:
-            a, b = fn(*args), plain(*args)
-            torch.cuda.synchronize()
-            if exact:
-                check(torch.equal(a, b), f"{name} differs from its plain "
-                      "version")
-            else:
-                check(torch.allclose(a, b, rtol=TOL, atol=TOL,
-                                     equal_nan=False),
-                      f"{name} differs from its plain version")
-            errs[name] = max(errs[name], max_abs_err(a, b))
 
     def hold_k123(sets, tag):
         hold("locate", kloc.locate, k1_plain, sets["locate"], exact=True)
@@ -1712,7 +1880,6 @@ def main() -> None:
     s_truth = dict(truth, hki_sum=host_truth(t_s, v_s, *s_qs["hki_sum"],
                                              "sum"))
     splans = {n: session.plan(n) for n in SCAN_STATIC}
-    labels = (("Q_abs", None), ("Q_rel", EPS_REL))
     run = lambda b: {label: [execute(splans[n], s_qs[n], backend=b,
                                      eps_rel=rel) for n in SCAN_STATIC]
                      for label, rel in labels}
@@ -1947,7 +2114,8 @@ def main() -> None:
     # -- 8. dynamic tables ---------------------------------------------------
     del session
     rng = np.random.default_rng(SEED + 100)
-    for name, n, paper in (("hki_dyn", N_HKI_DYN, 900_000),
+    for name, n, paper in (("lat_dyn", N_TWEET_DYN, 1_000_000),
+                           ("hki_dyn", N_HKI_DYN, 900_000),
                            ("hki_min_dyn", N_HKI_MIN_DYN, 900_000)):
         if n < paper:
             print(f"CUT: {name} n {paper} -> {n}")
@@ -1974,7 +2142,7 @@ def main() -> None:
         backend, by design): counters to 0, one session.query, counters
         read, certificates against numpy over the live multiset.  With
         ``with_k4`` (a merged state: empty buffer) K4 also runs through
-        execute_quantile on the merged 1M-key plan, is checked the same
+        execute_quantile on the merged 300k-key plan, is checked the same
         way, held to its plain version and timed there."""
         keys = np.sort(live["lat_dyn"].keys)
         reset()
@@ -2952,6 +3120,290 @@ def main() -> None:
         profile_batch(torch, dsession2, batch_dyn2d(q2, rel),
                       f"{tag}session.query {label}")
     del dsession2
+
+    # -- 12. LSM level ladders -----------------------------------------------
+    torch.cuda.empty_cache()
+    step0 = time.perf_counter()
+    print(f"CUT: lsm_max n 900000 -> {N_LSM_MAX}", flush=True)
+    rng3 = np.random.default_rng(SEED + 900)
+    lk = tweet_latitudes(N_LSM)
+    mt, mv = hki_series(N_LSM_MAX)
+    qx, qy = osm_points(N_LSM_SUM2D)
+    qw = 50.0 + 20.0 * np.sin(qx / 7.0) + 15.0 * np.cos(qy / 11.0)
+    delta2 = 0.01 * float(np.abs(qw).sum())
+    lsm_spec = dict(dynamic=True, lsm=True, capacity=LSM_CAPACITY,
+                    background=False)
+    LSM = ("lsm", "lsm_max", "lsm_sum2d")
+    lsession = fit(
+        {"lsm": lk, "lsm_max": (mt, mv), "lsm_sum2d": (qx, qy, qw)},
+        {"lsm": TableSpec("count", ErrorBudget(abs=100.0), **lsm_spec),
+         "lsm_max": TableSpec("max", ErrorBudget(abs=50.0, rel=EPS_REL),
+                              **lsm_spec),
+         "lsm_sum2d": TableSpec("sum2d", ErrorBudget(abs=4.0 * delta2),
+                                **lsm_spec)}, "lsm ")
+    engines = {name: lsession._dyn(name) for name in LSM}
+    base2d = engines["lsm_sum2d"]._levels[
+        max(engines["lsm_sum2d"]._levels)].index
+    deepest = int(_node_depths(base2d.children.cpu().numpy())[
+        base2d.leaf_nodes.cpu().numpy()].max())
+    print(f"lsm_sum2d: delta {delta2!r}; TableSpec takes no max_depth (as the "
+          f"reference's), so the table runs at LsmEngine2D's 12; its deepest "
+          f"leaf sits at depth {deepest} (the bench's max_depth 8 "
+          f"{'binds' if deepest > 8 else 'binds nothing'})", flush=True)
+    llive = {"lsm": Live(lk, None), "lsm_max": Live(mt, mv)}
+    llive2 = Live2D(qx, qy, qw)
+    lo1, hi1 = float(lk.min()), float(lk.max())
+    t0m, t1m = float(mt.min()), float(mt.max())
+    x0, x1, y0, y1 = qx.min(), qx.max(), qy.min(), qy.max()
+
+    def lsm_cols(name, m):
+        if name == "lsm":
+            return (rng3.uniform(lo1, hi1, m),)
+        if name == "lsm_max":
+            # bars at uniform times over the span, valued by the series
+            # there plus one step of the HKI generator's noise
+            t = rng3.uniform(t0m, t1m, m)
+            return (t, np.interp(t, mt, mv) + rng3.normal(0.0, 12.0, m))
+        return (rng3.uniform(x0, x1, m), rng3.uniform(y0, y1, m),
+                rng3.uniform(0.0, 100.0, m))
+
+    def timed_op(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def lsm_insert(name, cols):
+        secs = timed_op(lambda: lsession.insert(name, *cols))
+        if name == "lsm_sum2d":
+            llive2.insert(*cols)
+        else:
+            llive[name].insert(*cols)
+        return secs
+
+    worst = {name: {"insert": 0.0, "append": 0.0, "compaction": 0.0}
+             for name in LSM}
+    compaction_s = {name: [] for name in LSM}
+    for _ in range(LSM_BATCHES):
+        for name in LSM:
+            c0 = engines[name].compaction_count
+            secs = lsm_insert(name, lsm_cols(name, LSM_BATCH))
+            worst[name]["insert"] = max(worst[name]["insert"], secs)
+            if engines[name].compaction_count > c0:
+                worst[name]["compaction"] = max(worst[name]["compaction"],
+                                                secs)
+                compaction_s[name].append(secs)
+            else:   # an insert that only appends to the buffer
+                worst[name]["append"] = max(worst[name]["append"], secs)
+    # deletes: three batches of 256 base rows (the bench's), tombstones
+    for name in ("lsm", "lsm_sum2d"):
+        worst[name]["delete"] = 0.0
+        for i in (1, 3, 5):
+            sl = slice(i * LSM_BATCH, i * LSM_BATCH + LSM_BATCH // 2)
+            if name == "lsm":
+                gone = (lk[sl].copy(),)
+                llive["lsm"].delete(gone[0])
+            else:
+                gone = (qx[sl].copy(), qy[sl].copy())
+                llive2.delete(*gone)
+            secs = timed_op(lambda: lsession.delete(name, *gone))
+            worst[name]["delete"] = max(worst[name]["delete"], secs)
+    # on lsm_max the 64 largest bars of one window: victims, in 8 deletes
+    # of 8 that must compact nothing
+    c0 = engines["lsm_max"].compaction_count
+    w0 = int(rng3.integers(0, N_LSM_MAX - WINDOW))
+    top = w0 + np.argsort(mv[w0:w0 + WINDOW])[::-1][:LSM_VICTIMS]
+    worst["lsm_max"]["victim delete"] = 0.0
+    for j in range(0, LSM_VICTIMS, 8):
+        gone = mt[top[j:j + 8]].copy()
+        secs = timed_op(lambda: lsession.delete("lsm_max", gone))
+        llive["lsm_max"].delete(gone)
+        worst["lsm_max"]["victim delete"] = max(
+            worst["lsm_max"]["victim delete"], secs)
+    check(engines["lsm_max"].compaction_count == c0,
+          "lsm_max: a victim delete compacted")
+    # one more batch stays buffered, so every buffer correction reads a log
+    # with entries
+    for name in LSM:
+        c0 = engines[name].compaction_count
+        lsm_insert(name, lsm_cols(name, LSM_BATCH))
+        check(engines[name].compaction_count == c0,
+              f"{name}: the buffered batch compacted")
+    for name, e in engines.items():
+        check(e.n_levels >= 2 and e.compaction_count >= 1
+              and e.n_pending == LSM_BATCH,
+              f"{name}: {e.n_levels} levels, {e.compaction_count} "
+              f"compactions, {e.n_pending} pending")
+        ladder = {s_: (len(h.cols[0]), len(h.tomb) + len(h.vic))
+                  for s_, h in sorted(e._levels.items())}
+        print(f"lsm {name}: ladder slot -> (rows, shadowed) {ladder}, "
+              f"{e.compaction_count} compactions, {e.n_pending} buffered; "
+              f"worst op seconds {worst[name]}; compaction-carrying ops "
+              f"{compaction_s[name]!r} s", flush=True)
+
+    # the main path: one mixed batch under Q_abs, then under Q_rel
+    lqs = {name: make_queries_1d(np.sort(llive[name].keys), NQ,
+                                 seed=SEED + 910 + i)
+           for i, name in enumerate(("lsm", "lsm_max"))}
+    lrect = make_queries_2d(llive2.x, llive2.y, NQ, seed=SEED + 912)
+
+    def lbatch(rel):
+        return QueryBatch.of(
+            QuerySpec.range("lsm", *lqs["lsm"], rel=rel),
+            QuerySpec.range("lsm_max", *lqs["lsm_max"], rel=rel),
+            QuerySpec.rect("lsm_sum2d", *lrect, rel=rel))
+
+    snaps = {name: lsession.snapshot(name) for name in LSM}
+    nlev = {name: len(snaps[name][0].levels) for name in LSM}
+    reset()
+    lans, main_s = {}, {}
+    for label, rel in labels:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lans[label] = lsession.query(lbatch(rel))
+        torch.cuda.synchronize()
+        main_s[label] = time.perf_counter() - t0
+    launches = read("lsm")
+    want = {"range_sum_gather": 2 * nlev["lsm"],
+            "range_max_gather": 2 * nlev["lsm_max"],
+            "corner_count2d_gather": 2 * nlev["lsm_sum2d"],
+            "corner_eval2d_gather": 8 * nlev["lsm_sum2d"],
+            "delta_sum_gather": 2, "delta_max_gather": 2,
+            "delta_sum2d_gather": 2,
+            "locate": (2 * nlev["lsm"] + 4 * nlev["lsm_max"]
+                       + 2 * nlev["lsm_sum2d"])}
+    print(f"lsm main path: levels {nlev}, launches {launches}, first-call "
+          f"seconds {main_s}", flush=True)
+    check(all(launches[k] == want.get(k, 0) for k in launches),
+          f"lsm: launches {launches}, expected {want}")
+    ltruth = {name: host_truth(llive[name].keys, llive[name].meas,
+                               *lqs[name], engines[name].agg)
+              for name in ("lsm", "lsm_max")}
+    lbound = {name: composed_bound(engines[name].agg, snaps[name][0].deltas)
+              for name in ("lsm", "lsm_max")}
+    check_answers("lsm ", ("lsm", "lsm_max"), {
+        label: lans[label][:2] for label, _ in labels}, ltruth, lbound)
+    rect_d = on_dev(*lrect)
+    truth_s = dense_rect(torch, *on_dev(llive2.x, llive2.y, llive2.w),
+                         *rect_d)
+    cert = [h.index.certified_delta
+            for h in engines["lsm_sum2d"]._levels.values()]
+    bound_s = composed_bound("sum2d", cert)
+    for label, _ in labels:
+        a = lans[label][2]
+        err = (a.answer - truth_s).abs()
+        check(a.answer.shape == truth_s.shape
+              and bool(torch.isfinite(a.answer).all()),
+              f"lsm {label} lsm_sum2d: bad answers")
+        if label == "Q_abs":
+            check(float(err.max()) <= bound_s + 1e-6,
+                  f"lsm Q_abs lsm_sum2d: |A-R| {float(err.max())} > "
+                  f"{bound_s}")
+            print(f"lsm Q_abs lsm_sum2d: max |A-R| = {float(err.max())!r} <= "
+                  f"{bound_s!r} (composed over certified deltas {cert})",
+                  flush=True)
+        else:
+            pos = truth_s != 0
+            check(bool((err[pos] <= EPS_REL * truth_s[pos].abs()
+                        + 1e-6).all()),
+                  f"lsm Q_rel lsm_sum2d: relative error above {EPS_REL}")
+            print(f"lsm Q_rel lsm_sum2d: max rel err = "
+                  f"{float((err[pos] / truth_s[pos].abs()).max())!r} <= "
+                  f"{EPS_REL}; refined share "
+                  f"{float(a.refined.float().mean())!r}", flush=True)
+
+    # every kernel the path launched against its plain version, exactly, at
+    # the ladder's shapes: each level's plan and each table's buffer
+    lsets = {k: [] for k in want}
+    for name in ("lsm", "lsm_max"):
+        lsm_, buf = snaps[name]
+        lq, uq = (torch.as_tensor(q, device=dev) for q in lqs[name])
+        for lvl in lsm_.levels:
+            p = lvl.plan
+            if name == "lsm":
+                lsets["range_sum_gather"].append(
+                    (torch.maximum(lq, p.seg_lo[0]),
+                     torch.maximum(uq, p.seg_lo[0]), p.seg_lo, p.seg_hi,
+                     p.coeffs, p.seg_tree))
+                lsets["locate"] += [(uq, p.ref_keys, p.ref_tree),
+                                    (lq, p.ref_keys, p.ref_tree)]
+            else:
+                lo_, hi_ = p.seg_lo[0], p.seg_hi[p.h - 1]
+                lsets["range_max_gather"].append(
+                    (torch.clamp(lq, lo_, hi_), torch.clamp(uq, lo_, hi_),
+                     p.seg_lo, p.seg_hi, p.coeffs, p.st, p.seg_tree))
+                below = torch.nextafter(lq, lq.new_full((), -torch.inf))
+                lsets["locate"] += [(below, p.ref_keys, p.ref_tree),
+                                    (uq, p.ref_keys, p.ref_tree)]
+        if name == "lsm":
+            lsets["delta_sum_gather"].append((lq, uq, buf.ins_keys,
+                                              buf.ins_cf))
+        else:
+            lsets["delta_max_gather"].append((lq, uq, buf.ins_keys,
+                                              buf.ins_st))
+    lsm_, buf = snaps["lsm_sum2d"]
+    for lvl in lsm_.levels:
+        p = lvl.plan
+        g, _ = tables(p)
+        lxc, uxc, lyc, uyc = clamped(p, rect_d)
+        lsets["corner_count2d_gather"].append(
+            (lxc, uxc, lyc, uyc, *g, p.deg, p.max_depth))
+        for u_, v_ in ((uxc, uyc), (lxc, uyc), (uxc, lyc), (lxc, lyc)):
+            lsets["corner_eval2d_gather"].append(
+                (u_, v_, *g, p.deg, p.max_depth))
+        lsets["locate"] += [(rect_d[0], p.ref_xs, p.ref_xs_tree),
+                            (rect_d[1], p.ref_xs, p.ref_xs_tree)]
+    lsets["delta_sum2d_gather"].append((*rect_d, buf.ins_x, buf.ins_ylv,
+                                        buf.ins_wcum))
+    mods = {"locate": (kloc, k1_plain),
+            "range_sum_gather": (ksum, None), "range_max_gather": (kmax, None),
+            "delta_sum_gather": (kdel, None), "delta_max_gather": (kdel, None),
+            "delta_sum2d_gather": (kdel, None),
+            "corner_count2d_gather": (k2d, None),
+            "corner_eval2d_gather": (k2d, None)}
+    for k, args in lsets.items():
+        mod, plain = mods[k]
+        hold(k, getattr(mod, k), plain or getattr(mod, k + "_plain"), args,
+             exact=True)
+    print(f"lsm: parity {'/'.join(lsets)} on "
+          f"{'/'.join(str(len(v)) for v in lsets.values())} argument sets: "
+          f"max |kernel - plain| = { {k: errs[k] for k in lsets} }",
+          flush=True)
+
+    # scan: the lsm ladder and its buffer through execute_lsm on cuda_scan
+    # (K14 a level, K16 on the buffer) equal cuda bit for bit
+    lsm_, buf = snaps["lsm"]
+    lrun = lambda b: {label: [execute_lsm(lsm_, buf, lqs["lsm"], backend=b,
+                                          eps_rel=rel)]
+                      for label, rel in labels}
+    want_l = lrun("cuda")
+    torch.cuda.synchronize()
+    reset()
+    got_l = lrun("cuda_scan")
+    torch.cuda.synchronize()
+    check_scan_launches("scan lsm: ", read("scan lsm"),
+                        {"range_sum": 2 * nlev["lsm"], "delta_sum": 2,
+                         "locate": 2 * nlev["lsm"]})
+    for label, _ in labels:
+        same_results(f"scan lsm: {label} ",
+                     zip(("lsm",), got_l[label], want_l[label]))
+        check(torch.equal(want_l[label][0].answer, lans[label][0].value),
+              f"lsm: execute_lsm differs from the session's {label} answer")
+    print("scan lsm: every answer, approximation and refined flag equals "
+          "the cuda backend's (and the session's)", flush=True)
+    for label, rel in labels:
+        query_latency(torch, lsession, lbatch(rel),
+                      f"lsm: session.query {label} (fused, 3 tables)", 3 * NQ)
+    for name, spec in (("lsm", QuerySpec.range("lsm", *lqs["lsm"])),
+                       ("lsm_max", QuerySpec.range("lsm_max",
+                                                   *lqs["lsm_max"])),
+                       ("lsm_sum2d", QuerySpec.rect("lsm_sum2d", *lrect))):
+        query_latency(torch, lsession, spec, f"lsm: {name} session.query "
+                      f"Q_abs ({nlev[name]} levels)", NQ)
+    profile_batch(torch, lsession, lbatch(None), "lsm: session.query Q_abs")
+    print(f"lsm: step seconds {time.perf_counter() - step0!r}", flush=True)
+    del lsession, engines
 
     rows = []
     for c in counters:

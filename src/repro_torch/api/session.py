@@ -34,7 +34,11 @@ table (``count2d``/``sum2d`` rectangles through ``QuerySpec.rect``,
 ``(xs, ys)`` or ``(xs, ys, measures)`` and is fitted as a quadtree
 (``build_index_2d``); its specs mix freely with one-key specs in a batch.
 A dynamic two-key table sits behind a ``DynamicEngine2D`` and takes
-``insert(table, xs, ys[, measures])`` and ``delete(table, xs, ys)``.
+``insert(table, xs, ys[, measures])`` and ``delete(table, xs, ys)``.  A
+table fitted with ``TableSpec(..., dynamic=True, lsm=True)`` sits behind an
+``LsmEngine`` / ``LsmEngine2D`` geometric level ladder instead: the same
+``insert``/``delete``/``flush`` calls, deletes that shadow their rows and
+never merge, and compactions that refit only the levels they fold.
 """
 from __future__ import annotations
 
@@ -48,8 +52,9 @@ import torch
 from .. import DTYPE, resolve_device
 from ..core import AGGS_2D, build_index_1d, build_index_2d
 from ..engine import (DynamicEngine, DynamicEngine2D, IndexPlan, IndexPlan2D,
-                      WindowEngine, build_plan, build_plan_2d, execute,
-                      execute_quantile, resolve_backend)
+                      LsmEngine, LsmEngine2D, WindowEngine, build_plan,
+                      build_plan_2d, execute, execute_quantile,
+                      resolve_backend)
 from .budget import ErrorBudget
 from .spec import DEFAULT_REL, KIND_OF_AGG, QueryBatch, QuerySpec, TableSpec
 
@@ -92,13 +97,15 @@ class Answer:
 class _Table:
     """One fitted table: the spec and its device plan, the
     ``DynamicEngine`` / ``DynamicEngine2D`` that holds it for a dynamic
-    table, or the ``WindowEngine`` of an epoch-ring table."""
+    table (``LsmEngine`` / ``LsmEngine2D`` for an LSM-tiered one), or the
+    ``WindowEngine`` of an epoch-ring table."""
 
     def __init__(self, name: str, spec: TableSpec, data, *,
                  device: torch.device, backend: str, min_bucket: int):
         self.name = name
         self.spec = spec
-        self.dyn: Union[DynamicEngine, DynamicEngine2D, None] = None
+        self.dyn: Union[DynamicEngine, DynamicEngine2D, LsmEngine,
+                        LsmEngine2D, None] = None
         self.win: Optional[WindowEngine] = None
         self._static_plan: Union[IndexPlan, IndexPlan2D, None] = None
         agg, delta = spec.agg, spec.budget.delta(spec.agg)
@@ -107,6 +114,15 @@ class _Table:
         if agg in AGGS_2D:
             xs, ys, ws = (None if a is None else np.asarray(a, np.float64)
                           for a in data)
+            if spec.lsm:
+                self.dyn = LsmEngine2D(
+                    xs, ys, ws, agg=agg, deg=spec.degree, delta=delta,
+                    backend=backend, capacity=spec.capacity,
+                    growth=spec.growth, background=spec.background,
+                    auto_refit=spec.auto_refit, min_bucket=min_bucket,
+                    device=device)
+                self.build_seconds = time.perf_counter() - t0
+                return
             idx = build_index_2d(xs, ys, measures=ws, agg=agg,
                                  deg=spec.degree, delta=delta, device=device)
             if spec.dynamic:
@@ -127,6 +143,12 @@ class _Table:
                 keys, meas, agg=agg, delta=delta, deg=spec.degree,
                 ring=spec.window, capacity=spec.capacity, backend=backend,
                 device=device, min_bucket=min_bucket)
+        elif spec.lsm:
+            self.dyn = LsmEngine(
+                keys, meas, agg=agg, deg=spec.degree, delta=delta,
+                backend=backend, capacity=spec.capacity, growth=spec.growth,
+                background=spec.background, auto_refit=spec.auto_refit,
+                min_bucket=min_bucket, device=device)
         else:
             idx = build_index_1d(keys, meas, agg, deg=spec.degree,
                                  delta=delta, device=device)
@@ -283,6 +305,10 @@ class PolyFit:
                            f"{sorted(self._tables)}")
         return t
 
+    def is_lsm(self, table: str) -> bool:
+        """True when the table is a tiered level ladder (``lsm=True``)."""
+        return self._table(table).spec.lsm
+
     def is_window(self, table: str) -> bool:
         """True when the table is an epoch ring (``TableSpec.window``)."""
         return self._table(table).win is not None
@@ -354,6 +380,11 @@ class PolyFit:
                     f"table {spec.table!r} ({t.spec.agg}"
                     f"{', windowed' if t.spec.window else ''}) cannot "
                     "answer quantiles; they invert 1-D SUM/COUNT tables")
+            if t.spec.lsm:
+                raise ValueError(
+                    f"table {spec.table!r} is LSM-tiered; quantile "
+                    "inversion needs a single fitted CF (flush to a "
+                    "dynamic or static table)")
             return kind, None, ()    # no refinement path
         if kind == "window":
             if t.win is None:
@@ -406,7 +437,8 @@ class PolyFit:
 
     # -- updates (dynamic tables) ----------------------------------------
 
-    def _dyn(self, table: str) -> Union[DynamicEngine, DynamicEngine2D]:
+    def _dyn(self, table: str) -> Union[DynamicEngine, DynamicEngine2D,
+                                        LsmEngine, LsmEngine2D]:
         t = self._table(table)
         if t.dyn is None:
             raise RuntimeError(f"table {table!r} is static; fit it with "

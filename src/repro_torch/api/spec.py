@@ -46,7 +46,7 @@ KIND_OF_AGG = {"count": "count", "sum": "sum", "max": "max", "min": "min",
                "min2d": "min"}
 
 # ROADMAP Queue 1 items of what the port does not serve yet
-_LATER = {"LSM tables": 12, "sharded tables": 14}
+_LATER = {"sharded tables": 14}
 
 
 def not_ported(what: str) -> NotImplementedError:
@@ -184,8 +184,11 @@ class TableSpec:
     its headroom).  ``window`` (the number of sealed epochs to retain) makes
     an epoch-ring table that takes ``ingest``/``advance_epoch`` and answers
     window queries; ``capacity`` is then the open epoch's buffer.  ``lsm``
-    and ``shards`` name the execution stacks of later slices and raise
-    ``NotImplementedError`` when set.
+    (requires ``dynamic``) tiers the table into a geometric ladder of
+    immutable plans (``engine/lsm.py`` — bounded compactions instead of
+    full refits, deletes that never merge; ``growth`` is the ladder's
+    geometric factor).  ``shards`` names the execution stack of a later
+    slice and raises ``NotImplementedError`` when set.
     """
 
     agg: str
@@ -193,6 +196,7 @@ class TableSpec:
     deg: Optional[int] = None
     dynamic: bool = False
     lsm: bool = False
+    growth: int = 4
     capacity: int = 1024
     background: bool = True
     auto_refit: bool = True
@@ -214,8 +218,11 @@ class TableSpec:
             if self.dynamic or self.lsm or self.shards:
                 raise ValueError("window tables manage their own epoch "
                                  "ring; dynamic/lsm/shards do not apply")
-        if self.lsm:
-            raise not_ported("LSM tables")
+        if self.lsm and not self.dynamic:
+            raise ValueError("lsm=True tiers the *update* path into a level "
+                             "ladder; it requires dynamic=True")
+        if self.growth < 2:
+            raise ValueError("growth must be >= 2")
         if self.shards is not None:
             raise not_ported("sharded tables")
 

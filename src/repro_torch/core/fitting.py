@@ -6,10 +6,16 @@ F(k_i), the polynomial P minimizing
 
     E(I) = min_{a} max_i |F(k_i) - P(k_i)|
 
-via a linear program.  Fitting runs on the host, as in the reference:
+via a linear program.  Three fitters, as in the reference:
 
-* ``fit_minimax_lp`` — the paper-faithful LP (scipy/HiGHS, exact).
-* ``fit_lstsq``      — plain least squares; a cheap screen (the max
+* ``fit_minimax_lp``     — the paper-faithful LP (scipy/HiGHS, exact), on
+  the host.
+* ``fit_minimax_lawson`` — Lawson's iteratively reweighted least squares in
+  torch.  It converges to the same minimax solution and, being a fixed
+  sequence of small weighted least-squares solves, batches:
+  ``lawson_batched`` fits thousands of candidate intervals in one call on
+  the tensors' device (the card in ``parallel_segmentation``).
+* ``fit_lstsq``          — plain least squares; a cheap screen (the max
   residual of the L2 fit upper-bounds E(I)).
 
 Keys are rescaled to u = (2k - lo - hi) / (hi - lo) in [-1, 1] per interval
@@ -23,12 +29,16 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import DTYPE, resolve_device
+
 __all__ = [
     "PolyModel",
     "rescale",
     "eval_poly",
     "fit_lstsq",
     "fit_minimax_lp",
+    "fit_minimax_lawson",
+    "lawson_batched",
     "continuum_error",
     "max_error",
 ]
@@ -172,3 +182,66 @@ def fit_minimax_lp(keys: np.ndarray, values: np.ndarray, deg: int) -> PolyModel:
     coef = res.x[: deg + 1]
     err = float(np.max(np.abs(values - A @ coef)))
     return PolyModel(lo, hi, coef, err)
+
+
+# ---------------------------------------------------------------------------
+# Lawson IRLS minimax — torch, batched over candidate intervals
+# ---------------------------------------------------------------------------
+
+def _lawson_body(A, F, w, ridge):
+    """One Lawson step on a batch: weighted lstsq, then reweight by
+    |residual|.  A (B, L, d), F and w (B, L)."""
+    Aw = A * w[..., None]
+    AwT = Aw.transpose(-1, -2)
+    G = AwT @ A + ridge * torch.eye(A.shape[-1], dtype=A.dtype,
+                                    device=A.device)
+    b = (AwT @ F[..., None])[..., 0]
+    # solve_ex: no error check, so no host sync a step on the card (the
+    # ridge keeps G nonsingular)
+    coef = torch.linalg.solve_ex(G, b)[0]
+    r = torch.abs(F - (A @ coef[..., None])[..., 0])
+    w_new = w * r
+    s = w_new.sum(dim=-1, keepdim=True)
+    w_new = torch.where(s > 0, w_new / s, w)
+    return coef, w_new, r
+
+
+def lawson_batched(u, F, valid, deg: int, iters: int = 60):
+    """Batched Lawson: u/F/valid are (B, L) padded windows in the scaled
+    variable (``valid`` masks padding); returns coeffs (B, deg+1) and the
+    max |residual| over each window's valid points (B,).
+
+    The reference's ``jax.vmap`` of a ``lax.scan`` becomes one batched
+    torch op per step on the tensors' device: the carry is (w, coef) and
+    the residual is taken after the last step.
+    """
+    u = torch.as_tensor(u, dtype=DTYPE)
+    F = torch.as_tensor(F, dtype=DTYPE, device=u.device)
+    valid = torch.as_tensor(valid, dtype=DTYPE, device=u.device)
+    A = torch.stack([u ** j for j in range(deg + 1)], dim=-1)
+    # zero out padded rows so they contribute nothing
+    A = A * valid[..., None]
+    Fv = F * valid
+    nval = torch.clamp(valid.sum(dim=-1, keepdim=True), min=1.0)
+    w = valid / nval
+    ridge = 1e-9
+    coef = torch.zeros(u.shape[:-1] + (deg + 1,), dtype=DTYPE,
+                       device=u.device)
+    for _ in range(iters):
+        coef, w, _ = _lawson_body(A, Fv, w, ridge)
+    resid = torch.abs(Fv - (A @ coef[..., None])[..., 0]) * valid
+    return coef, resid.max(dim=-1).values
+
+
+def fit_minimax_lawson(keys, values, deg: int, iters: int = 60,
+                       device=None) -> PolyModel:
+    """Lawson minimax fit of one interval on ``device`` (the card by
+    default); the certificate is the achieved max residual."""
+    keys = np.asarray(keys, np.float64)
+    values = np.asarray(values, np.float64)
+    lo, hi = float(keys[0]), float(keys[-1])
+    dev = resolve_device(device)
+    u = torch.as_tensor(rescale(keys, lo, hi), device=dev)[None]
+    F = torch.as_tensor(values, device=dev)[None]
+    coef, err = lawson_batched(u, F, torch.ones_like(F), deg, iters)
+    return PolyModel(lo, hi, coef[0].cpu().numpy(), float(err[0]))

@@ -29,7 +29,8 @@ from .. import resolve_device
 from .exact import ExactMax, ExactSum, build_sparse_table
 from .fitting import PolyModel, continuum_error, fit_minimax_lp
 from .poly import eval_segments, locate as locate_segments
-from .segmentation import FastAcceptFitter, Fitter, greedy_segmentation
+from .segmentation import (FastAcceptFitter, Fitter, greedy_segmentation,
+                           parallel_segmentation)
 
 __all__ = ["PolyFitIndex1D", "build_index_1d", "assemble_index_1d",
            "index_from_numpy"]
@@ -108,6 +109,22 @@ def _continuum_post(m: PolyModel, keys, values) -> PolyModel:
     return m
 
 
+def _enforce_continuum(segs, k, F, deg, delta, fitter):
+    """Re-segment (greedily) any parallel-built segment whose continuum
+    certificate exceeds delta."""
+    out = []
+    for s in segs:
+        i = int(np.searchsorted(k, s.lo, side="left"))
+        j = int(np.searchsorted(k, s.hi, side="right"))
+        m = fitter(k[i:j], F[i:j], deg)
+        if m.err <= delta:
+            out.append(m)
+        else:
+            out.extend(greedy_segmentation(k[i:j], F[i:j], deg, delta,
+                                           fitter=fitter))
+    return out
+
+
 def _staircase_points(k: np.ndarray, F: np.ndarray):
     """Add (k_{i+1}, F(k_i)) constraint pairs: both ends of each flat piece."""
     if len(k) < 2:
@@ -125,7 +142,7 @@ def build_index_1d(
     deg: int = 2,
     delta: float = 100.0,
     fitter: Fitter = fit_minimax_lp,
-    method: str = "greedy",
+    method: str = "greedy",          # 'greedy' | 'parallel'
     staircase: bool = False,
     continuum: Optional[bool] = None,
     fast_accept: bool = True,
@@ -136,13 +153,11 @@ def build_index_1d(
     (the card by default).
 
     measures=None with agg='count' counts records (measure := 1).
-    ``continuum`` (default: True for max/min, False for sum/count) makes the
-    per-segment certificate cover the whole key span, not just the keys.
+    ``method='parallel'`` uses the batched-Lawson construction, its probes
+    fitted on ``device``.  ``continuum`` (default: True for max/min, False
+    for sum/count) makes the per-segment certificate cover the whole key
+    span, not just the keys.
     """
-    if method != "greedy":
-        raise NotImplementedError(
-            f"method={method!r} (batched-Lawson construction) is not ported "
-            "yet: ROADMAP Queue 1 item 7")
     device = resolve_device(device)
     keys = np.asarray(keys, np.float64)
     if measures is None:
@@ -161,7 +176,15 @@ def build_index_1d(
         post=_continuum_post if continuum else None, screen=fast_accept)
 
     fit_k, fit_F = (_staircase_points(k, F) if staircase else (k, F))
-    segs = greedy_segmentation(fit_k, fit_F, deg, delta, fitter=eff_fitter)
+    if method == "parallel":
+        segs = parallel_segmentation(fit_k, fit_F, deg, delta,
+                                     fitter=eff_fitter, device=device)
+        if continuum:
+            segs = _enforce_continuum(segs, fit_k, fit_F, deg, delta,
+                                      eff_fitter)
+    else:
+        segs = greedy_segmentation(fit_k, fit_F, deg, delta,
+                                   fitter=eff_fitter)
     return assemble_index_1d(segs, k, m_sorted, agg, deg, delta,
                              keep_exact=keep_exact, device=device)
 

@@ -21,7 +21,10 @@ only the quadtree leaves the changed points touch.
 ``execute_quantile`` (K4 on ``'cuda'``, its scan mode on ``'cuda_scan'``)
 and ``DynamicEngine.quantile`` answer certified quantiles of SUM/COUNT
 tables; ``WindowEngine`` keeps an epoch ring of sealed plans and
-answers windowed SUM/COUNT through ``execute_lsm``.  Two-key tables lower
+answers windowed SUM/COUNT through ``execute_lsm``; ``LsmEngine`` and
+``LsmEngine2D`` tier an updatable table into a geometric ladder of
+immutable plans (tombstone and victim deletes that never merge, bounded
+compactions) and answer through ``execute_lsm`` as well.  Two-key tables lower
 to an ``IndexPlan2D`` (``build_plan_2d``) and run through
 ``execute_count2d`` / ``execute_sum2d`` (rectangles, K7 or K12 on
 ``'cuda'``, K12 on ``'cuda_scan'``) and ``execute_extremum2d`` (dominance
@@ -35,7 +38,9 @@ from .engine import (BACKENDS, Engine, QuantileResult, check_pow2, execute,
                      pad_fills, raw_count2d, raw_eval2d, raw_extremum,
                      raw_sum, resolve_backend, truth_count2d, truth_dommax2d,
                      truth_extremum, truth_sum, truth_sum2d)
-from .lsm import LsmLevel, LsmPlan, combine_levels, composed_bound, execute_lsm
+from .lsm import (CompactionPolicy, LsmEngine, LsmEngine2D, LsmLevel,
+                  LsmLevel2D, LsmPlan, LsmPlan2D, combine_levels,
+                  composed_bound, execute_lsm, level_executor)
 from .plan import (IndexPlan, IndexPlan2D, big_sentinel, build_plan,
                    build_plan_2d, pad_to_multiple, plan2d_from_numpy,
                    plan_from_numpy)
@@ -47,7 +52,8 @@ __all__ = ["BACKENDS", "Engine", "QuantileResult", "check_pow2", "execute",
            "truth_extremum", "truth_sum", "IndexPlan", "big_sentinel",
            "build_plan", "pad_to_multiple", "plan_from_numpy", "DeltaBuffer",
            "DynamicEngine", "DeltaBuffer2D", "DynamicEngine2D", "key_span",
-           "LsmLevel", "LsmPlan",
+           "LsmLevel", "LsmLevel2D", "LsmPlan", "LsmPlan2D", "LsmEngine",
+           "LsmEngine2D", "CompactionPolicy", "level_executor",
            "combine_levels", "composed_bound", "execute_lsm", "WindowEngine",
            "execute_count2d", "execute_sum2d", "execute_extremum2d",
            "raw_count2d", "raw_eval2d", "truth_count2d", "truth_sum2d",

@@ -770,11 +770,17 @@ class _DeltaBufferedEngine:
             err, self._refit_error = self._refit_error, None
             raise err
 
+    def _has_forced_work(self) -> bool:
+        """Subclass hook: True when a merge must run even with zero pending
+        buffered ops (the LSM shadow-fraction fold, which compacts
+        tombstone-heavy levels that carry no new inserts)."""
+        return False
+
     def _start_refit(self) -> Optional[threading.Thread]:
         with self._lock:
             if self._thread is not None and self._thread.is_alive():
                 return self._thread
-            if self._n_pending == 0:
+            if self._n_pending == 0 and not self._has_forced_work():
                 return None
             snap = self._snapshot()
             mark = (len(self._ins_log), len(self._del_log))

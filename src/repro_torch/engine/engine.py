@@ -588,9 +588,9 @@ def execute_extremum2d(plan: IndexPlan2D, u, v, *,
 def execute(plan: Union[IndexPlan, IndexPlan2D], ranges, *,
             backend: Optional[str] = None, eps_rel: Optional[float] = None,
             min_bucket: int = 64) -> QueryResult:
-    """Dispatch on the plan: (lq, uq) for 1-D SUM/COUNT/MAX/MIN and for a
-    1-D SUM/COUNT level ladder (``LsmPlan``), (lx, ux, ly, uy) for 2-D
-    rectangles, (u, v) for 2-D dominance MAX/MIN."""
+    """Dispatch on the plan: (lq, uq) for 1-D SUM/COUNT/MAX/MIN, (lx, ux,
+    ly, uy) for 2-D rectangles, (u, v) for 2-D dominance MAX/MIN; a level
+    ladder (``LsmPlan``/``LsmPlan2D``) takes its aggregate's ranges."""
     kw = dict(backend=backend, eps_rel=eps_rel, min_bucket=min_bucket)
     if hasattr(plan, "levels"):   # LsmPlan level ladder
         from .lsm import execute_lsm

@@ -108,9 +108,3 @@ def test_query_functions_on_carried_index(built, data, agg, eps_rel):
                                **TOL)
     np.testing.assert_array_equal(got.refined.numpy(),
                                   np.asarray(want.refined))
-
-
-def test_parallel_construction_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_index_1d(np.arange(10.0), None, "count", method="parallel",
-                       device="cpu")

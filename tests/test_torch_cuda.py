@@ -2560,3 +2560,181 @@ def test_ops_on_the_card(cuda, ops_tables):
     torch.testing.assert_close(ops.range_sum(s64, lq, uq),
                                raw_sum(s64, lqd, uqd, backend="cuda"),
                                rtol=0, atol=0)
+
+
+# -- batched-Lawson construction on the card ---------------------------------
+
+def _lawson_probes(n_probes=48, L=1024, seed=2):
+    """Probe windows as parallel_segmentation builds them: runs of sorted
+    clustered latitudes from random starts, lengths from 3 to L, each
+    rescaled to [-1, 1], a COUNT CF, padding past the run."""
+    keys = np.sort(tweet_latitudes(200_000, seed=seed))
+    rng = np.random.default_rng(seed)
+    lens = np.unique(np.geomspace(3, L, n_probes).astype(int))
+    u = np.zeros((len(lens), L))
+    F = np.zeros((len(lens), L))
+    valid = np.zeros((len(lens), L))
+    for b, m in enumerate(lens):
+        s = int(rng.integers(0, len(keys) - m))
+        kw = keys[s:s + m]
+        span = kw[-1] - kw[0] if kw[-1] > kw[0] else 1.0
+        u[b, :m] = (2.0 * kw - kw[0] - kw[-1]) / span
+        F[b, :m] = np.arange(1.0, m + 1.0)
+        valid[b, :m] = 1.0
+    return u, F, valid
+
+
+@pytest.mark.parametrize("deg", [1, 2, 3])
+def test_lawson_batched_card_matches_cpu(cuda, deg):
+    """lawson_batched on the card equals its CPU run: errs at rtol 1e-9 and
+    the same feasibility decisions errs <= delta on a fixed probe set (the
+    decisions that set every parallel boundary)."""
+    from repro_torch.core import lawson_batched
+    u, F, valid = _lawson_probes()
+    ec = lawson_batched(*(torch.as_tensor(a) for a in (u, F, valid)), deg,
+                        iters=40)[1].numpy()
+    eg = lawson_batched(*(torch.as_tensor(a, device=cuda)
+                          for a in (u, F, valid)), deg, iters=40)[1]
+    assert eg.device.type == "cuda"
+    np.testing.assert_allclose(eg.cpu().numpy(), ec, **TOL)
+    for delta in (5.0, 20.0, 50.0):
+        np.testing.assert_array_equal(eg.cpu().numpy() <= delta,
+                                      ec <= delta)
+
+
+def test_parallel_build_on_card_covers_and_certifies(cuda):
+    """build_index_1d(method="parallel") with its probes fitted on the card:
+    every segment certifies, the segments tile the keys, at most chunks - 1
+    more than greedy GS, and the plan answers on 'cuda' as on 'torch'."""
+    from repro_torch.core import build_index_1d as build
+    keys = np.sort(tweet_latitudes(16_384, seed=4))
+    idx = build(keys, None, "count", deg=2, delta=20.0, method="parallel",
+                device=cuda)
+    greedy = build(keys, None, "count", deg=2, delta=20.0, device="cpu")
+    assert np.all(idx.seg_err <= 20.0)
+    starts = idx.seg_start.cpu().numpy()
+    assert starts[0] == 0 and np.all(np.diff(starts) > 0)
+    np.testing.assert_array_equal(idx.seg_lo.cpu().numpy(), keys[starts])
+    assert greedy.h <= idx.h <= greedy.h + 4 - 1
+    plan = build_plan(idx)
+    rng = np.random.default_rng(3)
+    a, b = keys[rng.integers(0, len(keys), (2, 4096))]
+    lq, uq = np.minimum(a, b), np.maximum(a, b)
+    for eps in (None, 0.05):
+        got = Engine("cuda").sum(plan, lq, uq, eps_rel=eps)
+        want = Engine("torch").sum(plan, lq, uq, eps_rel=eps)
+        torch.testing.assert_close(got.answer, want.answer, **TOL)
+        assert torch.equal(got.refined, want.refined)
+
+
+# -- LSM level ladders on the card -------------------------------------------
+
+LSM_POLICY = dict(query_overhead_us_per_row=0.0)
+
+
+def _lsm_pair(device, cls, cols, meas, agg, **kw):
+    """One op sequence through an engine on the card ('cuda') and on the
+    CPU ('torch'): full-capacity inserts that compact, a buffered batch,
+    deletes of base rows, of a compacted level's rows and of buffered
+    inserts.  The host fits make the two ladders alike."""
+    from repro_torch.engine import CompactionPolicy
+    rng = np.random.default_rng(17)
+    weighted = meas is not None
+    engs = [cls(*cols, meas, agg=agg, capacity=128, growth=2,
+                background=False, policy=CompactionPolicy(**LSM_POLICY),
+                device=d, **kw) for d in (device, "cpu")]
+    lo, hi = 0.0, 100.0
+    batches = []
+    for m in (128, 128, 40):
+        new = [rng.uniform(lo, hi, m) for _ in cols]
+        w = rng.uniform(1.0, 5.0, m) if weighted else None
+        for e in engs:
+            e.insert(*new, w)
+        batches.append(new)
+    for dead in ([c[10:20] for c in cols], [c[:3] for c in batches[0]],
+                 [c[:5] for c in batches[-1]]):
+        for e in engs:
+            e.delete(*dead)
+    g, c = engs
+    assert sorted(g._levels) == sorted(c._levels)
+    assert g.compaction_count == c.compaction_count >= 1
+    assert g.n_levels >= 2 and g.n_pending == c.n_pending > 0
+    return g, c
+
+
+@pytest.mark.parametrize("agg", ["sum", "count", "max", "min"])
+def test_lsm_ladder_cuda_matches_torch(cuda, agg):
+    """A 1-D ladder with tombstones or victims and a live buffer: 'cuda'
+    (K2/K3 a level, K5/K6 on the buffer, K1 in the exact answers) equals
+    the CPU ladder on 'torch' at 1e-9 with equal refined flags, and
+    'cuda_scan' equals 'cuda' (bit for bit but on SUM, where K16 adds the
+    buffered measures in slot order and K5 differences prefix sums)."""
+    from repro_torch.engine import LsmEngine, execute_lsm
+    rng = np.random.default_rng(5)
+    keys = np.sort(rng.uniform(0.0, 100.0, 1500))
+    vals = rng.uniform(0.5, 8.0, 1500)
+    g, c = _lsm_pair(cuda, LsmEngine, (keys,),
+                     None if agg == "count" else vals, agg, delta=10.0)
+    a, b = rng.uniform(-5.0, 105.0, (2, 3000))
+    lq, uq = np.minimum(a, b), np.maximum(a, b)
+    lsm, buf = g.snapshot()
+    for eps in (None, 0.05):
+        got, want = g.query(lq, uq, eps_rel=eps), c.query(lq, uq, eps_rel=eps)
+        torch.testing.assert_close(got.answer.cpu(), want.answer, **TOL)
+        assert torch.equal(got.refined.cpu(), want.refined)
+        scan = execute_lsm(lsm, buf, (lq, uq), backend="cuda_scan",
+                           eps_rel=eps)
+        assert torch.equal(scan.refined, got.refined)
+        for f in ("answer", "approx"):
+            if agg == "sum":   # K16 adds the buffer's measures in slot order
+                torch.testing.assert_close(getattr(scan, f), getattr(got, f),
+                                           **TOL)
+            else:
+                assert torch.equal(getattr(scan, f), getattr(got, f)), f
+
+
+@pytest.mark.parametrize("agg", ["count2d", "sum2d", "max2d"])
+def test_lsm2d_ladder_cuda_matches_torch(cuda, agg):
+    """A 2-D ladder with tombstones or victims and a live buffer: 'cuda'
+    (K7/K8 a level, K9/K10/K11 on the buffer, K1 in the exact answers)
+    equals the CPU ladder on 'torch' at 1e-9 with equal refined flags."""
+    from repro_torch.engine import LsmEngine2D
+    rng = np.random.default_rng(6)
+    px, py = rng.uniform(0.0, 100.0, (2, 1200))
+    w = None if agg == "count2d" else rng.uniform(1.0, 5.0, 1200)
+    delta = {"count2d": 10.0, "sum2d": 40.0}.get(agg, 2.0)
+    g, c = _lsm_pair(cuda, LsmEngine2D, (px, py), w, agg, deg=2,
+                     delta=delta)
+    if agg == "max2d":
+        qs = tuple(rng.uniform(-5.0, 105.0, (2, 3000)))
+    else:
+        x = np.sort(rng.uniform(-5.0, 105.0, (2, 3000)), axis=0)
+        y = np.sort(rng.uniform(-5.0, 105.0, (2, 3000)), axis=0)
+        qs = (x[0], x[1], y[0], y[1])
+    for eps in (None, 0.05):
+        got, want = g.query(*qs, eps_rel=eps), c.query(*qs, eps_rel=eps)
+        torch.testing.assert_close(got.answer.cpu(), want.answer, **TOL)
+        assert torch.equal(got.refined.cpu(), want.refined)
+
+
+@pytest.mark.parametrize("agg", ["sum", "max"])
+def test_lsm_one_level_is_the_flat_engine_on_the_card(cuda, agg):
+    """A one-level ladder on 'cuda' computes the flat executor's floats
+    exactly (in-domain ranges: any for SUM, covering a key for MAX)."""
+    from repro_torch.engine import LsmEngine, execute, execute_lsm
+    rng = np.random.default_rng(8)
+    keys = np.sort(rng.uniform(0.0, 1000.0, 3000))
+    vals = rng.uniform(0.5, 8.0, 3000)
+    eng = LsmEngine(keys, vals, agg=agg, delta=20.0, device=cuda)
+    lsm, _ = eng.snapshot()
+    assert len(lsm.levels) == 1
+    flat = build_plan(build_index_1d(keys, vals, agg, deg=eng.deg,
+                                     delta=20.0, device=cuda))
+    i = rng.integers(0, keys.size - 1, 5000)
+    j = rng.integers(i, keys.size)
+    lq, uq = keys[i], keys[j]
+    for eps in (None, 0.05):
+        got = execute_lsm(lsm, None, (lq, uq), eps_rel=eps)
+        want = execute(flat, (lq, uq), eps_rel=eps)
+        for f in ("answer", "approx", "refined"):
+            assert torch.equal(getattr(got, f), getattr(want, f)), f

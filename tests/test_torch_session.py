@@ -131,14 +131,13 @@ def test_single_spec_and_not_ported_kinds(sessions):
     assert tapi.TableSpec("count", tapi.ErrorBudget(abs=10), window=4).window
     with pytest.raises(ValueError, match="not windowed"):
         port.query(tapi.QuerySpec.window("lat", 0.0, 1.0, 0, 0))
-    # dynamic one-key tables are ported (ROADMAP Queue 1 item 10), and
-    # static and dynamic 2-D tables (item 13); LSM tiering and sharding
-    # are not
+    # dynamic one-key tables are ported (ROADMAP Queue 1 item 10), static
+    # and dynamic 2-D tables (item 13) and LSM tiering (item 12); sharding
+    # is not
     assert tapi.TableSpec("count", tapi.ErrorBudget(abs=10),
                           dynamic=True).dynamic
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 12"):
-        tapi.TableSpec("count", tapi.ErrorBudget(abs=10), dynamic=True,
-                       lsm=True)
+    assert tapi.TableSpec("count", tapi.ErrorBudget(abs=10), dynamic=True,
+                          lsm=True).lsm
     assert tapi.TableSpec("count2d", tapi.ErrorBudget(abs=10)).n_ranges == 4
     assert len(tapi.QuerySpec("lat", (0.0, 1.0, 0.0, 1.0)).ranges) == 4
     with pytest.raises(ValueError, match="range coordinates"):

@@ -203,12 +203,11 @@ def test_session_2d_spec_and_data_validation(data, sessions):
 
 
 def test_session_2d_later_slices_raise():
-    """Dynamic 2-D tables are ported; LSM and sharded 2-D tables come with
-    later slices."""
+    """Dynamic and LSM-tiered 2-D tables are ported; sharded 2-D tables
+    come with a later slice."""
     b = tapi.ErrorBudget(abs=100.0)
     assert tapi.TableSpec("sum2d", b, dynamic=True).dynamic
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 12"):
-        tapi.TableSpec("count2d", b, dynamic=True, lsm=True)
+    assert tapi.TableSpec("count2d", b, dynamic=True, lsm=True).lsm
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 14"):
         tapi.TableSpec("count2d", b, shards=2)
     with pytest.raises(ValueError, match="1-D SUM/COUNT"):
