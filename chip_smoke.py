@@ -2,7 +2,7 @@
 """Drive the PyTorch + CUDA port of PolyFit (src/repro_torch) once on one
 NVIDIA card, and hold its kernels to their plain PyTorch versions.
 
-    python3 chip_smoke.py             # about 14-17 minutes on an H100 host
+    python3 chip_smoke.py             # about 13-17 minutes on an H100 host
 
 Phases, each of which fails the run with a non-zero exit:
 
@@ -44,7 +44,7 @@ Phases, each of which fails the run with a non-zero exit:
               one batch traced by torch.profiler (device busy time, idle
               share, heaviest kernels);
 8. dynamic  - PolyFit.fit of three dynamic tables (TableSpec(dynamic=True),
-              capacity 4,096): TWEET 300k (COUNT), HKI 300k (MAX, deg 3)
+              capacity 4,096): TWEET 300k (COUNT), HKI 150k (MAX, deg 3)
               and HKI 100k (MIN), cut as the CUT lines say.  A hot-band step (inserts
               and deletes in one dense band, appended bars and extremal
               deletes in one window) is queried while buffered, then
@@ -144,6 +144,33 @@ Phases, each of which fails the run with a non-zero exit:
               ``cuda_scan`` (K14, K16) equals ``cuda`` bit for bit.  The
               worst insert, compaction-carrying, tombstone and victim
               delete ops and the fused query latency are printed.
+13. shard   - the sharded engines (engine/sharded.py: each plan
+              partitioned into S contiguous key ranges, or Morton
+              z-ranges, and answered shard by shard on the plain 'torch'
+              arithmetic, as the reference's shard body runs XLA; no
+              kernel may launch): the parallel step's 1M-key TWEET plan
+              (kept alive since phase 3) at S = 1, 2, 4 and 8, 65,536
+              ranges under Q_abs and Q_rel; then PolyFit.fit of two
+              TableSpec(shards=4) tables (TWEET COUNT and HKI MAX, deg 3,
+              50k keys each, CUT lines) and one mixed batch through
+              session.query under Q_abs and Q_rel.  Every answer,
+              approximation and refined flag must equal the unsharded
+              'torch' path on the same plan (Engine(backend="torch") on
+              session.plan(name) for the session) exactly, and every
+              answer must hold its bound against numpy truth.  Each S
+              prints the partition's host seconds and the batch's median
+              latency beside the unsharded path's, the session its median
+              beside the unsharded Engine's, and the card's name and power
+              limit follow.
+
+The ``shard`` steps do the same at S = 2 and 8, at the end of phases 7,
+8, 10, 11 and 12, on what those phases hold (no table built): the static
+``hki``, ``hki_min`` and ``hki_sum`` plans, the full-buffer states of
+``lat_dyn`` (tombstones) and ``hki_dyn`` (shadowed victims), the four
+two-key plans, the dyn2d tables' full-buffer states and the three lsm
+ladders with their buffers (Q_abs only: a sharded ladder takes no Q_rel);
+each answer equal to the unsharded 'torch' path's and within its bound
+against the phase's truth.
 
 The ``cuda_scan`` backend (the one-hot scan kernels K14-K17, K4's scan
 mode and the two-key whole-log scans K18-K20) runs at the end of phases
@@ -248,7 +275,7 @@ HKI_SUM_ABS = 1e5
 # cut (its 0.9M-bar MAX build alone takes 190-330 s of host time); its MIN
 # table exercises the negation and victim paths
 N_TWEET_DYN = 300_000
-N_HKI_DYN = 300_000
+N_HKI_DYN = 150_000         # 300k until the shard phase took its time
 N_HKI_MIN_DYN = 100_000
 CAPACITY = 4096             # delta-buffer slots per dynamic table
 # the parallel step: batched-Lawson construction (method="parallel") of the
@@ -287,6 +314,12 @@ DEEP_DEPTH = 16             # past MAX_MORTON_DEPTH: the scan kernels
 N_OSM_DYN = 100_000
 N_OSM_SUM_DYN = 40_000
 N_OSM_MIN_DYN = 20_000
+# the shard phase: the parallel step's 1M TWEET plan at every shard count,
+# the other phases' tables at two, and one session of sharded tables
+SHARDS_ALL = (1, 2, 4, 8)
+SHARDS_TWO = (2, 8)
+SESSION_SHARDS = 4
+N_SHARD = 50_000            # each of the sharded session's two tables
 NQ = 65_536                 # ranges per table in the main-path batch
 SEED = 7
 EPS_REL = 0.01
@@ -1092,12 +1125,14 @@ def main() -> None:
                                   make_queries_2d, osm_points,
                                   tweet_latitudes)
     from repro_torch.core.poly import eval_segments
-    from repro_torch.engine import (DynamicEngine, DynamicEngine2D,
-                                    IndexPlan2D, build_plan, build_plan_2d,
-                                    composed_bound, execute, execute_count2d,
-                                    execute_extremum, execute_extremum2d,
-                                    execute_lsm, execute_quantile,
-                                    execute_sum, raw_extremum, raw_sum)
+    from repro_torch.engine import (DynamicEngine, DynamicEngine2D, Engine,
+                                    IndexPlan2D, ShardedEngine,
+                                    ShardedEngine2D, build_plan,
+                                    build_plan_2d, composed_bound, execute,
+                                    execute_count2d, execute_extremum,
+                                    execute_extremum2d, execute_lsm,
+                                    execute_quantile, execute_sum,
+                                    raw_extremum, raw_sum)
     from repro_torch.engine.plan import big_sentinel
     from repro_torch.engine.engine import quantile_mass, quantile_tables
     from repro_torch.kernels import _build
@@ -1319,11 +1354,12 @@ def main() -> None:
                plan.seg_tree)], exact=True)
         print(f"{tag}parity K2 on its plan: max |kernel - plain| = "
               f"{errs['range_sum_gather']!r}", flush=True)
-        return big
+        return big, plan, (lq, uq), truth[name]
 
     if N_PARALLEL < 1_000_000:
         print(f"CUT: tweet (parallel) n 1000000 -> {N_PARALLEL}", flush=True)
-    big = parallel_build("tweet", tweet_latitudes(N_PARALLEL))
+    # the 1M-key plan stays alive for the shard phase (phase 13)
+    big, *tweet_1m = parallel_build("tweet", tweet_latitudes(N_PARALLEL))
     parallel_build("lat", lat, (session.plan("lat").h,
                                 session.build_seconds()["lat"]))
     # one lockstep round at the largest (B, Lmax): its device time by CUDA
@@ -1353,6 +1389,93 @@ def main() -> None:
           f"device busy {busy!r} us in {launched} device launches; step "
           f"seconds {time.perf_counter() - step0!r}", flush=True)
 
+
+
+    # -- shard steps: the sharded engines on what a phase holds ---------------
+    def no_launches(tag):
+        """The sharded path runs the plain 'torch' arithmetic, as the
+        reference's shard body runs XLA: no kernel since reset()."""
+        moved = {c.__name__: c.launches for c in counters if c.launches}
+        check(not moved, f"{tag}the sharded path launched kernels {moved}")
+
+    def median_ms(fn):
+        """Median of 5 synchronized host wall times of fn(), in ms."""
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    def is_2d(plan):
+        p = plan.levels[0].plan if hasattr(plan, "levels") else plan
+        return isinstance(p, IndexPlan2D)
+
+    def torch_dyn(eng, ranges, rel):
+        """The unsharded 'torch' path on a dynamic engine's live (plan,
+        buffer) state: its backend swapped for the call."""
+        backend, eng.backend = eng.backend, "torch"
+        try:
+            return eng.query(*ranges, eps_rel=rel)
+        finally:
+            eng.backend = backend
+
+    def shard_step(tag, names, plans, ranges, unsharded, counts, bufs=None,
+                   labels_=labels):
+        """Each table's plan (or ladder) partitioned at each S of
+        ``counts`` by a fresh ShardedEngine / ShardedEngine2D, its ranges
+        answered under each of ``labels_`` (with ``bufs[name]`` folded
+        in): every answer, approximation and refined flag must equal
+        ``unsharded(name, rel)``, the unsharded 'torch' path on the same
+        plan (and buffer), exactly, and no kernel may launch.  Prints for
+        each S the partition's host seconds, the first call's seconds (a
+        buffer's partition included) and the Q_abs batch's median latency
+        beside the unsharded path's.  Returns {S: {label: results}}."""
+        want = {label: [unsharded(n, rel) for n in names]
+                for label, rel in labels_}
+        plain_ms = {n: median_ms(lambda n=n: unsharded(n, None))
+                    for n in names}
+        out = {}
+        for s in counts:
+            out[s] = {label: [] for label, _ in labels_}
+            for i, n in enumerate(names):
+                plan, buf = plans[n], None if bufs is None else bufs[n]
+                se = (ShardedEngine2D if is_2d(plan) else ShardedEngine)(s)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                se.shard(plan)
+                torch.cuda.synchronize()
+                part_s = time.perf_counter() - t0
+                run = lambda rel: se.query(plan, *ranges[n], eps_rel=rel,
+                                           buf=buf)
+                reset()
+                first_s = None
+                for label, rel in labels_:
+                    t0 = time.perf_counter()
+                    r = run(rel)
+                    torch.cuda.synchronize()
+                    if first_s is None:
+                        first_s = time.perf_counter() - t0
+                    for field, a, b in zip(r._fields, r, want[label][i]):
+                        check(torch.equal(a, b),
+                              f"{tag}{n} S={s} {label}: the sharded "
+                              f"{field} differs from the unsharded torch "
+                              "path")
+                    out[s][label].append(r)
+                no_launches(f"{tag}{n} S={s}: ")
+                ms = median_ms(lambda: run(None))
+                print(f"{tag}shard {n} S={s}: partition {part_s!r} s "
+                      f"(host), first call {first_s!r} s; Q_abs batch of "
+                      f"{len(ranges[n][0])}: median {ms!r} ms sharded, "
+                      f"{plain_ms[n]!r} ms unsharded torch; every answer "
+                      "equals the unsharded torch path", flush=True)
+        return out
+
+    def as_answers(results):
+        return {label: [SimpleNamespace(value=r.answer, refined=r.refined)
+                        for r in rs] for label, rs in results.items()}
 
     # -- 4. main path -----------------------------------------------------
     qs = {"lat": make_queries_1d(lat, NQ, seed=SEED),
@@ -2111,6 +2234,19 @@ def main() -> None:
                                   for f in ("shape", *PHASE_KEYS)}}
     print(f"{tag}step seconds {time.perf_counter() - step0!r}", flush=True)
 
+    # -- 7d. shard: the static MAX, MIN and SUM plans at S = 2 and 8 -----------
+    tag = "shard static: "
+    step0 = time.perf_counter()
+    SH_STATIC = ("hki", "hki_min", "hki_sum")
+    sh_plans = {n: session.plan(n) for n in SH_STATIC}
+    res = shard_step(tag, SH_STATIC, sh_plans, s_qs, lambda n, rel: Engine(
+        backend="torch").query(sh_plans[n], *s_qs[n], eps_rel=rel),
+        SHARDS_TWO)
+    for sc, r in res.items():
+        check_answers(f"{tag}S={sc} ", SH_STATIC, as_answers(r), s_truth,
+                      dict(bounds, hki_sum=HKI_SUM_ABS))
+    print(f"{tag}step seconds {time.perf_counter() - step0!r}", flush=True)
+
     # -- 8. dynamic tables ---------------------------------------------------
     del session
     rng = np.random.default_rng(SEED + 100)
@@ -2292,6 +2428,23 @@ def main() -> None:
     check({name: dsession._dyn(name).refit_count for name in DYN} == refits
           and all(dsession._dyn(name).n_pending == CAPACITY for name in DYN),
           "the buffer-full step merged or lost an op")
+    # shard: the full-buffer states of lat_dyn (tombstones) and hki_dyn
+    # (shadowed victims) at S = 2 and 8
+    tag = "shard dynamic: "
+    step0 = time.perf_counter()
+    SH_DYN = ("lat_dyn", "hki_dyn")
+    snaps_d = {n: dsession.snapshot(n) for n in SH_DYN}
+    check(snaps_d["hki_dyn"][1].vic_keys is not None,
+          f"{tag}hki_dyn's full buffer shadows no victim")
+    res = shard_step(tag, SH_DYN, {n: snaps_d[n][0] for n in SH_DYN}, dq,
+                     lambda n, rel: torch_dyn(dsession._dyn(n), dq[n], rel),
+                     SHARDS_TWO, bufs={n: snaps_d[n][1] for n in SH_DYN})
+    d_truth = {n: host_truth(live[n].keys, live[n].meas, *dq[n], DYN_AGG[n])
+               for n in SH_DYN}
+    for sc, r in res.items():
+        check_answers(f"{tag}S={sc} ", SH_DYN, as_answers(r), d_truth,
+                      DYN_BOUND)
+    print(f"{tag}step seconds {time.perf_counter() - step0!r}", flush=True)
 
     # K1-K3 at the dynamic plans, K5/K6 on the full buffers
     tag = "buffer full: "
@@ -2621,6 +2774,18 @@ def main() -> None:
     check(launches["corner_count2d"] == 0 and launches["corner_eval2d"] == 0,
           "2d: a plan with Morton codes ran the scan kernels")
     check_2d("2d ", names2, answers2, truth2, certs)
+    # shard: the four static two-key plans at S = 2 and 8
+    tag = "shard 2d: "
+    step0 = time.perf_counter()
+    q2d = {"osm": rects["osm"], "osm_max": corners,
+           "osm_sum": rects["osm_sum"], "osm_min": corners}
+    sh_plans = {n: session2.plan(n) for n in names2}
+    res = shard_step(tag, names2, sh_plans, q2d, lambda n, rel: Engine(
+        backend="torch").query(sh_plans[n], *q2d[n], eps_rel=rel),
+        SHARDS_TWO)
+    for sc, r in res.items():
+        check_2d(f"{tag}S={sc} ", names2, r, truth2, certs)
+    print(f"{tag}step seconds {time.perf_counter() - step0!r}", flush=True)
 
     # plans deeper than 15 levels: no Morton codes, the scan kernels
     dpx, dpy = osm_points(N_OSM_DEEP, seed=5)
@@ -2992,6 +3157,19 @@ def main() -> None:
           "dyn2d: the buffer-full step merged or lost an op")
     tag = "dyn2d buffer full: "
     q2, sets, truth2d = dyn2d_state(tag, SEED + 730)
+    # shard: the full-buffer states (osm_min_dyn's victims included) at
+    # S = 2 and 8, the buffers read whole
+    step0 = time.perf_counter()
+    snaps2 = {n: dsession2.snapshot(n) for n in DYN2D}
+    res = shard_step("shard dyn2d: ", DYN2D,
+                     {n: snaps2[n][0] for n in DYN2D}, q2,
+                     lambda n, rel: torch_dyn(dsession2._dyn(n), q2[n], rel),
+                     SHARDS_TWO, bufs={n: snaps2[n][1] for n in DYN2D})
+    for sc, r in res.items():
+        check_2d(f"shard dyn2d: S={sc} ", DYN2D, r, truth2d,
+                 {n: dsession2.certified_delta(n) for n in DYN2D})
+    print(f"shard dyn2d: step seconds {time.perf_counter() - step0!r}",
+          flush=True)
 
     # K9, K10 and K11 on the full 4,096-slot insert logs
     cap = CAPACITY
@@ -3313,6 +3491,27 @@ def main() -> None:
                   f"{EPS_REL}; refined share "
                   f"{float(a.refined.float().mean())!r}", flush=True)
 
+    # shard: the three ladders and their buffers at S = 2 and 8 (Q_abs:
+    # sharded ladders take no Q_rel)
+    tag = "shard lsm: "
+    step0 = time.perf_counter()
+    lranges = dict(lqs, lsm_sum2d=lrect)
+    res = shard_step(tag, LSM, {n: snaps[n][0] for n in LSM}, lranges,
+                     lambda n, rel: execute_lsm(*snaps[n], lranges[n],
+                                                backend="torch", eps_rel=rel),
+                     SHARDS_TWO, bufs={n: snaps[n][1] for n in LSM},
+                     labels_=(("Q_abs", None),))
+    for sc, r in res.items():
+        check_answers(f"{tag}S={sc} ", ("lsm", "lsm_max"), {
+            "Q_abs": as_answers(r)["Q_abs"][:2], "Q_rel": []}, ltruth,
+            lbound)
+        e = float((r["Q_abs"][2].answer - truth_s).abs().max())
+        check(e <= bound_s + 1e-6, f"{tag}S={sc} Q_abs lsm_sum2d: |A-R| "
+              f"{e} > {bound_s}")
+        print(f"{tag}S={sc} Q_abs lsm_sum2d: max |A-R| = {e!r} <= "
+              f"{bound_s!r}", flush=True)
+    print(f"{tag}step seconds {time.perf_counter() - step0!r}", flush=True)
+
     # every kernel the path launched against its plain version, exactly, at
     # the ladder's shapes: each level's plan and each table's buffer
     lsets = {k: [] for k in want}
@@ -3404,6 +3603,69 @@ def main() -> None:
     profile_batch(torch, lsession, lbatch(None), "lsm: session.query Q_abs")
     print(f"lsm: step seconds {time.perf_counter() - step0!r}", flush=True)
     del lsession, engines
+
+    # -- 13. shard: the paper's 1M TWEET plan, and a sharded session ----------
+    torch.cuda.empty_cache()
+    tag = "shard: "
+    step0 = time.perf_counter()
+    plan_1m, q_1m, truth_1m = tweet_1m
+    res = shard_step(tag, ("tweet",), {"tweet": plan_1m}, {"tweet": q_1m},
+                     lambda n, rel: execute_sum(plan_1m, *q_1m,
+                                                backend="torch",
+                                                eps_rel=rel), SHARDS_ALL)
+    for sc, r in res.items():
+        check_answers(f"{tag}S={sc} ", ("tweet",), as_answers(r),
+                      {"tweet": truth_1m}, {"tweet": 2 * PARALLEL_DELTA})
+    print(f"{tag}the 1M TWEET plan (h {plan_1m.h}, n {plan_1m.n}) at S = "
+          f"{SHARDS_ALL}: step seconds {time.perf_counter() - step0!r}",
+          flush=True)
+    del plan_1m, tweet_1m
+    SH = ("shard_lat", "shard_hki")
+    print(f"CUT: shard_lat n 1000000 -> {N_SHARD}", flush=True)
+    print(f"CUT: shard_hki n 900000 -> {N_SHARD}", flush=True)
+    sk = tweet_latitudes(N_SHARD, seed=SEED + 1300)
+    sht, shv = hki_series(N_SHARD, seed=SEED + 1301)
+    ssession = fit(
+        {"shard_lat": sk, "shard_hki": (sht, shv)},
+        {"shard_lat": TableSpec("count", ErrorBudget(abs=100.0),
+                                shards=SESSION_SHARDS),
+         "shard_hki": TableSpec("max", ErrorBudget(abs=50.0, rel=EPS_REL),
+                                shards=SESSION_SHARDS)}, "shard ")
+    check(all(ssession.is_sharded(n) for n in SH), f"{tag}a session table "
+          "is not sharded")
+    sq = {"shard_lat": make_queries_1d(sk, NQ, seed=SEED + 1302),
+          "shard_hki": make_queries_1d(sht, NQ, seed=SEED + 1303)}
+    s_aggs = {"shard_lat": "count", "shard_hki": "max"}
+    s_keys = {"shard_lat": (sk, None), "shard_hki": (sht, shv)}
+    reset()
+    sans = {label: ssession.query(batch(SH, sq, rel))
+            for label, rel in labels}
+    torch.cuda.synchronize()
+    no_launches(f"{tag}session: ")
+    eng_t = Engine(backend="torch")
+    for label, rel in labels:
+        for n, a in zip(SH, sans[label]):
+            w = eng_t.query(ssession.plan(n), *sq[n], eps_rel=rel)
+            for field, x, y in (("answer", a.value, w.answer),
+                                ("approx", a.approx, w.approx),
+                                ("refined", a.refined, w.refined)):
+                check(torch.equal(x, y), f"{tag}session {label} {n}: "
+                      f"{field} differs from Engine(backend='torch')")
+    check_answers(f"{tag}session ", SH, sans, {
+        n: host_truth(*s_keys[n], *sq[n], s_aggs[n]) for n in SH},
+        {"shard_lat": 100.0, "shard_hki": 50.0})
+    for label, rel in labels:
+        ms = median_ms(lambda: ssession.query(batch(SH, sq, rel)))
+        plain = median_ms(lambda: [eng_t.query(ssession.plan(n), *sq[n],
+                                               eps_rel=rel) for n in SH])
+        print(f"{tag}session.query {label} (S={SESSION_SHARDS}, 2 x {NQ} "
+              f"ranges, numpy in): median {ms!r} ms; unsharded torch "
+              f"Engine on the same plans {plain!r} ms", flush=True)
+    print(f"{tag}every sharded answer equals Engine(backend='torch') on "
+          f"session.plan(name); phase seconds "
+          f"{time.perf_counter() - step0!r}", flush=True)
+    print(nvidia_smi(), flush=True)
+    del ssession
 
     rows = []
     for c in counters:

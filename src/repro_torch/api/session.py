@@ -38,7 +38,13 @@ A dynamic two-key table sits behind a ``DynamicEngine2D`` and takes
 table fitted with ``TableSpec(..., dynamic=True, lsm=True)`` sits behind an
 ``LsmEngine`` / ``LsmEngine2D`` geometric level ladder instead: the same
 ``insert``/``delete``/``flush`` calls, deletes that shadow their rows and
-never merge, and compactions that refit only the levels they fold.
+never merge, and compactions that refit only the levels they fold.  A
+table fitted with ``TableSpec(..., shards=S)`` partitions its plan (every
+level of an LSM ladder) into S contiguous key ranges (Morton z-ranges for
+two keys) at fit, and its queries run shard by shard through a
+``ShardedEngine`` / ``ShardedEngine2D`` on the ``'torch'`` arithmetic, the
+reference's shard semantics; a dynamic sharded table answers from its live
+(plan, buffer) snapshot, and quantiles run on the unsharded plan.
 """
 from __future__ import annotations
 
@@ -52,9 +58,9 @@ import torch
 from .. import DTYPE, resolve_device
 from ..core import AGGS_2D, build_index_1d, build_index_2d
 from ..engine import (DynamicEngine, DynamicEngine2D, IndexPlan, IndexPlan2D,
-                      LsmEngine, LsmEngine2D, WindowEngine, build_plan,
-                      build_plan_2d, execute, execute_quantile,
-                      resolve_backend)
+                      LsmEngine, LsmEngine2D, ShardedEngine, ShardedEngine2D,
+                      WindowEngine, build_plan, build_plan_2d, execute,
+                      execute_quantile, resolve_backend)
 from .budget import ErrorBudget
 from .spec import DEFAULT_REL, KIND_OF_AGG, QueryBatch, QuerySpec, TableSpec
 
@@ -98,7 +104,8 @@ class _Table:
     """One fitted table: the spec and its device plan, the
     ``DynamicEngine`` / ``DynamicEngine2D`` that holds it for a dynamic
     table (``LsmEngine`` / ``LsmEngine2D`` for an LSM-tiered one), or the
-    ``WindowEngine`` of an epoch-ring table."""
+    ``WindowEngine`` of an epoch-ring table; and, for a sharded table, the
+    ``ShardedEngine`` / ``ShardedEngine2D`` its queries run through."""
 
     def __init__(self, name: str, spec: TableSpec, data, *,
                  device: torch.device, backend: str, min_bucket: int):
@@ -107,10 +114,22 @@ class _Table:
         self.dyn: Union[DynamicEngine, DynamicEngine2D, LsmEngine,
                         LsmEngine2D, None] = None
         self.win: Optional[WindowEngine] = None
+        self.sharded: Union[ShardedEngine, ShardedEngine2D, None] = None
         self._static_plan: Union[IndexPlan, IndexPlan2D, None] = None
-        agg, delta = spec.agg, spec.budget.delta(spec.agg)
-        self._certified = float(delta)
+        self._certified = float(spec.budget.delta(spec.agg))
         t0 = time.perf_counter()
+        self._build(data, device=device, backend=backend,
+                    min_bucket=min_bucket)
+        if spec.shards is not None:
+            cls = ShardedEngine2D if spec.agg in AGGS_2D else ShardedEngine
+            self.sharded = cls(spec.shards, min_bucket=min_bucket)
+            self.sharded.shard(self.plan)   # warm the partition cache
+        self.build_seconds = time.perf_counter() - t0
+
+    def _build(self, data, *, device: torch.device, backend: str,
+               min_bucket: int) -> None:
+        spec = self.spec
+        agg, delta = spec.agg, spec.budget.delta(spec.agg)
         if agg in AGGS_2D:
             xs, ys, ws = (None if a is None else np.asarray(a, np.float64)
                           for a in data)
@@ -121,7 +140,6 @@ class _Table:
                     growth=spec.growth, background=spec.background,
                     auto_refit=spec.auto_refit, min_bucket=min_bucket,
                     device=device)
-                self.build_seconds = time.perf_counter() - t0
                 return
             idx = build_index_2d(xs, ys, measures=ws, agg=agg,
                                  deg=spec.degree, delta=delta, device=device)
@@ -133,7 +151,6 @@ class _Table:
             else:
                 self._certified = idx.certified_delta
                 self._static_plan = build_plan_2d(idx)
-            self.build_seconds = time.perf_counter() - t0
             return
         keys, meas = data
         keys = np.asarray(keys, np.float64)
@@ -159,7 +176,6 @@ class _Table:
                     min_bucket=min_bucket)
             else:
                 self._static_plan = build_plan(idx)
-        self.build_seconds = time.perf_counter() - t0
 
     @property
     def certified_delta(self) -> float:
@@ -305,6 +321,10 @@ class PolyFit:
                            f"{sorted(self._tables)}")
         return t
 
+    def is_sharded(self, table: str) -> bool:
+        """True when the table is partitioned (``TableSpec.shards``)."""
+        return self._table(table).sharded is not None
+
     def is_lsm(self, table: str) -> bool:
         """True when the table is a tiered level ladder (``lsm=True``)."""
         return self._table(table).spec.lsm
@@ -411,12 +431,19 @@ class PolyFit:
         t = self._table(table)
         if kind == "quantile":
             (qs,) = ranges
+            if t.sharded is not None:
+                plan, buf = t.snapshot()
+                return t.sharded.quantile(plan, qs, buf=buf or None)
             if t.dyn is not None:
                 return t.dyn.quantile(qs)
             return execute_quantile(t.plan, qs, backend=self.backend,
                                     min_bucket=self.min_bucket)
         if kind == "window":
             return t.win.query(*ranges, *params, eps_rel=eps_rel)
+        if t.sharded is not None:
+            plan, buf = t.snapshot()
+            return t.sharded.query(plan, *ranges, eps_rel=eps_rel,
+                                   buf=buf or None)
         if t.dyn is not None:
             return t.dyn.query(*ranges, eps_rel=eps_rel)
         return execute(t.plan, ranges, backend=self.backend,

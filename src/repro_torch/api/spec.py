@@ -13,9 +13,9 @@ scatters answers back in request order.
 
 ``TableSpec`` is the fit-time counterpart: aggregate family, ``ErrorBudget``
 (the only source of build deltas — see ``budget.py``), degree, the delta
-buffer of a ``dynamic`` table and the epoch ring of a ``window`` table.
-LSM and sharded tables come with their slices and raise
-``NotImplementedError`` naming them.
+buffer of a ``dynamic`` table, the level ladder of an ``lsm`` table, the
+epoch ring of a ``window`` table and the partition count of a ``shards``
+table.
 """
 from __future__ import annotations
 
@@ -44,15 +44,6 @@ KINDS = ("count", "sum", "max", "min", "quantile", "window")
 KIND_OF_AGG = {"count": "count", "sum": "sum", "max": "max", "min": "min",
                "count2d": "count", "sum2d": "sum", "max2d": "max",
                "min2d": "min"}
-
-# ROADMAP Queue 1 items of what the port does not serve yet
-_LATER = {"sharded tables": 14}
-
-
-def not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} are not ported yet: ROADMAP Queue 1 "
-                               f"item {_LATER[what]}")
-
 
 def _norm_range(r):
     """Normalize one range coordinate to a rank-1 array: tensors stay on
@@ -187,8 +178,11 @@ class TableSpec:
     (requires ``dynamic``) tiers the table into a geometric ladder of
     immutable plans (``engine/lsm.py`` — bounded compactions instead of
     full refits, deletes that never merge; ``growth`` is the ladder's
-    geometric factor).  ``shards`` names the execution stack of a later
-    slice and raises ``NotImplementedError`` when set.
+    geometric factor).  ``shards`` (a power of two, checked when the
+    table is fitted) partitions the table's plan — or every level of its
+    ladder — into that many contiguous key ranges (Morton z-ranges for two
+    keys) that queries answer shard by shard (``engine/sharded.py``);
+    window tables take no shards.
     """
 
     agg: str
@@ -223,8 +217,6 @@ class TableSpec:
                              "ladder; it requires dynamic=True")
         if self.growth < 2:
             raise ValueError("growth must be >= 2")
-        if self.shards is not None:
-            raise not_ported("sharded tables")
 
     @property
     def degree(self) -> int:

@@ -24,7 +24,11 @@ tables; ``WindowEngine`` keeps an epoch ring of sealed plans and
 answers windowed SUM/COUNT through ``execute_lsm``; ``LsmEngine`` and
 ``LsmEngine2D`` tier an updatable table into a geometric ladder of
 immutable plans (tombstone and victim deletes that never merge, bounded
-compactions) and answer through ``execute_lsm`` as well.  Two-key tables lower
+compactions) and answer through ``execute_lsm`` as well.
+``ShardedEngine`` / ``ShardedEngine2D`` partition a plan (or every level
+of a ladder) into contiguous key or Morton z-ranges stacked on a leading
+axis and answer shard by shard on the ``'torch'`` arithmetic, equal to the
+unsharded ``'torch'`` path bit for bit.  Two-key tables lower
 to an ``IndexPlan2D`` (``build_plan_2d``) and run through
 ``execute_count2d`` / ``execute_sum2d`` (rectangles, K7 or K12 on
 ``'cuda'``, K12 on ``'cuda_scan'``) and ``execute_extremum2d`` (dominance
@@ -44,6 +48,11 @@ from .lsm import (CompactionPolicy, LsmEngine, LsmEngine2D, LsmLevel,
 from .plan import (IndexPlan, IndexPlan2D, big_sentinel, build_plan,
                    build_plan_2d, pad_to_multiple, plan2d_from_numpy,
                    plan_from_numpy)
+from .sharded import (ShardedDelta, ShardedEngine, ShardedEngine2D,
+                      ShardedLsmPlan, ShardedLsmPlan2D, ShardedPlan,
+                      ShardedPlan2D, execute_lsm_sharded, shard_buffer,
+                      shard_lsm_plan, shard_lsm_plan_2d, shard_plan,
+                      shard_plan_2d)
 from .window import WindowEngine
 
 __all__ = ["BACKENDS", "Engine", "QuantileResult", "check_pow2", "execute",
@@ -58,4 +67,8 @@ __all__ = ["BACKENDS", "Engine", "QuantileResult", "check_pow2", "execute",
            "execute_count2d", "execute_sum2d", "execute_extremum2d",
            "raw_count2d", "raw_eval2d", "truth_count2d", "truth_sum2d",
            "truth_dommax2d", "IndexPlan2D", "build_plan_2d",
-           "plan2d_from_numpy"]
+           "plan2d_from_numpy", "ShardedPlan", "ShardedDelta",
+           "ShardedEngine", "shard_plan", "shard_buffer", "ShardedPlan2D",
+           "ShardedEngine2D", "shard_plan_2d", "ShardedLsmPlan",
+           "ShardedLsmPlan2D", "shard_lsm_plan", "shard_lsm_plan_2d",
+           "execute_lsm_sharded"]

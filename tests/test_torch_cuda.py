@@ -2738,3 +2738,132 @@ def test_lsm_one_level_is_the_flat_engine_on_the_card(cuda, agg):
         want = execute(flat, (lq, uq), eps_rel=eps)
         for f in ("answer", "approx", "refined"):
             assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+# -- sharded tables on the card ------------------------------------------------
+
+SHARD_COUNTS = (1, 2, 4, 8)
+
+
+def _kernel_launches():
+    """Every kernel wrapper's launch counter (the sharded path runs the
+    'torch' arithmetic and must move none of them)."""
+    mods = (kloc, ksum, kmax, kq, kdelta, k2d, kp)
+    return {(m.__name__, k): getattr(m, k).launches for m in mods
+            for k in dir(m) if hasattr(getattr(m, k), "launches")}
+
+
+def _same_result(got, want):
+    for f in ("answer", "approx", "refined"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+@pytest.mark.parametrize("agg", ["sum", "max", "min"])
+def test_sharded_static_1d_on_the_card(plans, queries, agg):
+    """ShardedEngine at S = 1, 2, 4, 8 on the card equals the unsharded
+    'torch' engine on the same plan exactly, Q_abs and Q_rel, and
+    launches no kernel."""
+    from repro_torch.engine import ShardedEngine
+    plan = plans[1][agg, 3]
+    for eps in (None, 0.05):
+        want = Engine(backend="torch").query(plan, *queries, eps_rel=eps)
+        before = _kernel_launches()
+        for s in SHARD_COUNTS:
+            got = ShardedEngine(s).query(plan, *queries, eps_rel=eps)
+            assert got.answer.device.type == "cuda"
+            _same_result(got, want)
+        assert _kernel_launches() == before
+
+
+@pytest.mark.parametrize("agg", ["count", "max"])
+def test_sharded_dynamic_1d_full_buffer_on_the_card(cuda, agg):
+    """A full 4,096-slot buffer (COUNT: 3,072 inserts and 1,024
+    tombstones; MAX: 4,032 inserts and 64 shadowed victims) through
+    ShardedEngine equals the unsharded 'torch' dynamic path exactly."""
+    from repro_torch.engine import ShardedEngine
+    cap = 4096
+    rng = np.random.default_rng(9)
+    if agg == "count":
+        keys, vals = tweet_latitudes(30_000, seed=5), None
+    else:
+        keys, vals = hki_series(10_000, seed=5)
+    eng = DynamicEngine(build_index_1d(keys, vals, agg, delta=30.0,
+                                       device=cuda), backend="torch",
+                        capacity=cap, auto_refit=False)
+    dead = 1024 if agg == "count" else 64
+    m = cap - dead
+    eng.insert(rng.uniform(keys.min() - 1.0, keys.max() + 1.0, m),
+               None if vals is None else
+               rng.uniform(vals.min(), vals.max() + 5.0, m))
+    eng.delete(keys[rng.choice(keys.size, dead, replace=False)]
+               if vals is None else keys[np.argsort(-vals)[:dead]])
+    assert eng.n_pending == cap and eng.refit_count == 0
+    plan, buf = eng.snapshot()
+    assert (buf.vic_keys is not None) == (agg == "max")
+    lq, uq = make_queries_1d(keys, 20_000, seed=3)
+    for eps in (None, 0.05):
+        want = eng.query(lq, uq, eps_rel=eps)
+        for s in SHARD_COUNTS:
+            _same_result(ShardedEngine(s).query(plan, lq, uq, eps_rel=eps,
+                                                buf=buf), want)
+
+
+@pytest.mark.parametrize("agg", ["count2d", "sum2d", "max2d", "min2d"])
+def test_sharded_2d_static_and_dynamic_on_the_card(cuda, agg):
+    """ShardedEngine2D on a static plan and on a dynamic table's live
+    state (buffered inserts and deletes, victims on the dominance tables)
+    equals the unsharded 'torch' path on the card exactly."""
+    from repro_torch.engine import ShardedEngine2D
+    px, py = osm_points(8_000, seed=3)
+    w = None if agg == "count2d" else 50 + 10 * np.sin(px) + 10 * np.cos(py)
+    delta = {"count2d": 50.0, "sum2d": 2500.0}.get(agg, 10.0)
+    idx = build_index_2d(px, py, measures=w, agg=agg, deg=2, delta=delta,
+                         device=cuda)
+    plan = build_plan_2d(idx)
+    rect = make_queries_2d(px, py, 8_000, seed=4)
+    ci = np.random.default_rng(4).integers(0, px.size, 8_000)
+    qs = (px[ci], py[ci]) if agg in ("max2d", "min2d") else rect
+    dyn = DynamicEngine2D(idx, backend="torch", capacity=1024,
+                          auto_refit=False)
+    rng = np.random.default_rng(6)
+    ins = (rng.uniform(px.min(), px.max(), 512),
+           rng.uniform(py.min(), py.max(), 512))
+    dyn.insert(*ins, *(() if w is None else (rng.uniform(30, 70, 512),)))
+    dyn.delete(px[:64], py[:64])
+    dplan, dbuf = dyn.snapshot()
+    for eps in (None, 0.05):
+        want = Engine(backend="torch").query(plan, *qs, eps_rel=eps)
+        want_d = dyn.query(*qs, eps_rel=eps)
+        for s in SHARD_COUNTS:
+            se = ShardedEngine2D(s)
+            _same_result(se.query(plan, *qs, eps_rel=eps), want)
+            _same_result(se.query(dplan, *qs, eps_rel=eps, buf=dbuf),
+                         want_d)
+
+
+@pytest.mark.parametrize("agg", ["count", "max", "sum2d"])
+def test_sharded_lsm_ladders_on_the_card(cuda, agg):
+    """A ladder on the card (tombstones or victims, a live buffer) through
+    the sharded LSM path equals execute_lsm on 'torch' exactly (Q_abs)."""
+    from repro_torch.engine import (LsmEngine, LsmEngine2D, ShardedEngine,
+                                    ShardedEngine2D, execute_lsm)
+    rng = np.random.default_rng(5)
+    if agg == "sum2d":
+        px, py = rng.uniform(0.0, 100.0, (2, 1200))
+        g, _ = _lsm_pair(cuda, LsmEngine2D, (px, py),
+                         rng.uniform(1.0, 5.0, 1200), agg, deg=2,
+                         delta=40.0)
+        x = np.sort(rng.uniform(-5.0, 105.0, (2, 3000)), axis=0)
+        y = np.sort(rng.uniform(-5.0, 105.0, (2, 3000)), axis=0)
+        qs, cls = (x[0], x[1], y[0], y[1]), ShardedEngine2D
+    else:
+        keys = np.sort(rng.uniform(0.0, 100.0, 1500))
+        g, _ = _lsm_pair(cuda, LsmEngine, (keys,),
+                         None if agg == "count" else
+                         rng.uniform(0.5, 8.0, 1500), agg, delta=10.0)
+        a, b = rng.uniform(-5.0, 105.0, (2, 3000))
+        qs, cls = (np.minimum(a, b), np.maximum(a, b)), ShardedEngine
+    lsm, buf = g.snapshot()
+    want = execute_lsm(lsm, buf, qs, backend="torch")
+    for s in SHARD_COUNTS:
+        _same_result(cls(s).query(lsm, *qs, buf=buf), want)

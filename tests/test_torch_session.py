@@ -132,8 +132,8 @@ def test_single_spec_and_not_ported_kinds(sessions):
     with pytest.raises(ValueError, match="not windowed"):
         port.query(tapi.QuerySpec.window("lat", 0.0, 1.0, 0, 0))
     # dynamic one-key tables are ported (ROADMAP Queue 1 item 10), static
-    # and dynamic 2-D tables (item 13) and LSM tiering (item 12); sharding
-    # is not
+    # and dynamic 2-D tables (item 13), LSM tiering (item 12) and sharded
+    # tables (item 14)
     assert tapi.TableSpec("count", tapi.ErrorBudget(abs=10),
                           dynamic=True).dynamic
     assert tapi.TableSpec("count", tapi.ErrorBudget(abs=10), dynamic=True,
@@ -144,5 +144,5 @@ def test_single_spec_and_not_ported_kinds(sessions):
         port.query(tapi.QuerySpec("lat", (0.0, 1.0, 0.0, 1.0)))
     assert tapi.TableSpec("count2d", tapi.ErrorBudget(abs=10),
                           dynamic=True).dynamic
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 14"):
-        tapi.TableSpec("count", tapi.ErrorBudget(abs=10), shards=2)
+    assert tapi.TableSpec("count", tapi.ErrorBudget(abs=10),
+                          shards=2).shards == 2

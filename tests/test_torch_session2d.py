@@ -202,13 +202,13 @@ def test_session_2d_spec_and_data_validation(data, sessions):
     assert port.size_bytes()["geo"] == port.plan("geo").size_bytes() > 0
 
 
-def test_session_2d_later_slices_raise():
-    """Dynamic and LSM-tiered 2-D tables are ported; sharded 2-D tables
-    come with a later slice."""
+def test_session_2d_table_kinds_are_accepted():
+    """Dynamic, LSM-tiered and sharded 2-D tables are ported (the
+    reference's tests/test_api.py accepts ``shards=2`` on a count2d
+    table); windows stay 1-D."""
     b = tapi.ErrorBudget(abs=100.0)
     assert tapi.TableSpec("sum2d", b, dynamic=True).dynamic
     assert tapi.TableSpec("count2d", b, dynamic=True, lsm=True).lsm
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 14"):
-        tapi.TableSpec("count2d", b, shards=2)
+    assert tapi.TableSpec("count2d", b, shards=2).shards == 2
     with pytest.raises(ValueError, match="1-D SUM/COUNT"):
         tapi.TableSpec("count2d", b, window=4)
