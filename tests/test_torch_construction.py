@@ -2,6 +2,7 @@
 same data the greedy segmentation gives identical segment boundaries and
 starts, coefficients within 1e-9, and certificates within delta; the
 exact structures and query functions agree too."""
+import torch_threads  # noqa: F401  (one intra-op thread per test process)
 import numpy as np
 import pytest
 import jax

@@ -54,6 +54,7 @@ with a card and PyTorch alone.
 
     python -m pytest tests/test_torch_cuda.py -q      # skips without a card
 """
+import torch_threads  # noqa: F401  (one intra-op thread per test process)
 import numpy as np
 import pytest
 import torch

@@ -11,6 +11,7 @@ agrees to 1e-9.  The plain versions of kernels K5/K6 are held to
 mode and to the one-hot oracles; the kernels themselves are held to the
 plain versions on the card by tests/test_torch_cuda.py.
 """
+import torch_threads  # noqa: F401  (one intra-op thread per test process)
 import sys
 
 import numpy as np

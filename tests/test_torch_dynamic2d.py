@@ -17,6 +17,7 @@ interpret mode (K9 and K11 exactly, K10 to 1e-12), the port's append to
 the reference's, and ``selective_refit_2d`` to the reference's node for
 node.  Indexes hold 3,000-4,000 points; buffers 64-128 slots.
 """
+import torch_threads  # noqa: F401  (one intra-op thread per test process)
 import sys
 
 import numpy as np

@@ -3,6 +3,7 @@
 plans carried across with ``plan_from_numpy``.  Answers agree with every
 reference backend to rtol = atol = 1e-9 with equal ``refined`` flags, and
 every certified bound holds against exact truth computed with numpy."""
+import torch_threads  # noqa: F401  (one intra-op thread per test process)
 import numpy as np
 import pytest
 import jax

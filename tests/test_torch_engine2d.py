@@ -11,6 +11,7 @@ reference backend at rtol = atol = 1e-9 with equal ``refined`` flags, and
 bit for bit with each other, as the reference's backends do; every
 certified bound holds against exact truth computed with numpy.  Each plain
 kernel version is held to its Pallas kernel in interpret mode."""
+import torch_threads  # noqa: F401  (one intra-op thread per test process)
 import numpy as np
 import pytest
 import jax

@@ -9,6 +9,7 @@ inputs on the CPU and must equal it: topology, bounds and leaf maps
 exactly, coefficients within 1e-9.  Port answers agree with the
 reference's at rtol = atol = 1e-9 with equal ``refined`` flags, and every
 certified bound holds against exact truth computed with numpy."""
+import torch_threads  # noqa: F401  (one intra-op thread per test process)
 import numpy as np
 import pytest
 import jax

@@ -8,6 +8,7 @@ maximum and the combine) and of K21's descent-plus-membership form held to
 their plain versions bit for bit.  The kernels
 themselves are held to these plain versions on the card by
 tests/test_torch_cuda.py."""
+import torch_threads  # noqa: F401  (one intra-op thread per test process)
 import numpy as np
 import pytest
 import jax

@@ -7,6 +7,7 @@ with its plain descent (``tree_count``), held to the binary search and to
 level's size, and its strict twin (``tree_count_left``, K4's snap) held
 to ``torch.searchsorted`` and the reference's binary search.  The K1 kernel itself is held to these plain versions on
 the card by tests/test_torch_cuda.py."""
+import torch_threads  # noqa: F401  (one intra-op thread per test process)
 import numpy as np
 import pytest
 import jax

@@ -15,6 +15,7 @@ through its ``level_executor`` (the ``level_runner`` hook of
 executor bit for bit, deletes never merge, a compaction installs
 atomically under a concurrent reader, the session's ``lsm=True`` tables,
 and the policy's ``from_bench`` and ``should_fold``."""
+import torch_threads  # noqa: F401  (one intra-op thread per test process)
 import json
 import threading
 from pathlib import Path

@@ -24,6 +24,7 @@ types, and the float32 wrappers pick the float32 launchers while every
 other kernel keeps asking for float64.  The kernels themselves are held to
 these plain versions on the card by tests/test_torch_cuda.py.
 """
+import torch_threads  # noqa: F401  (one intra-op thread per test process)
 import numpy as np
 import pytest
 import jax

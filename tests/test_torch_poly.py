@@ -1,6 +1,7 @@
 """repro_torch.core.poly against repro.core.poly: Horner, scaling, locate,
 segment evaluation and the closed-form clipped maximum, on the same inputs
 made from numpy seeds (rtol = atol = 1e-9)."""
+import torch_threads  # noqa: F401  (one intra-op thread per test process)
 import numpy as np
 import pytest
 import jax

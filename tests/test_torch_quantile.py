@@ -14,6 +14,7 @@ lane, the snap by the strict descent of the key grid's search tree) to the
 plain version bit for bit; the kernel itself is held to the plain version
 on the card by tests/test_torch_cuda.py.
 """
+import torch_threads  # noqa: F401  (one intra-op thread per test process)
 import functools
 
 import numpy as np

@@ -44,6 +44,7 @@ versions.
 The kernels themselves are held to these plain versions on the card by
 tests/test_torch_cuda.py.
 """
+import torch_threads  # noqa: F401  (one intra-op thread per test process)
 import numpy as np
 import pytest
 import jax

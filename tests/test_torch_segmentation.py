@@ -8,6 +8,7 @@ the segmentations are held to the reference's boundary for boundary at the
 same ``chunks`` and ``iters``; the segments' fits then run through the same
 host fitters, and the indexes answer through the port's executors as the
 reference's do (rtol = atol = 1e-9, equal refined flags)."""
+import torch_threads  # noqa: F401  (one intra-op thread per test process)
 import numpy as np
 import pytest
 import jax

@@ -3,6 +3,7 @@ repro.api.PolyFit: the same tables fitted from the same data answer a mixed
 COUNT + MAX + MIN batch answer for answer (rtol = atol = 1e-9), with equal
 refined flags, in request order, under Q_abs and Q_rel — and every answer
 keeps its certified bound against exact truth."""
+import torch_threads  # noqa: F401  (one intra-op thread per test process)
 import numpy as np
 import pytest
 import jax

@@ -9,6 +9,7 @@ SUM table is dynamic (``DynamicEngine2D``), and an insert, a delete and a
 flush go through the facade of both sessions.  Its dominance budgets are
 10 (the reference's 4 takes a 10,000-leaf tree and most of a minute to
 build)."""
+import torch_threads  # noqa: F401  (one intra-op thread per test process)
 import numpy as np
 import pytest
 import jax

@@ -25,6 +25,7 @@ reference in three ways, none needing a device mesh:
 and (d) a session with ``shards=2`` answers a mixed batch as the
 reference's unsharded session does (1e-9) and as the port's unsharded
 session does (exactly)."""
+import torch_threads  # noqa: F401  (one intra-op thread per test process)
 import dataclasses
 
 import numpy as np

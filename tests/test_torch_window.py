@@ -5,6 +5,7 @@ measures and a tiny eps_rel forcing exact refinement on both paths), the
 port's ``WindowEngine`` against the reference's over the same ingest /
 advance sequence (rtol = atol = 1e-9, equal refined flags), and twins of
 the session tests of tests/test_api.py for quantile and window specs."""
+import torch_threads  # noqa: F401  (one intra-op thread per test process)
 import numpy as np
 import pytest
 import jax
