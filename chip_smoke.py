@@ -2,7 +2,7 @@
 """Drive the PyTorch + CUDA port of PolyFit (src/repro_torch) once on one
 NVIDIA card, and hold its kernels to their plain PyTorch versions.
 
-    python3 chip_smoke.py             # about 13-17 minutes on an H100 host
+    python3 chip_smoke.py             # about 14-19 minutes on an H100 host
 
 Phases, each of which fails the run with a non-zero exit:
 
@@ -45,7 +45,7 @@ Phases, each of which fails the run with a non-zero exit:
               share, heaviest kernels);
 8. dynamic  - PolyFit.fit of three dynamic tables (TableSpec(dynamic=True),
               capacity 4,096): TWEET 300k (COUNT), HKI 150k (MAX, deg 3)
-              and HKI 100k (MIN), cut as the CUT lines say.  A hot-band step (inserts
+              and HKI 50k (MIN), cut as the CUT lines say.  A hot-band step (inserts
               and deletes in one dense band, appended bars and extremal
               deletes in one window) is queried while buffered, then
               flushed (the merge must refit few segments) and queried
@@ -100,7 +100,7 @@ Phases, each of which fails the run with a non-zero exit:
               redesign) and the rate an SM served them at;
 11. dyn2d   - PolyFit.fit of three dynamic two-key tables
               (TableSpec(dynamic=True), capacity 4,096) over OSM-like
-              points: ``osm_dyn`` COUNT (100k, delta 50, deg 3),
+              points: ``osm_dyn`` COUNT (50k, delta 50, deg 3),
               ``osm_sum_dyn`` SUM (40k, delta 2,500, deg 2), ``osm_min_dyn``
               dominance MIN (20k, delta 10, deg 2).  A hot-box step (1,024
               inserts in one square degree at a metro core, and the 256
@@ -161,7 +161,31 @@ Phases, each of which fails the run with a non-zero exit:
               prints the partition's host seconds and the batch's median
               latency beside the unsharded path's, the session its median
               beside the unsharded Engine's, and the card's name and power
-              limit follow.
+              limit follow;
+14. serve   - a repro_torch.serve.ServingEngine over each session phases
+              3, 8, 10 and 12 hold (static; dynamic with full buffers and
+              shadowed victims; 2d; lsm ladders with buffers), no table
+              built: the bucket ladder up to 4,096 captured as one CUDA
+              graph a bucket (a level, on the ladders) for ranges and
+              quantiles (captures, graph-pool bytes and seconds printed);
+              4,000 mixed requests of 1-64 lanes (COUNT, SUM, MAX, MIN,
+              quantiles, rectangles, corners, ladders; Q_abs and Q_rel)
+              from four client threads, every answer, approximation,
+              refined flag and certificate equal to the serial
+              session.query bit for bit and within its bound against the
+              phase's truth, the wrappers' counters showing K1-K8 and K10
+              captured; 512 inserts through engine.insert(wait=True) into
+              lat_dyn's full buffer (a merge) and a flush: staged graphs
+              promoted, no capture after the swap, answers equal
+              session.query and hold their bounds; the median
+              engine.query latency per bucket beside session.query's on
+              the same batch, and one traced batch of each (idle share);
+              chaos (serve.worker, serve.dispatch retried, serve.updater
+              armed): every future resolves with its answer or the
+              injected error, the journal replays, the staged rows land
+              exactly once; then AggregateService (dynamic, eight tables,
+              cut as the CUT line says), warmed to 1,024, every kind
+              served equal to session.query, 256 inserts and a flush.
 
 The ``shard`` steps do the same at S = 2 and 8, at the end of phases 7,
 8, 10, 11 and 12, on what those phases hold (no table built): the static
@@ -252,6 +276,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from types import SimpleNamespace
 
@@ -276,7 +301,7 @@ HKI_SUM_ABS = 1e5
 # table exercises the negation and victim paths
 N_TWEET_DYN = 300_000
 N_HKI_DYN = 150_000         # 300k until the shard phase took its time
-N_HKI_MIN_DYN = 100_000
+N_HKI_MIN_DYN = 50_000      # 100k until the serve phase took its time
 CAPACITY = 4096             # delta-buffer slots per dynamic table
 # the parallel step: batched-Lawson construction (method="parallel") of the
 # paper's 1M TWEET keys and of the static phase's 200k, at lat_dyn's delta
@@ -311,7 +336,7 @@ DEEP_DEPTH = 16             # past MAX_MORTON_DEPTH: the scan kernels
 # the dyn2d phase: dynamic two-key tables over OSM-like points, cut from the
 # generator's 1M (osm_sum_dyn at the size of the reference's own 2-D update
 # bench, benchmarks/bench_updates.py run2d); capacity 4,096 as above
-N_OSM_DYN = 100_000
+N_OSM_DYN = 50_000          # 100k until the serve phase took its time
 N_OSM_SUM_DYN = 40_000
 N_OSM_MIN_DYN = 20_000
 # the shard phase: the parallel step's 1M TWEET plan at every shard count,
@@ -320,6 +345,15 @@ SHARDS_ALL = (1, 2, 4, 8)
 SHARDS_TWO = (2, 8)
 SESSION_SHARDS = 4
 N_SHARD = 50_000            # each of the sharded session's two tables
+# the serve phase: engines over the sessions phases 3, 8, 10 and 12 hold
+SERVE_REQUESTS = 4000       # mixed requests of 1-64 lanes each
+SERVE_CLIENTS = 4           # client threads submitting them
+SERVE_MAX_BUCKET = 4096     # the warmed bucket ladder's top
+SERVE_BUCKETS = (64, 256, 1024, 4096)
+SERVE_SWAP_INSERTS = 512    # rows inserted through the engine before a swap
+SERVE_CHAOS_ROWS = 64       # rows a staged insert carries under chaos
+N_AGG_1D = 20_000           # AggregateService, cut from its 150k
+N_AGG_2D = 5_000            # and from its 60k two-key points
 NQ = 65_536                 # ranges per table in the main-path batch
 SEED = 7
 EPS_REL = 0.01
@@ -2248,7 +2282,7 @@ def main() -> None:
     print(f"{tag}step seconds {time.perf_counter() - step0!r}", flush=True)
 
     # -- 8. dynamic tables ---------------------------------------------------
-    del session
+    # the static session stays alive for the serve phase (phase 14)
     rng = np.random.default_rng(SEED + 100)
     for name, n, paper in (("lat_dyn", N_TWEET_DYN, 1_000_000),
                            ("hki_dyn", N_HKI_DYN, 900_000),
@@ -2542,7 +2576,7 @@ def main() -> None:
           f"{CAPACITY / secs!r} records/s", flush=True)
 
     # -- 9. window table -----------------------------------------------------
-    del dsession
+    # the dynamic session (full buffers) stays alive for phase 14
     torch.cuda.empty_cache()
     epochs = [tweet_latitudes(N_EPOCH, seed=SEED + 300 + e) for e in range(4)]
     epochs.append(tweet_latitudes(INGEST_ROWS, seed=SEED + 304))
@@ -2955,7 +2989,7 @@ def main() -> None:
     check_2d(tag, ("osm", "osm_max"), got2, truth2, certs)
     print(f"{tag}every answer equals the cuda backend's; step seconds "
           f"{time.perf_counter() - step0!r}", flush=True)
-    del session2
+    # session2 stays alive for phase 14
 
     # -- 11. dynamic two-key tables ------------------------------------------
     torch.cuda.empty_cache()
@@ -3602,7 +3636,7 @@ def main() -> None:
                       f"Q_abs ({nlev[name]} levels)", NQ)
     profile_batch(torch, lsession, lbatch(None), "lsm: session.query Q_abs")
     print(f"lsm: step seconds {time.perf_counter() - step0!r}", flush=True)
-    del lsession, engines
+    # lsession stays alive for phase 14
 
     # -- 13. shard: the paper's 1M TWEET plan, and a sharded session ----------
     torch.cuda.empty_cache()
@@ -3666,6 +3700,337 @@ def main() -> None:
           f"{time.perf_counter() - step0!r}", flush=True)
     print(nvidia_smi(), flush=True)
     del ssession
+
+    # -- 14. serve: ServingEngine over the sessions the phases hold ----------
+    from repro_torch.dist import (FailureInjector, RetryPolicy,
+                                  SimulatedPodFailure)
+    from repro_torch.serve import AggregateService, ServingEngine
+    torch.cuda.empty_cache()
+    tag = "serve: "
+    step0 = time.perf_counter()
+    print(nvidia_smi(), flush=True)
+    # one engine a session: the static, dynamic (full buffers, victims in
+    # hki_dyn), 2d and lsm sessions of phases 3, 8, 10 and 12
+    sessions = {"static": session, "dynamic": dsession, "2d": session2,
+                "lsm": lsession}
+    engines_s = {k: ServingEngine(s, workers=2, max_queue=8192)
+                 for k, s in sessions.items()}
+    # the request sources: (session key, table, kind, range columns, the
+    # truth of every lane, the Q_abs bound); quantile sources carry the
+    # fractions and their sorted keys / weights instead
+    q_sum = make_queries_1d(t_s, NQ, seed=SEED + 1400)
+    srcs = {n: ("static", "range", qs[n], host_truth(*data, *qs[n], agg),
+                bounds[n])
+            for n, data, agg in (("lat", (lat, None), "count"),
+                                 ("hki", (t_h, v_h), "max"),
+                                 ("hki_min", (t_m, v_m), "min"))}
+    srcs["hki_sum"] = ("static", "range", q_sum,
+                       host_truth(t_s, v_s, *q_sum, "sum"),
+                       session.budget("hki_sum").bound("sum"))
+    for i, n in enumerate(DYN):
+        dqn = live[n].queries(make_queries_1d, SEED + 1410 + i)
+        srcs[n] = ("dynamic", "range", dqn,
+                   host_truth(live[n].keys, live[n].meas, *dqn, DYN_AGG[n]),
+                   DYN_BOUND[n])
+    for n in names2:
+        cols = rects[n] if n in rects else corners
+        srcs[n] = ("2d", "range", cols, truth2[n].cpu().numpy(),
+                   (4.0 if n in rects else 1.0) * certs[n])
+    for n in ("lsm", "lsm_max"):
+        srcs[n] = ("lsm", "range", lqs[n], ltruth[n], lbound[n])
+    srcs["lsm_sum2d"] = ("lsm", "range", lrect, truth_s.cpu().numpy(),
+                         bound_s)
+    fr_s = fractions(SEED + 1420)
+    qsrc = {"lat": ("static", (np.sort(lat), None)),
+            "hki_sum": ("static", (t_s, v_s)),
+            "lat_dyn": ("dynamic", (np.sort(live["lat_dyn"].keys), None))}
+
+    # warm-up: the bucket ladder up to SERVE_MAX_BUCKET, ranges and
+    # quantiles, at each table's default guarantee
+    reset()
+    mem0 = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    caps = {k: e.warmup(max_bucket=SERVE_MAX_BUCKET,
+                        kinds=("range", "quantile"))
+            for k, e in engines_s.items()}
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    pools = {k: e.pool_bytes() for k, e in engines_s.items()}
+    print(f"{tag}warm-up to bucket {SERVE_MAX_BUCKET} (ranges and "
+          f"quantiles): captures {caps} in {warm_s!r} s; graph pool bytes "
+          f"{pools}; device bytes allocated since (slots and pools) "
+          f"{torch.cuda.memory_allocated(dev) - mem0}", flush=True)
+    check(all(caps.values()), f"{tag}a warm-up captured nothing: {caps}")
+
+    # SERVE_REQUESTS mixed requests of 1-64 lanes from SERVE_CLIENTS client
+    # threads, each request a slice of its source's pool, under Q_abs and
+    # Q_rel (quantiles: their certificate)
+    rng = np.random.default_rng(SEED + 1430)
+    names_s = list(srcs) + [f"{n}:quantile" for n in qsrc]
+    reqs = []
+    for i in range(SERVE_REQUESTS):
+        src = names_s[int(rng.integers(len(names_s)))]
+        m = int(rng.integers(1, 65))
+        off = int(rng.integers(0, NQ - m))
+        lanes = slice(off, off + m)
+        if src.endswith(":quantile"):
+            n = src.split(":")[0]
+            spec = QuerySpec.quantile(n, fr_s[lanes])
+            reqs.append((qsrc[n][0], n, "quantile", None, lanes, spec))
+        else:
+            rel = None if rng.uniform() < 0.5 else EPS_REL
+            spec = QuerySpec(src, tuple(c[lanes] for c in srcs[src][2]), rel)
+            reqs.append((srcs[src][0], src, "range", rel, lanes, spec))
+    futures = [None] * len(reqs)
+
+    def client(c):
+        for i in range(c, len(reqs), SERVE_CLIENTS):
+            futures[i] = engines_s[reqs[i][0]].submit(reqs[i][5])
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(SERVE_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    got = [f.result(timeout=600) for f in futures]
+    run_s = time.perf_counter() - t0
+    launches = read("serve")
+    stats = {k: e.stats for k, e in engines_s.items()}
+    print(f"{tag}{len(reqs)} requests ({sum(len(r[5]) for r in reqs)} lanes) "
+          f"from {SERVE_CLIENTS} client threads in {run_s!r} s; launches "
+          f"through the wrappers (eager warm-ups and captures; replays "
+          f"launch the captured kernels uncounted) {launches}; engine "
+          f"stats {{k: (dispatches, coalesced, captures, hits)}} "
+          f"{ {k: (s.dispatches, s.coalesced, s.aot_compiles, s.aot_hits) for k, s in stats.items()} }",
+          flush=True)
+    for k in ("locate", "range_sum_gather", "range_max_gather",
+              "quantile_invert", "delta_sum_gather", "delta_max_gather",
+              "corner_count2d_gather", "corner_eval2d_gather",
+              "delta_sum2d_gather"):
+        check(launches[k] > 0, f"{tag}{k} was not captured on the path")
+    # every answer, approximation and refined flag equals the serial
+    # session.query on the same specs (one batch a session)
+    for key, sess in sessions.items():
+        idx = [i for i, r in enumerate(reqs) if r[0] == key]
+        want = sess.query(QueryBatch.of(*(reqs[i][5] for i in idx)))
+        for i, w in zip(idx, want):
+            for field in ("value", "approx", "refined"):
+                check(torch.equal(getattr(got[i], field), getattr(w, field)),
+                      f"{tag}request {i} ({reqs[i][1]}): the served {field} "
+                      f"differs from session.query")
+            if isinstance(w.bound, tuple):
+                check(all(torch.equal(a, b)
+                          for a, b in zip(got[i].bound, w.bound)),
+                      f"{tag}request {i}: the quantile certificate differs")
+    # every answer within its bound against the phase's truth
+    for src, (_, kind, _, tr, bound) in srcs.items():
+        for label, rel in labels:
+            sel = [i for i, r in enumerate(reqs)
+                   if r[1] == src and r[2] == "range" and r[3] == rel]
+            if not sel:
+                continue
+            a = torch.cat([got[i].value for i in sel]).cpu().numpy()
+            r = np.concatenate([tr[reqs[i][4]] for i in sel])
+            check(np.all(np.isfinite(a)), f"{tag}{src} {label}: bad answers")
+            err = np.abs(a - r)
+            ok = (err <= bound + 1e-6) if rel is None else (
+                err <= EPS_REL * np.abs(r) + 1e-6)
+            check(bool(np.all(ok)), f"{tag}{src} {label}: an answer misses "
+                  f"its bound ({int(np.sum(~ok))} lanes)")
+    for n, (_, (keys_q, w_q)) in qsrc.items():
+        sel = [i for i, r in enumerate(reqs)
+               if r[1] == n and r[2] == "quantile"]
+        a, lo, hi = (torch.cat([v(got[i]) for i in sel])
+                     for v in (lambda g: g.value, lambda g: g.bound[0],
+                               lambda g: g.bound[1]))
+        check_quantiles(tag, n, a, lo, hi, keys_q, w_q,
+                        np.concatenate([fr_s[reqs[i][4]] for i in sel]))
+    print(f"{tag}every served answer, approximation and refined flag equals "
+          f"session.query bit for bit, every answer holds its bound; "
+          f"{len(reqs)} futures resolved", flush=True)
+
+    # a plan swap: inserts through the engine, then a flush; the merge
+    # thread stages the warmed buckets, so the next dispatches promote
+    deng = engines_s["dynamic"]
+    lv = live["lat_dyn"]
+
+    def swap_specs(seed):
+        """A Q_abs, a Q_rel and a quantile batch of the top bucket on
+        lat_dyn's live keys, and the ranges' truth."""
+        dqn = lv.queries(make_queries_1d, seed)
+        specs = [QuerySpec.range("lat_dyn", dqn[0][:SERVE_MAX_BUCKET],
+                                 dqn[1][:SERVE_MAX_BUCKET], rel=rel)
+                 for _, rel in labels]
+        specs.append(QuerySpec.quantile("lat_dyn", fr_s[:SERVE_MAX_BUCKET]))
+        return specs, host_truth(lv.keys, None, *dqn, "count")
+
+    # the batch once before the swap, so that every bucket it reaches is
+    # cached: after the swap each must be promoted, none captured
+    deng.query(swap_specs(SEED + 1439)[0], timeout=600)
+    new_k = make_queries_1d(lv.keys, SERVE_SWAP_INSERTS,
+                            seed=SEED + 1440)[0]
+    c0, p0 = deng.stats.aot_compiles, deng.stats.aot_promotions
+    t0 = time.perf_counter()
+    deng.insert("lat_dyn", new_k, wait=True)
+    lv.insert(new_k)
+    deng.flush("lat_dyn")
+    swap_s = time.perf_counter() - t0
+    specs, dtr = swap_specs(SEED + 1441)
+    after = deng.query(specs, timeout=600)
+    st = deng.stats
+    check(not deng.stage_errors, f"{tag}staging failed: {deng.stage_errors}")
+    check(st.aot_compiles == c0 and st.aot_promotions > p0,
+          f"{tag}after the swap: captures {c0} -> {st.aot_compiles}, "
+          f"promotions {p0} -> {st.aot_promotions}")
+    for g, w in zip(after, dsession.query(specs)):
+        for field in ("value", "approx", "refined"):
+            check(torch.equal(getattr(g, field), getattr(w, field)),
+                  f"{tag}after the swap the served {field} differs")
+    for g, (_, rel) in zip(after, labels):
+        err = np.abs(g.value.cpu().numpy() - dtr[:SERVE_MAX_BUCKET])
+        check(bool(np.all(err <= (DYN_BOUND["lat_dyn"] + 1e-6
+                                  if rel is None else
+                                  EPS_REL * dtr[:SERVE_MAX_BUCKET] + 1e-6))),
+              f"{tag}after the swap an answer misses its bound")
+    print(f"{tag}plan swap on lat_dyn ({SERVE_SWAP_INSERTS} inserts through "
+          f"engine.insert(wait=True) into its full buffer, which merges, "
+          f"then a flush): {swap_s!r} s; precompiles "
+          f"{st.aot_precompiles}, promotions {p0} -> {st.aot_promotions}, "
+          f"captures unchanged at {st.aot_compiles}; answers equal "
+          f"session.query and hold their bounds", flush=True)
+
+    # replay latency per bucket beside session.query's on the same batch,
+    # and the idle share of one traced replay
+    lat_cases = (("static", "hki", EPS_REL, "range"),
+                 ("dynamic", "lat_dyn", None, "quantile"),
+                 ("2d", "osm", EPS_REL, "range"),
+                 ("lsm", "lsm_sum2d", None, "range"))
+    for key, n, rel, kind in lat_cases:
+        eng, sess = engines_s[key], sessions[key]
+        for b in SERVE_BUCKETS:
+            spec = (QuerySpec.quantile(n, fr_s[:b]) if kind == "quantile"
+                    else QuerySpec(n, tuple(c[:b] for c in srcs[n][2]), rel))
+            eng.query(spec, timeout=600)
+            e_ms = median_ms(lambda: eng.query(spec, timeout=600))
+            s_ms = median_ms(lambda: sess.query(spec))
+            print(f"{tag}{n} {kind} {'Q_abs' if rel is None else 'Q_rel'} "
+                  f"bucket {b}: engine.query (queue, graph replay, sync) "
+                  f"median {e_ms!r} ms; session.query {s_ms!r} ms", flush=True)
+        spec = (QuerySpec.quantile(n, fr_s[:SERVE_MAX_BUCKET])
+                if kind == "quantile" else
+                QuerySpec(n, tuple(c[:SERVE_MAX_BUCKET]
+                                   for c in srcs[n][2]), rel))
+        profile_batch(torch, SimpleNamespace(query=lambda s: eng.query(
+            s, timeout=600)), spec, f"{tag}{n} {kind} engine.query (one "
+            f"graph replay a level) at bucket {SERVE_MAX_BUCKET}")
+        profile_batch(torch, sess, spec, f"{tag}{n} {kind} session.query "
+                      f"at bucket {SERVE_MAX_BUCKET}")
+    print(nvidia_smi(), flush=True)
+
+    # chaos: the three failure sites armed on an engine over the dynamic
+    # session; every future resolves, none is lost, the journal replays
+    inj = (FailureInjector(seed=SEED).arm("serve.worker", nth=9)
+           .arm("serve.dispatch", nth=5).arm("serve.updater", nth=2))
+    ceng = ServingEngine(dsession, workers=2, injector=inj,
+                         retry=RetryPolicy(max_attempts=3, base=0.001,
+                                           cap=0.01, seed=SEED,
+                                           retry_on=(SimulatedPodFailure,)))
+    pending0 = dsession._dyn("lat_dyn").n_pending
+    crng = np.random.default_rng(SEED + 1450)
+    creqs = [r for r in reqs if r[1] in ("hki_dyn", "hki_min_dyn")][:400]
+    cfut = []
+    for j, r in enumerate(creqs):
+        # paced, so that the workers form many small batches and each
+        # staged insert is a pack of its own
+        time.sleep(0.002)
+        cfut.append(ceng.submit(r[5]))
+        if j % 64 == 0:
+            ceng.insert("lat_dyn", crng.uniform(30.0, 50.0, SERVE_CHAOS_ROWS),
+                        wait=False)
+    ceng.drain_updates()
+    served = failed = 0
+    for f, r in zip(cfut, creqs):
+        exc = f.exception(timeout=600)
+        if exc is None:
+            served += 1
+            w = dsession.query(r[5])
+            check(torch.equal(f.result().value, w.value),
+                  f"{tag}chaos: a served answer differs from session.query")
+        else:
+            check(isinstance(exc, SimulatedPodFailure),
+                  f"{tag}chaos: unexpected failure {exc!r}")
+            failed += 1
+    cst = ceng.stats
+    n_ins = SERVE_CHAOS_ROWS * len(range(0, len(creqs), 64))
+    check(served + failed == len(creqs) and served > 0,
+          f"{tag}chaos: {served} served + {failed} failed of {len(creqs)}")
+    check(cst.worker_crashes >= 1 and cst.updater_crashes >= 1
+          and cst.journal_replayed >= 1 and cst.restarts >= 2,
+          f"{tag}chaos: {cst}")
+    check(dsession._dyn("lat_dyn").n_pending == pending0 + n_ins
+          and ceng.staleness("lat_dyn") == 0,
+          f"{tag}chaos: {n_ins} staged rows did not land exactly once")
+    print(f"{tag}chaos (serve.worker every 9th, serve.dispatch every 5th, "
+          f"retried, serve.updater every 2nd): {served} served, {failed} "
+          f"failed with the injected error, none lost; worker crashes "
+          f"{cst.worker_crashes}, updater crashes {cst.updater_crashes}, "
+          f"restarts {cst.restarts}, journal items replayed "
+          f"{cst.journal_replayed}, retries {ceng.health()['retry']}; the "
+          f"{n_ins} staged rows landed exactly once", flush=True)
+    ceng.shutdown()
+    for e in engines_s.values():
+        e.shutdown()
+    del ceng, engines_s, deng, eng
+
+    # AggregateService: the paper's deployment at a cut size
+    print(f"CUT: AggregateService n1 150000 -> {N_AGG_1D}, n2 60000 -> "
+          f"{N_AGG_2D}", flush=True)
+    t0 = time.perf_counter()
+    svc = AggregateService(n1=N_AGG_1D, n2=N_AGG_2D, device=dev,
+                           dynamic=True, capacity=1024, workers=2)
+    fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    svc.warmup(batch_size=1024)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    arng = np.random.default_rng(SEED + 1460)
+    for kind in svc.KINDS_1D + svc.KINDS_2D:
+        # corners range over the points' box; the service's own domain
+        # of a dominance kind is its upper corner
+        dom = svc.domains["count2d" if kind in ("max2d", "min2d")
+                          else kind]
+        if kind in ("max2d", "min2d"):
+            cols = tuple(arng.uniform(dom[2 * i], dom[2 * i + 1], 512)
+                         for i in range(2))
+        else:
+            cols = ()
+            for i in range(len(dom) // 2):
+                c = np.sort(arng.uniform(dom[2 * i], dom[2 * i + 1],
+                                         (2, 512)), axis=0)
+                cols += (c[0], c[1])
+        res = svc.serve(kind, *cols)
+        w = svc.session.query(QuerySpec(kind, cols))
+        check(torch.equal(res.value, w.value)
+              and torch.equal(res.refined, w.refined),
+              f"{tag}AggregateService {kind}: served != session.query")
+    svc.insert("count", arng.uniform(*svc.domains["count"], 256))
+    svc.flush("count")
+    res = svc.serve("count", np.array([svc.domains["count"][0] - 1.0]),
+                    np.array([svc.domains["count"][1]]))
+    check(abs(float(res.value[0]) - (N_AGG_1D + 256)) <= 100.0,
+          f"{tag}AggregateService: the whole-domain count after 256 "
+          f"inserts is {float(res.value[0])}")
+    ast_ = svc.stats
+    print(f"{tag}AggregateService (dynamic, 8 tables): fit {fit_s!r} s, "
+          f"warm-up to 1024 {warm_s!r} s ({ast_.aot_compiles} captures); "
+          f"every kind served equals session.query; 256 inserts and a "
+          f"flush ({ast_.aot_promotions} promotions); phase seconds "
+          f"{time.perf_counter() - step0!r}", flush=True)
+    svc.shutdown()
+    print(nvidia_smi(), flush=True)
+    del svc, sessions, session, dsession, session2, lsession, engines
 
     rows = []
     for c in counters:

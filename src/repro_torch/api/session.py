@@ -45,6 +45,11 @@ two keys) at fit, and its queries run shard by shard through a
 ``ShardedEngine`` / ``ShardedEngine2D`` on the ``'torch'`` arithmetic, the
 reference's shard semantics; a dynamic sharded table answers from its live
 (plan, buffer) snapshot, and quantiles run on the unsharded plan.
+
+The serving hooks (``snapshot``, ``resolve_rel``, ``on_plan_swap``,
+``admission_class``, ``serving_executor``, ``resolve_spec``,
+``resolve_kind``, ``window_snapshot``) are what
+``repro_torch.serve.ServingEngine`` drives a session through.
 """
 from __future__ import annotations
 
@@ -60,7 +65,8 @@ from ..core import AGGS_2D, build_index_1d, build_index_2d
 from ..engine import (DynamicEngine, DynamicEngine2D, IndexPlan, IndexPlan2D,
                       LsmEngine, LsmEngine2D, ShardedEngine, ShardedEngine2D,
                       WindowEngine, build_plan, build_plan_2d, execute,
-                      execute_quantile, resolve_backend)
+                      execute_quantile, fused_executor,
+                      fused_quantile_executor, resolve_backend)
 from .budget import ErrorBudget
 from .spec import DEFAULT_REL, KIND_OF_AGG, QueryBatch, QuerySpec, TableSpec
 
@@ -332,6 +338,57 @@ class PolyFit:
     def is_window(self, table: str) -> bool:
         """True when the table is an epoch ring (``TableSpec.window``)."""
         return self._table(table).win is not None
+
+    # -- serving hooks (repro_torch.serve.engine) --------------------------
+
+    def resolve_rel(self, table: str, rel=DEFAULT_REL) -> Optional[float]:
+        """Concrete eps_rel for ``table``: the budget's default unless a
+        per-request override is given."""
+        return self._table(table).resolve_rel(rel)
+
+    def on_plan_swap(self, table: str, fn) -> None:
+        """Register ``fn(incoming_plan)`` to run on the merge/compaction
+        thread immediately *before* a refit installs the new plan (or
+        ladder).  The serving engine uses this to capture the incoming
+        plan's warmed buckets so post-swap dispatches never capture; a
+        listener exception aborts the install and surfaces as the table's
+        refit error."""
+        self._dyn(table).add_install_listener(fn)
+
+    def admission_class(self, table: str) -> Tuple[Optional[float], int]:
+        """The table's serving guarantee class ``(deadline, priority)``
+        (``TableSpec.deadline``/``priority``) — the serving engine's
+        per-request defaults for admission deadlines and load shedding."""
+        spec = self._table(table).spec
+        return spec.deadline, spec.priority
+
+    def serving_executor(self, table: str, eps_rel: Optional[float], *,
+                         kind: str = "range"):
+        """A plain ``fn(plan, buf, *padded_ranges)`` for ``table`` with this
+        session's backend closed over — the unit the serving engine caches
+        (and captures as a CUDA graph on the card) per bucket size.
+        ``kind='quantile'`` returns the CF-inversion executor ``fn(plan,
+        buf, padded_qs)`` instead of the range one."""
+        t = self._table(table)
+        if kind == "quantile":
+            return fused_quantile_executor(t.dyn is not None,
+                                           backend=self.backend,
+                                           deg=t.spec.degree)
+        return fused_executor(t.spec.agg, t.dyn is not None,
+                              backend=self.backend, eps_rel=eps_rel,
+                              deg=t.spec.degree)
+
+    def resolve_spec(self, spec: QuerySpec):
+        """Validated ``(kind, eps_rel, params)`` grouping coordinates for a
+        spec — the serving engine's admission-time resolution (quantiles
+        force ``eps_rel=None``; kind-less specs resolve from the table's
+        aggregate)."""
+        return self._resolve(spec)
+
+    def resolve_kind(self, table: str, kind: Optional[str]) -> str:
+        """Concrete query kind for ``table``: an explicit spec kind wins, a
+        ``None`` kind resolves from the table's aggregate."""
+        return self._table(table).kind if kind is None else kind
 
     def window_bound(self, table: str, t0: int, t1: int) -> float:
         """Certified Q_abs bound of a [t0, t1] window answer."""

@@ -14,8 +14,8 @@ scatters answers back in request order.
 ``TableSpec`` is the fit-time counterpart: aggregate family, ``ErrorBudget``
 (the only source of build deltas — see ``budget.py``), degree, the delta
 buffer of a ``dynamic`` table, the level ladder of an ``lsm`` table, the
-epoch ring of a ``window`` table and the partition count of a ``shards``
-table.
+epoch ring of a ``window`` table, the partition count of a ``shards``
+table and the serving guarantee class (``deadline``, ``priority``).
 """
 from __future__ import annotations
 
@@ -183,6 +183,14 @@ class TableSpec:
     ladder — into that many contiguous key ranges (Morton z-ranges for two
     keys) that queries answer shard by shard (``engine/sharded.py``);
     window tables take no shards.
+
+    ``deadline``/``priority`` declare the table's serving guarantee class:
+    ``deadline`` is the default admission deadline in seconds for reads on
+    this table (a request still queued when it expires fails with
+    ``DeadlineExceeded`` instead of dispatching; ``None`` = no deadline),
+    and ``priority`` picks the table's rung on the serving engine's
+    load-shedding ladder (higher sheds later).  Both can be overridden per
+    request at ``ServingEngine.submit``.
     """
 
     agg: str
@@ -195,6 +203,8 @@ class TableSpec:
     background: bool = True
     auto_refit: bool = True
     shards: Optional[int] = None
+    deadline: Optional[float] = None
+    priority: int = 0
     window: int = 0
 
     def __post_init__(self):
@@ -217,6 +227,10 @@ class TableSpec:
                              "ladder; it requires dynamic=True")
         if self.growth < 2:
             raise ValueError("growth must be >= 2")
+        if self.deadline is not None and self.deadline <= 0:
+            raise ValueError("deadline must be positive seconds (or None)")
+        if self.priority < 0:
+            raise ValueError("priority must be >= 0")
 
     @property
     def degree(self) -> int:

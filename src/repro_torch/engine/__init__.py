@@ -32,10 +32,12 @@ unsharded ``'torch'`` path bit for bit.  Two-key tables lower
 to an ``IndexPlan2D`` (``build_plan_2d``) and run through
 ``execute_count2d`` / ``execute_sum2d`` (rectangles, K7 or K12 on
 ``'cuda'``, K12 on ``'cuda_scan'``) and ``execute_extremum2d`` (dominance
-corners, K8 or K13; K13 on ``'cuda_scan'``).
+corners, K8 or K13; K13 on ``'cuda_scan'``).  ``fused_executor`` and
+``fused_quantile_executor`` close a table's statics over one executor
+callable, the unit ``repro_torch.serve.ServingEngine`` caches per bucket.
 """
 from .dynamic import (DeltaBuffer, DeltaBuffer2D, DynamicEngine,
-                      DynamicEngine2D)
+                      DynamicEngine2D, fused_executor, fused_quantile_executor)
 from .engine import (BACKENDS, Engine, QuantileResult, check_pow2, execute,
                      execute_count2d, execute_extremum, execute_extremum2d,
                      execute_quantile, execute_sum, execute_sum2d, key_span,
@@ -71,4 +73,5 @@ __all__ = ["BACKENDS", "Engine", "QuantileResult", "check_pow2", "execute",
            "ShardedEngine", "shard_plan", "shard_buffer", "ShardedPlan2D",
            "ShardedEngine2D", "shard_plan_2d", "ShardedLsmPlan",
            "ShardedLsmPlan2D", "shard_lsm_plan", "shard_lsm_plan_2d",
-           "execute_lsm_sharded"]
+           "execute_lsm_sharded", "fused_executor",
+           "fused_quantile_executor"]

@@ -1,7 +1,7 @@
 """Dynamic PolyFit: delta-buffered inserts/deletes with selective refit.
 
-The twin of ``repro.engine.dynamic`` without its serving executor
-factories.  A static ``IndexPlan`` freezes the fitted key array;
+The twin of ``repro.engine.dynamic``, with its serving-executor factories
+(``fused_executor``, ``fused_quantile_executor``).  A static ``IndexPlan`` freezes the fitted key array;
 ``DynamicEngine`` makes it updatable while keeping every certified bound:
 
 * **Delta buffers** — fixed-capacity, device-resident, sentinel-padded
@@ -87,7 +87,7 @@ from .plan import (IndexPlan, IndexPlan2D, big_sentinel, build_plan,
                    build_plan_2d)
 
 __all__ = ["DeltaBuffer", "DeltaBuffer2D", "DynamicEngine",
-           "DynamicEngine2D"]
+           "DynamicEngine2D", "fused_executor", "fused_quantile_executor"]
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
@@ -563,6 +563,74 @@ def _exec_dyn_dommax2d(plan: IndexPlan2D, buf: DeltaBuffer2D, u, v, *,
     if neg:
         ans, approx = -ans, -approx
     return ans, approx, ~ok
+
+
+# ---------------------------------------------------------------------------
+# serving-executor factories: the unit behind serve/engine.py's cache
+# ---------------------------------------------------------------------------
+
+def fused_executor(agg: str, dynamic: bool, *, backend: str,
+                   eps_rel: Optional[float], deg: int):
+    """A plain callable ``fn(plan, buf, *padded_ranges)`` with every static
+    argument closed over — the unit the serving engine caches per (table,
+    guarantee, bucket), captured as one CUDA graph on the card.
+
+    ``buf`` is the table's ``DeltaBuffer``/``DeltaBuffer2D`` for dynamic
+    tables and an empty tuple for static ones (the argument slot is kept so
+    one cache shape serves both).  The function returns the raw executor
+    triple ``(ans, approx, refined)`` over the padded bucket; the caller
+    slices real rows back out.  Dispatch mirrors ``execute_*`` and the
+    dynamic engines' queries exactly — including the deg > 3 extremum
+    downgrade to ``'torch'`` — so answers are bit-identical to the session
+    path.
+    """
+    from .engine import (_exec_extremum, _exec_extremum2d, _exec_rect2d,
+                         _exec_sum)
+    if agg in ("max", "min") and deg > 3 and backend in (
+            "cuda", "cuda_scan", "ref"):
+        backend = "torch"   # no in-kernel closed form past deg 3
+    statics = dict(backend=backend, eps_rel=eps_rel)
+    if dynamic:
+        ex = {"sum": _exec_dyn_sum, "count": _exec_dyn_sum,
+              "max": _exec_dyn_extremum, "min": _exec_dyn_extremum,
+              "count2d": _exec_dyn_rect2d, "sum2d": _exec_dyn_rect2d,
+              "max2d": _exec_dyn_dommax2d,
+              "min2d": _exec_dyn_dommax2d}[agg]
+
+        def fn(plan, buf, *qs):
+            return ex(plan, buf, *qs, **statics)
+    else:
+        ex = {"sum": _exec_sum, "count": _exec_sum,
+              "max": _exec_extremum, "min": _exec_extremum,
+              "count2d": _exec_rect2d, "sum2d": _exec_rect2d,
+              "max2d": _exec_extremum2d, "min2d": _exec_extremum2d}[agg]
+
+        def fn(plan, buf, *qs):
+            del buf
+            return ex(plan, *qs, **statics)
+    return fn
+
+
+def fused_quantile_executor(dynamic: bool, *, backend: str, deg: int):
+    """The QUANTILE counterpart of ``fused_executor``: a plain callable
+    ``fn(plan, buf, q)`` returning the certified (answer, lo, hi) triple
+    over the padded fraction bucket.  Q_abs-only — there is no Q_rel
+    refinement path (the certificate *is* the guarantee).  A dynamic table
+    inverts through ``_exec_dyn_quantile`` (plain torch on every backend,
+    as ``DynamicEngine.quantile`` does); a static plan without exact arrays
+    takes the ``'torch'`` path, as ``execute_quantile`` routes it."""
+    del deg   # quantile inversion has no degree-gated backend downgrade
+    from .engine import CARD_BACKENDS, _exec_quantile
+    if dynamic:
+        def fn(plan, buf, q):
+            return _exec_dyn_quantile(plan, buf, q)
+    else:
+        def fn(plan, buf, q):
+            del buf
+            b = ("torch" if backend in CARD_BACKENDS and plan.ref_keys is None
+                 else backend)
+            return _exec_quantile(plan, q, backend=b)
+    return fn
 
 
 # ---------------------------------------------------------------------------

@@ -419,13 +419,15 @@ def quantile_mass(plan: IndexPlan, dM=0.0):
     the slack widens by delta."""
     dt = plan.dtype
     if plan.agg == "count":
-        M = torch.tensor(float(plan.n), dtype=dt, device=plan.device) + dM
+        # a fill, not a host copy: the serving engine captures this path
+        # into a CUDA graph, which takes no host-to-device copy
+        M = torch.full((), float(plan.n), dtype=dt, device=plan.device) + dM
         return M, rank_slack("count", M)
     if plan.ref_cf is not None:
         M0, extra = plan.ref_cf[-1], 0.0      # exact total mass
     else:
         M0 = horner(plan.coeffs[plan.h - 1],
-                    torch.tensor(1.0, dtype=dt, device=plan.device))
+                    torch.ones((), dtype=dt, device=plan.device))
         extra = plan.delta
     M = M0 + dM
     return M, rank_slack("sum", M) + extra

@@ -2868,3 +2868,184 @@ def test_sharded_lsm_ladders_on_the_card(cuda, agg):
     want = execute_lsm(lsm, buf, qs, backend="torch")
     for s in SHARD_COUNTS:
         _same_result(cls(s).query(lsm, *qs, buf=buf), want)
+
+
+# -- the serving engine: one captured CUDA graph per bucket -------------------
+
+SERVE_TABLES = ("sum", "max", "min", "c2", "s2", "x2", "n2", "dsum", "dmax",
+                "dmin", "dc2", "ds2", "dn2", "lsum", "lmax", "ls2")
+
+
+def _serve_data(seed):
+    rng = np.random.default_rng(seed)
+    keys = np.sort(rng.uniform(0.0, 100.0, 3000))
+    vals = rng.uniform(0.0, 10.0, 3000)
+    xs, ys = rng.uniform(0.0, 50.0, (2, 1500))
+    ws = rng.uniform(1.0, 5.0, 1500)
+    return keys, vals, xs, ys, ws
+
+
+def _serve_session(cuda, seed=0x5E5, names=SERVE_TABLES):
+    """One session on the card with a table of every kind the serving
+    engine caches (or the ``names`` among them): static, dynamic and LSM,
+    one and two keys."""
+    keys, vals, xs, ys, ws = _serve_data(seed)
+    b = ErrorBudget(abs=50.0, rel=0.01)
+    m = ErrorBudget(abs=2.0, rel=0.01)
+    dyn = dict(dynamic=True, capacity=256, auto_refit=False, background=False)
+    one, two = (keys, vals), (xs, ys, ws)
+    data = {"sum": one, "max": one, "min": one, "c2": (xs, ys), "s2": two,
+            "x2": two, "n2": two, "dsum": one, "dmax": one, "dmin": one,
+            "dc2": (xs, ys), "ds2": two, "dn2": two, "lsum": keys,
+            "lmax": one, "ls2": two}
+    specs = {"sum": TableSpec("sum", b), "max": TableSpec("max", m),
+             "min": TableSpec("min", m, deg=2),
+             "c2": TableSpec("count2d", b), "s2": TableSpec("sum2d", b),
+             "x2": TableSpec("max2d", m), "n2": TableSpec("min2d", m),
+             "dsum": TableSpec("sum", b, **dyn),
+             "dmax": TableSpec("max", m, **dyn),
+             "dmin": TableSpec("min", m, **dyn),
+             "dc2": TableSpec("count2d", b, **dyn),
+             "ds2": TableSpec("sum2d", b, **dyn),
+             "dn2": TableSpec("min2d", m, **dyn),
+             "lsum": TableSpec("count", b, lsm=True, **dyn),
+             "lmax": TableSpec("max", m, lsm=True, **dyn),
+             "ls2": TableSpec("sum2d", b, lsm=True, **dyn)}
+    return PolyFit.fit({n: data[n] for n in names},
+                       {n: specs[n] for n in names}, device=cuda)
+
+
+def _serve_specs(session, name, rng, n=700):
+    """n ranges (or corners) over the table's domain, as one spec each
+    under Q_abs and Q_rel."""
+    agg = session.spec(name).agg
+    if agg in ("count2d", "sum2d"):
+        x = np.sort(rng.uniform(-2.0, 52.0, (2, n)), axis=0)
+        y = np.sort(rng.uniform(-2.0, 52.0, (2, n)), axis=0)
+        cols = (x[0], x[1], y[0], y[1])
+    elif agg in ("max2d", "min2d"):
+        cols = tuple(rng.uniform(-2.0, 52.0, (2, n)))
+    else:
+        cols = tuple(np.sort(rng.uniform(-2.0, 102.0, (2, n)), axis=0))
+    return [QuerySpec(name, cols, rel) for rel in (None, 0.01)]
+
+
+@pytest.fixture(scope="module")
+def serve_session(cuda):
+    """The serving session with buffered rows in every dynamic table, an
+    extremal delete shadowing a victim in ``dmax``, ``dmin`` and ``dn2``,
+    and tombstones in the ladders."""
+    s = _serve_session(cuda)
+    keys, vals, xs, ys, ws = _serve_data(0x5E5)
+    rng = np.random.default_rng(9)
+    k, v = rng.uniform(0, 100, 64), rng.uniform(0, 12, 64)
+    px, py, pw = rng.uniform(0, 50, 64), rng.uniform(0, 50, 64), \
+        rng.uniform(1, 6, 64)
+    for name in ("dsum", "dmax", "dmin", "lmax"):
+        s.insert(name, k, v)
+    s.insert("lsum", k)
+    s.insert("dc2", px, py)
+    for name in ("ds2", "dn2", "ls2"):
+        s.insert(name, px, py, pw)
+    for name in ("dmax", "dmin", "lmax", "lsum"):
+        s.delete(name, keys[[5, 900, 2000]])
+    for name in ("dn2", "ls2"):
+        s.delete(name, xs[[3, 700]], ys[[3, 700]])
+    return s
+
+
+@pytest.mark.parametrize("name", SERVE_TABLES)
+def test_serving_graph_replay_equals_eager(serve_session, name):
+    """Every executor kind, captured as a CUDA graph per bucket and
+    replayed through the engine, equals the session's eager path bit for
+    bit (answer, approximation, refined flag), under Q_abs and Q_rel; the
+    quantile executors too on the SUM tables."""
+    from repro_torch.serve import ServingEngine
+    s = serve_session
+    specs = _serve_specs(s, name,
+                         np.random.default_rng(SERVE_TABLES.index(name)))
+    if s.spec(name).agg == "sum" and not s.spec(name).lsm:
+        specs.append(QuerySpec.quantile(
+            name, np.random.default_rng(3).uniform(0, 1, 700)))
+    eng = ServingEngine(s, start=False)
+    try:
+        eng.start()
+        got = eng.query(specs, timeout=300)
+        assert eng.stats.aot_compiles > 0
+        units = [e.cur for e in eng._cache.values()]
+        assert units and all(u.graph is not None for u in units)
+        again = eng.query(specs, timeout=300)   # replays, no capture
+        assert eng.stats.aot_hits > 0
+        for g, a, w in zip(got, again, s.query(specs)):
+            for f in ("value", "approx", "refined"):
+                assert torch.equal(getattr(g, f), getattr(w, f)), f
+                assert torch.equal(getattr(a, f), getattr(w, f)), f
+    finally:
+        eng.shutdown()
+
+
+@pytest.mark.parametrize("name", ["dsum", "dmax", "dc2", "dn2", "lsum"])
+def test_serving_replay_after_insert_sees_the_new_buffer(cuda, name):
+    """An insert builds a new buffer object of the same signature: the
+    cached graph is reused (no capture), its slots take the new buffer, and
+    the replayed answers equal the eager path's on the new state."""
+    from repro_torch.serve import ServingEngine
+    s = _serve_session(cuda, seed=21, names=(name,))
+    specs = _serve_specs(s, name, np.random.default_rng(4))
+    eng = ServingEngine(s)
+    try:
+        before = eng.query(specs, timeout=300)
+        c0 = eng.stats.aot_compiles
+        rng = np.random.default_rng(5)
+        agg = s.spec(name).agg
+        if agg in ("count2d", "sum2d", "max2d", "min2d"):
+            cols = (rng.uniform(0, 50, 32), rng.uniform(0, 50, 32))
+            if agg != "count2d":
+                cols += (rng.uniform(1, 6, 32),)
+        else:
+            cols = (rng.uniform(0, 100, 32),)
+            if agg != "count":
+                cols += (rng.uniform(20, 30, 32),)
+        eng.insert(name, *cols, wait=True)
+        after = eng.query(specs, timeout=300)
+        assert eng.stats.aot_compiles == c0
+        assert not all(torch.equal(a.value, b.value)
+                       for a, b in zip(after, before))
+        for g, w in zip(after, s.query(specs)):
+            for f in ("value", "approx", "refined"):
+                assert torch.equal(getattr(g, f), getattr(w, f)), f
+    finally:
+        eng.shutdown()
+
+
+@pytest.mark.parametrize("name", ["dsum", "dc2", "lsum"])
+def test_serving_swap_stages_and_promotes(cuda, name):
+    """A merge (or compaction) captures the incoming plan's graphs on the
+    merge thread before the install: the first dispatch after the swap
+    promotes them, with zero new captures, and answers as the eager path
+    does on the new plan."""
+    from repro_torch.serve import ServingEngine
+    s = _serve_session(cuda, seed=33, names=(name,))
+    specs = _serve_specs(s, name, np.random.default_rng(6), n=100)
+    eng = ServingEngine(s)
+    try:
+        eng.warmup(max_bucket=256)
+        eng.query(specs, timeout=300)
+        rng = np.random.default_rng(7)
+        agg = s.spec(name).agg
+        cols = ((rng.uniform(0, 50, 40), rng.uniform(0, 50, 40))
+                if agg == "count2d" else (rng.uniform(0, 100, 40),)
+                if agg == "count" else
+                (rng.uniform(0, 100, 40), rng.uniform(0, 10, 40)))
+        eng.insert(name, *cols, wait=True)
+        c0, p0 = eng.stats.aot_compiles, eng.stats.aot_promotions
+        eng.flush(name)
+        assert eng.stats.aot_precompiles > 0 and not eng.stage_errors
+        got = eng.query(specs, timeout=300)
+        st = eng.stats
+        assert st.aot_compiles == c0 and st.aot_promotions > p0
+        for g, w in zip(got, s.query(specs)):
+            for f in ("value", "approx", "refined"):
+                assert torch.equal(getattr(g, f), getattr(w, f)), f
+    finally:
+        eng.shutdown()
