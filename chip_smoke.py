@@ -174,10 +174,10 @@ Phases, each of which fails the run with a non-zero exit:
               refined flag and certificate equal to the serial
               session.query bit for bit and within its bound against the
               phase's truth, the wrappers' counters showing K1-K8 and K10
-              captured; 512 inserts through engine.insert(wait=True) into
-              lat_dyn's full buffer (a merge) and a flush: staged graphs
-              promoted, no capture after the swap, answers equal
-              session.query and hold their bounds; the median
+              captured; 512 inserts through engine.insert(wait=True)
+              into the lsm ladder and a flush (a compaction): staged
+              level graphs promoted, no capture after the swap, answers
+              equal session.query and hold their bounds; the median
               engine.query latency per bucket beside session.query's on
               the same batch, and one traced batch of each (idle share);
               chaos (serve.worker, serve.dispatch retried, serve.updater
@@ -353,7 +353,7 @@ SERVE_BUCKETS = (64, 256, 1024, 4096)
 SERVE_SWAP_INSERTS = 512    # rows inserted through the engine before a swap
 SERVE_CHAOS_ROWS = 64       # rows a staged insert carries under chaos
 N_AGG_1D = 20_000           # AggregateService, cut from its 150k
-N_AGG_2D = 5_000            # and from its 60k two-key points
+N_AGG_2D = 10_000           # and from its 60k two-key points
 NQ = 65_536                 # ranges per table in the main-path batch
 SEED = 7
 EPS_REL = 0.01
@@ -3851,55 +3851,59 @@ def main() -> None:
           f"session.query bit for bit, every answer holds its bound; "
           f"{len(reqs)} futures resolved", flush=True)
 
-    # a plan swap: inserts through the engine, then a flush; the merge
-    # thread stages the warmed buckets, so the next dispatches promote
-    deng = engines_s["dynamic"]
-    lv = live["lat_dyn"]
+    # a plan swap: inserts through the engine, then a flush, on the lsm
+    # ladder (a compaction: cheap, where a merge of lat_dyn's full buffer
+    # refits most of its 300k keys; the card tests swap flat dynamic
+    # tables); the compaction thread stages the warmed buckets' level
+    # graphs, so the next dispatches promote
+    leng, lv = engines_s["lsm"], llive["lsm"]
 
     def swap_specs(seed):
-        """A Q_abs, a Q_rel and a quantile batch of the top bucket on
-        lat_dyn's live keys, and the ranges' truth."""
-        dqn = lv.queries(make_queries_1d, seed)
-        specs = [QuerySpec.range("lat_dyn", dqn[0][:SERVE_MAX_BUCKET],
-                                 dqn[1][:SERVE_MAX_BUCKET], rel=rel)
-                 for _, rel in labels]
-        specs.append(QuerySpec.quantile("lat_dyn", fr_s[:SERVE_MAX_BUCKET]))
-        return specs, host_truth(lv.keys, None, *dqn, "count")
+        """A Q_abs and a Q_rel batch of the top bucket on the ladder's live
+        keys, and the ranges' truth."""
+        lq_, uq_ = make_queries_1d(np.sort(lv.keys), SERVE_MAX_BUCKET,
+                                   seed=seed)
+        return ([QuerySpec.range("lsm", lq_, uq_, rel=rel)
+                 for _, rel in labels],
+                host_truth(lv.keys, None, lq_, uq_, "count"))
 
     # the batch once before the swap, so that every bucket it reaches is
-    # cached: after the swap each must be promoted, none captured
-    deng.query(swap_specs(SEED + 1439)[0], timeout=600)
+    # cached: after the swap each must be hit or promoted, none captured
+    leng.query(swap_specs(SEED + 1439)[0], timeout=600)
     new_k = make_queries_1d(lv.keys, SERVE_SWAP_INSERTS,
                             seed=SEED + 1440)[0]
-    c0, p0 = deng.stats.aot_compiles, deng.stats.aot_promotions
+    c0, p0 = leng.stats.aot_compiles, leng.stats.aot_promotions
+    k0 = engines["lsm"].compaction_count
     t0 = time.perf_counter()
-    deng.insert("lat_dyn", new_k, wait=True)
+    leng.insert("lsm", new_k, wait=True)
     lv.insert(new_k)
-    deng.flush("lat_dyn")
+    leng.flush("lsm")
     swap_s = time.perf_counter() - t0
     specs, dtr = swap_specs(SEED + 1441)
-    after = deng.query(specs, timeout=600)
-    st = deng.stats
-    check(not deng.stage_errors, f"{tag}staging failed: {deng.stage_errors}")
+    after = leng.query(specs, timeout=600)
+    st = leng.stats
+    check(engines["lsm"].compaction_count > k0,
+          f"{tag}the inserts and the flush compacted nothing")
+    check(not leng.stage_errors, f"{tag}staging failed: {leng.stage_errors}")
     check(st.aot_compiles == c0 and st.aot_promotions > p0,
           f"{tag}after the swap: captures {c0} -> {st.aot_compiles}, "
           f"promotions {p0} -> {st.aot_promotions}")
-    for g, w in zip(after, dsession.query(specs)):
+    for g, w in zip(after, lsession.query(specs)):
         for field in ("value", "approx", "refined"):
             check(torch.equal(getattr(g, field), getattr(w, field)),
                   f"{tag}after the swap the served {field} differs")
+    sbound = composed_bound("count", lsession.snapshot("lsm")[0].deltas)
     for g, (_, rel) in zip(after, labels):
-        err = np.abs(g.value.cpu().numpy() - dtr[:SERVE_MAX_BUCKET])
-        check(bool(np.all(err <= (DYN_BOUND["lat_dyn"] + 1e-6
-                                  if rel is None else
-                                  EPS_REL * dtr[:SERVE_MAX_BUCKET] + 1e-6))),
+        err = np.abs(g.value.cpu().numpy() - dtr)
+        check(bool(np.all(err <= (sbound + 1e-6 if rel is None else
+                                  EPS_REL * dtr + 1e-6))),
               f"{tag}after the swap an answer misses its bound")
-    print(f"{tag}plan swap on lat_dyn ({SERVE_SWAP_INSERTS} inserts through "
-          f"engine.insert(wait=True) into its full buffer, which merges, "
-          f"then a flush): {swap_s!r} s; precompiles "
-          f"{st.aot_precompiles}, promotions {p0} -> {st.aot_promotions}, "
-          f"captures unchanged at {st.aot_compiles}; answers equal "
-          f"session.query and hold their bounds", flush=True)
+    print(f"{tag}plan swap on the lsm ladder ({SERVE_SWAP_INSERTS} inserts "
+          f"through engine.insert(wait=True), then a flush; compactions "
+          f"{k0} -> {engines['lsm'].compaction_count}): {swap_s!r} s; "
+          f"precompiles {st.aot_precompiles}, promotions {p0} -> "
+          f"{st.aot_promotions}, captures unchanged at {st.aot_compiles}; "
+          f"answers equal session.query and hold their bounds", flush=True)
 
     # replay latency per bucket beside session.query's on the same batch,
     # and the idle share of one traced replay
@@ -3982,7 +3986,7 @@ def main() -> None:
     ceng.shutdown()
     for e in engines_s.values():
         e.shutdown()
-    del ceng, engines_s, deng, eng
+    del ceng, engines_s, leng, eng
 
     # AggregateService: the paper's deployment at a cut size
     print(f"CUT: AggregateService n1 150000 -> {N_AGG_1D}, n2 60000 -> "

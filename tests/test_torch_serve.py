@@ -446,3 +446,51 @@ def test_update_normalization_errors(session):
         eng.delete("c2", np.array([1.0]), wait=False)    # ys missing
     with pytest.raises(RuntimeError):                    # static table
         eng.insert("min", np.array([1.0]), np.array([1.0]), wait=False)
+
+
+def test_many_workers_under_fast_switching_lose_nothing(session):
+    """Sixteen workers (more than the cores) and eight clients with the
+    interpreter switching threads every 10 us: every future resolves to
+    its serial answer, the counters add up, and every staged insert lands
+    exactly once."""
+    import sys
+    rng = np.random.default_rng(8)
+    # reads of the other tables; the writes go to c2
+    specs = [s for s in _mixed_specs(rng, 100) if s.table != "c2"]
+    serial = [session.query(s) for s in specs]
+    dyn = session._dyn("c2")
+    pending0 = dyn.n_pending
+    eng = ServingEngine(session, workers=16)
+    got, errors = [None] * len(specs), []
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        def client(c):
+            try:
+                for i in range(c, len(specs), 8):
+                    got[i] = eng.submit(specs[i])
+                    if i % 20 == 0:
+                        eng.insert("c2", np.array([25.0 + c]),
+                                   np.array([25.0 - c]), wait=False)
+            except BaseException as e:       # pragma: no cover
+                errors.append(e)
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+        assert not any(t.is_alive() for t in threads)
+        assert not errors, errors
+        for f, want in zip(got, serial):
+            _assert_identical(f.result(timeout=120), want)
+        eng.drain_updates()
+        st = eng.stats
+        assert st.submitted == st.answered == len(specs)
+        n_ins = sum(1 for c in range(8)
+                    for i in range(c, len(specs), 8) if i % 20 == 0)
+        assert dyn.n_pending == pending0 + n_ins
+        assert eng.staged_depth == 0
+    finally:
+        sys.setswitchinterval(old)
+        eng.shutdown()
