@@ -180,10 +180,10 @@ Phases, each of which fails the run with a non-zero exit:
               equal session.query and hold their bounds; the median
               engine.query latency per bucket beside session.query's on
               the same batch, and one traced batch of each (idle share);
-              chaos (serve.worker, serve.dispatch retried, serve.updater
-              armed): every future resolves with its answer or the
-              injected error, the journal replays, the staged rows land
-              exactly once; then AggregateService (dynamic, eight tables,
+              chaos on the lsm session (serve.worker, serve.dispatch
+              retried, serve.updater armed): every future resolves with
+              its answer or the injected error, the journal replays, the
+              staged rows land exactly once; then AggregateService (dynamic, eight tables,
               cut as the CUT line says), warmed to 1,024, every kind
               served equal to session.query, 256 inserts and a flush.
 
@@ -3933,25 +3933,27 @@ def main() -> None:
                       f"at bucket {SERVE_MAX_BUCKET}")
     print(nvidia_smi(), flush=True)
 
-    # chaos: the three failure sites armed on an engine over the dynamic
-    # session; every future resolves, none is lost, the journal replays
-    inj = (FailureInjector(seed=SEED).arm("serve.worker", nth=9)
+    # chaos: the three failure sites armed on an engine over the lsm
+    # session (reads of lsm_max and lsm_sum2d, staged inserts into lsm,
+    # whose rows are counted across its ladder: a compaction may fold
+    # them); every future resolves, none is lost, the journal replays
+    inj = (FailureInjector(seed=SEED).arm("serve.worker", nth=4)
            .arm("serve.dispatch", nth=5).arm("serve.updater", nth=2))
-    ceng = ServingEngine(dsession, workers=2, injector=inj,
+    ceng = ServingEngine(lsession, workers=2, injector=inj,
                          retry=RetryPolicy(max_attempts=3, base=0.001,
                                            cap=0.01, seed=SEED,
                                            retry_on=(SimulatedPodFailure,)))
-    pending0 = dsession._dyn("lat_dyn").n_pending
+    rows0 = engines["lsm"].n
     crng = np.random.default_rng(SEED + 1450)
-    creqs = [r for r in reqs if r[1] in ("hki_dyn", "hki_min_dyn")][:400]
+    creqs = [r for r in reqs if r[1] in ("lsm_max", "lsm_sum2d")][:400]
     cfut = []
     for j, r in enumerate(creqs):
         # paced, so that the workers form many small batches and each
         # staged insert is a pack of its own
-        time.sleep(0.002)
+        time.sleep(0.004)
         cfut.append(ceng.submit(r[5]))
         if j % 64 == 0:
-            ceng.insert("lat_dyn", crng.uniform(30.0, 50.0, SERVE_CHAOS_ROWS),
+            ceng.insert("lsm", crng.uniform(30.0, 50.0, SERVE_CHAOS_ROWS),
                         wait=False)
     ceng.drain_updates()
     served = failed = 0
@@ -3959,7 +3961,7 @@ def main() -> None:
         exc = f.exception(timeout=600)
         if exc is None:
             served += 1
-            w = dsession.query(r[5])
+            w = lsession.query(r[5])
             check(torch.equal(f.result().value, w.value),
                   f"{tag}chaos: a served answer differs from session.query")
         else:
@@ -3973,10 +3975,10 @@ def main() -> None:
     check(cst.worker_crashes >= 1 and cst.updater_crashes >= 1
           and cst.journal_replayed >= 1 and cst.restarts >= 2,
           f"{tag}chaos: {cst}")
-    check(dsession._dyn("lat_dyn").n_pending == pending0 + n_ins
-          and ceng.staleness("lat_dyn") == 0,
+    check(engines["lsm"].n == rows0 + n_ins
+          and ceng.staleness("lsm") == 0,
           f"{tag}chaos: {n_ins} staged rows did not land exactly once")
-    print(f"{tag}chaos (serve.worker every 9th, serve.dispatch every 5th, "
+    print(f"{tag}chaos (serve.worker every 4th, serve.dispatch every 5th, "
           f"retried, serve.updater every 2nd): {served} served, {failed} "
           f"failed with the injected error, none lost; worker crashes "
           f"{cst.worker_crashes}, updater crashes {cst.updater_crashes}, "
