@@ -3825,7 +3825,7 @@ def main() -> None:
                           for a, b in zip(got[i].bound, w.bound)),
                       f"{tag}request {i}: the quantile certificate differs")
     # every answer within its bound against the phase's truth
-    for src, (_, kind, _, tr, bound) in srcs.items():
+    for src, (_, _, _, tr, bound) in srcs.items():
         for label, rel in labels:
             sel = [i for i, r in enumerate(reqs)
                    if r[1] == src and r[2] == "range" and r[3] == rel]
@@ -3911,25 +3911,25 @@ def main() -> None:
                  ("dynamic", "lat_dyn", None, "quantile"),
                  ("2d", "osm", EPS_REL, "range"),
                  ("lsm", "lsm_sum2d", None, "range"))
-    for key, n, rel, kind in lat_cases:
+    for key, n, rel, qkind in lat_cases:
         eng, sess = engines_s[key], sessions[key]
         for b in SERVE_BUCKETS:
-            spec = (QuerySpec.quantile(n, fr_s[:b]) if kind == "quantile"
+            spec = (QuerySpec.quantile(n, fr_s[:b]) if qkind == "quantile"
                     else QuerySpec(n, tuple(c[:b] for c in srcs[n][2]), rel))
             eng.query(spec, timeout=600)
             e_ms = median_ms(lambda: eng.query(spec, timeout=600))
             s_ms = median_ms(lambda: sess.query(spec))
-            print(f"{tag}{n} {kind} {'Q_abs' if rel is None else 'Q_rel'} "
+            print(f"{tag}{n} {qkind} {'Q_abs' if rel is None else 'Q_rel'} "
                   f"bucket {b}: engine.query (queue, graph replay, sync) "
                   f"median {e_ms!r} ms; session.query {s_ms!r} ms", flush=True)
         spec = (QuerySpec.quantile(n, fr_s[:SERVE_MAX_BUCKET])
-                if kind == "quantile" else
+                if qkind == "quantile" else
                 QuerySpec(n, tuple(c[:SERVE_MAX_BUCKET]
                                    for c in srcs[n][2]), rel))
         profile_batch(torch, SimpleNamespace(query=lambda s: eng.query(
-            s, timeout=600)), spec, f"{tag}{n} {kind} engine.query (one "
+            s, timeout=600)), spec, f"{tag}{n} {qkind} engine.query (one "
             f"graph replay a level) at bucket {SERVE_MAX_BUCKET}")
-        profile_batch(torch, sess, spec, f"{tag}{n} {kind} session.query "
+        profile_batch(torch, sess, spec, f"{tag}{n} {qkind} session.query "
                       f"at bucket {SERVE_MAX_BUCKET}")
     print(nvidia_smi(), flush=True)
 
@@ -4002,12 +4002,12 @@ def main() -> None:
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     arng = np.random.default_rng(SEED + 1460)
-    for kind in svc.KINDS_1D + svc.KINDS_2D:
+    for akind in svc.KINDS_1D + svc.KINDS_2D:
         # corners range over the points' box; the service's own domain
         # of a dominance kind is its upper corner
-        dom = svc.domains["count2d" if kind in ("max2d", "min2d")
-                          else kind]
-        if kind in ("max2d", "min2d"):
+        dom = svc.domains["count2d" if akind in ("max2d", "min2d")
+                          else akind]
+        if akind in ("max2d", "min2d"):
             cols = tuple(arng.uniform(dom[2 * i], dom[2 * i + 1], 512)
                          for i in range(2))
         else:
@@ -4016,11 +4016,11 @@ def main() -> None:
                 c = np.sort(arng.uniform(dom[2 * i], dom[2 * i + 1],
                                          (2, 512)), axis=0)
                 cols += (c[0], c[1])
-        res = svc.serve(kind, *cols)
-        w = svc.session.query(QuerySpec(kind, cols))
+        res = svc.serve(akind, *cols)
+        w = svc.session.query(QuerySpec(akind, cols))
         check(torch.equal(res.value, w.value)
               and torch.equal(res.refined, w.refined),
-              f"{tag}AggregateService {kind}: served != session.query")
+              f"{tag}AggregateService {akind}: served != session.query")
     svc.insert("count", arng.uniform(*svc.domains["count"], 256))
     svc.flush("count")
     res = svc.serve("count", np.array([svc.domains["count"][0] - 1.0]),
@@ -4053,7 +4053,8 @@ def main() -> None:
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
 
 
 if __name__ == "__main__":
