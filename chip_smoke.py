@@ -65,8 +65,8 @@ Phases, each of which fails the run with a non-zero exit:
               full-buffer query latency, one 4,096-record insert and the
               merges;
 9. window   - an epoch-ring COUNT table (TableSpec(window=4), capacity
-              131,072): epoch 0 is the fit's 131,072 TWEET keys, epochs 1-3
-              are each filled by 32 ingests of 4,096 rows and sealed, the
+              65,536): epoch 0 is the fit's 65,536 TWEET keys, epochs 1-3
+              are each filled by 16 ingests of 4,096 rows and sealed, the
               open epoch 4 holds 4,096 rows.  Four windows (all epochs, the
               last sealed epoch and the open one, one sealed epoch, the open
               epoch alone) each take 65,536 ranges under Q_abs and Q_rel,
@@ -78,7 +78,7 @@ Phases, each of which fails the run with a non-zero exit:
               window must then raise;
 10. 2d      - PolyFit.fit of four static two-key tables over OSM-like
               points (cut as the CUT lines say): ``osm`` COUNT rectangles
-              (100k points, delta 50, deg 3), ``osm_sum`` SUM rectangles
+              (60k points, delta 50, deg 3), ``osm_sum`` SUM rectangles
               (50k, delta 2,500), ``osm_max`` / ``osm_min`` dominance
               MAX / MIN (20k, delta 10, deg 2).  One mixed batch of 65,536
               rectangles a rectangle table and 65,536 data-anchored
@@ -215,7 +215,7 @@ counters must show K14-K20 and K4's scan mode and none of K2, K3, K5-K11
 or gather-mode K4, and K14-K20 and K4's scan mode are held to their plain
 versions (max abs error 0) and timed: K4's scan mode at the static COUNT
 and SUM plans, K14/K15 at the dynamic plans, K16-K20 on the full
-4,096-slot logs and K16 also on the window's 131,072-slot log.  K16,
+4,096-slot logs and K16 also on the window's 65,536-slot log.  K16,
 K17 and K20 stop at a log's sentinel tail, so their bounds count the
 slots that hold entries (counted on the card before the timing); the
 bound over every slot of the log and the pairs a clock an SM the time
@@ -293,7 +293,7 @@ N_HKI = 100_000
 N_HKI_MIN = 50_000
 # the SUM table over HKI bars: a budget of 100,000 index points is about
 # 3.3 bars' worth of the summed price (bars sit near 30,000)
-N_HKI_SUM = 200_000
+N_HKI_SUM = 100_000         # 200k until PR 31's serve phase took its time
 HKI_SUM_ABS = 1e5
 # the dynamic phase: TWEET cut from the paper's 1M (its greedy fit took
 # 204 s of host time; the parallel step fits the paper's size instead), HKI
@@ -319,16 +319,16 @@ LSM_CAPACITY = 2048
 LSM_BATCH = LSM_CAPACITY // 4
 LSM_BATCHES = 10
 LSM_VICTIMS = 64            # the largest bars of one WINDOW-bar window
-# the window phase: four sealed epochs of 131,072 TWEET rows, each filled
-# by 32 ingests of 4,096 rows; the ring retains 4 sealed epochs
-N_EPOCH = 131_072
+# the window phase: four sealed epochs of 65,536 TWEET rows, each filled
+# by 16 ingests of 4,096 rows; the ring retains 4 sealed epochs
+N_EPOCH = 65_536             # 131,072 until PR 31's serve phase took its time
 INGEST_ROWS = 4096
 WINDOW_RING = 4
 # the 2d phase: OSM-like points (the generator's default 1M, the paper's
 # OSM 100M), cut so that its host builds take about 110 s and the dyn2d
 # phase's about 70 s; measures w = 50 + 10 sin(x/10) + 10 cos(y/15) on the
 # SUM, MAX and MIN tables
-N_OSM = 100_000
+N_OSM = 60_000              # 100k until PR 31's serve phase took its time
 N_OSM_SUM = 50_000
 N_OSM_EXT = 20_000
 N_OSM_DEEP = 20_000
@@ -352,7 +352,7 @@ SERVE_MAX_BUCKET = 4096     # the warmed bucket ladder's top
 SERVE_BUCKETS = (64, 256, 1024, 4096)
 SERVE_SWAP_INSERTS = 512    # rows inserted through the engine before a swap
 SERVE_CHAOS_ROWS = 64       # rows a staged insert carries under chaos
-N_AGG_1D = 20_000           # AggregateService, cut from its 150k
+N_AGG_1D = 10_000           # AggregateService, cut from its 150k
 N_AGG_2D = 10_000           # and from its 60k two-key points
 NQ = 65_536                 # ranges per table in the main-path batch
 SEED = 7
@@ -2578,6 +2578,7 @@ def main() -> None:
     # -- 9. window table -----------------------------------------------------
     # the dynamic session (full buffers) stays alive for phase 14
     torch.cuda.empty_cache()
+    print(f"CUT: lat_win epoch rows 131072 -> {N_EPOCH}", flush=True)
     epochs = [tweet_latitudes(N_EPOCH, seed=SEED + 300 + e) for e in range(4)]
     epochs.append(tweet_latitudes(INGEST_ROWS, seed=SEED + 304))
     wsession = fit({"lat_win": epochs[0]},
@@ -2636,7 +2637,7 @@ def main() -> None:
                       {"lat_win": wsession.window_bound("lat_win", t0_, t1_)})
 
     # K1, K2 and K5 at the window's shapes: every sealed epoch's plan and
-    # the open epoch's 131,072-slot buffer, on the all-epochs ranges
+    # the open epoch's 65,536-slot buffer, on the all-epochs ranges
     lsm, wbuf = wsession.window_snapshot("lat_win", 0, 4)
     lq, uq = (torch.as_tensor(q, device=dev) for q in wq["all epochs"])
     wsets = {"locate": [], "range_sum_gather": []}
