@@ -293,7 +293,7 @@ N_HKI = 100_000
 N_HKI_MIN = 50_000
 # the SUM table over HKI bars: a budget of 100,000 index points is about
 # 3.3 bars' worth of the summed price (bars sit near 30,000)
-N_HKI_SUM = 100_000         # 200k until PR 31's serve phase took its time
+N_HKI_SUM = 100_000         # 200k until the serve phase took its time
 HKI_SUM_ABS = 1e5
 # the dynamic phase: TWEET cut from the paper's 1M (its greedy fit took
 # 204 s of host time; the parallel step fits the paper's size instead), HKI
@@ -321,14 +321,14 @@ LSM_BATCHES = 10
 LSM_VICTIMS = 64            # the largest bars of one WINDOW-bar window
 # the window phase: four sealed epochs of 65,536 TWEET rows, each filled
 # by 16 ingests of 4,096 rows; the ring retains 4 sealed epochs
-N_EPOCH = 65_536             # 131,072 until PR 31's serve phase took its time
+N_EPOCH = 65_536             # 131,072 until the serve phase took its time
 INGEST_ROWS = 4096
 WINDOW_RING = 4
 # the 2d phase: OSM-like points (the generator's default 1M, the paper's
 # OSM 100M), cut so that its host builds take about 110 s and the dyn2d
 # phase's about 70 s; measures w = 50 + 10 sin(x/10) + 10 cos(y/15) on the
 # SUM, MAX and MIN tables
-N_OSM = 60_000              # 100k until PR 31's serve phase took its time
+N_OSM = 60_000              # 100k until the serve phase took its time
 N_OSM_SUM = 50_000
 N_OSM_EXT = 20_000
 N_OSM_DEEP = 20_000
